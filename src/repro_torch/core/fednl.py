@@ -1,0 +1,223 @@
+"""FedNL -- Federated Newton Learn (paper Algorithm 1), port of ``repro.core.fednl``.
+
+One round (clients c = 1..n as a batch dimension, then the master):
+
+  client c: grad_c = grad f_c(x^k);  D_c = hess f_c(x^k)
+            S_c = C(D_c - H_c^k);  l_c = ||H_c^k - D_c||_F
+            H_c^{k+1} = H_c^k + alpha S_c
+  master:   S = mean_c S_c;  l = mean_c l_c;  grad = mean_c grad_c
+            H^{k+1} = H^k + alpha S
+            Option A: x^{k+1} = x^k - [H^k]_mu^{-1} grad
+            Option B: x^{k+1} = x^k - (H^k + l^k I)^{-1} grad
+
+Hessian-shaped state is packed upper triangle (T = d(d+1)/2).  The clients
+are the leading dimension of every client tensor: one SYRK launch and one
+TopK launch per round serve all of them.  Everything stays on the device of
+``z``; a round makes no host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.accounting import payload_bits_fn, wire_bits_fn
+from repro_torch.compressors import Compressor, get_compressor
+from repro_torch.linalg import (
+    frob_norm_from_packed,
+    newton_solve_optionA,
+    newton_solve_optionB,
+    triu_size,
+    unpack_triu,
+)
+from repro_torch.objectives.logreg import logreg_oracles_packed
+
+
+@dataclasses.dataclass(frozen=True)
+class FedNLConfig:
+    """Hyper-parameters of a FedNL run (defaults = the paper's single-node setup)."""
+
+    compressor: str = "topk"
+    k_multiplier: float = 8.0  # the paper's K = 8d entries of the Hessian
+    alpha: float | None = None  # None -> the compressor's recommendation (1.0)
+    option: str = "B"  # master step rule: "A" (projection) | "B" (l-shift)
+    mu: float = 1e-3  # strong-convexity lower bound for Option A
+    lam: float = 1e-3  # L2 regularization of the logistic objective
+    hess0: str = "exact"  # "exact" | "zero"
+    accounting: str = "payload"  # sent_bits model: "payload" | "wire"
+
+    def __post_init__(self):
+        if self.accounting not in ("payload", "wire"):
+            raise ValueError(
+                f"unknown accounting {self.accounting!r}; use 'payload' | 'wire'"
+            )
+
+    def k_for(self, d: int) -> int:
+        return max(1, min(triu_size(d), int(self.k_multiplier * d)))
+
+
+class FedNLState(NamedTuple):
+    x: torch.Tensor  # (d,) model
+    h_local: torch.Tensor  # (n_clients, T) packed client Hessian shifts H_c^k
+    h_global: torch.Tensor  # (T,) packed master estimate H^k = mean_c H_c^k
+    # the reference's PRNG key, as a host uint32 array.  The compressors of
+    # this port draw no random numbers, so the rounds carry it unchanged; how
+    # it advances is decided with the random compressors (ROADMAP A4).
+    key: np.ndarray
+    round: int
+
+
+class RoundMetrics(NamedTuple):
+    grad_norm: torch.Tensor
+    f: torch.Tensor
+    l: torch.Tensor
+    sent_elems: torch.Tensor  # int64: total payload elements uplinked this round
+    sent_bits: torch.Tensor  # int64, under FedNLConfig.accounting
+    sent_bits_payload: torch.Tensor  # int64, Section-7 payload model
+    sent_bits_wire: torch.Tensor  # int64, full framed uplink model
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` (threefry) as a numpy uint32 pair."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def fednl_init(
+    z: torch.Tensor, cfg: FedNLConfig, x0: torch.Tensor | None = None, seed: int = 0
+) -> FedNLState:
+    """Initial state for problem data z: (n_clients, n_i, d), on z's device."""
+    n_clients, _, d = z.shape
+    if x0 is None:
+        x = torch.zeros(d, dtype=z.dtype, device=z.device)
+    else:
+        x = torch.as_tensor(x0).to(dtype=z.dtype, device=z.device)
+    if cfg.hess0 == "exact":
+        _, _, h_local = logreg_oracles_packed(z, x, cfg.lam)
+    elif cfg.hess0 == "zero":
+        h_local = torch.zeros((n_clients, triu_size(d)), dtype=z.dtype, device=z.device)
+    else:
+        raise ValueError(f"unknown hess0 {cfg.hess0!r}")
+    return FedNLState(
+        x=x,
+        h_local=h_local,
+        h_global=torch.mean(h_local, dim=0),
+        key=prng_key(seed),
+        round=0,
+    )
+
+
+def client_round(
+    z: torch.Tensor,
+    h_local: torch.Tensor,
+    x: torch.Tensor,
+    comp: Compressor,
+    alpha: float,
+    lam: float,
+):
+    """Lines 3-7 of Algorithm 1 for all clients at once."""
+    d = z.shape[-1]
+    f_c, grad_c, hess_c = logreg_oracles_packed(z, x, lam)
+    delta = hess_c - h_local
+    s_c, sent_c = comp.compress(delta)
+    l_c = frob_norm_from_packed(delta, d)
+    h_local_new = h_local + alpha * s_c
+    return f_c, grad_c, s_c, l_c, h_local_new, sent_c
+
+
+def master_step(
+    x: torch.Tensor,
+    h_global_packed: torch.Tensor,
+    grad: torch.Tensor,
+    l: torch.Tensor,
+    cfg: FedNLConfig,
+) -> torch.Tensor:
+    """Line 11 of Algorithm 1: the Newton-type model update."""
+    h = unpack_triu(h_global_packed, x.shape[0])
+    if cfg.option == "A":
+        dx = newton_solve_optionA(h, grad, cfg.mu)
+    elif cfg.option == "B":
+        dx = newton_solve_optionB(h, grad, l)
+    else:
+        raise ValueError(f"unknown option {cfg.option!r}")
+    return x - dx
+
+
+def make_fednl_round(
+    z: torch.Tensor, cfg: FedNLConfig
+) -> Callable[[FedNLState], tuple[FedNLState, RoundMetrics]]:
+    """The single-round transition for problem data ``z``."""
+    d = z.shape[-1]
+    comp = get_compressor(cfg.compressor, triu_size(d), cfg.k_for(d))
+    alpha = comp.alpha if cfg.alpha is None else cfg.alpha
+    pay_fn = payload_bits_fn(comp, d)
+    wire_fn = wire_bits_fn(comp, d)
+
+    def round_fn(state: FedNLState) -> tuple[FedNLState, RoundMetrics]:
+        f_c, grad_c, s_c, l_c, h_local_new, sent_c = client_round(
+            z, state.h_local, state.x, comp, alpha, cfg.lam
+        )
+        grad = torch.mean(grad_c, dim=0)
+        s = torch.mean(s_c, dim=0)
+        l = torch.mean(l_c)
+        f = torch.mean(f_c)
+
+        x_new = master_step(state.x, state.h_global, grad, l, cfg)
+        h_global_new = state.h_global + alpha * s
+
+        bits_payload = torch.sum(pay_fn(sent_c))
+        bits_wire = torch.sum(wire_fn(sent_c))
+        metrics = RoundMetrics(
+            grad_norm=torch.linalg.vector_norm(grad),
+            f=f,
+            l=l,
+            sent_elems=torch.sum(sent_c.to(torch.int64)),
+            sent_bits=bits_payload if cfg.accounting == "payload" else bits_wire,
+            sent_bits_payload=bits_payload,
+            sent_bits_wire=bits_wire,
+        )
+        new_state = FedNLState(
+            x=x_new,
+            h_local=h_local_new,
+            h_global=h_global_new,
+            key=state.key,
+            round=state.round + 1,
+        )
+        return new_state, metrics
+
+    return round_fn
+
+
+def state_to_numpy(state: FedNLState, prefix: str = "state.") -> dict[str, np.ndarray]:
+    """The state as the checkpoint arrays ``repro.api.backends.state_arrays`` makes."""
+    return {
+        prefix + "x": state.x.cpu().numpy(),
+        prefix + "h_local": state.h_local.cpu().numpy(),
+        prefix + "h_global": state.h_global.cpu().numpy(),
+        prefix + "key": np.asarray(state.key),
+        prefix + "round": np.asarray(state.round, dtype=np.int64),
+    }
+
+
+def state_from_numpy(
+    arrays: dict[str, np.ndarray], device: str | torch.device, prefix: str = "state."
+) -> FedNLState:
+    """Rebuild a state from ``repro.api.backends.state_arrays`` output
+    (``state.x``, ``state.h_local``, ``state.h_global``, ``state.key``,
+    ``state.round``) on ``device``.  The key array is kept as it is."""
+    missing = [f for f in FedNLState._fields if prefix + f not in arrays]
+    if missing:
+        raise ValueError(f"state arrays are missing {missing}")
+
+    def place(name: str) -> torch.Tensor:
+        return torch.tensor(arrays[prefix + name], dtype=torch.float64, device=device)
+
+    return FedNLState(
+        x=place("x"),
+        h_local=place("h_local"),
+        h_global=place("h_global"),
+        key=np.asarray(arrays[prefix + "key"]),
+        round=int(arrays[prefix + "round"]),
+    )

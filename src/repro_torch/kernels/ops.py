@@ -1,0 +1,53 @@
+"""Public kernel entry points of the round (port of ``repro.kernels.ops``).
+
+Each routes on the device of its input, and on nothing else: a CPU tensor
+goes to the kernel's plain PyTorch version, a CUDA tensor launches the CUDA
+kernel (or raises).  There is no fallback from the kernel to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import compressor_select, hessian_syrk
+
+
+def _route(name: str, t: torch.Tensor) -> bool:
+    """True for the CUDA kernel, False for the plain version."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def hessian_syrk_packed(z: torch.Tensor, hw: torch.Tensor, lam: float) -> torch.Tensor:
+    """``pack_triu(Z^T diag(hw) Z) + lam * pack_triu(I)`` per client:
+    z (n_clients, n_i, d), hw (n_clients, n_i) -> (n_clients, T)."""
+    if _route("hessian_syrk_packed", z):
+        return hessian_syrk.hessian_syrk_packed_cuda(z, hw, lam)
+    return hessian_syrk.hessian_syrk_packed_plain(z, hw, lam)
+
+
+def select_topk(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """TopK selection per client: u (n_clients, T) -> (u_hat, sent)."""
+    if _route("select_topk", u):
+        return compressor_select.select_topk_cuda(u, k)
+    return compressor_select.select_topk_plain(u, k)
+
+
+KERNELS = {
+    "hessian_syrk_packed": hessian_syrk.hessian_syrk_packed_cuda,
+    "select_topk": compressor_select.select_topk_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel in this process since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
