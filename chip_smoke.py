@@ -12,14 +12,25 @@ raises, and the script exits non-zero without the final line.
   3 kernels  each kernel against its plain PyTorch version on the card, at the
              w8a shapes of the main path: SYRK within 1e-13 of max(|Z|^T|h||Z|),
              TopK bit-exact (u_hat bit patterns and sent) on the first rounds'
-             corrections, near-ties, the keys-in-device-memory path and edge k
-  4 main     repro_torch.api.solve on w8a (TopK, Option B, hess0="exact") on
-             the card; launch counts, convergence, and the first 3 rounds' grad
-             norms against the same spec on the CPU (plain versions)
+             corrections, near-ties, the keys-in-device-memory path and edge k;
+             RandSeqK bit-exact on the round's real draws, s = 0, s = T-1, a
+             wrapping window, k = 1 and k = T; TopLEK exact (u_hat bits and
+             kept) on the all-zero round-0 correction, the round-1 correction,
+             near-ties, a dyadic fixture, k = 1, k = T and every memory path,
+             but for rows where alpha_m* lies within 1e-12 of k/T or unif of p
+             (counted; none allowed on the dyadic fixture)
+  4 main     repro_torch.api.solve on w8a (Option B, hess0="exact") on the
+             card, three paths, the launch counts set to 0 before each and
+             read after it: TopK and TopLEK (tol 1e-12, <= 50 rounds), RandSeqK
+             (30 rounds); launch counts, the grad norm falls, and the first 3
+             rounds' grad norms and sent_bits against the same spec on the CPU
+             (plain versions; the same threefry draws)
   5 times    CUDA-event medians of each kernel, its plain version and its
              library yardstick at w8a shapes, beside the card's least time
-  6 trace    torch.profiler over 3 rounds of the main path: device time by
-             kernel and the device's busy share of the wall time
+  6 trace    torch.profiler over 3 rounds of the TopK and of the TopLEK path:
+             device time by kernel and the device's busy share of the wall
+             time; the host's ms per round for the key split, the clients'
+             keys and draws, and their upload
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -45,6 +56,8 @@ CUDA_CORE_32BIT_OPS = 67e12  # 32-bit ops outside the tensor cores
 
 SYRK_TOL = 1e-13  # of max(|Z|^T |h| |Z|): FP64 sums of n_i = 348 terms, any order
 TRAJECTORY_RTOL = 1e-8  # card vs CPU grad norms over the first 3 rounds
+TOPLEK_BOUNDARY = 1e-12  # TopLEK's allowed difference: alpha_m* this near k/T, or unif near p
+DRAW_REPS = 200  # host draw timing: rounds of draws averaged
 TIMED_REPS = 21  # event pairs per function; the median is reported
 CALLS_PER_EVENT = 10
 
@@ -75,6 +88,35 @@ def near_tie_rows(n_rows: int, t: int, seed: int) -> np.ndarray:
     eps = np.array([0.0, 1e-12, 2.5e-12, -1e-12])
     u = (base[:, :, None] * (1.0 + eps)).reshape(n_rows, -1)[:, :t]
     return rng.permuted(u, axis=1)
+
+
+def dyadic_rows(n_rows: int, t: int, seed: int) -> np.ndarray:
+    """Entries +-2**-e, e in [0, 10], many exact ties: every sum of their
+    squares is exact in any order (tests/test_torch_kernels.py's fixture)."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, 11, size=(n_rows, t))
+    return np.where(rng.random((n_rows, t)) < 0.5, -1.0, 1.0) * np.ldexp(1.0, -e)
+
+
+def toplek_near_boundary(u: np.ndarray, k: int, unif: float) -> bool:
+    """Row u is TopLEK's allowed case of difference: alpha_m* (or alpha_m*-1)
+    within TOPLEK_BOUNDARY of delta = k/T, or unif within it of p, with the
+    prefix energies summed exactly rounded (math.fsum)."""
+    import math
+
+    t = u.shape[0]
+    delta = k / t
+    order = np.lexsort((np.arange(t), -np.abs(u).astype(np.float32)))[:k]
+    total = math.fsum(u * u)
+    if total == 0:
+        return False
+    sq = u[order] ** 2
+    alphas = np.array([math.fsum(sq[: m + 1]) / total for m in range(k)])
+    m_star = min(int(np.sum(alphas < delta)) + 1, k)
+    hi = alphas[m_star - 1]
+    lo = alphas[m_star - 2] if m_star > 1 else 0.0
+    p = min(max((hi - delta) / (hi - lo), 0.0), 1.0) if hi > lo else 0.0
+    return min(abs(hi - delta), abs(lo - delta), abs(unif - p)) <= TOPLEK_BOUNDARY
 
 
 def bits_equal(a, b) -> bool:
@@ -154,6 +196,37 @@ def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def host_draw_ms(prng, upload_draws, n_clients: int, t: int, device) -> dict:
+    """Host ms per round of the PRNG work a round does, averaged over
+    DRAW_REPS rounds: split(key), which every compressor's round does; the
+    clients' keys split(sub, n_clients) and the draws, which a random
+    compressor's round adds; and the draws' pinned upload (enqueued, not
+    waited for)."""
+    import torch
+
+    key = prng.prng_key(0)
+    t0 = time.perf_counter()
+    for _ in range(DRAW_REPS):
+        key, sub = prng.split(key, 2)
+    out = {"n_clients": n_clients, "reps": DRAW_REPS,
+           "key_split_ms_per_round": (time.perf_counter() - t0) / DRAW_REPS * 1e3}
+    for name, draw in (("toplek", prng.uniform), ("randseqk", lambda ks: prng.randint(ks, 0, t))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DRAW_REPS):
+            draws = draw(prng.split(sub, n_clients))
+        t1 = time.perf_counter()
+        for _ in range(DRAW_REPS):
+            upload_draws(draws, device)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[name] = {
+            "client_keys_and_draws_ms_per_round": (t1 - t0) / DRAW_REPS * 1e3,
+            "upload_ms_per_round": (t2 - t1) / DRAW_REPS * 1e3,
+        }
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -161,14 +234,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.api import DataSpec, ExperimentSpec, solve
-    from repro_torch.compressors.select import rank_keys
+    from repro_torch import prng
+    from repro_torch.api import CompressorSpec, DataSpec, ExperimentSpec, solve
+    from repro_torch.compressors.core import upload_draws
+    from repro_torch.compressors.select import randseqk_window_mask, rank_keys
     from repro_torch.core.fednl import fednl_init, make_fednl_round
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.compressor_select import (
         keys_in_shared_memory,
+        select_randseqk_cuda,
+        select_randseqk_plain,
         select_topk_cuda,
         select_topk_plain,
+        select_toplek_cuda,
+        select_toplek_plain,
+        toplek_memory_path,
     )
     from repro_torch.kernels.hessian_syrk import (
         hessian_syrk_packed_cuda,
@@ -248,6 +328,76 @@ def main() -> int:
         topk_err = max(topk_err, (got - want).abs().max().item())
     check(keys_in_shared_memory(t_len, dev), "w8a keys should fit shared memory")
     check(not keys_in_shared_memory(d350, dev), "d=350 keys should not fit shared memory")
+
+    # the draws of the main path's first two rounds (seed 0), as the round makes them
+    round_keys, key = [], state0.key
+    for _ in range(2):
+        key, sub = prng.split(key, 2)
+        round_keys.append(prng.split(sub, n_clients))
+    wide = rng.standard_normal((4, 70000))
+    randseqk_cases = {  # name: (u, k, s)
+        "round0_draws": (delta1, k, prng.randint(round_keys[0], 0, t_len)),
+        "round1_draws": (delta1, k, prng.randint(round_keys[1], 0, t_len)),
+        "s_is_0": (delta1, k, np.zeros(n_clients, dtype=np.int64)),
+        "s_is_T_minus_1": (delta1, k, np.full(n_clients, t_len - 1, dtype=np.int64)),
+        "wrapping": (delta1, k, t_len - 1 - rng.integers(0, k, size=n_clients)),
+        "k_is_1": (delta1, 1, rng.integers(0, t_len, size=n_clients)),
+        "k_is_T": (delta1, t_len, rng.integers(0, t_len, size=n_clients)),
+        "long_rows": (torch.as_tensor(wide, device=dev), 4096, np.array([0, 69999, 65000, 123])),
+    }
+    randseqk_err = 0.0
+    for name, (u, kk, s_np) in randseqk_cases.items():
+        u = u.contiguous()
+        s = torch.as_tensor(s_np, dtype=torch.int64, device=dev)
+        got, sent = select_randseqk_cuda(u, kk, s)
+        want, sent_want = select_randseqk_plain(u, kk, s)
+        check(bits_equal(got, want), f"RandSeqK {name}: u_hat differs from the plain version")
+        check(torch.equal(sent, sent_want), f"RandSeqK {name}: sent differs")
+        randseqk_err = max(randseqk_err, (got - want).abs().max().item())
+
+    toplek_cases = {  # name: (u, k, unif, exact)
+        "round0_delta": (delta0, k, prng.uniform(round_keys[0]), True),
+        "round1_delta": (delta1, k, prng.uniform(round_keys[1]), False),
+        "near_ties": (near_tie_rows(n_clients, t_len, 5), k, rng.uniform(size=n_clients), False),
+        "dyadic": (dyadic_rows(n_clients, t_len, 6), k, rng.uniform(size=n_clients), True),
+        "k_is_1": (near_tie_rows(8, t_len, 7), 1, rng.uniform(size=8), False),
+        "k_is_T": (dyadic_rows(4, t_len, 8), t_len, rng.uniform(size=4), True),
+        "k_is_T_small": (near_tie_rows(4, 130, 9), 130, rng.uniform(size=4), False),
+        "keys_in_device_memory": (dyadic_rows(8, d350, 10), 8 * 350, rng.uniform(size=8), True),
+    }
+    toplek_err, toplek_boundary, toplek_kept = 0.0, {}, {}
+    for name, (u, kk, unif_np, exact) in toplek_cases.items():
+        u = torch.as_tensor(u, dtype=torch.float64, device=dev).contiguous()
+        unif = torch.as_tensor(unif_np, dtype=torch.float64, device=dev)
+        got, sent = select_toplek_cuda(u, kk, unif)
+        want, sent_want = select_toplek_plain(u, kk, unif)
+        torch.cuda.synchronize()
+        check(sent.dtype == torch.int32, f"TopLEK {name}: sent dtype {sent.dtype}")
+        differ = (~torch.all(got.view(torch.int64) == want.view(torch.int64), dim=-1)) | (
+            sent != sent_want
+        )
+        rows = differ.nonzero().flatten().tolist()
+        check(not (exact and rows), f"TopLEK {name}: rows {rows} differ on an exact fixture")
+        u_host = u.cpu().numpy()
+        for r in rows:
+            check(abs(int(sent[r]) - int(sent_want[r])) == 1,
+                  f"TopLEK {name}: row {r} kept {int(sent[r])} vs {int(sent_want[r])}")
+            check(toplek_near_boundary(u_host[r], kk, float(unif_np[r])),
+                  f"TopLEK {name}: row {r} differs away from the boundary")
+        same = ~differ
+        if bool(same.any()):
+            toplek_err = max(toplek_err, (got[same] - want[same]).abs().max().item())
+        check(int((got != 0).sum(-1).max()) <= kk, f"TopLEK {name}: more than k kept")
+        toplek_boundary[name] = len(rows)
+        toplek_kept[name] = [int(sent.min()), int(sent.max())]
+    check(toplek_kept["round0_delta"] == [0, 0], "TopLEK keeps nothing of the zero round-0 delta")
+    toplek_paths = {
+        "w8a": toplek_memory_path(t_len, k, dev),
+        "k_is_T": toplek_memory_path(t_len, t_len, dev),
+        "keys_in_device_memory": toplek_memory_path(d350, 8 * 350, dev),
+    }
+    check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 1},
+          f"TopLEK memory paths {toplek_paths}")
     torch.cuda.synchronize()
     emit({
         "phase": "kernels",
@@ -260,41 +410,65 @@ def main() -> int:
             "round0_delta_nonzero": int((delta0 != 0).sum()),
             "round1_delta_nonzero": int((delta1 != 0).sum()),
         },
+        "select_randseqk": {
+            "cases": sorted(randseqk_cases), "bit_exact": True, "max_abs_err": randseqk_err,
+        },
+        "select_toplek": {
+            "cases": sorted(toplek_cases), "max_abs_err_exact_rows": toplek_err,
+            "boundary_rows": toplek_boundary, "boundary_tol": TOPLEK_BOUNDARY,
+            "kept_min_max": toplek_kept, "memory_paths": toplek_paths,
+        },
     })
     del state0, state1, delta0, h_plain
 
-    # --- 4 the main path ---------------------------------------------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    rep = solve(spec)
-    launches = ops.launch_counts()
-    gn = rep.grad_norms
-    check(rep.x.shape == (d,) and bool(np.all(np.isfinite(rep.x))), "final x not finite")
-    check(rep.rounds >= 3 and bool(np.all(np.isfinite(gn))), f"grad norms {gn}")
-    check(launches["select_topk"] == rep.rounds + 1,
-          f"TopK launches {launches} for {rep.rounds} rounds + warm-up")
-    check(launches["hessian_syrk_packed"] == rep.rounds + 2,
-          f"SYRK launches {launches} for {rep.rounds} rounds + warm-up + init")
-    check(gn[-1] <= gn[0] * 1e-6, f"grad norm fell only from {gn[0]} to {gn[-1]}")
-    rep_cpu = solve(spec.replace(rounds=3, tol=0.0), device="cpu")
-    rel = np.abs(gn[:3] - rep_cpu.grad_norms) / rep_cpu.grad_norms
-    check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"card vs CPU grad norms differ: {rel}")
-    check(list(rep.sent_bits[:3]) == list(rep_cpu.sent_bits), "sent_bits differ from CPU")
-    emit({
-        "phase": "main",
-        "spec": "w8a topk option B hess0=exact rounds<=50 tol=1e-12",
-        "device": rep.extras["device"],
-        "rounds": rep.rounds,
-        "grad_norms": gn.tolist(),
-        "cpu_grad_norms_3": rep_cpu.grad_norms.tolist(),
-        "cpu_rel_err_3": rel.tolist(),
-        "init_time_s": rep.init_time_s,
-        "wall_time_s": rep.wall_time_s,
-        "ms_per_round": rep.wall_time_s / rep.rounds * 1e3,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches,
-    })
+    # --- 4 the main paths, the launch counts set to 0 before each ---------
+    def main_path(label: str, path_spec, selector: str, cpu_rounds: int = 3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rep = solve(path_spec)
+        launches = ops.launch_counts()
+        gn = rep.grad_norms
+        check(rep.x.shape == (d,) and bool(np.all(np.isfinite(rep.x))), f"{label}: x not finite")
+        check(rep.rounds >= 3 and bool(np.all(np.isfinite(gn))), f"{label}: grad norms {gn}")
+        want = {name: 0 for name in launches}
+        want.update({selector: rep.rounds + 1, "hessian_syrk_packed": rep.rounds + 2})
+        check(launches == want,
+              f"{label}: launches {launches}, want {want} for {rep.rounds} rounds + warm-up (+ init)")
+        check(gn[-1] < gn[0], f"{label}: grad norm did not fall: {gn[0]} -> {gn[-1]}")
+        rep_cpu = solve(path_spec.replace(rounds=cpu_rounds, tol=0.0), device="cpu")
+        rel = np.abs(gn[:cpu_rounds] - rep_cpu.grad_norms) / rep_cpu.grad_norms
+        check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{label}: card vs CPU grad norms differ: {rel}")
+        check(list(rep.sent_bits[:cpu_rounds]) == list(rep_cpu.sent_bits),
+              f"{label}: sent_bits {rep.sent_bits[:cpu_rounds]} vs CPU {rep_cpu.sent_bits}")
+        emit({
+            "phase": "main",
+            "path": label,
+            "device": rep.extras["device"],
+            "rounds": rep.rounds,
+            "grad_norms": gn.tolist(),
+            "sent_bits": rep.sent_bits.tolist(),
+            "cpu_grad_norms_3": rep_cpu.grad_norms.tolist(),
+            "cpu_rel_err_3": rel.tolist(),
+            "cpu_sent_bits_3": rep_cpu.sent_bits.tolist(),
+            "init_time_s": rep.init_time_s,
+            "wall_time_s": rep.wall_time_s,
+            "ms_per_round": rep.wall_time_s / rep.rounds * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches,
+        })
+        return rep, launches
+
+    rep, launches = main_path(
+        "w8a topk option B hess0=exact rounds<=50 tol=1e-12", spec, "select_topk")
+    check(rep.grad_norms[-1] <= rep.grad_norms[0] * 1e-6, f"TopK grad norms {rep.grad_norms}")
+    toplek_spec = spec.replace(compressor=CompressorSpec("toplek"))
+    rep_le, launches_le = main_path(
+        "w8a toplek option B hess0=exact rounds<=50 tol=1e-12", toplek_spec, "select_toplek")
+    randseqk_spec = spec.replace(compressor=CompressorSpec("randseqk"), rounds=30, tol=0.0)
+    rep_rs, launches_rs = main_path(
+        "w8a randseqk option B hess0=exact rounds=30", randseqk_spec, "select_randseqk")
+    check(rep_rs.rounds == 30, f"RandSeqK ran {rep_rs.rounds} rounds")
 
     # --- 5 times at w8a shapes ------------------------------------------------
     zs = hw[..., None] * z
@@ -309,6 +483,20 @@ def main() -> int:
         "plain": lambda: select_topk_plain(delta1, k),
         "library": lambda: torch.topk(keys, k, dim=-1),
     })
+    s_round = torch.as_tensor(prng.randint(round_keys[1], 0, t_len), device=dev)
+    window = randseqk_window_mask(t_len, k, s_round)
+    zeros = torch.zeros_like(delta1)
+    randseqk_ms = median_ms({
+        "kernel": lambda: select_randseqk_cuda(delta1, k, s_round),
+        "plain": lambda: select_randseqk_plain(delta1, k, s_round),
+        "library": lambda: torch.where(window, delta1, zeros),
+    })
+    unif_round = torch.as_tensor(prng.uniform(round_keys[1]), device=dev)
+    toplek_ms = median_ms({
+        "kernel": lambda: select_toplek_cuda(delta1, k, unif_round),
+        "plain": lambda: select_toplek_plain(delta1, k, unif_round),
+        "ranking_only": lambda: torch.topk(keys, k, dim=-1),
+    })
     syrk_bound = bound(
         (z.numel() + hw.numel() + h_kernel.numel()) * 8,
         2 * n_i * t_len * n_clients,
@@ -319,12 +507,33 @@ def main() -> int:
         2 * 33 * delta1.numel(),  # compare + count per key, 31 search + 2 final passes
         CUDA_CORE_32BIT_OPS,
     )
+    randseqk_bound = bound(
+        n_clients * (k + t_len) * 8 + n_clients * (8 + 4),  # window read, u_hat written, s, sent
+        3 * delta1.numel(),  # subtract, wrap, compare per entry
+        CUDA_CORE_32BIT_OPS,
+    )
+    p2 = 1 << (k - 1).bit_length()
+    sort_stages = p2.bit_length() * (p2.bit_length() - 1) // 2
+    toplek_bound = bound(
+        delta1.numel() * 8 * 2 + n_clients * (8 + 4),  # u read, u_hat written, unif, sent
+        2 * 33 * delta1.numel() + n_clients * (p2 // 2) * sort_stages * 2,
+        CUDA_CORE_32BIT_OPS,
+    )
     emit({"phase": "times", "hessian_syrk_packed": syrk_ms, "select_topk": topk_ms,
+          "select_randseqk": randseqk_ms, "select_toplek": toplek_ms,
           "note": f"ms per call: median over {TIMED_REPS} event pairs around "
-                  f"{CALLS_PER_EVENT} back-to-back calls, the three in turns"})
+                  f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; "
+                  "randseqk library = torch.where on a precomputed window mask; "
+                  "toplek has no library call: ranking_only = torch.topk on the "
+                  "f32 keys, the ranking part only"})
 
-    # --- 6 where a round's device time goes (torch.profiler, 3 rounds) -------
-    emit({"phase": "trace", **trace_rounds(make_fednl_round(z, cfg), fednl_init(z, cfg), 3)})
+    # --- 6 where a round's time goes (torch.profiler, 3 rounds), host draws ---
+    emit({"phase": "trace", "path": "topk",
+          **trace_rounds(make_fednl_round(z, cfg), fednl_init(z, cfg), 3)})
+    toplek_cfg = toplek_spec.fednl_config()
+    emit({"phase": "trace", "path": "toplek",
+          **trace_rounds(make_fednl_round(z, toplek_cfg), fednl_init(z, toplek_cfg), 3)})
+    emit({"phase": "draws", **host_draw_ms(prng, upload_draws, n_clients, t_len, dev)})
 
     kernels = [
         {
@@ -344,6 +553,24 @@ def main() -> int:
             "ms": topk_ms["kernel"], "plain_ms": topk_ms["plain"],
             "bound_ms": topk_bound[0], "bound_by": topk_bound[1],
             "library_ms": topk_ms["library"],
+        },
+        {
+            "name": "select_randseqk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+            "replaces": "src/repro/kernels/compressor_select.py:87",
+            "launches": launches_rs["select_randseqk"], "max_abs_err": randseqk_err,
+            "ms": randseqk_ms["kernel"], "plain_ms": randseqk_ms["plain"],
+            "bound_ms": randseqk_bound[0], "bound_by": randseqk_bound[1],
+            "library_ms": randseqk_ms["library"],
+        },
+        {
+            "name": "select_toplek", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+            "replaces": "src/repro/kernels/compressor_select.py:106",
+            "launches": launches_le["select_toplek"], "max_abs_err": toplek_err,
+            "ms": toplek_ms["kernel"], "plain_ms": toplek_ms["plain"],
+            "bound_ms": toplek_bound[0], "bound_by": toplek_bound[1],
+            "library_ms": None,
         },
     ]
     emit({"kernels": kernels})

@@ -5,7 +5,9 @@ from repro_torch.compressors.core import (
     get_compressor,
     identity,
     message_bits,
+    randseqk,
     topk,
+    toplek,
 )
 
 __all__ = [
@@ -15,5 +17,7 @@ __all__ = [
     "get_compressor",
     "identity",
     "message_bits",
+    "randseqk",
     "topk",
+    "toplek",
 ]

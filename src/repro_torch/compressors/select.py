@@ -7,6 +7,10 @@ from a stable descending sort (``torch.topk`` leaves the order of ties
 unspecified, so it is not used); :func:`threshold_keep_mask` selects the same
 set without a sort, by the formulation the TopK kernel runs.  Every function
 takes any number of leading (batch) dimensions.
+
+RandSeqK and TopLEK take their draws as tensors (the start ``s``, int64, and
+the Bernoulli uniform ``unif``, float64, one per row), made outside from the
+PRNG keys (:mod:`repro_torch.prng`), as the reference's kernels take theirs.
 """
 
 from __future__ import annotations
@@ -59,3 +63,69 @@ def topk_dense_masked(u: torch.Tensor, k: int) -> torch.Tensor:
     :func:`topk_dense` (the same set, values are copies, zeros are +0.0)."""
     keep = threshold_keep_mask(rank_keys(u), k)
     return torch.where(keep, u, torch.zeros_like(u))
+
+
+def randseqk_window_mask(t: int, k: int, s: torch.Tensor) -> torch.Tensor:
+    """Membership mask of each circular window {s, ..., s+k-1 mod T}:
+    s (...,) int64 -> (..., T).  ``%`` on tensors takes the divisor's sign,
+    as ``jnp``'s does, so any integer s gives a window in [0, T)."""
+    pos = torch.arange(t, device=s.device)
+    return (pos - s[..., None]) % t < k
+
+
+def randseqk_dense(u: torch.Tensor, k: int, s: torch.Tensor) -> torch.Tensor:
+    """Dense RandSeqK given the start draws ``s``: roll each row by -s, keep
+    the first k, roll back (the paper's contiguous window, Appendix C)."""
+    t = u.shape[-1]
+    pos = torch.arange(t, device=u.device)
+    rolled = torch.gather(u, -1, ((pos + s[..., None]) % t).expand_as(u))
+    window = torch.where(pos < k, rolled, torch.zeros_like(rolled))
+    return torch.gather(window, -1, ((pos - s[..., None]) % t).expand_as(u))
+
+
+def randseqk_dense_masked(u: torch.Tensor, k: int, s: torch.Tensor) -> torch.Tensor:
+    """Dense RandSeqK via :func:`randseqk_window_mask`; bit-identical to
+    :func:`randseqk_dense` (values are copies, zeros are +0.0)."""
+    return torch.where(randseqk_window_mask(u.shape[-1], k, s), u, torch.zeros_like(u))
+
+
+def toplek_from_uniform(
+    u: torch.Tensor, k: int, unif: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """TopLEK (paper Algorithm 4) given each row's Bernoulli uniform ``unif``.
+
+    Target contraction delta = k/T.  alpha_m is the energy fraction of the
+    top-m entries (in :func:`topk_indices` order); m* is the smallest m with
+    alpha_m >= delta, at most k.  Keep m*-1 entries if unif < p with
+    p = (alpha_m* - delta) / (alpha_m* - alpha_m*-1), else m*; keep none of
+    an all-zero row.  Returns (u_hat, kept): kept (...,) int32.
+
+    m* is ``1 + #{alpha < delta}``, which equals the reference's
+    ``searchsorted(alphas, delta, side="left") + 1`` since alpha does not
+    decrease.  The prefix sum is ``torch.cumsum``: its order (and the
+    reference's) decides alpha's last bit, which can move kept by one only
+    where alpha_m* lies within a few ulps of delta or unif of p.
+    """
+    t = u.shape[-1]
+    delta = k / t
+    idx = topk_indices(u, k)
+    vals = torch.gather(u, -1, idx)
+    csum = torch.cumsum(vals * vals, dim=-1)
+    total = torch.sum(u * u, dim=-1, keepdim=True)
+    safe_total = torch.where(total > 0, total, torch.ones_like(total))
+    alphas = csum / safe_total  # alphas[..., m-1] = alpha_m
+    m_star = torch.clamp((alphas < delta).sum(-1, keepdim=True) + 1, max=k)
+    alpha_hi = torch.gather(alphas, -1, m_star - 1)
+    alpha_lo = torch.where(
+        m_star > 1,
+        torch.gather(alphas, -1, torch.clamp(m_star - 2, min=0)),
+        torch.zeros_like(alpha_hi),
+    )
+    gap = alpha_hi - alpha_lo
+    p = torch.where(gap > 0, (alpha_hi - delta) / torch.where(gap > 0, gap, 1.0), 0.0)
+    p = torch.clamp(p, 0.0, 1.0)
+    kept = torch.where(unif[..., None] < p, m_star - 1, m_star)
+    kept = torch.where(total > 0, kept, torch.zeros_like(kept))
+    keep = torch.arange(k, device=u.device) < kept
+    u_hat = torch.zeros_like(u).scatter(-1, idx, torch.where(keep, vals, 0.0))
+    return u_hat, kept[..., 0].to(torch.int32)

@@ -12,8 +12,14 @@ One round (clients c = 1..n as a batch dimension, then the master):
 
 Hessian-shaped state is packed upper triangle (T = d(d+1)/2).  The clients
 are the leading dimension of every client tensor: one SYRK launch and one
-TopK launch per round serve all of them.  Everything stays on the device of
-``z``; a round makes no host sync.
+selection launch per round serve all of them.  Everything stays on the
+device of ``z``; a round makes no host sync.
+
+The PRNG key advances as in the reference's round, for every compressor:
+``key, sub = split(state.key)``; the clients' keys ``split(sub, n_clients)``
+are made only when the compressor draws (RandSeqK, TopLEK).  Keys and draws
+are threefry on the host (:mod:`repro_torch.prng`), bit-exact with
+``jax.random``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.api.accounting import payload_bits_fn, wire_bits_fn
 from repro_torch.compressors import Compressor, get_compressor
 from repro_torch.linalg import (
@@ -63,10 +70,7 @@ class FedNLState(NamedTuple):
     x: torch.Tensor  # (d,) model
     h_local: torch.Tensor  # (n_clients, T) packed client Hessian shifts H_c^k
     h_global: torch.Tensor  # (T,) packed master estimate H^k = mean_c H_c^k
-    # the reference's PRNG key, as a host uint32 array.  The compressors of
-    # this port draw no random numbers, so the rounds carry it unchanged; how
-    # it advances is decided with the random compressors (ROADMAP A4).
-    key: np.ndarray
+    key: np.ndarray  # (2,) uint32 threefry key on the host, as repro's state.key
     round: int
 
 
@@ -78,11 +82,6 @@ class RoundMetrics(NamedTuple):
     sent_bits: torch.Tensor  # int64, under FedNLConfig.accounting
     sent_bits_payload: torch.Tensor  # int64, Section-7 payload model
     sent_bits_wire: torch.Tensor  # int64, full framed uplink model
-
-
-def prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)`` (threefry) as a numpy uint32 pair."""
-    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=np.uint32)
 
 
 def fednl_init(
@@ -104,7 +103,7 @@ def fednl_init(
         x=x,
         h_local=h_local,
         h_global=torch.mean(h_local, dim=0),
-        key=prng_key(seed),
+        key=prng.prng_key(seed),
         round=0,
     )
 
@@ -113,15 +112,17 @@ def client_round(
     z: torch.Tensor,
     h_local: torch.Tensor,
     x: torch.Tensor,
+    keys: np.ndarray | None,
     comp: Compressor,
     alpha: float,
     lam: float,
 ):
-    """Lines 3-7 of Algorithm 1 for all clients at once."""
+    """Lines 3-7 of Algorithm 1 for all clients at once; ``keys`` are the
+    clients' PRNG keys (n_clients, 2), None for a compressor that draws nothing."""
     d = z.shape[-1]
     f_c, grad_c, hess_c = logreg_oracles_packed(z, x, lam)
     delta = hess_c - h_local
-    s_c, sent_c = comp.compress(delta)
+    s_c, sent_c = comp.compress(keys, delta)
     l_c = frob_norm_from_packed(delta, d)
     h_local_new = h_local + alpha * s_c
     return f_c, grad_c, s_c, l_c, h_local_new, sent_c
@@ -154,10 +155,13 @@ def make_fednl_round(
     alpha = comp.alpha if cfg.alpha is None else cfg.alpha
     pay_fn = payload_bits_fn(comp, d)
     wire_fn = wire_bits_fn(comp, d)
+    n_clients = z.shape[0]
 
     def round_fn(state: FedNLState) -> tuple[FedNLState, RoundMetrics]:
+        key, sub = prng.split(state.key, 2)
+        client_keys = prng.split(sub, n_clients) if comp.draws else None
         f_c, grad_c, s_c, l_c, h_local_new, sent_c = client_round(
-            z, state.h_local, state.x, comp, alpha, cfg.lam
+            z, state.h_local, state.x, client_keys, comp, alpha, cfg.lam
         )
         grad = torch.mean(grad_c, dim=0)
         s = torch.mean(s_c, dim=0)
@@ -182,7 +186,7 @@ def make_fednl_round(
             x=x_new,
             h_local=h_local_new,
             h_global=h_global_new,
-            key=state.key,
+            key=key,
             round=state.round + 1,
         )
         return new_state, metrics

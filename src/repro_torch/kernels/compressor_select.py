@@ -1,34 +1,16 @@
-"""Batched TopK selection over packed upper-triangle vectors, one launch.
+"""Batched selection kernels over packed upper-triangle vectors, one launch each.
 
-    select_topk(u, k) -> (u_hat, sent):  u (n_clients, T) float64,
-    u_hat = where(keep, u, +0.0) with keep the k largest f32(|u|) keys,
-    lowest index first among ties; sent (n_clients,) int32, all equal to k.
+    select_topk(u, k)           -> (u_hat, sent)  keep the k largest keys
+    select_randseqk(u, k, s)    -> (u_hat, sent)  keep the circular window at s
+    select_toplek(u, k, unif)   -> (u_hat, sent)  keep TopLEK's adaptive prefix
 
-Replaces ``repro/kernels/compressor_select.py:select_topk_pallas`` (body
-``_topk_kernel``), which the JAX round reaches through
-``repro/kernels/ops.py:select_topk``; source ``csrc/compressor_select.cu``.
-RandSeqK and TopLEK (``select_randseqk_pallas``, ``select_toplek_pallas``)
-are not ported yet (ROADMAP B3, B4).
-
-What bounds it on an H100: bytes.  At w8a (142 clients, T = 45451, k = 2408)
-it must read u and write u_hat once, 103.3 MB, about 31 us at 3.35 TB/s;
-its integer work (a compare and a count per key in 33 passes over 6.45 M
-keys, 426 M operations) takes 6.4 us at the 67 T/s 32-bit rate outside the
-tensor cores.
-
-What the design does about it: u is read from device memory once into
-f32 keys that stay on chip -- one block of 1024 threads per client holds its
-T * 4 bytes of keys (181.8 KB at w8a) in dynamic shared memory, so the 31
-search steps and the tie pass never touch device memory -- and u_hat is
-written once, in index order, coalesced.  The kernel reads u a second time
-for the output values (from L2 when the client's 363 KB is still there).
-Each search step is one block-wide count; the tie split is an exact
-block-wide exclusive scan (ballot + popc inside a warp, a scan over the 32
-warp totals across warps) carried from tile to tile in index order, so the
-set is exactly the lowest-index tie-break of ``lax.top_k``.  Where the keys
-do not fit the 227 KB opt-in shared memory (T > 58,000, i.e. d > 340) the
-same kernel recomputes each key from u in device memory on every pass.
-Known cost: 142 blocks of one per SM run in two waves on 132 SMs.
+u is (n_clients, T) float64; u_hat = u on the kept set and +0.0 elsewhere;
+sent (n_clients,) int32 is the number kept.  The draws (``s`` int64,
+``unif`` float64, one per client) are made on the host from the PRNG keys
+and passed in as device tensors; no kernel draws anything.  Source:
+``csrc/compressor_select.cu``.  Each ``*_cuda`` wrapper launches its kernel
+on u's device and current stream and counts the launch; each ``*_plain`` is
+the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -37,13 +19,87 @@ import ctypes
 
 import torch
 
-from repro_torch.compressors.select import rank_keys, threshold_keep_mask
+from repro_torch.compressors.select import (
+    randseqk_dense_masked,
+    rank_keys,
+    threshold_keep_mask,
+    toplek_from_uniform,
+)
 from repro_torch.kernels import build
 
-_ARGTYPES = (
+_TOPK_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+# randseqk_select_f64 and toplek_select_f64: u, draws, out, sent, n, t, k,
+# (toplek: scratch), stream
+_RANDSEQK_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+_TOPLEK_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+)
+
+
+def _check_u(name: str, u: torch.Tensor, k: int) -> tuple[int, int]:
+    """The checks every selection wrapper makes before it builds or launches."""
+    if u.dtype != torch.float64:
+        raise TypeError(f"{name} takes float64, got {u.dtype}")
+    if u.ndim != 2 or not u.is_cuda or not u.is_contiguous():
+        raise ValueError(
+            f"need a contiguous (n_clients, T) CUDA tensor, got {tuple(u.shape)} "
+            f"on {u.device}"
+        )
+    n_clients, t = u.shape
+    if not 0 < k <= t:
+        raise ValueError(f"{name} needs 0 < k <= T, got k={k}, T={t}")
+    if n_clients > 2**31 - 1 or t >= 2**30:
+        raise ValueError(f"shape {tuple(u.shape)} exceeds the kernel's index range")
+    return n_clients, t
+
+
+def _check_draws(name: str, draws: torch.Tensor, dtype: torch.dtype, u: torch.Tensor) -> None:
+    if draws.dtype != dtype:
+        raise TypeError(f"{name}: the draws must be {dtype}, got {draws.dtype}")
+    if draws.shape != u.shape[:1] or draws.device != u.device or not draws.is_contiguous():
+        raise ValueError(
+            f"{name}: need contiguous draws of shape {tuple(u.shape[:1])} on "
+            f"{u.device}, got {tuple(draws.shape)} on {draws.device}"
+        )
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# TopK
+#
+# Replaces ``repro/kernels/compressor_select.py:select_topk_pallas`` (body
+# ``_topk_kernel``), reached through ``repro/kernels/ops.py:select_topk``.
+#
+# What bounds it on an H100: bytes.  At w8a (142 clients, T = 45451,
+# k = 2408) it must read u and write u_hat once, 103.3 MB, about 31 us at
+# 3.35 TB/s; its integer work (a compare and a count per key in 33 passes
+# over 6.45 M keys, 426 M operations) takes 6.4 us at the 67 T/s 32-bit rate
+# outside the tensor cores.
+#
+# What the design does about it: u is read from device memory once into f32
+# keys that stay on chip -- one block of 1024 threads per client holds its
+# T * 4 bytes of keys (181.8 KB at w8a) in dynamic shared memory, so the 31
+# search steps and the tie pass never touch device memory -- and u_hat is
+# written once, in index order, coalesced.  The kernel reads u a second time
+# for the output values (from L2 when the client's 363 KB is still there).
+# Each search step is one block-wide count; the tie split is an exact
+# block-wide exclusive scan (ballot + popc inside a warp, a scan over the 32
+# warp totals across warps) carried from tile to tile in index order, so the
+# set is exactly the lowest-index tie-break of ``lax.top_k``.  Where the keys
+# do not fit the 227 KB opt-in shared memory (T > 58,000, i.e. d > 340) the
+# same kernel recomputes each key from u in device memory on every pass.
+# Known cost: 142 blocks of one per SM run in two waves on 132 SMs.
+# ---------------------------------------------------------------------------
 
 
 def select_topk_plain(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,27 +110,16 @@ def select_topk_plain(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
 
 
 def select_topk_cuda(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on u's device and current stream."""
-    if u.dtype != torch.float64:
-        raise TypeError(f"select_topk takes float64, got {u.dtype}")
-    if u.ndim != 2 or not u.is_cuda or not u.is_contiguous():
-        raise ValueError(
-            f"need a contiguous (n_clients, T) CUDA tensor, got {tuple(u.shape)} "
-            f"on {u.device}"
-        )
-    n_clients, t = u.shape
-    if not 0 < k <= t:
-        raise ValueError(f"select_topk needs 0 < k <= T, got k={k}, T={t}")
-    if n_clients > 2**31 - 1 or t >= 2**31:
-        raise ValueError(f"shape {tuple(u.shape)} exceeds the kernel's index range")
+    """Launch the TopK kernel on u's device and current stream."""
+    n_clients, t = _check_u("select_topk", u, k)
     out = torch.empty_like(u)
     sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
     if n_clients == 0:
         return out, sent
-    fn = build.function("compressor_select", "topk_select_f64", _ARGTYPES)
+    fn = build.function("compressor_select", "topk_select_f64", _TOPK_ARGTYPES)
     with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        code = fn(u.data_ptr(), out.data_ptr(), sent.data_ptr(), n_clients, t, k, stream)
+        code = fn(u.data_ptr(), out.data_ptr(), sent.data_ptr(), n_clients, t, k,
+                  _stream(u.device))
     build.check_launch("select_topk", code)
     select_topk_cuda.launches += 1
     return out, sent
@@ -84,8 +129,148 @@ select_topk_cuda.launches = 0
 
 
 def keys_in_shared_memory(t: int, device: torch.device) -> bool:
-    """True when the kernel keeps the T keys in shared memory on ``device``
-    (False: it recomputes them from u in device memory on every pass)."""
+    """True when the TopK kernel keeps the T keys in shared memory on
+    ``device`` (False: it recomputes them from u in device memory on every
+    pass)."""
     fn = build.function("compressor_select", "topk_select_smem_bytes", (ctypes.c_int,))
     with torch.cuda.device(device):
         return fn(t) > 0
+
+
+# ---------------------------------------------------------------------------
+# RandSeqK
+#
+# Replaces ``repro/kernels/compressor_select.py:select_randseqk_pallas`` (body
+# ``_randseqk_kernel``), reached through ``repro/kernels/ops.py:
+# select_randseqk``.
+#
+# What bounds it on an H100: bytes.  It must read the k window entries of u
+# and write all of u_hat: at w8a 142 * (2408 + 45451) * 8 B = 54.4 MB, about
+# 16 us at 3.35 TB/s; its index arithmetic is a few integer operations per
+# entry.
+#
+# What the design does about it: a grid-stride masked copy, one grid row of
+# blocks per client, neighbouring threads on neighbouring entries.  A thread
+# loads u only inside the window, so u outside it is never read (the TPU
+# kernel reads all of u because u is resident in VMEM).  The window test is
+# ``(pos - s mod T + T) mod T < k`` with s first reduced into [0, T): C++'s
+# ``%`` keeps the dividend's sign, the reference's ``%`` the divisor's.
+# ---------------------------------------------------------------------------
+
+
+def select_randseqk_plain(
+    u: torch.Tensor, k: int, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: the window mask, batched over clients."""
+    sent = torch.full(u.shape[:-1], k, dtype=torch.int32, device=u.device)
+    return randseqk_dense_masked(u, k, s), sent
+
+
+def select_randseqk_cuda(
+    u: torch.Tensor, k: int, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the RandSeqK kernel on u's device and current stream;
+    ``s`` (n_clients,) int64 on the same device."""
+    n_clients, t = _check_u("select_randseqk", u, k)
+    _check_draws("select_randseqk", s, torch.int64, u)
+    out = torch.empty_like(u)
+    sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
+    if n_clients == 0:
+        return out, sent
+    fn = build.function("compressor_select", "randseqk_select_f64", _RANDSEQK_ARGTYPES)
+    with torch.cuda.device(u.device):
+        code = fn(u.data_ptr(), s.data_ptr(), out.data_ptr(), sent.data_ptr(),
+                  n_clients, t, k, _stream(u.device))
+    build.check_launch("select_randseqk", code)
+    select_randseqk_cuda.launches += 1
+    return out, sent
+
+
+select_randseqk_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# TopLEK
+#
+# Replaces ``repro/kernels/compressor_select.py:select_toplek_pallas`` (body
+# ``_toplek_kernel`` = ``select.toplek_from_uniform``), reached through
+# ``repro/kernels/ops.py:select_toplek``.
+#
+# What bounds it on an H100: bytes.  It must read u and write u_hat once,
+# 103.3 MB at w8a, about 31 us at 3.35 TB/s; the TopK search (426 M 32-bit
+# operations, 6.4 us) and the sort of k survivors per client are smaller.
+#
+# What the design does about it: one block of 1024 threads per client runs
+# TopK's threshold search and ordered tie scan (the same device code) on
+# keys held in shared memory, reading u once for the keys and for
+# total = sum(u*u), and writing +0.0 over the row in the same ordered pass
+# that compacts the k survivors, in index order, as 64-bit composites
+# (inverted key << 32 | index).  A bitonic sort of the composites, padded to
+# a power of two P, gives the order (key descending, index ascending) -- the
+# lowest-index tie-break of ``lax.top_k``.  An f64 block scan of the squared
+# values gives the prefix energies, m* = min(1 + #{alpha < delta}, k), p
+# and kept as in the reference; the kept values are then scattered over
+# the zeros.  Shared memory at w8a: 181.8 KB of keys, then 32 KB of
+# composites (P = 4096); the prefix sums reuse the keys' region once the
+# survivors are compacted.  Where that does not fit, the keys are recomputed
+# from u on every pass, and where the composites and prefix sums do not fit
+# either (k = T at w8a: P = 65536) they live in a scratch buffer that this
+# wrapper allocates in device memory.  The squares and sums use __dmul_rn /
+# __dadd_rn so that no FMA contraction changes a rounding; the prefix sum's
+# order is a block scan, so kept can differ from the plain version by one
+# only where alpha_m* lies within a few ulps of delta or unif of p.
+# ---------------------------------------------------------------------------
+
+
+def select_toplek_plain(
+    u: torch.Tensor, k: int, unif: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: a stable sort and ``torch.cumsum``."""
+    return toplek_from_uniform(u, k, unif)
+
+
+def _toplek_plan(t: int, k: int, device: torch.device) -> tuple[int, int]:
+    """(memory path, scratch bytes per client) of the TopLEK kernel on ``device``."""
+    path = build.function("compressor_select", "toplek_select_memory_path",
+                          (ctypes.c_int, ctypes.c_int))
+    scratch = build.function("compressor_select", "toplek_select_scratch_bytes",
+                             (ctypes.c_int, ctypes.c_int), restype=ctypes.c_longlong)
+    with torch.cuda.device(device):
+        return path(t, k), scratch(t, k)
+
+
+def toplek_memory_path(t: int, k: int, device: torch.device) -> int:
+    """Where the TopLEK kernel keeps its buffers for (T, k) on ``device``:
+    0 keys and survivors in shared memory; 1 keys recomputed from u,
+    survivors in shared memory; 2 keys recomputed from u, survivors in a
+    scratch buffer in device memory."""
+    return _toplek_plan(t, k, device)[0]
+
+
+def select_toplek_cuda(
+    u: torch.Tensor, k: int, unif: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the TopLEK kernel on u's device and current stream;
+    ``unif`` (n_clients,) float64 on the same device."""
+    n_clients, t = _check_u("select_toplek", u, k)
+    _check_draws("select_toplek", unif, torch.float64, u)
+    out = torch.empty_like(u)
+    sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
+    if n_clients == 0:
+        return out, sent
+    fn = build.function("compressor_select", "toplek_select_f64", _TOPLEK_ARGTYPES)
+    _, scratch_bytes = _toplek_plan(t, k, u.device)
+    scratch = (
+        torch.empty(n_clients * scratch_bytes, dtype=torch.uint8, device=u.device)
+        if scratch_bytes else None
+    )
+    with torch.cuda.device(u.device):
+        code = fn(u.data_ptr(), unif.data_ptr(), out.data_ptr(), sent.data_ptr(),
+                  n_clients, t, k, scratch.data_ptr() if scratch is not None else None,
+                  _stream(u.device))
+    build.check_launch("select_toplek", code)
+    select_toplek_cuda.launches += 1
+    return out, sent
+
+
+select_toplek_cuda.launches = 0

@@ -1,18 +1,24 @@
-// Batched TopK selection over packed upper-triangle vectors, FP64 payload, sm_90a.
+// Batched selection kernels over packed upper-triangle vectors, FP64 payload, sm_90a.
 //
-//   keys  = f32(|u|) as int32 bit patterns (the pinned selection keys)
-//   thr   = the k-th largest key, by a 31-step binary search on the bits
-//   keep  = key > thr, plus the first k - n_gt keys equal to thr in index order
-//   out   = keep ? u : +0.0,   sent = k
+// TopK      keys  = f32(|u|) as int32 bit patterns (the pinned selection keys)
+//           thr   = the k-th largest key, by a 31-step binary search on the bits
+//           keep  = key > thr, plus the first k - n_gt keys equal to thr in index order
+//           out   = keep ? u : +0.0,   sent = k
+// RandSeqK  keep  = (pos - s) mod T < k,   out = keep ? u : +0.0,   sent = k
+// TopLEK    the TopK set, sorted by (key descending, index ascending); f64
+//           prefix energies alpha_m = csum_m / sum(u*u); m* = min(1 + #{alpha <
+//           k/T}, k); kept = m* - 1 if unif < p else m* (0 for an all-zero
+//           row); out = u on the first `kept` of the order, +0.0 elsewhere;
+//           sent = kept
 //
-// Replaces the Pallas TPU kernel repro/kernels/compressor_select.py:
-// select_topk_pallas (body _topk_kernel), reached through
-// repro/kernels/ops.py:select_topk.  See kernels/compressor_select.py for the
-// design note; in short: one block of 1024 threads per client; the keys live
-// in dynamic shared memory when they fit (T*4 bytes: 181.8 KB at w8a) and are
-// recomputed from u in global memory when they do not; every search step is
-// one block-wide count; the tie split is an exact block-wide exclusive scan in
-// index order, tile by tile, so the lowest indices win as in lax.top_k.
+// Replace the Pallas TPU kernels of repro/kernels/compressor_select.py:
+// select_topk_pallas, select_randseqk_pallas and select_toplek_pallas, reached
+// through repro/kernels/ops.py:select_topk / select_randseqk / select_toplek.
+// See kernels/compressor_select.py for the design notes.  In short: TopK and
+// TopLEK run one block of 1024 threads per client, share the threshold search
+// and the ordered tie scan (block_threshold, ordered_keep_scan), and keep the
+// keys in dynamic shared memory when they fit (T*4 bytes: 181.8 KB at w8a);
+// RandSeqK is a grid-stride masked copy that reads u only inside the window.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +44,70 @@ __device__ __forceinline__ int block_sum(int v, int* part) {
   return total;
 }
 
+// Exclusive count of `flag` over the threads of the block in thread order,
+// plus `carry`; `carry` grows by the block's total.  Every thread calls it.
+__device__ __forceinline__ int block_exclusive_count(bool flag, int* part, int& carry) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned bits = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) part[warp] = __popc(bits);
+  __syncthreads();
+  if (warp == 0) {  // inclusive scan of the warp totals, in place
+    int incl = part[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    part[lane] = incl;
+  }
+  __syncthreads();
+  const int before = carry + (warp == 0 ? 0 : part[warp - 1]) +
+                     __popc(bits & ((1u << lane) - 1u));
+  carry += part[kWarps - 1];
+  __syncthreads();  // part is rewritten by the next call
+  return before;
+}
+
+// The k-th largest key: greedy bit-by-bit search, high bit first.  Returns
+// the threshold; *need is the number of keys equal to it that are kept.
+template <class KeyAt>
+__device__ int block_threshold(KeyAt key_at, int t, int k, int* part, int* need) {
+  int thr = 0;
+  for (int bit = 30; bit >= 0; --bit) {
+    const int cand = thr | (1 << bit);
+    int cnt = 0;
+    for (int i = threadIdx.x; i < t; i += kThreads) cnt += key_at(i) >= cand;
+    if (block_sum(cnt, part) >= k) thr = cand;
+  }
+  int gt_local = 0;
+  for (int i = threadIdx.x; i < t; i += kThreads) gt_local += key_at(i) > thr;
+  *need = k - block_sum(gt_local, part);
+  return thr;
+}
+
+// Ordered pass over i = 0..t-1, tile by tile: visit(i, key, keep, rank) for
+// every i, where keep is the TopK set (ties kept lowest index first) and, when
+// kWithRank, rank is the number of kept indices before i.
+template <bool kWithRank, class KeyAt, class Visit>
+__device__ void ordered_keep_scan(KeyAt key_at, int t, int thr, int need, int* part,
+                                  Visit visit) {
+  int carry_eq = 0, carry_keep = 0;
+  for (int base = 0; base < t; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const int key = i < t ? key_at(i) : -1;
+    const bool eq = key == thr;
+    const int ties_before = block_exclusive_count(eq, part, carry_eq);
+    const bool keep = i < t && (key > thr || (eq && ties_before < need));
+    const int rank = kWithRank ? block_exclusive_count(keep, part, carry_keep) : 0;
+    if (i < t) visit(i, key, keep, rank);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// TopK
+// ---------------------------------------------------------------------------
+
 template <bool kKeysInShared>
 __global__ void __launch_bounds__(kThreads)
 topk_select_kernel(const double* __restrict__ u, double* __restrict__ out,
@@ -48,8 +118,6 @@ topk_select_kernel(const double* __restrict__ u, double* __restrict__ out,
   const long long c = blockIdx.x;
   const double* uc = u + c * t;
   double* oc = out + c * t;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
 
   if (kKeysInShared) {
     for (int i = threadIdx.x; i < t; i += kThreads) keys[i] = rank_key(uc[i]);
@@ -59,54 +127,245 @@ topk_select_kernel(const double* __restrict__ u, double* __restrict__ out,
     return kKeysInShared ? keys[i] : rank_key(uc[i]);
   };
 
-  // k-th largest key: greedy bit-by-bit search, high bit first
-  int thr = 0;
-  for (int bit = 30; bit >= 0; --bit) {
-    const int cand = thr | (1 << bit);
-    int cnt = 0;
-    for (int i = threadIdx.x; i < t; i += kThreads) cnt += key_at(i) >= cand;
-    if (block_sum(cnt, part) >= k) thr = cand;
-  }
-  int gt_local = 0;
-  for (int i = threadIdx.x; i < t; i += kThreads) gt_local += key_at(i) > thr;
-  const int need = k - block_sum(gt_local, part);  // ties to keep
-
-  // ordered pass: exclusive count of ties before each index, tile by tile
-  int carry = 0;
-  for (int base = 0; base < t; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int key = i < t ? key_at(i) : -1;
-    const bool eq = key == thr;
-    const unsigned ties = __ballot_sync(0xffffffffu, eq);
-    if (lane == 0) part[warp] = __popc(ties);
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp totals, in place
-      int incl = part[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      part[lane] = incl;
-    }
-    __syncthreads();
-    const int before = carry + (warp == 0 ? 0 : part[warp - 1]) +
-                       __popc(ties & ((1u << lane) - 1u));
-    if (i < t) {
-      const bool keep = key > thr || (eq && before < need);
-      oc[i] = keep ? uc[i] : 0.0;
-    }
-    carry += part[kWarps - 1];
-    __syncthreads();  // part is rewritten by the next tile
-  }
+  int need;
+  const int thr = block_threshold(key_at, t, k, part, &need);
+  ordered_keep_scan<false>(key_at, t, thr, need, part,
+                           [&](int i, int, bool keep, int) { oc[i] = keep ? uc[i] : 0.0; });
   if (threadIdx.x == 0) sent[c] = k;
+}
+
+// ---------------------------------------------------------------------------
+// RandSeqK
+// ---------------------------------------------------------------------------
+
+__global__ void randseqk_select_kernel(const double* __restrict__ u,
+                                       const long long* __restrict__ s,
+                                       double* __restrict__ out, int* __restrict__ sent,
+                                       int n_clients, int t, int k) {
+  for (long long c = blockIdx.y; c < n_clients; c += gridDim.y) {
+    long long s0 = s[c] % t;  // C++ keeps the dividend's sign: bring s into [0, t)
+    if (s0 < 0) s0 += t;
+    const double* uc = u + c * t;
+    double* oc = out + c * t;
+    for (int pos = blockIdx.x * blockDim.x + threadIdx.x; pos < t;
+         pos += gridDim.x * blockDim.x) {
+      long long rel = pos - s0;
+      if (rel < 0) rel += t;
+      oc[pos] = rel < k ? uc[pos] : 0.0;  // u is read only inside the window
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) sent[c] = k;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// TopLEK
+// ---------------------------------------------------------------------------
+
+// Sum of v over the block in f64, rounded at every step; every thread gets it.
+__device__ __forceinline__ double block_sum_f64(double v, double* dpart) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+  if (lane == 0) dpart[warp] = v;
+  __syncthreads();
+  double w = dpart[lane];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) w = __dadd_rn(w, __shfl_down_sync(0xffffffffu, w, o));
+  w = __shfl_sync(0xffffffffu, w, 0);
+  __syncthreads();
+  return w;
+}
+
+// Inclusive f64 scan of v over the block in thread order, plus `carry`;
+// `carry` grows by the block's total.  Every thread calls it.
+__device__ __forceinline__ double block_inclusive_sum_f64(double v, double* dpart,
+                                                          double& carry) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  double incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl = __dadd_rn(incl, y);
+  }
+  if (lane == 31) dpart[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    double w = dpart[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = __dadd_rn(w, y);
+    }
+    dpart[lane] = w;
+  }
+  __syncthreads();
+  const double before = warp == 0 ? 0.0 : dpart[warp - 1];
+  const double out = __dadd_rn(carry, __dadd_rn(before, incl));
+  carry = __dadd_rn(carry, dpart[kWarps - 1]);
+  __syncthreads();
+  return out;
+}
+
+__host__ __device__ __forceinline__ int pow2_at_least(int k) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  return p;
+}
+
+// 64-bit sort key of a survivor: ascending order = key descending, then
+// index ascending (keys are non-negative int32, so 0x7fffffff - key >= 0).
+__device__ __forceinline__ unsigned long long composite(int key, int i) {
+  return (static_cast<unsigned long long>(0x7fffffff - key) << 32) |
+         static_cast<unsigned int>(i);
+}
+
+// Memory paths: 0 keys, composites and prefix sums in shared memory (the
+// prefix sums reuse the keys' region); 1 keys recomputed from u, composites
+// and prefix sums in shared memory; 2 keys recomputed from u, composites and
+// prefix sums in the scratch buffer in device memory.
+struct TopLekPlan {
+  int path;
+  int smem;                      // dynamic shared memory, bytes
+  long long scratch_per_client;  // bytes of device memory per client (path 2)
+  long long comp_offset;         // byte offset of the composites in their buffer
+  long long csum_offset;         // byte offset of the prefix sums in their buffer
+};
+
+constexpr int kTopLekStaticSmem = 4 * kWarps + 8 * kWarps + 64;
+
+TopLekPlan toplek_plan(int t, int k) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const long long budget = static_cast<long long>(optin) - kTopLekStaticSmem;
+  const long long p = pow2_at_least(k);
+  const long long keys = (4LL * t + 15) / 16 * 16;
+  const long long comps = 8 * p;
+  const long long csums = 8LL * k;
+  if (csums <= keys && keys + comps <= budget) {  // csum reuses the keys' region
+    return {0, static_cast<int>(keys + comps), 0, keys, 0};
+  }
+  if (csums > keys && keys + comps + csums <= budget) {
+    return {0, static_cast<int>(keys + comps + csums), 0, keys, keys + comps};
+  }
+  if (comps + csums <= budget) return {1, static_cast<int>(comps + csums), 0, 0, comps};
+  return {2, 0, comps + csums, 0, comps};
+}
+
+template <int kPath>
+__global__ void __launch_bounds__(kThreads)
+toplek_select_kernel(const double* __restrict__ u, const double* __restrict__ unif,
+                     double* __restrict__ out, int* __restrict__ sent, int t, int k,
+                     unsigned char* scratch, long long scratch_per_client,
+                     long long comp_offset, long long csum_offset) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int part[kWarps];
+  __shared__ double dpart[kWarps];
+  __shared__ int kept_shared;
+
+  const long long c = blockIdx.x;
+  const double* uc = u + c * t;
+  double* oc = out + c * t;
+  const int p = pow2_at_least(k);
+  int* keys = reinterpret_cast<int*>(smem);  // t entries on path 0
+  unsigned char* buf = kPath == 2 ? scratch + c * scratch_per_client : smem;
+  unsigned long long* comp = reinterpret_cast<unsigned long long*>(buf + comp_offset);
+  double* csum = reinterpret_cast<double*>(buf + csum_offset);
+
+  // keys (path 0) and total = sum(u*u), one read of u
+  double sq_local = 0.0;
+  for (int i = threadIdx.x; i < t; i += kThreads) {
+    const double v = uc[i];
+    if (kPath == 0) keys[i] = rank_key(v);
+    sq_local = __dadd_rn(sq_local, __dmul_rn(v, v));
+  }
+  const double total = block_sum_f64(sq_local, dpart);  // its barriers cover keys[]
+  auto key_at = [&](int i) -> int { return kPath == 0 ? keys[i] : rank_key(uc[i]); };
+
+  // the TopK set, compacted in index order; +0.0 over the whole row
+  int need;
+  const int thr = block_threshold(key_at, t, k, part, &need);
+  ordered_keep_scan<true>(key_at, t, thr, need, part,
+                          [&](int i, int key, bool keep, int rank) {
+                            oc[i] = 0.0;
+                            if (keep) comp[rank] = composite(key, i);
+                          });
+  for (int j = k + threadIdx.x; j < p; j += kThreads) comp[j] = ~0ull;
+  __syncthreads();
+
+  // bitonic sort of the p composites, ascending
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int h = threadIdx.x; h < (p >> 1); h += kThreads) {
+        const int lo = 2 * h - (h & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = comp[lo], b = comp[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          comp[lo] = b;
+          comp[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // prefix energies in rank order (csum reuses the keys' region on path 0:
+  // the keys are dead after the compaction, and the sort ended on a barrier)
+  const double delta = static_cast<double>(k) / static_cast<double>(t);
+  const double safe_total = total > 0.0 ? total : 1.0;
+  double carry = 0.0;
+  int below = 0;  // #{alpha < delta} over this thread's ranks
+  for (int base = 0; base < k; base += kThreads) {
+    const int j = base + threadIdx.x;
+    const double v = j < k ? uc[static_cast<unsigned int>(comp[j])] : 0.0;
+    const double cs = block_inclusive_sum_f64(__dmul_rn(v, v), dpart, carry);
+    if (j < k) {
+      csum[j] = cs;
+      below += cs / safe_total < delta;
+    }
+  }
+  const int n_below = block_sum(below, part);  // its barriers cover csum[]
+  if (threadIdx.x == 0) {
+    const int m_star = min(n_below + 1, k);
+    const double alpha_hi = csum[m_star - 1] / safe_total;
+    const double alpha_lo = m_star > 1 ? csum[m_star - 2] / safe_total : 0.0;
+    const double gap = alpha_hi - alpha_lo;
+    double prob = gap > 0.0 ? (alpha_hi - delta) / gap : 0.0;
+    prob = fmin(fmax(prob, 0.0), 1.0);
+    const int kept = unif[c] < prob ? m_star - 1 : m_star;
+    kept_shared = total > 0.0 ? kept : 0;
+    sent[c] = kept_shared;
+  }
+  __syncthreads();  // also orders the zeros of the ordered pass before the values
+  const int kept = kept_shared;
+  for (int j = threadIdx.x; j < kept; j += kThreads) {
+    const unsigned int i = static_cast<unsigned int>(comp[j]);
+    oc[i] = uc[i];
+  }
+}
+
+template <int kPath>
+cudaError_t launch_toplek(const TopLekPlan& plan, const double* u, const double* unif,
+                          double* out, int* sent, int n_clients, int t, int k,
+                          unsigned char* scratch, cudaStream_t s) {
+  if (plan.smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        toplek_select_kernel<kPath>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return err;
+  }
+  toplek_select_kernel<kPath><<<n_clients, kThreads, plan.smem, s>>>(
+      u, unif, out, sent, t, k, scratch, plan.scratch_per_client, plan.comp_offset,
+      plan.csum_offset);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory the kernel takes for a vector of length t on this
-// device: t*4 bytes of keys when they fit the opt-in limit, else 0 (the keys
-// are then recomputed from u on every pass).
+// Dynamic shared memory the TopK kernel takes for a vector of length t on
+// this device: t*4 bytes of keys when they fit the opt-in limit, else 0 (the
+// keys are then recomputed from u on every pass).
 extern "C" int topk_select_smem_bytes(int t) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
@@ -135,4 +394,52 @@ extern "C" int topk_select_f64(const void* u, void* out, void* sent,
     topk_select_kernel<false><<<n_clients, kThreads, 0, s>>>(up, op, sp, t, k);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// u, out: (n_clients, t) FP64; s: (n_clients,) int64 window starts (any
+// integer; taken mod t); sent: (n_clients,) int32; contiguous on the current
+// device; 1 <= k <= t.  Returns cudaGetLastError() after the launch.
+extern "C" int randseqk_select_f64(const void* u, const void* s, void* out, void* sent,
+                                   int n_clients, int t, int k, void* stream) {
+  constexpr int kBlock = 256;
+  const dim3 grid(static_cast<unsigned>((t + kBlock - 1) / kBlock),
+                  static_cast<unsigned>(n_clients < 65535 ? n_clients : 65535));
+  randseqk_select_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(u), static_cast<const long long*>(s),
+      static_cast<double*>(out), static_cast<int*>(sent), n_clients, t, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which memory path the TopLEK kernel takes for (t, k) on this device (see
+// TopLekPlan), and how many bytes of device-memory scratch it needs per
+// client (0 unless path 2).
+extern "C" int toplek_select_memory_path(int t, int k) { return toplek_plan(t, k).path; }
+
+extern "C" long long toplek_select_scratch_bytes(int t, int k) {
+  return toplek_plan(t, k).scratch_per_client;
+}
+
+// u, out: (n_clients, t) FP64; unif: (n_clients,) FP64 Bernoulli uniforms;
+// sent: (n_clients,) int32; scratch: n_clients * toplek_select_scratch_bytes
+// bytes of device memory, or null when that is 0; contiguous on the current
+// device; 1 <= k <= t < 2**30.  Returns cudaGetLastError() after the launch.
+extern "C" int toplek_select_f64(const void* u, const void* unif, void* out, void* sent,
+                                 int n_clients, int t, int k, void* scratch, void* stream) {
+  const TopLekPlan plan = toplek_plan(t, k);
+  if (plan.path == 2 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const double* up = static_cast<const double*>(u);
+  const double* fp = static_cast<const double*>(unif);
+  double* op = static_cast<double*>(out);
+  int* sp = static_cast<int*>(sent);
+  unsigned char* buf = static_cast<unsigned char*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (plan.path == 0) {
+    err = launch_toplek<0>(plan, up, fp, op, sp, n_clients, t, k, buf, s);
+  } else if (plan.path == 1) {
+    err = launch_toplek<1>(plan, up, fp, op, sp, n_clients, t, k, buf, s);
+  } else {
+    err = launch_toplek<2>(plan, up, fp, op, sp, n_clients, t, k, buf, s);
+  }
+  return static_cast<int>(err);
 }

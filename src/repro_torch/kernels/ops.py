@@ -37,9 +37,31 @@ def select_topk(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return compressor_select.select_topk_plain(u, k)
 
 
+def select_randseqk(
+    u: torch.Tensor, k: int, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RandSeqK selection per client given the window starts s (n_clients,)
+    int64: u (n_clients, T) -> (u_hat, sent)."""
+    if _route("select_randseqk", u):
+        return compressor_select.select_randseqk_cuda(u, k, s)
+    return compressor_select.select_randseqk_plain(u, k, s)
+
+
+def select_toplek(
+    u: torch.Tensor, k: int, unif: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """TopLEK selection per client given the Bernoulli uniforms unif
+    (n_clients,) float64: u (n_clients, T) -> (u_hat, sent)."""
+    if _route("select_toplek", u):
+        return compressor_select.select_toplek_cuda(u, k, unif)
+    return compressor_select.select_toplek_plain(u, k, unif)
+
+
 KERNELS = {
     "hessian_syrk_packed": hessian_syrk.hessian_syrk_packed_cuda,
     "select_topk": compressor_select.select_topk_cuda,
+    "select_randseqk": compressor_select.select_randseqk_cuda,
+    "select_toplek": compressor_select.select_toplek_cuda,
 }
 
 

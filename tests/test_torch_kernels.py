@@ -3,7 +3,14 @@ the CUDA kernels against their plain versions (``cuda`` marker, on a card).
 
 Tolerances:
   * SYRK: 1e-13 x max(|Z|^T |h| |Z|) -- FP64 sums of n terms in another order;
-  * TopK: bit-exact -- the selected values are copies and the zeros +0.0.
+  * TopK, RandSeqK: bit-exact -- the selected values are copies and the
+    zeros +0.0;
+  * TopLEK: u_hat bit patterns and the kept count exact.  The one allowed
+    difference: the prefix energies are sums in another order (torch.cumsum,
+    XLA's scan, the kernel's block scan), so kept may move by one on a row
+    where alpha_m* lies within a few ulps of delta = k/T or unif within a
+    few ulps of p.  Dyadic rows, whose sums are exact in any order, have
+    no such row.
 
 The JAX reference is imported inside a fixture, so the ``cuda`` tests also
 collect on a machine without JAX; whether a card is present is decided
@@ -34,9 +41,16 @@ def ref():
 
     from repro.compressors import select as jsel
     from repro.kernels import ops as jops
-    from repro.kernels.compressor_select import select_topk_pallas
+    from repro.kernels.compressor_select import (
+        select_randseqk_pallas,
+        select_topk_pallas,
+        select_toplek_pallas,
+    )
 
-    return types.SimpleNamespace(jnp=jnp, ops=jops, sel=jsel, topk_pallas=select_topk_pallas)
+    return types.SimpleNamespace(
+        jnp=jnp, ops=jops, sel=jsel, topk_pallas=select_topk_pallas,
+        randseqk_pallas=select_randseqk_pallas, toplek_pallas=select_toplek_pallas,
+    )
 
 
 @pytest.fixture
@@ -68,8 +82,52 @@ def near_tie_rows(n_rows, t, seed):
     return rng.permuted(u, axis=1)
 
 
+def dyadic_rows(n_rows, t, seed):
+    """Entries +-2**-e, e in [0, 10], many exact ties: every sum of their
+    squares (at most 2**16 terms spanning 2**-20..1) is exact in any order."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, 11, size=(n_rows, t))
+    return np.where(rng.random((n_rows, t)) < 0.5, -1.0, 1.0) * np.ldexp(1.0, -e)
+
+
 def _bits(a):
     return np.asarray(a, dtype=np.float64).view(np.int64)
+
+
+def toplek_near_boundary(u, k, unif, tol=1e-12):
+    """True when row u is TopLEK's allowed case of difference: alpha_m* (or
+    alpha_m*-1) within tol of delta, or unif within tol of p, with the prefix
+    energies summed exactly rounded (math.fsum)."""
+    import math
+
+    t = u.shape[0]
+    delta = k / t
+    keys = np.abs(u).astype(np.float32)
+    order = np.lexsort((np.arange(t), -keys))[:k]
+    total = math.fsum(u * u)
+    if total == 0:
+        return False
+    alphas = np.array([math.fsum(u[order[: m + 1]] ** 2) / total for m in range(k)])
+    m_star = min(int(np.sum(alphas < delta)) + 1, k)
+    hi = alphas[m_star - 1]
+    lo = alphas[m_star - 2] if m_star > 1 else 0.0
+    p = np.clip((hi - delta) / (hi - lo), 0, 1) if hi > lo else 0.0
+    return min(abs(hi - delta), abs(lo - delta), abs(unif - p)) <= tol
+
+
+def _check_toplek_rows(got, sent, want_rows, u, k, unif, exact):
+    """got/sent (port) against want_rows [(u_hat, kept)] row by row; returns
+    the number of rows in the allowed boundary case (0 when ``exact``)."""
+    boundary = 0
+    for c, (want, want_kept) in enumerate(want_rows):
+        if int(sent[c]) != int(want_kept) and not exact:
+            assert abs(int(sent[c]) - int(want_kept)) == 1
+            assert toplek_near_boundary(u[c], k, float(unif[c])), f"row {c}"
+            boundary += 1
+            continue
+        assert int(sent[c]) == int(want_kept), f"row {c}"
+        np.testing.assert_array_equal(_bits(got[c]), _bits(want), err_msg=f"row {c}")
+    return boundary
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +224,137 @@ def test_topk_plain_rows_are_independent():
         assert torch.equal(batched[c].view(torch.int64), row.view(torch.int64))
 
 
+
+# ---------------------------------------------------------------------------
+# RandSeqK: plain version against the Pallas kernel in interpret mode (CPU)
+# ---------------------------------------------------------------------------
+
+RANDSEQK_CASES = {
+    # name: (t, k, starts)
+    "s_is_0": (300, 24, [0, 0]),
+    "s_is_T_minus_1": (300, 24, [299, 299]),
+    "wrapping": (300, 24, [290, 280]),
+    "k_is_1": (257, 1, [0, 256]),
+    "k_is_T": (130, 130, [0, 77]),
+    "mixed": (1000, 64, [5, 999, 940, 500]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANDSEQK_CASES))
+def test_randseqk_plain_bit_exact_vs_pallas(ref, case):
+    t, k, starts = RANDSEQK_CASES[case]
+    rng = np.random.default_rng(t + k)
+    u = rng.standard_normal((len(starts), t))
+    u[0, ::5] = -0.0
+    s = np.array(starts, dtype=np.int64)
+    got, sent = tcs.select_randseqk_plain(torch.as_tensor(u), k, torch.as_tensor(s))
+    rolled = tsel.randseqk_dense(torch.as_tensor(u), k, torch.as_tensor(s)).numpy()
+    for c in range(len(starts)):
+        uj, sj = ref.jnp.asarray(u[c]), ref.jnp.asarray(s[c])
+        want, want_sent = ref.randseqk_pallas(uj, k, sj, interpret=True)
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+        np.testing.assert_array_equal(_bits(rolled[c]), _bits(ref.sel.randseqk_dense(uj, k, sj)))
+        np.testing.assert_array_equal(_bits(rolled[c]), _bits(want))
+        assert int(sent[c]) == int(want_sent[0]) == k
+        assert np.count_nonzero(got[c].numpy() != 0) <= k
+
+
+def test_randseqk_window_mask_matches_reference(ref):
+    for t, k, s in [(300, 24, 290), (300, 24, -7), (50, 50, 3), (50, 1, 49)]:
+        got = tsel.randseqk_window_mask(t, k, torch.tensor(s)).numpy()
+        want = np.asarray(ref.sel.randseqk_window_mask(t, k, ref.jnp.asarray(s)))
+        np.testing.assert_array_equal(got, want)
+        assert got.sum() == k
+
+
+# ---------------------------------------------------------------------------
+# TopLEK: plain version against the Pallas kernel in interpret mode (CPU)
+# ---------------------------------------------------------------------------
+
+def _toplek_against_pallas(ref, u, k, unif, exact):
+    got, sent = tcs.select_toplek_plain(torch.as_tensor(u), k, torch.as_tensor(unif))
+    assert sent.dtype == torch.int32
+    want_rows = []
+    for c in range(u.shape[0]):
+        want, want_sent = ref.toplek_pallas(
+            ref.jnp.asarray(u[c]), k, ref.jnp.asarray(unif[c]), interpret=True
+        )
+        want_rows.append((np.asarray(want), int(want_sent[0])))
+    return _check_toplek_rows(got.numpy(), sent.numpy(), want_rows, u, k, unif, exact)
+
+
+TOPLEK_CASES = {
+    # name: (rows, k, exact)
+    "dyadic": (lambda: dyadic_rows(4, 600, 1), 48, True),
+    "dyadic_k_is_1": (lambda: dyadic_rows(3, 257, 2), 1, True),
+    "dyadic_k_is_T": (lambda: dyadic_rows(3, 130, 3), 130, True),
+    "near_ties": (lambda: near_tie_rows(4, 512, 4), 100, False),
+    "all_zero": (lambda: np.zeros((2, 300)), 24, True),
+    "k_is_1": (lambda: near_tie_rows(3, 257, 5), 1, False),
+    "k_is_T": (lambda: near_tie_rows(3, 130, 6), 130, False),
+    "gaussian": (lambda: np.random.default_rng(7).standard_normal((6, 1000)), 64, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPLEK_CASES))
+def test_toplek_plain_vs_pallas(ref, case):
+    make, k, exact = TOPLEK_CASES[case]
+    u = make()
+    unif = np.random.default_rng(k).uniform(size=u.shape[0])
+    unif[0] = 0.0  # always the larger prefix
+    boundary = _toplek_against_pallas(ref, u, k, unif, exact)
+    assert boundary == 0 or not exact
+
+
+def test_toplek_plain_vs_pallas_w8a_size(ref):
+    """T = 45451, k = 2408: a Gaussian row and a dyadic row at the main path's shape."""
+    t, k = triu_size(301), 8 * 301
+    u = np.concatenate([np.random.default_rng(8).standard_normal((1, t)), dyadic_rows(1, t, 9)])
+    _toplek_against_pallas(ref, u, k, np.array([0.3, 0.6]), exact=False)
+
+
+def test_toplek_plain_matches_reference_select(ref):
+    """Against repro's toplek_from_uniform directly, batched rows at once."""
+    u = dyadic_rows(5, 400, 10)
+    u[2] = 0.0
+    unif = np.linspace(0.0, 0.99, 5)
+    got, sent = tsel.toplek_from_uniform(torch.as_tensor(u), 32, torch.as_tensor(unif))
+    for c in range(5):
+        want, kept = ref.sel.toplek_from_uniform(ref.jnp.asarray(u[c]), 32, ref.jnp.asarray(unif[c]))
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+        assert int(sent[c]) == int(kept)
+    assert int(sent[2]) == 0 and not got[2].any()
+
+
+def test_toplek_kept_is_an_ordered_topk_prefix():
+    """u_hat keeps the first `kept` entries of the TopK order, and E over
+    unif of ||u - u_hat||^2 is (1 - k/T) ||u||^2 (Algorithm 4's equality)."""
+    u = torch.as_tensor(np.random.default_rng(12).standard_normal((1, 500)))
+    k = 40
+    order = tsel.topk_indices(u, k)[0]
+    # unif < p keeps m*-1 entries, otherwise m*
+    few_hat, few = tsel.toplek_from_uniform(u, k, torch.tensor([0.0]))
+    more_hat, more = tsel.toplek_from_uniform(u, k, torch.tensor([1.0 - 2**-53]))
+    assert int(more) == int(few) + 1
+    for u_hat, kept in ((few_hat, int(few)), (more_hat, int(more))):
+        np.testing.assert_array_equal(np.flatnonzero(u_hat[0].numpy()), np.sort(order[:kept].numpy()))
+    lo, hi = 0.0, 1.0  # bisect on the uniform for p = P(keep m*-1)
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        kept = int(tsel.toplek_from_uniform(u, k, torch.tensor([mid]))[1])
+        lo, hi = (mid, hi) if kept == int(few) else (lo, mid)
+    p = lo
+    err = lambda h: float(torch.sum((u - h) ** 2))
+    total = float(torch.sum(u * u))
+    np.testing.assert_allclose(p * err(few_hat) + (1 - p) * err(more_hat), (1 - k / 500) * total, rtol=1e-9)
+
+
 # ---------------------------------------------------------------------------
 # routing and wrapper checks (CPU)
 # ---------------------------------------------------------------------------
+
+NO_LAUNCHES = {"hessian_syrk_packed": 0, "select_topk": 0, "select_randseqk": 0, "select_toplek": 0}
+
 
 def test_ops_route_cpu_tensors_to_plain_versions():
     tops.reset_launch_counts()
@@ -179,12 +365,26 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     got, sent = tops.select_topk(u, 5)
     assert torch.equal(got, tcs.select_topk_plain(u, 5)[0])
     assert sent.dtype == torch.int32 and sent.tolist() == [5, 5]
-    assert tops.launch_counts() == {"hessian_syrk_packed": 0, "select_topk": 0}
+    s = torch.tensor([3, 27])
+    got, sent = tops.select_randseqk(u, 5, s)
+    assert torch.equal(got, tcs.select_randseqk_plain(u, 5, s)[0])
+    assert sent.dtype == torch.int32 and sent.tolist() == [5, 5]
+    unif = torch.tensor([0.25, 0.75], dtype=torch.float64)
+    got, sent = tops.select_toplek(u, 5, unif)
+    want, want_sent = tcs.select_toplek_plain(u, 5, unif)
+    assert torch.equal(got, want) and torch.equal(sent, want_sent)
+    assert sent.dtype == torch.int32
+    assert tops.launch_counts() == NO_LAUNCHES
 
 
 def test_ops_refuse_other_devices():
+    meta = torch.zeros(2, 6, device="meta", dtype=torch.float64)
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.select_topk(torch.zeros(2, 6, device="meta", dtype=torch.float64), 2)
+        tops.select_topk(meta, 2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.select_randseqk(meta, 2, torch.zeros(2, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.select_toplek(meta, 2, torch.zeros(2, dtype=torch.float64, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device"):
         tops.hessian_syrk_packed(
             torch.zeros(1, 3, 2, device="meta", dtype=torch.float64),
@@ -203,7 +403,16 @@ def test_cuda_wrappers_refuse_before_building():
         tcs.select_topk_cuda(torch.zeros(2, 6, dtype=torch.float64), 2)
     with pytest.raises(TypeError):
         tcs.select_topk_cuda(torch.zeros(2, 6), 2)
-    assert tops.launch_counts() == {"hessian_syrk_packed": 0, "select_topk": 0}
+    u = torch.zeros(2, 6, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcs.select_randseqk_cuda(u, 2, torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        tcs.select_randseqk_cuda(u.float(), 2, torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcs.select_toplek_cuda(u, 2, torch.zeros(2, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        tcs.select_toplek_cuda(u.float(), 2, torch.zeros(2))
+    assert tops.launch_counts() == NO_LAUNCHES
 
 
 # ---------------------------------------------------------------------------
@@ -248,3 +457,64 @@ def test_topk_kernel_bit_exact_cuda(cuda, n_rows, t, k):
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert torch.equal(sent, want_sent)
     assert tcs.keys_in_shared_memory(t, cuda) == (t * 4 + 128 <= 232448)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_rows,t,k",
+    [(142, 45451, 2408), (3, 300, 24), (4, 257, 1), (4, 130, 130), (2, 70000, 4096)],
+)
+def test_randseqk_kernel_bit_exact_cuda(cuda, n_rows, t, k):
+    rng = np.random.default_rng(t)
+    u = rng.standard_normal((n_rows, t))
+    u[0, ::7] = -0.0
+    s = rng.integers(0, t, size=n_rows)
+    s[0], s[-1] = 0, t - 1
+    ut = torch.as_tensor(u, device=cuda)
+    st = torch.as_tensor(s, device=cuda)
+    before = tcs.select_randseqk_cuda.launches
+    got, sent = tops.select_randseqk(ut, k, st)
+    assert tcs.select_randseqk_cuda.launches == before + 1
+    want, want_sent = tcs.select_randseqk_plain(ut, k, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert torch.equal(sent, want_sent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,n_rows,t,k,path",
+    [
+        ("gaussian", 142, 45451, 2408, 0),
+        ("dyadic", 142, 45451, 2408, 0),
+        ("near_ties", 8, 45451, 2408, 0),
+        ("dyadic", 4, 45451, 45451, 2),
+        ("dyadic", 8, 61425, 2800, 1),
+        ("gaussian", 4, 257, 1, 0),
+        ("dyadic", 4, 300, 192, 0),
+        ("gaussian", 4, 130, 130, 0),
+    ],
+)
+def test_toplek_kernel_matches_plain_cuda(cuda, kind, n_rows, t, k, path):
+    """Exact on dyadic rows; elsewhere exact but for the stated boundary case.
+    The last column is the memory path the kernel takes (0 all in shared
+    memory, 1 keys from device memory, 2 survivors in device-memory scratch)."""
+    u = {
+        "gaussian": lambda: np.random.default_rng(t).standard_normal((n_rows, t)),
+        "dyadic": lambda: dyadic_rows(n_rows, t, t),
+        "near_ties": lambda: near_tie_rows(n_rows, t, t),
+    }[kind]()
+    u[-1] = 0.0
+    unif = np.random.default_rng(k).uniform(size=n_rows)
+    ut = torch.as_tensor(u, device=cuda)
+    unif_t = torch.as_tensor(unif, device=cuda)
+    before = tcs.select_toplek_cuda.launches
+    got, sent = tops.select_toplek(ut, k, unif_t)
+    assert tcs.select_toplek_cuda.launches == before + 1
+    want, want_sent = tcs.select_toplek_plain(ut, k, unif_t)
+    torch.cuda.synchronize()
+    assert tcs.toplek_memory_path(t, k, cuda) == path
+    assert int(sent[-1]) == 0 and not got[-1].any()
+    want_rows = list(zip(want.cpu().numpy(), want_sent.cpu().numpy()))
+    _check_toplek_rows(got.cpu().numpy(), sent.cpu().numpy(), want_rows, u, k, unif,
+                       exact=kind == "dyadic")
