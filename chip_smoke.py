@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of FedNL on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
+and the LM zoo's dense inference path (granite-3-2b).
 
     python3 chip_smoke.py
 
@@ -10,7 +11,7 @@ raises, and the script exits non-zero without the final line.
   1 card     name, count, power limit (nvidia-smi), torch and CUDA versions
   2 build    nvcc of every kernel source, in parallel; seconds and ptxas report
   3 kernels  each kernel against its plain PyTorch version on the card, at the
-             w8a shapes of the main path: SYRK within 1e-13 of max(|Z|^T|h||Z|),
+             shapes of the main paths: SYRK within 1e-13 of max(|Z|^T|h||Z|),
              TopK bit-exact (u_hat bit patterns and sent) on the first rounds'
              corrections, near-ties, the keys-in-device-memory path and edge k;
              RandSeqK bit-exact on the round's real draws, s = 0, s = T-1, a
@@ -18,26 +19,45 @@ raises, and the script exits non-zero without the final line.
              kept) on the all-zero round-0 correction, the round-1 correction,
              near-ties, a dyadic fixture, k = 1, k = T and every memory path,
              but for rows where alpha_m* lies within 1e-12 of k/T or unif of p
-             (counted; none allowed on the dyadic fixture)
+             (counted; none allowed on the dyadic fixture); flash attention
+             within one bf16 ulp (the ulp taken at no less than 2**-14) at
+             granite's 32k layer shape, B = 4, a 4096 window, S = 1000, a
+             5-token prompt, non-causal 64 x 256 and dh = 128, and within 2e-5
+             in f32
   4 main     repro_torch.api.solve on w8a (Option B, hess0="exact") on the
              card, three paths, the launch counts set to 0 before each and
              read after it: TopK and TopLEK (tol 1e-12, <= 50 rounds), RandSeqK
              (30 rounds); launch counts, the grad norm falls, and the first 3
              rounds' grad norms and sent_bits against the same spec on the CPU
              (plain versions; the same threefry draws)
-  5 times    CUDA-event medians of each kernel, its plain version and its
-             library yardstick at w8a shapes, beside the card's least time
-  6 trace    torch.profiler over 3 rounds of the TopK and of the TopLEK path:
-             device time by kernel and the device's busy share of the wall
-             time; the host's ms per round for the key split, the clients'
-             keys and draws, and their upload
+  5 lm       granite-3-2b at full width: 2 layers (depth cut) on the card
+             against the same params on the CPU, prefill B = 2, S = 512 and 4
+             decode steps, within LOGIT_ULPS bf16 ulps of the logit scale;
+             then 40 layers from seed 0 on the card: make_prefill_step at
+             B = 1, S = 32,768 (the repo's prefill_32k shape, its global batch
+             of 32 cut to 1), exactly 40 flash launches; lm_prefill of a
+             5-token prompt against 5 decode steps; ServeEngine with the
+             launcher's defaults (6 requests, batch 4, 12 new tokens,
+             max_len 128), no kernel launch, the same tokens on a second
+             engine and from the launcher
+  6 times    CUDA-event medians of each kernel, its plain version and its
+             library yardstick at the main paths' shapes, beside the card's
+             least time
+  7 trace    torch.profiler over 3 rounds of the TopK and of the TopLEK path
+             and over one 32k prefill: device time by kernel and the device's
+             busy share of the wall time; the host's ms per round for the key
+             split, the clients' keys and draws, and their upload
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP64_TENSOR_FLOPS = 67e12  # FP64 on the tensor cores
 CUDA_CORE_32BIT_OPS = 67e12  # 32-bit ops outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # bf16 on the tensor cores
 
 SYRK_TOL = 1e-13  # of max(|Z|^T |h| |Z|): FP64 sums of n_i = 348 terms, any order
 TRAJECTORY_RTOL = 1e-8  # card vs CPU grad norms over the first 3 rounds
@@ -60,6 +81,16 @@ TOPLEK_BOUNDARY = 1e-12  # TopLEK's allowed difference: alpha_m* this near k/T, 
 DRAW_REPS = 200  # host draw timing: rounds of draws averaged
 TIMED_REPS = 21  # event pairs per function; the median is reported
 CALLS_PER_EVENT = 10
+FLASH_TIMED_REPS = 5  # at the 32k prefill shape: one call per event pair
+FLASH_F32_ATOL = 2e-5  # f32 flash against its plain version (the JAX package's own bound)
+# card vs CPU logits of the 2-layer cut, in bf16 ulps of the logit scale (the
+# largest |logit|): bf16 activations rounded after differently ordered sums
+LOGIT_ULPS = 4
+# the 40-layer prefill against 40-layer sequential decode on the card: the same
+# rounding differences, compounded over 40 residual updates
+DEPTH_LOGIT_ULPS = 8
+LM_CUT_LAYERS = 2  # the card-vs-CPU check's depth cut (granite has 40)
+PREFILL_SEQ = 32768  # launch/specs.py prefill_32k; its global batch of 32 cut to 1
 
 
 def emit(obj) -> None:
@@ -102,8 +133,6 @@ def toplek_near_boundary(u: np.ndarray, k: int, unif: float) -> bool:
     """Row u is TopLEK's allowed case of difference: alpha_m* (or alpha_m*-1)
     within TOPLEK_BOUNDARY of delta = k/T, or unif within it of p, with the
     prefix energies summed exactly rounded (math.fsum)."""
-    import math
-
     t = u.shape[0]
     delta = k / t
     order = np.lexsort((np.arange(t), -np.abs(u).astype(np.float32)))[:k]
@@ -126,46 +155,45 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
-def median_ms(fns: dict) -> dict[str, float]:
-    """Device ms per call of each function: CUDA events around
-    CALLS_PER_EVENT back-to-back calls (so the queue runs ahead of the host
-    and the host's launch cost hides behind the device's work where it can),
-    median over TIMED_REPS such pairs, the functions in turns."""
+def median_ms(fns: dict, reps: int = TIMED_REPS, calls: int = CALLS_PER_EVENT) -> dict[str, float]:
+    """Device ms per call of each function: CUDA events around ``calls``
+    back-to-back calls (so the queue runs ahead of the host and the host's
+    launch cost hides behind the device's work where it can), median over
+    ``reps`` such pairs, the functions in turns."""
     import torch
 
     for fn in fns.values():  # warm-up
         fn()
     torch.cuda.synchronize()
     events = {name: [] for name in fns}
-    for _ in range(TIMED_REPS):
+    for _ in range(reps):
         for name, fn in fns.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(CALLS_PER_EVENT):
+            for _ in range(calls):
                 fn()
             end.record()
             events[name].append((start, end))
     torch.cuda.synchronize()
     return {
-        name: statistics.median(s.elapsed_time(e) for s, e in pairs) / CALLS_PER_EVENT
+        name: statistics.median(s.elapsed_time(e) for s, e in pairs) / calls
         for name, pairs in events.items()
     }
 
 
-def trace_rounds(round_fn, state, rounds: int) -> dict:
-    """Device time by kernel over ``rounds`` rounds after one warm-up round,
-    and the device's busy share of the host's wall time over the window
-    (the profiler's own host cost included, so the share is a floor)."""
+def trace(step, n: int, unit: str) -> dict:
+    """Device time by kernel over ``n`` calls of ``step`` (warmed up by the
+    caller), and the device's busy share of the host's wall time over the
+    window (the profiler's own host cost included, so the share is a floor)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state, _ = round_fn(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(rounds):
-            state, _ = round_fn(state)
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [
@@ -174,20 +202,30 @@ def trace_rounds(round_fn, state, rounds: int) -> dict:
     ]
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us <= 0:
-        return {"rounds": rounds, "device_time": "not measured (no device events)"}
+        return {f"{unit}s": n, "device_time": "not measured (no device events)"}
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     return {
-        "rounds": rounds,
-        "wall_ms_per_round": wall_us / rounds / 1e3,
-        "device_ms_per_round": device_us / rounds / 1e3,
+        f"{unit}s": n,
+        f"wall_ms_per_{unit}": wall_us / n / 1e3,
+        f"device_ms_per_{unit}": device_us / n / 1e3,
         "device_busy_share": device_us / wall_us,
-        "kernel_launches_per_round": sum(e.count for e in kernels) / rounds,
+        f"kernel_launches_per_{unit}": sum(e.count for e in kernels) / n,
         "top_kernels": [
-            {"name": e.key[:90], "ms_per_round": e.self_device_time_total / rounds / 1e3,
-             "calls_per_round": e.count / rounds}
+            {"name": e.key[:90], f"ms_per_{unit}": e.self_device_time_total / n / 1e3,
+             f"calls_per_{unit}": e.count / n}
             for e in top
         ],
     }
+
+
+def trace_rounds(round_fn, state, rounds: int) -> dict:
+    """``trace`` over ``rounds`` FedNL rounds after one warm-up round."""
+    box = [round_fn(state)[0]]
+
+    def step():
+        box[0] = round_fn(box[0])[0]
+
+    return trace(step, rounds, "round")
 
 
 def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -227,8 +265,242 @@ def host_draw_ms(prng, upload_draws, n_clients: int, t: int, device) -> dict:
     return out
 
 
+def flash_inputs(dev, b, sq, sk, h, kv, dh, dtype, seed):
+    """q (b, sq, h, dh), k and v (b, sk, kv, dh): standard normal draws of a
+    torch generator on the card, rounded to ``dtype``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))]
+
+
+def check_flash(dev, tfa) -> tuple[dict, float]:
+    """The flash kernel against its plain version on the card: bf16 within
+    one bf16 ulp (taken at no less than BF16_ULP_FLOOR), f32 within
+    FLASH_F32_ATOL.  Returns the per-case report and the largest absolute
+    error over the bf16 cases."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {  # name: (b, sq, sk, h, kv, dh, causal, window, dtype)
+        "granite_32k_layer": (1, PREFILL_SEQ, PREFILL_SEQ, 32, 8, 64, True, None, bf16),
+        "b4_s4096": (4, 4096, 4096, 32, 8, 64, True, None, bf16),
+        "s8192_window4096": (1, 8192, 8192, 32, 8, 64, True, 4096, bf16),
+        "s1000_padding": (1, 1000, 1000, 32, 8, 64, True, None, bf16),
+        "prompt_sq5": (1, 5, 5, 32, 8, 64, True, None, bf16),
+        "noncausal_64x256": (1, 64, 256, 32, 8, 64, False, None, bf16),
+        "dh128_window200": (2, 777, 777, 8, 2, 128, True, 200, bf16),
+        "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
+    }
+    report, max_err = {}, 0.0
+    for seed, (name, (b, sq, sk, h, kv, dh, causal, window, dtype)) in enumerate(cases.items()):
+        q, k, v = flash_inputs(dev, b, sq, sk, h, kv, dh, dtype, 100 + seed)
+        got = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(got.shape == q.shape and got.dtype == dtype, f"flash {name}: {got.shape} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"flash {name}: output not finite")
+        err = float((got.float() - want.float()).abs().max())
+        row = {"shape": [b, sq, sk, h, kv, dh], "causal": causal, "window": window,
+               "dtype": str(dtype), "max_abs_err": err}
+        if dtype == f32:
+            check(err <= FLASH_F32_ATOL, f"flash {name}: f32 error {err} > {FLASH_F32_ATOL}")
+        else:
+            ulps = tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR)
+            pure = tfa.bf16_ulps(got, want)
+            row.update(max_ulps=float(ulps.max()), ulp_floor=tfa.BF16_ULP_FLOOR,
+                       beyond_1_ulp_without_floor=int((pure > 1).sum()),
+                       differing=int((got != want).sum()), elements=got.numel())
+            check(float(ulps.max()) <= 1.0, f"flash {name}: {float(ulps.max())} bf16 ulps")
+            max_err = max(max_err, err)
+        report[name] = row
+        del q, k, v, got, want
+    return report, max_err
+
+
+def bf16_ulp_at(scale: float) -> float:
+    """The bf16 spacing at magnitude ``scale``: 2**(e - 8) for [2**(e-1), 2**e)."""
+    return 2.0 ** (math.frexp(scale)[1] - 8)
+
+
+def logit_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of the logit scale (the largest |want|)."""
+    return float((got.float() - want.float()).abs().max()) / bf16_ulp_at(
+        float(want.float().abs().max()))
+
+
+def argmax_rows(got, want, ulps: int) -> tuple[int, int, float]:
+    """Rows of (rows, vocab) logits whose argmax agrees, rows whose argmax
+    differs where the reference's top-2 margin is at least ``ulps`` bf16 ulps
+    of the logit scale (none allowed: a greedy token may differ only at a
+    near tie), and the smallest top-2 margin of the reference."""
+    g, w = got.float().reshape(-1, got.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    top2 = w.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = g.argmax(-1) == w.argmax(-1)
+    tol = ulps * bf16_ulp_at(float(w.abs().max()))
+    return int(same.sum()), int((~same & (margin >= tol)).sum()), float(margin.min())
+
+
+def tree_to(tree, dev):
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def lm_phase(dev, ops) -> dict:
+    """granite-3-2b at full width: the 2-layer card-vs-CPU check, then the
+    40-layer prefill, prefill against decode, and the serving engine.
+    Returns what the later phases need."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import init_decode_cache, init_lm_params, lm_decode_step, lm_prefill
+    from repro_torch.models.lm import padded_vocab
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.train import make_prefill_step
+
+    full = get_config("granite-3-2b")
+    vp = padded_vocab(full)
+    rng = np.random.default_rng(13)
+    no_launch = {name: 0 for name in ops.launch_counts()}
+
+    # 1 the same params on the card and on the CPU, 2 layers
+    cut = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
+    p_cpu = init_lm_params(0, cut, "cpu")
+    p_card = tree_to(p_cpu, dev)
+    toks = rng.integers(0, full.vocab, size=(2, 512))
+    card = lm_prefill(p_card, cut, torch.as_tensor(toks, device=dev)).cpu()
+    host = lm_prefill(p_cpu, cut, torch.as_tensor(toks))
+    prefill_ulps = logit_ulps(card, host)
+    check(prefill_ulps <= LOGIT_ULPS, f"lm 2-layer prefill: card vs CPU {prefill_ulps} ulps")
+    argmax = [argmax_rows(card, host, LOGIT_ULPS)]
+    c_card, c_cpu = init_decode_cache(cut, 2, 8, dev), init_decode_cache(cut, 2, 8, "cpu")
+    decode_ulps = []
+    for s in range(4):
+        t = toks[:, s : s + 1]
+        lg_card, c_card = lm_decode_step(p_card, cut, c_card, torch.as_tensor(t, device=dev))
+        lg_cpu, c_cpu = lm_decode_step(p_cpu, cut, c_cpu, torch.as_tensor(t))
+        decode_ulps.append(logit_ulps(lg_card.cpu(), lg_cpu))
+        argmax.append(argmax_rows(lg_card.cpu(), lg_cpu, LOGIT_ULPS))
+    check(max(decode_ulps) <= LOGIT_ULPS, f"lm 2-layer decode: card vs CPU {decode_ulps} ulps")
+    check(all(bad == 0 for _, bad, _ in argmax),
+          f"lm 2-layer: an argmax differs away from a near tie: {argmax}")
+    emit({
+        "phase": "lm", "part": "card_vs_cpu", "arch": full.name,
+        "cut": f"n_layers {LM_CUT_LAYERS} of {full.n_layers}; full width",
+        "prefill_batch_seq": [2, 512], "prefill_logit_ulps": prefill_ulps,
+        "prefill_logit_scale": float(host.float().abs().max()),
+        "decode_logit_ulps": decode_ulps,
+        "argmax_same_of_2": [a for a, _, _ in argmax], "min_top2_margin": [m for _, _, m in argmax],
+        "tol_ulps": LOGIT_ULPS,
+        "bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+    })
+    del p_cpu, p_card, c_card, c_cpu
+
+    # 2 forty layers, initialised on the card
+    t0 = time.perf_counter()
+    params = init_lm_params(0, full, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    prefill = make_prefill_step(full)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, full.vocab, size=(1, PREFILL_SEQ)), device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches == {**no_launch, "flash_attention": full.n_layers},
+          f"32k prefill launches {launches}, want {full.n_layers} flash launches")
+    check(logits.shape == (1, vp) and bool(torch.isfinite(logits).all()), "32k prefill logits")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    emit({
+        "phase": "lm", "part": "prefill_32k", "arch": full.name, "n_layers": full.n_layers,
+        "params": n_params, "param_bytes_f32": n_params * 4, "init_s": init_s,
+        "batch_seq": [1, PREFILL_SEQ], "cut": "global batch 32 of prefill_32k cut to 1",
+        "first_call_ms": first_s * 1e3, "ms": steady_s * 1e3,
+        "tokens_per_s": PREFILL_SEQ / steady_s, "max_memory_allocated": peak,
+        "launches": launches, "logit_scale": float(logits.float().abs().max()),
+    })
+
+    # prefill (the kernel) against sequential decode (plain einsum), 40 layers
+    prompt = torch.as_tensor(rng.integers(0, full.vocab, size=(1, 5)), device=dev)
+    want = lm_prefill(params, full, prompt)
+    cache = init_decode_cache(full, 1, 8, dev)
+    for s in range(5):
+        got, cache = lm_decode_step(params, full, cache, prompt[:, s : s + 1])
+    got = got[:, 0]
+    depth_ulps = logit_ulps(got, want)
+    same, bad, margin = argmax_rows(got, want, DEPTH_LOGIT_ULPS)
+    check(depth_ulps <= DEPTH_LOGIT_ULPS, f"prefill vs decode: {depth_ulps} ulps")
+    check(bad == 0, f"prefill vs decode: argmax differs at top-2 margin {margin}")
+    emit({"phase": "lm", "part": "prefill_vs_decode", "prompt_len": 5,
+          "logit_ulps": depth_ulps, "tol_ulps": DEPTH_LOGIT_ULPS, "argmax_same": bool(same),
+          "top2_margin": margin})
+    del cache, got, want
+
+    # the serving engine with the launcher's defaults
+    def requests():
+        return [Request(prompt=[(r * 7 + i) % full.vocab for i in range(5)], max_new_tokens=12)
+                for r in range(6)]
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(params, full, batch_size=4, max_len=128, device=dev)
+        for r in requests():
+            engine.submit(r)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        engine_launches = ops.launch_counts()
+        check(engine_launches == no_launch, f"serving launched kernels: {engine_launches}")
+        check(len(done) == 6 and all(r.done and len(r.generated) == 12 for r in done),
+              "serving: not every request done with 12 tokens")
+        runs.append({"tokens": [r.generated for r in done], "wall_s": wall, "steps": engine.steps,
+                     "peak": torch.cuda.max_memory_allocated()})
+        del engine
+    check(runs[0]["tokens"] == runs[1]["tokens"], "serving: a second engine gave other tokens")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launched = serve_launcher.main(["--arch", full.name, "--device", str(dev)])
+    check([r.generated for r in launched] == runs[0]["tokens"],
+          "the launcher's tokens differ from the engine's (same seed, same card)")
+    total = sum(len(t) for t in runs[0]["tokens"])
+    emit({
+        "phase": "lm", "part": "serve", "requests": 6, "batch": 4, "new_tokens": 12,
+        "max_len": 128, "steps": runs[0]["steps"], "tokens": total,
+        "wall_s": [r["wall_s"] for r in runs],
+        "ms_per_step": [r["wall_s"] / r["steps"] * 1e3 for r in runs],
+        "tokens_per_s": [total / r["wall_s"] for r in runs],
+        "max_memory_allocated": [r["peak"] for r in runs], "launches": no_launch,
+        "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
+    })
+    return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
 def main() -> int:
     import torch
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -240,6 +512,7 @@ def main() -> int:
     from repro_torch.compressors.select import randseqk_window_mask, rank_keys
     from repro_torch.core.fednl import fednl_init, make_fednl_round
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels.compressor_select import (
         keys_in_shared_memory,
         select_randseqk_cuda,
@@ -255,6 +528,7 @@ def main() -> int:
         hessian_syrk_packed_plain,
     )
     from repro_torch.linalg import triu_size
+    from repro_torch.models import cast_for_compute, init_decode_cache, lm_decode_step
     from repro_torch.objectives.logreg import logreg_oracles_packed
 
     dev = torch.device("cuda")
@@ -420,6 +694,8 @@ def main() -> int:
         },
     })
     del state0, state1, delta0, h_plain
+    flash_report, flash_err = check_flash(dev, tfa)
+    emit({"phase": "kernels", "flash_attention": flash_report})
 
     # --- 4 the main paths, the launch counts set to 0 before each ---------
     def main_path(label: str, path_spec, selector: str, cpu_rounds: int = 3):
@@ -470,7 +746,10 @@ def main() -> int:
         "w8a randseqk option B hess0=exact rounds=30", randseqk_spec, "select_randseqk")
     check(rep_rs.rounds == 30, f"RandSeqK ran {rep_rs.rounds} rounds")
 
-    # --- 5 times at w8a shapes ------------------------------------------------
+    # --- 5 the LM path: granite-3-2b, the launch counts set to 0 before each -
+    lm = lm_phase(dev, ops)
+
+    # --- 6 times at the main paths' shapes -------------------------------------
     zs = hw[..., None] * z
     keys = rank_keys(delta1)
     syrk_ms = median_ms({
@@ -497,6 +776,24 @@ def main() -> int:
         "plain": lambda: select_toplek_plain(delta1, k, unif_round),
         "ranking_only": lambda: torch.topk(keys, k, dim=-1),
     })
+    fq, fk, fv = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, 32, 8, 64, torch.bfloat16, 100)
+    qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk, fv))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        flash_ms = median_ms({
+            "kernel": lambda: tfa.flash_attention_cuda(fq, fk, fv, causal=True),
+            "plain": lambda: tfa.flash_attention_plain(fq, fk, fv, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+        }, reps=FLASH_TIMED_REPS, calls=1)
+    # the (query, key) pairs that the causal mask leaves visible, over the heads
+    visible = PREFILL_SEQ * (PREFILL_SEQ + 1) // 2 * fq.shape[2]
+    product_flops = 2 * fq.shape[3] * visible  # QK^T, and again P.V
+    flash_bytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
+    flash_ops_ms = (product_flops / BF16_TENSOR_FLOPS + product_flops / CUDA_CORE_32BIT_OPS) * 1e3
+    flash_bytes_ms = flash_bytes / HBM_BYTES_PER_S * 1e3
+    flash_bound = ((flash_ops_ms, "operations") if flash_ops_ms >= flash_bytes_ms
+                   else (flash_bytes_ms, "bytes"))
+    del fq, fk, fv, qt, kt, vt
     syrk_bound = bound(
         (z.numel() + hw.numel() + h_kernel.numel()) * 8,
         2 * n_i * t_len * n_clients,
@@ -526,14 +823,40 @@ def main() -> int:
                   "randseqk library = torch.where on a precomputed window mask; "
                   "toplek has no library call: ranking_only = torch.topk on the "
                   "f32 keys, the ranking part only"})
+    emit({"phase": "times", "flash_attention": flash_ms,
+          "shape": [1, PREFILL_SEQ, 32, 8, 64], "causal": True, "dtype": "bfloat16",
+          "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
+          "bound_parts_ms": {"qk_bf16_tensor": product_flops / BF16_TENSOR_FLOPS * 1e3,
+                             "pv_f32": product_flops / CUDA_CORE_32BIT_OPS * 1e3,
+                             "bytes": flash_bytes_ms},
+          "all_bf16_bound_ms": 2 * product_flops / BF16_TENSOR_FLOPS * 1e3,
+          "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one call, "
+                  "the three in turns; library = F.scaled_dot_product_attention(is_causal, "
+                  "enable_gqa) on the flash or memory-efficient backend, which rounds p to "
+                  "bf16 for P.V: the same function at lower precision"})
 
-    # --- 6 where a round's time goes (torch.profiler, 3 rounds), host draws ---
+    # --- 7 where the time goes (torch.profiler): 3 rounds, one 32k prefill ---
     emit({"phase": "trace", "path": "topk",
           **trace_rounds(make_fednl_round(z, cfg), fednl_init(z, cfg), 3)})
     toplek_cfg = toplek_spec.fednl_config()
     emit({"phase": "trace", "path": "toplek",
           **trace_rounds(make_fednl_round(z, toplek_cfg), fednl_init(z, toplek_cfg), 3)})
     emit({"phase": "draws", **host_draw_ms(prng, upload_draws, n_clients, t_len, dev)})
+    emit({"phase": "trace", "path": "granite-3-2b prefill_32k (B=1)",
+          **trace(lambda: lm["prefill"](lm["params"], lm["batch"]), 1, "prefill")})
+    serve_params = cast_for_compute(lm["params"])  # as the ServeEngine holds them
+    decode = {"cache": init_decode_cache(lm["cfg"], 4, 128, dev)}
+    step_tokens = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+
+    def decode_step():
+        _, decode["cache"] = lm_decode_step(serve_params, lm["cfg"], decode["cache"], step_tokens)
+
+    decode_step()  # warm-up
+    emit({"phase": "trace", "path": "granite-3-2b decode step (B=4, max_len 128)",
+          **trace(decode_step, 8, "step")})
+    del serve_params, decode
+    flash_launches = lm["launches"]["flash_attention"]
+    del lm
 
     kernels = [
         {
@@ -571,6 +894,15 @@ def main() -> int:
             "ms": toplek_ms["kernel"], "plain_ms": toplek_ms["plain"],
             "bound_ms": toplek_bound[0], "bound_by": toplek_bound[1],
             "library_ms": None,
+        },
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:95",
+            "launches": flash_launches, "max_abs_err": flash_err,
+            "ms": flash_ms["kernel"], "plain_ms": flash_ms["plain"],
+            "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
+            "library_ms": flash_ms["library"],
         },
     ]
     emit({"kernels": kernels})

@@ -1,4 +1,5 @@
-"""Public kernel entry points of the round (port of ``repro.kernels.ops``).
+"""Public kernel entry points: FedNL's round and the LM zoo's attention
+(port of ``repro.kernels.ops``).
 
 Each routes on the device of its input, and on nothing else: a CPU tensor
 goes to the kernel's plain PyTorch version, a CUDA tensor launches the CUDA
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import compressor_select, hessian_syrk
+from repro_torch.kernels import flash_attention as flash_attention_mod
 
 
 def _route(name: str, t: torch.Tensor) -> bool:
@@ -57,11 +59,46 @@ def select_toplek(
     return compressor_select.select_toplek_plain(u, k, unif)
 
 
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Batched GQA flash attention, the models' entry: q (B, Sq, H, dh), k and
+    v (B, Sk, Kv, dh) -> (B, Sq, H, dh)."""
+    if _route("flash_attention", q):
+        return flash_attention_mod.flash_attention_cuda(
+            q, k, v, causal=causal, window=window, scale=scale)
+    return flash_attention_mod.flash_attention_plain(
+        q, k, v, causal=causal, window=window, scale=scale)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Flash attention in the reference's (seq, heads, head_dim) layout, one
+    batch row, as ``repro.kernels.ops.flash_attention``.  The reference pads
+    seq to block multiples and masks keys past ``kv_len``; here the kernel
+    bounds-checks, so nothing is padded and any Sq, Sk is taken."""
+    return attention(q[None], k[None], v[None], causal=causal, window=window, scale=scale)[0]
+
+
 KERNELS = {
     "hessian_syrk_packed": hessian_syrk.hessian_syrk_packed_cuda,
     "select_topk": compressor_select.select_topk_cuda,
     "select_randseqk": compressor_select.select_randseqk_cuda,
     "select_toplek": compressor_select.select_toplek_cuda,
+    "flash_attention": flash_attention_mod.flash_attention_cuda,
 }
 
 

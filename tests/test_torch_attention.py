@@ -1,0 +1,334 @@
+"""The port's attention and layers against the JAX package (CPU), and the
+flash kernel against its plain version (``cuda`` marker, on a card).
+
+Tolerances:
+  * flash, f32: atol 2e-5, the JAX package's own bound between its Pallas
+    kernel and the dense reference (tests/test_kernels.py);
+  * every bf16 comparison counts bf16 ulps per element, the ulp taken at
+    the larger magnitude of the pair and at no less than
+    ``BF16_ULP_FLOOR`` = 2**-14 (``bf16_ulps``): both sides compute in f32
+    and round once, so two f32 results a few f32 ulps apart may round to
+    neighbouring bf16 values, and near 0 the two f32 sums' own rounding
+    (~1e-7 absolute) exceeds a bf16 ulp of the output;
+  * flash and chunked attention, bf16: one ulp, on the CPU and on the card;
+  * rope, rms_norm: f32 rtol/atol 1e-6 (cos, sin, rsqrt may differ by one
+    f32 ulp between XLA and PyTorch); bf16 one ulp;
+  * mlp_apply in f32: rtol 1e-5 (matrix products summed in another order);
+    in bf16 two ulps of the output's largest magnitude (XLA rounds the fused
+    activation once, PyTorch after each op);
+  * decode_attention, bf16: one bf16 ulp.
+
+The JAX reference is imported inside a fixture; whether a card is present is
+decided inside a fixture too.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import layers as tl
+
+# tests/test_kernels.py's six flash shapes: (sq, sk, heads, dh, causal, window)
+FLASH_SHAPES = [
+    (128, 128, 2, 64, True, None),
+    (256, 256, 4, 64, True, 64),
+    (200, 200, 2, 32, True, None),  # padded seq
+    (96, 96, 1, 16, False, None),  # bidirectional + padding
+    (256, 256, 2, 64, False, 128),
+    (64, 256, 1, 32, False, None),  # cross-attention shape
+]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+    from repro.kernels.ref import flash_attention_ref
+    from repro.models import layers as jl
+
+    return types.SimpleNamespace(jnp=jnp, ops=jops, layers=jl, flash_ref=flash_attention_ref)
+
+
+@pytest.fixture
+def cuda():
+    """The first CUDA device; skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _normal(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _to_np(a):
+    return np.asarray(a.astype("float32")) if hasattr(a, "astype") else np.asarray(a)
+
+
+def _bf16_pair(ref, x):
+    """x rounded to bf16 in both frameworks (the same values)."""
+    t = torch.as_tensor(x).to(torch.bfloat16)
+    return t, ref.jnp.asarray(t.float().numpy()).astype(ref.jnp.bfloat16)
+
+
+def _ulps(got: torch.Tensor, want: np.ndarray, floor: float = tfa.BF16_ULP_FLOOR) -> float:
+    return float(tfa.bf16_ulps(got, torch.as_tensor(np.array(want)), floor).max())
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version against the Pallas kernel (interpret)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sq,sk,hn,dh,causal,window", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_f32(ref, sq, sk, hn, dh, causal, window):
+    q, k, v = (_normal(s, sq + sk + i) for i, s in enumerate([(sq, hn, dh), (sk, hn, dh), (sk, hn, dh)]))
+    want = ref.ops.flash_attention(
+        ref.jnp.asarray(q), ref.jnp.asarray(k), ref.jnp.asarray(v), causal=causal,
+        window=window, block_q=64, block_k=64, interpret=True)
+    got = tops.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                               causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (sq, hn, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("sq,sk,hn,dh,causal,window", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_bf16(ref, sq, sk, hn, dh, causal, window):
+    q, k, v = (_normal(s, 7 * sq + sk + i) for i, s in enumerate([(sq, hn, dh), (sk, hn, dh), (sk, hn, dh)]))
+    (qt, qj), (kt, kj), (vt, vj) = (_bf16_pair(ref, x) for x in (q, k, v))
+    want = ref.ops.flash_attention(qj, kj, vj, causal=causal, window=window,
+                                   block_q=64, block_k=64, interpret=True)
+    got = tops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _ulps(got, _to_np(want)) <= 1.0
+
+
+@pytest.mark.parametrize("sq,sk,hn,dh,causal,window", FLASH_SHAPES)
+def test_port_dense_ref_matches_jax_ref(ref, sq, sk, hn, dh, causal, window):
+    q, k, v = (_normal(s, sq + 3 * sk + i) for i, s in enumerate([(sq, hn, dh), (sk, hn, dh), (sk, hn, dh)]))
+    want = ref.flash_ref(ref.jnp.asarray(q), ref.jnp.asarray(k), ref.jnp.asarray(v),
+                         causal=causal, window=window)
+    got = tref.flash_attention_ref(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                                   causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    plain = tfa.flash_attention_plain(torch.as_tensor(q)[None], torch.as_tensor(k)[None],
+                                      torch.as_tensor(v)[None], causal=causal, window=window,
+                                      q_chunk=48)
+    np.testing.assert_allclose(plain[0].numpy(), got.numpy(), atol=2e-5, rtol=0)
+
+
+def test_flash_plain_gqa_equals_repeated_heads():
+    """GQA in the plain version reads kv head h // (H // Kv): the same as
+    repeating each kv head H // Kv times."""
+    q, k, v = (torch.as_tensor(_normal(s, 11 + i)) for i, s in
+               enumerate([(2, 70, 8, 32), (2, 70, 2, 32), (2, 70, 2, 32)]))
+    got = tfa.flash_attention_plain(q, k, v, causal=True, window=20, q_chunk=32)
+    want = tfa.flash_attention_plain(q, tl._repeat_kv(k, 4), tl._repeat_kv(v, 4),
+                                     causal=True, window=20, q_chunk=32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def test_flash_plain_fully_masked_rows_are_zero():
+    """Queries past Sk with a window see no key: 0, as the kernel writes."""
+    q = torch.as_tensor(_normal((1, 12, 2, 16), 3))
+    k, v = (torch.as_tensor(_normal((1, 4, 2, 16), s)) for s in (4, 5))
+    out = tfa.flash_attention_plain(q, k, v, causal=True, window=3)
+    assert torch.equal(out[:, 6:], torch.zeros_like(out[:, 6:]))
+    assert bool((out[:, :6].abs().sum(-1) > 0).all())
+
+
+def test_bf16_ulps_counts_spacing():
+    one = torch.tensor([1.0, 1.0, 0.5, 3.0, 0.0])
+    nxt = torch.tensor([1.0 + 2**-7, 1.0 - 2**-8, 0.5 + 2**-8, 3.0 + 2**-5, 0.0])
+    assert tfa.bf16_ulps(nxt, one).tolist() == [1.0, 0.5, 1.0, 2.0, 0.0]
+    assert tfa.bf16_ulps(torch.tensor([2**-20]), torch.tensor([0.0]), floor=2**-12).item() == 2**-20 / 2**-19
+
+
+# ---------------------------------------------------------------------------
+# chunked attention (the models' entry) against the reference's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "b,s,h,kv,dh,window,q_chunk",
+    [
+        (2, 64, 4, 2, 32, None, 16),
+        (2, 96, 4, 2, 32, 24, 32),
+        (1, 80, 4, 4, 16, 33, 32),  # q_chunk does not divide S: one chunk
+        (2, 128, 4, 1, 32, 100, 32),  # window wider than a chunk
+    ],
+)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_attention_matches_reference(ref, b, s, h, kv, dh, window, q_chunk, dtype):
+    q, k, v = (_normal(sh, s + h + i) for i, sh in enumerate([(b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)]))
+    if dtype == "float32":
+        pairs = [(torch.as_tensor(x), ref.jnp.asarray(x)) for x in (q, k, v)]
+    else:
+        pairs = [_bf16_pair(ref, x) for x in (q, k, v)]
+    (qt, qj), (kt, kj), (vt, vj) = pairs
+    want = ref.layers.chunked_attention(qj, kj, vj, causal=True, window=window, q_chunk=q_chunk)
+    got = tl.chunked_attention(qt, kt, vt, causal=True, window=window, q_chunk=q_chunk)
+    assert got.dtype == qt.dtype and got.shape == (b, s, h, dh)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    else:
+        assert _ulps(got, _to_np(want)) <= 1.0
+    # the kernel's plain version computes the same function on this causal path
+    plain = tops.attention(qt, kt, vt, causal=True, window=window)
+    if dtype == "float32":
+        np.testing.assert_allclose(plain.numpy(), got.numpy(), atol=2e-5, rtol=0)
+    else:
+        assert float(tfa.bf16_ulps(plain, got, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+
+
+def test_chunked_attention_noncausal_matches_reference(ref):
+    q, k, v = (_normal((1, 48, 2, 16), 40 + i) for i in range(3))
+    want = ref.layers.chunked_attention(*(ref.jnp.asarray(x) for x in (q, k, v)),
+                                        causal=False, q_chunk=16)
+    got = tl.chunked_attention(*(torch.as_tensor(x) for x in (q, k, v)), causal=False, q_chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+@pytest.mark.parametrize("pos_ndim", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_matches_reference(ref, fraction, pos_ndim, dtype):
+    x = _normal((2, 40, 3, 32), 1) * 3
+    pos = np.arange(40) * 37 + 5
+    if pos_ndim == 2:
+        pos = np.stack([pos, pos[::-1] + 1])
+    if dtype == "float32":
+        xt, xj = torch.as_tensor(x), ref.jnp.asarray(x)
+    else:
+        xt, xj = _bf16_pair(ref, x)
+    want = ref.layers.rope(xj, ref.jnp.asarray(pos, dtype=ref.jnp.int32), fraction, 10000.0)
+    got = tl.rope(xt, torch.as_tensor(pos, dtype=torch.int32), fraction, 10000.0)
+    assert got.dtype == xt.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    else:
+        assert _ulps(got, _to_np(want)) <= 1.0
+    if fraction == 0.5:  # the second half of the head passes through
+        assert torch.equal(got[..., 16:], xt[..., 16:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_matches_reference(ref, dtype):
+    x = _normal((2, 5, 64), 2) * 4
+    scale = _normal((64,), 3) * 0.1  # "1 + scale": zero-initialised scales are the identity
+    xt, xj = (torch.as_tensor(x), ref.jnp.asarray(x)) if dtype == "float32" else _bf16_pair(ref, x)
+    want = ref.layers.rms_norm(xj, ref.jnp.asarray(scale), 1e-6)
+    got = tl.rms_norm(xt, torch.as_tensor(scale), 1e-6)
+    assert got.dtype == xt.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    else:
+        assert _ulps(got, _to_np(want)) <= 1.0
+
+
+@pytest.mark.parametrize("activation", ["silu_glu", "sq_relu", "gelu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_apply_matches_reference(ref, activation, dtype):
+    d, f = 64, 96
+    x = _normal((2, 6, d), 4)
+    p = {"w1": _normal((d, f), 5) / 8, "w2": _normal((f, d), 6) / 10}
+    if activation == "silu_glu":
+        p["w1g"] = _normal((d, f), 7) / 8
+    xt, xj = (torch.as_tensor(x), ref.jnp.asarray(x)) if dtype == "float32" else _bf16_pair(ref, x)
+    want = _to_np(ref.layers.mlp_apply(xj, {k: ref.jnp.asarray(w) for k, w in p.items()}, activation))
+    got = tl.mlp_apply(xt, {k: torch.as_tensor(w) for k, w in p.items()}, activation)
+    assert got.dtype == xt.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    else:
+        assert _ulps(got, want, floor=float(np.abs(want).max())) <= 2.0
+
+
+@pytest.mark.parametrize("cur_len,ring", [(1, False), (7, False), (12, True), (5, True)])
+def test_decode_attention_matches_reference(ref, cur_len, ring):
+    q, kc, vc = (_normal(s, 20 + i) for i, s in enumerate([(2, 1, 4, 32), (2, 9, 2, 32), (2, 9, 2, 32)]))
+    (qt, qj), (kt, kj), (vt, vj) = (_bf16_pair(ref, x) for x in (q, kc, vc))
+    want = ref.layers.decode_attention(qj, kj, vj, ref.jnp.asarray(cur_len), ring=ring)
+    got = tl.decode_attention(qt, kt, vt, cur_len, ring=ring)
+    assert got.dtype == torch.bfloat16
+    assert _ulps(got, _to_np(want)) <= 1.0
+
+
+def test_cross_entropy_matches_reference(ref):
+    logits = _normal((2, 7, 50), 8) * 3
+    labels = np.random.default_rng(9).integers(-1, 50, size=(2, 7))
+    want = float(ref.layers.cross_entropy(ref.jnp.asarray(logits), ref.jnp.asarray(labels)))
+    got = float(tl.cross_entropy(torch.as_tensor(logits), torch.as_tensor(labels)))
+    assert abs(got - want) <= 1e-6 * abs(want)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper here, and the kernel on a card
+# ---------------------------------------------------------------------------
+
+def test_flash_cuda_wrapper_refuses_before_building():
+    q = torch.zeros(1, 8, 2, 64)
+    before = tops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(q, q, q)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tfa.flash_attention_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="divide"):
+        tfa.flash_attention_cuda(torch.zeros(1, 8, 3, 64), q, q)
+    assert tops.launch_counts()["flash_attention"] == before
+
+
+def _card_case(cuda, b, sq, sk, h, kv, dh, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,dh,causal,window",
+    [(1, sq, sk, hn, hn, dh, causal, window) for sq, sk, hn, dh, causal, window in FLASH_SHAPES]
+    + [
+        (3, 300, 300, 4, 2, 64, True, None),  # B > 1, GQA
+        (1, 1024, 1024, 32, 8, 64, True, None),  # granite's heads
+        (2, 777, 777, 8, 2, 128, True, 200),  # window, padding, dh 128
+        (1, 5, 5, 32, 8, 64, True, None),  # a 5-token prompt
+        (2, 64, 256, 4, 4, 32, False, None),  # Sq != Sk
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_matches_plain_cuda(cuda, b, sq, sk, h, kv, dh, causal, window, dtype):
+    q, k, v = _card_case(cuda, b, sq, sk, h, kv, dh, dtype, sq + sk + dh)
+    before = tfa.flash_attention_cuda.launches
+    got = tops.attention(q, k, v, causal=causal, window=window)
+    assert tfa.flash_attention_cuda.launches == before + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_chunked_attention_on_card_is_one_launch(cuda):
+    q, k, v = _card_case(cuda, 2, 96, 96, 4, 2, 32, torch.bfloat16, 5)
+    before = tfa.flash_attention_cuda.launches
+    got = tl.chunked_attention(q, k, v, causal=True, window=40, q_chunk=32)
+    assert tfa.flash_attention_cuda.launches == before + 1
+    want = tl.chunked_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=40, q_chunk=32)
+    assert float(tfa.bf16_ulps(got.cpu(), want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+    with pytest.raises(NotImplementedError):
+        tl.chunked_attention(q, k, v, causal=False, window=40)

@@ -353,7 +353,10 @@ def test_toplek_kept_is_an_ordered_topk_prefix():
 # routing and wrapper checks (CPU)
 # ---------------------------------------------------------------------------
 
-NO_LAUNCHES = {"hessian_syrk_packed": 0, "select_topk": 0, "select_randseqk": 0, "select_toplek": 0}
+NO_LAUNCHES = {
+    "hessian_syrk_packed": 0, "select_topk": 0, "select_randseqk": 0, "select_toplek": 0,
+    "flash_attention": 0,
+}
 
 
 def test_ops_route_cpu_tensors_to_plain_versions():
