@@ -22,8 +22,9 @@ raises, and the script exits non-zero without the final line.
              (counted; none allowed on the dyadic fixture); flash attention
              within one bf16 ulp (the ulp taken at no less than 2**-14) at
              granite's 32k layer shape, B = 4, a 4096 window, S = 1000, a
-             5-token prompt, non-causal 64 x 256 and dh = 128, and within 2e-5
-             in f32
+             5-token prompt, non-causal 64 x 256 and dh = 128 (the wgmma
+             route) and bf16 at dh = 32 (the SIMT route), and within 2e-5 in
+             f32 (the SIMT route); each fixture's route checked
   4 main     repro_torch.api.solve on w8a (Option B, hess0="exact") on the
              card, three paths, the launch counts set to 0 before each and
              read after it: TopK and TopLEK (tol 1e-12, <= 50 rounds), RandSeqK
@@ -35,14 +36,17 @@ raises, and the script exits non-zero without the final line.
              decode steps, within LOGIT_ULPS bf16 ulps of the logit scale;
              then 40 layers from seed 0 on the card: make_prefill_step at
              B = 1, S = 32,768 (the repo's prefill_32k shape, its global batch
-             of 32 cut to 1), exactly 40 flash launches; lm_prefill of a
+             of 32 cut to 1), exactly 40 flash launches, all on the wgmma
+             route; lm_prefill of a
              5-token prompt against 5 decode steps; ServeEngine with the
              launcher's defaults (6 requests, batch 4, 12 new tokens,
              max_len 128), no kernel launch, the same tokens on a second
              engine and from the launcher
   6 times    CUDA-event medians of each kernel, its plain version and its
              library yardstick at the main paths' shapes, beside the card's
-             least time
+             least time: bytes, or the operations the function needs (flash:
+             QK^T and three bf16 P.V products over the visible pairs on the
+             bf16 tensor cores)
   7 trace    torch.profiler over 3 rounds of the TopK and of the TopLEK path
              and over one 32k prefill: device time by kernel and the device's
              busy share of the wall time; the host's ms per round for the key
@@ -74,6 +78,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_TENSOR_FLOPS = 67e12  # FP64 on the tensor cores
 CUDA_CORE_32BIT_OPS = 67e12  # 32-bit ops outside the tensor cores
 BF16_TENSOR_FLOPS = 989e12  # bf16 on the tensor cores
+# exp2 on the MUFU pipe: 16 results per SM per clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0), 132 SMs at
+# the 1,980 MHz boost clock of the H100 SXM
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
+# the integer work TopK's function needs per key: the f32 key, four radix
+# passes of a digit, a compare and a count, and the final compare
+SELECT_OPS_PER_KEY = 14
 
 SYRK_TOL = 1e-13  # of max(|Z|^T |h| |Z|): FP64 sums of n_i = 348 terms, any order
 TRAJECTORY_RTOL = 1e-8  # card vs CPU grad norms over the first 3 rounds
@@ -291,19 +302,24 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         "prompt_sq5": (1, 5, 5, 32, 8, 64, True, None, bf16),
         "noncausal_64x256": (1, 64, 256, 32, 8, 64, False, None, bf16),
         "dh128_window200": (2, 777, 777, 8, 2, 128, True, 200, bf16),
+        "dh32_simt_route": (2, 1000, 1000, 8, 2, 32, True, 300, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
     }
     report, max_err = {}, 0.0
     for seed, (name, (b, sq, sk, h, kv, dh, causal, window, dtype)) in enumerate(cases.items()):
         q, k, v = flash_inputs(dev, b, sq, sk, h, kv, dh, dtype, 100 + seed)
+        routes = dict(tfa.flash_attention_cuda.route_launches)
         got = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        route = tfa.flash_route(dtype, dh)
+        routes[route] += 1
+        check(tfa.flash_attention_cuda.route_launches == routes, f"flash {name}: not one {route} launch")
         want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         check(got.shape == q.shape and got.dtype == dtype, f"flash {name}: {got.shape} {got.dtype}")
         check(bool(torch.isfinite(got).all()), f"flash {name}: output not finite")
         err = float((got.float() - want.float()).abs().max())
         row = {"shape": [b, sq, sk, h, kv, dh], "causal": causal, "window": window,
-               "dtype": str(dtype), "max_abs_err": err}
+               "dtype": str(dtype), "route": route, "max_abs_err": err}
         if dtype == f32:
             check(err <= FLASH_F32_ATOL, f"flash {name}: f32 error {err} > {FLASH_F32_ATOL}")
         else:
@@ -415,8 +431,11 @@ def lm_phase(dev, ops) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = dict(ops.flash_attention_mod.flash_attention_cuda.route_launches)
     check(launches == {**no_launch, "flash_attention": full.n_layers},
           f"32k prefill launches {launches}, want {full.n_layers} flash launches")
+    check(routes == {"wgmma": full.n_layers, "simt": 0},
+          f"32k prefill flash routes {routes}, want all {full.n_layers} on wgmma")
     check(logits.shape == (1, vp) and bool(torch.isfinite(logits).all()), "32k prefill logits")
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
@@ -429,7 +448,8 @@ def lm_phase(dev, ops) -> dict:
         "batch_seq": [1, PREFILL_SEQ], "cut": "global batch 32 of prefill_32k cut to 1",
         "first_call_ms": first_s * 1e3, "ms": steady_s * 1e3,
         "tokens_per_s": PREFILL_SEQ / steady_s, "max_memory_allocated": peak,
-        "launches": launches, "logit_scale": float(logits.float().abs().max()),
+        "launches": launches, "flash_routes": routes,
+        "logit_scale": float(logits.float().abs().max()),
     })
 
     # prefill (the kernel) against sequential decode (plain einsum), 40 layers
@@ -488,7 +508,8 @@ def lm_phase(dev, ops) -> dict:
         "max_memory_allocated": [r["peak"] for r in runs], "launches": no_launch,
         "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
     })
-    return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches}
+    return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches,
+            "flash_routes": routes}
 
 
 def _leaves(tree):
@@ -786,13 +807,19 @@ def main() -> int:
                 qt, kt, vt, is_causal=True, enable_gqa=True),
         }, reps=FLASH_TIMED_REPS, calls=1)
     # the (query, key) pairs that the causal mask leaves visible, over the heads
-    visible = PREFILL_SEQ * (PREFILL_SEQ + 1) // 2 * fq.shape[2]
-    product_flops = 2 * fq.shape[3] * visible  # QK^T, and again P.V
+    visible = tfa.visible_pairs(PREFILL_SEQ, PREFILL_SEQ, True, None) * fq.shape[2]
+    product_flops = 2 * fq.shape[3] * visible  # QK^T, and again each P.V product
     flash_bytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
-    flash_ops_ms = (product_flops / BF16_TENSOR_FLOPS + product_flops / CUDA_CORE_32BIT_OPS) * 1e3
-    flash_bytes_ms = flash_bytes / HBM_BYTES_PER_S * 1e3
-    flash_bound = ((flash_ops_ms, "operations") if flash_ops_ms >= flash_bytes_ms
-                   else (flash_bytes_ms, "bytes"))
+    flash_parts = {  # ms
+        "qk_bf16_tensor": product_flops / BF16_TENSOR_FLOPS * 1e3,
+        "pv_three_bf16_products_tensor": 3 * product_flops / BF16_TENSOR_FLOPS * 1e3,
+        "bytes": flash_bytes / HBM_BYTES_PER_S * 1e3,
+        "exp_mufu": visible / MUFU_EXP_PER_S * 1e3,
+        "f32_pipe_pv_reckoning": (product_flops / BF16_TENSOR_FLOPS
+                                  + product_flops / CUDA_CORE_32BIT_OPS) * 1e3,
+        "all_bf16_p_rounded": 2 * product_flops / BF16_TENSOR_FLOPS * 1e3,
+    }
+    flash_bound = bound(flash_bytes, 4 * product_flops, BF16_TENSOR_FLOPS)
     del fq, fk, fv, qt, kt, vt
     syrk_bound = bound(
         (z.numel() + hw.numel() + h_kernel.numel()) * 8,
@@ -800,8 +827,8 @@ def main() -> int:
         FP64_TENSOR_FLOPS,
     )
     topk_bound = bound(
-        delta1.numel() * 8 * 2 + n_clients * 4,
-        2 * 33 * delta1.numel(),  # compare + count per key, 31 search + 2 final passes
+        delta1.numel() * 8 * 2 + n_clients * 4,  # u read, u_hat written, sent
+        SELECT_OPS_PER_KEY * delta1.numel(),
         CUDA_CORE_32BIT_OPS,
     )
     randseqk_bound = bound(
@@ -813,7 +840,7 @@ def main() -> int:
     sort_stages = p2.bit_length() * (p2.bit_length() - 1) // 2
     toplek_bound = bound(
         delta1.numel() * 8 * 2 + n_clients * (8 + 4),  # u read, u_hat written, unif, sent
-        2 * 33 * delta1.numel() + n_clients * (p2 // 2) * sort_stages * 2,
+        SELECT_OPS_PER_KEY * delta1.numel() + n_clients * (p2 // 2) * sort_stages * 2,
         CUDA_CORE_32BIT_OPS,
     )
     emit({"phase": "times", "hessian_syrk_packed": syrk_ms, "select_topk": topk_ms,
@@ -825,15 +852,14 @@ def main() -> int:
                   "f32 keys, the ranking part only"})
     emit({"phase": "times", "flash_attention": flash_ms,
           "shape": [1, PREFILL_SEQ, 32, 8, 64], "causal": True, "dtype": "bfloat16",
+          "route": tfa.flash_route(torch.bfloat16, 64),
           "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
-          "bound_parts_ms": {"qk_bf16_tensor": product_flops / BF16_TENSOR_FLOPS * 1e3,
-                             "pv_f32": product_flops / CUDA_CORE_32BIT_OPS * 1e3,
-                             "bytes": flash_bytes_ms},
-          "all_bf16_bound_ms": 2 * product_flops / BF16_TENSOR_FLOPS * 1e3,
+          "bound_parts_ms": flash_parts, "visible_pairs": visible,
           "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one call, "
-                  "the three in turns; library = F.scaled_dot_product_attention(is_causal, "
-                  "enable_gqa) on the flash or memory-efficient backend, which rounds p to "
-                  "bf16 for P.V: the same function at lower precision"})
+                  "the three in turns; bound = (QK^T + 3 P.V bf16 products) at 989 TFLOP/s; "
+                  "library = F.scaled_dot_product_attention(is_causal, enable_gqa) on the "
+                  "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
+                  "same function at lower precision"})
 
     # --- 7 where the time goes (torch.profiler): 3 rounds, one 32k prefill ---
     emit({"phase": "trace", "path": "topk",
@@ -856,6 +882,7 @@ def main() -> int:
           **trace(decode_step, 8, "step")})
     del serve_params, decode
     flash_launches = lm["launches"]["flash_attention"]
+    flash_routes = lm["flash_routes"]
     del lm
 
     kernels = [
@@ -899,6 +926,9 @@ def main() -> int:
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
+            "kernels": {"wgmma": "flash_fwd_wgmma_kernel (bf16, head_dim 64 and 128)",
+                        "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16 and 32)"},
+            "prefill_32k_routes": flash_routes,
             "launches": flash_launches, "max_abs_err": flash_err,
             "ms": flash_ms["kernel"], "plain_ms": flash_ms["plain"],
             "bound_ms": flash_bound[0], "bound_by": flash_bound[1],

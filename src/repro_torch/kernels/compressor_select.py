@@ -82,23 +82,34 @@ def _stream(device: torch.device) -> int:
 #
 # What bounds it on an H100: bytes.  At w8a (142 clients, T = 45451,
 # k = 2408) it must read u and write u_hat once, 103.3 MB, about 31 us at
-# 3.35 TB/s; its integer work (a compare and a count per key in 33 passes
-# over 6.45 M keys, 426 M operations) takes 6.4 us at the 67 T/s 32-bit rate
-# outside the tensor cores.
+# 3.35 TB/s.  The work the function needs is small beside that: a key per
+# entry, four histogram passes of a radix select and one compare, some
+# 14 operations per key (90 M, 1.3 us at the 67 T/s 32-bit rate outside the
+# tensor cores).
 #
 # What the design does about it: u is read from device memory once into f32
 # keys that stay on chip -- one block of 1024 threads per client holds its
-# T * 4 bytes of keys (181.8 KB at w8a) in dynamic shared memory, so the 31
-# search steps and the tie pass never touch device memory -- and u_hat is
-# written once, in index order, coalesced.  The kernel reads u a second time
-# for the output values (from L2 when the client's 363 KB is still there).
-# Each search step is one block-wide count; the tie split is an exact
-# block-wide exclusive scan (ballot + popc inside a warp, a scan over the 32
-# warp totals across warps) carried from tile to tile in index order, so the
-# set is exactly the lowest-index tie-break of ``lax.top_k``.  Where the keys
-# do not fit the 227 KB opt-in shared memory (T > 58,000, i.e. d > 340) the
-# same kernel recomputes each key from u in device memory on every pass.
-# Known cost: 142 blocks of one per SM run in two waves on 132 SMs.
+# T * 4 bytes of keys (181.8 KB at w8a) in dynamic shared memory -- and u_hat
+# is written once, in index order, coalesced; u is read again only where an
+# entry is kept (k of T).  The threshold is a radix select on the 31 key
+# bits in digits of 7, 8, 8 and 8 bits: each pass histograms, in 256 shared
+# counters, the digit of the keys that match the digits found so far, and one
+# warp finds the bin that holds the k-th key; the first digit (the
+# exponent's high bits, few distinct values) is counted once per warp and
+# value (``__match_any_sync``).  The result is the bit search's threshold,
+# and ``need = k - #{key > thr}``, by construction, and the last pass also
+# counts the keys equal to the threshold.  When that count is ``need``, the
+# common case, every tie is kept and the output pass is ``key >= thr``.
+# Otherwise the lowest-index ties are kept by one ordered scan: each warp
+# owns a contiguous segment, counts its ties, one scan of the 32 warp counts
+# gives each warp its first tie rank, and each tie's rank is that plus the
+# ballot of the lanes below it; so the set is exactly the lowest-index
+# tie-break of ``lax.top_k``.  Where the keys do not fit the 227 KB opt-in
+# shared memory beside the kernel's static shared memory (32 warp counts,
+# 256 bins, a pass's pick: 1,168 bytes as compiled for sm_90a; T > 57,820,
+# i.e. d > 339) the same kernel recomputes each key from u in device memory
+# on every pass.  Known cost: 142 blocks of one per SM run in two waves on 132
+# SMs.
 # ---------------------------------------------------------------------------
 
 
@@ -197,28 +208,29 @@ select_randseqk_cuda.launches = 0
 # ``repro/kernels/ops.py:select_toplek``.
 #
 # What bounds it on an H100: bytes.  It must read u and write u_hat once,
-# 103.3 MB at w8a, about 31 us at 3.35 TB/s; the TopK search (426 M 32-bit
-# operations, 6.4 us) and the sort of k survivors per client are smaller.
+# 103.3 MB at w8a, about 31 us at 3.35 TB/s; the selection (90 M 32-bit
+# operations, 1.3 us) and the sort of k survivors per client are smaller.
 #
 # What the design does about it: one block of 1024 threads per client runs
-# TopK's threshold search and ordered tie scan (the same device code) on
-# keys held in shared memory, reading u once for the keys and for
-# total = sum(u*u), and writing +0.0 over the row in the same ordered pass
-# that compacts the k survivors, in index order, as 64-bit composites
-# (inverted key << 32 | index).  A bitonic sort of the composites, padded to
-# a power of two P, gives the order (key descending, index ascending) -- the
-# lowest-index tie-break of ``lax.top_k``.  An f64 block scan of the squared
-# values gives the prefix energies, m* = min(1 + #{alpha < delta}, k), p
-# and kept as in the reference; the kept values are then scattered over
-# the zeros.  Shared memory at w8a: 181.8 KB of keys, then 32 KB of
-# composites (P = 4096); the prefix sums reuse the keys' region once the
-# survivors are compacted.  Where that does not fit, the keys are recomputed
-# from u on every pass, and where the composites and prefix sums do not fit
-# either (k = T at w8a: P = 65536) they live in a scratch buffer that this
-# wrapper allocates in device memory.  The squares and sums use __dmul_rn /
-# __dadd_rn so that no FMA contraction changes a rounding; the prefix sum's
-# order is a block scan, so kept can differ from the plain version by one
-# only where alpha_m* lies within a few ulps of delta or unif of p.
+# TopK's radix threshold and keep pass (the same device code) on keys held in
+# shared memory, reading u once for the keys and for total = sum(u*u), and
+# writing +0.0 over the row in the same pass that compacts the k survivors
+# as 64-bit composites (inverted key << 32 | index), each warp taking its
+# slots with one shared atomic; their order does not matter, because a
+# bitonic sort of the composites, padded to a power of two P, gives the order
+# (key descending, index ascending) -- the lowest-index tie-break of
+# ``lax.top_k``.  An f64 block scan of the squared values gives the prefix
+# energies, m* = min(1 + #{alpha < delta}, k), p and kept as in the
+# reference; the kept values are then scattered over the zeros.  Shared
+# memory at w8a: 181.8 KB of keys, then 32 KB of composites (P = 4096); the
+# prefix sums reuse the keys' region once the survivors are compacted.
+# Where that does not fit, the keys are recomputed from u on every pass, and
+# where the composites and prefix sums do not fit either (k = T at w8a:
+# P = 65536) they live in a scratch buffer that this wrapper allocates in
+# device memory.  The squares and sums use __dmul_rn / __dadd_rn so that no
+# FMA contraction changes a rounding; the prefix sum's order is a block
+# scan, so kept can differ from the plain version by one only where
+# alpha_m* lies within a few ulps of delta or unif of p.
 # ---------------------------------------------------------------------------
 
 

@@ -1,7 +1,7 @@
 // Batched selection kernels over packed upper-triangle vectors, FP64 payload, sm_90a.
 //
 // TopK      keys  = f32(|u|) as int32 bit patterns (the pinned selection keys)
-//           thr   = the k-th largest key, by a 31-step binary search on the bits
+//           thr   = the k-th largest key, by a radix select on the 31 bits
 //           keep  = key > thr, plus the first k - n_gt keys equal to thr in index order
 //           out   = keep ? u : +0.0,   sent = k
 // RandSeqK  keep  = (pos - s) mod T < k,   out = keep ? u : +0.0,   sent = k
@@ -16,9 +16,11 @@
 // through repro/kernels/ops.py:select_topk / select_randseqk / select_toplek.
 // See kernels/compressor_select.py for the design notes.  In short: TopK and
 // TopLEK run one block of 1024 threads per client, share the threshold search
-// and the ordered tie scan (block_threshold, ordered_keep_scan), and keep the
-// keys in dynamic shared memory when they fit (T*4 bytes: 181.8 KB at w8a);
-// RandSeqK is a grid-stride masked copy that reads u only inside the window.
+// (radix_threshold: four histogram passes) and the keep pass (keep_pass: one
+// plain pass when every tie is kept, else one ordered tie scan in per-warp
+// segments), and keep the keys in dynamic shared memory when they fit (T*4
+// bytes: 181.8 KB at w8a); RandSeqK is a grid-stride masked copy that reads u
+// only inside the window.
 
 #include <cuda_runtime.h>
 
@@ -44,63 +46,124 @@ __device__ __forceinline__ int block_sum(int v, int* part) {
   return total;
 }
 
-// Exclusive count of `flag` over the threads of the block in thread order,
-// plus `carry`; `carry` grows by the block's total.  Every thread calls it.
-__device__ __forceinline__ int block_exclusive_count(bool flag, int* part, int& carry) {
+constexpr int kRadixBins = 256;
+// at least the static shared memory of the selection kernels' part, hist and
+// pick (the compiler may align them further)
+constexpr int kSelectStaticSmem = 4 * (kWarps + kRadixBins + 4);
+
+// The k-th largest key by a radix select on its 31 bits, high digits first
+// (bits 30-24, 23-16, 15-8, 7-0): each pass histograms the digit of the keys
+// that match the prefix found so far, and one warp finds the bin that holds
+// the rank-th largest of them.  Returns the threshold; *need is the number of
+// keys equal to it that are kept (k minus the keys above it) and *n_eq the
+// number of keys equal to it.  hist: kRadixBins ints, pick: 3 ints, shared.
+template <class KeyAt>
+__device__ int radix_threshold(KeyAt key_at, int t, int k, int* hist, int* pick, int* need,
+                               int* n_eq) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const unsigned bits = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) part[warp] = __popc(bits);
+  for (int i = threadIdx.x; i < kRadixBins; i += kThreads) hist[i] = 0;
   __syncthreads();
-  if (warp == 0) {  // inclusive scan of the warp totals, in place
-    int incl = part[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
+  int prefix = 0;  // the digits found so far
+  int rank = k;    // the threshold's rank from the top among the keys that match them
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    const int hi_mask =
+        pass == 0 ? 0 : static_cast<int>(0x7fffffffu & ~((1u << (shift + 8)) - 1u));
+    for (int base = 0; base < t; base += kThreads) {
+      const int i = base + threadIdx.x;
+      const int key = i < t ? key_at(i) : -1;
+      const bool hit = i < t && (key & hi_mask) == prefix;
+      const int digit = (key >> shift) & 0xff;
+      if (pass == 0) {
+        // the exponent's high bits take few values: the lanes of a warp that
+        // share a digit add to its bin once
+        const unsigned peers = __match_any_sync(0xffffffffu, hit ? digit : kRadixBins + lane);
+        if (hit && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+      } else if (hit) {
+        atomicAdd(&hist[digit], 1);
+      }
     }
-    part[lane] = incl;
+    __syncthreads();
+    if (warp == 0) {  // lane owns bins 8 lane .. 8 lane + 7, and clears them
+      int c[8], own = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[8 * lane + j];
+        hist[8 * lane + j] = 0;
+        own += c[j];
+      }
+      int from_here = own;  // keys in this lane's bins and above
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_down_sync(0xffffffffu, from_here, o);
+        if (lane + o < 32) from_here += y;
+      }
+      int above = from_here - own;
+      if (above < rank && rank <= from_here) {
+#pragma unroll
+        for (int j = 7; j >= 0; --j) {
+          if (above + c[j] >= rank) {
+            pick[0] = 8 * lane + j;
+            pick[1] = above;
+            pick[2] = c[j];
+            break;
+          }
+          above += c[j];
+        }
+      }
+    }
+    __syncthreads();  // pick is rewritten only after the next pass's barrier
+    prefix |= pick[0] << shift;
+    rank -= pick[1];
   }
+  *need = rank;
+  *n_eq = pick[2];
+  return prefix;
+}
+
+// Every index once, visit(i, valid, key, keep) called by all lanes of each
+// warp together, where keep is the TopK set: every key above thr and the
+// `need` lowest-index keys equal to it.  When all n_eq ties are kept (the
+// common case) it is one block-strided pass, keep = key >= thr.  Otherwise
+// each warp owns a contiguous segment: a pass counts its ties, one scan of
+// the 32 warp counts gives each warp the rank of its first tie, and a second
+// pass ranks each tie by ballot.  part: kWarps ints, shared.
+template <class KeyAt, class Visit>
+__device__ void keep_pass(KeyAt key_at, int t, int thr, int need, int n_eq, int* part,
+                          Visit visit) {
+  if (n_eq == need) {
+    for (int base = 0; base < t; base += kThreads) {
+      const int i = base + threadIdx.x;
+      const bool valid = i < t;
+      const int key = valid ? key_at(i) : -1;
+      visit(i, valid, key, key >= thr);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seg = ((t + kWarps - 1) / kWarps + 31) / 32 * 32;
+  const int lo = warp * seg;
+  const int hi = min(t, lo + seg);
+  int ties = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    ties += __popc(__ballot_sync(0xffffffffu, i < hi && key_at(i) == thr));
+  }
+  if (lane == 0) part[warp] = ties;
   __syncthreads();
-  const int before = carry + (warp == 0 ? 0 : part[warp - 1]) +
-                     __popc(bits & ((1u << lane) - 1u));
-  carry += part[kWarps - 1];
-  __syncthreads();  // part is rewritten by the next call
-  return before;
-}
-
-// The k-th largest key: greedy bit-by-bit search, high bit first.  Returns
-// the threshold; *need is the number of keys equal to it that are kept.
-template <class KeyAt>
-__device__ int block_threshold(KeyAt key_at, int t, int k, int* part, int* need) {
-  int thr = 0;
-  for (int bit = 30; bit >= 0; --bit) {
-    const int cand = thr | (1 << bit);
-    int cnt = 0;
-    for (int i = threadIdx.x; i < t; i += kThreads) cnt += key_at(i) >= cand;
-    if (block_sum(cnt, part) >= k) thr = cand;
-  }
-  int gt_local = 0;
-  for (int i = threadIdx.x; i < t; i += kThreads) gt_local += key_at(i) > thr;
-  *need = k - block_sum(gt_local, part);
-  return thr;
-}
-
-// Ordered pass over i = 0..t-1, tile by tile: visit(i, key, keep, rank) for
-// every i, where keep is the TopK set (ties kept lowest index first) and, when
-// kWithRank, rank is the number of kept indices before i.
-template <bool kWithRank, class KeyAt, class Visit>
-__device__ void ordered_keep_scan(KeyAt key_at, int t, int thr, int need, int* part,
-                                  Visit visit) {
-  int carry_eq = 0, carry_keep = 0;
-  for (int base = 0; base < t; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int key = i < t ? key_at(i) : -1;
-    const bool eq = key == thr;
-    const int ties_before = block_exclusive_count(eq, part, carry_eq);
-    const bool keep = i < t && (key > thr || (eq && ties_before < need));
-    const int rank = kWithRank ? block_exclusive_count(keep, part, carry_keep) : 0;
-    if (i < t) visit(i, key, keep, rank);
+  int before = __reduce_add_sync(0xffffffffu, lane < warp ? part[lane] : 0);
+  __syncthreads();  // part is reused by the caller
+  const unsigned lanes_below = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const bool valid = i < hi;
+    const int key = valid ? key_at(i) : -1;
+    const unsigned eq = __ballot_sync(0xffffffffu, key == thr);
+    const bool keep = key > thr || (key == thr && before + __popc(eq & lanes_below) < need);
+    before += __popc(eq);
+    visit(i, valid, key, keep);
   }
 }
 
@@ -114,23 +177,25 @@ topk_select_kernel(const double* __restrict__ u, double* __restrict__ out,
                    int* __restrict__ sent, int t, int k) {
   extern __shared__ int keys[];  // t entries when kKeysInShared
   __shared__ int part[kWarps];
+  __shared__ int hist[kRadixBins];
+  __shared__ int pick[3];
 
   const long long c = blockIdx.x;
   const double* uc = u + c * t;
   double* oc = out + c * t;
 
-  if (kKeysInShared) {
+  if (kKeysInShared) {  // radix_threshold's first barrier covers keys[]
     for (int i = threadIdx.x; i < t; i += kThreads) keys[i] = rank_key(uc[i]);
-    __syncthreads();
   }
   auto key_at = [&](int i) -> int {
     return kKeysInShared ? keys[i] : rank_key(uc[i]);
   };
 
-  int need;
-  const int thr = block_threshold(key_at, t, k, part, &need);
-  ordered_keep_scan<false>(key_at, t, thr, need, part,
-                           [&](int i, int, bool keep, int) { oc[i] = keep ? uc[i] : 0.0; });
+  int need, n_eq;
+  const int thr = radix_threshold(key_at, t, k, hist, pick, &need, &n_eq);
+  keep_pass(key_at, t, thr, need, n_eq, part, [&](int i, bool valid, int, bool keep) {
+    if (valid) oc[i] = keep ? uc[i] : 0.0;  // u is read again only where kept
+  });
   if (threadIdx.x == 0) sent[c] = k;
 }
 
@@ -233,7 +298,7 @@ struct TopLekPlan {
   long long csum_offset;         // byte offset of the prefix sums in their buffer
 };
 
-constexpr int kTopLekStaticSmem = 4 * kWarps + 8 * kWarps + 64;
+constexpr int kTopLekStaticSmem = kSelectStaticSmem + 8 * kWarps + 64;
 
 TopLekPlan toplek_plan(int t, int k) {
   int dev = 0, optin = 0;
@@ -262,8 +327,11 @@ toplek_select_kernel(const double* __restrict__ u, const double* __restrict__ un
                      long long comp_offset, long long csum_offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int part[kWarps];
+  __shared__ int hist[kRadixBins];
+  __shared__ int pick[3];
   __shared__ double dpart[kWarps];
   __shared__ int kept_shared;
+  __shared__ int n_comp;
 
   const long long c = blockIdx.x;
   const double* uc = u + c * t;
@@ -284,14 +352,22 @@ toplek_select_kernel(const double* __restrict__ u, const double* __restrict__ un
   const double total = block_sum_f64(sq_local, dpart);  // its barriers cover keys[]
   auto key_at = [&](int i) -> int { return kPath == 0 ? keys[i] : rank_key(uc[i]); };
 
-  // the TopK set, compacted in index order; +0.0 over the whole row
-  int need;
-  const int thr = block_threshold(key_at, t, k, part, &need);
-  ordered_keep_scan<true>(key_at, t, thr, need, part,
-                          [&](int i, int key, bool keep, int rank) {
-                            oc[i] = 0.0;
-                            if (keep) comp[rank] = composite(key, i);
-                          });
+  // the TopK set, compacted in any order (the sort below orders it); +0.0
+  // over the whole row
+  if (threadIdx.x == 0) n_comp = 0;  // radix_threshold's barriers publish it
+  int need, n_eq;
+  const int thr = radix_threshold(key_at, t, k, hist, pick, &need, &n_eq);
+  keep_pass(key_at, t, thr, need, n_eq, part, [&](int i, bool valid, int key, bool keep) {
+    if (valid) oc[i] = 0.0;
+    const unsigned kept = __ballot_sync(0xffffffffu, valid && keep);
+    if (kept == 0) return;  // the same for every lane of the warp
+    const int lane = threadIdx.x & 31;
+    const int leader = __ffs(kept) - 1;
+    int slot = 0;
+    if (lane == leader) slot = atomicAdd(&n_comp, __popc(kept));
+    slot = __shfl_sync(0xffffffffu, slot, leader) + __popc(kept & ((1u << lane) - 1u));
+    if (valid && keep) comp[slot] = composite(key, i);
+  });
   for (int j = k + threadIdx.x; j < p; j += kThreads) comp[j] = ~0ull;
   __syncthreads();
 
@@ -364,15 +440,18 @@ cudaError_t launch_toplek(const TopLekPlan& plan, const double* u, const double*
 }  // namespace
 
 // Dynamic shared memory the TopK kernel takes for a vector of length t on
-// this device: t*4 bytes of keys when they fit the opt-in limit, else 0 (the
-// keys are then recomputed from u on every pass).
+// this device: t*4 bytes of keys when they fit the opt-in limit beside the
+// kernel's static shared memory (as compiled), else 0 (the keys are then
+// recomputed from u on every pass).
 extern "C" int topk_select_smem_bytes(int t) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, topk_select_kernel<true>) != cudaSuccess) return 0;
   const long long need = 4LL * t;
-  const long long static_bytes = 4LL * kWarps;
-  return need + static_bytes <= optin ? static_cast<int>(need) : 0;
+  return need + static_cast<long long>(attr.sharedSizeBytes) <= optin ? static_cast<int>(need)
+                                                                        : 0;
 }
 
 // u: (n_clients, t) FP64, out: (n_clients, t) FP64, sent: (n_clients,) int32,

@@ -6,15 +6,50 @@
 //   visible: j < Sk, j <= i when causal, j > i - window when window > 0
 //
 // q (B, Sq, H, dh), k and v (B, Sk, Kv, dh), out (B, Sq, H, dh), all
-// contiguous, bf16 or f32; everything inside is f32 and the output is
-// rounded to the input type once (__float2bfloat16_rn for bf16).  A row
-// with no visible key gives 0.
+// contiguous; the softmax, p and the sums are f32 and the output is rounded
+// to the input type once.  A row with no visible key gives 0.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _flash_kernel), which the JAX package reaches
 // through repro/kernels/ops.py:flash_attention and whose jnp twin
-// repro/models/layers.py:chunked_attention is what the models call.  See
-// kernels/flash_attention.py for the design note; in short:
+// repro/models/layers.py:chunked_attention is what the models call.  Two
+// kernels, chosen by the wrapper from the dtype and head_dim alone (see
+// kernels/flash_attention.py for the design note):
+//
+// flash_fwd_wgmma_kernel -- bf16 at head_dim 64 and 128, on the tensor cores.
+//   * one block of three warpgroups per (128-query tile, head, batch row), the
+//     heaviest causal tiles first: warpgroup 0 is the producer, one thread of
+//     which loads Q once and keeps a ring of K/V tiles (128 keys; 3 stages at
+//     dh 64, 2 at dh 128) full by TMA, signalled through mbarriers;
+//     warpgroups 1 and 2 each own 64 query rows (setmaxnreg: 24 / 240);
+//   * TMA boxes of 64 columns x 128 rows over (B, S, H*dh), 128-byte
+//     swizzled; a dh of 128 is two such column halves; rows past S arrive as
+//     zeros, so nothing is padded on the host and keys past Sk are masked;
+//     GQA loads kv head h / (H / Kv) and repeats nothing;
+//   * S = Q K^T by wgmma m64n128k16 from shared memory with an f32
+//     accumulator: q and k are bf16, so every product is exact and this is
+//     the reference's f32 dot up to the order of the sums; then s = S * scale;
+//   * the running max, denominator and accumulator stay in registers;
+//     masked logits are the -1e30 sentinel and give p = 0, tested only on the
+//     tiles that the causal, window or Sk edge crosses for the warpgroup's
+//     rows (a second instantiation of the softmax for them);
+//     p = ex2(s log2 e - m log2 e), one FFMA and ex2.approx (about 2 f32
+//     ulps of p);
+//   * P.V at the reference's f32 p: each p is split in registers into
+//     p1 = bf16(p), p2 = bf16(p - p1), p3 = p - p1 - p2 (exact: each part is
+//     bf16 and each subtraction exact, for p >= 2^-110), and three
+//     register-A wgmma m64n64k16 per 16 keys and 64 columns add P1 V, P2 V
+//     and P3 V into one f32 accumulator; v is bf16, so every product is
+//     exact.  The tensor cores' f32 accumulation does not round like a
+//     chain of round-to-nearest FMAs, and accumulated over a 32k row its
+//     drift exceeded one bf16 ulp near zero; so each tile's P.V starts from
+//     zero and is added to the running O on the CUDA cores (O = O corr +
+//     P.V, as the reference adds each tile's dot).  The one-bf16-ulp checks
+//     on the card are what hold the result;
+//   * P.V is issued in 4 batches of 32 keys: p and its split for a batch are
+//     computed while the products of the batches before it run.
+//
+// flash_fwd_kernel -- the SIMT kernel: f32 at any head_dim, bf16 at 16 and 32.
 //   * one launch per attention call: blockIdx.x is a 64-query tile (the
 //     heaviest causal tiles first), blockIdx.y the query head, blockIdx.z the
 //     batch row; the kv head is h / (H / Kv), so GQA repeats nothing;
@@ -31,6 +66,9 @@
 //   * masked logits are the reference's -1e30 sentinel and give p = 0 even
 //     while the running max is still -1e30 (expf, not __expf, throughout).
 
+#include <cstdint>
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -282,4 +320,515 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    n_kv, causal, window, scale, st);
   return dispatch<float>(head_dim, q, k, v, out, batch, sq, sk, n_heads, n_kv,
                          causal, window, scale, st);
+}
+
+// ===========================================================================
+// The Hopper route: bf16 at head_dim 64 and 128 (flash_fwd_wgmma_kernel)
+// ===========================================================================
+
+namespace hopper {
+
+constexpr int kBQ = 128;          // query rows per block: two consumer warpgroups of 64
+constexpr int kBK = 128;          // keys per tile
+constexpr int kThreads = 384;     // warpgroup 0 the producer, 1 and 2 the consumers
+constexpr int kRowBytes = 128;    // one swizzled row: 64 bf16 columns
+constexpr int kHalfCols = 64;     // a head_dim of 128 is two such column halves
+constexpr int kConsumerWarps = 8; // arrivals that free a stage: one per consumer warp
+constexpr float kNeg = -1e30f;    // the reference's _NEG
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct Cfg {
+  static constexpr int kHalves = DH / kHalfCols;
+  static constexpr int kStages = DH == 64 ? 3 : 2;               // the K/V ring
+  static constexpr int kHalfBytes = kBQ * kRowBytes;             // 128 rows x 64 columns
+  static constexpr int kTileBytes = kHalves * kHalfBytes;        // the Q tile, one K or one V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;             // K, then V
+  static constexpr int kBarOffset = kTileBytes + kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);  // + 1024-B alignment
+};
+static_assert(kBQ == kBK, "one half-tile size serves Q, K and V");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the tensor map (64 columns x 128 rows x 1 batch row) into
+// shared memory, 128-byte swizzled; rows past the tensor's edge arrive as 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  Both strides are 1024
+// bytes, the distance between groups of 8 swizzled rows: every operand here
+// is read in slices that span one 64-column half, so the only stride the
+// hardware uses is the one between 8-row groups (of Q or K along M or N, of V
+// along the key axis), whichever of the two fields it reads it from.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t kStride = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kStride << 16) | (kStride << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from reading or reusing registers that an asynchronous
+// wgmma writes or reads before the wait that ends it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// p (x, y) = p1 + p2 + p3 exactly, each part bf16 (round to nearest, then the
+// exact f32 remainder): three A-fragment registers, low half x.  Only the
+// packing is a conversion instruction (16 a clock per SM, as ex2): a bf16
+// widens to f32 by a shift or a mask, and the last remainder has at most 8
+// significant bits, so its f32 high halves are its bf16 values.
+__device__ __forceinline__ void split3(float x, float y, uint32_t& a1, uint32_t& a2,
+                                       uint32_t& a3) {
+  a1 = as_u32(__floats2bfloat162_rn(x, y));
+  x = __fsub_rn(x, __uint_as_float(a1 << 16));
+  y = __fsub_rn(y, __uint_as_float(a1 & 0xffff0000u));
+  a2 = as_u32(__floats2bfloat162_rn(x, y));
+  x = __fsub_rn(x, __uint_as_float(a2 << 16));
+  y = __fsub_rn(y, __uint_as_float(a2 & 0xffff0000u));
+  a3 = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+}
+
+// The online softmax of one 64 x 128 tile in registers, first part: s = S *
+// scale, masked to -1e30 on a tile that an edge crosses (kEdge), the running
+// max m and the rescale factor corr of the earlier tiles.
+template <bool kEdge>
+__device__ __forceinline__ void softmax_max(float (&sc)[64], float (&m)[2], float (&corr)[2],
+                                            float scale, int k0, int ra, int kq, int sk,
+                                            int causal, int window) {
+  // row r's max in four independent chains (k = 8-column block % 4): two
+  // warps per scheduler leave little else to hide a chain's latency
+  float mx[4][2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) mx[k][0] = m[0], mx[k][1] = m[1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = __fmul_rn(sc[i], scale);  // scale after the dot, as the reference
+    if (kEdge) {
+      const int key = k0 + 8 * (i / 4) + kq + (i & 1);
+      const int row = ra + 8 * ((i / 2) & 1);
+      const bool visible =
+          key < sk && (!causal || key <= row) && (window <= 0 || key > row - window);
+      x = visible ? x : kNeg;
+    }
+    sc[i] = x;
+    mx[(i / 4) % 4][(i / 2) & 1] = fmaxf(mx[(i / 4) % 4][(i / 2) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float row_max = fmaxf(fmaxf(mx[0][r], mx[1][r]), fmaxf(mx[2][r], mx[3][r]));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+    corr[r] = ex2(__fsub_rn(m[r], row_max) * kLog2e);
+    m[r] = row_max;
+  }
+}
+
+// Second part, for the keys 16 c0 .. 16 c1 - 1 of the tile: p = exp(s - m)
+// (0 where masked), added to the row sums rs (four chains per row), and
+// split into three exact bf16 parts in the register-A fragment layout: for
+// keys 16c.., registers (row ra, keys +kq), (ra + 8, +kq), (ra, +8+kq),
+// (ra + 8, +8+kq) are accumulator pairs 8c + 2j, 8c + 2j + 1.  exp is
+// ex2.approx with log2 e folded into one FFMA: about 2 f32 ulps of p, and
+// the rounding of m log2 e is a factor common to the row's p in one tile.
+template <bool kEdge>
+__device__ __forceinline__ void exp_split(float (&sc)[64], const float (&m)[2], float (&rs)[4][2],
+                                          uint32_t (&pa)[3][kBK / 16][4], int c0, int n_chunks) {
+  const float neg_m_log2e[2] = {-m[0] * kLog2e, -m[1] * kLog2e};
+#pragma unroll
+  for (int k = 0; k < 8 * n_chunks; ++k) {
+    const int i = 8 * c0 + k;
+    const int r = (i / 2) & 1;
+    float p = ex2(fmaf(sc[i], kLog2e, neg_m_log2e[r]));
+    if (kEdge && sc[i] <= kNeg / 2) p = 0.f;  // masked: 0 even while m is still -1e30
+    sc[i] = p;
+    rs[(i / 4) % 4][r] += p;
+  }
+#pragma unroll
+  for (int c = c0; c < c0 + n_chunks; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split3(sc[8 * c + 2 * j], sc[8 * c + 2 * j + 1], pa[0][c][j], pa[1][c][j], pa[2][c][j]);
+}
+
+// d (64 x 128, f32) {+}= A (64 x 16, smem) * B (16 x 128, smem, K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) {+}= A (64 x 16, registers) * B (16 x 64, smem, MN-major); scale_d = 0
+// overwrites d
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+constexpr int kPhases = 4;                        // P.V issued in this many batches of keys
+constexpr int kPhaseChunks = kBK / 16 / kPhases;  // 16-key chunks per batch
+
+// The rest of one tile after S = Q K^T: the online softmax, P split into its
+// three bf16 parts, this tile's P.V = P1 V + P2 V + P3 V in a fresh f32
+// accumulator per 64-column half (V, keys x DH, is MN-major), then O = O corr
+// + P.V on the CUDA cores, as the reference adds each tile's dot: the tensor
+// cores' accumulation spans 128 keys, never the whole row.  P.V is issued in
+// kPhases batches of keys, and p of each batch is computed while the
+// products of the batches before it run.
+template <bool kEdge, int DH>
+__device__ __forceinline__ void tile_pv(float (&sc)[64], float (&m)[2], float (&l)[2],
+                                        float (&o)[DH / 64][32], uint32_t v_s, float scale,
+                                        int k0, int ra, int kq, int sk, int causal,
+                                        int window) {
+  float corr[2], rs[4][2] = {};
+  uint32_t pa[3][kBK / 16][4];
+  softmax_max<kEdge>(sc, m, corr, scale, k0, ra, kq, sk, causal, window);
+#pragma unroll
+  for (int half = 0; half < DH / 64; ++half) {
+    float pv[32] = {};  // overwritten by the first product (scale_d = 0)
+    const uint32_t v_half = v_s + half * kBK * kRowBytes;
+#pragma unroll
+    for (int ph = 0; ph < kPhases; ++ph) {
+      const int c0 = ph * kPhaseChunks;
+      if (half == 0) {
+        // after the last batch's issue: keep this batch's p from being
+        // computed before it
+#pragma unroll
+        for (int k = 0; k < 8 * kPhaseChunks; ++k)
+          asm volatile("" : "+f"(sc[8 * c0 + k])::"memory");
+        exp_split<kEdge>(sc, m, rs, pa, c0, kPhaseChunks);
+      }
+      if (half == 0 || ph == 0) wgmma_fence();
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int c = c0; c < c0 + kPhaseChunks; ++c)
+          wgmma_rs_n64(pv, pa[part][c], smem_desc(v_half + c * 16 * kRowBytes),
+                       part > 0 || c > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pv);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[half][i] = o[half][i] * corr[(i / 2) & 1] + pv[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * corr[r] + ((rs[0][r] + rs[1][r]) + (rs[2][r] + rs[3][r]));
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int c = 0; c < kBK / 16; ++c) fence_regs(pa[part][c]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ out, int sq, int sk, int n_heads,
+                       int n_kv, int causal, int window, float scale) {
+  using C = Cfg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                      // [half][128 rows][64 columns]
+  const uint32_t ring = base + C::kTileBytes;     // stage s: K tile, then V tile
+  const uint32_t bars = base + C::kBarOffset;     // full[kStages], empty[kStages], q
+  const uint32_t q_bar = bars + 16 * C::kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // the heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (n_heads / n_kv);
+
+  // the key tiles that hold a visible key for some query of this block
+  int k_begin = 0, k_end = sk;
+  if (causal) k_end = min(sk, q0 + kBQ);
+  if (window > 0) k_begin = max(0, q0 - window + 1) / kBK * kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (C::kStages + s), kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring of K/V tiles filled by TMA ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_bar, C::kTileBytes);
+#pragma unroll
+      for (int half = 0; half < C::kHalves; ++half)
+        tma_load(q_s + half * C::kHalfBytes, &tm_q, q_bar, h * DH + half * kHalfCols, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(bars + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t k_s = ring + s * C::kStageBytes;
+        const int k0 = k_begin + it * kBK;
+        mbar_expect_tx(full, C::kStageBytes);
+#pragma unroll
+        for (int half = 0; half < C::kHalves; ++half) {
+          const int col = kvh * DH + half * kHalfCols;
+          tma_load(k_s + half * C::kHalfBytes, &tm_k, full, col, k0, b);
+          tma_load(k_s + C::kTileBytes + half * C::kHalfBytes, &tm_v, full, col, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row0 = q0 + 64 * cw;                 // this warpgroup's first row
+    const int ra = row0 + 16 * warp + lane / 4;    // this thread's rows: ra and ra + 8
+    const int kq = 2 * (lane % 4);                 // its first column in each 8-column block
+
+    float o[C::kHalves][32];  // per 64-column half: the m64n64 accumulator layout
+#pragma unroll
+    for (int half = 0; half < C::kHalves; ++half)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[half][i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    if (n_tiles > 0) mbar_wait(q_bar, 0);
+    const uint32_t q_wg = q_s + 64 * cw * kRowBytes;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::kStages;
+      const int k0 = k_begin + it * kBK;
+      const uint32_t k_s = ring + s * C::kStageBytes;
+      const uint32_t v_s = k_s + C::kTileBytes;
+      mbar_wait(bars + 8 * s, (it / C::kStages) & 1);
+
+      // S = Q K^T (64 x 128, f32): bf16 products are exact, sums in f32
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        const uint32_t off = (kc / 4) * C::kHalfBytes + (kc % 4) * 32;
+        wgmma_ss_n128(sc, smem_desc(q_wg + off), smem_desc(k_s + off), kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // masked logits only on tiles that an edge crosses for these rows
+      if (k0 + kBK > sk || (causal && k0 + kBK - 1 > row0) ||
+          (window > 0 && k0 <= row0 + 63 - window))
+        tile_pv<true, DH>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
+      else
+        tile_pv<false, DH>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
+    }
+
+    // out = O / l (0 where no key is visible), rounded to bf16 once
+    float safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      safe[r] = l[r] > 0.f ? l[r] : 1.f;
+    }
+    const long long q_row = static_cast<long long>(n_heads) * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      if (row >= sq) continue;
+      __nv_bfloat16* orow = out + (static_cast<long long>(b) * sq + row) * q_row +
+                            static_cast<long long>(h) * DH + kq;
+#pragma unroll
+      for (int half = 0; half < C::kHalves; ++half)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + half * kHalfCols + 8 * j) =
+              __floats2bfloat162_rn(o[half][4 * j + 2 * r] / safe[r],
+                                    o[half][4 * j + 2 * r + 1] / safe[r]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (batch, seq, cols) bf16 tensor as TMA boxes of 64 columns x 128 rows.
+bool make_map(CUtensorMap* map, const void* ptr, int cols, int seq, int batch) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {2ull * cols, 2ull * cols * seq};
+  const cuuint32_t box[3] = {kHalfCols, kBQ, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
+           int n_heads, int n_kv, int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, n_heads * DH, sq, batch) || !make_map(&mk, k, n_kv * DH, sk, batch) ||
+      !make_map(&mv, v, n_kv * DH, sk, batch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = Cfg<DH>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
+  flash_fwd_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, sk, n_heads, n_kv, causal, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
+// The Hopper route: q, k, v, out bf16 device pointers (layout above, 16-byte
+// aligned); head_dim 64 or 128; window <= 0: no window.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// head_dim or a tensor map the driver refuses).
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                                         int batch, int sq, int sk, int n_heads, int n_kv,
+                                         int head_dim, int causal, int window, float scale,
+                                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return hopper::launch<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
+                                scale, st);
+    case 128:
+      return hopper::launch<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
+                                 scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -14,28 +14,65 @@ Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas`` (body
 ``repro/kernels/ops.py:flash_attention``; the models there call its jnp twin
 ``repro/models/layers.py:chunked_attention``, and the port's
 ``models/layers.chunked_attention`` sends CUDA tensors here.  Source
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu``, two kernels; :func:`flash_route` picks one from
+the dtype and head_dim alone:
 
-What bounds it on an H100: operations.  At granite-3-2b's 32k prefill
-(B = 1, S = 32,768, H = 32, Kv = 8, dh = 64, causal) QK^T and P.V are 2.2
-TFLOP each over the visible half.  The reference keeps p in f32 for P.V, so
-at reference precision P.V runs at the 67 TFLOP/s of f32 (32.8 ms) and QK^T,
-whose operands are bf16, could run at the 989 TFLOP/s of bf16 (2.2 ms): about
-35 ms a launch.  The bytes (q, k, v read once, the output written once,
-335 MB) take 0.10 ms.  Rounding p to bf16, as library flash kernels do, would
-lower the bound to 4.45 ms; that is another function at lower precision.
+* ``wgmma`` (``flash_fwd_wgmma_kernel``): bf16 at head_dim 64 and 128, the
+  models' path;
+* ``simt`` (``flash_fwd_kernel``): f32 at any head_dim, and bf16 at head_dim
+  16 and 32, which appear only in reduced configurations.  An f32 q.k is
+  not exact on bf16 tensor cores, so f32 stays on the CUDA cores.
 
-What the design does about it, simply for now: no (S, S) matrix and no
-padded or repeated copy exists; one block per (64-query tile, head, batch
-row), the heaviest causal tiles first; the kv axis that the TPU grid ran in
-order is a loop over 64-key tiles inside the block, visiting only the tiles
-that the causal and window masks leave visible; K/V tiles in shared memory,
+What bounds the wgmma route on an H100: operations, on the bf16 tensor
+cores.  The reference keeps p in f32 for P.V.  That needs no f32 pipe: any
+f32 p >= 2**-110 is exactly p1 + p2 + p3 with p1 = bf16(p), p2 = bf16(p -
+p1), p3 = p - p1 - p2, each part a bf16 and each subtraction exact
+(:func:`split_bf16x3`); v is bf16 and a bf16 x bf16 product is exact in
+f32, so P.V at the reference's f32 p is three bf16 products into one f32
+accumulator, and QK^T (bf16 q and k) is one.  The function stays the
+reference's, up to the order of the f32 sums.  At granite-3-2b's 32k
+prefill (B = 1, S = 32,768, H = 32, Kv = 8, dh = 64, causal) each product is
+2.2 TFLOP over the visible pairs (:func:`visible_pairs`), so the bound is
+4 x 2.2 TFLOP at 989 TFLOP/s = 8.9 ms.  Beside it: the bytes (q, k, v read
+once, the output written once, 335 MB) take 0.10 ms, and the 17.2 G
+exponentials about 4.1 ms at the 16 results per SM per clock of the MUFU
+pipe.  With P.V on the f32 CUDA cores, as the SIMT kernel runs it, the
+bound would be 35.05 ms; rounding p to bf16, as library flash kernels do,
+would give 4.45 ms and another function.
+
+What the design does about it (``flash_fwd_wgmma_kernel``): one block per
+(128-query tile, head, batch row), the heaviest causal tiles first; one
+producer warp loads Q once and keeps a ring of 128-key K/V tiles full by TMA
+(128-byte swizzle, 64-column boxes, zero fill past the sequence's end, so
+nothing is padded); two consumer warpgroups of 64 query rows run QK^T as
+``wgmma`` m64n128k16 from shared memory and the online softmax in registers
+(p = ex2(s log2 e - m log2 e): one FFMA and ``ex2.approx``; masked logits
+are the -1e30 sentinel, tested only in the instantiation for tiles that an
+edge crosses); they split p into its three bf16 parts in the register-A
+fragment layout (two conversion instructions per pair of p, the rest shifts,
+masks and subtractions) and issue three register-A ``wgmma`` m64n64k16 per
+16 keys and 64 columns, in four batches of 32 keys, so that p of one batch
+is computed while the products of the batches before it run.  Each tile's
+P.V starts from zero and is added to the running O on the CUDA cores, as
+the reference adds each tile's dot: the tensor cores' f32 accumulation is
+not a chain of round-to-nearest FMAs, and carried over a whole 32k row it
+drifted past one bf16 ulp near zero.  The
+one-bf16-ulp checks on the card hold the result.  Known costs left: a
+warpgroup waits for its QK^T before its softmax and for its last P.V batch
+before the next tile, so its exponentials and conversions (16 results per
+clock per SM each) overlap the tensor cores only in part, through the other
+warpgroup and the batches; issuing the next tile's QK^T early would need
+another 64 registers a thread.  Forcing the two warpgroups to alternate on
+the tensor cores was slower.  Causal tiles on the diagonal are computed
+whole.
+
+``flash_fwd_kernel``, the port's first flash kernel, unchanged: one block
+per (64-query tile, head, batch row), K/V tiles in shared memory as f32,
 4 x 4 logits and 4 x dh/16 outputs per thread in f32 FMA on the CUDA cores.
-``wgmma`` for QK^T, TMA and a pipelined ring of tiles are for later.
 
 ``flash_attention_plain`` is the same function in plain PyTorch, chunked
 over queries (the logits of one chunk at a time), for the CPU and for
-holding the kernel to it on the card.
+holding both kernels to it on the card.
 """
 
 from __future__ import annotations
@@ -47,14 +84,19 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30  # the reference's mask sentinel (flash_attention.py:31)
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128)  # the SIMT kernel's instantiations
+WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernel's
 PLAIN_Q_CHUNK = 512
 
-_ARGTYPES = (
+# flash_attention_fwd (simt): q, k, v, out, batch, sq, sk, heads, kv heads,
+# head_dim, is_bf16, causal, window, scale, stream; flash_attention_fwd_wgmma
+# takes the same without is_bf16
+_SIMT_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
+_WGMMA_ARGTYPES = _SIMT_ARGTYPES[:10] + _SIMT_ARGTYPES[11:]
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -111,6 +153,33 @@ def flash_attention_plain(
     return out
 
 
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that takes a call: ``"wgmma"`` for bf16 at head_dim 64
+    or 128, ``"simt"`` for the rest."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "simt"
+
+
+def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 p -> (p1, p2, p3), bf16 each: p1 = bf16(p), p2 = bf16(p - p1),
+    p3 = bf16(p - p1 - p2), rounding to nearest.  For p >= 2**-110 the sum
+    p1 + p2 + p3 is p exactly (p3 is the last 8 significant bits, and each
+    subtraction is exact in f32); below, at most 2**-126 is lost.  The wgmma
+    kernel computes P.V as P1 V + P2 V + P3 V."""
+    p1 = p.to(torch.bfloat16)
+    r = p - p1.float()
+    p2 = r.to(torch.bfloat16)
+    return p1, p2, (r - p2.float()).to(torch.bfloat16)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs that the masks leave visible in one head of one
+    batch row: key j < sk, j <= i when causal, j > i - window."""
+    i = torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(i, max=sk - 1) if causal else torch.full_like(i, sk - 1)
+    lo = torch.clamp(i - window + 1, min=0) if window is not None else torch.zeros_like(i)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
 # Where two f32 computations of one attention output are compared after
 # rounding to bf16, the ulp is taken at no less than this magnitude: the f32
 # sums' own rounding leaves ~1e-7 absolute (a few 2**-24 of the row's unit
@@ -138,7 +207,8 @@ def flash_attention_cuda(
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on q's device and current stream."""
+    """Launch the route's CUDA kernel (:func:`flash_route`) on q's device and
+    current stream."""
     _check_shapes(q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -154,6 +224,7 @@ def flash_attention_cuda(
     sk, kv = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention has head_dim {HEAD_DIMS}, got {dh}")
+    route = flash_route(q.dtype, dh)
     if b > 65535 or h > 65535 or max(sq, sk) >= 2**31 - 64:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)} exceed the kernel's grid")
     if window is not None and window <= 0:
@@ -162,15 +233,24 @@ def flash_attention_cuda(
     if out.numel() == 0:
         return out
     s = dh**-0.5 if scale is None else scale
-    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    shape = (b, sq, sk, h, kv, dh)
+    masks = (int(causal), 0 if window is None else int(window), float(s))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv,
-                  dh, int(q.dtype == torch.bfloat16), int(causal),
-                  0 if window is None else int(window), float(s), stream)
-    build.check_launch("flash_attention", code)
+        if route == "wgmma":
+            fn = build.function("flash_attention", "flash_attention_fwd_wgmma", _WGMMA_ARGTYPES)
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape, *masks,
+                      stream)
+        else:
+            fn = build.function("flash_attention", "flash_attention_fwd", _SIMT_ARGTYPES)
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape,
+                      int(q.dtype == torch.bfloat16), *masks, stream)
+    build.check_launch(f"flash_attention ({route})", code)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.route_launches[route] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+# launches by route since the last reset (ops.reset_launch_counts)
+flash_attention_cuda.route_launches = {"wgmma": 0, "simt": 0}

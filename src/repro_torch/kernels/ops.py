@@ -110,3 +110,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    routes = flash_attention_mod.flash_attention_cuda.route_launches
+    routes.update({route: 0 for route in routes})

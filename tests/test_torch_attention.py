@@ -11,6 +11,9 @@ Tolerances:
     neighbouring bf16 values, and near 0 the two f32 sums' own rounding
     (~1e-7 absolute) exceeds a bf16 ulp of the output;
   * flash and chunked attention, bf16: one ulp, on the CPU and on the card;
+  * P.V as three bf16-part products (``split_bf16x3``) against one f32
+    product: 4 f32 ulps of the largest |v| -- the same exact products,
+    summed in another order;
   * rope, rms_norm: f32 rtol/atol 1e-6 (cos, sin, rsqrt may differ by one
     f32 ulp between XLA and PyTorch); bf16 one ulp;
   * mlp_apply in f32: rtol 1e-5 (matrix products summed in another order);
@@ -149,6 +152,109 @@ def test_bf16_ulps_counts_spacing():
     nxt = torch.tensor([1.0 + 2**-7, 1.0 - 2**-8, 0.5 + 2**-8, 3.0 + 2**-5, 0.0])
     assert tfa.bf16_ulps(nxt, one).tolist() == [1.0, 0.5, 1.0, 2.0, 0.0]
     assert tfa.bf16_ulps(torch.tensor([2**-20]), torch.tensor([0.0]), floor=2**-12).item() == 2**-20 / 2**-19
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route's function: P.V at f32 p as three bf16 products
+# ---------------------------------------------------------------------------
+
+def _split_exact(p: torch.Tensor) -> torch.Tensor:
+    parts = tfa.split_bf16x3(p)
+    for part in parts:
+        assert part.dtype == torch.bfloat16
+    return sum(part.double() for part in parts) - p.double()
+
+
+def test_split_bf16x3_is_exact():
+    """p1 + p2 + p3 == p bit for bit over 10**6 f32 values in [2**-110, 1]:
+    log-uniform draws, uniform draws, and exp outputs near 0 and near 1."""
+    rng = np.random.default_rng(0)
+    log_uniform = np.exp2(rng.uniform(-110.0, 0.0, 400_000))
+    uniform = rng.uniform(0.0, 1.0, 300_000)
+    near_one = np.exp(-rng.uniform(0.0, 1e-3, 150_000))
+    near_zero = np.exp(-rng.uniform(70.0, 76.0, 150_000))  # down to about 2**-110
+    p = torch.as_tensor(np.concatenate([log_uniform, uniform, near_one, near_zero]).astype(np.float32))
+    p = p[p >= 2.0**-110]
+    assert p.numel() > 990_000 and float(p.max()) <= 1.0
+    assert float(_split_exact(p).abs().max()) == 0.0
+    assert float(_split_exact(torch.tensor([1.0, 2.0**-110, 1.0 - 2.0**-24]))
+                 .abs().max()) == 0.0
+
+
+def test_split_bf16x3_below_2_to_minus_110_loses_under_2_to_minus_126():
+    rng = np.random.default_rng(1)
+    tiny = np.exp2(rng.uniform(-149.0, -110.0, 200_000)).astype(np.float32)
+    p = torch.as_tensor(np.concatenate([tiny, np.float32([2.0**-149, 2.0**-126, 2.0**-111])]))
+    assert float(p.min()) > 0.0
+    assert float(_split_exact(p).abs().max()) < 2.0**-126
+
+
+def _plain_split_pv(q, k, v, causal, window):
+    """flash_attention_plain's function with P.V taken as P1 V + P2 V + P3 V
+    (the wgmma kernel's formulation), in f32, before rounding to q's dtype."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kv, h // kv, dh)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * dh**-0.5
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, tfa.NEG)
+    p = torch.where(mask, torch.exp(logits - logits.amax(-1, keepdim=True)), 0.0)
+    denom = p.sum(-1, keepdim=True)
+    o = sum(torch.einsum("bgrqk,bkgd->bgrqd", part.float(), v.float())
+            for part in tfa.split_bf16x3(p))
+    o = o / torch.where(denom > 0, denom, 1.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,dh,causal,window",
+    [
+        (2, 300, 300, 8, 2, 64, True, None),
+        (1, 200, 200, 4, 4, 128, True, 50),
+        (1, 64, 256, 4, 1, 64, False, None),
+        (1, 130, 130, 8, 1, 64, True, 129),
+    ],
+)
+def test_flash_plain_with_split_pv_matches_plain(b, sq, sk, h, kv, dh, causal, window):
+    """The function argument of the wgmma route, on the CPU: with bf16 q, k, v,
+    P.V at f32 p equals the sum of the three bf16-part products up to f32
+    rounding."""
+    rng = np.random.default_rng(sq + dh)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+               for s in [(b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)])
+    got = _plain_split_pv(q, k, v, causal, window)
+    want = tfa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal, window=window)
+    tol = 4 * float(np.spacing(np.float32(v.float().abs().max())))
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_flash_route_is_a_function_of_dtype_and_head_dim():
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh in tfa.HEAD_DIMS:
+            want = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
+            assert tfa.flash_route(dtype, dh) == want
+    assert tfa.WGMMA_HEAD_DIMS == (64, 128)
+
+
+@pytest.mark.parametrize(
+    "sq,sk,causal,window",
+    [(1, 1, True, None), (37, 37, True, None), (37, 37, True, 5), (50, 20, True, None),
+     (20, 50, True, None), (40, 70, False, None), (40, 70, False, 9), (33, 33, True, 100),
+     (64, 64, True, 1)],
+)
+def test_visible_pairs_matches_brute_force(sq, sk, causal, window):
+    i, j = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), dtype=bool)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    assert tfa.visible_pairs(sq, sk, causal, window) == int(mask.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +426,47 @@ def test_flash_kernel_matches_plain_cuda(cuda, b, sq, sk, h, kv, dh, causal, win
         assert float((got - want).abs().max()) <= 2e-5
     else:
         assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,dh,causal,window",
+    [
+        (1, 300, 300, 8, 8, 64, True, None),  # GQA ratio 1
+        (2, 300, 300, 8, 2, 64, True, None),  # ratio 4, B > 1
+        (1, 777, 777, 16, 2, 64, True, None),  # ratio 8
+        (1, 5, 5, 32, 8, 64, True, None),  # a 5-token prompt
+        (3, 1000, 1000, 8, 2, 128, True, None),  # dh 128, B > 1
+        (1, 1000, 1000, 4, 1, 64, True, 200),  # a window crossing tile edges
+        (2, 777, 777, 8, 2, 128, True, 300),
+        (1, 1024, 1024, 32, 8, 64, True, None),  # whole tiles
+        (2, 64, 256, 4, 4, 64, False, None),  # non-causal, Sq != Sk
+        (1, 300, 1000, 8, 4, 128, False, None),
+    ],
+)
+def test_flash_wgmma_route_matches_plain_cuda(cuda, b, sq, sk, h, kv, dh, causal, window):
+    """bf16 at head_dim 64 and 128 takes the wgmma kernel, once, within one
+    bf16 ulp of the plain version."""
+    q, k, v = _card_case(cuda, b, sq, sk, h, kv, dh, torch.bfloat16, 3 * sq + sk + dh)
+    tops.reset_launch_counts()
+    got = tops.attention(q, k, v, causal=causal, window=window)
+    assert tfa.flash_attention_cuda.route_launches == {"wgmma": 1, "simt": 0}
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_simt_route_takes_bf16_dh32_cuda(cuda):
+    q, k, v = _card_case(cuda, 2, 300, 300, 8, 2, 32, torch.bfloat16, 32)
+    tops.reset_launch_counts()
+    got = tops.attention(q, k, v, causal=True, window=100)
+    assert tfa.flash_attention_cuda.route_launches == {"wgmma": 0, "simt": 1}
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
 
 
 @pytest.mark.cuda

@@ -443,11 +443,13 @@ def test_syrk_kernel_matches_plain_cuda(cuda, n_clients, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n_rows,t,k",
-    [(142, 45451, 2408), (3, 512, 100), (4, 257, 1), (4, 130, 130), (2, 1025, 1024), (8, 61425, 2800)],
+    [(142, 45451, 2408), (3, 512, 100), (4, 257, 1), (4, 130, 130), (2, 1025, 1024), (8, 61425, 2800),
+     (2, 57820, 2000), (2, 57821, 2000)],
 )
 def test_topk_kernel_bit_exact_cuda(cuda, n_rows, t, k):
     """Near-ties, a zero row and a row of exact ties; T = 61425 keeps the keys
-    in device memory (they do not fit the shared memory of one block)."""
+    in device memory (they do not fit the shared memory of one block), and
+    T = 57820 and 57821 sit on either side of that limit."""
     u = near_tie_rows(n_rows, t, seed=t)
     u[0] = 0.0
     u[-1] = np.round(u[-1], 1)
@@ -459,7 +461,59 @@ def test_topk_kernel_bit_exact_cuda(cuda, n_rows, t, k):
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert torch.equal(sent, want_sent)
-    assert tcs.keys_in_shared_memory(t, cuda) == (t * 4 + 128 <= 232448)
+    # 1168: the kernel's static shared memory as compiled for sm_90a (32 warp
+    # counts, 256 histogram bins, a pass's pick); 232448: the H100's opt-in
+    # limit per block
+    assert tcs.keys_in_shared_memory(t, cuda) == (t * 4 + 1168 <= 232448)
+
+
+def tie_rows(n_rows, t, seed):
+    """Few distinct magnitudes (+-1, +-2, +-3, +-4, and 0): each key value is
+    shared by thousands of indices, so the ties at the threshold exceed the
+    number kept and span many tiles and warps."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(-4, 5, size=(n_rows, t)).astype(np.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "t,k",
+    [(45451, 2408), (45451, 1), (45451, 45451), (45451, 30000), (61425, 2800), (1000, 333)],
+)
+def test_topk_kernel_ties_exceed_need_cuda(cuda, t, k):
+    """Rows whose ties at the threshold exceed what is kept: the lowest-index
+    ties are kept, bit-exact against the plain version; also k = 1 and k = T,
+    and T = 61425 with the keys in device memory."""
+    u = tie_rows(4, t, seed=k)
+    ut = torch.as_tensor(u, device=cuda)
+    keys = np.abs(u).astype(np.float32)
+    kth = -np.sort(-keys, axis=1)[:, k - 1]
+    n_eq = (keys == kth[:, None]).sum(1)
+    n_gt = (keys > kth[:, None]).sum(1)
+    assert k == t or np.all(n_eq > k - n_gt)  # the fixture does what it says
+    before = tcs.select_topk_cuda.launches
+    got, sent = tops.select_topk(ut, k)
+    assert tcs.select_topk_cuda.launches == before + 1
+    want, want_sent = tcs.select_topk_plain(ut, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert torch.equal(sent, want_sent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,k", [(45451, 2408), (45451, 1), (45451, 45451), (61425, 2800)])
+def test_toplek_kernel_ties_exceed_need_cuda(cuda, t, k):
+    """TopLEK on the same tie-heavy rows, whose sums are exact in any order
+    (small integers): exact u_hat and kept."""
+    u = tie_rows(4, t, seed=k + 1)
+    unif = np.random.default_rng(k).uniform(size=4)
+    ut = torch.as_tensor(u, device=cuda)
+    unif_t = torch.as_tensor(unif, device=cuda)
+    got, sent = tops.select_toplek(ut, k, unif_t)
+    want, want_sent = tcs.select_toplek_plain(ut, k, unif_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert torch.equal(sent, want_sent)
 
 
 @pytest.mark.cuda
