@@ -46,11 +46,14 @@ raises, and the script exits non-zero without the final line.
              library yardstick at the main paths' shapes, beside the card's
              least time: bytes, or the operations the function needs (flash:
              QK^T and three bf16 P.V products over the visible pairs on the
-             bf16 tensor cores)
+             bf16 tensor cores); SYRK's ptxas report, dynamic shared memory,
+             SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
+             schedule stages
   7 trace    torch.profiler over 3 rounds of the TopK and of the TopLEK path
              and over one 32k prefill: device time by kernel and the device's
-             busy share of the wall time; the host's ms per round for the key
-             split, the clients' keys and draws, and their upload
+             busy share of the wall time (SYRK's ms per TopK round beside it);
+             the host's ms per round for the key split, the clients' keys and
+             draws, and their upload
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -243,6 +246,35 @@ def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / op_rate * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def syrk_build_facts(build, report: str | None) -> dict:
+    """The SYRK kernel as built: ptxas's registers, spills and shared memory
+    (from this run's build; "not measured" when the library was built before
+    the run), its dynamic shared memory, and the instructions its SASS holds
+    (cuobjdump beside nvcc): DMMA, the tensor-core FP64 product; LDGSTS, the
+    cp.async copy; DFMA, a product on the FP64 pipes."""
+    import ctypes
+
+    facts = {"dynamic_smem_bytes": build.function(
+        "hessian_syrk", "syrk_packed_smem_bytes", (), restype=ctypes.c_int)()}
+    if report is None:
+        facts["ptxas"] = "not measured (library built before this run)"
+    else:
+        facts["ptxas"] = [ln.strip() for ln in report.splitlines()
+                          if "registers" in ln or "spill" in ln or "smem" in ln]
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        facts["sass"] = "not measured (no cuobjdump beside nvcc)"
+        return facts
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("hessian_syrk"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    ops = [ln.split(";")[0].split("*/")[-1].strip() for ln in sass.splitlines() if "/*" in ln]
+    opcode = [op.split()[1] if op.startswith("@") else op.split()[0] for op in ops if op]
+    facts["sass"] = {name: sum(o.startswith(name) for o in opcode)
+                     for name in ("DMMA", "LDGSTS", "DFMA", "DMUL")}
+    facts["sass"]["dmma_shapes"] = sorted({o for o in opcode if o.startswith("DMMA")})
+    return facts
 
 
 def host_draw_ms(prng, upload_draws, n_clients: int, t: int, device) -> dict:
@@ -547,6 +579,8 @@ def main() -> int:
     from repro_torch.kernels.hessian_syrk import (
         hessian_syrk_packed_cuda,
         hessian_syrk_packed_plain,
+        syrk_l2_bytes,
+        syrk_schedule,
     )
     from repro_torch.linalg import triu_size
     from repro_torch.models import cast_for_compute, init_decode_cache, lm_decode_step
@@ -843,6 +877,24 @@ def main() -> int:
         SELECT_OPS_PER_KEY * delta1.numel() + n_clients * (p2 // 2) * sort_stages * 2,
         CUDA_CORE_32BIT_OPS,
     )
+    syrk_ops = 2 * n_i * t_len * n_clients
+    syrk_sched = syrk_schedule(d)
+    syrk_tiles = sum(len(w) for *_, warps in syrk_sched for w in warps)
+    syrk_l2 = syrk_l2_bytes(n_clients, n_i, d)
+    emit({
+        "phase": "times", "part": "hessian_syrk_packed", "shape": [n_clients, n_i, d],
+        **syrk_build_facts(build, reports.get("hessian_syrk")),
+        "blocks_per_client": len(syrk_sched), "dmma_tiles_per_client": syrk_tiles,
+        # a block holds its slot until its busiest warp ends
+        "busiest_warp_tiles_per_client": sum(max(map(len, w)) for *_, w in syrk_sched),
+        "scheduled_over_exact_ops": syrk_tiles * 16 * 8 / t_len,
+        "l2_bytes_reckoned": syrk_l2,
+        "tflop_per_s_exact_triangle": syrk_ops / syrk_ms["kernel"] / 1e9,
+        "l2_tb_per_s_implied": syrk_l2 / syrk_ms["kernel"] / 1e9,
+        "bound_ms": syrk_bound[0], "bound_by": syrk_bound[1],
+        "note": "l2_bytes_reckoned: Z's columns and hw that the schedule's blocks "
+                "stage (kernels/hessian_syrk.py:syrk_l2_bytes)",
+    })
     emit({"phase": "times", "hessian_syrk_packed": syrk_ms, "select_topk": topk_ms,
           "select_randseqk": randseqk_ms, "select_toplek": toplek_ms,
           "note": f"ms per call: median over {TIMED_REPS} event pairs around "
@@ -862,8 +914,10 @@ def main() -> int:
                   "same function at lower precision"})
 
     # --- 7 where the time goes (torch.profiler): 3 rounds, one 32k prefill ---
-    emit({"phase": "trace", "path": "topk",
-          **trace_rounds(make_fednl_round(z, cfg), fednl_init(z, cfg), 3)})
+    topk_trace = trace_rounds(make_fednl_round(z, cfg), fednl_init(z, cfg), 3)
+    syrk_rows = [k for k in topk_trace.get("top_kernels", []) if "syrk" in k["name"]]
+    emit({"phase": "trace", "path": "topk", **topk_trace,
+          "syrk_ms_per_round": syrk_rows[0]["ms_per_round"] if syrk_rows else "not measured"})
     toplek_cfg = toplek_spec.fednl_config()
     emit({"phase": "trace", "path": "toplek",
           **trace_rounds(make_fednl_round(z, toplek_cfg), fednl_init(z, toplek_cfg), 3)})

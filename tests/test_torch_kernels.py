@@ -17,7 +17,9 @@ collect on a machine without JAX; whether a card is present is decided
 inside a fixture too.
 """
 
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -162,6 +164,85 @@ def test_syrk_plain_adds_lam_packed():
     got = ths.hessian_syrk_packed_plain(zt, ht, 0.25)
     want = bare + 0.25 * packed_eye(9, torch.float64, torch.device("cpu"))
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# SYRK: the CUDA kernel's tile schedule, mirrored in syrk_schedule (CPU)
+# ---------------------------------------------------------------------------
+
+def test_syrk_schedule_constants_match_the_kernel_source():
+    """The mirror's block and warp tiles are the kernel's."""
+    src = (Path(ths.__file__).parent / "csrc" / "hessian_syrk.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kRows"], consts["kCols"], consts["kWarpTile"], consts["kNarrowCols"]) == (
+        ths.ROWS, ths.COLS, ths.WARP_TILE, ths.NARROW_COLS)
+
+
+@pytest.mark.parametrize("d_lo", range(1, 321, 32))
+def test_syrk_schedule_covers_each_packed_entry_once(d_lo):
+    """For every d in [d_lo, d_lo + 32): each (r, q >= r) below d lies in
+    exactly one computed DMMA tile, every tile holds an upper entry below d
+    and lies inside its block, and the blocks are those of the kernel's grid
+    (column chunk, row strip) whose chunk starts below d."""
+    for d in range(d_lo, d_lo + 32):
+        blocks = ths.syrk_schedule(d)
+        grid = [(ths.ROWS * i, ths.ROWS * i + ths.COLS * j)
+                for i in range(-(-d // ths.ROWS)) for j in range(-(-d // ths.COLS))]
+        assert [(r0, q0) for r0, q0, _ in blocks] == [(r0, q0) for r0, q0 in grid if q0 < d]
+        tr, tc = ths.DMMA_ROWS, ths.DMMA_COLS
+        count = np.zeros((d + tr, d + tc), dtype=np.int64)
+        for r0, q0, warps in blocks:
+            tiles = [t for w in warps for t in w]
+            assert len(set(tiles)) == len(tiles)
+            for rt, qt in tiles:
+                assert r0 <= rt and rt + tr <= r0 + ths.ROWS
+                assert q0 <= qt and qt + tc <= q0 + ths.COLS
+                assert rt < d and qt < d and qt + tc - 1 >= rt
+                count[rt:rt + tr, qt:qt + tc] += 1
+        upper = np.triu(np.ones((d, d), dtype=bool))
+        assert np.all(count[:d, :d][upper] == 1), d
+        assert np.all(count[:d, :d][~upper] <= 1), d
+
+
+def _syrk_by_schedule(z, hw, lam):
+    """The packed result assembled as the kernel assembles it: per computed
+    DMMA tile Z[:, rows]^T (hw Z[:, cols]), then the epilogue's mask (q < d,
+    q >= r), offset off(r, q) and +lam / +lam*0.0."""
+    n_clients, _, d = z.shape
+    tr, tc = ths.DMMA_ROWS, ths.DMMA_COLS
+    zp = torch.nn.functional.pad(z, (0, tr))
+    hz = hw[..., None] * zp
+    out = torch.full((n_clients, triu_size(d)), float("nan"), dtype=torch.float64)
+    for _, _, warps in ths.syrk_schedule(d):
+        for rt, qt in (t for w in warps for t in w):
+            acc = zp[:, :, rt:rt + tr].mT @ hz[:, :, qt:qt + tc]
+            for i in range(tr):
+                for j in range(tc):
+                    r, q = rt + i, qt + j
+                    if q < d and q >= r:
+                        off = r * d - r * (r - 1) // 2 + (q - r)
+                        out[:, off] = acc[:, i, j] + (lam if q == r else lam * 0.0)
+    return out
+
+
+@pytest.mark.parametrize("n_clients,n,d", [(2, 1, 1), (2, 7, 5), (2, 9, 8), (1, 13, 63),
+                                           (1, 13, 64), (2, 5, 65), (2, 11, 69), (1, 6, 150),
+                                           (1, 3, 301)])
+def test_syrk_schedule_assembles_the_plain_result(n_clients, n, d):
+    z, hw = _syrk_inputs(n_clients, n, d, seed=d)
+    zt, ht = torch.as_tensor(z), torch.as_tensor(hw)
+    got = _syrk_by_schedule(zt, ht, 1e-3)
+    want = ths.hessian_syrk_packed_plain(zt, ht, 1e-3)
+    assert not bool(torch.isnan(got).any())
+    assert (got - want).abs().max().item() <= SYRK_TOL * _syrk_scale(z, hw)
+
+
+def test_syrk_l2_bytes_at_w8a():
+    """9 blocks a client at d = 301 stage 1,121 of Z's columns (the 64 x 64
+    pair grid of the FP64-pipe kernel staged 1,806) and hw once each."""
+    blocks = ths.syrk_schedule(301)
+    assert len(blocks) == 9 and sum(len(t) for *_, w in blocks for t in w) == 380
+    assert ths.syrk_l2_bytes(142, 348, 301) == 142 * 348 * 8 * (1121 + 9)
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +506,12 @@ def test_cuda_wrappers_refuse_before_building():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n_clients,n,d",
-    [(142, 348, 301), (3, 40, 24), (2, 1, 65), (1, 33, 64), (5, 100, 129)],
+    [(142, 348, 301), (3, 40, 24), (2, 1, 65), (1, 33, 64), (5, 100, 129),
+     # n_i not a multiple of 4 (the phishing and a9a widths), then all 142
+     # clients at the phishing and a9a shapes
+     (4, 77, 69), (3, 229, 124), (142, 77, 69), (142, 229, 124),
+     # d below 8 and at the 8- and 64-boundaries
+     (3, 20, 1), (3, 21, 5), (2, 22, 8), (2, 35, 63), (2, 36, 64), (2, 37, 65)],
 )
 def test_syrk_kernel_matches_plain_cuda(cuda, n_clients, n, d):
     z, hw = _syrk_inputs(n_clients, n, d, seed=n + d)
