@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
-and the LM zoo's dense inference path (granite-3-2b).
+with the paper's six compressors, FedNL-LS and FedNL-PP, and the LM zoo's
+dense inference path (granite-3-2b).
 
     python3 chip_smoke.py
 
@@ -24,13 +25,19 @@ raises, and the script exits non-zero without the final line.
              granite's 32k layer shape, B = 4, a 4096 window, S = 1000, a
              5-token prompt, non-causal 64 x 256 and dh = 128 (the wgmma
              route) and bf16 at dh = 32 (the SIMT route), and within 2e-5 in
-             f32 (the SIMT route); each fixture's route checked
+             f32 (the SIMT route); each fixture's route checked; the threefry
+             kernel bit-exact in f32 and f64 at (142, 45451), T = 1 and one
+             client; TopK by keys bit-exact on the round's real uniforms,
+             forced ties at the k-th key, k = 1 and k = T
   4 main     repro_torch.api.solve on w8a (Option B, hess0="exact") on the
-             card, three paths, the launch counts set to 0 before each and
-             read after it: TopK and TopLEK (tol 1e-12, <= 50 rounds), RandSeqK
-             (30 rounds); launch counts, the grad norm falls, and the first 3
-             rounds' grad norms and sent_bits against the same spec on the CPU
-             (plain versions; the same threefry draws)
+             card, seven paths, the launch counts set to 0 before each and
+             read after it: TopK and TopLEK (tol 1e-12, <= 50 rounds),
+             RandSeqK, RandK and Natural (30 rounds), FedNL-LS with TopK (tol
+             1e-12, <= 50 rounds), FedNL-PP with TopK and tau = 71 (50
+             rounds); launch counts, the grad norm falls, and the first 3
+             rounds' grad norms (PP: models), sent_bits, LS's steps and PP's
+             clients against the same spec on the CPU (plain versions; the
+             same threefry draws)
   5 lm       granite-3-2b at full width: 2 layers (depth cut) on the card
              against the same params on the CPU, prefill B = 2, S = 512 and 4
              decode steps, within LOGIT_ULPS bf16 ulps of the logit scale;
@@ -44,16 +51,20 @@ raises, and the script exits non-zero without the final line.
              engine and from the launcher
   6 times    CUDA-event medians of each kernel, its plain version and its
              library yardstick at the main paths' shapes, beside the card's
-             least time: bytes, or the operations the function needs (flash:
+             least time: bytes, or the operations the function needs (threefry:
+             the hash's 32-bit operations; flash:
              QK^T and three bf16 P.V products over the visible pairs on the
              bf16 tensor cores); SYRK's ptxas report, dynamic shared memory,
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
              schedule stages
-  7 trace    torch.profiler over 3 rounds of the TopK and of the TopLEK path
-             and over one 32k prefill: device time by kernel and the device's
-             busy share of the wall time (SYRK's ms per TopK round beside it);
-             the host's ms per round for the key split, the clients' keys and
-             draws, and their upload
+  7 trace    one round each of the TopK, RandK and PP paths under
+             torch.cuda.set_sync_debug_mode("error") (no host sync: the
+             Cholesky solve checks nothing); torch.profiler over 3 rounds of
+             the TopK, TopLEK, RandK, Natural and PP paths and over one 32k
+             prefill: device time by kernel and the device's busy share of the
+             wall time (SYRK's ms per TopK round beside it); the host's ms per
+             round for the key split, the clients' keys and draws, and their
+             upload
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -88,6 +99,11 @@ MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 # the integer work TopK's function needs per key: the f32 key, four radix
 # passes of a digit, a compare and a count, and the final compare
 SELECT_OPS_PER_KEY = 14
+# the 32-bit operations threefry's function needs per element: the key's two
+# additions, 20 rounds of add, rotate and xor, 5 key injections of two adds,
+# and 4 to make the float from the bits
+THREEFRY_OPS_PER_ELEM = 2 + 20 * 3 + 5 * 2 + 4
+PP_TAU = 71  # FedNL-PP's participants per round at w8a: half the 142 clients
 
 SYRK_TOL = 1e-13  # of max(|Z|^T |h| |Z|): FP64 sums of n_i = 348 terms, any order
 TRAJECTORY_RTOL = 1e-8  # card vs CPU grad norms over the first 3 rounds
@@ -564,10 +580,13 @@ def main() -> int:
     from repro_torch.compressors.core import upload_draws
     from repro_torch.compressors.select import randseqk_window_mask, rank_keys
     from repro_torch.core.fednl import fednl_init, make_fednl_round
+    from repro_torch.core.fednl_pp import fednl_pp_init, make_fednl_pp_round
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels.compressor_select import (
         keys_in_shared_memory,
+        select_topk_by_keys_cuda,
+        select_topk_by_keys_plain,
         select_randseqk_cuda,
         select_randseqk_plain,
         select_topk_cuda,
@@ -582,6 +601,7 @@ def main() -> int:
         syrk_l2_bytes,
         syrk_schedule,
     )
+    from repro_torch.kernels.threefry import threefry_uniform_cuda, threefry_uniform_plain
     from repro_torch.linalg import triu_size
     from repro_torch.models import cast_for_compute, init_decode_cache, lm_decode_step
     from repro_torch.objectives.logreg import logreg_oracles_packed
@@ -748,58 +768,157 @@ def main() -> int:
             "kept_min_max": toplek_kept, "memory_paths": toplek_paths,
         },
     })
-    del state0, state1, delta0, h_plain
+
+    # the threefry kernel: the round's real client keys, T = 1, one client
+    def keys_on_card(keys_np):
+        return torch.as_tensor(np.ascontiguousarray(keys_np).view(np.int32), device=dev)
+
+    wide_keys = prng.split(prng.prng_key(7), 1000)
+    threefry_cases = {  # name: (keys, t)
+        "w8a_round0": (round_keys[0], t_len),
+        "w8a_round1": (round_keys[1], t_len),
+        "t_is_1": (round_keys[0], 1),
+        "one_client": (round_keys[1][:1], t_len),
+        "many_clients_t_3000": (wide_keys, 3000),
+    }
+    threefry_report, threefry_err = {}, {torch.float32: 0.0, torch.float64: 0.0}
+    for name, (keys_np, tt) in threefry_cases.items():
+        kt = keys_on_card(keys_np)
+        for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+            got = threefry_uniform_cuda(kt, tt, dtype)
+            want = threefry_uniform_plain(kt, tt, dtype)
+            torch.cuda.synchronize()
+            check(got.shape == (keys_np.shape[0], tt) and got.dtype == dtype,
+                  f"threefry {name}: {tuple(got.shape)} {got.dtype}")
+            check(torch.equal(got.view(bits), want.view(bits)),
+                  f"threefry {name} {dtype}: differs from the plain version")
+            check(bool((got >= 0).all()) and bool((got < 1).all()), f"threefry {name}: out of [0, 1)")
+            threefry_err[dtype] = max(threefry_err[dtype], (got - want).abs().max().item())
+        threefry_report[name] = [keys_np.shape[0], tt]
+    # against the host generator too, on two clients of the round
+    host = prng.uniform(round_keys[0][:2], (t_len,), np.float32)
+    card = threefry_uniform_cuda(keys_on_card(round_keys[0][:2]), t_len, torch.float32).cpu().numpy()
+    check(np.array_equal(host.view(np.int32), card.view(np.int32)), "threefry vs prng.uniform")
+
+    # TopK by keys: the round's real uniforms, ties at the k-th key, k = 1, k = T
+    unif0 = threefry_uniform_cuda(keys_on_card(round_keys[0]), t_len, torch.float32)
+    tie_keys = torch.as_tensor(
+        (rng.integers(0, 16, size=(n_clients, t_len)) / 16).astype(np.float32), device=dev)
+    by_keys_cases = {  # name: (u, keys, k)
+        "round0_uniforms": (delta1, unif0, k),
+        "ties_at_kth_key": (delta1, tie_keys, k),
+        "k_is_1": (delta1, unif0, 1),
+        "k_is_T": (delta1, unif0, t_len),
+        "keys_in_device_memory": (
+            torch.as_tensor(rng.standard_normal((4, d350)), device=dev),
+            threefry_uniform_cuda(keys_on_card(round_keys[1][:4]), d350, torch.float32), 8 * 350),
+    }
+    tk = tie_keys.cpu().numpy()
+    kth = -np.sort(-tk, axis=1)[:, k - 1]
+    check(bool(np.all((tk == kth[:, None]).sum(1) > k - (tk > kth[:, None]).sum(1))),
+          "the tie fixture has no tie across the k-th key")
+    by_keys_err = 0.0
+    for name, (u, keys, kk) in by_keys_cases.items():
+        got, sent = select_topk_by_keys_cuda(u.contiguous(), keys.contiguous(), kk)
+        want, sent_want = select_topk_by_keys_plain(u, keys, kk)
+        check(bits_equal(got, want), f"TopK by keys {name}: u_hat differs from the plain version")
+        check(torch.equal(sent, sent_want), f"TopK by keys {name}: sent differs")
+        by_keys_err = max(by_keys_err, (got - want).abs().max().item())
+    torch.cuda.synchronize()
+    emit({
+        "phase": "kernels",
+        "threefry_uniform": {"cases": threefry_report, "dtypes": ["float32", "float64"],
+                             "bit_exact": True, "host_generator_bit_exact": True},
+        "select_topk_by_keys": {"cases": sorted(by_keys_cases), "bit_exact": True,
+                                "max_abs_err": by_keys_err},
+    })
+    del state0, state1, delta0, h_plain, tie_keys, wide_keys
     flash_report, flash_err = check_flash(dev, tfa)
     emit({"phase": "kernels", "flash_attention": flash_report})
 
     # --- 4 the main paths, the launch counts set to 0 before each ---------
-    def main_path(label: str, path_spec, selector: str, cpu_rounds: int = 3):
+    def main_path(label: str, path_spec, per_round: tuple[str, ...], cpu_rounds: int = 3):
+        """solve(path_spec) on the card: each kernel of ``per_round`` launched
+        once a round and once in the warm-up round, SYRK also once at init;
+        the first ``cpu_rounds`` rounds against the same spec on the CPU."""
+        pp = path_spec.algorithm == "fednl-pp"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         rep = solve(path_spec)
         launches = ops.launch_counts()
-        gn = rep.grad_norms
         check(rep.x.shape == (d,) and bool(np.all(np.isfinite(rep.x))), f"{label}: x not finite")
-        check(rep.rounds >= 3 and bool(np.all(np.isfinite(gn))), f"{label}: grad norms {gn}")
         want = {name: 0 for name in launches}
-        want.update({selector: rep.rounds + 1, "hessian_syrk_packed": rep.rounds + 2})
+        want.update({name: rep.rounds + 1 for name in per_round})
+        want["hessian_syrk_packed"] = rep.rounds + 2
         check(launches == want,
               f"{label}: launches {launches}, want {want} for {rep.rounds} rounds + warm-up (+ init)")
-        check(gn[-1] < gn[0], f"{label}: grad norm did not fall: {gn[0]} -> {gn[-1]}")
         rep_cpu = solve(path_spec.replace(rounds=cpu_rounds, tol=0.0), device="cpu")
-        rel = np.abs(gn[:cpu_rounds] - rep_cpu.grad_norms) / rep_cpu.grad_norms
-        check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{label}: card vs CPU grad norms differ: {rel}")
         check(list(rep.sent_bits[:cpu_rounds]) == list(rep_cpu.sent_bits),
               f"{label}: sent_bits {rep.sent_bits[:cpu_rounds]} vs CPU {rep_cpu.sent_bits}")
-        emit({
-            "phase": "main",
-            "path": label,
-            "device": rep.extras["device"],
-            "rounds": rep.rounds,
-            "grad_norms": gn.tolist(),
-            "sent_bits": rep.sent_bits.tolist(),
-            "cpu_grad_norms_3": rep_cpu.grad_norms.tolist(),
-            "cpu_rel_err_3": rel.tolist(),
-            "cpu_sent_bits_3": rep_cpu.sent_bits.tolist(),
-            "init_time_s": rep.init_time_s,
-            "wall_time_s": rep.wall_time_s,
-            "ms_per_round": rep.wall_time_s / rep.rounds * 1e3,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "launches": launches,
-        })
+        out = {
+            "phase": "main", "path": label, "device": rep.extras["device"], "rounds": rep.rounds,
+            "sent_bits": rep.sent_bits.tolist(), "cpu_sent_bits_3": rep_cpu.sent_bits.tolist(),
+        }
+        if pp:
+            xh, xh_cpu = rep.x_hist, rep_cpu.x_hist  # each round's model, norm-wise
+            rel = np.linalg.norm(xh[:cpu_rounds] - xh_cpu, axis=1) / np.linalg.norm(xh_cpu, axis=1)
+            check(bool(np.all(np.isfinite(xh))), f"{label}: models not finite")
+            check(float(rel.max()) <= TRAJECTORY_RTOL, f"{label}: card vs CPU models differ: {rel.max()}")
+            check(rep.participants[:cpu_rounds] == rep_cpu.participants,
+                  f"{label}: the chosen clients differ from the CPU run's")
+            check(all(len(set(p)) == path_spec.tau for p in rep.participants),
+                  f"{label}: not {path_spec.tau} distinct clients a round")
+            out.update(final_grad_norm=rep.final_grad_norm, x_rel_err_3=rel.tolist(),
+                       participants_round0=rep.participants[0][:8], tau=rep.extras["tau"])
+        else:
+            gn = rep.grad_norms
+            check(rep.rounds >= 3 and bool(np.all(np.isfinite(gn))), f"{label}: grad norms {gn}")
+            check(gn[-1] < gn[0], f"{label}: grad norm did not fall: {gn[0]} -> {gn[-1]}")
+            rel = np.abs(gn[:cpu_rounds] - rep_cpu.grad_norms) / rep_cpu.grad_norms
+            check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{label}: card vs CPU grad norms differ: {rel}")
+            out.update(grad_norms=gn.tolist(), cpu_grad_norms_3=rep_cpu.grad_norms.tolist(),
+                       cpu_rel_err_3=rel.tolist())
+            if path_spec.algorithm == "fednl-ls":
+                check(list(rep.ls_steps[:cpu_rounds]) == list(rep_cpu.ls_steps),
+                      f"{label}: ls_steps {rep.ls_steps[:cpu_rounds]} vs CPU {rep_cpu.ls_steps}")
+                out.update(ls_steps=rep.ls_steps.tolist())
+        out.update(
+            init_time_s=rep.init_time_s, wall_time_s=rep.wall_time_s,
+            ms_per_round=rep.wall_time_s / rep.rounds * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+        )
+        emit(out)
         return rep, launches
 
     rep, launches = main_path(
-        "w8a topk option B hess0=exact rounds<=50 tol=1e-12", spec, "select_topk")
+        "w8a topk option B hess0=exact rounds<=50 tol=1e-12", spec, ("select_topk",))
     check(rep.grad_norms[-1] <= rep.grad_norms[0] * 1e-6, f"TopK grad norms {rep.grad_norms}")
     toplek_spec = spec.replace(compressor=CompressorSpec("toplek"))
     rep_le, launches_le = main_path(
-        "w8a toplek option B hess0=exact rounds<=50 tol=1e-12", toplek_spec, "select_toplek")
+        "w8a toplek option B hess0=exact rounds<=50 tol=1e-12", toplek_spec, ("select_toplek",))
     randseqk_spec = spec.replace(compressor=CompressorSpec("randseqk"), rounds=30, tol=0.0)
     rep_rs, launches_rs = main_path(
-        "w8a randseqk option B hess0=exact rounds=30", randseqk_spec, "select_randseqk")
+        "w8a randseqk option B hess0=exact rounds=30", randseqk_spec, ("select_randseqk",))
     check(rep_rs.rounds == 30, f"RandSeqK ran {rep_rs.rounds} rounds")
+    randk_spec = spec.replace(compressor=CompressorSpec("randk"), rounds=30, tol=0.0)
+    rep_rk, launches_rk = main_path(
+        "w8a randk option B hess0=exact rounds=30", randk_spec,
+        ("threefry_uniform", "select_topk_by_keys"))
+    natural_spec = spec.replace(compressor=CompressorSpec("natural"), rounds=30, tol=0.0)
+    rep_nat, launches_nat = main_path(
+        "w8a natural option B hess0=exact rounds=30", natural_spec, ("threefry_uniform",))
+    check(rep_rk.rounds == rep_nat.rounds == 30, "RandK and Natural run 30 rounds")
+    ls_spec = spec.replace(algorithm="fednl-ls")
+    rep_ls, launches_ls = main_path(
+        "w8a fednl-ls topk option B hess0=exact rounds<=50 tol=1e-12", ls_spec, ("select_topk",))
+    pp_spec = spec.replace(algorithm="fednl-pp", tau=PP_TAU, rounds=50, tol=0.0)
+    rep_pp, launches_pp = main_path(
+        f"w8a fednl-pp topk tau={PP_TAU} option B hess0=exact rounds=50", pp_spec,
+        ("select_topk",))
+    check(rep_pp.rounds == 50, f"PP ran {rep_pp.rounds} rounds")
+    check(rep_pp.final_grad_norm < rep.grad_norms[0],
+          f"PP: grad norm {rep_pp.final_grad_norm} not below the start's {rep.grad_norms[0]}")
 
     # --- 5 the LM path: granite-3-2b, the launch counts set to 0 before each -
     lm = lm_phase(dev, ops)
@@ -830,6 +949,21 @@ def main() -> int:
         "kernel": lambda: select_toplek_cuda(delta1, k, unif_round),
         "plain": lambda: select_toplek_plain(delta1, k, unif_round),
         "ranking_only": lambda: torch.topk(keys, k, dim=-1),
+    })
+    keys_round = keys_on_card(round_keys[1])
+    threefry_ms = {
+        name: median_ms({
+            "kernel": lambda dt=dt: threefry_uniform_cuda(keys_round, t_len, dt),
+            "plain": lambda dt=dt: threefry_uniform_plain(keys_round, t_len, dt),
+            "library": lambda dt=dt: torch.rand((n_clients, t_len), dtype=dt, device=dev),
+        })
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64))
+    }
+    unif_keys = threefry_uniform_cuda(keys_round, t_len, torch.float32)
+    by_keys_ms = median_ms({
+        "kernel": lambda: select_topk_by_keys_cuda(delta1, unif_keys, k),
+        "plain": lambda: select_topk_by_keys_plain(delta1, unif_keys, k),
+        "library": lambda: torch.topk(unif_keys, k, dim=-1),
     })
     fq, fk, fv = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, 32, 8, 64, torch.bfloat16, 100)
     qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk, fv))
@@ -877,6 +1011,18 @@ def main() -> int:
         SELECT_OPS_PER_KEY * delta1.numel() + n_clients * (p2 // 2) * sort_stages * 2,
         CUDA_CORE_32BIT_OPS,
     )
+    draws = n_clients * t_len
+    threefry_bound = {
+        name: bound(n_clients * 8 + draws * size, THREEFRY_OPS_PER_ELEM * draws,
+                    CUDA_CORE_32BIT_OPS)
+        for name, size in (("float32", 4), ("float64", 8))
+    }
+    by_keys_bound = bound(
+        # keys read, the k kept entries of u read, u_hat written, sent
+        draws * 4 + n_clients * k * 8 + draws * 8 + n_clients * 4,
+        SELECT_OPS_PER_KEY * draws,
+        CUDA_CORE_32BIT_OPS,
+    )
     syrk_ops = 2 * n_i * t_len * n_clients
     syrk_sched = syrk_schedule(d)
     syrk_tiles = sum(len(w) for *_, warps in syrk_sched for w in warps)
@@ -902,6 +1048,15 @@ def main() -> int:
                   "randseqk library = torch.where on a precomputed window mask; "
                   "toplek has no library call: ranking_only = torch.topk on the "
                   "f32 keys, the ranking part only"})
+    emit({"phase": "times", "threefry_uniform": threefry_ms, "select_topk_by_keys": by_keys_ms,
+          "shape": [n_clients, t_len], "k": k,
+          "bound_ms": {"threefry_float32": threefry_bound["float32"],
+                       "threefry_float64": threefry_bound["float64"],
+                       "select_topk_by_keys": by_keys_bound},
+          "note": f"ms per call: median over {TIMED_REPS} event pairs around "
+                  f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; threefry "
+                  "library = torch.rand of the same shape and type (another generator, "
+                  "timed only); TopK by keys library = torch.topk on the same f32 keys"})
     emit({"phase": "times", "flash_attention": flash_ms,
           "shape": [1, PREFILL_SEQ, 32, 8, 64], "causal": True, "dtype": "bfloat16",
           "route": tfa.flash_route(torch.bfloat16, 64),
@@ -913,14 +1068,39 @@ def main() -> int:
                   "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
                   "same function at lower precision"})
 
-    # --- 7 where the time goes (torch.profiler): 3 rounds, one 32k prefill ---
-    topk_trace = trace_rounds(make_fednl_round(z, cfg), fednl_init(z, cfg), 3)
+    # --- 7 no host sync in a round; where the time goes (torch.profiler) ----
+    pp_cfg = pp_spec.fednl_config()
+    rounds_of = {  # path: (round function, initial state)
+        "topk": (make_fednl_round(z, cfg), fednl_init(z, cfg)),
+        "randk": (make_fednl_round(z, randk_spec.fednl_config()),
+                  fednl_init(z, randk_spec.fednl_config())),
+        "fednl-pp topk": (make_fednl_pp_round(z, pp_cfg, PP_TAU), fednl_pp_init(z, pp_cfg)),
+    }
+    for path, (round_fn, state) in rounds_of.items():
+        warm, _ = round_fn(state)  # fills the caches (index tensors, kernels) first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, m = round_fn(warm)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        emit({"phase": "trace", "path": path, "sync_debug_mode": "error",
+              "one_round_without_host_sync": True, "sent_bits": int(m.sent_bits)})
+    topk_trace = trace_rounds(*rounds_of["topk"], 3)
     syrk_rows = [k for k in topk_trace.get("top_kernels", []) if "syrk" in k["name"]]
     emit({"phase": "trace", "path": "topk", **topk_trace,
           "syrk_ms_per_round": syrk_rows[0]["ms_per_round"] if syrk_rows else "not measured"})
     toplek_cfg = toplek_spec.fednl_config()
     emit({"phase": "trace", "path": "toplek",
           **trace_rounds(make_fednl_round(z, toplek_cfg), fednl_init(z, toplek_cfg), 3)})
+    emit({"phase": "trace", "path": "randk", **trace_rounds(*rounds_of["randk"], 3)})
+    natural_cfg = natural_spec.fednl_config()
+    emit({"phase": "trace", "path": "natural",
+          **trace_rounds(make_fednl_round(z, natural_cfg), fednl_init(z, natural_cfg), 3)})
+    emit({"phase": "trace", "path": f"fednl-pp topk tau={PP_TAU}",
+          **trace_rounds(*rounds_of["fednl-pp topk"], 3)})
+    del rounds_of
     emit({"phase": "draws", **host_draw_ms(prng, upload_draws, n_clients, t_len, dev)})
     emit({"phase": "trace", "path": "granite-3-2b prefill_32k (B=1)",
           **trace(lambda: lm["prefill"](lm["params"], lm["batch"]), 1, "prefill")})
@@ -975,6 +1155,36 @@ def main() -> int:
             "ms": toplek_ms["kernel"], "plain_ms": toplek_ms["plain"],
             "bound_ms": toplek_bound[0], "bound_by": toplek_bound[1],
             "library_ms": None,
+        },
+        {
+            "name": "threefry_uniform_float32", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/threefry.cu",
+            "replaces": "src/repro/compressors/core.py:106 (jax.random.uniform on the "
+                        "device; not a Pallas kernel)",
+            "launches": launches_rk["threefry_uniform"], "max_abs_err": threefry_err[torch.float32],
+            "ms": threefry_ms["float32"]["kernel"], "plain_ms": threefry_ms["float32"]["plain"],
+            "bound_ms": threefry_bound["float32"][0], "bound_by": threefry_bound["float32"][1],
+            "library_ms": threefry_ms["float32"]["library"],
+        },
+        {
+            "name": "threefry_uniform_float64", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/threefry.cu",
+            "replaces": "src/repro/compressors/core.py:161 (jax.random.bernoulli's uniform on "
+                        "the device; not a Pallas kernel)",
+            "launches": launches_nat["threefry_uniform"], "max_abs_err": threefry_err[torch.float64],
+            "ms": threefry_ms["float64"]["kernel"], "plain_ms": threefry_ms["float64"]["plain"],
+            "bound_ms": threefry_bound["float64"][0], "bound_by": threefry_bound["float64"][1],
+            "library_ms": threefry_ms["float64"]["library"],
+        },
+        {
+            "name": "select_topk_by_keys", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+            "replaces": "src/repro/compressors/core.py:107 (randk's lax.top_k: the selection "
+                        "of src/repro/kernels/compressor_select.py:67 on RandK's keys)",
+            "launches": launches_rk["select_topk_by_keys"], "max_abs_err": by_keys_err,
+            "ms": by_keys_ms["kernel"], "plain_ms": by_keys_ms["plain"],
+            "bound_ms": by_keys_bound[0], "bound_by": by_keys_bound[1],
+            "library_ms": by_keys_ms["library"],
         },
         {
             "name": "flash_attention", "route": "cuda",

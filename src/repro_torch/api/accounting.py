@@ -1,7 +1,10 @@
-"""Uplink bit accounting (port of ``repro.api.accounting``, non-PP part).
+"""Uplink bit accounting (port of ``repro.api.accounting``).
 
-  payload  Section-7 Hessian payload bits (``message_bits``)
-  wire     full framed uplink bits incl. the protocol header (``frame_bits``)
+  payload  Section-7 Hessian payload bits (``message_bits``); the FedNL-PP
+           uplink also carries the (d + 1) FP64 ``dl || dg`` section
+           (``pp_message_bits``)
+  wire     full framed uplink bits incl. the protocol header (``frame_bits``
+           / ``pp_frame_bits``)
 
 Both map per-client ``sent_elems`` to int64 bits, exactly.
 """
@@ -10,17 +13,21 @@ from __future__ import annotations
 
 from typing import Callable
 
-from repro_torch.comm.wire import frame_bits
+from repro_torch.comm.wire import frame_bits, pp_frame_bits, pp_message_bits
 from repro_torch.compressors.core import Compressor, message_bits
 
 ACCOUNTINGS = ("payload", "wire")
 
 
-def payload_bits_fn(comp: Compressor, d: int) -> Callable:
-    """Section-7 payload bits per uplink message."""
+def payload_bits_fn(comp: Compressor, d: int, pp: bool = False) -> Callable:
+    """Section-7 payload bits per uplink message (PP adds the dl/dg section)."""
+    if pp:
+        return lambda s_e: pp_message_bits(comp, s_e, d)
     return lambda s_e: message_bits(comp, s_e)
 
 
-def wire_bits_fn(comp: Compressor, d: int) -> Callable:
+def wire_bits_fn(comp: Compressor, d: int, pp: bool = False) -> Callable:
     """Full framed uplink bits per message (protocol header + padding)."""
+    if pp:
+        return lambda s_e: pp_frame_bits(comp, s_e, d)
     return lambda s_e: frame_bits(comp, s_e, d)

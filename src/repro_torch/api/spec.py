@@ -1,9 +1,9 @@
 """Declarative experiment description (port of ``repro.api.spec``).
 
-The fields are the ones the local ``fednl`` path reads, with the same names
-and defaults as ``repro``'s spec; :func:`repro_torch.api.solve` runs it.
-Other algorithms and backends are accepted here and refused by ``solve``
-until they are ported.
+The fields are the ones the local backend's three algorithms read
+(``fednl``, ``fednl-ls``, ``fednl-pp``), with the same names, defaults and
+checks as ``repro``'s spec; :func:`repro_torch.api.solve` runs it.  Other
+backends are accepted here and refused by ``solve`` until they are ported.
 """
 
 from __future__ import annotations
@@ -12,6 +12,10 @@ import dataclasses
 from typing import Any
 
 from repro_torch.api.accounting import ACCOUNTINGS
+
+# each algorithm's participation model: "full" (every client every round)
+# or "pp" (tau clients a round)
+ALGORITHM_KINDS = {"fednl": "full", "fednl-ls": "full", "fednl-pp": "pp"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +80,16 @@ class ExperimentSpec:
     algorithm: str = "fednl"
     compressor: CompressorSpec = dataclasses.field(default_factory=CompressorSpec)
     option: str = "B"
-    mu: float = 1e-3
+    mu: float = 1e-3  # strong-convexity lower bound for Option A
     hess0: str = "exact"
+    # line-search parameters (fednl-ls)
+    ls_c: float = 0.49
+    ls_gamma: float = 0.5
+    ls_max_steps: int = 30
+    ls_tol: float = 1e-12
+
+    # --- participation (fednl-pp) ---------------------------------------
+    tau: int | None = None  # sampled clients per round (None -> n // 2)
 
     # --- accounting + execution backend ---------------------------------
     accounting: str = "payload"
@@ -85,7 +97,9 @@ class ExperimentSpec:
 
     # --- run control -----------------------------------------------------
     rounds: int = 100
-    tol: float = 0.0  # grad-norm early stop (0 = run all rounds)
+    # grad-norm early stop (0 = run all rounds); full participation only:
+    # the PP server never sees the global gradient
+    tol: float = 0.0
     seed: int = 0
 
     def __post_init__(self):
@@ -103,6 +117,17 @@ class ExperimentSpec:
             raise ValueError(f"unknown hess0 {self.hess0!r}")
         if self.rounds < 0:
             raise ValueError("rounds must be >= 0")
+        kind = ALGORITHM_KINDS.get(self.algorithm)  # unknown: refused by solve
+        if kind == "full" and self.tau is not None:
+            raise ValueError(
+                f"tau only applies to partial participation, not {self.algorithm!r}"
+            )
+        if kind == "pp" and self.tol > 0.0:
+            raise ValueError(
+                "tol-based early stopping is undefined for partial "
+                "participation (the server never sees the global gradient); "
+                "bound the run with rounds instead"
+            )
 
     def fednl_config(self):
         """Project onto :class:`repro_torch.core.fednl.FedNLConfig`."""
@@ -116,8 +141,19 @@ class ExperimentSpec:
             mu=self.mu,
             lam=self.lam,
             hess0=self.hess0,
+            ls_c=self.ls_c,
+            ls_gamma=self.ls_gamma,
+            ls_max_steps=self.ls_max_steps,
+            ls_tol=self.ls_tol,
             accounting=self.accounting,
         )
+
+    def tau_for(self, n_clients: int) -> int:
+        """The participation size (default: half the clients)."""
+        tau = self.tau if self.tau is not None else max(1, n_clients // 2)
+        if not 0 < tau <= n_clients:
+            raise ValueError(f"need 0 < tau <= n, got tau={tau}, n={n_clients}")
+        return tau
 
     def replace(self, **changes: Any) -> "ExperimentSpec":
         return dataclasses.replace(self, **changes)

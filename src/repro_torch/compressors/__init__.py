@@ -1,10 +1,13 @@
 from repro_torch.compressors.core import (
     FP_BITS,
     IDX_BITS,
+    NATURAL_BITS,
     Compressor,
     get_compressor,
     identity,
     message_bits,
+    natural,
+    randk,
     randseqk,
     topk,
     toplek,
@@ -13,10 +16,13 @@ from repro_torch.compressors.core import (
 __all__ = [
     "FP_BITS",
     "IDX_BITS",
+    "NATURAL_BITS",
     "Compressor",
     "get_compressor",
     "identity",
     "message_bits",
+    "natural",
+    "randk",
     "randseqk",
     "topk",
     "toplek",

@@ -1,22 +1,24 @@
 """FedNL matrix compressors on packed upper-triangle vectors, batched over clients.
 
-Port of ``repro.compressors.core`` for TopK (keep the k largest-magnitude
-entries; contractive with delta = k/T), RandSeqK (the paper's cache-aware
-RandK: one random start per client, k contiguous entries mod T), TopLEK (the
-paper's adaptive Top-<=K: k' <= k entries, randomised between two prefix
-sizes so that the contraction holds with equality at delta = k/T) and
-Identity.  RandK and Natural draw one number per element and are not ported
-yet (ROADMAP A6); they raise ``NotImplementedError``.
+Port of ``repro.compressors.core``, the paper's six compressors: TopK (keep
+the k largest-magnitude entries; contractive with delta = k/T), RandK (k
+entries uniformly at random without replacement), RandSeqK (the paper's
+cache-aware RandK: one random start per client, k contiguous entries mod
+T), TopLEK (the paper's adaptive Top-<=K: k' <= k entries, randomised between
+two prefix sizes so that the contraction holds with equality at delta =
+k/T), Natural (probabilistic rounding to a power of two) and Identity.
 
 ``Compressor.compress(keys, u)`` takes the clients' PRNG keys (n_clients, 2)
 uint32 -- :func:`repro_torch.prng.split` of the round's subkey, as the
 reference's round makes them -- and u (n_clients, T), and returns
 ``(u_hat, sent_elems)``: the dense decompressed result and, per client, the
 number of scalar payload entries a real transfer would carry.  A compressor
-that draws nothing (``draws`` False) is given ``keys=None``.  The random
-compressors make their draws on the host from the keys, one scalar per
-client, and upload them in one copy.  :func:`message_bits` prices the sent
-entries in the paper's Section-7 encodings.
+that draws nothing (``draws`` False) is given ``keys=None``.  RandSeqK and
+TopLEK make their draws on the host from the keys, one scalar per client,
+and upload them in one copy; RandK and Natural draw one uniform per entry,
+on the card (the threefry kernel, ``kernels/threefry.py``), from the keys
+uploaded.  :func:`message_bits` prices the sent entries in the paper's
+Section-7 encodings.
 """
 
 from __future__ import annotations
@@ -28,19 +30,15 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.compressors.select import randseqk_dense
+from repro_torch.compressors.select import natural_from_uniform, randseqk_dense
 
 FP_BITS = 64  # the paper runs FP64 end to end
 IDX_BITS = 32  # fixed-width 32-bit indices
-
-_NOT_PORTED = {
-    "randk": "ROADMAP A6 (per-element draws: device threefry or precomputation)",
-    "natural": "ROADMAP A6 (per-element draws: device threefry or precomputation)",
-}
+NATURAL_BITS = 12  # sign + 11-bit FP64 exponent per entry
 
 
 def upload_draws(draws: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host array of draws as a tensor on ``device``.
+    """One host array (draws, keys or client indices) as a tensor on ``device``.
 
     For a card the copy goes from pinned memory with ``non_blocking=True``,
     so the host does not wait behind the queue.  The pinned buffer comes
@@ -53,11 +51,51 @@ def upload_draws(draws: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+def device_uniform(keys: np.ndarray, t: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``uniform(key_c, (t,), dtype)`` for each client key (n_clients, 2),
+    drawn on ``device`` by the threefry kernel (its plain version on the
+    CPU) from the keys, uploaded."""
+    from repro_torch.kernels import ops as kops
+
+    keys_dev = upload_draws(np.asarray(keys, dtype=np.uint32).view(np.int32), device)
+    return kops.threefry_uniform(keys_dev, t, dtype)
+
+
 def topk(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Deterministic TopK by magnitude, through the selection kernel."""
     from repro_torch.kernels import ops as kops  # kernels import compressors.select
 
     return kops.select_topk(u, k)
+
+
+def randk(
+    keys: np.ndarray, u: torch.Tensor, k: int, *, scaled: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RandK: k slots uniformly at random without replacement, as the
+    reference draws them: the k largest of T f32 uniforms per client
+    (``lax.top_k``, lowest index first on ties), through the threefry kernel
+    and the TopK-by-keys selection kernel.  ``scaled=True`` is C/(1+omega),
+    the plain mask; ``scaled=False`` the unbiased form, times T/k."""
+    from repro_torch.kernels import ops as kops
+
+    t = u.shape[-1]
+    unif = device_uniform(keys, t, torch.float32, u.device)
+    u_hat, sent = kops.select_topk_by_keys(u, unif, k)
+    return (u_hat, sent) if scaled else (u_hat * (t / k), sent)
+
+
+def natural(
+    keys: np.ndarray, u: torch.Tensor, *, scaled: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Natural compression: probabilistic rounding to the nearest powers of
+    two, unbiased with omega = 1/8 (scaled: times 8/9).  The Bernoulli
+    draws are ``uniform(key, u.shape[-1:], float64)`` per client (what
+    ``jax.random.bernoulli`` lowers to), through the threefry kernel; the
+    rounding is elementwise PyTorch, as the reference's is elementwise jnp."""
+    t = u.shape[-1]
+    unif = device_uniform(keys, t, torch.float64, u.device)
+    sent = torch.full(u.shape[:-1], t, dtype=torch.int32, device=u.device)
+    return natural_from_uniform(u, unif, scaled=scaled), sent
 
 
 def randseqk(
@@ -109,11 +147,15 @@ class Compressor:
 
 def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
     """Build a compressor for packed-triu length ``t`` with sparsity budget ``k``."""
-    if name in ("topk", "randseqk", "toplek") and not 0 < k <= t:
+    if name in ("topk", "randk", "randseqk", "toplek") and not 0 < k <= t:
         raise ValueError(f"{name} needs 0 < k <= T, got k={k}, T={t}")
     if name == "topk":
         return Compressor("topk", lambda keys, u: topk(u, k), alpha=1.0, delta=k / t,
                           bits_per_elem=FP_BITS + IDX_BITS, header_bits=0, k=k)
+    if name == "randk":
+        return Compressor("randk", lambda keys, u: randk(keys, u, k), alpha=1.0,
+                          delta=k / t, bits_per_elem=FP_BITS, header_bits=FP_BITS,
+                          k=k, draws=True)
     if name == "randseqk":
         return Compressor("randseqk", lambda keys, u: randseqk(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS, header_bits=IDX_BITS,
@@ -122,16 +164,17 @@ def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
         return Compressor("toplek", lambda keys, u: toplek(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS + IDX_BITS,
                           header_bits=IDX_BITS, k=k, draws=True)
+    if name == "natural":
+        return Compressor("natural", lambda keys, u: natural(keys, u), alpha=1.0,
+                          delta=8.0 / 9.0, bits_per_elem=NATURAL_BITS, header_bits=0,
+                          draws=True)
     if name == "identity":
         return Compressor("identity", lambda keys, u: identity(u), alpha=1.0, delta=1.0,
                           bits_per_elem=FP_BITS, header_bits=0)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet: {_NOT_PORTED[name]}"
-        )
-    raise KeyError(
-        f"unknown compressor {name!r}; have ['identity', 'randseqk', 'toplek', 'topk']"
-    )
+    raise KeyError(f"unknown compressor {name!r}; have {sorted(COMPRESSORS)}")
+
+
+COMPRESSORS = ("identity", "natural", "randk", "randseqk", "topk", "toplek")
 
 
 def message_bits(c: Compressor, sent_elems: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ takes any number of leading (batch) dimensions.
 
 RandSeqK and TopLEK take their draws as tensors (the start ``s``, int64, and
 the Bernoulli uniform ``unif``, float64, one per row), made outside from the
-PRNG keys (:mod:`repro_torch.prng`), as the reference's kernels take theirs.
+PRNG keys (:mod:`repro_torch.prng`), as the reference's kernels take theirs;
+Natural takes one float64 uniform per entry (:func:`natural_from_uniform`).
 """
 
 from __future__ import annotations
@@ -129,3 +130,33 @@ def toplek_from_uniform(
     keep = torch.arange(k, device=u.device) < kept
     u_hat = torch.zeros_like(u).scatter(-1, idx, torch.where(keep, vals, 0.0))
     return u_hat, kept[..., 0].to(torch.int32)
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2.0**e in float64 for integer e, exact, built from its bits: a normal
+    number for -1022 <= e <= 1023, a subnormal for -1074 <= e < -1022, +inf
+    above 1023 and 0.0 below -1074, the values ``jnp.ldexp(1.0, e)`` gives.
+    Built from the bits, it is exact on every device whatever the exponent's
+    type, where ``torch.ldexp(x, e)`` is ``x * torch.pow(2, e)`` and so
+    rests on how ``pow`` rounds in the type it promotes to."""
+    e = torch.clamp(e.to(torch.int64), -1075, 1024)
+    normal = torch.clamp(e + 1023, min=0) << 52
+    subnormal = torch.where(e >= -1074, 1 << torch.clamp(e + 1074, 0, 62), 0)
+    return torch.where(e >= -1022, normal, subnormal).view(torch.float64)
+
+
+def natural_from_uniform(u: torch.Tensor, unif: torch.Tensor, *, scaled: bool = True) -> torch.Tensor:
+    """Natural compression (probabilistic rounding to a power of two) given
+    one float64 uniform per entry, ``unif`` of u's shape: the reference's
+    ``natural`` with ``bernoulli(key, p)`` lowered to ``unif < p``.
+
+    |u| = mant * 2**e with mant in [0.5, 1); round up to 2**e where
+    unif < 2 mant - 1, else down to 2**(e-1); keep the sign, +0.0 where
+    u == 0, times 8/9 when ``scaled``.  Subnormal inputs and results (below
+    2**-1022) follow IEEE here, as on the card; XLA on the CPU flushes them
+    to zero, so there the reference differs from this below 2**-1022 only."""
+    mant, exp = torch.frexp(torch.abs(u))
+    p_up = 2.0 * mant - 1.0
+    up = unif < torch.clamp(p_up, 0.0, 1.0)
+    out = torch.where(u == 0, 0.0, torch.sign(u) * pow2(exp - 1 + up.to(exp.dtype)))
+    return out * (8.0 / 9.0) if scaled else out

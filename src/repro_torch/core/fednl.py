@@ -54,6 +54,13 @@ class FedNLConfig:
     mu: float = 1e-3  # strong-convexity lower bound for Option A
     lam: float = 1e-3  # L2 regularization of the logistic objective
     hess0: str = "exact"  # "exact" | "zero"
+    # FedNL-LS (Algorithm 2) backtracking: f(x + g^s d) <= f(x) + c g^s <grad, d>
+    ls_c: float = 0.49
+    ls_gamma: float = 0.5
+    ls_max_steps: int = 30
+    # at ||grad|| <= ls_tol the unit step is taken without trials (the Armijo
+    # test compares f-values below rounding noise there)
+    ls_tol: float = 1e-12
     accounting: str = "payload"  # sent_bits model: "payload" | "wire"
 
     def __post_init__(self):
@@ -194,34 +201,34 @@ def make_fednl_round(
     return round_fn
 
 
-def state_to_numpy(state: FedNLState, prefix: str = "state.") -> dict[str, np.ndarray]:
-    """The state as the checkpoint arrays ``repro.api.backends.state_arrays`` makes."""
-    return {
-        prefix + "x": state.x.cpu().numpy(),
-        prefix + "h_local": state.h_local.cpu().numpy(),
-        prefix + "h_global": state.h_global.cpu().numpy(),
-        prefix + "key": np.asarray(state.key),
-        prefix + "round": np.asarray(state.round, dtype=np.int64),
-    }
+def state_to_numpy(state: NamedTuple, prefix: str = "state.") -> dict[str, np.ndarray]:
+    """A FedNL or FedNL-PP state as the checkpoint arrays
+    ``repro.api.backends.state_arrays`` makes of the reference's state."""
+    out = {prefix + f: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+           for f, v in zip(state._fields, state)}
+    out[prefix + "round"] = np.asarray(state.round, dtype=np.int64)
+    return out
 
 
 def state_from_numpy(
-    arrays: dict[str, np.ndarray], device: str | torch.device, prefix: str = "state."
-) -> FedNLState:
-    """Rebuild a state from ``repro.api.backends.state_arrays`` output
-    (``state.x``, ``state.h_local``, ``state.h_global``, ``state.key``,
-    ``state.round``) on ``device``.  The key array is kept as it is."""
-    missing = [f for f in FedNLState._fields if prefix + f not in arrays]
+    arrays: dict[str, np.ndarray],
+    device: str | torch.device,
+    prefix: str = "state.",
+    state_type: type = FedNLState,
+) -> NamedTuple:
+    """Rebuild a state of ``state_type`` (``FedNLState``, or
+    ``repro_torch.core.fednl_pp.FedNLPPState``) from
+    ``repro.api.backends.state_arrays`` output of the reference's state of
+    the same name, on ``device``.  The key array is kept as it is."""
+    missing = [f for f in state_type._fields if prefix + f not in arrays]
     if missing:
         raise ValueError(f"state arrays are missing {missing}")
-
-    def place(name: str) -> torch.Tensor:
-        return torch.tensor(arrays[prefix + name], dtype=torch.float64, device=device)
-
-    return FedNLState(
-        x=place("x"),
-        h_local=place("h_local"),
-        h_global=place("h_global"),
+    fields = {
+        f: torch.tensor(arrays[prefix + f], dtype=torch.float64, device=device)
+        for f in state_type._fields if f not in ("key", "round")
+    }
+    return state_type(
+        **fields,
         key=np.asarray(arrays[prefix + "key"]),
         round=int(arrays[prefix + "round"]),
     )

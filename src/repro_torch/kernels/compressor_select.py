@@ -1,13 +1,15 @@
 """Batched selection kernels over packed upper-triangle vectors, one launch each.
 
     select_topk(u, k)           -> (u_hat, sent)  keep the k largest keys
+    select_topk_by_keys(u, keys, k) -> (u_hat, sent)  keep the k largest given keys
     select_randseqk(u, k, s)    -> (u_hat, sent)  keep the circular window at s
     select_toplek(u, k, unif)   -> (u_hat, sent)  keep TopLEK's adaptive prefix
 
 u is (n_clients, T) float64; u_hat = u on the kept set and +0.0 elsewhere;
 sent (n_clients,) int32 is the number kept.  The draws (``s`` int64,
-``unif`` float64, one per client) are made on the host from the PRNG keys
-and passed in as device tensors; no kernel draws anything.  Source:
+``unif`` float64, one per client; RandK's ``keys``, float32, one per entry)
+are made outside the selection from the PRNG keys and passed in as device
+tensors; no selection kernel draws anything.  Source:
 ``csrc/compressor_select.cu``.  Each ``*_cuda`` wrapper launches its kernel
 on u's device and current stream and counts the launch; each ``*_plain`` is
 the same function in plain PyTorch.
@@ -31,9 +33,9 @@ _TOPK_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
-# randseqk_select_f64 and toplek_select_f64: u, draws, out, sent, n, t, k,
-# (toplek: scratch), stream
-_RANDSEQK_ARGTYPES = (
+# randseqk_select_f64, topk_select_by_keys_f64 and toplek_select_f64: u,
+# draws, out, sent, n, t, k, (toplek: scratch), stream
+_DRAWS_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
@@ -149,6 +151,71 @@ def keys_in_shared_memory(t: int, device: torch.device) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# TopK by keys (RandK's selection)
+#
+# The reference's RandK (``repro/compressors/core.py:randk``) keeps
+# ``lax.top_k(uniform_f32(key, (T,)), k)``: the k largest of T f32 uniforms,
+# lowest index first among equal keys (about 123 pairs tie per client among
+# 45,451 f32 uniforms).  That is TopK's selection with other keys, so it runs
+# TopK's kernel (the same radix threshold and keep pass) with ``key_at(i)``
+# reading the uniform's bit pattern, non-negative and so ordered as its
+# value, and copying u where kept.  Selection kernel of
+# ``repro/kernels/compressor_select.py:select_topk_pallas``'s contract, on
+# RandK's keys.
+#
+# What bounds it on an H100: bytes.  At w8a it must read the keys (25.8 MB),
+# the k kept entries of u (2.7 MB) and write u_hat (51.6 MB), 80.2 MB, about
+# 24 us at 3.35 TB/s; the selection is TopK's, 14 operations per key.
+#
+# What the design does about it: TopK's (one block of 1024 threads per
+# client, the keys held in shared memory where T * 4 bytes fit, u read only
+# where kept, u_hat written once in index order).
+# ---------------------------------------------------------------------------
+
+
+def _check_keys(name: str, keys: torch.Tensor, u: torch.Tensor) -> None:
+    if keys.dtype != torch.float32:
+        raise TypeError(f"{name}: the keys must be float32, got {keys.dtype}")
+    if keys.shape != u.shape or keys.device != u.device or not keys.is_contiguous():
+        raise ValueError(
+            f"{name}: need contiguous keys of shape {tuple(u.shape)} on {u.device}, "
+            f"got {tuple(keys.shape)} on {keys.device}"
+        )
+
+
+def select_topk_by_keys_plain(
+    u: torch.Tensor, keys: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: the threshold mask on the given keys."""
+    keep = threshold_keep_mask(keys, k)
+    sent = torch.full(u.shape[:-1], k, dtype=torch.int32, device=u.device)
+    return torch.where(keep, u, torch.zeros_like(u)), sent
+
+
+def select_topk_by_keys_cuda(
+    u: torch.Tensor, keys: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the TopK-by-keys kernel on u's device and current stream;
+    ``keys`` (n_clients, T) float32, non-negative, on the same device."""
+    n_clients, t = _check_u("select_topk_by_keys", u, k)
+    _check_keys("select_topk_by_keys", keys, u)
+    out = torch.empty_like(u)
+    sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
+    if n_clients == 0:
+        return out, sent
+    fn = build.function("compressor_select", "topk_select_by_keys_f64", _DRAWS_ARGTYPES)
+    with torch.cuda.device(u.device):
+        code = fn(u.data_ptr(), keys.data_ptr(), out.data_ptr(), sent.data_ptr(),
+                  n_clients, t, k, _stream(u.device))
+    build.check_launch("select_topk_by_keys", code)
+    select_topk_by_keys_cuda.launches += 1
+    return out, sent
+
+
+select_topk_by_keys_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # RandSeqK
 #
 # Replaces ``repro/kernels/compressor_select.py:select_randseqk_pallas`` (body
@@ -188,7 +255,7 @@ def select_randseqk_cuda(
     sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
     if n_clients == 0:
         return out, sent
-    fn = build.function("compressor_select", "randseqk_select_f64", _RANDSEQK_ARGTYPES)
+    fn = build.function("compressor_select", "randseqk_select_f64", _DRAWS_ARGTYPES)
     with torch.cuda.device(u.device):
         code = fn(u.data_ptr(), s.data_ptr(), out.data_ptr(), sent.data_ptr(),
                   n_clients, t, k, _stream(u.device))

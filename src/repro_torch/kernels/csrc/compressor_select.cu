@@ -4,6 +4,10 @@
 //           thr   = the k-th largest key, by a radix select on the 31 bits
 //           keep  = key > thr, plus the first k - n_gt keys equal to thr in index order
 //           out   = keep ? u : +0.0,   sent = k
+// TopK by keys (RandK)
+//           the same with keys given as a second (n_clients, T) f32 operand
+//           (non-negative, so their int32 bit patterns order as their values):
+//           lax.top_k of RandK's uniforms, lowest index first on ties
 // RandSeqK  keep  = (pos - s) mod T < k,   out = keep ? u : +0.0,   sent = k
 // TopLEK    the TopK set, sorted by (key descending, index ascending); f64
 //           prefix energies alpha_m = csum_m / sum(u*u); m* = min(1 + #{alpha <
@@ -13,7 +17,9 @@
 //
 // Replace the Pallas TPU kernels of repro/kernels/compressor_select.py:
 // select_topk_pallas, select_randseqk_pallas and select_toplek_pallas, reached
-// through repro/kernels/ops.py:select_topk / select_randseqk / select_toplek.
+// through repro/kernels/ops.py:select_topk / select_randseqk / select_toplek;
+// TopK by keys is select_topk_pallas's selection run on RandK's keys
+// (repro/compressors/core.py:randk's lax.top_k).
 // See kernels/compressor_select.py for the design notes.  In short: TopK and
 // TopLEK run one block of 1024 threads per client, share the threshold search
 // (radix_threshold: four histogram passes) and the keep pass (keep_pass: one
@@ -171,10 +177,12 @@ __device__ void keep_pass(KeyAt key_at, int t, int thr, int need, int n_eq, int*
 // TopK
 // ---------------------------------------------------------------------------
 
-template <bool kKeysInShared>
+// kByKeys: the keys are the bit patterns of the f32 operand kf (RandK's
+// uniforms), else rank_key(u).
+template <bool kKeysInShared, bool kByKeys>
 __global__ void __launch_bounds__(kThreads)
-topk_select_kernel(const double* __restrict__ u, double* __restrict__ out,
-                   int* __restrict__ sent, int t, int k) {
+topk_select_kernel(const double* __restrict__ u, const float* __restrict__ kf,
+                   double* __restrict__ out, int* __restrict__ sent, int t, int k) {
   extern __shared__ int keys[];  // t entries when kKeysInShared
   __shared__ int part[kWarps];
   __shared__ int hist[kRadixBins];
@@ -182,13 +190,17 @@ topk_select_kernel(const double* __restrict__ u, double* __restrict__ out,
 
   const long long c = blockIdx.x;
   const double* uc = u + c * t;
+  const float* kc = kByKeys ? kf + c * t : nullptr;
   double* oc = out + c * t;
 
+  auto key_in_memory = [&](int i) -> int {
+    return kByKeys ? __float_as_int(kc[i]) : rank_key(uc[i]);
+  };
   if (kKeysInShared) {  // radix_threshold's first barrier covers keys[]
-    for (int i = threadIdx.x; i < t; i += kThreads) keys[i] = rank_key(uc[i]);
+    for (int i = threadIdx.x; i < t; i += kThreads) keys[i] = key_in_memory(i);
   }
   auto key_at = [&](int i) -> int {
-    return kKeysInShared ? keys[i] : rank_key(uc[i]);
+    return kKeysInShared ? keys[i] : key_in_memory(i);
   };
 
   int need, n_eq;
@@ -439,40 +451,59 @@ cudaError_t launch_toplek(const TopLekPlan& plan, const double* u, const double*
 
 }  // namespace
 
-// Dynamic shared memory the TopK kernel takes for a vector of length t on
-// this device: t*4 bytes of keys when they fit the opt-in limit beside the
-// kernel's static shared memory (as compiled), else 0 (the keys are then
-// recomputed from u on every pass).
-extern "C" int topk_select_smem_bytes(int t) {
+// Dynamic shared memory the TopK kernel (kByKeys: the TopK by keys kernel)
+// takes for a vector of length t on this device: t*4 bytes of keys when they
+// fit the opt-in limit beside the kernel's static shared memory (as compiled),
+// else 0 (the keys are then read or recomputed from device memory on every
+// pass).
+template <bool kByKeys>
+int topk_smem_bytes(int t) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, topk_select_kernel<true>) != cudaSuccess) return 0;
+  if (cudaFuncGetAttributes(&attr, topk_select_kernel<true, kByKeys>) != cudaSuccess) return 0;
   const long long need = 4LL * t;
   return need + static_cast<long long>(attr.sharedSizeBytes) <= optin ? static_cast<int>(need)
                                                                         : 0;
 }
+
+template <bool kByKeys>
+int launch_topk(const double* u, const float* kf, double* out, int* sent, int n_clients, int t,
+                int k, cudaStream_t s) {
+  const int smem = topk_smem_bytes<kByKeys>(t);
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        topk_select_kernel<true, kByKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topk_select_kernel<true, kByKeys><<<n_clients, kThreads, smem, s>>>(u, kf, out, sent, t, k);
+  } else {
+    topk_select_kernel<false, kByKeys><<<n_clients, kThreads, 0, s>>>(u, kf, out, sent, t, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int topk_select_smem_bytes(int t) { return topk_smem_bytes<false>(t); }
+
+extern "C" int topk_select_by_keys_smem_bytes(int t) { return topk_smem_bytes<true>(t); }
 
 // u: (n_clients, t) FP64, out: (n_clients, t) FP64, sent: (n_clients,) int32,
 // all contiguous on the current device; 1 <= k <= t.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int topk_select_f64(const void* u, void* out, void* sent,
                                int n_clients, int t, int k, void* stream) {
-  const int smem = topk_select_smem_bytes(t);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const double* up = static_cast<const double*>(u);
-  double* op = static_cast<double*>(out);
-  int* sp = static_cast<int*>(sent);
-  if (smem > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        topk_select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_select_kernel<true><<<n_clients, kThreads, smem, s>>>(up, op, sp, t, k);
-  } else {
-    topk_select_kernel<false><<<n_clients, kThreads, 0, s>>>(up, op, sp, t, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_topk<false>(static_cast<const double*>(u), nullptr, static_cast<double*>(out),
+                            static_cast<int*>(sent), n_clients, t, k,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// As topk_select_f64, with the selection keys given: keys (n_clients, t)
+// FP32, non-negative (no -0.0, no NaN), contiguous on the current device.
+extern "C" int topk_select_by_keys_f64(const void* u, const void* keys, void* out, void* sent,
+                                       int n_clients, int t, int k, void* stream) {
+  return launch_topk<true>(static_cast<const double*>(u), static_cast<const float*>(keys),
+                           static_cast<double*>(out), static_cast<int*>(sent), n_clients, t, k,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // u, out: (n_clients, t) FP64; s: (n_clients,) int64 window starts (any

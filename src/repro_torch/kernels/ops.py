@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import compressor_select, hessian_syrk
+from repro_torch.kernels import compressor_select, hessian_syrk, threefry
 from repro_torch.kernels import flash_attention as flash_attention_mod
 
 
@@ -37,6 +37,24 @@ def select_topk(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if _route("select_topk", u):
         return compressor_select.select_topk_cuda(u, k)
     return compressor_select.select_topk_plain(u, k)
+
+
+def select_topk_by_keys(
+    u: torch.Tensor, keys: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """TopK selection per client on the given f32 keys (RandK's uniforms):
+    u, keys (n_clients, T) -> (u_hat, sent)."""
+    if _route("select_topk_by_keys", u):
+        return compressor_select.select_topk_by_keys_cuda(u, keys, k)
+    return compressor_select.select_topk_by_keys_plain(u, keys, k)
+
+
+def threefry_uniform(keys: torch.Tensor, t: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.uniform(key_c, (t,), dtype)`` for each client's key:
+    keys (n_clients, 2) int32 -> (n_clients, t) float32 or float64."""
+    if _route("threefry_uniform", keys):
+        return threefry.threefry_uniform_cuda(keys, t, dtype)
+    return threefry.threefry_uniform_plain(keys, t, dtype)
 
 
 def select_randseqk(
@@ -96,9 +114,11 @@ def flash_attention(
 KERNELS = {
     "hessian_syrk_packed": hessian_syrk.hessian_syrk_packed_cuda,
     "select_topk": compressor_select.select_topk_cuda,
+    "select_topk_by_keys": compressor_select.select_topk_by_keys_cuda,
     "select_randseqk": compressor_select.select_randseqk_cuda,
     "select_toplek": compressor_select.select_toplek_cuda,
     "flash_attention": flash_attention_mod.flash_attention_cuda,
+    "threefry_uniform": threefry.threefry_uniform_cuda,
 }
 
 

@@ -14,16 +14,27 @@ import torch
 
 
 def psd_project(h: torch.Tensor, mu: float | torch.Tensor) -> torch.Tensor:
-    """[H]_mu: clip eigenvalues of a symmetric matrix from below at mu."""
+    """[H]_mu: clip eigenvalues of a symmetric matrix from below at mu.
+
+    ``torch.linalg.eigh`` checks convergence and so waits for the card on a
+    CUDA tensor; it has no ``_ex`` form.  Option A is off the main path
+    (Option B), so that sync is left here."""
     w, v = torch.linalg.eigh(h)
     w = torch.clamp(w, min=mu)
     return (v * w[..., None, :]) @ v.mT
 
 
 def cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for symmetric positive-definite A via Cholesky."""
-    chol = torch.linalg.cholesky(a)
-    return torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
+    """Solve A x = b for symmetric positive-definite A via Cholesky.
+
+    ``cholesky_ex`` and the two triangular solves make no check, so the host
+    never waits for the card.  Where A is not positive-definite
+    (``info != 0``) the result is NaN, as the reference's
+    ``cho_factor``/``cho_solve`` gives, chosen on the device."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    y = torch.linalg.solve_triangular(chol, b.unsqueeze(-1), upper=False)
+    x = torch.linalg.solve_triangular(chol.mT, y, upper=True).squeeze(-1)
+    return torch.where((info == 0).unsqueeze(-1), x, torch.full_like(x, float("nan")))
 
 
 def newton_solve_optionA(h: torch.Tensor, grad: torch.Tensor, mu: float) -> torch.Tensor:

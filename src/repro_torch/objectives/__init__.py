@@ -4,5 +4,13 @@ from repro_torch.objectives.logreg import (
     logreg_hess,
     logreg_oracles_packed,
 )
+from repro_torch.objectives.quadratic import QuadraticProblem, quadratic_oracles
 
-__all__ = ["logreg_f", "logreg_grad", "logreg_hess", "logreg_oracles_packed"]
+__all__ = [
+    "logreg_f",
+    "logreg_grad",
+    "logreg_hess",
+    "logreg_oracles_packed",
+    "QuadraticProblem",
+    "quadratic_oracles",
+]

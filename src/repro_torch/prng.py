@@ -10,8 +10,12 @@ bits, where each output element hashes its own (hi, lo) 64-bit counter.
 
 Every function is vectorised over a leading batch of keys: ``keys`` has
 shape ``(..., 2)`` (uint32), so one call draws for all clients of a round.
-The draws are one scalar per client per round, so they are made here, on
-the host, and uploaded; no kernel draws anything.
+The draws of one scalar per client per round (RandSeqK's start, TopLEK's
+Bernoulli uniform, FedNL-PP's choice of clients) are made here, on the host,
+and uploaded.  RandK and Natural draw one uniform per packed entry per
+client; those are made on the card by the threefry kernel
+(``repro_torch.kernels.threefry``), whose tests hold it against
+:func:`uniform` over a shape here.
 """
 
 from __future__ import annotations
@@ -88,10 +92,28 @@ def split(keys: np.ndarray, n: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=-1)
 
 
+def random_bits(keys: np.ndarray, bit_width: int, shape: tuple[int, ...] = ()) -> np.ndarray:
+    """``jax.random.bits(key, shape, uint32 | uint64)`` for each key:
+    (..., 2) -> (..., *shape).
+
+    Each element hashes its own flat (row-major) counter, split into a high
+    and a low word; the two hash words b1, b2 give ``b1 ^ b2`` for 32 bits
+    and ``b1 << 32 | b2`` for 64."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    shape = tuple(shape)
+    b1, b2 = _hash_counters(keys, int(np.prod(shape, dtype=np.int64)))
+    if bit_width == 32:
+        bits = b1 ^ b2
+    elif bit_width == 64:
+        bits = (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
+    else:
+        raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+    return bits.reshape(keys.shape[:-1] + shape)
+
+
 def _bits64(keys: np.ndarray) -> np.ndarray:
     """``random_bits(key, 64, ())`` for each key: (..., 2) -> (...,) uint64."""
-    b1, b2 = _hash_counters(keys, 1)
-    return (b1[..., 0].astype(np.uint64) << np.uint64(32)) | b2[..., 0].astype(np.uint64)
+    return random_bits(keys, 64)
 
 
 def randint(keys: np.ndarray, minval: int, maxval: int) -> np.ndarray:
@@ -112,9 +134,45 @@ def randint(keys: np.ndarray, minval: int, maxval: int) -> np.ndarray:
         return (np.int64(minval) + offset.astype(np.int64)).astype(np.int64)
 
 
-def uniform(keys: np.ndarray) -> np.ndarray:
-    """``jax.random.uniform(key, (), float64)`` on [0, 1) for each key: the
-    top 52 bits of a 64-bit word as the mantissa of a number in [1, 2),
-    minus 1."""
-    bits = (_bits64(keys) >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
-    return np.maximum(0.0, bits.view(np.float64) - 1.0)
+def uniform(keys: np.ndarray, shape: tuple[int, ...] = (), dtype=np.float64) -> np.ndarray:
+    """``jax.random.uniform(key, shape, dtype)`` on [0, 1) for each key:
+    (..., 2) -> (..., *shape).  The top mantissa bits of a random word (52 of
+    64 for float64, 23 of 32 for float32) as the mantissa of a number in
+    [1, 2), minus 1, then ``max(0, .)``."""
+    dtype = np.dtype(dtype)
+    if dtype == np.float64:
+        bits = (random_bits(keys, 64, shape) >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
+    elif dtype == np.float32:
+        bits = (random_bits(keys, 32, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    else:
+        raise ValueError(f"uniform draws float32 or float64, got {dtype}")
+    return np.maximum(dtype.type(0.0), bits.view(dtype) - dtype.type(1.0))
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)`` for one key: int64 (n,).
+
+    As jax's ``_shuffle``: ceil(3 ln n / ln(2**32 - 1)) rounds (one for n up
+    to 1625), each ``key, sub = split(key)`` and a stable sort of the
+    entries by 32-bit ``random_bits(sub, (n,))``."""
+    key = np.asarray(key, dtype=np.uint32)
+    if key.shape != (2,):
+        raise ValueError(f"permutation takes one key of shape (2,), got {key.shape}")
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = np.arange(n, dtype=np.int64)
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        x = x[np.argsort(random_bits(sub, 32, (n,)), kind="stable")]
+    return x
+
+
+def choice(key: np.ndarray, n: int, shape: tuple[int, ...], replace: bool = False) -> np.ndarray:
+    """``jax.random.choice(key, n, shape, replace=False)`` for one key: the
+    first prod(shape) entries of :func:`permutation` (jax's path without
+    replacement and without weights).  int64."""
+    if replace:
+        raise NotImplementedError("only choice without replacement is ported")
+    size = int(np.prod(shape, dtype=np.int64))
+    if size > n:
+        raise ValueError(f"cannot take {size} of {n} without replacement")
+    return permutation(key, n)[:size].reshape(shape)

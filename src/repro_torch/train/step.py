@@ -23,6 +23,15 @@ def make_prefill_step(cfg: ArchConfig):
 
 
 def make_serve_step(cfg: ArchConfig):
+    """(params, cache, tokens) -> (logits, cache), one token per row.
+
+    Unlike the reference's pure step, this one writes the new keys and
+    values into the caller's cache tensors in place (the returned cache
+    shares them and carries ``pos + 1``): static buffers are what a CUDA
+    graph of the step needs.  So a cache must not be stepped twice from the
+    same state (a retry, a beam): copy its tensors first.  A step past the
+    cache's last slot raises ``IndexError``, where the reference clamps the
+    write to the last slot."""
     check_ported(cfg)
 
     def serve_step(params, cache, tokens):

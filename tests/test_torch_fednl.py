@@ -6,8 +6,9 @@ Tolerances (the rounds add in other orders than XLA does):
     >= 1e-10 (below that the two trajectories' rounding noise dominates);
   * final x: rtol 1e-8.
 
-The random compressors (RandSeqK, TopLEK) take the same threefry draws as
-the reference (repro_torch.prng is bit-exact with jax.random), so their
+The random compressors (RandSeqK, TopLEK; RandK and Natural in
+tests/test_torch_fednl_ls_pp.py) take the same threefry draws as the
+reference (repro_torch.prng is bit-exact with jax.random), so their
 trajectories compare round for round like the deterministic ones.
 """
 
@@ -139,7 +140,9 @@ def test_init_key_is_the_reference_key():
         np.testing.assert_array_equal(state.key, want)
 
 
-@pytest.mark.parametrize("compressor", ["topk", "identity", "randseqk", "toplek"])
+@pytest.mark.parametrize(
+    "compressor", ["topk", "identity", "randseqk", "toplek", "randk", "natural"]
+)
 def test_state_key_advances_as_the_reference(compressor):
     """After 1..3 rounds the port's checkpointed key is the JAX state's key,
     for every compressor, whether it draws or not."""
@@ -161,7 +164,9 @@ def test_state_key_advances_as_the_reference(compressor):
     assert not np.array_equal(state_t.key, prng.prng_key(3))
 
 
-@pytest.mark.parametrize("compressor", ["topk", "identity", "randseqk", "toplek"])
+@pytest.mark.parametrize(
+    "compressor", ["topk", "identity", "randseqk", "toplek", "randk", "natural"]
+)
 @pytest.mark.parametrize("t,k", [(300, 24), (45451, 2408), (10, 10)])
 def test_registry_matches_reference(compressor, t, k):
     from repro.compressors.core import get_compressor as j_get
@@ -171,10 +176,10 @@ def test_registry_matches_reference(compressor, t, k):
     assert got.name == want.name
     for field in ("alpha", "delta", "bits_per_elem", "header_bits"):
         assert getattr(got, field) == getattr(want, field), field
-    assert got.draws == (compressor in ("randseqk", "toplek"))
+    assert got.draws == (compressor in ("randseqk", "toplek", "randk", "natural"))
 
 
-@pytest.mark.parametrize("compressor", ["randseqk", "toplek"])
+@pytest.mark.parametrize("compressor", ["randseqk", "toplek", "randk"])
 def test_registry_refuses_bad_budgets(compressor):
     from repro_torch.compressors import get_compressor
 
@@ -233,28 +238,45 @@ def test_solve_without_device_needs_a_card(no_card):
         run_fednl(t_spec.data.build(), t_spec.fednl_config(), rounds=1)
 
 
+REFUSALS = {  # what the message names -> the exception solve raises
+    "A11": NotImplementedError,
+    "A13": NotImplementedError,
+    "partial participation": ValueError,
+    "unknown compressor": KeyError,
+}
+
+
 @pytest.mark.parametrize(
     "changes,where",
     [
-        (dict(algorithm="fednl-ls"), "A9"),
-        (dict(algorithm="fednl-pp"), "A9"),
+        (dict(backend="star-loopback"), "A11"),
+        (dict(algorithm="fednl-pp", tol=1e-9), "partial participation"),
         (dict(backend="star-tcp"), "A11"),
         (dict(backend="sharded"), "A13"),
+        (dict(compressor=tapi.CompressorSpec("nope")), "unknown compressor"),
     ],
 )
 def test_solve_refuses_what_is_not_ported(changes, where):
+    """What solve still refuses: the backends not ported, a PP spec with an
+    early-stop tol (the reference refuses it too) and an unknown compressor."""
     t_spec, _ = _specs("topk", rounds=1)
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(REFUSALS[where], match=where):
         tapi.solve(t_spec.replace(**changes), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["randk", "natural"])
-def test_random_compressors_are_not_ported(name):
+def test_random_compressors_are_registered(name):
+    """RandK and Natural are built, draw on the clients' keys, and an unknown
+    name is still refused."""
     from repro_torch.compressors import get_compressor
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_compressor(name, 300, 24)
-    with pytest.raises(KeyError):
+    comp = get_compressor(name, 300, 24)
+    assert comp.name == name and comp.draws
+    u = torch.as_tensor(np.random.default_rng(1).standard_normal((3, 300)))
+    keys = prng.split(prng.prng_key(1), 3)
+    u_hat, sent = comp.compress(keys, u)
+    assert u_hat.shape == u.shape and sent.tolist() == [24 if name == "randk" else 300] * 3
+    with pytest.raises(KeyError, match="unknown compressor"):
         get_compressor("nope", 300, 24)
 
 

@@ -27,6 +27,10 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/core/fednl.py" in names
     assert "src/repro_torch/kernels/ops.py" in names
+    assert "src/repro_torch/kernels/threefry.py" in names
+    assert "src/repro_torch/core/fednl_ls.py" in names
+    assert "src/repro_torch/core/fednl_pp.py" in names
+    assert "src/repro_torch/baselines/numpy_reference.py" in names
     assert "src/repro_torch/models/lm.py" in names
     assert "chip_smoke.py" in names
 
@@ -41,6 +45,8 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
     code = (
         "import sys, repro_torch, repro_torch.api, repro_torch.core.runner, "
         "repro_torch.kernels.ops, repro_torch.launch.fednl_run, repro_torch.models, "
+        "repro_torch.core.fednl_ls, repro_torch.core.fednl_pp, repro_torch.numerics, "
+        "repro_torch.baselines, repro_torch.objectives.quadratic, "
         "repro_torch.serving, repro_torch.launch.serve, repro_torch.train\n"
         "from repro_torch.kernels import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"

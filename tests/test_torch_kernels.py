@@ -29,6 +29,7 @@ from repro_torch.compressors import select as tsel
 from repro_torch.kernels import compressor_select as tcs
 from repro_torch.kernels import hessian_syrk as ths
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import threefry as tth
 from repro_torch.linalg import pack_triu, packed_eye, triu_size
 
 SYRK_TOL = 1e-13
@@ -435,8 +436,8 @@ def test_toplek_kept_is_an_ordered_topk_prefix():
 # ---------------------------------------------------------------------------
 
 NO_LAUNCHES = {
-    "hessian_syrk_packed": 0, "select_topk": 0, "select_randseqk": 0, "select_toplek": 0,
-    "flash_attention": 0,
+    "hessian_syrk_packed": 0, "select_topk": 0, "select_topk_by_keys": 0, "select_randseqk": 0,
+    "select_toplek": 0, "flash_attention": 0, "threefry_uniform": 0,
 }
 
 
@@ -458,6 +459,12 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     want, want_sent = tcs.select_toplek_plain(u, 5, unif)
     assert torch.equal(got, want) and torch.equal(sent, want_sent)
     assert sent.dtype == torch.int32
+    keys = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    unif32 = tops.threefry_uniform(keys, 28, torch.float32)
+    assert torch.equal(unif32, tth.threefry_uniform_plain(keys, 28, torch.float32))
+    got, sent = tops.select_topk_by_keys(u, unif32, 5)
+    assert torch.equal(got, tcs.select_topk_by_keys_plain(u, unif32, 5)[0])
+    assert sent.dtype == torch.int32 and sent.tolist() == [5, 5]
     assert tops.launch_counts() == NO_LAUNCHES
 
 
@@ -469,6 +476,10 @@ def test_ops_refuse_other_devices():
         tops.select_randseqk(meta, 2, torch.zeros(2, dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device"):
         tops.select_toplek(meta, 2, torch.zeros(2, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.select_topk_by_keys(meta, torch.zeros(2, 6, device="meta"), 2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.threefry_uniform(torch.zeros(2, 2, dtype=torch.int32, device="meta"), 6, torch.float32)
     with pytest.raises(ValueError, match="no kernel for device"):
         tops.hessian_syrk_packed(
             torch.zeros(1, 3, 2, device="meta", dtype=torch.float64),
@@ -496,6 +507,17 @@ def test_cuda_wrappers_refuse_before_building():
         tcs.select_toplek_cuda(u, 2, torch.zeros(2, dtype=torch.float64))
     with pytest.raises(TypeError):
         tcs.select_toplek_cuda(u.float(), 2, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcs.select_topk_by_keys_cuda(u, torch.zeros(2, 6), 2)
+    with pytest.raises(TypeError):
+        tcs.select_topk_by_keys_cuda(u.float(), torch.zeros(2, 6), 2)
+    keys = torch.zeros(2, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tth.threefry_uniform_cuda(keys, 6, torch.float32)
+    with pytest.raises(TypeError):
+        tth.threefry_uniform_cuda(keys, 6, torch.float16)
+    with pytest.raises(ValueError, match="int32"):
+        tth.threefry_uniform_cuda(keys.long(), 6, torch.float32)
     assert tops.launch_counts() == NO_LAUNCHES
 
 
@@ -661,3 +683,71 @@ def test_toplek_kernel_matches_plain_cuda(cuda, kind, n_rows, t, k, path):
     want_rows = list(zip(want.cpu().numpy(), want_sent.cpu().numpy()))
     _check_toplek_rows(got.cpu().numpy(), sent.cpu().numpy(), want_rows, u, k, unif,
                        exact=kind == "dyadic")
+
+
+def _client_keys(n_clients, seed):
+    """The clients' threefry keys of a round, as uint32 words and as the
+    int32 tensor the kernel takes."""
+    from repro_torch import prng
+
+    keys = prng.split(prng.split(prng.prng_key(seed), 2)[1], n_clients)
+    return keys, torch.as_tensor(keys.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_clients,t", [(142, 45451), (1, 1), (3, 1), (1, 300), (2, 70001)])
+def test_threefry_kernel_bit_exact_cuda(cuda, dtype, n_clients, t):
+    """The threefry kernel against its plain version, bit for bit, at w8a's
+    round shape, T = 1, one client and a T past 2**16."""
+    _, keys = _client_keys(n_clients, seed=t)
+    kt = keys.to(cuda)
+    before = tth.threefry_uniform_cuda.launches
+    got = tops.threefry_uniform(kt, t, dtype)
+    assert tth.threefry_uniform_cuda.launches == before + 1
+    want = tth.threefry_uniform_plain(kt, t, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (n_clients, t) and got.dtype == dtype
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert bool((got >= 0).all()) and bool((got < 1).all())
+
+
+def quantized_keys(n_rows, t, levels, seed):
+    """f32 keys in [0, 1) on ``levels`` values: thousands of exact ties, so
+    the ties at the k-th key exceed what is kept."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, levels, size=(n_rows, t)) / levels).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,n_rows,t,k",
+    [("uniform", 142, 45451, 2408), ("uniform", 4, 257, 1), ("uniform", 4, 300, 300),
+     ("ties", 4, 45451, 2408), ("ties", 4, 45451, 1), ("ties", 4, 45451, 45451),
+     ("ties", 3, 61425, 2800), ("uniform", 3, 61425, 2800), ("ties", 2, 1000, 333)],
+)
+def test_topk_by_keys_kernel_bit_exact_cuda(cuda, kind, n_rows, t, k):
+    """TopK by keys against its plain version, bit for bit: the round's real
+    f32 uniforms, forced ties at the k-th key, k = 1, k = T, and T = 61425
+    (the keys read from device memory on every pass)."""
+    u = np.random.default_rng(t + k).standard_normal((n_rows, t))
+    u[0, ::5] = -0.0
+    if kind == "uniform":
+        _, keys = _client_keys(n_rows, seed=k)
+        kt = tth.threefry_uniform_plain(keys, t, torch.float32).to(cuda)
+    else:
+        kt = torch.as_tensor(quantized_keys(n_rows, t, 16, seed=k), device=cuda)
+        keys = kt.cpu().numpy()
+        kth = -np.sort(-keys, axis=1)[:, k - 1]
+        n_eq = (keys == kth[:, None]).sum(1)
+        n_gt = (keys > kth[:, None]).sum(1)
+        assert k == t or np.all(n_eq > k - n_gt)  # the fixture does what it says
+    ut = torch.as_tensor(u, device=cuda)
+    before = tcs.select_topk_by_keys_cuda.launches
+    got, sent = tops.select_topk_by_keys(ut, kt, k)
+    assert tcs.select_topk_by_keys_cuda.launches == before + 1
+    want, want_sent = tcs.select_topk_by_keys_plain(ut, kt, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert torch.equal(sent, want_sent)

@@ -103,3 +103,17 @@ def test_cholesky_solve_solves():
     b = rng.standard_normal(30)
     x = tl.cholesky_solve(torch.as_tensor(a), torch.as_tensor(b)).numpy()
     np.testing.assert_allclose(a @ x, b, rtol=0, atol=1e-12)
+
+
+def test_cholesky_solve_gives_nan_where_not_positive_definite():
+    """cholesky_ex makes no check (no host sync); a matrix that is not
+    positive-definite gives NaN in both packages, row by row in a batch."""
+    a = np.array([[1.0, 2.0], [2.0, 1.0]])
+    b = np.array([1.0, 1.0])
+    got = tl.cholesky_solve(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    want = np.asarray(jl.cholesky_solve(jnp.asarray(a), jnp.asarray(b)))
+    assert np.isnan(got).all() and np.isnan(want).all()
+    batch = np.stack([a, np.array([[2.0, 1.0], [1.0, 2.0]])])
+    got = tl.cholesky_solve(torch.as_tensor(batch), torch.as_tensor(np.stack([b, b]))).numpy()
+    assert np.isnan(got[0]).all()
+    np.testing.assert_allclose(got[1], np.linalg.solve(batch[1], b), rtol=1e-15)

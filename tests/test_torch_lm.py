@@ -281,3 +281,35 @@ def test_serve_launcher_runs_on_cpu():
     )
     assert out.returncode == 0, out.stderr
     assert "granite-3-2b: served 6 requests, 72 tokens" in out.stdout
+
+
+def test_serve_step_writes_the_cache_in_place(carried):
+    """Unlike the reference's pure step, the port's serve step writes k and v
+    into the caller's cache tensors: the returned cache shares them, and a
+    second step from the old cache overwrites the slot the first one wrote."""
+    cfg = get_config("granite-3-2b").reduced()
+    _, tp = carried["granite-3-2b"]
+    step = make_serve_step(cfg)
+    cache = init_decode_cache(cfg, 2, 4, "cpu")
+    _, new = step(tp, cache, torch.as_tensor(_tokens(cfg, (2, 1), 6)))
+    assert new["k"] is cache["k"] and new["v"] is cache["v"]
+    assert cache["pos"] == 0 and new["pos"] == 1
+    assert bool(cache["k"][:, :, 0].any()) and not bool(cache["k"][:, :, 1:].any())
+    written = new["k"].clone()
+    step(tp, cache, torch.as_tensor(_tokens(cfg, (2, 1), 7)))  # from the old state again
+    assert not torch.equal(new["k"][:, :, 0], written[:, :, 0])
+    assert torch.equal(new["k"][:, :, 1:], written[:, :, 1:])
+
+
+def test_decode_past_the_last_slot_raises(carried):
+    """A decode step past the cache's last slot raises (the reference clamps
+    the write to the last slot)."""
+    cfg = get_config("granite-3-2b").reduced()
+    _, tp = carried["granite-3-2b"]
+    assert cfg.window is None
+    cache = init_decode_cache(cfg, 1, 2, "cpu")
+    tok = torch.as_tensor(_tokens(cfg, (1, 1), 8))
+    for _ in range(2):
+        _, cache = lm_decode_step(tp, cfg, cache, tok)
+    with pytest.raises(IndexError, match="past the cache"):
+        lm_decode_step(tp, cfg, cache, tok)

@@ -114,3 +114,79 @@ def test_int_and_array_hashes_agree():
     # split on both sides of the size switch
     keys = prng.split(prng.prng_key(8), 3)
     np.testing.assert_array_equal(prng.split(keys, 2)[1], prng.split(keys[1], 2))
+
+
+SHAPES = [(), (1,), (7,), (3, 5), (300,), (45451,)]
+
+
+@pytest.mark.parametrize("bit_width", [32, 64])
+@pytest.mark.parametrize("seed", SEEDS[:6])
+def test_random_bits_match(seed, bit_width):
+    """Each element hashes its own flat counter: b1 ^ b2 (32) or b1 << 32 | b2 (64)."""
+    _, jsub, _, psub = _chain(seed, 2)[-1]
+    dtype = jnp.uint32 if bit_width == 32 else jnp.uint64
+    for shape in SHAPES:
+        want = np.asarray(jax.random.bits(jsub, shape, dtype))
+        got = prng.random_bits(psub, bit_width, shape)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("seed", SEEDS[:6])
+def test_uniform_over_a_shape_matches(seed, dtype):
+    _, jsub, _, psub = _chain(seed, 3)[-1]
+    for shape in SHAPES:
+        want = np.atleast_1d(np.asarray(jax.random.uniform(jsub, shape, dtype)))
+        got = np.atleast_1d(prng.uniform(psub, shape, dtype))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    batched = prng.uniform(prng.split(psub, 4), (9,), dtype)
+    assert batched.shape == (4, 9)
+    for i, key in enumerate(jax.random.split(jsub, 4)):
+        want = np.asarray(jax.random.uniform(key, (9,), dtype))
+        np.testing.assert_array_equal(batched[i].view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("n,tau", [(142, 71), (8, 4), (1, 1), (5, 5), (2000, 10)])
+@pytest.mark.parametrize("seed", SEEDS[:5])
+def test_choice_without_replacement_matches(seed, n, tau):
+    """choice(key, n, (tau,), replace=False) = permutation(key, n)[:tau]; one
+    shuffle round up to n = 1625, two at n = 2000."""
+    _, jsub, _, psub = _chain(seed, 2)[-1]
+    want = np.asarray(jax.random.choice(jsub, n, (tau,), replace=False))
+    got = prng.choice(psub, n, (tau,), replace=False)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(prng.permutation(psub, n), np.asarray(jax.random.permutation(jsub, n)))
+    assert len(set(got.tolist())) == tau
+
+
+def test_choice_refuses_what_it_does_not_port():
+    key = prng.prng_key(0)
+    with pytest.raises(NotImplementedError):
+        prng.choice(key, 5, (2,), replace=True)
+    with pytest.raises(ValueError):
+        prng.choice(key, 5, (6,))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n_clients,t", [(142, 300), (1, 1), (3, 45451), (2, 7)])
+def test_threefry_plain_is_the_generator(n_clients, t, dtype):
+    """The threefry kernel's plain version (int64 PyTorch ops) against
+    prng.uniform over a shape and against live jax.random, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import threefry
+
+    _, jsub, _, psub = _chain(n_clients + t, 2)[-1]
+    keys = prng.split(psub, n_clients)
+    got = threefry.threefry_uniform_plain(
+        torch.as_tensor(keys.view(np.int32)), t, getattr(torch, dtype)
+    ).numpy()
+    want = prng.uniform(keys, (t,), np.dtype(dtype))
+    assert got.dtype == want.dtype and got.shape == (n_clients, t)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    for i, key in enumerate(jax.random.split(jsub, n_clients)[:3]):
+        live = np.asarray(jax.random.uniform(key, (t,), np.dtype(dtype)))
+        np.testing.assert_array_equal(got[i].view(np.uint8), live.view(np.uint8))
