@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
-with the paper's six compressors, FedNL-LS and FedNL-PP, and the LM zoo's
-dense inference path (granite-3-2b).
+with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's dense
+inference path (granite-3-2b), sweeps (solve_many's batched groups) and
+sessions (open_session, FNLS1 checkpoints).
 
     python3 chip_smoke.py
 
@@ -65,6 +66,25 @@ raises, and the script exits non-zero without the final line.
              wall time (SYRK's ms per TopK round beside it); the host's ms per
              round for the key split, the clients' keys and draws, and their
              upload
+  8 sweep    solve_many of the README's grid at w8a's full shape: 4 seeds x
+             {topk, randseqk, natural}, 50 rounds, planned as one batched
+             group of 12 specs; the launch counts set to 0 before it and read
+             after it: SYRK once a round on 1,704 clients (and at init and in
+             the warm-up round), select_topk, select_randseqk and
+             threefry_uniform (f64, Natural) once a round each; each spec
+             against its own solve() on the card (sent_bits exact every
+             round, grad norms within TRAJECTORY_RTOL where >= 1e-10, and
+             whether it is bitwise, and op by op where it parts); the
+             group's ms per round beside the sum of the 12 solves', peak
+             memory, one batched round under
+             set_sync_debug_mode("error") and 3 under torch.profiler; then a
+             2-spec FedNL-LS group (seeds 0 and 1, TopK, 10 rounds) against
+             its solves (ls_steps exact above the Armijo test's rounding
+             band, grad norm 1e-7)
+  9 session  open_session on w8a TopK: step(3), save, run to 10; the FNLS1
+             file restored and run to 10; both equal solve(rounds=10) on the
+             card bit for bit (x, grad norms, f, bits); the file round-trips
+             byte for byte through load_state and save_state
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -121,6 +141,13 @@ LOGIT_ULPS = 4
 DEPTH_LOGIT_ULPS = 8
 LM_CUT_LAYERS = 2  # the card-vs-CPU check's depth cut (granite has 40)
 PREFILL_SEQ = 32768  # launch/specs.py prefill_32k; its global batch of 32 cut to 1
+SWEEP_ROUNDS = 50  # the README's sweep: ExperimentSpec(..., rounds=50).grid(...)
+SWEEP_GN_FLOOR = 1e-10  # group vs solve() grad norms compared where the solve's is above
+LS_GROUP_ROUNDS = 10
+# FedNL-LS's Armijo test is decided by rounding below this grad norm
+# (ROADMAP C6): the group's ls_steps are held exact to its solve()'s above it
+LS_EXACT_FLOOR = 1e-7
+SESSION_ROUNDS, SESSION_SAVE_AT = 10, 3
 
 
 def emit(obj) -> None:
@@ -176,6 +203,13 @@ def toplek_near_boundary(u: np.ndarray, k: int, unif: float) -> bool:
     lo = alphas[m_star - 2] if m_star > 1 else 0.0
     p = min(max((hi - delta) / (hi - lo), 0.0), 1.0) if hi > lo else 0.0
     return min(abs(hi - delta), abs(lo - delta), abs(unif - p)) <= TOPLEK_BOUNDARY
+
+
+def launch_counts(ops) -> dict[str, int]:
+    """Each kernel's launches since the last reset; threefry's also by dtype
+    (``threefry_uniform_float32``/``_float64``), as its wrapper counts them."""
+    by_dtype = ops.threefry.threefry_uniform_cuda.dtype_launches
+    return {**ops.launch_counts(), **{f"threefry_uniform_{k}": v for k, v in by_dtype.items()}}
 
 
 def bits_equal(a, b) -> bool:
@@ -560,6 +594,318 @@ def lm_phase(dev, ops) -> dict:
             "flash_routes": routes}
 
 
+def _reports_bitwise(got, want) -> bool:
+    """Two RunReports of one spec agree bit for bit: grad norms, f, x, bits."""
+    return (
+        got.rounds == want.rounds
+        and [g.hex() for g in got.grad_norms] == [g.hex() for g in want.grad_norms]
+        and [r.f for r in got.records] == [r.f for r in want.records]
+        and bool(np.array_equal(got.x, want.x))
+        and list(got.sent_bits) == list(want.sent_bits)
+        and list(got.sent_bits_wire) == list(want.sent_bits_wire)
+    )
+
+
+def _group_against_solves(label: str, rep, specs, z_np, solve) -> dict:
+    """Each spec of a batched group against its own solve() on the card:
+    sent_bits exact every round, grad norms within TRAJECTORY_RTOL where the
+    solve's is >= SWEEP_GN_FLOOR, ls_steps exact; whether each is bitwise."""
+    out = {"bitwise": [], "max_rel_gn": 0.0, "max_rel_x": 0.0, "seq_ms_per_round": []}
+    for spec, got in zip(specs, rep.reports):
+        want = solve(spec, z=z_np)
+        name = f"{label} seed={spec.seed} {spec.compressor.name}"
+        check(got.extras.get("sweep_batched") is True, f"{name}: not batched")
+        check(got.rounds == want.rounds == spec.rounds, f"{name}: rounds {got.rounds}")
+        check(list(got.sent_bits) == list(want.sent_bits), f"{name}: sent_bits differ")
+        check(bool(np.all(np.isfinite(got.x))) and got.x.shape == want.x.shape, f"{name}: x")
+        live = want.grad_norms >= SWEEP_GN_FLOOR
+        rel = np.abs(got.grad_norms[live] - want.grad_norms[live]) / want.grad_norms[live]
+        check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{name}: grad norms differ: {rel.max()}")
+        if spec.algorithm == "fednl-ls":
+            # exact above the Armijo test's rounding band (ROADMAP C6)
+            band = want.grad_norms < LS_EXACT_FLOOR
+            differ = [r for r in range(want.rounds) if got.ls_steps[r] != want.ls_steps[r]]
+            check(all(band[r] for r in differ), f"{name}: ls_steps differ at rounds {differ}")
+            out.setdefault("ls_steps_differ_in_band", []).append(differ)
+        out["bitwise"].append(_reports_bitwise(got, want))
+        out["max_rel_gn"] = max(out["max_rel_gn"], float(rel.max()) if rel.size else 0.0)
+        out["max_rel_x"] = max(out["max_rel_x"], float(
+            np.max(np.abs(got.x - want.x)) / np.max(np.abs(want.x))))
+        out["seq_ms_per_round"].append(want.wall_time_s / want.rounds * 1e3)
+    return out
+
+
+def where_group_parts(group, z) -> dict:
+    """Where a batched group parts, bit for bit, from the sequential rounds:
+    spec by spec, the group's state after init and after each of two rounds
+    against the sequential round's, then each op of the round from the same
+    inputs (the sequential run's state) as the batched round computes it,
+    against the op on the spec's lone tensors as its own round computes it:
+    the client oracles (f, grad, the SYRK rows), the clients' Frobenius
+    norms, the means over clients, the grad norm, the master's Cholesky
+    factor and solve."""
+    import torch
+
+    from repro_torch.core.fednl import fednl_init, make_fednl_round
+    from repro_torch.core.fednl_batch import _aligned, _client_frob_norms, batch_oracles
+    from repro_torch.linalg import cholesky_solve, frob_norm_from_packed, unpack_triu
+    from repro_torch.objectives.logreg import logreg_oracles_packed
+
+    n, _, d = z.shape
+    specs = group.specs
+    lam = specs[0].lam
+    count = len(specs)
+    out = {"specs": [f"seed={spec.seed} {spec.compressor.name}" for spec in specs]}
+    seq = [fednl_init(z, spec.fednl_config(), seed=spec.seed) for spec in specs]
+    out["init_h_local"] = [bits_equal(group.state.h_local[s], seq[s].h_local) for s in range(count)]
+    rounds = [make_fednl_round(z, spec.fednl_config()) for spec in specs]
+    state = group.state
+    for r in range(2):
+        state, _ = group.round_fn(state)
+        seq = [rounds[s](seq[s])[0] for s in range(count)]
+        out[f"round{r}_x"] = [bits_equal(state.x[s], seq[s].x) for s in range(count)]
+        out[f"round{r}_h_global"] = [bits_equal(state.h_global[s], seq[s].h_global)
+                                     for s in range(count)]
+    f_b, grad_b, hess_b = batch_oracles(z, torch.stack([st.x for st in seq]), lam, True)
+    delta_b = hess_b - torch.stack([st.h_local for st in seq]).view(count * n, -1)
+    one = [logreg_oracles_packed(z, st.x, lam) for st in seq]  # lone tensors, as solve() has
+    g_lone = [torch.mean(o[1], dim=0) for o in one]
+    grads = torch.stack(g_lone)
+    eye = torch.eye(d, dtype=torch.float64, device=z.device)
+    h_lone = [unpack_triu(st.h_global, d) + lam * eye for st in seq]
+    h = torch.stack(h_lone)
+    h_local = torch.stack([st.h_local for st in seq])
+    checks = {
+        "oracle_f": lambda s: bits_equal(f_b[s], one[s][0]),
+        "oracle_grad": lambda s: bits_equal(grad_b[s], one[s][1]),
+        "oracle_syrk_rows": lambda s: bits_equal(hess_b[s * n:(s + 1) * n], one[s][2]),
+        "client_frob_norms": lambda s: bits_equal(
+            _client_frob_norms(delta_b, count, d)[s],
+            frob_norm_from_packed(one[s][2] - seq[s].h_local, d)),
+        "mean_grad_over_clients": lambda s: bits_equal(
+            torch.mean(grad_b, dim=1)[s], torch.mean(one[s][1], dim=0)),
+        "mean_f_over_clients": lambda s: bits_equal(
+            torch.mean(_aligned(f_b), dim=1)[s], torch.mean(one[s][0])),
+        "mean_h_over_clients": lambda s: bits_equal(
+            torch.mean(h_local, dim=1)[s], torch.mean(seq[s].h_local, dim=0)),
+        "grad_norm": lambda s: bits_equal(
+            torch.linalg.vector_norm(_aligned(grads), dim=-1)[s],
+            torch.linalg.vector_norm(g_lone[s])),
+        "cholesky_factor": lambda s: bits_equal(
+            torch.linalg.cholesky_ex(h)[0][s], torch.linalg.cholesky_ex(h_lone[s])[0]),
+        "cholesky_solve": lambda s: bits_equal(
+            cholesky_solve(h, grads)[s], cholesky_solve(h_lone[s], g_lone[s])),
+    }
+    for name, fn in checks.items():
+        out[name] = [fn(s) for s in range(count)]
+    return out
+
+
+def slot_alignment(z, x, h_local, lam: float, count: int = 12) -> dict:
+    """Whether an op of the batched round gives a spec bits that depend on
+    its slot: one spec's inputs stacked in ``count`` slots, each slot's
+    result against slot 0's and against the op on the lone tensor (a fresh
+    allocation, as in the spec's own round), on the stacked rows as they lie
+    ("raw": a spec's block starts s * size elements in) and as
+    ``fednl_batch._aligned`` lays them (each block on a 32-byte boundary).
+    Returns, per op, the slots that differ."""
+    import torch
+
+    from repro_torch.core.fednl_batch import _aligned, _client_frob_norms
+    from repro_torch.linalg import cholesky_solve, frob_norm_from_packed, unpack_triu
+    from repro_torch.objectives.logreg import _matvec, _softplus, logreg_oracles_packed
+
+    n, _, d = z.shape
+    f_c, g_c, hess = logreg_oracles_packed(z, x, lam)
+    g = torch.mean(g_c, dim=0)
+    delta = hess - h_local
+    soft = _softplus(-_matvec(z, x))
+    h = unpack_triu(torch.mean(h_local, dim=0), d) + lam * torch.eye(
+        d, dtype=torch.float64, device=z.device)
+
+    def stack(v):
+        return v.repeat(count, *([1] * v.ndim))
+
+    ops = {  # name: (raw, aligned or None, lone)
+        f"mean_over_clients ({count}, {n})": (
+            lambda: torch.mean(stack(f_c), dim=1),
+            lambda: torch.mean(_aligned(stack(f_c)), dim=1), torch.mean(f_c)),
+        f"mean_over_samples ({count}, {n}, {soft.shape[-1]})": (
+            lambda: torch.mean(stack(soft), dim=-1),
+            lambda: torch.mean(_aligned(stack(soft)), dim=-1), torch.mean(soft, dim=-1)),
+        f"sum_of_squares ({count}, {d})": (
+            lambda: torch.sum(stack(x * x), dim=-1),
+            lambda: torch.sum(_aligned(stack(x * x)), dim=-1), torch.sum(x * x)),
+        f"vector_norm ({count}, {d})": (
+            lambda: torch.linalg.vector_norm(stack(g), dim=-1),
+            lambda: torch.linalg.vector_norm(_aligned(stack(g)), dim=-1),
+            torch.linalg.vector_norm(g)),
+        f"client_frob_norms ({count} x {n}, {delta.shape[-1]})": (
+            lambda: frob_norm_from_packed(stack(delta).view(count * n, -1), d).view(count, n),
+            lambda: _client_frob_norms(stack(delta).view(count * n, -1), count, d),
+            frob_norm_from_packed(delta, d)),
+        f"mean_over_clients_of_grads ({count}, {n}, {d})": (
+            lambda: torch.mean(stack(g_c), dim=1), None, g),
+        f"cholesky_factor ({count}, {d}, {d})": (
+            lambda: torch.linalg.cholesky_ex(stack(h))[0], None, torch.linalg.cholesky_ex(h)[0]),
+        f"cholesky_solve ({count}, {d}, {d})": (
+            lambda: cholesky_solve(stack(h), stack(g)), None, cholesky_solve(h, g)),
+    }
+    out = {}
+    for name, (raw_fn, aligned_fn, lone) in ops.items():
+        row = {}
+        for layout, fn in (("raw", raw_fn), ("aligned", aligned_fn)):
+            if fn is None:
+                continue
+            got = fn()
+            row[f"{layout}_slots_not_slot0"] = [
+                s for s in range(count) if not bits_equal(got[s], got[0])]
+            row[f"{layout}_slots_not_lone"] = [
+                s for s in range(count) if not bits_equal(got[s], lone)]
+        out[name] = row
+    return out
+
+
+def sweep_phase(ops) -> dict:
+    """Phase 8: the README's 4 seeds x {topk, randseqk, natural} grid at w8a
+    through solve_many, one batched group; then a 2-spec FedNL-LS group."""
+    import torch
+
+    from repro_torch.api import DataSpec, ExperimentSpec, solve, solve_many
+    from repro_torch.api.batch import make_group, plan_sweep
+
+    base = ExperimentSpec(data=DataSpec(dataset="w8a", seed=0), rounds=SWEEP_ROUNDS)
+    sweep = base.grid(seed=range(4), compressor=["topk", "randseqk", "natural"])
+    specs = sweep.specs()
+    plans, _ = plan_sweep(specs, sweep.batch)
+    check([(p.kind, len(p.indices)) for p in plans] == [("batch", 12)],
+          f"the README grid plans as {[(p.kind, p.indices) for p in plans]}")
+    z_np = base.data.build()
+    n_clients = z_np.shape[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = solve_many(sweep)
+    launches = launch_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want.update(select_topk=SWEEP_ROUNDS + 1, select_randseqk=SWEEP_ROUNDS + 1,
+                threefry_uniform=SWEEP_ROUNDS + 1, threefry_uniform_float64=SWEEP_ROUNDS + 1,
+                hessian_syrk_packed=SWEEP_ROUNDS + 2)
+    check(launches == want, f"sweep launches {launches}, want {want}")
+    check(len(rep.log) == 1 and rep.log[0].startswith("batched 12 specs as one group")
+          and f"{12 * n_clients} clients a SYRK launch" in rep.log[0], f"sweep log {rep.log}")
+    check(rep.extras["batched_specs"] == 12, f"sweep extras {rep.extras}")
+    group_ms = rep.reports[0].extras["batch_wall_time_s"] / SWEEP_ROUNDS * 1e3
+    against = _group_against_solves("sweep", rep, specs, z_np, solve)
+
+    # one batched round without a host sync, and 3 under the profiler
+    z = torch.as_tensor(z_np, dtype=torch.float64, device="cuda").contiguous()
+    group = make_group(specs, z)
+    warm, _ = group.round_fn(group.state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        group.round_fn(warm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    group_trace = trace_rounds(group.round_fn, group.state, 3)
+    slots = slot_alignment(z, warm.x[0], warm.h_local[0], specs[0].lam)
+    parts = where_group_parts(group, z)
+    emit({"phase": "sweep", "part": "where_the_group_parts", "slot_alignment": slots,
+          "bitwise_by_op": parts})
+    by_slot = {name: row["aligned_slots_not_slot0"] for name, row in slots.items()
+               if row.get("aligned_slots_not_slot0")}
+    check(not by_slot, f"rows laid from 32-byte boundaries still differ by slot: {by_slot}")
+    # TopK draws nothing, so its four seeds compute one trajectory: in
+    # slots 0-3 of the group they must agree bit for bit
+    topk = [r for spec, r in zip(specs, rep.reports) if spec.compressor.name == "topk"]
+    check(len(topk) == 4 and all(_reports_bitwise(r, topk[0]) for r in topk),
+          "the group's TopK specs differ by slot")
+    del group, warm, z
+
+    ls_specs = base.replace(algorithm="fednl-ls", rounds=LS_GROUP_ROUNDS).grid(seed=[0, 1]).specs()
+    ops.reset_launch_counts()
+    rep_ls = solve_many(ls_specs)
+    ls_launches = launch_counts(ops)
+    check(rep_ls.extras["batched_specs"] == 2, f"LS group log {rep_ls.log}")
+    check(ls_launches["hessian_syrk_packed"] == LS_GROUP_ROUNDS + 2
+          and ls_launches["select_topk"] == LS_GROUP_ROUNDS + 1, f"LS launches {ls_launches}")
+    ls_against = _group_against_solves("ls", rep_ls, ls_specs, z_np, solve)
+    check(_reports_bitwise(rep_ls.reports[1], rep_ls.reports[0]),
+          "the LS group's two TopK specs differ by slot")
+
+    out = {
+        "phase": "sweep", "grid": "w8a seed=range(4) x compressor=[topk, randseqk, natural]",
+        "specs": len(specs), "rounds": SWEEP_ROUNDS, "clients_per_syrk_launch": 12 * n_clients,
+        "log": rep.log, "launches": launches,
+        "group_ms_per_round": group_ms,
+        "sequential_ms_per_round_sum": sum(against["seq_ms_per_round"]),
+        "sequential_ms_per_round": against["seq_ms_per_round"],
+        "group_init_s": rep.reports[0].extras["batch_init_time_s"],
+        "peak_memory_bytes": peak,
+        "bitwise_vs_solve": against["bitwise"],
+        "max_rel_grad_norm_vs_solve": against["max_rel_gn"],
+        "max_rel_x_vs_solve": against["max_rel_x"],
+        "final_grad_norms": [r.grad_norms[-1] for r in rep.reports],
+        "one_round_without_host_sync": True,
+        "topk_slots_bitwise_equal": True,
+        "trace": group_trace,
+        "ls_group": {
+            "specs": 2, "rounds": LS_GROUP_ROUNDS, "log": rep_ls.log, "launches": ls_launches,
+            "bitwise_vs_solve": ls_against["bitwise"],
+            "max_rel_grad_norm_vs_solve": ls_against["max_rel_gn"],
+            "ls_steps": [list(map(int, r.ls_steps)) for r in rep_ls.reports],
+            "ls_steps_differ_in_band": ls_against["ls_steps_differ_in_band"],
+            "slots_bitwise_equal": True,
+            "grad_norms": [list(r.grad_norms) for r in rep_ls.reports],
+            "group_ms_per_round": rep_ls.reports[0].extras["batch_wall_time_s"]
+            / LS_GROUP_ROUNDS * 1e3,
+            "sequential_ms_per_round_sum": sum(ls_against["seq_ms_per_round"]),
+        },
+    }
+    emit(out)
+    return launches
+
+
+def session_phase() -> dict:
+    """Phase 9: a w8a TopK session stepped 3 rounds, saved, run to 10, and
+    restored from its FNLS1 file and run to 10: both equal solve(rounds=10)
+    on the card bit for bit; the file round-trips byte for byte."""
+    from repro_torch.api import (
+        DataSpec, ExperimentSpec, load_state, open_session, save_state, solve)
+
+    spec = ExperimentSpec(data=DataSpec(dataset="w8a"), rounds=SESSION_ROUNDS)
+    z_np = spec.data.build()
+    want = solve(spec, z=z_np)
+    where = ROOT / "build" / "chip_smoke"
+    where.mkdir(parents=True, exist_ok=True)
+    path, again = where / "w8a_topk.fnlsess", where / "w8a_topk_again.fnlsess"
+    with open_session(spec, z=z_np) as s:
+        s.step(SESSION_SAVE_AT)
+        s.save(path)
+        stepped = s.run()
+    with open_session(spec, z=z_np, restore=path) as s:
+        check(s.round == SESSION_SAVE_AT, f"restored at round {s.round}")
+        resumed = s.run()
+    check(_reports_bitwise(stepped, want), "session step(3) + run != solve(rounds=10)")
+    check(_reports_bitwise(resumed, want), "restored session != solve(rounds=10)")
+    save_state(load_state(path), again)
+    check(path.read_bytes() == again.read_bytes(), "FNLS1 load -> save changed the bytes")
+    out = {
+        "phase": "session", "spec": "w8a topk rounds=10", "saved_at": SESSION_SAVE_AT,
+        "stepped_bitwise_vs_solve": True, "restored_bitwise_vs_solve": True,
+        "fnls1_bytes": path.stat().st_size, "fnls1_round_trip_byte_identical": True,
+        "grad_norms": list(want.grad_norms), "device": want.extras["device"],
+    }
+    path.unlink()
+    again.unlink()
+    emit(out)
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from _leaves(v) if isinstance(v, dict) else (v,)
@@ -650,6 +996,20 @@ def main() -> int:
     check(h_kernel.shape == (n_clients, t_len), f"SYRK shape {tuple(h_kernel.shape)}")
     check(bool(torch.isfinite(h_kernel).all()), "SYRK output not finite")
     check(syrk_err <= SYRK_TOL * scale, f"SYRK error {syrk_err} > {SYRK_TOL} * {scale}")
+    # the shared-z form of the sweep's group: 12 specs' hw on one z, client c
+    # reading z[c mod 142]; against the plain version, and bit for bit against
+    # the first form on z repeated
+    hw_group = torch.as_tensor(
+        rng.uniform(0.0, 0.25, size=(12 * n_clients, n_i)) / n_i, dtype=torch.float64, device=dev)
+    h_group = hessian_syrk_packed_cuda(z, hw_group, cfg.lam)
+    h_group_plain = hessian_syrk_packed_plain(z, hw_group, cfg.lam)
+    group_scale = hessian_syrk_packed_plain(z.abs(), hw_group.abs(), 0.0).abs().max().item()
+    syrk_group_err = (h_group - h_group_plain).abs().max().item()
+    check(syrk_group_err <= SYRK_TOL * group_scale,
+          f"SYRK shared-z error {syrk_group_err} > {SYRK_TOL} * {group_scale}")
+    h_repeated = hessian_syrk_packed_cuda(z.repeat(12, 1, 1), hw_group, cfg.lam)
+    check(bits_equal(h_group, h_repeated), "SYRK shared z differs from z repeated")
+    del hw_group, h_group, h_group_plain, h_repeated
 
     state0 = fednl_init(z, cfg)
     state1, _ = make_fednl_round(z, cfg)(state0)
@@ -753,6 +1113,9 @@ def main() -> int:
         "hessian_syrk_packed": {
             "max_abs_err": syrk_err, "scale": scale, "rel_err": syrk_err / scale,
             "tol": SYRK_TOL,
+            "shared_z": {"clients": 12 * n_clients, "z_clients": n_clients,
+                         "max_abs_err": syrk_group_err, "rel_err": syrk_group_err / group_scale,
+                         "bit_exact_vs_z_repeated": True},
         },
         "select_topk": {
             "cases": sorted(topk_cases), "bit_exact": True, "max_abs_err": topk_err,
@@ -832,6 +1195,54 @@ def main() -> int:
         "select_topk_by_keys": {"cases": sorted(by_keys_cases), "bit_exact": True,
                                 "max_abs_err": by_keys_err},
     })
+
+    # the sweep's shapes (phase 8): a branch's 4 specs x 142 rows of the
+    # group's (12 * 142, T) delta, as the round takes them -- a slice at the
+    # branch's offset (the group is ordered by branch) or gathered by
+    # index_select (any other order) -- and the threefry uniforms of the 568
+    # clients of 4 specs (seeds 0-3, round 0, the keys split as the round
+    # splits them)
+    tie_block = torch.as_tensor(near_tie_rows(n_clients, t_len, 12), device=dev)
+    group_rows = torch.cat([(delta1 if s % 2 == 0 else tie_block) * (1.0 + s / 8)
+                            for s in range(12)])
+    per_branch = 4 * n_clients
+    branch_rows = {f"rows_{lo}_to_{lo + per_branch}": group_rows[lo:lo + per_branch]
+                   for lo in range(0, 12 * n_clients, per_branch)}
+    gathered = (np.arange(1, 12, 3)[:, None] * n_clients + np.arange(n_clients)).reshape(-1)
+    branch_rows["index_select_specs_1_4_7_10"] = group_rows.index_select(
+        0, torch.as_tensor(gathered, device=dev))
+    spec_keys = np.stack([prng.prng_key(s) for s in range(4)])
+    sweep_keys = prng.split(prng.split(spec_keys, 2)[:, 1], n_clients).reshape(-1, 2)
+    sweep_starts = torch.as_tensor(prng.randint(sweep_keys, 0, t_len), dtype=torch.int64, device=dev)
+    for name, u in branch_rows.items():
+        check(u.shape == (per_branch, t_len), f"sweep rows {name}: {tuple(u.shape)}")
+        got, sent = select_topk_cuda(u, k)
+        want, sent_want = select_topk_plain(u, k)
+        check(bits_equal(got, want) and torch.equal(sent, sent_want),
+              f"TopK at the sweep's {name}: differs from the plain version")
+        topk_err = max(topk_err, (got - want).abs().max().item())
+        got, sent = select_randseqk_cuda(u, k, sweep_starts)
+        want, sent_want = select_randseqk_plain(u, k, sweep_starts)
+        check(bits_equal(got, want) and torch.equal(sent, sent_want),
+              f"RandSeqK at the sweep's {name}: differs from the plain version")
+        randseqk_err = max(randseqk_err, (got - want).abs().max().item())
+    kt = keys_on_card(sweep_keys)
+    for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+        got = threefry_uniform_cuda(kt, t_len, dtype)
+        want = threefry_uniform_plain(kt, t_len, dtype)
+        check(got.shape == (per_branch, t_len) and torch.equal(got.view(bits), want.view(bits)),
+              f"threefry at the sweep's 568 clients {dtype}: differs from the plain version")
+        threefry_err[dtype] = max(threefry_err[dtype], (got - want).abs().max().item())
+    torch.cuda.synchronize()
+    emit({
+        "phase": "kernels", "sweep_shapes": {
+            "rows": {name: list(u.shape) for name, u in branch_rows.items()},
+            "select_topk_bit_exact": True, "select_randseqk_bit_exact": True,
+            "threefry_uniform": {"clients": per_branch, "t": t_len,
+                                 "dtypes": ["float32", "float64"], "bit_exact": True},
+        },
+    })
+    del tie_block, group_rows, branch_rows, u, got, want
     del state0, state1, delta0, h_plain, tie_keys, wide_keys
     flash_report, flash_err = check_flash(dev, tfa)
     emit({"phase": "kernels", "flash_attention": flash_report})
@@ -846,7 +1257,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         rep = solve(path_spec)
-        launches = ops.launch_counts()
+        launches = launch_counts(ops)
         check(rep.x.shape == (d,) and bool(np.all(np.isfinite(rep.x))), f"{label}: x not finite")
         want = {name: 0 for name in launches}
         want.update({name: rep.rounds + 1 for name in per_round})
@@ -904,10 +1315,11 @@ def main() -> int:
     randk_spec = spec.replace(compressor=CompressorSpec("randk"), rounds=30, tol=0.0)
     rep_rk, launches_rk = main_path(
         "w8a randk option B hess0=exact rounds=30", randk_spec,
-        ("threefry_uniform", "select_topk_by_keys"))
+        ("threefry_uniform", "threefry_uniform_float32", "select_topk_by_keys"))
     natural_spec = spec.replace(compressor=CompressorSpec("natural"), rounds=30, tol=0.0)
     rep_nat, launches_nat = main_path(
-        "w8a natural option B hess0=exact rounds=30", natural_spec, ("threefry_uniform",))
+        "w8a natural option B hess0=exact rounds=30", natural_spec,
+        ("threefry_uniform", "threefry_uniform_float64"))
     check(rep_rk.rounds == rep_nat.rounds == 30, "RandK and Natural run 30 rounds")
     ls_spec = spec.replace(algorithm="fednl-ls")
     rep_ls, launches_ls = main_path(
@@ -1119,12 +1531,19 @@ def main() -> int:
     flash_routes = lm["flash_routes"]
     del lm
 
+    # --- 8 sweeps: the README's grid as one batched group ------------------
+    sweep_launches = sweep_phase(ops)
+
+    # --- 9 sessions: step, save, restore ------------------------------------
+    session_phase()
+
     kernels = [
         {
             "name": "hessian_syrk_packed", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/hessian_syrk.cu",
             "replaces": "src/repro/kernels/hessian_syrk.py:64",
             "launches": launches["hessian_syrk_packed"], "max_abs_err": syrk_err,
+            "sweep_launches": sweep_launches["hessian_syrk_packed"],
             "ms": syrk_ms["kernel"], "plain_ms": syrk_ms["plain"],
             "bound_ms": syrk_bound[0], "bound_by": syrk_bound[1],
             "library_ms": syrk_ms["library"],
@@ -1134,6 +1553,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
             "replaces": "src/repro/kernels/compressor_select.py:67",
             "launches": launches["select_topk"], "max_abs_err": topk_err,
+            "sweep_launches": sweep_launches["select_topk"],
             "ms": topk_ms["kernel"], "plain_ms": topk_ms["plain"],
             "bound_ms": topk_bound[0], "bound_by": topk_bound[1],
             "library_ms": topk_ms["library"],
@@ -1143,6 +1563,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
             "replaces": "src/repro/kernels/compressor_select.py:87",
             "launches": launches_rs["select_randseqk"], "max_abs_err": randseqk_err,
+            "sweep_launches": sweep_launches["select_randseqk"],
             "ms": randseqk_ms["kernel"], "plain_ms": randseqk_ms["plain"],
             "bound_ms": randseqk_bound[0], "bound_by": randseqk_bound[1],
             "library_ms": randseqk_ms["library"],
@@ -1152,6 +1573,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
             "replaces": "src/repro/kernels/compressor_select.py:106",
             "launches": launches_le["select_toplek"], "max_abs_err": toplek_err,
+            "sweep_launches": sweep_launches["select_toplek"],
             "ms": toplek_ms["kernel"], "plain_ms": toplek_ms["plain"],
             "bound_ms": toplek_bound[0], "bound_by": toplek_bound[1],
             "library_ms": None,
@@ -1161,7 +1583,9 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/threefry.cu",
             "replaces": "src/repro/compressors/core.py:106 (jax.random.uniform on the "
                         "device; not a Pallas kernel)",
-            "launches": launches_rk["threefry_uniform"], "max_abs_err": threefry_err[torch.float32],
+            "launches": launches_rk["threefry_uniform_float32"],
+            "max_abs_err": threefry_err[torch.float32],
+            "sweep_launches": sweep_launches["threefry_uniform_float32"],
             "ms": threefry_ms["float32"]["kernel"], "plain_ms": threefry_ms["float32"]["plain"],
             "bound_ms": threefry_bound["float32"][0], "bound_by": threefry_bound["float32"][1],
             "library_ms": threefry_ms["float32"]["library"],
@@ -1171,7 +1595,9 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/threefry.cu",
             "replaces": "src/repro/compressors/core.py:161 (jax.random.bernoulli's uniform on "
                         "the device; not a Pallas kernel)",
-            "launches": launches_nat["threefry_uniform"], "max_abs_err": threefry_err[torch.float64],
+            "launches": launches_nat["threefry_uniform_float64"],
+            "max_abs_err": threefry_err[torch.float64],
+            "sweep_launches": sweep_launches["threefry_uniform_float64"],
             "ms": threefry_ms["float64"]["kernel"], "plain_ms": threefry_ms["float64"]["plain"],
             "bound_ms": threefry_bound["float64"][0], "bound_by": threefry_bound["float64"][1],
             "library_ms": threefry_ms["float64"]["library"],
@@ -1182,6 +1608,7 @@ def main() -> int:
             "replaces": "src/repro/compressors/core.py:107 (randk's lax.top_k: the selection "
                         "of src/repro/kernels/compressor_select.py:67 on RandK's keys)",
             "launches": launches_rk["select_topk_by_keys"], "max_abs_err": by_keys_err,
+            "sweep_launches": sweep_launches["select_topk_by_keys"],
             "ms": by_keys_ms["kernel"], "plain_ms": by_keys_ms["plain"],
             "bound_ms": by_keys_bound[0], "bound_by": by_keys_bound[1],
             "library_ms": by_keys_ms["library"],
@@ -1194,6 +1621,7 @@ def main() -> int:
                         "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16 and 32)"},
             "prefill_32k_routes": flash_routes,
             "launches": flash_launches, "max_abs_err": flash_err,
+            "sweep_launches": sweep_launches["flash_attention"],
             "ms": flash_ms["kernel"], "plain_ms": flash_ms["plain"],
             "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
             "library_ms": flash_ms["library"],

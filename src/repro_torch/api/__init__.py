@@ -1,14 +1,71 @@
-"""The port's declarative API: ``solve(ExperimentSpec(...))``."""
+"""The port's declarative API (port of ``repro.api``): one frozen
+``ExperimentSpec``, ``solve(spec)`` returning a ``RunReport``, sessions
+(``open_session``: step, observe, save and resume FNLS1 checkpoints that both
+packages read), sweeps (``spec.grid(...)``, ``solve_many``), and registries
+that make algorithms, backends and compressors pluggable.  Everything runs
+on the card unless ``device="cpu"`` is asked for.
 
-from repro_torch.api.facade import solve
-from repro_torch.api.report import RoundRecord, RunReport
+Not exported yet: ``specwire`` (``encode_spec``/``decode_spec``,
+ROADMAP A12) and ``TopologySpec``/``MembershipSpec`` (A11).
+"""
+
+from repro_torch.api.accounting import ACCOUNTINGS, make_bits_fn, payload_bits_fn, wire_bits_fn
+from repro_torch.api.facade import solve, solve_many
+from repro_torch.api.registry import (
+    Algorithm,
+    Backend,
+    SessionHandle,
+    get_algorithm,
+    get_backend,
+    list_algorithms,
+    list_backends,
+    register_algorithm,
+    register_backend,
+    register_compressor,
+)
+from repro_torch.api.report import RoundRecord, RunReport, RunReportBuilder, SweepReport
+from repro_torch.api.session import (
+    Session,
+    SessionState,
+    StopPolicy,
+    load_state,
+    open_session,
+    save_state,
+)
 from repro_torch.api.spec import CompressorSpec, DataSpec, ExperimentSpec
+from repro_torch.api.sweep import SweepSpec
+from repro_torch.comm.transport import FaultSpec
 
 __all__ = [
-    "solve",
-    "RoundRecord",
-    "RunReport",
+    "ACCOUNTINGS",
+    "Algorithm",
+    "Backend",
     "CompressorSpec",
     "DataSpec",
     "ExperimentSpec",
+    "FaultSpec",
+    "RoundRecord",
+    "RunReport",
+    "RunReportBuilder",
+    "Session",
+    "SessionHandle",
+    "SessionState",
+    "StopPolicy",
+    "SweepReport",
+    "SweepSpec",
+    "load_state",
+    "open_session",
+    "save_state",
+    "get_algorithm",
+    "get_backend",
+    "list_algorithms",
+    "list_backends",
+    "make_bits_fn",
+    "payload_bits_fn",
+    "wire_bits_fn",
+    "register_algorithm",
+    "register_backend",
+    "register_compressor",
+    "solve",
+    "solve_many",
 ]

@@ -31,3 +31,12 @@ def wire_bits_fn(comp: Compressor, d: int, pp: bool = False) -> Callable:
     if pp:
         return lambda s_e: pp_frame_bits(comp, s_e, d)
     return lambda s_e: frame_bits(comp, s_e, d)
+
+
+def make_bits_fn(comp: Compressor, d: int, accounting: str, pp: bool = False) -> Callable:
+    """The per-message bit model ``accounting`` ("payload" | "wire") selects."""
+    if accounting == "payload":
+        return payload_bits_fn(comp, d, pp)
+    if accounting == "wire":
+        return wire_bits_fn(comp, d, pp)
+    raise ValueError(f"unknown accounting {accounting!r}; use {' | '.join(ACCOUNTINGS)}")

@@ -1,104 +1,122 @@
-"""``solve(spec)``: the entry point of the port (port of ``repro.api.facade.solve``).
+"""solve(spec) / solve_many(sweep): the entry points of the port (port of
+``repro.api.facade``).
 
-Runs the local backend of the three algorithms, ``fednl``, ``fednl-ls`` and
-``fednl-pp``: the same init -> warm-up -> rounds sequence as ``repro``'s
-local session, on the card unless ``device="cpu"`` is asked for.
+``solve`` validates one spec against the registries, builds (or takes) the
+federated problem and runs it through a session of its backend; ``solve_many``
+does the same for a whole :class:`SweepSpec`, running compatible specs as
+batched groups (``repro_torch.api.batch``).  Both run on the card unless
+``device="cpu"`` is asked for, and raise without a card.
 """
 
 from __future__ import annotations
 
-from repro_torch.api.report import RoundRecord, RunReport
-from repro_torch.api.spec import ALGORITHM_KINDS, ExperimentSpec
+from typing import Iterable
 
-_NOT_PORTED_BACKENDS = {
-    "sharded": "ROADMAP A13",
-    "star-loopback": "ROADMAP A11",
-    "star-tcp": "ROADMAP A11",
-}
+from repro_torch.api.registry import Algorithm, Backend, get_algorithm, get_backend
+from repro_torch.api.report import RunReport, SweepReport
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.api.sweep import SweepSpec
 
 
-def _full_record(r: int, cols: dict) -> RoundRecord:
-    return RoundRecord(
-        round=r,
-        grad_norm=float(cols["grad_norm"][r]),
-        f=float(cols["f"][r]),
-        l=float(cols["l"][r]),
-        sent_elems=int(cols["sent_elems"][r]),
-        sent_bits=int(cols["sent_bits"][r]),
-        sent_bits_payload=int(cols["sent_bits_payload"][r]),
-        sent_bits_wire=int(cols["sent_bits_wire"][r]),
-        ls_steps=int(cols["ls_steps"][r]) if "ls_steps" in cols else None,
-    )
+def _live(spec_part) -> bool:
+    """A topology or membership that changes the run (not None, not trivial)."""
+    return spec_part is not None and not getattr(spec_part, "trivial", False)
 
 
-def _pp_record(r: int, cols: dict) -> RoundRecord:
-    return RoundRecord(
-        round=r,
-        l=float(cols["l"][r]),
-        sent_elems=int(cols["sent_elems"][r]),
-        sent_bits=int(cols["sent_bits"][r]),
-        sent_bits_payload=int(cols["sent_bits_payload"][r]),
-        sent_bits_wire=int(cols["sent_bits_wire"][r]),
-        x=cols["x"][r],
-        participants=tuple(int(i) for i in cols["idx"][r]),
-    )
+def check_spec(
+    spec: ExperimentSpec, algo: Algorithm, backend: Backend, *, z=None, x0=None
+) -> None:
+    """The checks ``solve``, ``open_session`` and ``solve_many`` share, so a
+    spec that fails one fails all of them, before anything runs: the
+    reference's capability checks, then what the port cannot run yet."""
+    if backend.not_ported is not None:
+        raise NotImplementedError(
+            f"backend {backend.name!r} is not ported (ROADMAP {backend.not_ported})"
+        )
+    if not backend.supports(algo):
+        raise ValueError(
+            f"backend {backend.name!r} does not support algorithm {algo.name!r} "
+            "(it only speaks the protocols it implements)"
+        )
+    if x0 is not None and not backend.supports_x0:
+        raise ValueError(f"backend {backend.name!r} does not support an x0 override")
+    if spec.fault is not None and not backend.supports_faults:
+        raise ValueError(
+            f"backend {backend.name!r} cannot inject faults; a FaultSpec needs a "
+            "wire backend (star-loopback / star-tcp, not ported: ROADMAP A11) -- "
+            "running it fault-free here would silently change the experiment"
+        )
+    if z is not None and not backend.needs_problem:
+        raise ValueError(
+            f"backend {backend.name!r} rebuilds the problem from spec.data in its "
+            "worker processes; a pre-built z cannot be shipped to it"
+        )
+    if (_live(spec.topology) or _live(spec.membership)) and not backend.supports_topology:
+        what = "topology" if _live(spec.topology) else "membership"
+        raise NotImplementedError(
+            f"backend {backend.name!r} cannot run a non-trivial {what} spec; trees, "
+            "async aggregation and membership events need a wire backend, not "
+            "ported (ROADMAP A11)"
+        )
+    if spec.aggregate != "dense_psum" or spec.devices is not None:
+        raise NotImplementedError(
+            f"aggregate={spec.aggregate!r}, devices={spec.devices!r}: the sharded "
+            "collectives are not ported (ROADMAP A13)"
+        )
+    if spec.hessian_impl == "jnp":
+        raise ValueError(
+            "hessian='jnp' is the reference's XLA-only parity path; the port has "
+            "one Hessian kernel, the SYRK kernel, which 'fused' and 'pallas' both "
+            "run -- use one of those"
+        )
 
 
 def solve(spec: ExperimentSpec, z=None, x0=None, device=None) -> RunReport:
-    """Run one experiment described by ``spec``.
+    """Run one experiment described by ``spec``: ``open_session(spec).run()``.
 
     ``z`` optionally supplies the problem array ``(n_clients, n_i, d)`` in
     place of ``spec.data``; ``x0`` overrides the zero initial iterate.
     ``device=None`` runs on the card and raises without one.
     """
-    import torch
+    algo = get_algorithm(spec.algorithm)
+    backend = get_backend(spec.backend)
+    if backend.supports_sessions:
+        from repro_torch.api.session import open_session
 
-    from repro_torch.core.fednl_pp import server_model
-    from repro_torch.core.runner import eval_full, fednl_trajectory, pp_trajectory
-    from repro_torch.device import device_name, resolve_device
-
-    kind = ALGORITHM_KINDS.get(spec.algorithm)
-    if kind is None:
-        raise KeyError(f"unknown algorithm {spec.algorithm!r}; have {sorted(ALGORITHM_KINDS)}")
-    if spec.backend != "local":
-        where = _NOT_PORTED_BACKENDS.get(spec.backend, "unknown backend")
-        raise NotImplementedError(f"backend {spec.backend!r} is not ported ({where})")
-    dev = resolve_device(device)
-    if z is None:
+        with open_session(spec, z=z, x0=x0, device=device) as session:
+            return session.run()
+    # run-to-completion backends (custom registrations without open())
+    check_spec(spec, algo, backend, z=z, x0=x0)
+    if z is None and backend.needs_problem:
         z = spec.data.build()
-    cfg = spec.fednl_config()
-    extras = {"device": device_name(dev)}
-    grad_norm_fn = None
-    if kind == "full":
-        traj = fednl_trajectory(
-            z, cfg, spec.rounds, spec.tol, spec.seed, x0, dev,
-            line_search=spec.algorithm == "fednl-ls",
-        )
-        records = [_full_record(r, traj.columns) for r in range(traj.rounds)]
-        x = traj.state.x.cpu().numpy()
+    return backend.run(spec, algo, z, x0, device=device)
+
+
+def solve_many(
+    sweep: SweepSpec | Iterable[ExperimentSpec], device=None
+) -> SweepReport:
+    """Run a whole sweep (a :class:`SweepSpec` or any iterable of specs) and
+    return a :class:`SweepReport`, one :class:`RunReport` per spec in
+    expansion order.
+
+    Shape-compatible full-participation specs on the local backend run as
+    batched groups: each round of a group is one round over all its specs,
+    each kernel launched once for the whole group; everything else runs per
+    spec through ``solve()``.  Each decision is in ``SweepReport.log``.
+    ``device`` as in :func:`solve`.
+    """
+    from repro_torch.api.batch import run_sweep
+    from repro_torch.device import resolve_device
+
+    if isinstance(sweep, SweepSpec):
+        specs, batch_mode, sweep_obj = sweep.specs(), sweep.batch, sweep
     else:
-        tau = spec.tau_for(z.shape[0])
-        traj = pp_trajectory(z, cfg, tau, spec.rounds, spec.seed, x0, dev)
-        records = [_pp_record(r, traj.columns) for r in range(traj.rounds)]
-        # the deployable model: Algorithm 3, line 4 on the invariants after
-        # the last round
-        x_final = server_model(traj.state, z.shape[-1])
-        x = x_final.cpu().numpy()
-        zd, lam = traj.z, cfg.lam
-
-        def grad_norm_fn() -> float:
-            return float(torch.linalg.vector_norm(eval_full(zd, x_final, lam)[1]))
-
-        extras["tau"] = tau
-    return RunReport(
-        spec=spec,
-        algorithm=spec.algorithm,
-        backend=spec.backend,
-        x=x,
-        records=records,
-        rounds=traj.rounds,
-        wall_time_s=traj.wall_time_s,
-        init_time_s=traj.init_time_s,
-        final_grad_norm_fn=grad_norm_fn,
-        extras=extras,
-    )
+        specs, batch_mode, sweep_obj = tuple(sweep), "auto", None
+        for s in specs:
+            if not isinstance(s, ExperimentSpec):
+                raise TypeError(
+                    f"solve_many takes a SweepSpec or ExperimentSpecs, got {type(s).__name__}"
+                )
+    if not specs:
+        raise ValueError("empty sweep: nothing to solve")
+    return run_sweep(specs, batch_mode, sweep_obj, resolve_device(device))

@@ -1,9 +1,14 @@
 """Declarative experiment description (port of ``repro.api.spec``).
 
-The fields are the ones the local backend's three algorithms read
-(``fednl``, ``fednl-ls``, ``fednl-pp``), with the same names, defaults and
-checks as ``repro``'s spec; :func:`repro_torch.api.solve` runs it.  Other
-backends are accepted here and refused by ``solve`` until they are ported.
+Every field of ``repro``'s ``ExperimentSpec``, with the same names, defaults
+and checks, so that a spec -- and an FNLS1 checkpoint, which carries one --
+crosses between the packages.  Fields the port cannot run yet are accepted
+here and refused by ``check_spec`` (``solve``, ``open_session``,
+``solve_many``) with the ROADMAP item that ports them: a ``fault``, a
+topology or membership, and the wire backends (A11); ``aggregate``,
+``devices`` and the ``sharded`` backend (A13).  ``TopologySpec`` and
+``MembershipSpec`` themselves are not ported: the two fields take ``None``
+or an object with a ``trivial`` flag.
 """
 
 from __future__ import annotations
@@ -12,10 +17,18 @@ import dataclasses
 from typing import Any
 
 from repro_torch.api.accounting import ACCOUNTINGS
+from repro_torch.comm.transport import FaultSpec
 
-# each algorithm's participation model: "full" (every client every round)
-# or "pp" (tau clients a round)
-ALGORITHM_KINDS = {"fednl": "full", "fednl-ls": "full", "fednl-pp": "pp"}
+
+def _algorithm_kind(name: str) -> str | None:
+    """Registered ``Algorithm.kind`` ("full" | "pp"), or None when unknown
+    (the unknown name is refused by ``solve``, with the registry's error)."""
+    from repro_torch.api.registry import ALGORITHMS
+
+    try:
+        return ALGORITHMS.get(name).kind
+    except KeyError:
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +44,21 @@ class DataSpec:
     clients: int | None = None
     per_client: int | None = None
     seed: int = 0
+
+    def dims(self) -> tuple[int, int, int]:
+        """(d, n_clients, n_i) of the problem this spec builds."""
+        if self.libsvm is not None:
+            if self.clients is None or self.per_client is None:
+                raise ValueError("libsvm data needs clients and per_client")
+            from repro_torch.data import parse_libsvm
+
+            x, _ = parse_libsvm(self.libsvm)
+            return x.shape[1] + 1, self.clients, self.per_client
+        if self.shape is not None:
+            return tuple(self.shape)
+        from repro_torch.data import DATASET_SHAPES
+
+        return DATASET_SHAPES[self.dataset]
 
     def build(self):
         """z: (n_clients, n_i, d) label-absorbed design matrices, as numpy."""
@@ -69,7 +97,12 @@ class CompressorSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
-    """One declarative FedNL experiment."""
+    """One declarative FedNL experiment: ``solve(spec)`` runs it.
+
+    Backends: ``local`` (the port's single-process simulation); ``sharded``,
+    ``star-loopback`` and ``star-tcp`` are registered and refused until they
+    are ported.  Algorithms: fednl / fednl-ls / fednl-pp.
+    """
 
     # --- objective -------------------------------------------------------
     objective: str = "logreg"
@@ -82,6 +115,11 @@ class ExperimentSpec:
     option: str = "B"
     mu: float = 1e-3  # strong-convexity lower bound for Option A
     hess0: str = "exact"
+    # the reference's Hessian SYRK routing: "fused" and "pallas" both run the
+    # port's one Hessian kernel (the SYRK kernel, its plain version on the
+    # CPU); "jnp", the reference's XLA-only parity path, is refused at solve
+    hessian: str = "fused"
+    use_kernel: bool = False  # deprecated spelling of hessian="pallas"
     # line-search parameters (fednl-ls)
     ls_c: float = 0.49
     ls_gamma: float = 0.5
@@ -90,10 +128,19 @@ class ExperimentSpec:
 
     # --- participation (fednl-pp) ---------------------------------------
     tau: int | None = None  # sampled clients per round (None -> n // 2)
+    on_dropout: str = "partial"  # "partial" | "resample" master fallback
+    fault: FaultSpec | None = None  # dropout/straggler injection (A11)
+
+    # --- topology + membership (A11) -------------------------------------
+    topology: Any = None
+    membership: Any = None
 
     # --- accounting + execution backend ---------------------------------
     accounting: str = "payload"
     backend: str = "local"
+    aggregate: str = "dense_psum"  # sharded collective (A13)
+    devices: int | None = None  # sharded mesh size (A13)
+    host: str = "127.0.0.1"  # star-tcp bind address
 
     # --- run control -----------------------------------------------------
     rounds: int = 100
@@ -115,12 +162,18 @@ class ExperimentSpec:
             raise ValueError(f"unknown option {self.option!r}; use 'A' | 'B'")
         if self.hess0 not in ("exact", "zero"):
             raise ValueError(f"unknown hess0 {self.hess0!r}")
+        if self.hessian not in ("fused", "jnp", "pallas"):
+            raise ValueError(
+                f"unknown hessian {self.hessian!r}; use 'fused' | 'jnp' | 'pallas'"
+            )
+        if self.on_dropout not in ("partial", "resample"):
+            raise ValueError(f"unknown on_dropout {self.on_dropout!r}")
         if self.rounds < 0:
             raise ValueError("rounds must be >= 0")
-        kind = ALGORITHM_KINDS.get(self.algorithm)  # unknown: refused by solve
-        if kind == "full" and self.tau is not None:
+        kind = _algorithm_kind(self.algorithm)
+        if kind == "full" and (self.tau is not None or self.fault is not None):
             raise ValueError(
-                f"tau only applies to partial participation, not {self.algorithm!r}"
+                f"tau/fault only apply to partial participation, not {self.algorithm!r}"
             )
         if kind == "pp" and self.tol > 0.0:
             raise ValueError(
@@ -148,6 +201,11 @@ class ExperimentSpec:
             accounting=self.accounting,
         )
 
+    @property
+    def hessian_impl(self) -> str:
+        """Effective Hessian routing (``use_kernel`` back-compat)."""
+        return "pallas" if self.use_kernel else self.hessian
+
     def tau_for(self, n_clients: int) -> int:
         """The participation size (default: half the clients)."""
         tau = self.tau if self.tau is not None else max(1, n_clients // 2)
@@ -157,3 +215,57 @@ class ExperimentSpec:
 
     def replace(self, **changes: Any) -> "ExperimentSpec":
         return dataclasses.replace(self, **changes)
+
+    # fields a restored session may change: run control.  Everything else
+    # shapes the checkpointed state or the trajectory and must match it.
+    RESTORE_VARIABLE_FIELDS = frozenset({"rounds", "tol", "host"})
+
+    def check_restore_from(self, saved: "ExperimentSpec") -> None:
+        """Refuse a checkpoint of another experiment, naming each field that
+        differs (nested specs by their subfield, "compressor.name") and both
+        values.  Only :data:`RESTORE_VARIABLE_FIELDS` may differ."""
+
+        def diff(mine, theirs, prefix=""):
+            out = []
+            for f in dataclasses.fields(mine):
+                name = f"{prefix}{f.name}"
+                if not prefix and f.name in self.RESTORE_VARIABLE_FIELDS:
+                    continue
+                a, b = getattr(mine, f.name), getattr(theirs, f.name)
+                if a == b:
+                    continue
+                if dataclasses.is_dataclass(a) and not isinstance(a, type) and type(a) is type(b):
+                    out.extend(diff(a, b, prefix=f"{name}."))
+                else:
+                    out.append(name)
+            return out
+
+        def resolve(obj, dotted):
+            for part in dotted.split("."):
+                obj = getattr(obj, part)
+            return obj
+
+        mismatched = diff(self, saved)
+        if mismatched:
+            detail = "; ".join(
+                f"{name}: checkpoint ran with {resolve(saved, name)!r}, "
+                f"spec asks for {resolve(self, name)!r}"
+                for name in mismatched
+            )
+            raise ValueError(
+                f"spec is incompatible with the checkpoint it restores "
+                f"({detail}).  A checkpoint resumes the same experiment -- "
+                f"only {sorted(self.RESTORE_VARIABLE_FIELDS)} may change on "
+                f"restore; to vary {', '.join(mismatched)}, start a fresh "
+                f"run (open_session / solve without restore)"
+            )
+
+    def grid(self, *, batch: str = "auto", **axes: Any):
+        """Expand this spec into a :class:`repro_torch.api.SweepSpec`:
+        ``spec.grid(seed=range(4), compressor=["topk", "randk"])``.  Axis
+        names are ExperimentSpec fields plus the nested aliases
+        (``compressor`` by name, ``k_multiplier``, ``dataset``, ``data_seed``,
+        ...)."""
+        from repro_torch.api.sweep import grid as _grid
+
+        return _grid(self, batch=batch, **axes)

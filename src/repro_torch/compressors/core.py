@@ -76,10 +76,17 @@ def randk(
     (``lax.top_k``, lowest index first on ties), through the threefry kernel
     and the TopK-by-keys selection kernel.  ``scaled=True`` is C/(1+omega),
     the plain mask; ``scaled=False`` the unbiased form, times T/k."""
+    unif = device_uniform(keys, u.shape[-1], torch.float32, u.device)
+    return randk_from_uniform(u, unif, k, scaled=scaled)
+
+
+def randk_from_uniform(
+    u: torch.Tensor, unif: torch.Tensor, k: int, *, scaled: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RandK given its f32 uniforms (one per entry of u)."""
     from repro_torch.kernels import ops as kops
 
     t = u.shape[-1]
-    unif = device_uniform(keys, t, torch.float32, u.device)
     u_hat, sent = kops.select_topk_by_keys(u, unif, k)
     return (u_hat, sent) if scaled else (u_hat * (t / k), sent)
 
@@ -92,9 +99,15 @@ def natural(
     draws are ``uniform(key, u.shape[-1:], float64)`` per client (what
     ``jax.random.bernoulli`` lowers to), through the threefry kernel; the
     rounding is elementwise PyTorch, as the reference's is elementwise jnp."""
-    t = u.shape[-1]
-    unif = device_uniform(keys, t, torch.float64, u.device)
-    sent = torch.full(u.shape[:-1], t, dtype=torch.int32, device=u.device)
+    unif = device_uniform(keys, u.shape[-1], torch.float64, u.device)
+    return natural_with_sent(u, unif, scaled=scaled)
+
+
+def natural_with_sent(
+    u: torch.Tensor, unif: torch.Tensor, *, scaled: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Natural given its f64 uniforms (one per entry of u): every entry is sent."""
+    sent = torch.full(u.shape[:-1], u.shape[-1], dtype=torch.int32, device=u.device)
     return natural_from_uniform(u, unif, scaled=scaled), sent
 
 
@@ -143,10 +156,18 @@ class Compressor:
     header_bits: int  # per-message constant (seed / count)
     k: int = 0
     draws: bool = False  # True: compress needs the clients' PRNG keys
+    # RandK and Natural draw one uniform per entry on the device: the dtype
+    # of those uniforms, and the compression given them, so that a batched
+    # sweep round draws every row of one dtype in one threefry launch
+    entry_uniform: torch.dtype | None = None
+    compress_from_uniform: Callable[[torch.Tensor, torch.Tensor], tuple] | None = None
 
 
 def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
-    """Build a compressor for packed-triu length ``t`` with sparsity budget ``k``."""
+    """Build a compressor for packed-triu length ``t`` with sparsity budget ``k``
+    (a name registered through ``repro_torch.api.register_compressor`` first)."""
+    if name in CUSTOM_COMPRESSORS:
+        return CUSTOM_COMPRESSORS[name](t, k)
     if name in ("topk", "randk", "randseqk", "toplek") and not 0 < k <= t:
         raise ValueError(f"{name} needs 0 < k <= T, got k={k}, T={t}")
     if name == "topk":
@@ -155,7 +176,8 @@ def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
     if name == "randk":
         return Compressor("randk", lambda keys, u: randk(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS, header_bits=FP_BITS,
-                          k=k, draws=True)
+                          k=k, draws=True, entry_uniform=torch.float32,
+                          compress_from_uniform=lambda u, unif: randk_from_uniform(u, unif, k))
     if name == "randseqk":
         return Compressor("randseqk", lambda keys, u: randseqk(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS, header_bits=IDX_BITS,
@@ -167,14 +189,19 @@ def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
     if name == "natural":
         return Compressor("natural", lambda keys, u: natural(keys, u), alpha=1.0,
                           delta=8.0 / 9.0, bits_per_elem=NATURAL_BITS, header_bits=0,
-                          draws=True)
+                          draws=True, entry_uniform=torch.float64,
+                          compress_from_uniform=natural_with_sent)
     if name == "identity":
         return Compressor("identity", lambda keys, u: identity(u), alpha=1.0, delta=1.0,
                           bits_per_elem=FP_BITS, header_bits=0)
-    raise KeyError(f"unknown compressor {name!r}; have {sorted(COMPRESSORS)}")
+    raise KeyError(
+        f"unknown compressor {name!r}; have {sorted(set(COMPRESSORS) | set(CUSTOM_COMPRESSORS))}"
+    )
 
 
 COMPRESSORS = ("identity", "natural", "randk", "randseqk", "topk", "toplek")
+# name -> (T, k) -> Compressor factories added by register_compressor
+CUSTOM_COMPRESSORS: dict[str, Callable[[int, int], Compressor]] = {}
 
 
 def message_bits(c: Compressor, sent_elems: torch.Tensor) -> torch.Tensor:

@@ -142,8 +142,9 @@ def master_step(
     l: torch.Tensor,
     cfg: FedNLConfig,
 ) -> torch.Tensor:
-    """Line 11 of Algorithm 1: the Newton-type model update."""
-    h = unpack_triu(h_global_packed, x.shape[0])
+    """Line 11 of Algorithm 1: the Newton-type model update (a leading batch
+    of specs, as the sweep's batched round stacks them, is one batch)."""
+    h = unpack_triu(h_global_packed, x.shape[-1])
     if cfg.option == "A":
         dx = newton_solve_optionA(h, grad, cfg.mu)
     elif cfg.option == "B":

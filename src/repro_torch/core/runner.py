@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable
+from typing import Callable
 
 import numpy as np
 import torch
@@ -56,19 +56,6 @@ class PPRunResult:
     init_time_s: float
 
 
-@dataclasses.dataclass
-class Trajectory:
-    """A finished run: final state, per-round metric columns on the host
-    (names of the round's metrics tuple), timings."""
-
-    state: Any
-    z: torch.Tensor  # the problem data on the run's device
-    columns: dict[str, np.ndarray]
-    rounds: int
-    wall_time_s: float
-    init_time_s: float
-
-
 def eval_full(z: torch.Tensor, x: torch.Tensor, lam: float):
     """Exact global f and grad over all clients (diagnostics)."""
     return torch.mean(logreg_f(z, x, lam)), torch.mean(logreg_grad(z, x, lam), dim=0)
@@ -85,63 +72,48 @@ def _column(values: list) -> np.ndarray:
     return np.stack([np.asarray(v) for v in values])
 
 
-def _trajectory(
-    z, device: torch.device, init: Callable, make_round: Callable, rounds: int, tol: float
-) -> Trajectory:
-    """init -> warm-up round -> up to ``rounds`` rounds on ``device``,
-    stopping after the first round whose grad norm is below ``tol`` (tol > 0)."""
-    t0 = time.perf_counter()
-    z = torch.as_tensor(z).to(dtype=torch.float64, device=device).contiguous()
-    state = init(z)
-    round_fn = make_round(z)
-    # warm-up round outside the solve clock (the paper separates
-    # "initialization time" from "solve time" the same way)
-    round_fn(state)
-    _sync(device)
-    init_time = time.perf_counter() - t0
+class RoundLoop:
+    """A run on ``device``: ``start(z)`` builds the state and the round
+    (``z`` uploaded as f64), then one warm-up round outside the clock (it
+    builds and loads the kernels at their first launch; rounds are pure, so
+    the state is unchanged), then rounds in chunks whose metrics stay on the
+    device until the chunk ends.  ``run_fednl``, ``run_fednl_pp``, the local
+    session handle (``api/backends.py``) and the sweep's batched groups
+    (``api/batch.py``) all step this one loop."""
 
-    metrics = []
-    t1 = time.perf_counter()
-    for _ in range(rounds):
-        state, m = round_fn(state)
-        metrics.append(m)
-        if tol > 0.0 and m.grad_norm.item() < tol:
-            break
-    _sync(device)
-    wall = time.perf_counter() - t1
-    columns = {
-        name: _column([getattr(m, name) for m in metrics])
-        for name in (metrics[0]._fields if metrics else ())
-    }
-    return Trajectory(state, z, columns, len(metrics), wall, init_time)
+    def __init__(self, z, device: torch.device, start: Callable):
+        t0 = time.perf_counter()
+        self.device = device
+        self.z = torch.as_tensor(z).to(dtype=torch.float64, device=device).contiguous()
+        self.state, self.round_fn = start(self.z)
+        # warm-up round outside the solve clock (the paper separates
+        # "initialization time" from "solve time" the same way)
+        self.round_fn(self.state)
+        _sync(device)
+        self.init_time_s = time.perf_counter() - t0
+        self.wall_time_s = 0.0
 
-
-def fednl_trajectory(
-    z,
-    cfg: FedNLConfig,
-    rounds: int,
-    tol: float,
-    seed: int,
-    x0,
-    device: torch.device,
-    line_search: bool = False,
-) -> Trajectory:
-    """A FedNL (``line_search``: FedNL-LS) run on ``device``."""
-    make = make_fednl_ls_round if line_search else make_fednl_round
-    return _trajectory(
-        z, device, lambda zd: fednl_init(zd, cfg, x0=x0, seed=seed),
-        lambda zd: make(zd, cfg), rounds, tol,
-    )
+    def step(self, n: int, tol: float = 0.0) -> list:
+        """Up to ``n`` rounds and one host sync at their end; with tol > 0
+        each round's grad norm is read, and the chunk stops after the first
+        round below ``tol``.  Returns the rounds' metrics tuples."""
+        metrics = []
+        t1 = time.perf_counter()
+        for _ in range(n):
+            self.state, m = self.round_fn(self.state)
+            metrics.append(m)
+            if tol > 0.0 and m.grad_norm.item() < tol:
+                break
+        _sync(self.device)
+        self.wall_time_s += time.perf_counter() - t1
+        return metrics
 
 
-def pp_trajectory(
-    z, cfg: FedNLConfig, tau: int, rounds: int, seed: int, x0, device: torch.device
-) -> Trajectory:
-    """A FedNL-PP run of ``rounds`` rounds on ``device``."""
-    return _trajectory(
-        z, device, lambda zd: fednl_pp_init(zd, cfg, x0=x0, seed=seed),
-        lambda zd: make_fednl_pp_round(zd, cfg, tau), rounds, 0.0,
-    )
+def metric_columns(metrics: list) -> dict[str, np.ndarray]:
+    """Per-round metrics tuples -> host columns by name, one copy each."""
+    if not metrics:
+        return {}
+    return {name: _column([getattr(m, name) for m in metrics]) for name in metrics[0]._fields}
 
 
 def run_fednl(
@@ -156,18 +128,21 @@ def run_fednl(
 ) -> RunResult:
     """Run FedNL (``line_search``: FedNL-LS) on problem data z
     (n_clients, n_i, d) on ``device`` (default: the card)."""
-    traj = fednl_trajectory(
-        z, cfg, rounds, tol, seed, x0, resolve_device(device), line_search=line_search
+    make = make_fednl_ls_round if line_search else make_fednl_round
+    loop = RoundLoop(
+        z, resolve_device(device),
+        lambda zd: (fednl_init(zd, cfg, x0=x0, seed=seed), make(zd, cfg)),
     )
-    cols = traj.columns
+    metrics = loop.step(rounds, tol)
+    cols = metric_columns(metrics)
     return RunResult(
-        x=traj.state.x.cpu().numpy(),
+        x=loop.state.x.cpu().numpy(),
         grad_norms=cols.get("grad_norm", np.zeros(0)),
         f_vals=cols.get("f", np.zeros(0)),
         sent_bits=cols.get("sent_bits", np.zeros(0, dtype=np.int64)),
-        rounds=traj.rounds,
-        wall_time_s=traj.wall_time_s,
-        init_time_s=traj.init_time_s,
+        rounds=len(metrics),
+        wall_time_s=loop.wall_time_s,
+        init_time_s=loop.init_time_s,
     )
 
 
@@ -184,20 +159,24 @@ def run_fednl_pp(
     (default: the card).  The final model is solved from the server's
     invariants after the last round (``x_hist[-1]`` is one update behind),
     and its grad norm is one pass of :func:`eval_full`."""
-    traj = pp_trajectory(z, cfg, tau, rounds, seed, x0, resolve_device(device))
-    d = traj.z.shape[-1]
-    x_final = server_model(traj.state, d)
-    _, g = eval_full(traj.z, x_final, cfg.lam)
-    cols = traj.columns
+    loop = RoundLoop(
+        z, resolve_device(device),
+        lambda zd: (fednl_pp_init(zd, cfg, x0=x0, seed=seed), make_fednl_pp_round(zd, cfg, tau)),
+    )
+    metrics = loop.step(rounds)
+    cols = metric_columns(metrics)
+    d = loop.z.shape[-1]
+    x_final = server_model(loop.state, d)
+    _, g = eval_full(loop.z, x_final, cfg.lam)
     return PPRunResult(
         x=x_final.cpu().numpy(),
         x_hist=cols.get("x", np.zeros((0, d))),
         l_vals=cols.get("l", np.zeros(0)),
         sent_bits=cols.get("sent_bits", np.zeros(0, dtype=np.int64)),
-        rounds=traj.rounds,
+        rounds=len(metrics),
         grad_norm=float(torch.linalg.vector_norm(g)),
-        wall_time_s=traj.wall_time_s,
-        init_time_s=traj.init_time_s,
+        wall_time_s=loop.wall_time_s,
+        init_time_s=loop.init_time_s,
     )
 
 

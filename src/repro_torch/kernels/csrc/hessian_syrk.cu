@@ -1,8 +1,10 @@
 // Batched packed SYRK for the FedNL client Hessians, FP64 on the tensor cores, sm_90a.
 //
-//   out[c, off(r, q)] = sum_s z[c, s, r] * (hw[c, s] * z[c, s, q])  (+ lam if q == r,
-//                                                                    + lam*0.0 otherwise)
-//   for every client c and every q >= r, off(r, q) = r*d - r*(r-1)/2 + (q - r).
+//   out[c, off(r, q)] = sum_s z[c', s, r] * (hw[c, s] * z[c', s, q])  (+ lam if q == r,
+//                                                                      + lam*0.0 otherwise)
+//   for every client c and every q >= r, off(r, q) = r*d - r*(r-1)/2 + (q - r),
+//   where c' = c mod n_z: z holds n_z clients' data, which a batched sweep
+//   group of specs on one dataset shares (n_z = n_clients when it does not).
 //
 // Replaces the Pallas TPU kernel repro/kernels/hessian_syrk.py:hessian_syrk_pallas
 // (body _syrk_kernel), which the round reaches through
@@ -140,7 +142,7 @@ __device__ __forceinline__ void multiply_stage(const double* __restrict__ sz,
 
 __global__ void __launch_bounds__(kThreads, 2)
 syrk_packed_dmma_kernel(const double* __restrict__ z, const double* __restrict__ hw,
-                        double* __restrict__ out, int n, int d, double lam) {
+                        double* __restrict__ out, int n_z, int n, int d, double lam) {
   const int r0 = kRows * blockIdx.y;
   const int q0 = r0 + kCols * blockIdx.x;
   if (q0 >= d) return;  // this row strip has fewer column chunks
@@ -148,7 +150,7 @@ syrk_packed_dmma_kernel(const double* __restrict__ z, const double* __restrict__
   // [q0, q0 + 128): one strip serves both operands
   const bool diagonal = q0 == r0;
   const long long c = blockIdx.z;
-  const double* zc = z + c * n * d;
+  const double* zc = z + static_cast<long long>(blockIdx.z % static_cast<unsigned>(n_z)) * n * d;
   const double* hc = hw + c * n;
 
   extern __shared__ double smem[];
@@ -262,11 +264,12 @@ syrk_packed_dmma_kernel(const double* __restrict__ z, const double* __restrict__
 
 }  // namespace
 
-// z: (n_clients, n, d) FP64, hw: (n_clients, n) FP64, out: (n_clients, T) FP64,
-// all contiguous on the current device.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// z: (n_z, n, d) FP64, hw: (n_clients, n) FP64, out: (n_clients, T) FP64,
+// all contiguous on the current device; n_clients a multiple of n_z, client
+// c reads z[c mod n_z].  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int syrk_packed_f64(const void* z, const void* hw, void* out,
-                               int n_clients, int n, int d, double lam,
+                               int n_clients, int n_z, int n, int d, double lam,
                                void* stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       syrk_packed_dmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -276,7 +279,7 @@ extern "C" int syrk_packed_f64(const void* z, const void* hw, void* out,
   const dim3 grid(col_chunks, row_strips, n_clients);
   syrk_packed_dmma_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(z), static_cast<const double*>(hw),
-      static_cast<double*>(out), n, d, lam);
+      static_cast<double*>(out), n_z, n, d, lam);
   return static_cast<int>(cudaGetLastError());
 }
 

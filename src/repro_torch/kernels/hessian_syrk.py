@@ -3,7 +3,10 @@
     hessian_syrk_packed(z, hw, lam)[c] = pack_triu(Z_c^T diag(hw_c) Z_c) + lam * pack_triu(I)
 
 z is (n_clients, n_i, d), hw = sigma(1 - sigma) / n_i is (n_clients, n_i),
-the result (n_clients, T) with T = d(d+1)/2.
+the result (n_clients, T) with T = d(d+1)/2.  The shared form takes z with
+n_z clients and hw with a multiple of them: client c reads z[c mod n_z], so
+a batched sweep group of S specs on one dataset runs its S * n_z clients in
+one launch without copying z.
 
 Replaces ``repro/kernels/hessian_syrk.py:hessian_syrk_pallas`` (body
 ``_syrk_kernel``), which the JAX round reaches through
@@ -45,7 +48,7 @@ from repro_torch.linalg.triu import pack_triu, packed_eye, triu_size
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
 )
 
 
@@ -97,10 +100,23 @@ def syrk_l2_bytes(n_clients: int, n: int, d: int) -> int:
     return n_clients * 8 * n * (cols + len(blocks))
 
 
+def _check_shared(z: torch.Tensor, hw: torch.Tensor) -> None:
+    if z.ndim != 3 or hw.ndim != 2 or hw.shape[1] != z.shape[1] or (
+        hw.shape[0] % max(z.shape[0], 1) or (z.shape[0] == 0) != (hw.shape[0] == 0)
+    ):
+        raise ValueError(
+            f"need z (n_z, n_i, d) and hw (n_clients, n_i), n_clients a multiple "
+            f"of n_z, got {tuple(z.shape)} and {tuple(hw.shape)}"
+        )
+
+
 def hessian_syrk_packed_plain(z: torch.Tensor, hw: torch.Tensor, lam: float) -> torch.Tensor:
-    """The plain PyTorch version: full square product, packed, +lam packed."""
+    """The plain PyTorch version: full square product, packed, +lam packed
+    (hw's clients in blocks of z's, for the shared form)."""
+    _check_shared(z, hw)
     d = z.shape[-1]
-    hp = pack_triu(z.mT @ (hw[..., None] * z))
+    hw_b = hw.view(-1, *z.shape[:2]) if hw.shape[0] != z.shape[0] else hw
+    hp = pack_triu(z.mT @ (hw_b[..., None] * z)).reshape(hw.shape[0], -1)
     return hp + lam * packed_eye(d, z.dtype, z.device)
 
 
@@ -108,16 +124,13 @@ def hessian_syrk_packed_cuda(z: torch.Tensor, hw: torch.Tensor, lam: float) -> t
     """Launch the CUDA kernel on z's device and current stream."""
     if z.dtype != torch.float64 or hw.dtype != torch.float64:
         raise TypeError(f"hessian_syrk_packed takes float64, got {z.dtype}, {hw.dtype}")
-    if z.ndim != 3 or hw.shape != z.shape[:2]:
-        raise ValueError(
-            f"need z (n_clients, n_i, d) and hw (n_clients, n_i), got "
-            f"{tuple(z.shape)} and {tuple(hw.shape)}"
-        )
+    _check_shared(z, hw)
     if not (z.is_cuda and hw.device == z.device):
         raise ValueError(f"z and hw must be on one CUDA device, got {z.device}, {hw.device}")
     if not (z.is_contiguous() and hw.is_contiguous()):
         raise ValueError("hessian_syrk_packed needs contiguous z and hw")
-    n_clients, n, d = z.shape
+    n_z, n, d = z.shape
+    n_clients = hw.shape[0]
     if n_clients > 65535:
         raise ValueError(f"{n_clients} clients exceed the kernel's grid (65535)")
     out = torch.empty((n_clients, triu_size(d)), dtype=torch.float64, device=z.device)
@@ -126,7 +139,7 @@ def hessian_syrk_packed_cuda(z: torch.Tensor, hw: torch.Tensor, lam: float) -> t
     fn = build.function("hessian_syrk", "syrk_packed_f64", _ARGTYPES)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        code = fn(z.data_ptr(), hw.data_ptr(), out.data_ptr(), n_clients, n, d,
+        code = fn(z.data_ptr(), hw.data_ptr(), out.data_ptr(), n_clients, n_z, n, d,
                   float(lam), stream)
     build.check_launch("hessian_syrk_packed", code)
     hessian_syrk_packed_cuda.launches += 1

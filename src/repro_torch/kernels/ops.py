@@ -130,5 +130,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    routes = flash_attention_mod.flash_attention_cuda.route_launches
-    routes.update({route: 0 for route in routes})
+    for by in (flash_attention_mod.flash_attention_cuda.route_launches,
+               threefry.threefry_uniform_cuda.dtype_launches):
+        by.update({name: 0 for name in by})

@@ -102,7 +102,10 @@ def threefry_uniform_cuda(keys: torch.Tensor, t: int, dtype: torch.dtype) -> tor
                   torch.cuda.current_stream(keys.device).cuda_stream)
     build.check_launch("threefry_uniform", code)
     threefry_uniform_cuda.launches += 1
+    threefry_uniform_cuda.dtype_launches[str(dtype).removeprefix("torch.")] += 1
     return out
 
 
 threefry_uniform_cuda.launches = 0
+# launches by dtype since the last reset (ops.reset_launch_counts)
+threefry_uniform_cuda.dtype_launches = {"float32": 0, "float64": 0}

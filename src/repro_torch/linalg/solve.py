@@ -43,7 +43,8 @@ def newton_solve_optionA(h: torch.Tensor, grad: torch.Tensor, mu: float) -> torc
 
 
 def newton_solve_optionB(h: torch.Tensor, grad: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
-    """Direction (H + l I)^{-1} grad (Option B / 'Frobenius shift')."""
+    """Direction (H + l I)^{-1} grad (Option B / 'Frobenius shift'); a
+    leading batch of H, grad and l is solved as one batch."""
     d = h.shape[-1]
-    h_reg = h + l * torch.eye(d, dtype=h.dtype, device=h.device)
+    h_reg = h + l[..., None, None] * torch.eye(d, dtype=h.dtype, device=h.device)
     return cholesky_solve(h_reg, grad)

@@ -32,6 +32,9 @@ def test_scan_covers_the_package():
     assert "src/repro_torch/core/fednl_pp.py" in names
     assert "src/repro_torch/baselines/numpy_reference.py" in names
     assert "src/repro_torch/models/lm.py" in names
+    for module in ("api/registry", "api/session", "api/backends", "api/sweep", "api/batch",
+                   "core/fednl_batch", "comm/transport"):
+        assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -47,7 +50,11 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "repro_torch.kernels.ops, repro_torch.launch.fednl_run, repro_torch.models, "
         "repro_torch.core.fednl_ls, repro_torch.core.fednl_pp, repro_torch.numerics, "
         "repro_torch.baselines, repro_torch.objectives.quadratic, "
-        "repro_torch.serving, repro_torch.launch.serve, repro_torch.train\n"
+        "repro_torch.serving, repro_torch.launch.serve, repro_torch.train, "
+        "repro_torch.api.session, repro_torch.api.sweep, repro_torch.api.batch, "
+        "repro_torch.api.backends, repro_torch.core.fednl_batch, repro_torch.comm.transport\n"
+        "assert repro_torch.api.list_backends() == "
+        "['local', 'sharded', 'star-loopback', 'star-tcp']\n"
         "from repro_torch.kernels import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"

@@ -167,6 +167,24 @@ def test_syrk_plain_adds_lam_packed():
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
+@pytest.mark.parametrize("n_z,reps", [(3, 1), (3, 4), (1, 5)])
+def test_syrk_plain_shared_z_is_each_block(n_z, reps):
+    """The shared form (hw holds reps blocks of z's n_z clients, client c
+    reading z[c mod n_z]) is, block by block, the plain result on z, bit for
+    bit; hw that is not a multiple of z's clients is refused."""
+    z, _ = _syrk_inputs(n_z, 20, 9, seed=n_z + reps)
+    _, hw = _syrk_inputs(n_z * reps, 20, 9, seed=7)
+    zt, ht = torch.as_tensor(z), torch.as_tensor(hw)
+    got = ths.hessian_syrk_packed_plain(zt, ht, 1e-3)
+    assert got.shape == (n_z * reps, triu_size(9))
+    for b in range(reps):
+        want = ths.hessian_syrk_packed_plain(zt, ht[b * n_z:(b + 1) * n_z], 1e-3)
+        assert torch.equal(got[b * n_z:(b + 1) * n_z].view(torch.int64), want.view(torch.int64))
+    with pytest.raises(ValueError, match="multiple of n_z"):
+        ths.hessian_syrk_packed_plain(torch.zeros(2, 20, 9, dtype=torch.float64),
+                                      torch.zeros(3, 20, dtype=torch.float64), 0.0)
+
+
 # ---------------------------------------------------------------------------
 # SYRK: the CUDA kernel's tile schedule, mirrored in syrk_schedule (CPU)
 # ---------------------------------------------------------------------------
@@ -466,6 +484,16 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     assert torch.equal(got, tcs.select_topk_by_keys_plain(u, unif32, 5)[0])
     assert sent.dtype == torch.int32 and sent.tolist() == [5, 5]
     assert tops.launch_counts() == NO_LAUNCHES
+    assert tth.threefry_uniform_cuda.dtype_launches == {"float32": 0, "float64": 0}
+
+
+def test_reset_launch_counts_clears_the_counts_by_route_and_by_dtype():
+    tth.threefry_uniform_cuda.dtype_launches["float64"] = 3
+    tops.flash_attention_mod.flash_attention_cuda.route_launches["simt"] = 2
+    tops.reset_launch_counts()
+    assert tth.threefry_uniform_cuda.dtype_launches == {"float32": 0, "float64": 0}
+    assert tops.flash_attention_mod.flash_attention_cuda.route_launches == {"wgmma": 0, "simt": 0}
+    assert tops.launch_counts() == NO_LAUNCHES
 
 
 def test_ops_refuse_other_devices():
@@ -546,6 +574,29 @@ def test_syrk_kernel_matches_plain_cuda(cuda, n_clients, n, d):
     torch.cuda.synchronize()
     assert got.shape == (n_clients, triu_size(d))
     assert (got - want).abs().max().item() <= SYRK_TOL * _syrk_scale(z, hw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_z,reps,n,d", [(142, 12, 348, 301), (8, 3, 40, 24), (3, 5, 37, 65),
+                                          (1, 7, 33, 64)])
+def test_syrk_kernel_shared_z_matches_plain_cuda(cuda, n_z, reps, n, d):
+    """The shared-z entry (client c reads z[c mod n_z]; a sweep group of
+    reps specs on one dataset) against the plain version, and against the
+    kernel on z repeated: per client the same work, bit for bit."""
+    z, _ = _syrk_inputs(n_z, n, d, seed=n + d)
+    _, hw = _syrk_inputs(n_z * reps, n, d, seed=d)
+    zt = torch.as_tensor(z, device=cuda)
+    ht = torch.as_tensor(hw, device=cuda)
+    before = ths.hessian_syrk_packed_cuda.launches
+    got = tops.hessian_syrk_packed(zt, ht, 1e-3)
+    assert ths.hessian_syrk_packed_cuda.launches == before + 1
+    want = ths.hessian_syrk_packed_plain(zt, ht, 1e-3)
+    repeated = ths.hessian_syrk_packed_cuda(zt.repeat(reps, 1, 1), ht, 1e-3)
+    torch.cuda.synchronize()
+    assert got.shape == (n_z * reps, triu_size(d))
+    scale = max(_syrk_scale(z, hw[b * n_z:(b + 1) * n_z]) for b in range(reps))
+    assert (got - want).abs().max().item() <= SYRK_TOL * scale
+    assert torch.equal(got.view(torch.int64), repeated.view(torch.int64))
 
 
 @pytest.mark.cuda
@@ -703,8 +754,11 @@ def test_threefry_kernel_bit_exact_cuda(cuda, dtype, n_clients, t):
     _, keys = _client_keys(n_clients, seed=t)
     kt = keys.to(cuda)
     before = tth.threefry_uniform_cuda.launches
+    by_dtype = dict(tth.threefry_uniform_cuda.dtype_launches)
     got = tops.threefry_uniform(kt, t, dtype)
     assert tth.threefry_uniform_cuda.launches == before + 1
+    name = str(dtype).removeprefix("torch.")
+    assert tth.threefry_uniform_cuda.dtype_launches == {**by_dtype, name: by_dtype[name] + 1}
     want = tth.threefry_uniform_plain(kt, t, dtype)
     torch.cuda.synchronize()
     assert got.shape == (n_clients, t) and got.dtype == dtype
