@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
 with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's dense
-inference path (granite-3-2b), sweeps (solve_many's batched groups) and
-sessions (open_session, FNLS1 checkpoints).
+inference path (granite-3-2b), sweeps (solve_many's batched groups),
+sessions (open_session, FNLS1 checkpoints) and the wire stack (codecs,
+frames, the loopback and TCP star masters).
 
     python3 chip_smoke.py
 
@@ -85,6 +86,26 @@ raises, and the script exits non-zero without the final line.
              file restored and run to 10; both equal solve(rounds=10) on the
              card bit for bit (x, grad norms, f, bits); the file round-trips
              byte for byte through load_state and save_state
+ 10 star     the wire stack: (a) star-loopback at w8a's whole shape, TopK 10
+             rounds and TopLEK 3, against the card's local solve, the launch
+             counts set to 0 before each and read after: SYRK 142 a round and
+             142 at init, the index form of TopK (TopLEK) 142 a round, nothing
+             else; grad norms within 1e-8 * norm + 1e-16 where >= 1e-12;
+             sent_bits exact, measured payload bits = the analytic bits, frame
+             bytes = the wire model; ms per round; (e) a star session: host
+             syncs counted over round 2 (set_sync_debug_mode "warn"), saved at
+             round 3, stepped and restored runs bit for bit the uninterrupted
+             run, the third round traced; (b) each codec's one-row encode at T = 45,451 on the card
+             against the CPU's bytes (TopLEK with phase 3's boundary
+             allowance); (c) FedNL-PP with RandK over loopback, tau 71,
+             FaultSpec(drop_prob=0.2) resampled, 10 rounds: exact launches
+             (SYRK, and threefry and TopK by keys' index form three times per
+             participant: encode, own decode, the master's PRG replay), the
+             participants, drops and bits exactly the CPU run's, its models
+             within 1e-8; (d) star-tcp with 8 client processes at w8a's
+             per-client width, 5 rounds: bits and bytes exactly loopback's at
+             that shape, every child exits 0; the index forms timed at the
+             star's one-client shape against their plain and dense forms
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -100,6 +121,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -148,6 +170,18 @@ LS_GROUP_ROUNDS = 10
 # (ROADMAP C6): the group's ls_steps are held exact to its solve()'s above it
 LS_EXACT_FLOOR = 1e-7
 SESSION_ROUNDS, SESSION_SAVE_AT = 10, 3
+STAR_ROUNDS = 10  # phase 10: star-loopback TopK at w8a, and its local solve
+STAR_LEK_ROUNDS = 3  # phase 10: the star-loopback TopLEK path
+STAR_GN_FLOOR = 1e-12  # star vs local grad norms compared where local's is above
+# ... within TRAJECTORY_RTOL * norm + STAR_GN_ATOL: a star client's one-client
+# batch and the local round's 142-client batch give the GEMVs of the oracles
+# other last bits (cuBLAS picks by batch), and once Newton's convergence is
+# quadratic, an ulp of x stays an absolute error of ~1e-20..1e-16 in the grad
+# norm while the norm itself shrinks toward 1e-14
+STAR_GN_ATOL = 1e-16
+STAR_PP_DROP = 0.2  # phase 10 (c): FaultSpec(drop_prob=...) of the PP star
+TCP_SHAPE = (301, 8, 348)  # phase 10 (d): w8a's d and n_i, 8 clients (DataSpec.shape order)
+TCP_ROUNDS = 5
 
 
 def emit(obj) -> None:
@@ -906,6 +940,289 @@ def session_phase() -> dict:
     return out
 
 
+def count_syncs(step) -> int:
+    """Host syncs that ``step()`` makes, as torch.cuda.set_sync_debug_mode
+    ("warn") reports them (one warning a synchronizing call)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _rel(got, want, floor: float) -> np.ndarray:
+    got, want = np.asarray(got), np.asarray(want)
+    keep = want >= floor
+    return np.abs(got[keep] - want[keep]) / want[keep]
+
+
+def _norms_close(got, want) -> bool:
+    """Grad norms within TRAJECTORY_RTOL * norm + STAR_GN_ATOL where the
+    reference norm is at least STAR_GN_FLOOR."""
+    got, want = np.asarray(got), np.asarray(want)
+    keep = want >= STAR_GN_FLOOR
+    return bool(np.all(np.abs(got[keep] - want[keep])
+                       <= TRAJECTORY_RTOL * want[keep] + STAR_GN_ATOL))
+
+
+def star_phase(ops, dev) -> dict:
+    """Phase 10: the wire stack on the card.  (a) star-loopback at w8a's
+    whole shape, TopK (10 rounds) and TopLEK (3), against the card's local
+    solve; launches, syncs and ms per round; (b) each codec's one-row encode
+    on the card against the CPU's bytes; (c) FedNL-PP with RandK over
+    loopback, tau 71, 20% dropout resampled, against the same run on the
+    CPU; (d) star-tcp with 8 client processes at w8a's per-client width
+    against loopback at that shape; (e) a star session saved at round 3 and
+    restored.  Returns what the kernels line needs."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.api import (
+        CompressorSpec, DataSpec, ExperimentSpec, FaultSpec, open_session, solve)
+    from repro_torch.comm import wire
+    from repro_torch.comm.star import run_star_master
+    from repro_torch.compressors import get_compressor
+    from repro_torch.kernels import compressor_select as tcs
+    from repro_torch.launch.multiproc import ClientCluster
+    from repro_torch.linalg import triu_size
+
+    spec = ExperimentSpec(data=DataSpec(dataset="w8a"), rounds=STAR_ROUNDS)
+    star_spec = spec.replace(backend="star-loopback")
+    z_np = spec.data.build()
+    n_clients, n_i, d = z_np.shape
+    t_len, k = triu_size(d), spec.fednl_config().k_for(d)
+    out: dict = {}
+
+    # (a) star-loopback, TopK and TopLEK, each with the counts set to 0 before it
+    def star_path(label, path_spec, per_client_round):
+        local = solve(path_spec, z=z_np, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rep = solve(path_spec.replace(backend="star-loopback"), z=z_np, device=dev)
+        launches = launch_counts(ops)
+        rounds = path_spec.rounds
+        want = {name: 0 for name in launches}
+        want["hessian_syrk_packed"] = n_clients * (rounds + 1)
+        want[per_client_round] = n_clients * rounds
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+        check(rep.rounds == rounds and bool(np.all(np.isfinite(rep.grad_norms))),
+              f"{label}: grad norms {rep.grad_norms}")
+        rel = _rel(rep.grad_norms, local.grad_norms, STAR_GN_FLOOR)
+        check(_norms_close(rep.grad_norms, local.grad_norms),
+              f"{label}: star vs local grad norms differ: {rel}")
+        check(list(rep.sent_bits) == list(local.sent_bits),
+              f"{label}: sent_bits {rep.sent_bits} vs local {local.sent_bits}")
+        check(list(rep.extras["measured_payload_bits"]) == list(rep.sent_bits_payload),
+              f"{label}: measured payload bits differ from the analytic bits")
+        check(list(8 * rep.extras["measured_frame_bytes"]) == list(local.sent_bits_wire),
+              f"{label}: measured frames differ from the wire model")
+        emit({
+            "phase": "star", "part": "a", "path": label, "device": rep.extras["device"],
+            "rounds": rounds, "clients": n_clients, "launches": launches,
+            "grad_norms": rep.grad_norms.tolist(), "local_grad_norms": local.grad_norms.tolist(),
+            "rel_err_above_floor": rel.tolist(), "floor": STAR_GN_FLOOR,
+            "abs_err": np.abs(rep.grad_norms - local.grad_norms).tolist(),
+            "rtol": TRAJECTORY_RTOL, "atol": STAR_GN_ATOL,
+            "bitwise_vs_local": bool(np.array_equal(rep.grad_norms, local.grad_norms)),
+            "sent_bits": rep.sent_bits.tolist(),
+            "measured_frame_bytes": rep.extras["measured_frame_bytes"].tolist(),
+            "init_time_s": rep.init_time_s, "ms_per_round": rep.wall_time_s / rounds * 1e3,
+            "local_ms_per_round": local.wall_time_s / local.rounds * 1e3,
+        })
+        return rep, launches
+
+    topk_rep, out["topk_launches"] = star_path(
+        f"w8a star-loopback topk rounds={STAR_ROUNDS}", spec, "select_topk_idx")
+    _, out["toplek_launches"] = star_path(
+        f"w8a star-loopback toplek rounds={STAR_LEK_ROUNDS}",
+        spec.replace(compressor=CompressorSpec("toplek"), rounds=STAR_LEK_ROUNDS),
+        "select_toplek_idx")
+
+    # (e) a session: syncs counted in round 2, saved at round 3, restored
+    where = ROOT / "build" / "chip_smoke"
+    where.mkdir(parents=True, exist_ok=True)
+    path = where / "w8a_star.fnlsess"
+    with open_session(star_spec, z=z_np, device=dev) as s:
+        s.step(1)
+        syncs = count_syncs(lambda: s.step(1))
+        star_trace = trace(lambda: s.step(1), 1, "round")
+        s.step(SESSION_SAVE_AT - s.round)
+        s.save(path)
+        stepped = s.run()
+    with open_session(star_spec, z=z_np, restore=path, device=dev) as s:
+        check(s.round == SESSION_SAVE_AT, f"star session restored at round {s.round}")
+        resumed = s.run()
+    for label, rep in (("stepped", stepped), ("restored", resumed)):
+        check(_reports_bitwise(rep, topk_rep), f"star session {label} != the uninterrupted run")
+        check(list(rep.extras["measured_frame_bytes"]) ==
+              list(topk_rep.extras["measured_frame_bytes"]), f"star session {label}: frames")
+    emit({"phase": "star", "part": "e", "spec": f"w8a star-loopback topk rounds={STAR_ROUNDS}",
+          "saved_at": SESSION_SAVE_AT, "stepped_bitwise": True, "restored_bitwise": True,
+          "fnls1_bytes": path.stat().st_size,
+          "host_syncs_per_round": syncs, "host_syncs_per_client_round": syncs / n_clients,
+          "trace_third_round": star_trace,
+          "note": "syncs: set_sync_debug_mode('warn') warnings over round 2 of the "
+                  "session; every uplink leaves the card as bytes; the third round under "
+                  "torch.profiler"})
+    path.unlink()
+    out["syncs_per_round"] = syncs
+
+    # (b) each codec's one-row encode on the card against the CPU's
+    rng = np.random.default_rng(10)
+    rows = {
+        "heavy_tailed": rng.standard_normal(t_len) * np.exp(rng.uniform(-20, 0, t_len)),
+        "kept_zeros": np.where(rng.uniform(size=t_len) < 0.97, 0.0, rng.standard_normal(t_len)),
+        "near_ties": near_tie_rows(1, t_len, 11)[0],
+    }
+    key = prng.split_one(prng.split(prng.prng_key(0), 2)[1], n_clients, 0)
+    unif = float(prng.uniform(key))
+    codecs = {}
+    for name in ("identity", "topk", "randk", "randseqk", "toplek", "natural"):
+        comp = get_compressor(name, t_len, k)
+        card, cpu = wire.make_codec(comp, t_len, dev), wire.make_codec(comp, t_len, "cpu")
+        boundary = 0
+        for row_name, u in rows.items():
+            got = card.encode(key, torch.as_tensor(u, device=dev))
+            want = cpu.encode(key, torch.as_tensor(u))
+            if name == "toplek" and got.sent_elems != want.sent_elems:
+                check(abs(got.sent_elems - want.sent_elems) == 1
+                      and toplek_near_boundary(u, k, unif),
+                      f"codec toplek {row_name}: kept {got.sent_elems} vs {want.sent_elems}")
+                boundary += 1
+                continue
+            check(got.data == want.data and got.bits == want.bits,
+                  f"codec {name} {row_name}: card bytes differ from the CPU's")
+            dec = card.decode(got.data, got.sent_elems)
+            check(bits_equal(dec.cpu(), cpu.decode(want.data, want.sent_elems)),
+                  f"codec {name} {row_name}: decodes differ")
+        codecs[name] = {"rows": sorted(rows), "bytes_equal": True, "boundary_rows": boundary,
+                        "bits_heavy_tailed": cpu.encode(key, torch.as_tensor(rows["heavy_tailed"])).bits}
+    emit({"phase": "star", "part": "b", "codecs": codecs, "T": t_len, "k": k,
+          "boundary_tol": TOPLEK_BOUNDARY})
+
+    # (c) FedNL-PP over loopback: RandK, tau 71, 20% dropout resampled
+    pp_spec = ExperimentSpec(
+        data=DataSpec(dataset="w8a"), algorithm="fednl-pp", tau=PP_TAU, rounds=STAR_ROUNDS,
+        compressor=CompressorSpec("randk"), fault=FaultSpec(drop_prob=STAR_PP_DROP),
+        on_dropout="resample", backend="star-loopback",
+    )
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pp = solve(pp_spec, z=z_np, device=dev)
+    pp_launches = launch_counts(ops)
+    contributions = sum(len(p) for p in pp.participants)
+    want = {name: 0 for name in pp_launches}
+    # a participant: SYRK, and threefry + TopK by keys three times (its
+    # encode, the decode of its own message, the master's decode)
+    want.update(hessian_syrk_packed=n_clients + contributions,
+                threefry_uniform=3 * contributions, threefry_uniform_float32=3 * contributions,
+                select_topk_by_keys_idx=3 * contributions)
+    check(pp_launches == want, f"PP star launches {pp_launches}, want {want}")
+    pp_cpu = solve(pp_spec, z=z_np, device="cpu")
+    check(pp.participants == pp_cpu.participants, "PP star: participants differ from the CPU's")
+    check(pp.dropped == pp_cpu.dropped, "PP star: drops differ from the CPU's")
+    check(sum(len(x) for x in pp.dropped) > 0, "PP star: no client dropped")
+    check(list(pp.sent_bits) == list(pp_cpu.sent_bits), "PP star: sent_bits differ from the CPU's")
+    xh, xh_cpu = np.asarray(pp.x_hist), np.asarray(pp_cpu.x_hist)
+    pp_rel = np.linalg.norm(xh - xh_cpu, axis=1) / np.linalg.norm(xh_cpu, axis=1)
+    check(bool(np.all(pp_rel <= TRAJECTORY_RTOL)), f"PP star: card vs CPU models differ {pp_rel}")
+    emit({"phase": "star", "part": "c", "spec": f"w8a fednl-pp randk tau={PP_TAU} drop_prob="
+          f"{STAR_PP_DROP} resample rounds={STAR_ROUNDS}", "launches": pp_launches,
+          "contributions": contributions, "drops": sum(len(x) for x in pp.dropped),
+          "participants_exact": True, "x_rel_err_vs_cpu": pp_rel.tolist(),
+          "final_grad_norm": pp.final_grad_norm, "ms_per_round": pp.wall_time_s / pp.rounds * 1e3})
+    out["by_keys_idx_launches"] = pp_launches
+    del pp_cpu
+
+    # (d) star-tcp: 8 client processes at w8a's per-client width
+    tcp_spec = ExperimentSpec(data=DataSpec(dataset="w8a", shape=TCP_SHAPE), rounds=TCP_ROUNDS)
+    cfg = tcp_spec.fednl_config()
+    t0 = time.perf_counter()
+    cluster = ClientCluster("w8a", TCP_SHAPE, tcp_spec.seed, cfg=cfg, device=str(dev),
+                            data_seed=tcp_spec.data.seed)
+    spawn_s = time.perf_counter() - t0
+    try:
+        tcp = run_star_master(cluster.conns, cluster.d, cfg, rounds=TCP_ROUNDS, device=dev)
+    finally:
+        cluster.close(join_timeout=120)
+    check(cluster.exit_codes() == [0] * TCP_SHAPE[1], f"TCP clients' exit codes {cluster.exit_codes()}")
+    loop = solve(tcp_spec.replace(backend="star-loopback"), device=dev)
+    check(list(tcp.sent_bits) == list(loop.sent_bits), "TCP vs loopback: sent_bits")
+    check(list(tcp.measured_payload_bits) == list(loop.extras["measured_payload_bits"]),
+          "TCP vs loopback: measured payload bits")
+    check(list(tcp.measured_frame_bytes) == list(loop.extras["measured_frame_bytes"]),
+          "TCP vs loopback: frame bytes")
+    tcp_rel = _rel(tcp.grad_norms, loop.grad_norms, STAR_GN_FLOOR)
+    check(_norms_close(tcp.grad_norms, loop.grad_norms), f"TCP vs loopback grad norms {tcp_rel}")
+    emit({"phase": "star", "part": "d", "spec": f"star-tcp w8a shape={TCP_SHAPE} topk "
+          f"rounds={TCP_ROUNDS}", "client_processes": TCP_SHAPE[1], "exit_codes": cluster.exit_codes(),
+          "spawn_and_accept_s": spawn_s, "ms_per_round": tcp.wall_time_s / TCP_ROUNDS * 1e3,
+          "loopback_ms_per_round": loop.wall_time_s / loop.rounds * 1e3,
+          "grad_norms": tcp.grad_norms.tolist(), "rel_err_vs_loopback": tcp_rel.tolist(),
+          "bitwise_vs_loopback": bool(np.array_equal(tcp.grad_norms, loop.grad_norms)),
+          "measured_frame_bytes": tcp.measured_frame_bytes.tolist()})
+
+    # the index forms at the star path's shape, one client, against their plain versions
+    u1 = torch.as_tensor(rows["heavy_tailed"][None], device=dev).contiguous()
+    keys1 = torch.as_tensor(rng.uniform(size=(1, t_len)).astype(np.float32), device=dev)
+    unif1 = torch.tensor([unif], dtype=torch.float64, device=dev)
+    idx_err = {}
+    for name, kern, plain in (
+        ("select_topk_idx", lambda: tcs.select_topk_idx_cuda(u1, k),
+         lambda: tcs.select_topk_idx_plain(u1, k)),
+        ("select_topk_by_keys_idx", lambda: tcs.select_topk_by_keys_idx_cuda(u1, keys1, k),
+         lambda: tcs.select_topk_by_keys_idx_plain(u1, keys1, k)),
+        ("select_toplek_idx", lambda: tcs.select_toplek_idx_cuda(u1, k, unif1),
+         lambda: tcs.select_toplek_idx_plain(u1, k, unif1)),
+    ):
+        got, want = kern(), plain()
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              f"{name}: sent or idx differ from the plain version at (1, {t_len})")
+        check(bits_equal(got[0], want[0]), f"{name}: u_hat differs from the plain version")
+        idx_err[name] = (got[0] - want[0]).abs().max().item()
+    ukeys = u1.abs().float()
+    idx_ms = {
+        "select_topk_idx": median_ms({
+            "kernel": lambda: tcs.select_topk_idx_cuda(u1, k),
+            "plain": lambda: tcs.select_topk_idx_plain(u1, k),
+            "dense_form": lambda: tcs.select_topk_cuda(u1, k),
+            "library": lambda: torch.topk(ukeys, k, dim=-1)}),
+        "select_topk_by_keys_idx": median_ms({
+            "kernel": lambda: tcs.select_topk_by_keys_idx_cuda(u1, keys1, k),
+            "plain": lambda: tcs.select_topk_by_keys_idx_plain(u1, keys1, k),
+            "dense_form": lambda: tcs.select_topk_by_keys_cuda(u1, keys1, k),
+            "library": lambda: torch.topk(keys1, k, dim=-1)}),
+        "select_toplek_idx": median_ms({
+            "kernel": lambda: tcs.select_toplek_idx_cuda(u1, k, unif1),
+            "plain": lambda: tcs.select_toplek_idx_plain(u1, k, unif1),
+            "dense_form": lambda: tcs.select_toplek_cuda(u1, k, unif1)}),
+    }
+    kept1 = int(tcs.select_toplek_idx_cuda(u1, k, unif1)[1])
+    p2 = 1 << (k - 1).bit_length()
+    sort_ops = p2.bit_length() * (p2.bit_length() - 1) // 2 * (p2 // 2) * 2
+    idx_bound = {  # u read, u_hat written, idx written, sent (and keys / unif read)
+        "select_topk_idx": bound(t_len * 16 + k * 4 + 4, SELECT_OPS_PER_KEY * t_len,
+                                 CUDA_CORE_32BIT_OPS),
+        "select_topk_by_keys_idx": bound(t_len * 4 + k * 8 + t_len * 8 + k * 4 + 4,
+                                         SELECT_OPS_PER_KEY * t_len, CUDA_CORE_32BIT_OPS),
+        "select_toplek_idx": bound(t_len * 16 + 8 + kept1 * 4 + 4,
+                                   SELECT_OPS_PER_KEY * t_len + 2 * sort_ops, CUDA_CORE_32BIT_OPS),
+    }
+    emit({"phase": "star", "part": "index_forms", "shape": [1, t_len], "k": k,
+          "times_ms": idx_ms, "bound_ms": idx_bound, "max_abs_err": idx_err,
+          "note": f"ms per call at the star path's one-client shape: median over {TIMED_REPS} "
+                  f"event pairs around {CALLS_PER_EVENT} calls; dense_form = the same kernel "
+                  "without the index output; library = torch.topk on the same f32 keys "
+                  "(TopLEK has none)"})
+    out.update(idx_ms=idx_ms, idx_bound=idx_bound, idx_err=idx_err)
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from _leaves(v) if isinstance(v, dict) else (v,)
@@ -1537,6 +1854,9 @@ def main() -> int:
     # --- 9 sessions: step, save, restore ------------------------------------
     session_phase()
 
+    # --- 10 the wire stack: star-loopback, codecs, PP with faults, TCP -------
+    star = star_phase(ops, dev)
+
     kernels = [
         {
             "name": "hessian_syrk_packed", "route": "cuda",
@@ -1627,6 +1947,32 @@ def main() -> int:
             "library_ms": flash_ms["library"],
         },
     ]
+    for name, launched, replaces in (
+        ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
+         "src/repro/kernels/compressor_select.py:67 (select_topk_pallas's selection, with the "
+         "index output of src/repro/compressors/core.py:184 topk_sparse)"),
+        ("select_topk_by_keys_idx", star["by_keys_idx_launches"]["select_topk_by_keys_idx"],
+         "src/repro/compressors/core.py:189 (randk_sparse's lax.top_k, and the RandK codec's "
+         "PRG replay, src/repro/comm/wire.py:184)"),
+        ("select_toplek_idx", star["toplek_launches"]["select_toplek_idx"],
+         "src/repro/kernels/compressor_select.py:106 (select_toplek_pallas, with the index "
+         "output of src/repro/compressors/core.py:204 toplek_sparse)"),
+    ):
+        times = star["idx_ms"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+            "replaces": replaces, "launches": launched, "max_abs_err": star["idx_err"][name],
+            "ms": times["kernel"], "plain_ms": times["plain"], "dense_form_ms": times["dense_form"],
+            "bound_ms": star["idx_bound"][name][0], "bound_by": star["idx_bound"][name][1],
+            "library_ms": times.get("library"),
+        })
+    for entry in kernels:  # the star path's launches of the kernels it shares
+        if entry["name"] in ("hessian_syrk_packed", "threefry_uniform_float32"):
+            entry["star_launches"] = {
+                "topk": star["topk_launches"].get(entry["name"], 0),
+                "pp_randk": star["by_keys_idx_launches"].get(entry["name"], 0),
+            }
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({

@@ -6,7 +6,7 @@ that make algorithms, backends and compressors pluggable.  Everything runs
 on the card unless ``device="cpu"`` is asked for.
 
 Not exported yet: ``specwire`` (``encode_spec``/``decode_spec``,
-ROADMAP A12) and ``TopologySpec``/``MembershipSpec`` (A11).
+ROADMAP A12) and ``TopologySpec``/``MembershipSpec`` (A11, topology).
 """
 
 from repro_torch.api.accounting import ACCOUNTINGS, make_bits_fn, payload_bits_fn, wire_bits_fn

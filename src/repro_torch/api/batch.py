@@ -15,15 +15,16 @@ Plans (batch mode "auto"), by the reference's rules:
   warm    local specs that differ only in ``rounds`` share one trajectory
           prefix: one session steps to each round count and reports there,
           bit-identical to per-spec solves (step composability).
+  pool    specs on the wire backends (star-loopback, star-tcp) run through
+          ``solve()`` on a pool of threads (4 for loopback, 2 for TCP: each
+          TCP spec spawns a process per client), one pool per backend.
   seq     everything else (PP, tol early stop, zero rounds, algorithms
           without a batch hook, a lone batchable spec) runs per spec through
           ``solve()``, logged with the reason.
 
-The reference's ``pool`` plan serves the wire backends; the port refuses
-their specs in ``check_spec`` (ROADMAP A11), like ``solve`` does, before
-anything runs.  Mode "vmap" batches the oracles' matrix-vector products
-over the specs and groups across datasets of one shape, waiving bit
-identity; mode "never" runs every spec through ``solve()`` in order.
+Mode "vmap" batches the oracles' matrix-vector products over the specs and
+groups across datasets of one shape, waiving bit identity; mode "never" runs
+every spec through ``solve()`` in order.
 
 No fallback: a batched group runs on the device it was given or raises; a
 kernel that fails to build or launch raises.
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
@@ -42,10 +44,13 @@ from repro_torch.api.report import RunReport, SweepReport
 
 MAX_GROUP_CLIENTS = 65535  # the SYRK kernel's grid (kernels/hessian_syrk.py)
 
+# the wire backends' pools: worker threads per backend
+_POOL_WIDTH = {"star-loopback": 4, "star-tcp": 2}
+
 
 @dataclasses.dataclass
 class _Plan:
-    kind: str  # "batch" | "warm" | "seq"
+    kind: str  # "batch" | "warm" | "pool" | "seq"
     indices: list[int]
     reason: str = ""
 
@@ -125,6 +130,7 @@ def plan_sweep(specs: Sequence, batch_mode: str) -> tuple[list[_Plan], list[str]
 
     log: list[str] = []
     batch_groups: dict[tuple, list[int]] = {}
+    pool_groups: dict[str, list[int]] = {}
     seq: list[tuple[int, str]] = []
     vectorize = "vmap" if batch_mode == "vmap" else "scan"
     dims_cache: dict = {}  # dims() parses LIBSVM files: once per DataSpec
@@ -144,6 +150,8 @@ def plan_sweep(specs: Sequence, batch_mode: str) -> tuple[list[_Plan], list[str]
             batch_groups.setdefault(
                 _group_key(spec, resolved_alpha(spec, dims[0]), vectorize, dims), []
             ).append(i)
+        elif spec.backend in _POOL_WIDTH:
+            pool_groups.setdefault(spec.backend, []).append(i)
         else:
             seq.append((i, "; ".join(blockers)))
 
@@ -153,6 +161,8 @@ def plan_sweep(specs: Sequence, batch_mode: str) -> tuple[list[_Plan], list[str]
             seq.append((idxs[0], "only spec in its batch group"))
             continue
         plans.append(_Plan("batch", idxs, reason=f"group key {key[:3]}..."))
+    for backend_name, idxs in pool_groups.items():
+        plans.append(_Plan("pool", idxs, reason=backend_name))
 
     if batch_mode != "never":
         warm_groups: dict = {}
@@ -348,6 +358,20 @@ def run_sweep(specs: Sequence, batch_mode: str, sweep: Any, device) -> SweepRepo
                 for i in plan.indices:
                     session.step(specs[i].rounds - session.round)
                     reports[i] = session.report(spec=specs[i])
+        elif plan.kind == "pool":
+            width = min(_POOL_WIDTH[plan.reason], len(plan.indices))
+            log.append(f"pool: {len(plan.indices)} specs on {plan.reason} via "
+                       f"{width} worker thread(s)")
+            with ThreadPoolExecutor(max_workers=width) as pool:
+                futures = [
+                    pool.submit(solve, specs[i],
+                                z=z_for(specs[i]) if get_backend(specs[i].backend).needs_problem
+                                else None,
+                                device=device)
+                    for i in plan.indices
+                ]
+                for i, fut in zip(plan.indices, futures):
+                    reports[i] = fut.result()
         else:
             (i,) = plan.indices
             reports[i] = solve(specs[i], z=z_for(specs[i]), device=device)

@@ -43,20 +43,22 @@ def check_spec(
     if spec.fault is not None and not backend.supports_faults:
         raise ValueError(
             f"backend {backend.name!r} cannot inject faults; a FaultSpec needs a "
-            "wire backend (star-loopback / star-tcp, not ported: ROADMAP A11) -- "
-            "running it fault-free here would silently change the experiment"
+            "wire backend (star-loopback / star-tcp, ROADMAP A11) -- running it "
+            "fault-free here would silently change the experiment"
         )
     if z is not None and not backend.needs_problem:
         raise ValueError(
             f"backend {backend.name!r} rebuilds the problem from spec.data in its "
             "worker processes; a pre-built z cannot be shipped to it"
         )
-    if (_live(spec.topology) or _live(spec.membership)) and not backend.supports_topology:
+    if _live(spec.topology) or _live(spec.membership):
+        # the reference runs these on its wire backends only; the port runs
+        # the flat synchronous star
         what = "topology" if _live(spec.topology) else "membership"
         raise NotImplementedError(
-            f"backend {backend.name!r} cannot run a non-trivial {what} spec; trees, "
-            "async aggregation and membership events need a wire backend, not "
-            "ported (ROADMAP A11)"
+            f"backend {backend.name!r}: a non-trivial {what} spec (a tree of "
+            "stars, asynchronous aggregation or membership events) is not ported "
+            "(ROADMAP A11 (topology)); the wire backends run the flat synchronous star"
         )
     if spec.aggregate != "dense_psum" or spec.devices is not None:
         raise NotImplementedError(

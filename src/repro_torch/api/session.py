@@ -129,8 +129,8 @@ def spec_to_dict(spec: ExperimentSpec) -> dict:
 
 def spec_from_dict(d: dict) -> ExperimentSpec:
     """Rebuild an ExperimentSpec from :func:`spec_to_dict` output (the
-    reference's too).  A topology or membership is refused: their specs are
-    not ported (ROADMAP A11)."""
+    reference's too), its ``fault`` included.  A topology or membership is
+    refused: their specs are not ported (ROADMAP A11, topology)."""
     from repro_torch.comm.transport import FaultSpec
 
     d = dict(d)
@@ -143,7 +143,7 @@ def spec_from_dict(d: dict) -> ExperimentSpec:
         if d.pop(name, None) is not None:
             raise NotImplementedError(
                 f"the spec has a {name}; TopologySpec and MembershipSpec are not "
-                "ported (ROADMAP A11)"
+                "ported (ROADMAP A11 (topology))"
             )
     return ExperimentSpec(
         data=DataSpec(**data),

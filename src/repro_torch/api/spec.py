@@ -4,11 +4,11 @@ Every field of ``repro``'s ``ExperimentSpec``, with the same names, defaults
 and checks, so that a spec -- and an FNLS1 checkpoint, which carries one --
 crosses between the packages.  Fields the port cannot run yet are accepted
 here and refused by ``check_spec`` (``solve``, ``open_session``,
-``solve_many``) with the ROADMAP item that ports them: a ``fault``, a
-topology or membership, and the wire backends (A11); ``aggregate``,
-``devices`` and the ``sharded`` backend (A13).  ``TopologySpec`` and
-``MembershipSpec`` themselves are not ported: the two fields take ``None``
-or an object with a ``trivial`` flag.
+``solve_many``) with the ROADMAP item that ports them: a non-trivial
+topology or membership (A11, topology); ``aggregate``, ``devices`` and the
+``sharded`` backend (A13).  ``TopologySpec`` and ``MembershipSpec``
+themselves are not ported: the two fields take ``None`` or an object with a
+``trivial`` flag.
 """
 
 from __future__ import annotations
@@ -99,9 +99,10 @@ class CompressorSpec:
 class ExperimentSpec:
     """One declarative FedNL experiment: ``solve(spec)`` runs it.
 
-    Backends: ``local`` (the port's single-process simulation); ``sharded``,
-    ``star-loopback`` and ``star-tcp`` are registered and refused until they
-    are ported.  Algorithms: fednl / fednl-ls / fednl-pp.
+    Backends: ``local`` (the port's single-process simulation),
+    ``star-loopback`` and ``star-tcp`` (the wire protocol); ``sharded`` is
+    registered and refused until it is ported.  Algorithms: fednl / fednl-ls
+    / fednl-pp.
     """
 
     # --- objective -------------------------------------------------------

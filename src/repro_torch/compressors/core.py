@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.compressors.select import natural_from_uniform, randseqk_dense
+from repro_torch.compressors.select import natural_from_uniform, randseqk_dense, rank_keys
 
 FP_BITS = 64  # the paper runs FP64 end to end
 IDX_BITS = 32  # fixed-width 32-bit indices
@@ -137,6 +137,96 @@ def toplek(keys: np.ndarray, u: torch.Tensor, k: int) -> tuple[torch.Tensor, tor
 
     unif = upload_draws(prng.uniform(keys), u.device)
     return kops.select_toplek(u, k, unif)
+
+
+# ---------------------------------------------------------------------------
+# sparse (index, value) forms, the wire codecs' payloads: per row the sent
+# indices and values in the reference's order, ``lax.top_k``'s (rank key
+# descending, lowest index first on ties), entries past ``sent`` zero-padded.
+# The kept set comes from the index forms of the selection kernels; putting
+# its k pairs in that order is a stable sort of k entries, serialisation.
+# u is (n, T); idx (n, k) int32, vals (n, k), sent (n,) int32.
+# ---------------------------------------------------------------------------
+
+
+def _descending(idx: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """idx (n, k) in index order, reordered by keys descending, stably."""
+    order = torch.sort(keys, dim=-1, descending=True, stable=True).indices
+    return torch.gather(idx, -1, order)
+
+
+def topk_sparse(u: torch.Tensor, k: int):
+    """TopK's k (index, value) pairs: ``topk_indices``' order."""
+    from repro_torch.kernels import ops as kops
+
+    _, sent, idx = kops.select_topk_idx(u, k)
+    idx = _descending(idx, rank_keys(torch.gather(u, -1, idx.long())))
+    return idx, torch.gather(u, -1, idx.long()), sent
+
+
+def randk_sparse(keys: np.ndarray, u: torch.Tensor, k: int):
+    """RandK's k pairs in ``lax.top_k``'s order of the f32 uniform keys."""
+    from repro_torch.kernels import ops as kops
+
+    unif = device_uniform(keys, u.shape[-1], torch.float32, u.device)
+    _, sent, idx = kops.select_topk_by_keys_idx(u, unif, k)
+    idx = _descending(idx, torch.gather(unif, -1, idx.long()))
+    return idx, torch.gather(u, -1, idx.long()), sent
+
+
+def randk_indices(keys: np.ndarray, t: int, k: int, device: torch.device) -> torch.Tensor:
+    """RandK's index set, replayed from the keys alone (the receiver's side
+    of the PRG-seed reconstruction): :func:`randk_sparse`'s idx."""
+    zeros = torch.zeros((len(keys), t), dtype=torch.float64, device=device)
+    return randk_sparse(keys, zeros, k)[0]
+
+
+def randseqk_sparse(keys: np.ndarray, u: torch.Tensor, k: int):
+    """RandSeqK's window {s, ..., s+k-1 mod T} in window order, through the
+    selection kernel."""
+    from repro_torch.kernels import ops as kops
+
+    t = u.shape[-1]
+    s = upload_draws(prng.randint(keys, 0, t), u.device)
+    u_hat, sent = kops.select_randseqk(u, k, s)
+    idx = ((s[:, None] + torch.arange(k, device=u.device)) % t).to(torch.int32)
+    return idx, torch.gather(u_hat, -1, idx.long()), sent
+
+
+def toplek_sparse(keys: np.ndarray, u: torch.Tensor, k: int):
+    """TopLEK's pairs, as the reference forms them: the first ``kept`` of
+    ``lax.top_k(rank_keys(u_hat), k)`` and ``u_hat`` there, zeros after.  So
+    the kept entries of non-zero key come first, by key; the slots of kept
+    entries whose key is 0 go, as in ``lax.top_k``, to the lowest indices of
+    key 0 in u_hat, which need not be theirs (their value is 0.0 either way,
+    but for an |u| below f32's least subnormal)."""
+    from repro_torch.kernels import ops as kops
+
+    n, t = u.shape
+    unif = upload_draws(prng.uniform(keys), u.device)
+    u_hat, kept, idx_io = kops.select_toplek_idx(u, k, unif)
+    pos = torch.arange(k, device=u.device)
+    first = pos < kept[:, None]
+    key_io = torch.where(first, rank_keys(torch.gather(u, -1, idx_io.long())), 0.0)
+    nonzero = key_io > 0
+    n_nonzero = nonzero.sum(-1, keepdim=True)
+    by_key = _descending(idx_io, torch.where(nonzero, key_io, -1.0))
+    # the lowest indices outside the non-zero-key set, in index order (the
+    # first k indices hold at least the kept - n_nonzero needed)
+    taken = torch.zeros((n, k + 1), dtype=torch.bool, device=u.device)
+    taken.scatter_(-1, torch.where(nonzero & (idx_io < k), idx_io.long(), k), True)
+    free = torch.sort(torch.where(taken[:, :k], k + pos, pos), dim=-1).values
+    fill = torch.gather(free, -1, torch.clamp(pos - n_nonzero, min=0))
+    idx = torch.where(pos < n_nonzero, by_key.long(), fill)
+    idx = torch.where(first, idx, 0)
+    vals = torch.where(first, torch.gather(u_hat, -1, idx), 0.0)
+    return idx.to(torch.int32), vals, kept
+
+
+def scatter_add_sparse(idx: torch.Tensor, vals: torch.Tensor, t: int) -> torch.Tensor:
+    """Decompress and add a batch of sparse messages into one (T,) vector."""
+    out = torch.zeros(t, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, idx.reshape(-1).long(), vals.reshape(-1))
 
 
 def identity(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -90,6 +90,50 @@ def randseqk_dense_masked(u: torch.Tensor, k: int, s: torch.Tensor) -> torch.Ten
     return torch.where(randseqk_window_mask(u.shape[-1], k, s), u, torch.zeros_like(u))
 
 
+def blocked_cumsum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis in the order of XLA's CPU
+    ``cumsum`` (``jnp.cumsum`` lowers to a full-window ``reduce_window``,
+    which XLA rewrites into this recursive blocked scan): up to ``block``
+    entries, one sequential sum; beyond, pad with zeros to a multiple of
+    ``block``, sum sequentially inside each block, scan the block totals by
+    the same rule, and add each block's exclusive prefix to its entries."""
+    n = x.shape[-1]
+    if n <= block:
+        out = x.clone()
+        for j in range(1, n):
+            out[..., j] = out[..., j - 1] + x[..., j]
+        return out
+    n_blocks = -(-n // block)
+    padded = torch.nn.functional.pad(x, (0, n_blocks * block - n))
+    blocks = padded.reshape(*x.shape[:-1], n_blocks, block).clone()
+    for j in range(1, block):
+        blocks[..., j] = blocks[..., j - 1] + blocks[..., j]
+    carried = blocked_cumsum(blocks[..., -1], block)
+    before = torch.nn.functional.pad(carried[..., :-1], (1, 0))  # exclusive prefix
+    return (blocks + before[..., None]).reshape(*x.shape[:-1], -1)[..., :n]
+
+
+def windowed_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """Sum over the last axis in the order of XLA's CPU reduction (the
+    reference's ``jnp.sum``): while more than ``window`` entries remain, pad
+    with zeros to a multiple of ``window`` (half the padding before, the
+    rest after) and replace each window by its sequential sum; then one
+    sequential sum of what remains."""
+    while x.shape[-1] > window:
+        n = x.shape[-1]
+        pad = -(-n // window) * window - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, window)
+        acc = x[..., 0]
+        for j in range(1, window):
+            acc = acc + x[..., j]
+        x = acc
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
 def toplek_from_uniform(
     u: torch.Tensor, k: int, unif: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -103,16 +147,35 @@ def toplek_from_uniform(
 
     m* is ``1 + #{alpha < delta}``, which equals the reference's
     ``searchsorted(alphas, delta, side="left") + 1`` since alpha does not
-    decrease.  The prefix sum is ``torch.cumsum``: its order (and the
-    reference's) decides alpha's last bit, which can move kept by one only
-    where alpha_m* lies within a few ulps of delta or unif of p.
+    decrease.  The order of the sums decides alpha's last bit, and with it
+    kept wherever alpha_m* lies within a few ulps of delta (at k = T, where
+    delta = 1, on most rows): the prefix sum is :func:`blocked_cumsum` and
+    the total :func:`windowed_sum`, the orders in which XLA on the CPU
+    computes the reference's ``jnp.cumsum`` and ``jnp.sum``.
     """
+    idx, kept = toplek_kept_prefix(u, k, unif)
+    return kept_prefix_dense(u, idx, kept), kept
+
+
+def kept_prefix_dense(u: torch.Tensor, idx: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+    """u on the first ``kept`` indices of each row of ``idx``, +0.0 elsewhere."""
+    keep = torch.arange(idx.shape[-1], device=u.device) < kept[..., None]
+    vals = torch.gather(u, -1, idx)
+    return torch.zeros_like(u).scatter(-1, idx, torch.where(keep, vals, 0.0))
+
+
+def toplek_kept_prefix(
+    u: torch.Tensor, k: int, unif: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """TopLEK's selection: the :func:`topk_indices` order (..., k), int64,
+    and the kept count (...,), int32; the first ``kept`` of the order are
+    kept (see :func:`toplek_from_uniform`)."""
     t = u.shape[-1]
     delta = k / t
     idx = topk_indices(u, k)
     vals = torch.gather(u, -1, idx)
-    csum = torch.cumsum(vals * vals, dim=-1)
-    total = torch.sum(u * u, dim=-1, keepdim=True)
+    csum = blocked_cumsum(vals * vals)
+    total = windowed_sum(u * u)[..., None]
     safe_total = torch.where(total > 0, total, torch.ones_like(total))
     alphas = csum / safe_total  # alphas[..., m-1] = alpha_m
     m_star = torch.clamp((alphas < delta).sum(-1, keepdim=True) + 1, max=k)
@@ -127,9 +190,16 @@ def toplek_from_uniform(
     p = torch.clamp(p, 0.0, 1.0)
     kept = torch.where(unif[..., None] < p, m_star - 1, m_star)
     kept = torch.where(total > 0, kept, torch.zeros_like(kept))
-    keep = torch.arange(k, device=u.device) < kept
-    u_hat = torch.zeros_like(u).scatter(-1, idx, torch.where(keep, vals, 0.0))
-    return u_hat, kept[..., 0].to(torch.int32)
+    return idx, kept[..., 0].to(torch.int32)
+
+
+def in_index_order(idx: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+    """The first ``kept`` entries of each row of ``idx`` (..., k) sorted by
+    index, zeros after them: int32, the index forms' layout."""
+    first = torch.arange(idx.shape[-1], device=idx.device) < kept[..., None]
+    big = torch.iinfo(torch.int64).max
+    ordered = torch.sort(torch.where(first, idx.to(torch.int64), big), dim=-1).values
+    return torch.where(first, ordered, 0).to(torch.int32)
 
 
 def pow2(e: torch.Tensor) -> torch.Tensor:

@@ -125,7 +125,7 @@ def _aligned(v: torch.Tensor) -> torch.Tensor:
     """v (S, ...) with each spec's block starting on a 32-byte boundary, as
     the spec's lone tensor does: v itself where every block already does,
     else a copy (module docstring)."""
-    if v[0].numel() % _ALIGN == 0:
+    if v[0].numel() % _ALIGN == 0 and v.data_ptr() % (v.element_size() * _ALIGN) == 0:
         return v
     out = _spec_blocks(v)
     out.copy_(v)

@@ -6,7 +6,12 @@
     select_toplek(u, k, unif)   -> (u_hat, sent)  keep TopLEK's adaptive prefix
 
 u is (n_clients, T) float64; u_hat = u on the kept set and +0.0 elsewhere;
-sent (n_clients,) int32 is the number kept.  The draws (``s`` int64,
+sent (n_clients,) int32 is the number kept.  The index forms
+``select_topk_idx``, ``select_topk_by_keys_idx`` and ``select_toplek_idx``
+(the same kernels with an index output, for the wire codecs) also return
+idx (n_clients, k) int32: each row's kept indices in index order, zeros
+after the first ``sent``; a kept entry whose value is 0.0 is in idx, where
+u_hat cannot show it.  The draws (``s`` int64,
 ``unif`` float64, one per client; RandK's ``keys``, float32, one per entry)
 are made outside the selection from the PRNG keys and passed in as device
 tensors; no selection kernel draws anything.  Source:
@@ -22,25 +27,34 @@ import ctypes
 import torch
 
 from repro_torch.compressors.select import (
+    in_index_order,
+    kept_prefix_dense,
     randseqk_dense_masked,
     rank_keys,
     threshold_keep_mask,
     toplek_from_uniform,
+    toplek_kept_prefix,
 )
 from repro_torch.kernels import build
 
+# topk_select_f64: u, out, sent, idx (null: no index output), n, t, k, stream
 _TOPK_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
-# randseqk_select_f64, topk_select_by_keys_f64 and toplek_select_f64: u,
-# draws, out, sent, n, t, k, (toplek: scratch), stream
+# randseqk_select_f64: u, s, out, sent, n, t, k, stream
 _DRAWS_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+# topk_select_by_keys_f64: u, keys, out, sent, idx, n, t, k, stream
+_BY_KEYS_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+# toplek_select_f64: u, unif, out, sent, idx, n, t, k, scratch, stream
 _TOPLEK_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 )
 
@@ -74,6 +88,23 @@ def _check_draws(name: str, draws: torch.Tensor, dtype: torch.dtype, u: torch.Te
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _outputs(u: torch.Tensor, k: int, with_idx: bool):
+    """u_hat, sent and (the index forms) idx, allocated for a launch."""
+    out = torch.empty_like(u)
+    sent = torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
+    idx = torch.zeros((u.shape[0], k), dtype=torch.int32, device=u.device) if with_idx else None
+    return out, sent, idx
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _idx_plain(keep: torch.Tensor, k: int) -> torch.Tensor:
+    """The index forms' idx from a keep mask with k kept per row."""
+    return keep.nonzero()[:, -1].reshape(*keep.shape[:-1], k).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -122,23 +153,72 @@ def select_topk_plain(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     return torch.where(keep, u, torch.zeros_like(u)), sent
 
 
-def select_topk_cuda(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the TopK kernel on u's device and current stream."""
-    n_clients, t = _check_u("select_topk", u, k)
-    out = torch.empty_like(u)
-    sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
+def _launch_topk(name: str, u: torch.Tensor, k: int, with_idx: bool):
+    n_clients, t = _check_u(name, u, k)
+    out, sent, idx = _outputs(u, k, with_idx)
     if n_clients == 0:
-        return out, sent
+        return out, sent, idx, False
     fn = build.function("compressor_select", "topk_select_f64", _TOPK_ARGTYPES)
     with torch.cuda.device(u.device):
-        code = fn(u.data_ptr(), out.data_ptr(), sent.data_ptr(), n_clients, t, k,
+        code = fn(u.data_ptr(), out.data_ptr(), sent.data_ptr(), _ptr(idx), n_clients, t, k,
                   _stream(u.device))
-    build.check_launch("select_topk", code)
-    select_topk_cuda.launches += 1
+    build.check_launch(name, code)
+    return out, sent, idx, True
+
+
+def select_topk_cuda(u: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the TopK kernel on u's device and current stream."""
+    out, sent, _, launched = _launch_topk("select_topk", u, k, False)
+    select_topk_cuda.launches += launched
     return out, sent
 
 
 select_topk_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Index forms (TopK, TopK by keys, TopLEK): the wire codecs' selections
+#
+# The reference's codecs send (index, value) pairs from ``topk_sparse``,
+# ``randk_sparse`` and ``toplek_sparse`` (``repro/compressors/core.py:184``,
+# ``:189``, ``:204``), and its RandK decode replays ``lax.top_k`` of the PRG's
+# uniforms (``repro/comm/wire.py:184``): the same selections as the dense
+# kernels, with the kept indices as output.  A kept entry whose value is 0.0
+# is kept all the same, and ``u_hat`` cannot show it, so the kernels write the
+# indices themselves: idx (n_clients, k) int32, in index order, zeros after
+# ``sent``.  Putting the k pairs in ``lax.top_k``'s order for the bytes is a
+# stable sort of k entries on the caller's side (serialisation).
+#
+# What bounds them on an H100: bytes, as the dense forms, plus k * 4 of idx.
+# On the star path a client calls them on its own row, (1, 45451): 0.73 MB,
+# 0.22 us at 3.35 TB/s; one block of 1024 threads on one SM is latency-bound
+# far above that, as the dense form on one row is.
+#
+# What the design does: TopK's two forms run the same kernel with the keep
+# pass in per-warp segments (``keep_pass_ordered``): a first pass counts each
+# warp's keys above the threshold and its ties, one scan of the 32 warp
+# counts gives each warp the rank of its first kept index, and a ballot ranks
+# the rest, so each kept index is written to its slot in index order.
+# TopLEK's form, after the dense output, sorts the first ``kept`` of its rank
+# order again by index alone (a second bitonic sort of the same P slots).
+# ---------------------------------------------------------------------------
+
+
+def select_topk_idx_plain(u: torch.Tensor, k: int):
+    """The plain version of the index form: (u_hat, sent, idx)."""
+    keep = threshold_keep_mask(rank_keys(u), k)
+    sent = torch.full(u.shape[:-1], k, dtype=torch.int32, device=u.device)
+    return torch.where(keep, u, torch.zeros_like(u)), sent, _idx_plain(keep, k)
+
+
+def select_topk_idx_cuda(u: torch.Tensor, k: int):
+    """Launch the TopK kernel's index form: (u_hat, sent, idx)."""
+    out, sent, idx, launched = _launch_topk("select_topk_idx", u, k, True)
+    select_topk_idx_cuda.launches += launched
+    return out, sent, idx
+
+
+select_topk_idx_cuda.launches = 0
 
 
 def keys_in_shared_memory(t: int, device: torch.device) -> bool:
@@ -192,27 +272,48 @@ def select_topk_by_keys_plain(
     return torch.where(keep, u, torch.zeros_like(u)), sent
 
 
+def _launch_by_keys(name: str, u: torch.Tensor, keys: torch.Tensor, k: int, with_idx: bool):
+    n_clients, t = _check_u(name, u, k)
+    _check_keys(name, keys, u)
+    out, sent, idx = _outputs(u, k, with_idx)
+    if n_clients == 0:
+        return out, sent, idx, False
+    fn = build.function("compressor_select", "topk_select_by_keys_f64", _BY_KEYS_ARGTYPES)
+    with torch.cuda.device(u.device):
+        code = fn(u.data_ptr(), keys.data_ptr(), out.data_ptr(), sent.data_ptr(), _ptr(idx),
+                  n_clients, t, k, _stream(u.device))
+    build.check_launch(name, code)
+    return out, sent, idx, True
+
+
 def select_topk_by_keys_cuda(
     u: torch.Tensor, keys: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the TopK-by-keys kernel on u's device and current stream;
     ``keys`` (n_clients, T) float32, non-negative, on the same device."""
-    n_clients, t = _check_u("select_topk_by_keys", u, k)
-    _check_keys("select_topk_by_keys", keys, u)
-    out = torch.empty_like(u)
-    sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
-    if n_clients == 0:
-        return out, sent
-    fn = build.function("compressor_select", "topk_select_by_keys_f64", _DRAWS_ARGTYPES)
-    with torch.cuda.device(u.device):
-        code = fn(u.data_ptr(), keys.data_ptr(), out.data_ptr(), sent.data_ptr(),
-                  n_clients, t, k, _stream(u.device))
-    build.check_launch("select_topk_by_keys", code)
-    select_topk_by_keys_cuda.launches += 1
+    out, sent, _, launched = _launch_by_keys("select_topk_by_keys", u, keys, k, False)
+    select_topk_by_keys_cuda.launches += launched
     return out, sent
 
 
 select_topk_by_keys_cuda.launches = 0
+
+
+def select_topk_by_keys_idx_plain(u: torch.Tensor, keys: torch.Tensor, k: int):
+    """The plain version of the index form: (u_hat, sent, idx)."""
+    keep = threshold_keep_mask(keys, k)
+    sent = torch.full(u.shape[:-1], k, dtype=torch.int32, device=u.device)
+    return torch.where(keep, u, torch.zeros_like(u)), sent, _idx_plain(keep, k)
+
+
+def select_topk_by_keys_idx_cuda(u: torch.Tensor, keys: torch.Tensor, k: int):
+    """Launch the TopK-by-keys kernel's index form: (u_hat, sent, idx)."""
+    out, sent, idx, launched = _launch_by_keys("select_topk_by_keys_idx", u, keys, k, True)
+    select_topk_by_keys_idx_cuda.launches += launched
+    return out, sent, idx
+
+
+select_topk_by_keys_idx_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -326,17 +427,12 @@ def toplek_memory_path(t: int, k: int, device: torch.device) -> int:
     return _toplek_plan(t, k, device)[0]
 
 
-def select_toplek_cuda(
-    u: torch.Tensor, k: int, unif: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the TopLEK kernel on u's device and current stream;
-    ``unif`` (n_clients,) float64 on the same device."""
-    n_clients, t = _check_u("select_toplek", u, k)
-    _check_draws("select_toplek", unif, torch.float64, u)
-    out = torch.empty_like(u)
-    sent = torch.empty(n_clients, dtype=torch.int32, device=u.device)
+def _launch_toplek(name: str, u: torch.Tensor, k: int, unif: torch.Tensor, with_idx: bool):
+    n_clients, t = _check_u(name, u, k)
+    _check_draws(name, unif, torch.float64, u)
+    out, sent, idx = _outputs(u, k, with_idx)
     if n_clients == 0:
-        return out, sent
+        return out, sent, idx, False
     fn = build.function("compressor_select", "toplek_select_f64", _TOPLEK_ARGTYPES)
     _, scratch_bytes = _toplek_plan(t, k, u.device)
     scratch = (
@@ -344,12 +440,36 @@ def select_toplek_cuda(
         if scratch_bytes else None
     )
     with torch.cuda.device(u.device):
-        code = fn(u.data_ptr(), unif.data_ptr(), out.data_ptr(), sent.data_ptr(),
-                  n_clients, t, k, scratch.data_ptr() if scratch is not None else None,
-                  _stream(u.device))
-    build.check_launch("select_toplek", code)
-    select_toplek_cuda.launches += 1
+        code = fn(u.data_ptr(), unif.data_ptr(), out.data_ptr(), sent.data_ptr(), _ptr(idx),
+                  n_clients, t, k, _ptr(scratch), _stream(u.device))
+    build.check_launch(name, code)
+    return out, sent, idx, True
+
+
+def select_toplek_cuda(
+    u: torch.Tensor, k: int, unif: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the TopLEK kernel on u's device and current stream;
+    ``unif`` (n_clients,) float64 on the same device."""
+    out, sent, _, launched = _launch_toplek("select_toplek", u, k, unif, False)
+    select_toplek_cuda.launches += launched
     return out, sent
 
 
 select_toplek_cuda.launches = 0
+
+
+def select_toplek_idx_plain(u: torch.Tensor, k: int, unif: torch.Tensor):
+    """The plain version of the index form: (u_hat, sent, idx)."""
+    order, kept = toplek_kept_prefix(u, k, unif)
+    return kept_prefix_dense(u, order, kept), kept, in_index_order(order, kept)
+
+
+def select_toplek_idx_cuda(u: torch.Tensor, k: int, unif: torch.Tensor):
+    """Launch the TopLEK kernel's index form: (u_hat, sent, idx)."""
+    out, sent, idx, launched = _launch_toplek("select_toplek_idx", u, k, unif, True)
+    select_toplek_idx_cuda.launches += launched
+    return out, sent, idx
+
+
+select_toplek_idx_cuda.launches = 0

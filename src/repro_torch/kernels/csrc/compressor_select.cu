@@ -14,6 +14,10 @@
 //           k/T}, k); kept = m* - 1 if unif < p else m* (0 for an all-zero
 //           row); out = u on the first `kept` of the order, +0.0 elsewhere;
 //           sent = kept
+// Index forms (a non-null idx (n_clients, k) int32 operand, for the wire
+//           codecs): the same out and sent, and the kept indices in index
+//           order in idx[c, :sent], zeros after them.  Kept entries whose
+//           value is 0.0 keep their index there, which out cannot show.
 //
 // Replace the Pallas TPU kernels of repro/kernels/compressor_select.py:
 // select_topk_pallas, select_randseqk_pallas and select_toplek_pallas, reached
@@ -173,18 +177,75 @@ __device__ void keep_pass(KeyAt key_at, int t, int thr, int need, int n_eq, int*
   }
 }
 
+// keep_pass for the index forms: the same set, with each kept index's rank
+// among the kept in index order.  visit(i, valid, keep, slot) is called by all
+// lanes of each warp together; slot is meaningful where keep.  Each warp owns
+// a contiguous segment: a first pass counts its keys above thr and its ties,
+// one scan of the 32 warp counts gives each warp the rank of its first kept
+// index (the ties kept before it are the lowest-index ones), and the second
+// pass ranks each kept index by ballot.  part, part_gt: kWarps ints, shared.
+template <class KeyAt, class Visit>
+__device__ void keep_pass_ordered(KeyAt key_at, int t, int thr, int need, int* part,
+                                  int* part_gt, Visit visit) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seg = ((t + kWarps - 1) / kWarps + 31) / 32 * 32;
+  const int lo = warp * seg;
+  const int hi = min(t, lo + seg);
+  int ties = 0, gts = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int key = i < hi ? key_at(i) : -1;
+    ties += __popc(__ballot_sync(0xffffffffu, key == thr));
+    gts += __popc(__ballot_sync(0xffffffffu, key > thr));
+  }
+  if (lane == 0) {
+    part[warp] = ties;
+    part_gt[warp] = gts;
+  }
+  __syncthreads();
+  // lane l: warp l's ties before it, then its kept count
+  const int ties_l = part[lane];
+  int ties_incl = ties_l;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, ties_incl, o);
+    if (lane >= o) ties_incl += y;
+  }
+  const int ties_before_l = ties_incl - ties_l;
+  const int kept_l = part_gt[lane] + max(0, min(ties_l, need - ties_before_l));
+  int before = __reduce_add_sync(0xffffffffu, lane < warp ? ties_l : 0);
+  int slot0 = __reduce_add_sync(0xffffffffu, lane < warp ? kept_l : 0);
+  __syncthreads();  // part and part_gt are reused by the caller
+  const unsigned lanes_below = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const bool valid = i < hi;
+    const int key = valid ? key_at(i) : -1;
+    const unsigned eq = __ballot_sync(0xffffffffu, key == thr);
+    const bool keep = key > thr || (key == thr && before + __popc(eq & lanes_below) < need);
+    before += __popc(eq);
+    const unsigned kept = __ballot_sync(0xffffffffu, valid && keep);
+    visit(i, valid, keep, slot0 + __popc(kept & lanes_below));
+    slot0 += __popc(kept);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // TopK
 // ---------------------------------------------------------------------------
 
 // kByKeys: the keys are the bit patterns of the f32 operand kf (RandK's
-// uniforms), else rank_key(u).
-template <bool kKeysInShared, bool kByKeys>
+// uniforms), else rank_key(u).  kEmitIdx: also write the kept indices, in
+// index order, to idx (n_clients, k).
+template <bool kKeysInShared, bool kByKeys, bool kEmitIdx>
 __global__ void __launch_bounds__(kThreads)
 topk_select_kernel(const double* __restrict__ u, const float* __restrict__ kf,
-                   double* __restrict__ out, int* __restrict__ sent, int t, int k) {
+                   double* __restrict__ out, int* __restrict__ sent, int* __restrict__ idx,
+                   int t, int k) {
   extern __shared__ int keys[];  // t entries when kKeysInShared
   __shared__ int part[kWarps];
+  __shared__ int part_gt[kEmitIdx ? kWarps : 1];
   __shared__ int hist[kRadixBins];
   __shared__ int pick[3];
 
@@ -205,9 +266,19 @@ topk_select_kernel(const double* __restrict__ u, const float* __restrict__ kf,
 
   int need, n_eq;
   const int thr = radix_threshold(key_at, t, k, hist, pick, &need, &n_eq);
-  keep_pass(key_at, t, thr, need, n_eq, part, [&](int i, bool valid, int, bool keep) {
-    if (valid) oc[i] = keep ? uc[i] : 0.0;  // u is read again only where kept
-  });
+  if (kEmitIdx) {
+    int* ic = idx + c * k;
+    keep_pass_ordered(key_at, t, thr, need, part, part_gt,
+                      [&](int i, bool valid, bool keep, int slot) {
+                        if (!valid) return;
+                        oc[i] = keep ? uc[i] : 0.0;
+                        if (keep) ic[slot] = i;
+                      });
+  } else {
+    keep_pass(key_at, t, thr, need, n_eq, part, [&](int i, bool valid, int, bool keep) {
+      if (valid) oc[i] = keep ? uc[i] : 0.0;  // u is read again only where kept
+    });
+  }
   if (threadIdx.x == 0) sent[c] = k;
 }
 
@@ -285,6 +356,25 @@ __device__ __forceinline__ double block_inclusive_sum_f64(double v, double* dpar
   return out;
 }
 
+// Bitonic sort of p (a power of two) 64-bit values in place, ascending, by
+// the whole block; ends on a barrier.
+__device__ void bitonic_sort(unsigned long long* v, int p) {
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int h = threadIdx.x; h < (p >> 1); h += kThreads) {
+        const int lo = 2 * h - (h & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = v[lo], b = v[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          v[lo] = b;
+          v[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 __host__ __device__ __forceinline__ int pow2_at_least(int k) {
   int p = 1;
   while (p < k) p <<= 1;
@@ -331,11 +421,13 @@ TopLekPlan toplek_plan(int t, int k) {
   return {2, 0, comps + csums, 0, comps};
 }
 
-template <int kPath>
+// kEmitIdx: also write the kept indices, in index order, to idx (n_clients,
+// k), zeros after them.
+template <int kPath, bool kEmitIdx>
 __global__ void __launch_bounds__(kThreads)
 toplek_select_kernel(const double* __restrict__ u, const double* __restrict__ unif,
-                     double* __restrict__ out, int* __restrict__ sent, int t, int k,
-                     unsigned char* scratch, long long scratch_per_client,
+                     double* __restrict__ out, int* __restrict__ sent, int* __restrict__ idx,
+                     int t, int k, unsigned char* scratch, long long scratch_per_client,
                      long long comp_offset, long long csum_offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int part[kWarps];
@@ -382,22 +474,7 @@ toplek_select_kernel(const double* __restrict__ u, const double* __restrict__ un
   });
   for (int j = k + threadIdx.x; j < p; j += kThreads) comp[j] = ~0ull;
   __syncthreads();
-
-  // bitonic sort of the p composites, ascending
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int h = threadIdx.x; h < (p >> 1); h += kThreads) {
-        const int lo = 2 * h - (h & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = comp[lo], b = comp[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          comp[lo] = b;
-          comp[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort(comp, p);
 
   // prefix energies in rank order (csum reuses the keys' region on path 0:
   // the keys are dead after the compaction, and the sort ended on a barrier)
@@ -432,21 +509,45 @@ toplek_select_kernel(const double* __restrict__ u, const double* __restrict__ un
     const unsigned int i = static_cast<unsigned int>(comp[j]);
     oc[i] = uc[i];
   }
+  if (kEmitIdx) {
+    // the first `kept` of the rank order, sorted again by index alone
+    for (int j = threadIdx.x; j < p; j += kThreads) {
+      comp[j] = j < kept ? static_cast<unsigned int>(comp[j]) : ~0ull;
+    }
+    __syncthreads();
+    bitonic_sort(comp, p);
+    int* ic = idx + c * k;
+    for (int j = threadIdx.x; j < k; j += kThreads) {
+      ic[j] = j < kept ? static_cast<int>(comp[j]) : 0;
+    }
+  }
+}
+
+template <int kPath, bool kEmitIdx>
+cudaError_t launch_toplek_form(const TopLekPlan& plan, const double* u, const double* unif,
+                          double* out, int* sent, int* idx, int n_clients, int t, int k,
+                          unsigned char* scratch, cudaStream_t s) {
+  if (plan.smem > 0) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(toplek_select_kernel<kPath, kEmitIdx>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return err;
+  }
+  toplek_select_kernel<kPath, kEmitIdx><<<n_clients, kThreads, plan.smem, s>>>(
+      u, unif, out, sent, idx, t, k, scratch, plan.scratch_per_client, plan.comp_offset,
+      plan.csum_offset);
+  return cudaGetLastError();
 }
 
 template <int kPath>
 cudaError_t launch_toplek(const TopLekPlan& plan, const double* u, const double* unif,
-                          double* out, int* sent, int n_clients, int t, int k,
+                          double* out, int* sent, int* idx, int n_clients, int t, int k,
                           unsigned char* scratch, cudaStream_t s) {
-  if (plan.smem > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        toplek_select_kernel<kPath>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
-    if (err != cudaSuccess) return err;
-  }
-  toplek_select_kernel<kPath><<<n_clients, kThreads, plan.smem, s>>>(
-      u, unif, out, sent, t, k, scratch, plan.scratch_per_client, plan.comp_offset,
-      plan.csum_offset);
-  return cudaGetLastError();
+  return idx != nullptr
+             ? launch_toplek_form<kPath, true>(plan, u, unif, out, sent, idx, n_clients, t, k,
+                                          scratch, s)
+             : launch_toplek_form<kPath, false>(plan, u, unif, out, sent, idx, n_clients, t, k,
+                                           scratch, s);
 }
 
 }  // namespace
@@ -456,31 +557,43 @@ cudaError_t launch_toplek(const TopLekPlan& plan, const double* u, const double*
 // fit the opt-in limit beside the kernel's static shared memory (as compiled),
 // else 0 (the keys are then read or recomputed from device memory on every
 // pass).
-template <bool kByKeys>
+template <bool kByKeys, bool kEmitIdx = false>
 int topk_smem_bytes(int t) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, topk_select_kernel<true, kByKeys>) != cudaSuccess) return 0;
+  if (cudaFuncGetAttributes(&attr, topk_select_kernel<true, kByKeys, kEmitIdx>) != cudaSuccess) {
+    return 0;
+  }
   const long long need = 4LL * t;
   return need + static_cast<long long>(attr.sharedSizeBytes) <= optin ? static_cast<int>(need)
                                                                         : 0;
 }
 
-template <bool kByKeys>
-int launch_topk(const double* u, const float* kf, double* out, int* sent, int n_clients, int t,
-                int k, cudaStream_t s) {
-  const int smem = topk_smem_bytes<kByKeys>(t);
+template <bool kByKeys, bool kEmitIdx>
+int launch_topk_form(const double* u, const float* kf, double* out, int* sent, int* idx,
+                int n_clients, int t, int k, cudaStream_t s) {
+  const int smem = topk_smem_bytes<kByKeys, kEmitIdx>(t);
   if (smem > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        topk_select_kernel<true, kByKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(topk_select_kernel<true, kByKeys, kEmitIdx>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    topk_select_kernel<true, kByKeys><<<n_clients, kThreads, smem, s>>>(u, kf, out, sent, t, k);
+    topk_select_kernel<true, kByKeys, kEmitIdx>
+        <<<n_clients, kThreads, smem, s>>>(u, kf, out, sent, idx, t, k);
   } else {
-    topk_select_kernel<false, kByKeys><<<n_clients, kThreads, 0, s>>>(u, kf, out, sent, t, k);
+    topk_select_kernel<false, kByKeys, kEmitIdx>
+        <<<n_clients, kThreads, 0, s>>>(u, kf, out, sent, idx, t, k);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kByKeys>
+int launch_topk(const double* u, const float* kf, double* out, int* sent, int* idx,
+                int n_clients, int t, int k, cudaStream_t s) {
+  return idx != nullptr ? launch_topk_form<kByKeys, true>(u, kf, out, sent, idx, n_clients, t, k, s)
+                        : launch_topk_form<kByKeys, false>(u, kf, out, sent, idx, n_clients, t, k, s);
 }
 
 extern "C" int topk_select_smem_bytes(int t) { return topk_smem_bytes<false>(t); }
@@ -488,21 +601,23 @@ extern "C" int topk_select_smem_bytes(int t) { return topk_smem_bytes<false>(t);
 extern "C" int topk_select_by_keys_smem_bytes(int t) { return topk_smem_bytes<true>(t); }
 
 // u: (n_clients, t) FP64, out: (n_clients, t) FP64, sent: (n_clients,) int32,
-// all contiguous on the current device; 1 <= k <= t.  Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int topk_select_f64(const void* u, void* out, void* sent,
+// idx: null, or (n_clients, k) int32 for the index form; all contiguous on
+// the current device; 1 <= k <= t.  Returns cudaGetLastError() after the
+// launch (0 on success).
+extern "C" int topk_select_f64(const void* u, void* out, void* sent, void* idx,
                                int n_clients, int t, int k, void* stream) {
   return launch_topk<false>(static_cast<const double*>(u), nullptr, static_cast<double*>(out),
-                            static_cast<int*>(sent), n_clients, t, k,
+                            static_cast<int*>(sent), static_cast<int*>(idx), n_clients, t, k,
                             static_cast<cudaStream_t>(stream));
 }
 
 // As topk_select_f64, with the selection keys given: keys (n_clients, t)
 // FP32, non-negative (no -0.0, no NaN), contiguous on the current device.
 extern "C" int topk_select_by_keys_f64(const void* u, const void* keys, void* out, void* sent,
-                                       int n_clients, int t, int k, void* stream) {
+                                       void* idx, int n_clients, int t, int k, void* stream) {
   return launch_topk<true>(static_cast<const double*>(u), static_cast<const float*>(keys),
-                           static_cast<double*>(out), static_cast<int*>(sent), n_clients, t, k,
+                           static_cast<double*>(out), static_cast<int*>(sent),
+                           static_cast<int*>(idx), n_clients, t, k,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -530,26 +645,29 @@ extern "C" long long toplek_select_scratch_bytes(int t, int k) {
 }
 
 // u, out: (n_clients, t) FP64; unif: (n_clients,) FP64 Bernoulli uniforms;
-// sent: (n_clients,) int32; scratch: n_clients * toplek_select_scratch_bytes
-// bytes of device memory, or null when that is 0; contiguous on the current
-// device; 1 <= k <= t < 2**30.  Returns cudaGetLastError() after the launch.
+// sent: (n_clients,) int32; idx: null, or (n_clients, k) int32 for the index
+// form; scratch: n_clients * toplek_select_scratch_bytes bytes of device
+// memory, or null when that is 0; contiguous on the current device;
+// 1 <= k <= t < 2**30.  Returns cudaGetLastError() after the launch.
 extern "C" int toplek_select_f64(const void* u, const void* unif, void* out, void* sent,
-                                 int n_clients, int t, int k, void* scratch, void* stream) {
+                                 void* idx, int n_clients, int t, int k, void* scratch,
+                                 void* stream) {
   const TopLekPlan plan = toplek_plan(t, k);
   if (plan.path == 2 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const double* up = static_cast<const double*>(u);
   const double* fp = static_cast<const double*>(unif);
   double* op = static_cast<double*>(out);
   int* sp = static_cast<int*>(sent);
+  int* ip = static_cast<int*>(idx);
   unsigned char* buf = static_cast<unsigned char*>(scratch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (plan.path == 0) {
-    err = launch_toplek<0>(plan, up, fp, op, sp, n_clients, t, k, buf, s);
+    err = launch_toplek<0>(plan, up, fp, op, sp, ip, n_clients, t, k, buf, s);
   } else if (plan.path == 1) {
-    err = launch_toplek<1>(plan, up, fp, op, sp, n_clients, t, k, buf, s);
+    err = launch_toplek<1>(plan, up, fp, op, sp, ip, n_clients, t, k, buf, s);
   } else {
-    err = launch_toplek<2>(plan, up, fp, op, sp, n_clients, t, k, buf, s);
+    err = launch_toplek<2>(plan, up, fp, op, sp, ip, n_clients, t, k, buf, s);
   }
   return static_cast<int>(err);
 }

@@ -49,6 +49,21 @@ def select_topk_by_keys(
     return compressor_select.select_topk_by_keys_plain(u, keys, k)
 
 
+def select_topk_idx(u: torch.Tensor, k: int):
+    """TopK's index form: u (n_clients, T) -> (u_hat, sent, idx), idx the
+    kept indices (n_clients, k) int32 in index order."""
+    if _route("select_topk_idx", u):
+        return compressor_select.select_topk_idx_cuda(u, k)
+    return compressor_select.select_topk_idx_plain(u, k)
+
+
+def select_topk_by_keys_idx(u: torch.Tensor, keys: torch.Tensor, k: int):
+    """TopK by keys' index form: -> (u_hat, sent, idx), as ``select_topk_idx``."""
+    if _route("select_topk_by_keys_idx", u):
+        return compressor_select.select_topk_by_keys_idx_cuda(u, keys, k)
+    return compressor_select.select_topk_by_keys_idx_plain(u, keys, k)
+
+
 def threefry_uniform(keys: torch.Tensor, t: int, dtype: torch.dtype) -> torch.Tensor:
     """``jax.random.uniform(key_c, (t,), dtype)`` for each client's key:
     keys (n_clients, 2) int32 -> (n_clients, t) float32 or float64."""
@@ -75,6 +90,14 @@ def select_toplek(
     if _route("select_toplek", u):
         return compressor_select.select_toplek_cuda(u, k, unif)
     return compressor_select.select_toplek_plain(u, k, unif)
+
+
+def select_toplek_idx(u: torch.Tensor, k: int, unif: torch.Tensor):
+    """TopLEK's index form: -> (u_hat, sent, idx), idx the ``sent`` kept
+    indices of each row in index order, zeros after them."""
+    if _route("select_toplek_idx", u):
+        return compressor_select.select_toplek_idx_cuda(u, k, unif)
+    return compressor_select.select_toplek_idx_plain(u, k, unif)
 
 
 def attention(
@@ -117,6 +140,9 @@ KERNELS = {
     "select_topk_by_keys": compressor_select.select_topk_by_keys_cuda,
     "select_randseqk": compressor_select.select_randseqk_cuda,
     "select_toplek": compressor_select.select_toplek_cuda,
+    "select_topk_idx": compressor_select.select_topk_idx_cuda,
+    "select_topk_by_keys_idx": compressor_select.select_topk_by_keys_idx_cuda,
+    "select_toplek_idx": compressor_select.select_toplek_idx_cuda,
     "flash_attention": flash_attention_mod.flash_attention_cuda,
     "threefry_uniform": threefry.threefry_uniform_cuda,
 }

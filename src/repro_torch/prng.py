@@ -92,6 +92,32 @@ def split(keys: np.ndarray, n: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=-1)
 
 
+def split_one(keys: np.ndarray, n: int, i: int) -> np.ndarray:
+    """``jax.random.split(key, n)[i]`` for each key: (..., 2) -> (..., 2),
+    hashing only counter i (the partitionable split hashes each output key's
+    own counter, so the i-th key does not depend on the others)."""
+    if not 0 <= i < n:
+        raise ValueError(f"split_one needs 0 <= i < n, got i={i}, n={n}")
+    return _hash_one(keys, i >> 32, i & _MASK)
+
+
+def _hash_one(keys: np.ndarray, x1: int, x2: int) -> np.ndarray:
+    """The hash of one counter (x1, x2) under each key, as a key (..., 2)."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    if keys.shape == (2,):
+        return np.array(threefry2x32_int(int(keys[0]), int(keys[1]), x1, x2), dtype=np.uint32)
+    b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], x1, x2)
+    return np.stack([b1, b2], axis=-1)
+
+
+def fold_in(keys: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for each key: (..., 2) -> (..., 2).
+
+    As jax's threefry ``fold_in``: the key hashes the one counter (0, data),
+    data taken as uint32, and the two hash words are the new key."""
+    return _hash_one(keys, 0, int(data) & _MASK)
+
+
 def random_bits(keys: np.ndarray, bit_width: int, shape: tuple[int, ...] = ()) -> np.ndarray:
     """``jax.random.bits(key, shape, uint32 | uint64)`` for each key:
     (..., 2) -> (..., *shape).

@@ -238,6 +238,12 @@ def test_solve_without_device_needs_a_card(no_card):
         run_fednl(t_spec.data.build(), t_spec.fednl_config(), rounds=1)
 
 
+class _Tree:
+    """A topology that is not the flat synchronous star (TopologySpec is not ported)."""
+
+    trivial = False
+
+
 REFUSALS = {  # what the message names -> the exception solve raises
     "A11": NotImplementedError,
     "A13": NotImplementedError,
@@ -249,15 +255,16 @@ REFUSALS = {  # what the message names -> the exception solve raises
 @pytest.mark.parametrize(
     "changes,where",
     [
-        (dict(backend="star-loopback"), "A11"),
+        (dict(backend="star-loopback", topology=_Tree()), "A11"),
         (dict(algorithm="fednl-pp", tol=1e-9), "partial participation"),
-        (dict(backend="star-tcp"), "A11"),
+        (dict(backend="star-tcp", topology=_Tree()), "A11"),
         (dict(backend="sharded"), "A13"),
         (dict(compressor=tapi.CompressorSpec("nope")), "unknown compressor"),
     ],
 )
 def test_solve_refuses_what_is_not_ported(changes, where):
-    """What solve still refuses: the backends not ported, a PP spec with an
+    """What solve still refuses: a topology on the wire backends (the tree
+    of stars is not ported), the sharded backend, a PP spec with an
     early-stop tol (the reference refuses it too) and an unknown compressor."""
     t_spec, _ = _specs("topk", rounds=1)
     with pytest.raises(REFUSALS[where], match=where):

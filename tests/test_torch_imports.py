@@ -33,7 +33,9 @@ def test_scan_covers_the_package():
     assert "src/repro_torch/baselines/numpy_reference.py" in names
     assert "src/repro_torch/models/lm.py" in names
     for module in ("api/registry", "api/session", "api/backends", "api/sweep", "api/batch",
-                   "core/fednl_batch", "comm/transport"):
+                   "core/fednl_batch", "comm/transport", "comm/wire", "comm/protocol",
+                   "comm/cost", "comm/star", "comm/star_pp", "comm/topology",
+                   "launch/multiproc"):
         assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 

@@ -426,6 +426,75 @@ def test_toplek_plain_matches_reference_select(ref):
     assert int(sent[2]) == 0 and not got[2].any()
 
 
+def _heavy_tailed_rows(n_rows, t, seed):
+    """N(0, 1) * exp(U(-20, 0)) entries: magnitudes over nine decades."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n_rows, t)) * np.exp(rng.uniform(-20.0, 0.0, (n_rows, t)))
+
+
+def test_toplek_kept_is_the_reference_at_k_equal_t(ref):
+    """k = T: delta = 1, so m* sits where the prefix energy reaches the total
+    to its last bit, on most rows.  The plain version sums in the orders of
+    XLA's CPU cumsum and sum, so kept (and u_hat) are the reference's on
+    every one of 200 heavy-tailed rows, eagerly per row and jitted over the
+    batch."""
+    t = 210
+    u = _heavy_tailed_rows(200, t, seed=0)
+    unif = np.random.default_rng(1).uniform(size=200)
+    got, kept = tsel.toplek_from_uniform(torch.as_tensor(u), t, torch.as_tensor(unif))
+    jax = pytest.importorskip("jax")
+    batched = jax.jit(jax.vmap(lambda r, q: ref.sel.toplek_from_uniform(r, t, q)))
+    want, want_kept = batched(ref.jnp.asarray(u), ref.jnp.asarray(unif))
+    np.testing.assert_array_equal(kept.numpy(), np.asarray(want_kept))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    assert len(set(kept.tolist())) > 1 and (kept < t).any()  # the boundary is in play
+    for c in range(0, 200, 20):
+        one, one_kept = ref.sel.toplek_from_uniform(ref.jnp.asarray(u[c]), t, ref.jnp.asarray(unif[c]))
+        assert int(kept[c]) == int(one_kept)
+
+
+@pytest.mark.parametrize("t", [210, 820, 45451])
+def test_sum_orders_are_xla_cpus(ref, t):
+    """blocked_cumsum is jnp.cumsum's order (base-16 blocked scan) and
+    windowed_sum jnp.sum's (windows of 32), bit for bit."""
+    x = _heavy_tailed_rows(3, t, seed=t)
+    want = np.asarray(ref.jnp.cumsum(ref.jnp.asarray(x), axis=-1))
+    np.testing.assert_array_equal(_bits(tsel.blocked_cumsum(torch.as_tensor(x)).numpy()), _bits(want))
+    want = np.asarray(ref.jnp.sum(ref.jnp.asarray(x * x), axis=-1))
+    np.testing.assert_array_equal(_bits(tsel.windowed_sum(torch.as_tensor(x * x)).numpy()), _bits(want))
+    assert (np.cumsum(x, axis=-1) != np.asarray(tsel.blocked_cumsum(torch.as_tensor(x)))).any()
+
+
+@pytest.mark.parametrize("t,k", [(28, 5), (210, 160), (210, 210), (300, 1)])
+def test_index_forms_plain_name_the_kept_set(t, k):
+    """idx holds each row's kept indices in index order (zeros after sent),
+    kept zeros included; u_hat and sent are the dense forms'."""
+    rng = np.random.default_rng(t + k)
+    u = rng.standard_normal((4, t))
+    u[1, rng.uniform(size=t) < 0.8] = 0.0
+    u[2] = np.round(u[2] * 2) / 2
+    u[3] = 0.0
+    ut = torch.as_tensor(u)
+    keys = torch.as_tensor(rng.uniform(size=(4, t)).astype(np.float32))
+    unif = torch.as_tensor(rng.uniform(size=4))
+    cases = [
+        (tcs.select_topk_idx_plain(ut, k), tcs.select_topk_plain(ut, k),
+         tsel.topk_indices(ut, k), torch.full((4,), k)),
+        (tcs.select_topk_by_keys_idx_plain(ut, keys, k), tcs.select_topk_by_keys_plain(ut, keys, k),
+         torch.sort(keys, dim=-1, descending=True, stable=True).indices[:, :k], torch.full((4,), k)),
+        (tcs.select_toplek_idx_plain(ut, k, unif), tcs.select_toplek_plain(ut, k, unif),
+         tsel.topk_indices(ut, k), tcs.select_toplek_plain(ut, k, unif)[1]),
+    ]
+    for (u_hat, sent, idx), (want_hat, want_sent), order, kept in cases:
+        assert torch.equal(u_hat, want_hat) and torch.equal(sent, want_sent)
+        assert idx.dtype == torch.int32 and idx.shape == (4, k)
+        for c in range(4):
+            n = int(kept[c])
+            assert idx[c, :n].tolist() == sorted(order[c, :n].tolist())
+            assert not idx[c, n:].any()
+    assert int(tcs.select_topk_idx_plain(ut, k)[2][3, -1]) == k - 1  # an all-zero row: 0..k-1
+
+
 def test_toplek_kept_is_an_ordered_topk_prefix():
     """u_hat keeps the first `kept` entries of the TopK order, and E over
     unif of ||u - u_hat||^2 is (1 - k/T) ||u||^2 (Algorithm 4's equality)."""
@@ -456,6 +525,7 @@ def test_toplek_kept_is_an_ordered_topk_prefix():
 NO_LAUNCHES = {
     "hessian_syrk_packed": 0, "select_topk": 0, "select_topk_by_keys": 0, "select_randseqk": 0,
     "select_toplek": 0, "flash_attention": 0, "threefry_uniform": 0,
+    "select_topk_idx": 0, "select_topk_by_keys_idx": 0, "select_toplek_idx": 0,
 }
 
 
@@ -805,3 +875,82 @@ def test_topk_by_keys_kernel_bit_exact_cuda(cuda, kind, n_rows, t, k):
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert torch.equal(sent, want_sent)
+
+
+# ---------------------------------------------------------------------------
+# the index forms (the wire codecs' selections) on a card
+# ---------------------------------------------------------------------------
+
+def _with_kept_zeros(u, seed):
+    """Rows of u with 80% of their entries set to 0.0 (kept zeros at k near T)."""
+    u = u.copy()
+    u[: len(u) // 2, np.random.default_rng(seed).uniform(size=u.shape[1]) < 0.8] = 0.0
+    return u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,n_rows,t,k",
+    [("gaussian", 142, 45451, 2408), ("near_ties", 8, 45451, 2408), ("gaussian", 1, 45451, 2408),
+     ("zeros", 4, 45451, 2408), ("zeros", 4, 300, 290), ("gaussian", 4, 61425, 2800),
+     ("gaussian", 3, 130, 130), ("gaussian", 3, 257, 1)],
+)
+def test_topk_index_forms_bit_exact_cuda(cuda, kind, n_rows, t, k):
+    """TopK's and TopK by keys' index forms: u_hat, sent and idx exactly the
+    plain versions' (the same set; kept zeros named in idx)."""
+    u = {
+        "gaussian": lambda: np.random.default_rng(t).standard_normal((n_rows, t)),
+        "near_ties": lambda: near_tie_rows(n_rows, t, t),
+        "zeros": lambda: _with_kept_zeros(np.random.default_rng(t).standard_normal((n_rows, t)), t),
+    }[kind]()
+    ut = torch.as_tensor(u, device=cuda)
+    keys = torch.as_tensor(np.random.default_rng(k).uniform(size=(n_rows, t)).astype(np.float32),
+                           device=cuda)
+    before = (tcs.select_topk_idx_cuda.launches, tcs.select_topk_by_keys_idx_cuda.launches)
+    got = tops.select_topk_idx(ut, k)
+    got_keys = tops.select_topk_by_keys_idx(ut, keys, k)
+    assert (tcs.select_topk_idx_cuda.launches, tcs.select_topk_by_keys_idx_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in ((got, tcs.select_topk_idx_plain(ut.cpu(), k)),
+                 (got_keys, tcs.select_topk_by_keys_idx_plain(ut.cpu(), keys.cpu(), k))):
+        np.testing.assert_array_equal(_bits(g[0].cpu().numpy()), _bits(w[0].numpy()))
+        assert torch.equal(g[1].cpu(), w[1]) and torch.equal(g[2].cpu(), w[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,n_rows,t,k,path",
+    [("dyadic", 142, 45451, 2408, 0), ("gaussian", 8, 45451, 2408, 0),
+     ("zeros", 4, 45451, 2408, 0), ("dyadic", 4, 45451, 45451, 2), ("dyadic", 8, 61425, 2800, 1),
+     ("gaussian", 4, 130, 130, 0), ("zeros", 4, 300, 300, 0), ("gaussian", 4, 257, 1, 0)],
+)
+def test_toplek_index_form_matches_plain_cuda(cuda, kind, n_rows, t, k, path):
+    """TopLEK's index form: u_hat, kept and idx the plain version's, exact on
+    dyadic rows, elsewhere but for the stated boundary case; idx is the first
+    kept of the rank order, sorted by index, zeros after."""
+    u = {
+        "gaussian": lambda: np.random.default_rng(t).standard_normal((n_rows, t)),
+        "dyadic": lambda: dyadic_rows(n_rows, t, t),
+        "zeros": lambda: _with_kept_zeros(dyadic_rows(n_rows, t, t), t),
+    }[kind]()
+    u[-1] = 0.0
+    unif = np.random.default_rng(k).uniform(size=n_rows)
+    ut, unif_t = torch.as_tensor(u, device=cuda), torch.as_tensor(unif, device=cuda)
+    before = tcs.select_toplek_idx_cuda.launches
+    got, sent, idx = tops.select_toplek_idx(ut, k, unif_t)
+    assert tcs.select_toplek_idx_cuda.launches == before + 1
+    assert tcs.toplek_memory_path(t, k, cuda) == path
+    want, want_sent, want_idx = tcs.select_toplek_idx_plain(ut, k, unif_t)
+    torch.cuda.synchronize()
+    dense, dense_sent = tops.select_toplek(ut, k, unif_t)
+    assert torch.equal(got, dense) and torch.equal(sent, dense_sent)
+    want_rows = list(zip(want.cpu().numpy(), want_sent.cpu().numpy()))
+    _check_toplek_rows(got.cpu().numpy(), sent.cpu().numpy(), want_rows, u, k, unif,
+                       exact=kind != "gaussian")
+    order = tsel.topk_indices(ut.cpu(), k)
+    for c in range(n_rows):
+        n = int(sent[c])
+        assert idx[c, :n].tolist() == sorted(order[c, :n].tolist()), f"row {c}"
+        assert not idx[c, n:].any()
+        if n == int(want_sent[c]):
+            assert torch.equal(idx[c].cpu(), want_idx[c].cpu())

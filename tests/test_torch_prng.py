@@ -190,3 +190,35 @@ def test_threefry_plain_is_the_generator(n_clients, t, dtype):
     for i, key in enumerate(jax.random.split(jsub, n_clients)[:3]):
         live = np.asarray(jax.random.uniform(key, (t,), np.dtype(dtype)))
         np.testing.assert_array_equal(got[i].view(np.uint8), live.view(np.uint8))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_matches(seed):
+    """fold_in(key, data) for the data the PP master folds in (1 + attempt)
+    and across uint32's range."""
+    for data in (0, 1, 2, 3, 17, 2**31 - 1, 2**31 + 7, 2**32 - 1):
+        want = np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), data))
+        got = prng.fold_in(prng.prng_key(seed), data)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == np.uint32
+
+
+def test_fold_in_is_vectorised_over_keys():
+    keys = prng.split(prng.prng_key(3), 5)
+    got = prng.fold_in(keys, 9)
+    want = np.stack([np.asarray(jax.random.fold_in(jnp.asarray(k), 9)) for k in keys])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 142])
+def test_split_one_is_one_row_of_split(n):
+    """split_one(key, n, i) is split(key, n)[i] (each output key of the
+    partitionable split hashes its own counter), for one key and a batch."""
+    key = prng.prng_key(11)
+    keys = prng.split(key, 4)
+    jkeys = np.asarray(jax.random.split(jax.random.PRNGKey(11), n))
+    for i in {0, n // 2, n - 1}:
+        np.testing.assert_array_equal(prng.split_one(key, n, i), jkeys[i])
+        np.testing.assert_array_equal(prng.split_one(keys, n, i), prng.split(keys, n)[:, i])
+    with pytest.raises(ValueError, match="0 <= i < n"):
+        prng.split_one(key, n, n)

@@ -313,6 +313,12 @@ def test_spec_fields_and_defaults_are_the_reference():
             ExperimentSpec(**bad)
 
 
+class _Tree:
+    """A topology that is not the flat synchronous star (TopologySpec is not ported)."""
+
+    trivial = False
+
+
 @pytest.mark.parametrize(
     "changes,exc,match",
     [
@@ -321,7 +327,7 @@ def test_spec_fields_and_defaults_are_the_reference():
         (dict(devices=2), NotImplementedError, "A13"),
         (dict(hessian="jnp"), ValueError, "one Hessian kernel"),
         (dict(backend="sharded"), NotImplementedError, "A13"),
-        (dict(backend="star-tcp"), NotImplementedError, "A11"),
+        (dict(backend="star-tcp", topology=_Tree()), NotImplementedError, "A11"),
     ],
 )
 def test_fields_not_ported_are_refused_at_solve(changes, exc, match):
@@ -333,11 +339,8 @@ def test_fields_not_ported_are_refused_at_solve(changes, exc, match):
 
 
 def test_topology_refused_and_pallas_runs_the_syrk_kernel():
-    class Tree:
-        trivial = False
-
     with pytest.raises(NotImplementedError, match="A11"):
-        solve(full_spec(rounds=1, topology=Tree()), device=CPU)
+        solve(full_spec(rounds=1, topology=_Tree()), device=CPU)
     d = tapi.session.spec_to_dict(full_spec())
     d["topology"] = {"kind": "tree"}
     with pytest.raises(NotImplementedError, match="A11"):

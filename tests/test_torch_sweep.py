@@ -98,10 +98,13 @@ def test_grid_invalid_axis_values_fail_like_solve():
         solve_many(BASE.grid(backend=["local", "ray"]), device=CPU)
     with pytest.raises(KeyError, match="unknown compressor"):
         solve_many(BASE.grid(compressor=["topk", "bzip2"], rounds=[1]), device=CPU)
-    # the wire backends are pooled by the reference; the port refuses them,
-    # like solve(), before anything runs
+    # a topology on a wire backend (the tree of stars is not ported) is
+    # refused, like solve() refuses it, before anything runs
+    class Tree:
+        trivial = False
+
     with pytest.raises(NotImplementedError, match="A11"):
-        solve_many(BASE.grid(backend=["local", "star-loopback"]), device=CPU)
+        solve_many([BASE, BASE.replace(backend="star-loopback", topology=Tree())], device=CPU)
 
 
 def test_sweep_spec_shape_validation():
@@ -335,13 +338,20 @@ def test_sweep_report_aggregation_helpers():
 def test_aligned_spec_blocks_start_on_32_byte_boundaries(shape):
     """``_aligned`` lays each spec's block from a 32-byte boundary, values
     unchanged, and is a no-op where every block already starts on one."""
-    v = torch.as_tensor(np.random.default_rng(0).standard_normal(shape))
+    # torch's own allocation, 64-byte aligned as the round's tensors are
+    # (numpy's memory, which torch.as_tensor would share, need not be)
+    v = torch.tensor(np.random.default_rng(0).standard_normal(shape))
     got = fb._aligned(v)
     assert torch.equal(got, v)
     assert all(got[s].data_ptr() % 32 == 0 for s in range(shape[0]))
     assert all(got[s].is_contiguous() for s in range(shape[0]))
     if v[0].numel() % 4 == 0:
         assert got.data_ptr() == v.data_ptr()
+    # a tensor whose first block does not start on a boundary is copied
+    shifted = torch.cat([torch.zeros(1, dtype=v.dtype), v.reshape(-1)])[1:].view(shape)
+    got = fb._aligned(shifted)
+    assert torch.equal(got, v)
+    assert all(got[s].data_ptr() % 32 == 0 for s in range(shape[0]))
 
 
 def test_client_frob_norms_are_the_sequential_rounds():
