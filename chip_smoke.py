@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
 with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's dense
 inference path (granite-3-2b), sweeps (solve_many's batched groups),
-sessions (open_session, FNLS1 checkpoints) and the wire stack (codecs,
-frames, the loopback and TCP star masters).
+sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
+the loopback and TCP star masters) and the topologies above it (trees of
+stars, async aggregation, elastic membership, TCP process trees, obs).
 
     python3 chip_smoke.py
 
@@ -106,6 +107,31 @@ raises, and the script exits non-zero without the final line.
              per-client width, 5 rounds: bits and bytes exactly loopback's at
              that shape, every child exits 0; the index forms timed at the
              star's one-client shape against their plain and dense forms
+ 11 topology the topologies at w8a's whole shape, each part's launch counts
+             set to 0 before it and read after: (a) an exact tree (fanout 4,
+             depth 3: 20 aggregators), TopK, stepped 3, saved and run to 10,
+             bit for bit phase 10's flat star (grad norms, f, x, bits, frame
+             bytes) with its launches (SYRK 142 a round + 142, the TopK index
+             form 142 a round); (a') RandK, 3 rounds, tree and flat star bit
+             for bit, threefry and TopK by keys' index form 5 (tree) and 3
+             (flat) times per leaf a round; (b) combine="sum" (fanout 12,
+             depth 2): x within 1e-12 of the flat star, bits exact, the
+             root's AGG bytes; (c) async: staleness 0 bit for bit the flat
+             star (5 rounds); staleness 2, max_delay 3, 20 rounds: two card
+             runs bit for bit, participants and bits the CPU run's, grad
+             norms within 1e-8 * norm + 1e-16, launches one per assignment;
+             (d) elastic, clients 130-141 join at round 2 and 0-11 leave at
+             round 5: participants and bits the CPU run's, the round-2 delta
+             12 uplinks + 12 * T * 64 bits, H_global after the leaves bitwise
+             a fresh mean of the survivors' mirrors; (f) the (a), (c) and (d)
+             sessions restored from FNLS1 by replay, bit for bit; (e)
+             star-tcp: a process tree of 2 aggregators of 4 clients at w8a's
+             per-client width, 5 rounds, bit for bit the loopback tree, exit
+             codes 0, no cluster live after; (g) obs: a tree round and a
+             flat-star round under a live recorder, bit for bit the run
+             without it, one comm.hop span per aggregator, UPLINK and AGG
+             bytes received against the measured frames, hop times by tree
+             level, a profiled tree round
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -182,6 +208,15 @@ STAR_GN_ATOL = 1e-16
 STAR_PP_DROP = 0.2  # phase 10 (c): FaultSpec(drop_prob=...) of the PP star
 TCP_SHAPE = (301, 8, 348)  # phase 10 (d): w8a's d and n_i, 8 clients (DataSpec.shape order)
 TCP_ROUNDS = 5
+# phase 11: the topologies at w8a
+TREE_ROUNDS = 10  # (a) the exact tree, TopK; (b) the sum tree
+TREE_RANDK_ROUNDS = 3  # (a') the exact tree, RandK
+ASYNC_SYNC_ROUNDS = 5  # (c) staleness 0 against the flat star
+ASYNC_ROUNDS = 20  # (c) staleness 2, max_delay 3
+ELASTIC_ROUNDS = 10  # (d)
+ELASTIC_JOIN_AT, ELASTIC_LEAVE_AT = 2, 5
+ELASTIC_JOINERS, ELASTIC_LEAVERS = range(130, 142), range(0, 12)
+SUM_TREE_RTOL = SUM_TREE_ATOL = 1e-12  # (b) x against the flat star (the reference's bound)
 
 
 def emit(obj) -> None:
@@ -1219,7 +1254,361 @@ def star_phase(ops, dev) -> dict:
                   f"event pairs around {CALLS_PER_EVENT} calls; dense_form = the same kernel "
                   "without the index output; library = torch.topk on the same f32 keys "
                   "(TopLEK has none)"})
-    out.update(idx_ms=idx_ms, idx_bound=idx_bound, idx_err=idx_err)
+    out.update(idx_ms=idx_ms, idx_bound=idx_bound, idx_err=idx_err, topk_rep=topk_rep, z_np=z_np)
+    return out
+
+
+def _tree_levels(topo, n_clients: int) -> tuple[int, int]:
+    """(root subtrees, aggregators in all) of a resolved tree."""
+    shape = topo.resolve(n_clients)
+
+    def count(sub) -> int:
+        return 1 + sum(count(c) for c in sub if isinstance(c, tuple))
+
+    return len(shape), sum(count(sub) for sub in shape)
+
+
+def _agg_root_bytes(measured: int, n_leaves: int, n_root_aggs: int) -> int:
+    """The bytes of the exact tree's AGG frames at the root in one round: a
+    32-byte header and a 4-byte count per frame, and per leaf entry a
+    24-byte head and the leaf's payload (its frame less the 32-byte header)."""
+    return 36 * n_root_aggs + measured - 8 * n_leaves
+
+
+def topology_phase(ops, dev, star: dict) -> dict:
+    """Phase 11: the tree of stars, bounded-staleness async aggregation and
+    elastic membership on the card at w8a, through solve and open_session on
+    star-loopback and star-tcp.  (a) the exact tree (fanout 4, depth 3: 20
+    aggregators), TopK 10 rounds, bit for bit the flat star of phase 10 with
+    its launch counts; (a') the same tree with RandK, 3 rounds, against the
+    flat star's RandK; (b) combine="sum" (fanout 12, depth 2) within 1e-12 of
+    the flat star's x, bits exact; (c) async: staleness 0 bit for bit the
+    flat star, then staleness 2 over 20 rounds twice on the card and once on
+    the CPU; (d) elastic: 12 joins at round 2, 12 leaves at round 5, against
+    the CPU; (e) a TCP process tree of 2 aggregators of 4 clients each against
+    the loopback tree; (f) sessions restored by replay; (g) obs: hop spans,
+    frame counters and a profiled tree round.  Returns the launch counts."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.api import (
+        CompressorSpec, DataSpec, ExperimentSpec, MembershipEvent, MembershipSpec,
+        TopologySpec, open_session, solve)
+    from repro_torch.comm.topology import make_master
+    from repro_torch.launch.multiproc import ClientCluster, TreeClientCluster
+
+    t_phase = time.perf_counter()
+    z_np = star["z_np"]
+    n_clients, _, d = z_np.shape
+    base = ExperimentSpec(data=DataSpec(dataset="w8a"), rounds=TREE_ROUNDS, backend="star-loopback")
+    flat = star["topk_rep"]  # phase 10's flat star-loopback TopK run, 10 rounds
+    exact = TopologySpec(kind="tree", fanout=4, depth=3, combine="exact")
+    n_root, n_aggs = _tree_levels(exact, n_clients)
+    out: dict = {}
+    where = ROOT / "build" / "chip_smoke"
+    where.mkdir(parents=True, exist_ok=True)
+
+    def reset():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+
+    def zero_but(**want) -> dict:
+        got = launch_counts(ops)
+        return {name: want.get(name, 0) for name in got}
+
+    def frames_bitwise(got, want) -> bool:
+        return (list(got.extras["measured_frame_bytes"]) == list(want.extras["measured_frame_bytes"])
+                and list(got.extras["measured_payload_bits"])
+                == list(want.extras["measured_payload_bits"]))
+
+    # (a) the exact tree, TopK, as a session stepped 3, saved, run to 10
+    tree_spec = base.replace(topology=exact)
+    tree_path = where / "w8a_tree.fnlsess"
+    reset()
+    with open_session(tree_spec, z=z_np, device=dev) as s:
+        s.step(SESSION_SAVE_AT)
+        s.save(tree_path)
+        tree = s.run()
+    launches = launch_counts(ops)
+    want = zero_but(hessian_syrk_packed=n_clients * (TREE_ROUNDS + 1),
+                    select_topk_idx=n_clients * TREE_ROUNDS)
+    check(launches == want, f"exact tree: launches {launches}, want {want}")
+    check(_reports_bitwise(tree, flat) and frames_bitwise(tree, flat),
+          "exact tree != the flat star bit for bit")
+    measured = [int(b) for b in tree.extras["measured_frame_bytes"]]
+    root_bytes = [_agg_root_bytes(b, n_clients, n_root) for b in measured]
+    emit({"phase": "topology", "part": "a", "spec": f"w8a star-loopback topk tree fanout=4 "
+          f"depth=3 exact rounds={TREE_ROUNDS}", "root_subtrees": n_root, "aggregators": n_aggs,
+          "device": tree.extras["device"], "launches": launches, "bitwise_vs_flat_star": True,
+          "grad_norms": tree.grad_norms.tolist(), "sent_bits": tree.sent_bits.tolist(),
+          "measured_frame_bytes": measured, "root_agg_frame_bytes": root_bytes,
+          "init_time_s": tree.init_time_s, "ms_per_round": tree.wall_time_s / tree.rounds * 1e3,
+          "flat_star_ms_per_round": flat.wall_time_s / flat.rounds * 1e3})
+    out["tree_topk"] = launches
+
+    # (a') the same tree with RandK: every hop decodes each leaf's message
+    rk_spec = base.replace(compressor=CompressorSpec("randk"), rounds=TREE_RANDK_ROUNDS)
+    reset()
+    rk_flat = solve(rk_spec, z=z_np, device=dev)
+    flat_rk = launch_counts(ops)
+    reset()
+    rk_tree = solve(rk_spec.replace(topology=exact), z=z_np, device=dev)
+    tree_rk = launch_counts(ops)
+    hops = 3  # the aggregators above a leaf (depth - 1) and the root
+    per_leaf = 2 + hops  # encode, the leaf's own decode, each hop's decode
+    for label, got, times in (("flat", flat_rk, 3), ("tree", tree_rk, per_leaf)):
+        uses = times * n_clients * TREE_RANDK_ROUNDS
+        want = zero_but(hessian_syrk_packed=n_clients * (TREE_RANDK_ROUNDS + 1),
+                        threefry_uniform=uses, threefry_uniform_float32=uses,
+                        select_topk_by_keys_idx=uses)
+        check(got == want, f"randk {label}: launches {got}, want {want}")
+    check(_reports_bitwise(rk_tree, rk_flat) and frames_bitwise(rk_tree, rk_flat),
+          "exact tree RandK != the flat star bit for bit")
+    emit({"phase": "topology", "part": "a_randk", "spec": f"w8a star-loopback randk tree "
+          f"fanout=4 depth=3 exact rounds={TREE_RANDK_ROUNDS}", "bitwise_vs_flat_star": True,
+          "launches": tree_rk, "flat_star_launches": flat_rk,
+          "decodes_per_leaf_round": {"tree": 1 + hops, "flat": 2},
+          "ms_per_round": rk_tree.wall_time_s / rk_tree.rounds * 1e3,
+          "flat_star_ms_per_round": rk_flat.wall_time_s / rk_flat.rounds * 1e3})
+    out["tree_randk"] = tree_rk
+
+    # (b) combine="sum": 12 subtrees, one dense sum each; root bytes counted
+    sum_topo = TopologySpec(kind="tree", fanout=12, depth=2, combine="sum")
+    reset()
+    with open_session(base.replace(topology=sum_topo), z=z_np, device=dev) as s:
+        rec = obs.enable()
+        s.step(TREE_ROUNDS)
+        obs.disable()
+        summed = s.report()
+    sum_launches = launch_counts(ops)
+    check(sum_launches == zero_but(hessian_syrk_packed=n_clients * (TREE_ROUNDS + 1),
+                                   select_topk_idx=n_clients * TREE_ROUNDS),
+          f"sum tree launches {sum_launches}")
+    x_err = np.abs(summed.x - flat.x)
+    check(bool(np.all(x_err <= SUM_TREE_ATOL + SUM_TREE_RTOL * np.abs(flat.x))),
+          f"sum tree x vs the flat star: {x_err.max()}")
+    check(list(summed.sent_bits) == list(flat.sent_bits), "sum tree sent_bits")
+    sum_root = rec.value("comm.bytes.recv", type="AGG")
+    emit({"phase": "topology", "part": "b", "spec": f"w8a star-loopback topk tree fanout=12 "
+          f"depth=2 sum rounds={TREE_ROUNDS}", "x_max_abs_err_vs_flat": float(x_err.max()),
+          "rtol": SUM_TREE_RTOL, "atol": SUM_TREE_ATOL, "sent_bits_exact": True,
+          "bitwise_vs_flat_star": bool(np.array_equal(summed.x, flat.x)),
+          "root_agg_frame_bytes_per_round": sum_root / TREE_ROUNDS,
+          "exact_tree_root_agg_frame_bytes_per_round": statistics.mean(root_bytes),
+          "leaf_frame_bytes_per_round": statistics.mean(measured),
+          "ms_per_round": summed.wall_time_s / summed.rounds * 1e3})
+
+    # (c) async: staleness 0 is the flat star; staleness 2 twice on the card, once on the CPU
+    reset()
+    sync0 = solve(base.replace(topology=TopologySpec(mode="async"), rounds=ASYNC_SYNC_ROUNDS),
+                  z=z_np, device=dev)
+    check([g.hex() for g in sync0.grad_norms] == [g.hex() for g in flat.grad_norms[:ASYNC_SYNC_ROUNDS]]
+          and [r.f for r in sync0.records] == [r.f for r in flat.records[:ASYNC_SYNC_ROUNDS]]
+          and list(sync0.sent_bits) == list(flat.sent_bits[:ASYNC_SYNC_ROUNDS])
+          and list(sync0.extras["measured_frame_bytes"])
+          == list(flat.extras["measured_frame_bytes"][:ASYNC_SYNC_ROUNDS]),
+          "async staleness 0 != the flat star")
+    async_topo = TopologySpec(mode="async", staleness=2, max_delay=3, schedule_seed=0)
+    async_spec = base.replace(topology=async_topo, rounds=ASYNC_ROUNDS)
+    async_path = where / "w8a_async.fnlsess"
+    reset()
+    with open_session(async_spec, z=z_np, device=dev) as s:
+        s.step(SESSION_SAVE_AT)
+        s.save(async_path)
+        async1 = s.run()
+        in_flight = len(s._handle._master._inflight)
+    async_launches = launch_counts(ops)
+    async2 = solve(async_spec, z=z_np, device=dev)
+    t0 = time.perf_counter()
+    async_cpu = solve(async_spec, z=z_np, device="cpu")
+    async_cpu_s = time.perf_counter() - t0
+    parts = [r.participants for r in async1.records]
+    assigned = sum(len(p) for p in parts)
+    check(parts == [r.participants for r in async_cpu.records], "async participants != the CPU's")
+    check(_reports_bitwise(async1, async2) and frames_bitwise(async1, async2),
+          "two async runs on the card differ")
+    check(list(async1.sent_bits) == list(async_cpu.sent_bits), "async sent_bits != the CPU's")
+    check(_norms_close(async1.grad_norms, async_cpu.grad_norms),
+          f"async grad norms vs the CPU: {_rel(async1.grad_norms, async_cpu.grad_norms, STAR_GN_FLOOR)}")
+    # a client computes (SYRK, then its encode) once per ROUND assignment;
+    # every assignment has arrived or is still in flight at the end
+    assignments = assigned + in_flight
+    want = zero_but(hessian_syrk_packed=n_clients + assignments, select_topk_idx=assignments)
+    check(async_launches == want, f"async launches {async_launches}, want {want}")
+    emit({"phase": "topology", "part": "c", "spec": f"w8a star-loopback topk async staleness=2 "
+          f"max_delay=3 schedule_seed=0 rounds={ASYNC_ROUNDS}",
+          "staleness0_bitwise_vs_flat_star": True, "two_card_runs_bitwise": True,
+          "participants_exact_vs_cpu": True, "participants_per_round": [len(p) for p in parts],
+          "arrivals": assigned, "in_flight_at_end": in_flight, "launches": async_launches,
+          "grad_norms": async1.grad_norms.tolist(),
+          "rel_err_vs_cpu": _rel(async1.grad_norms, async_cpu.grad_norms, STAR_GN_FLOOR).tolist(),
+          "ms_per_round": async1.wall_time_s / async1.rounds * 1e3,
+          "cpu_run_s": async_cpu_s})
+    out["async"] = async_launches
+    del async_cpu
+
+    # (d) elastic: clients 130-141 join at round 2, 0-11 leave at round 5
+    events = tuple([MembershipEvent(ELASTIC_JOIN_AT, "join", c) for c in ELASTIC_JOINERS]
+                   + [MembershipEvent(ELASTIC_LEAVE_AT, "leave", c) for c in ELASTIC_LEAVERS])
+    el_spec = base.replace(membership=MembershipSpec(events=events), rounds=ELASTIC_ROUNDS)
+    el_path = where / "w8a_elastic.fnlsess"
+    leave_checks = []
+    reset()
+    with open_session(el_spec, z=z_np, device=dev) as s:
+        master = s._handle._master
+        apply_events = master._apply_events
+
+        def checked(r, x):
+            ev = apply_events(r, x)
+            if ev["left"]:
+                fresh = torch.mean(torch.stack([master._mirrors[c].clone() for c in master.order]),
+                                   dim=0)
+                leave_checks.append((r, bits_equal(master.h_global, fresh)))
+            return ev
+
+        master._apply_events = checked
+        s.step(SESSION_SAVE_AT)
+        s.save(el_path)
+        elastic = s.run()
+    el_launches = launch_counts(ops)
+    check(leave_checks == [(ELASTIC_LEAVE_AT, True)],
+          f"H_global after the leaves != a fresh mean of the survivors' mirrors: {leave_checks}")
+    t0 = time.perf_counter()
+    el_cpu = solve(el_spec, z=z_np, device="cpu")
+    el_cpu_s = time.perf_counter() - t0
+    el_parts = [r.participants for r in elastic.records]
+    check(el_parts == [r.participants for r in el_cpu.records], "elastic participants != the CPU's")
+    check(list(elastic.sent_bits) == list(el_cpu.sent_bits), "elastic sent_bits != the CPU's")
+    check(_norms_close(elastic.grad_norms, el_cpu.grad_norms),
+          f"elastic grad norms vs the CPU: {_rel(elastic.grad_norms, el_cpu.grad_norms, STAR_GN_FLOOR)}")
+    t_len = d * (d + 1) // 2
+    active_before = n_clients - len(ELASTIC_JOINERS)
+    per_up = elastic.records[1].sent_bits_payload // active_before
+    delta = elastic.records[2].sent_bits_payload - elastic.records[1].sent_bits_payload
+    want_delta = len(ELASTIC_JOINERS) * (per_up + t_len * 64)
+    check(delta == want_delta, f"elastic round-2 delta {delta}, want {want_delta}")
+    rounds_active = sum(len(p) for p in el_parts)
+    want = zero_but(hessian_syrk_packed=active_before + len(ELASTIC_JOINERS) + rounds_active,
+                    select_topk_idx=rounds_active)
+    check(el_launches == want, f"elastic launches {el_launches}, want {want}")
+    emit({"phase": "topology", "part": "d", "spec": f"w8a star-loopback topk membership: "
+          f"{len(ELASTIC_JOINERS)} join at round {ELASTIC_JOIN_AT}, {len(ELASTIC_LEAVERS)} leave "
+          f"at round {ELASTIC_LEAVE_AT}, rounds={ELASTIC_ROUNDS}",
+          "participants_per_round": [len(p) for p in el_parts], "participants_exact_vs_cpu": True,
+          "sent_bits_exact_vs_cpu": True, "round2_delta_bits": delta,
+          "round2_delta_want": want_delta, "leave_h_global_bitwise_fresh_mean": True,
+          "launches": el_launches, "grad_norms": elastic.grad_norms.tolist(),
+          "rel_err_vs_cpu": _rel(elastic.grad_norms, el_cpu.grad_norms, STAR_GN_FLOOR).tolist(),
+          "ms_per_round": elastic.wall_time_s / elastic.rounds * 1e3, "cpu_run_s": el_cpu_s})
+    out["elastic"] = el_launches
+    del el_cpu
+
+    # (f) the three sessions restored from their FNLS1 files by replay
+    restored = {}
+    for label, spec, path, want_rep in (("tree", tree_spec, tree_path, tree),
+                                        ("async", async_spec, async_path, async1),
+                                        ("elastic", el_spec, el_path, elastic)):
+        with open_session(spec, z=z_np, restore=path, device=dev) as s:
+            check(s.round == SESSION_SAVE_AT, f"{label} session restored at round {s.round}")
+            rep = s.run()
+        check(_reports_bitwise(rep, want_rep) and frames_bitwise(rep, want_rep)
+              and [r.participants for r in rep.records] == [r.participants for r in want_rep.records],
+              f"{label} session restored != the uninterrupted run")
+        restored[label] = {"fnls1_bytes": path.stat().st_size, "restored_bitwise": True,
+                           "init_and_replay_s": rep.init_time_s}
+        path.unlink()
+    emit({"phase": "topology", "part": "f", "saved_at": SESSION_SAVE_AT, "sessions": restored})
+
+    # (e) a TCP process tree: 2 aggregator processes of 4 client processes each
+    tcp_topo = TopologySpec(kind="tree", fanout=2, depth=2)
+    tcp_spec = ExperimentSpec(data=DataSpec(dataset="w8a", shape=TCP_SHAPE), rounds=TCP_ROUNDS,
+                              topology=tcp_topo)
+    cfg = tcp_spec.fednl_config()
+    live_before = ClientCluster.live_count()
+    t0 = time.perf_counter()
+    cluster = TreeClientCluster("w8a", TCP_SHAPE, tcp_spec.seed, tcp_topo, cfg=cfg,
+                                device=str(dev), data_seed=tcp_spec.data.seed)
+    spawn_s = time.perf_counter() - t0
+    try:
+        master = make_master(cluster.conns, cluster.d, cfg, topology=tcp_topo,
+                             n_clients=cluster.n_clients, device=dev)
+        master.init_handshake()
+        t1 = time.perf_counter()
+        tcp_m = [master.step_round(r) for r in range(TCP_ROUNDS)]
+        tcp_s = time.perf_counter() - t1
+        master.stop()
+        tcp_x = master.x.cpu().numpy()
+    finally:
+        cluster.close(join_timeout=120)
+    codes = cluster.exit_codes()
+    check(codes == [0, 0], f"TCP tree aggregators' exit codes {codes}")
+    check(ClientCluster.live_count() == live_before == 0, "a cluster is still live")
+    loop = solve(tcp_spec.replace(backend="star-loopback"), device=dev)
+    check([float(m["grad_norm"]).hex() for m in tcp_m] == [g.hex() for g in loop.grad_norms]
+          and [m["sent_bits"] for m in tcp_m] == list(loop.sent_bits)
+          and [m["measured_frame_bytes"] for m in tcp_m] == list(loop.extras["measured_frame_bytes"])
+          and bool(np.array_equal(tcp_x, loop.x)), "TCP tree != the loopback tree bit for bit")
+    emit({"phase": "topology", "part": "e", "spec": f"star-tcp w8a shape={TCP_SHAPE} topk tree "
+          f"fanout=2 depth=2 rounds={TCP_ROUNDS}", "aggregator_processes": 2,
+          "client_processes": TCP_SHAPE[1], "aggregator_exit_codes": codes,
+          "live_clusters_after": ClientCluster.live_count(), "bitwise_vs_loopback_tree": True,
+          "spawn_and_connect_s": spawn_s, "ms_per_round": tcp_s / TCP_ROUNDS * 1e3,
+          "loopback_ms_per_round": loop.wall_time_s / loop.rounds * 1e3,
+          "grad_norms": loop.grad_norms.tolist()})
+
+    # (g) obs: a tree round and a flat-star round under a live recorder
+    def obs_round(spec, want_rep):
+        with open_session(spec, z=z_np, device=dev) as s:
+            s.step(1)
+            rec = obs.enable()
+            s.step(1)
+            obs.disable()
+            third = trace(lambda: s.step(1), 1, "round")
+            rep = s.report()
+        check([g.hex() for g in rep.grad_norms] == [g.hex() for g in want_rep.grad_norms[:3]]
+              and list(rep.extras["measured_frame_bytes"])
+              == list(want_rep.extras["measured_frame_bytes"][:3]),
+              "a round under the recorder differs from the run without it")
+        return rec, rep, third
+
+    rec_t, rep_t, tree_trace = obs_round(tree_spec, tree)
+    hops = rec_t.spans("comm.hop")
+    check(len(hops) == n_aggs and sorted(h.labels["node"] for h in hops if h.depth == 1)
+          == list(range(n_root)), f"comm.hop spans: {len(hops)}, want {n_aggs}")
+    measured1 = int(rep_t.extras["measured_frame_bytes"][1])
+    check(rec_t.value("comm.bytes.recv", type="UPLINK") == measured1,
+          "UPLINK bytes received != the measured frame bytes")
+    # each leaf's entry crosses depth - 1 = 2 AGG hops (sub-aggregator -> root
+    # subtree aggregator -> root)
+    want_agg = 36 * n_aggs + 2 * (measured1 - 8 * n_clients)
+    check(rec_t.value("comm.bytes.recv", type="AGG") == want_agg,
+          f"AGG bytes {rec_t.value('comm.bytes.recv', type='AGG')}, want {want_agg}")
+    round_span = rec_t.spans("comm.round")
+    check(len(round_span) == 1, "one comm.round span")
+    by_level = {}
+    for h in hops:
+        by_level.setdefault(h.depth, []).append(h.dur_s * 1e3)
+    rec_s, _, _ = obs_round(base, flat)
+    check(rec_s.value("comm.bytes.recv", type="UPLINK")
+          == int(flat.extras["measured_frame_bytes"][1]), "flat star UPLINK bytes")
+    emit({"phase": "topology", "part": "g", "obs_on_bitwise_vs_off": True,
+          "tree": {"hop_spans": len(hops), "round_ms": round_span[0].dur_s * 1e3,
+                   "hop_ms_by_level": {f"level_{lvl}": {"count": len(v), "mean": statistics.mean(v),
+                                                       "max": max(v), "sum": sum(v)}
+                                       for lvl, v in sorted(by_level.items())},
+                   "uplink_bytes_recv": measured1,
+                   "agg_bytes_recv": rec_t.value("comm.bytes.recv", type="AGG"),
+                   "agg_bytes_recv_want": want_agg,
+                   "root_agg_frame_bytes": _agg_root_bytes(measured1, n_clients, n_root),
+                   "frames_recv": {k: v for k, v in rec_t.snapshot()["counters"].items()
+                                   if k.startswith("comm.frames.recv")},
+                   "trace_third_round": tree_trace},
+          "flat_star": {"round_ms": rec_s.spans("comm.round")[0].dur_s * 1e3,
+                        "uplink_bytes_recv": rec_s.value("comm.bytes.recv", type="UPLINK")},
+          "note": "hop spans: fan-down, the children's collection and the reply of each "
+                  "aggregator, nested (level 2 inside level 1 inside the root's comm.round); "
+                  "the tree session's third round under torch.profiler"})
+    emit({"phase": "topology", "seconds": time.perf_counter() - t_phase})
     return out
 
 
@@ -1857,6 +2246,10 @@ def main() -> int:
     # --- 10 the wire stack: star-loopback, codecs, PP with faults, TCP -------
     star = star_phase(ops, dev)
 
+    # --- 11 topologies: trees of stars, async, elastic, TCP tree, obs --------
+    topo = topology_phase(ops, dev, star)
+    del star["z_np"], star["topk_rep"]
+
     kernels = [
         {
             "name": "hessian_syrk_packed", "route": "cuda",
@@ -1973,6 +2366,9 @@ def main() -> int:
                 "topk": star["topk_launches"].get(entry["name"], 0),
                 "pp_randk": star["by_keys_idx_launches"].get(entry["name"], 0),
             }
+    for entry in kernels:  # phase 11's launches, each part's counts set to 0 before it
+        entry["topology_launches"] = {part: counts.get(entry["name"], 0)
+                                      for part, counts in topo.items()}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({

@@ -5,8 +5,9 @@ packages read), sweeps (``spec.grid(...)``, ``solve_many``), and registries
 that make algorithms, backends and compressors pluggable.  Everything runs
 on the card unless ``device="cpu"`` is asked for.
 
-Not exported yet: ``specwire`` (``encode_spec``/``decode_spec``,
-ROADMAP A12) and ``TopologySpec``/``MembershipSpec`` (A11, topology).
+``TopologySpec``, ``MembershipSpec`` and ``MembershipEvent`` are lazy
+attributes (``repro_torch.comm.topology``).  Not exported yet: ``specwire``
+(``encode_spec``/``decode_spec``, ROADMAP A12).
 """
 
 from repro_torch.api.accounting import ACCOUNTINGS, make_bits_fn, payload_bits_fn, wire_bits_fn
@@ -36,7 +37,24 @@ from repro_torch.api.spec import CompressorSpec, DataSpec, ExperimentSpec
 from repro_torch.api.sweep import SweepSpec
 from repro_torch.comm.transport import FaultSpec
 
+# TopologySpec / MembershipSpec / MembershipEvent are lazy module attributes:
+# repro_torch.comm.topology pulls the star stack, and `import repro_torch.api`
+# stays cheap for spec-only users
+_TOPOLOGY_EXPORTS = ("TopologySpec", "MembershipSpec", "MembershipEvent")
+
+
+def __getattr__(name: str):
+    if name in _TOPOLOGY_EXPORTS:
+        from repro_torch.comm import topology
+
+        return getattr(topology, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "MembershipEvent",
+    "MembershipSpec",
+    "TopologySpec",
     "ACCOUNTINGS",
     "Algorithm",
     "Backend",

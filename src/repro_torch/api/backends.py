@@ -231,13 +231,16 @@ class LocalBackend(Backend):
 
 
 class _StarFullSessionHandle(SessionHandle):
-    """A full-participation star master held open at round granularity.
+    """A full-participation star master held open at round granularity: the
+    flat star, a tree of stars, the async or the elastic master.
 
     ``restore`` resumes from a checkpoint: the master's own state (x, H) is
-    read back, and the fresh clients rebuild theirs by replaying the
-    checkpoint's broadcast history through the protocol (the replayed uplinks
-    are read and not decoded).  ``closer`` releases the transport (the TCP
-    client cluster)."""
+    read back, and the fresh clients (and aggregators) rebuild theirs by
+    replaying the checkpoint's broadcast history through the protocol, each
+    master's ``replay_round``: the flat star and the tree read the replayed
+    uplinks without decoding them; the async master replays its assignments
+    and arrival tables, the elastic one its events and mirrors.  ``closer``
+    releases the transport (the TCP cluster or process tree)."""
 
     def __init__(self, spec, master, restore=None, closer=None):
         self._spec = spec
@@ -269,6 +272,7 @@ class _StarFullSessionHandle(SessionHandle):
             self._measured_pbits.append(m["measured_payload_bits"])
             self._frame_bytes.append(m["measured_frame_bytes"])
             wire_bits = 8 * m["measured_frame_bytes"]
+            parts = m.get("participants")
             recs.append(RoundRecord(
                 round=r,
                 grad_norm=m["grad_norm"],
@@ -276,6 +280,9 @@ class _StarFullSessionHandle(SessionHandle):
                 sent_bits=m["sent_bits"] if self._spec.accounting == "payload" else wire_bits,
                 sent_bits_payload=m["sent_bits"],
                 sent_bits_wire=wire_bits,
+                # the async and elastic masters report who contributed or was
+                # active; the plain star and the tree report no one (all clients)
+                participants=tuple(int(i) for i in parts) if parts is not None else None,
             ))
         self.wall_time_s += time.perf_counter() - t1
         self.round += n
@@ -460,18 +467,26 @@ class StarTCPBackend(Backend):
                 "star-tcp workers rebuild synthetic data from spec.data.seed; "
                 "libsvm problems can only run on local/star-loopback"
             )
-        from repro_torch.comm.topology import check_flat_star, make_master
-        from repro_torch.launch.multiproc import ClientCluster
+        from repro_torch.comm.topology import make_master
+        from repro_torch.launch.multiproc import ClientCluster, TreeClientCluster
 
-        check_flat_star(spec.topology, spec.membership)
         device = resolve_device(device)
         cfg = spec.fednl_config()
         pp = algo.kind == "pp"
-        cluster = ClientCluster(
-            spec.data.dataset, spec.data.shape, spec.seed, host=spec.host, pp=pp,
-            fault_dict=dataclasses.asdict(spec.fault) if spec.fault is not None else None,
-            data_seed=spec.data.seed, cfg=cfg, device=str(device),
-        )
+        topo = spec.topology
+        if topo is not None and topo.kind == "tree":
+            # a process tree: one aggregator process per root subtree, which
+            # spawns (and tears down, leaves first) its own children
+            cluster = TreeClientCluster(
+                spec.data.dataset, spec.data.shape, spec.seed, topo, host=spec.host,
+                data_seed=spec.data.seed, cfg=cfg, device=str(device),
+            )
+        else:
+            cluster = ClientCluster(
+                spec.data.dataset, spec.data.shape, spec.seed, host=spec.host, pp=pp,
+                fault_dict=dataclasses.asdict(spec.fault) if spec.fault is not None else None,
+                data_seed=spec.data.seed, cfg=cfg, device=str(device),
+            )
         try:
             if pp:
                 from repro_torch.comm.star_pp import StarPPMaster
@@ -481,7 +496,7 @@ class StarTCPBackend(Backend):
                                       on_dropout=spec.on_dropout, device=device)
                 return _StarPPSessionHandle(spec, master, tau, spec.data.build,
                                             restore=restore, closer=cluster.close)
-            master = make_master(cluster.conns, cluster.d, cfg, topology=spec.topology,
+            master = make_master(cluster.conns, cluster.d, cfg, topology=topo,
                                  membership=spec.membership, n_clients=cluster.n_clients,
                                  device=device)
             return _StarFullSessionHandle(spec, master, restore=restore, closer=cluster.close)

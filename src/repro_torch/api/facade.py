@@ -18,11 +18,6 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.api.sweep import SweepSpec
 
 
-def _live(spec_part) -> bool:
-    """A topology or membership that changes the run (not None, not trivial)."""
-    return spec_part is not None and not getattr(spec_part, "trivial", False)
-
-
 def check_spec(
     spec: ExperimentSpec, algo: Algorithm, backend: Backend, *, z=None, x0=None
 ) -> None:
@@ -42,8 +37,8 @@ def check_spec(
         raise ValueError(f"backend {backend.name!r} does not support an x0 override")
     if spec.fault is not None and not backend.supports_faults:
         raise ValueError(
-            f"backend {backend.name!r} cannot inject faults; a FaultSpec needs a "
-            "wire backend (star-loopback / star-tcp, ROADMAP A11) -- running it "
+            f"backend {backend.name!r} cannot inject faults; a FaultSpec "
+            "needs a wire backend (star-loopback / star-tcp) — running it "
             "fault-free here would silently change the experiment"
         )
     if z is not None and not backend.needs_problem:
@@ -51,14 +46,15 @@ def check_spec(
             f"backend {backend.name!r} rebuilds the problem from spec.data in its "
             "worker processes; a pre-built z cannot be shipped to it"
         )
-    if _live(spec.topology) or _live(spec.membership):
-        # the reference runs these on its wire backends only; the port runs
-        # the flat synchronous star
-        what = "topology" if _live(spec.topology) else "membership"
-        raise NotImplementedError(
-            f"backend {backend.name!r}: a non-trivial {what} spec (a tree of "
-            "stars, asynchronous aggregation or membership events) is not ported "
-            "(ROADMAP A11 (topology)); the wire backends run the flat synchronous star"
+    topo_live = spec.topology is not None and not spec.topology.trivial
+    mem_live = spec.membership is not None and not spec.membership.trivial
+    if (topo_live or mem_live) and not backend.supports_topology:
+        what = "topology" if topo_live else "membership"
+        raise ValueError(
+            f"backend {backend.name!r} cannot run a non-trivial {what} spec; "
+            "trees, async aggregation and membership events need a wire "
+            "backend (star-loopback / star-tcp) — running the flat sync "
+            "star here would silently change the experiment"
         )
     if spec.aggregate != "dense_psum" or spec.devices is not None:
         raise NotImplementedError(

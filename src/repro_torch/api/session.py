@@ -38,6 +38,7 @@ import numpy as np
 
 from repro_torch.api.report import RoundRecord, RunReport, RunReportBuilder
 from repro_torch.api.spec import CompressorSpec, DataSpec, ExperimentSpec
+from repro_torch.obs import core as _obs
 
 _MAGIC = b"FNLSESS1"
 _VERSION = 1
@@ -129,8 +130,9 @@ def spec_to_dict(spec: ExperimentSpec) -> dict:
 
 def spec_from_dict(d: dict) -> ExperimentSpec:
     """Rebuild an ExperimentSpec from :func:`spec_to_dict` output (the
-    reference's too), its ``fault`` included.  A topology or membership is
-    refused: their specs are not ported (ROADMAP A11, topology)."""
+    reference's too), its ``fault``, ``topology`` and ``membership``
+    included."""
+    from repro_torch.comm.topology import MembershipEvent, MembershipSpec, TopologySpec
     from repro_torch.comm.transport import FaultSpec
 
     d = dict(d)
@@ -139,16 +141,23 @@ def spec_from_dict(d: dict) -> ExperimentSpec:
         data["shape"] = tuple(data["shape"])
     comp = dict(d.pop("compressor"))
     fault = d.pop("fault")
-    for name in ("topology", "membership"):
-        if d.pop(name, None) is not None:
-            raise NotImplementedError(
-                f"the spec has a {name}; TopologySpec and MembershipSpec are not "
-                "ported (ROADMAP A11 (topology))"
-            )
+    topo = d.pop("topology", None)
+    mem = d.pop("membership", None)
+    topology = membership = None
+    if topo is not None:
+        topo = dict(topo)
+        if topo.get("edges") is not None:
+            topo["edges"] = tuple(tuple(g) for g in topo["edges"])
+        topology = TopologySpec(**topo)
+    if mem is not None:
+        membership = MembershipSpec(
+            events=tuple(MembershipEvent(**dict(e)) for e in dict(mem)["events"]))
     return ExperimentSpec(
         data=DataSpec(**data),
         compressor=CompressorSpec(**comp),
         fault=FaultSpec(**fault) if fault is not None else None,
+        topology=topology,
+        membership=membership,
         **d,
     )
 
@@ -327,7 +336,14 @@ class Session:
             raise ValueError(f"step count must be >= 0, got {n}")
         if n == 0:
             return []
+        rec = _obs.CURRENT
+        t0 = _obs.now()
         recs = self._handle.step_rounds(n)
+        if rec.enabled:
+            # one step_rounds call is one device -> host sync of its records
+            rec.observe("session.step.s", _obs.now() - t0, backend=self.spec.backend)
+            rec.add("session.rounds", len(recs), backend=self.spec.backend)
+            rec.add("session.host_syncs", backend=self.spec.backend)
         self._builder.extend(recs)
         for rec in recs:
             for fn in self._observers:

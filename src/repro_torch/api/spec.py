@@ -2,13 +2,12 @@
 
 Every field of ``repro``'s ``ExperimentSpec``, with the same names, defaults
 and checks, so that a spec -- and an FNLS1 checkpoint, which carries one --
-crosses between the packages.  Fields the port cannot run yet are accepted
-here and refused by ``check_spec`` (``solve``, ``open_session``,
-``solve_many``) with the ROADMAP item that ports them: a non-trivial
-topology or membership (A11, topology); ``aggregate``, ``devices`` and the
-``sharded`` backend (A13).  ``TopologySpec`` and ``MembershipSpec``
-themselves are not ported: the two fields take ``None`` or an object with a
-``trivial`` flag.
+crosses between the packages; ``topology`` and ``membership`` take the
+port's ``TopologySpec`` and ``MembershipSpec`` (``repro_torch.comm.topology``).
+Fields the port cannot run yet are accepted here and refused by
+``check_spec`` (``solve``, ``open_session``, ``solve_many``) with the
+ROADMAP item that ports them: ``aggregate``, ``devices`` and the
+``sharded`` backend (A13).
 """
 
 from __future__ import annotations
@@ -130,11 +129,14 @@ class ExperimentSpec:
     # --- participation (fednl-pp) ---------------------------------------
     tau: int | None = None  # sampled clients per round (None -> n // 2)
     on_dropout: str = "partial"  # "partial" | "resample" master fallback
-    fault: FaultSpec | None = None  # dropout/straggler injection (A11)
+    fault: FaultSpec | None = None  # dropout/straggler injection
 
-    # --- topology + membership (A11) -------------------------------------
-    topology: Any = None
-    membership: Any = None
+    # --- topology + membership (repro_torch.comm.topology) ---------------
+    # how uplinks reach the root: None/star = the flat star; a tree inserts
+    # aggregators; mode="async" bounds staleness instead of a barrier
+    topology: "TopologySpec | None" = None
+    # a join/leave schedule (flat sync star, wire backends only)
+    membership: "MembershipSpec | None" = None
 
     # --- accounting + execution backend ---------------------------------
     accounting: str = "payload"
@@ -182,6 +184,31 @@ class ExperimentSpec:
                 "participation (the server never sees the global gradient); "
                 "bound the run with rounds instead"
             )
+        if self.topology is not None or self.membership is not None:
+            from repro_torch.comm.topology import MembershipSpec, TopologySpec
+
+            if self.topology is not None and not isinstance(self.topology, TopologySpec):
+                raise TypeError(
+                    f"topology must be a TopologySpec, got {type(self.topology).__name__}"
+                )
+            if self.membership is not None and not isinstance(self.membership, MembershipSpec):
+                raise TypeError(
+                    f"membership must be a MembershipSpec, got {type(self.membership).__name__}"
+                )
+            topo_live = self.topology is not None and not self.topology.trivial
+            mem_live = self.membership is not None and not self.membership.trivial
+            if topo_live and mem_live:
+                raise ValueError(
+                    "membership events compose with the flat sync star only "
+                    "(drop the non-trivial topology or the membership events)"
+                )
+            if (topo_live or mem_live) and kind == "pp":
+                raise ValueError(
+                    f"topology/membership do not compose with partial "
+                    f"participation ({self.algorithm!r}): PP samples a "
+                    "cohort per round already — spec one participation "
+                    "model at a time"
+                )
 
     def fednl_config(self):
         """Project onto :class:`repro_torch.core.fednl.FedNLConfig`."""
@@ -255,7 +282,7 @@ class ExperimentSpec:
             )
             raise ValueError(
                 f"spec is incompatible with the checkpoint it restores "
-                f"({detail}).  A checkpoint resumes the same experiment -- "
+                f"({detail}).  A checkpoint resumes the same experiment — "
                 f"only {sorted(self.RESTORE_VARIABLE_FIELDS)} may change on "
                 f"restore; to vary {', '.join(mismatched)}, start a fresh "
                 f"run (open_session / solve without restore)"

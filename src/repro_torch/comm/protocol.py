@@ -29,11 +29,20 @@ Frames of the flat star:
     PP_UPDATE client -> master: encode(S_i) || dl_i || dg_i (d FP64).
     DROP      client -> master: a fault-injected dropout of one SELECT.
 
+Frames of the tree of stars (``repro_torch.comm.topology``):
+
+    AGG       aggregator -> parent: one combined uplink for its subtree
+              (:func:`pack_agg_entries` for combine="exact", the leaf
+              sections verbatim; :func:`pack_agg_hsum` /
+              :func:`pack_agg_roundsum` for combine="sum", dense partial sums).
+    SUBTREE   the coverage handshake: the combine mode and the leaf ids a
+              subtree is expected to own, and, in the ack, those it owns.
+
 Every ``MsgType`` value of the reference is here, so the ids stay stable;
-the tree-of-stars frames' payloads (AGG, SUBTREE) are the topology slice's
-(ROADMAP A11, topology), and the gateway and metrics frames belong to
-modules not ported.  Payload vectors are numpy float64 arrays on the host:
-the frames are the serialisation boundary.
+the gateway and metrics frames belong to modules not ported.  Payload
+vectors are numpy float64 arrays on the host: the frames are the
+serialisation boundary.  With a live ``repro_torch.obs`` recorder every frame
+sent and received is counted, with its bytes, by frame type.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import enum
 import struct
 
 import numpy as np
+
+from repro_torch.obs import core as _obs
 
 MAGIC = b"FNL1"
 HEADER_FMT = "<4sBBBBIIIQI"
@@ -122,6 +133,10 @@ def send_frame(conn, frame: Frame) -> int:
     """Write one frame to a transport connection; returns bytes sent."""
     data = pack_frame(frame)
     conn.send(data)
+    rec = _obs.CURRENT
+    if rec.enabled:
+        rec.add("comm.frames.sent", type=frame.type.name)
+        rec.add("comm.bytes.sent", len(data), type=frame.type.name)
     return len(data)
 
 
@@ -129,6 +144,10 @@ def recv_frame(conn) -> Frame:
     """Read exactly one frame from a transport connection."""
     frame, plen = unpack_header(conn.recv_exact(HEADER_SIZE))
     payload = conn.recv_exact(plen) if plen else b""
+    rec = _obs.CURRENT
+    if rec.enabled:
+        rec.add("comm.frames.recv", type=frame.type.name)
+        rec.add("comm.bytes.recv", HEADER_SIZE + plen, type=frame.type.name)
     return dataclasses.replace(frame, payload=payload)
 
 
@@ -194,3 +213,90 @@ def unpack_pp_update(payload: bytes, d: int):
     (dl,) = struct.unpack("<d", payload[-tail : -tail + 8])
     dg = unpack_vector(payload[len(payload) - 8 * d :])
     return payload[:-tail], dl, dg
+
+
+# ---------------------------------------------------------------------------
+# tree-of-stars payloads (repro_torch.comm.topology)
+# ---------------------------------------------------------------------------
+
+# one leaf's uplink section inside an exact-combine AGG payload:
+# (client id, sent_elems, payload_bits, original frame wire bytes, payload)
+_AGG_ENTRY_FMT = "<IIQII"
+_AGG_ENTRY_SIZE = struct.calcsize(_AGG_ENTRY_FMT)
+
+
+def pack_agg_entries(entries) -> bytes:
+    """combine="exact" AGG payload: the subtree's leaf uplink sections,
+    verbatim.  ``entries`` are ``(client, sent_elems, payload_bits,
+    frame_bytes, payload)`` tuples; ``frame_bytes`` keeps each leaf frame's
+    size, so that the root's measured accounting is the flat star's.  A
+    sub-aggregator's entries concatenate in: the payload does not depend on
+    the depth."""
+    out = [struct.pack("<I", len(entries))]
+    for client, sent_elems, payload_bits, frame_bytes, payload in entries:
+        out.append(struct.pack(_AGG_ENTRY_FMT, client, sent_elems, payload_bits, frame_bytes,
+                               len(payload)))
+        out.append(payload)
+    return b"".join(out)
+
+
+def unpack_agg_entries(payload: bytes) -> list[tuple]:
+    """Inverse of pack_agg_entries -> list of entry tuples."""
+    (n,) = struct.unpack("<I", payload[:4])
+    off = 4
+    entries = []
+    for _ in range(n):
+        client, sent, pbits, fbytes, plen = struct.unpack(
+            _AGG_ENTRY_FMT, payload[off : off + _AGG_ENTRY_SIZE])
+        off += _AGG_ENTRY_SIZE
+        entries.append((client, sent, pbits, fbytes, payload[off : off + plen]))
+        off += plen
+    if off != len(payload):
+        raise ValueError(f"AGG payload has {len(payload) - off} trailing bytes after {n} entries")
+    return entries
+
+
+def pack_agg_hsum(count: int, h_sum) -> bytes:
+    """combine="sum" INIT AGG payload: the subtree's leaf count and the dense
+    sum of its packed initial Hessians (T FP64)."""
+    return struct.pack("<I", count) + pack_vector(h_sum)
+
+
+def unpack_agg_hsum(payload: bytes) -> tuple[int, np.ndarray]:
+    (count,) = struct.unpack("<I", payload[:4])
+    return count, unpack_vector(payload[4:])
+
+
+_AGG_SUM_FMT = "<IIQQQdd"
+_AGG_SUM_SIZE = struct.calcsize(_AGG_SUM_FMT)
+
+
+def pack_agg_roundsum(count: int, d: int, abits: int, pbits: int, fbytes: int,
+                      l_sum, f_sum, grad_sum, s_sum) -> bytes:
+    """combine="sum" round AGG payload: the subtree's leaf count, its summed
+    bit counters (analytic, measured payload, frame bytes), the l and f sums,
+    the grad sum (d FP64) and the decoded corrections' sum (T FP64)."""
+    return (struct.pack(_AGG_SUM_FMT, count, d, abits, pbits, fbytes, float(l_sum), float(f_sum))
+            + pack_vector(grad_sum) + pack_vector(s_sum))
+
+
+def unpack_agg_roundsum(payload: bytes):
+    """Inverse of pack_agg_roundsum -> (count, abits, pbits, fbytes, l_sum,
+    f_sum, grad_sum, s_sum)."""
+    count, d, abits, pbits, fbytes, l_sum, f_sum = struct.unpack(
+        _AGG_SUM_FMT, payload[:_AGG_SUM_SIZE])
+    grad_sum = unpack_vector(payload[_AGG_SUM_SIZE : _AGG_SUM_SIZE + 8 * d])
+    s_sum = unpack_vector(payload[_AGG_SUM_SIZE + 8 * d :])
+    return count, abits, pbits, fbytes, l_sum, f_sum, grad_sum, s_sum
+
+
+def pack_subtree(combine_id: int, leaf_ids) -> bytes:
+    """SUBTREE payload: the combine mode (0 exact, 1 sum) and the leaf client
+    ids (those expected downstream; in the ack, those owned)."""
+    ids = sorted(int(i) for i in leaf_ids)
+    return struct.pack("<BI", combine_id, len(ids)) + struct.pack(f"<{len(ids)}I", *ids)
+
+
+def unpack_subtree(payload: bytes) -> tuple[int, tuple]:
+    combine_id, n = struct.unpack("<BI", payload[:5])
+    return combine_id, struct.unpack(f"<{n}I", payload[5 : 5 + 4 * n])

@@ -26,7 +26,6 @@ draws are the simulation's.  Masters and clients of this package and of
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable
 
 import numpy as np
@@ -42,6 +41,7 @@ from repro_torch.core.fednl import FedNLConfig, master_step
 from repro_torch.device import resolve_device
 from repro_torch.linalg import frob_norm_from_packed, triu_size
 from repro_torch.objectives.logreg import logreg_oracles_packed
+from repro_torch.obs import core as _obs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,9 +171,13 @@ class StarMaster:
     is the loopback hook, called after every broadcast so that in-process
     clients consume their frames (None over TCP).
 
-    Seams for the topology slice, as the reference's: ``uplink_type``,
-    ``_gather_uplinks``, ``_decode_entries``, ``_aggregate``,
-    ``_on_init_ack`` and ``_on_decoded``.
+    Subclass seams (``repro_torch.comm.topology``): ``uplink_type`` is the
+    frame type a round collects (AGG for a tree master), ``_gather_uplinks``
+    turns the collected frames into :class:`UplinkEntry` rows in client-id
+    order, ``_on_init_ack`` / ``_on_decoded`` observe each client's state as
+    it crosses the master (the elastic master's mirrors), and every master
+    that claims the star's bits runs the one aggregation tail,
+    ``_decode_entries`` and ``_aggregate``.
     """
 
     #: frame type one round of uplink collection expects from self.conns
@@ -295,11 +299,19 @@ class StarMaster:
 
     def step_round(self, r: int) -> dict:
         """One protocol round: broadcast x, collect the uplinks, aggregate,
-        Newton step.  Returns the round's scalar metrics and bit counters."""
-        x_host = self.x.cpu().numpy()
-        self._broadcast(Frame(type=MsgType.ROUND, round=r, payload=protocol.pack_vector(x_host)))
-        self.x_hist.append(x_host)
-        return self._aggregate(self._gather_uplinks(r))
+        Newton step.  Returns the round's scalar metrics and bit counters.
+        With a live ``repro_torch.obs`` recorder the round is a ``comm.round``
+        span labelled with host scalars only (the round, the clients, the
+        measured wire counters): it reads no tensor back."""
+        with _obs.CURRENT.span("comm.round", master=type(self).__name__) as sp:
+            x_host = self.x.cpu().numpy()
+            self._broadcast(Frame(type=MsgType.ROUND, round=r,
+                                  payload=protocol.pack_vector(x_host)))
+            self.x_hist.append(x_host)
+            m = self._aggregate(self._gather_uplinks(r))
+            sp.set(round=r, clients=len(self.order), wire_bytes=m["measured_frame_bytes"],
+                   payload_bits=m["measured_payload_bits"])
+            return m
 
     def replay_round(self, r: int, x_bcast: np.ndarray) -> None:
         """Resume: re-broadcast a recorded iterate, so that clients replay
@@ -334,7 +346,7 @@ def run_star_master(
     master.init_handshake()
     grad_norms, f_vals = [], []
     bits_analytic, bits_measured, frame_bytes = [], [], []
-    t_start = time.perf_counter()
+    t_start = _obs.now()
     for r in range(rounds):
         m = master.step_round(r)
         grad_norms.append(m["grad_norm"])
@@ -353,7 +365,7 @@ def run_star_master(
         sent_bits=np.asarray(bits_analytic, dtype=np.int64),
         measured_payload_bits=np.asarray(bits_measured, dtype=np.int64),
         measured_frame_bytes=np.asarray(frame_bytes, dtype=np.int64),
-        wall_time_s=time.perf_counter() - t_start,
+        wall_time_s=_obs.now() - t_start,
     )
 
 

@@ -28,7 +28,6 @@ which inherits the dropped client's slot and so its key.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable
 
 import numpy as np
@@ -45,6 +44,7 @@ from repro_torch.core.fednl_pp import _shifted_apply
 from repro_torch.device import resolve_device
 from repro_torch.linalg import cholesky_solve, frob_norm_from_packed, triu_size, unpack_triu
 from repro_torch.objectives.logreg import logreg_oracles_packed
+from repro_torch.obs import core as _obs
 
 
 @dataclasses.dataclass
@@ -308,7 +308,16 @@ class StarPPMaster:
 
     def step_round(self, r: int) -> dict:
         """One Algorithm-3 round: x from the invariants, tau clients sampled,
-        their deltas collected (dropouts handled), the invariants updated."""
+        their deltas collected (dropouts handled), the invariants updated.
+        With a live ``repro_torch.obs`` recorder, a ``comm.round`` span of host
+        scalars."""
+        with _obs.CURRENT.span("comm.round", master=type(self).__name__) as sp:
+            m = self._step_round_inner(r)
+            sp.set(round=r, participants=m["participants"], dropped=m["dropped"],
+                   wire_bytes=m["measured_frame_bytes"], payload_bits=m["measured_payload_bits"])
+            return m
+
+    def _step_round_inner(self, r: int) -> dict:
         n = self.n_clients
         x = self._solve_x()
         head = torch.cat([x, self.l_global.reshape(1)]).cpu().numpy()
@@ -354,11 +363,11 @@ class StarPPMaster:
     def run(self, rounds: int) -> StarPPRunResult:
         self._init_handshake()
         ms = []
-        t_start = time.perf_counter()
+        t_start = _obs.now()
         for r in range(rounds):
             ms.append(self.step_round(r))
         self.stop()
-        wall = time.perf_counter() - t_start
+        wall = _obs.now() - t_start
         return StarPPRunResult(
             x=self._solve_x().cpu().numpy(),
             x_hist=np.asarray([m["x"] for m in ms]).reshape(rounds, self.d),

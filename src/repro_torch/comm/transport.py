@@ -27,6 +27,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.comm import protocol
+from repro_torch.obs import core as _obs
 
 
 class Connection:
@@ -173,7 +174,7 @@ class TCPMaster:
         them by HELLO client id.  ``alive`` (checked every second while
         waiting) returning False raises at once: a client process died
         before it connected."""
-        deadline = time.monotonic() + timeout
+        deadline = _obs.monotonic() + timeout
         self._listener.settimeout(1.0)
         conns: dict[int, SocketConnection] = {}
         try:
@@ -183,7 +184,7 @@ class TCPMaster:
                 except TimeoutError:
                     if alive is not None and not alive():
                         raise ConnectionError("a client process exited before it connected")
-                    if time.monotonic() >= deadline:
+                    if _obs.monotonic() >= deadline:
                         raise
                     continue
                 sock.settimeout(None)
@@ -210,13 +211,13 @@ def connect_to_master(
     host: str, port: int, client_id: int, timeout: float = 120.0
 ) -> SocketConnection:
     """Dial the master, retrying until it is listening; send HELLO."""
-    deadline = time.monotonic() + timeout
+    deadline = _obs.monotonic() + timeout
     while True:
         try:
             sock = socket.create_connection((host, port), timeout=timeout)
             break
         except OSError:
-            if time.monotonic() >= deadline:
+            if _obs.monotonic() >= deadline:
                 raise
             time.sleep(0.05)
     conn = SocketConnection(sock)

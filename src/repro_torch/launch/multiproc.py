@@ -11,7 +11,11 @@ processes (port of ``repro.launch.multiproc``).
 
 The master binds a localhost socket, spawns one process per client (the
 ``spawn`` context: a fork after CUDA's initialisation breaks) and runs the
-star event loop of ``repro_torch.comm.star`` or ``comm.star_pp``.  Every
+star event loop of ``repro_torch.comm.star`` or ``comm.star_pp``.  A tree of
+stars (``TopologySpec(kind="tree")``) runs as a process tree instead
+(:class:`TreeClientCluster`): one aggregator process per root subtree, each
+binding its own listener and spawning its leaves and sub-aggregators, torn
+down leaves first.  Every
 client rebuilds the seeded synthetic dataset and keeps only its shard: no
 training data crosses the wire.  Clients compute on ``device`` (a string,
 ``cuda`` by default); on the card the parent builds the kernels before it
@@ -69,6 +73,81 @@ def _client_entry(
     client.run()
 
 
+def _aggregator_entry(
+    agg_id: int,
+    subtree,
+    n_clients: int,
+    d: int,
+    dataset: str,
+    shape,
+    cfg_dict: dict,
+    seed: int,
+    parent_host: str,
+    parent_port: int,
+    combine: str,
+    data_seed: int | None,
+    device: str,
+) -> None:
+    """Aggregator process: bind a listener for the subtree, spawn its
+    children (leaf client processes and nested aggregators), dial the
+    parent, serve AGG rounds on ``device``.
+
+    Teardown runs leaves first: the subtree's connections are closed and its
+    processes joined BEFORE this node closes its own listener and parent
+    connection, so the root's ``ClientCluster.close()`` never leaves a
+    grandchild behind.  A child that exited with another code than 0 makes
+    this process fail too, so the root sees it in its exit codes.
+    """
+    from repro_torch.comm.topology import build_aggregator
+    from repro_torch.comm.transport import TCPMaster, connect_to_master
+
+    subtree = tuple(subtree)
+    listener = TCPMaster(len(subtree), host=parent_host)
+    procs: list = []
+    children: dict = {}
+    parent_conn = None
+    try:
+        agg_children = set()
+        to_spawn = []
+        for pos, node in enumerate(subtree):
+            if isinstance(node, (tuple, list)):
+                agg_children.add(pos)
+                # not daemonic: a daemonic process may not spawn children,
+                # and a nested aggregator spawns its subtree
+                to_spawn.append((_aggregator_entry,
+                                 (pos, tuple(node), n_clients, d, dataset, shape, cfg_dict, seed,
+                                  parent_host, listener.port, combine, data_seed, device),
+                                 False))
+            else:
+                to_spawn.append((_client_entry,
+                                 (int(node), n_clients, dataset, shape, cfg_dict, seed,
+                                  parent_host, listener.port, False, None, data_seed, device),
+                                 True))
+        procs = _spawn_procs(to_spawn)
+        children = listener.accept_clients(alive=lambda: all(p.is_alive() for p in procs))
+        parent_conn = connect_to_master(parent_host, parent_port, agg_id)
+        node = build_aggregator(agg_id, parent_conn, children, d, FedNLConfig(**cfg_dict),
+                                combine=combine, agg_children=agg_children, device=device)
+        node.run()
+    finally:
+        # children first: their connections closed and processes joined
+        # before this node's own sockets go away
+        for conn in children.values():
+            conn.close()
+        for p in procs:
+            p.join(timeout=60)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+        listener.close()
+        if parent_conn is not None:
+            parent_conn.close()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise RuntimeError(f"aggregator {agg_id}: children exited with {codes}")
+
+
 # serializes the PYTHONPATH mutate-spawn-restore window across threads
 # (solve_many runs star-tcp specs from a pool of threads)
 _SPAWN_ENV_LOCK = threading.Lock()
@@ -96,14 +175,36 @@ def _spawn_procs(targets) -> list:
     return procs
 
 
+# every cluster created and not yet closed, so that a serving engine (or a
+# test) can show that no process fleet leaked; its own lock, because clusters
+# are created and closed from pool threads
+_LIVE_CLUSTERS: "set[ClientCluster]" = set()
+_LIVE_LOCK = threading.Lock()
+
+
+def _build_kernels_for(device: str) -> None:
+    """On the card, build the kernels before spawning, so that the children
+    load the built libraries and never run nvcc."""
+    if device.startswith("cuda"):
+        from repro_torch.kernels import build
+
+        build.build_all()
+
+
 class ClientCluster:
     """A live fleet of TCP client processes around one bound master socket.
 
     The star-tcp session backend holds it open across ``step()`` calls; a
     restored session spawns a fresh one (client state is rebuilt by protocol
-    replay, never saved).  ``close()`` closes the connections, joins the
+    replay, never saved).
+
+    Lifecycle under shared use: a cluster is reference-counted.
+    ``acquire()`` adds a holder, ``release()`` drops one and tears the fleet
+    down when the last lets go, and ``close()`` is an idempotent forced
+    teardown that any holder may call: it closes the connections, joins the
     processes within ``join_timeout`` seconds, terminates what is still
-    alive, and unbinds; it may be called more than once.
+    alive, and unbinds.  ``live_count()`` / ``close_all()`` read and sweep the
+    registry of clusters not yet closed.
     """
 
     def __init__(
@@ -128,12 +229,9 @@ class ClientCluster:
         self.d = d
         self.n_clients = n_clients
         self.device = str(device)
-        if self.device.startswith("cuda"):
-            from repro_torch.kernels import build
-
-            build.build_all()
+        _build_kernels_for(self.device)
         self._master = TCPMaster(n_clients, host=host)
-        self._closed = False
+        self._init_lifecycle()
         cfg_dict = dataclasses.asdict(cfg) if cfg is not None else {}
         self.procs: list = []
         self.conns: dict = {}
@@ -151,11 +249,42 @@ class ClientCluster:
             self.close(join_timeout=5)
             raise
 
+    def _init_lifecycle(self) -> None:
+        """The reference count and the registry entry, shared with the tree
+        cluster (registered only once the master socket is bound, so that a
+        failed bind leaves no entry)."""
+        self._refs = 1  # the creator holds the first reference
+        self._closed = False
+        self._lifecycle_lock = threading.Lock()
+        with _LIVE_LOCK:
+            _LIVE_CLUSTERS.add(self)
+
+    def acquire(self) -> "ClientCluster":
+        """Register another holder of this (open) cluster."""
+        with self._lifecycle_lock:
+            if self._closed:
+                raise RuntimeError("cannot acquire a closed ClientCluster")
+            self._refs += 1
+        return self
+
+    def release(self, join_timeout: float = 60) -> None:
+        """Drop one holder; the last release tears the fleet down."""
+        with self._lifecycle_lock:
+            self._refs = max(0, self._refs - 1)
+            last = self._refs == 0
+        if last:
+            self.close(join_timeout=join_timeout)
+
     def close(self, join_timeout: float = 60) -> None:
-        """Close the connections, join (then terminate) the workers, unbind."""
-        if self._closed:
-            return
-        self._closed = True
+        """Close the connections, join (then terminate) the workers, unbind.
+        Idempotent, whatever the reference count."""
+        with self._lifecycle_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._refs = 0
+        with _LIVE_LOCK:
+            _LIVE_CLUSTERS.discard(self)
         for conn in self.conns.values():
             conn.close()
         for p in self.procs:
@@ -171,8 +300,79 @@ class ClientCluster:
         return self._closed
 
     def exit_codes(self) -> list:
-        """The client processes' exit codes (None while one runs)."""
+        """The child processes' exit codes (None while one runs)."""
         return [p.exitcode for p in self.procs]
+
+    @classmethod
+    def live_count(cls) -> int:
+        """Clusters created and not yet closed (the leak probe)."""
+        with _LIVE_LOCK:
+            return len(_LIVE_CLUSTERS)
+
+    @classmethod
+    def close_all(cls, join_timeout: float = 10) -> int:
+        """Force-close every live cluster; returns how many were closed."""
+        with _LIVE_LOCK:
+            stragglers = list(_LIVE_CLUSTERS)
+        for c in stragglers:
+            c.close(join_timeout=join_timeout)
+        return len(stragglers)
+
+
+class TreeClientCluster(ClientCluster):
+    """A live process tree for a tree of stars (``repro_torch.comm.topology``).
+
+    The root binds one listener; each of its children is an aggregator
+    process (``_aggregator_entry``) that owns a subtree and spawns its leaf
+    client processes and any deeper aggregators.  ``conns`` are keyed by
+    root-subtree index (the node ids a TreeMaster expects), not client ids.
+    It shares :class:`ClientCluster`'s reference count and registry, so
+    ``live_count()`` / ``close_all()`` cover process trees too; teardown runs
+    leaves first, each aggregator releasing its children before it closes
+    its own sockets, and only then does :meth:`close` join the aggregators.
+    """
+
+    def __init__(
+        self,
+        dataset: str,
+        shape,
+        seed: int,
+        topology,
+        host: str = "127.0.0.1",
+        data_seed: int | None = None,
+        cfg: FedNLConfig | None = None,
+        device: str = "cuda",
+        accept_timeout: float = 120.0,
+    ):
+        from repro_torch.api.spec import DataSpec
+        from repro_torch.comm.transport import TCPMaster
+
+        d, n_clients, _ = DataSpec(dataset=dataset or "tiny", shape=shape,
+                                   seed=seed if data_seed is None else data_seed).dims()
+        self.d = d
+        self.n_clients = n_clients
+        self.device = str(device)
+        _build_kernels_for(self.device)
+        tree = topology.resolve(n_clients)
+        self._master = TCPMaster(len(tree), host=host)
+        self._init_lifecycle()
+        cfg_dict = dataclasses.asdict(cfg) if cfg is not None else {}
+        self.procs: list = []
+        self.conns: dict = {}
+        try:
+            self.procs = _spawn_procs([
+                (_aggregator_entry,
+                 (i, subtree, n_clients, d, dataset, shape, cfg_dict, seed, host,
+                  self._master.port, topology.combine, data_seed, self.device),
+                 # aggregators spawn their own children: not daemonic
+                 False)
+                for i, subtree in enumerate(tree)
+            ])
+            self.conns = self._master.accept_clients(
+                timeout=accept_timeout, alive=lambda: all(p.is_alive() for p in self.procs))
+        except BaseException:
+            self.close(join_timeout=5)
+            raise
 
 
 def _run_with_clients(cfg, dataset, shape, seed, host, master_fn, pp=False, fault_dict=None,

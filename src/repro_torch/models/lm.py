@@ -246,9 +246,9 @@ def _attn_decode(x, bp, cfg: ArchConfig, k_cache, v_cache, pos: int, window):
     k = rope(k, posv, cfg.rope_fraction, cfg.rope_theta)
     s_cache = k_cache.shape[1]
     ring = window is not None and s_cache == window
-    slot = (pos % window) if ring else pos
-    if not 0 <= slot < s_cache:
-        raise IndexError(f"decode position {pos} is past the cache's {s_cache} slots")
+    # past the last slot the write lands on the last slot, as the reference's
+    # dynamic_update_slice clamps its start, and every slot is attended
+    slot = (pos % window) if ring else min(max(pos, 0), s_cache - 1)
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
     o = decode_attention(q, k_cache, v_cache, pos + 1, ring=ring)

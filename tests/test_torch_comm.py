@@ -399,26 +399,35 @@ def test_star_checkpoint_crosses_the_packages(tmp_path):
     np.testing.assert_array_equal(got.sent_bits, want.sent_bits)
 
 
-class _Tree:
-    trivial = False
-
-
-class _FlatStar:
-    trivial = True
-
-
 def test_topology_seam_builds_the_flat_star_only(tiny_z):
+    """The construction seam builds the flat star's StarMaster (with the star's
+    drive) for no topology or a trivial one, and the reference's master for
+    a tree, async aggregation or membership events; the local backend and a
+    tree with membership events are refused with the reference's errors."""
+    from repro_torch.comm import topology
+
     cfg = FedNLConfig()
-    master = open_loopback_master(tiny_z, cfg, topology=_FlatStar(), device=CPU)
-    assert type(master) is star.StarMaster
+    for trivial in (None, topology.TopologySpec()):
+        master = open_loopback_master(tiny_z, cfg, topology=trivial, device=CPU)
+        assert type(master) is star.StarMaster
+        master.stop()
+    tree = topology.TopologySpec(kind="tree", fanout=2, depth=2)
+    conns = {i: loopback_pair()[0] for i in range(2)}
+    assert type(make_master(conns, 24, cfg, topology=tree, n_clients=8, device=CPU)) is \
+        topology.TreeMaster
+    leave = topology.MembershipSpec(events=(topology.MembershipEvent(1, "leave", 0),))
+    master = open_loopback_master(tiny_z, cfg, membership=leave, device=CPU)
+    assert type(master) is topology.ElasticStarMaster
     master.stop()
-    conns = {i: loopback_pair()[0] for i in range(3)}
-    with pytest.raises(NotImplementedError, match=r"A11 \(topology\)"):
-        make_master(conns, 24, cfg, topology=_Tree(), device=CPU)
-    with pytest.raises(NotImplementedError, match=r"A11 \(topology\)"):
-        open_loopback_master(tiny_z, cfg, membership=_Tree(), device=CPU)
-    with pytest.raises(NotImplementedError, match=r"A11 \(topology\)"):
-        solve(_spec("topk", backend="star-loopback", topology=_Tree()), device=CPU)
+    with pytest.raises(ValueError, match="flat sync star only"):
+        make_master(conns, 24, cfg, topology=tree, membership=leave, device=CPU)
+    spec = _spec("topk", topology=tree)
+    with pytest.raises(ValueError) as port_err:
+        solve(spec, device=CPU)
+    with pytest.raises(ValueError) as ref_err:
+        japi.solve(japi.session.spec_from_dict(tapi.session.spec_to_dict(spec)))
+    assert str(port_err.value) == str(ref_err.value)
+    assert "cannot run a non-trivial topology" in str(port_err.value)
 
 
 def test_pool_plan_runs_the_wire_specs():

@@ -238,14 +238,8 @@ def test_solve_without_device_needs_a_card(no_card):
         run_fednl(t_spec.data.build(), t_spec.fednl_config(), rounds=1)
 
 
-class _Tree:
-    """A topology that is not the flat synchronous star (TopologySpec is not ported)."""
-
-    trivial = False
-
-
 REFUSALS = {  # what the message names -> the exception solve raises
-    "A11": NotImplementedError,
+    "cannot run a non-trivial": ValueError,
     "A13": NotImplementedError,
     "partial participation": ValueError,
     "unknown compressor": KeyError,
@@ -255,17 +249,19 @@ REFUSALS = {  # what the message names -> the exception solve raises
 @pytest.mark.parametrize(
     "changes,where",
     [
-        (dict(backend="star-loopback", topology=_Tree()), "A11"),
+        (dict(topology=tapi.TopologySpec(kind="tree")), "cannot run a non-trivial"),
         (dict(algorithm="fednl-pp", tol=1e-9), "partial participation"),
-        (dict(backend="star-tcp", topology=_Tree()), "A11"),
+        (dict(membership=tapi.MembershipSpec(events=(tapi.MembershipEvent(1, "leave", 0),))),
+         "cannot run a non-trivial"),
         (dict(backend="sharded"), "A13"),
         (dict(compressor=tapi.CompressorSpec("nope")), "unknown compressor"),
     ],
 )
 def test_solve_refuses_what_is_not_ported(changes, where):
-    """What solve still refuses: a topology on the wire backends (the tree
-    of stars is not ported), the sharded backend, a PP spec with an
-    early-stop tol (the reference refuses it too) and an unknown compressor."""
+    """What solve refuses: a topology or membership events on the local
+    backend (the reference's rule: they need a wire backend), the sharded
+    backend (not ported), a PP spec with an early-stop tol (the reference
+    refuses it too) and an unknown compressor."""
     t_spec, _ = _specs("topk", rounds=1)
     with pytest.raises(REFUSALS[where], match=where):
         tapi.solve(t_spec.replace(**changes), device="cpu")

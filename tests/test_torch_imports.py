@@ -35,7 +35,7 @@ def test_scan_covers_the_package():
     for module in ("api/registry", "api/session", "api/backends", "api/sweep", "api/batch",
                    "core/fednl_batch", "comm/transport", "comm/wire", "comm/protocol",
                    "comm/cost", "comm/star", "comm/star_pp", "comm/topology",
-                   "launch/multiproc"):
+                   "launch/multiproc", "obs/__init__", "obs/core", "obs/export"):
         assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "repro_torch.baselines, repro_torch.objectives.quadratic, "
         "repro_torch.serving, repro_torch.launch.serve, repro_torch.train, "
         "repro_torch.api.session, repro_torch.api.sweep, repro_torch.api.batch, "
-        "repro_torch.api.backends, repro_torch.core.fednl_batch, repro_torch.comm.transport\n"
+        "repro_torch.api.backends, repro_torch.core.fednl_batch, repro_torch.comm.transport, "
+        "repro_torch.obs, repro_torch.comm.topology, repro_torch.launch.multiproc\n"
+        "assert repro_torch.api.TopologySpec is repro_torch.comm.topology.TopologySpec\n"
         "assert repro_torch.api.list_backends() == "
         "['local', 'sharded', 'star-loopback', 'star-tcp']\n"
         "from repro_torch.kernels import build\n"

@@ -301,15 +301,21 @@ def test_serve_step_writes_the_cache_in_place(carried):
     assert torch.equal(new["k"][:, :, 1:], written[:, :, 1:])
 
 
-def test_decode_past_the_last_slot_raises(carried):
-    """A decode step past the cache's last slot raises (the reference clamps
-    the write to the last slot)."""
-    cfg = get_config("granite-3-2b").reduced()
-    _, tp = carried["granite-3-2b"]
+def test_decode_past_the_last_slot_matches_reference(ref, carried):
+    """A decode step past the cache's last slot does what the reference's
+    does: the write is clamped to the last slot (dynamic_update_slice clamps
+    its start) and the step attends to every slot.  Logits and the returned
+    cache's k and v within LOGIT_ULPS bf16 ulps, as the other decode steps."""
+    cfg, jcfg = get_config("granite-3-2b").reduced(), ref.configs.get_config("granite-3-2b").reduced()
+    jp, tp = carried["granite-3-2b"]
     assert cfg.window is None
+    toks = _tokens(cfg, (1, 3), 8)
+    jcache = ref.models.init_decode_cache(jcfg, 1, 2)
     cache = init_decode_cache(cfg, 1, 2, "cpu")
-    tok = torch.as_tensor(_tokens(cfg, (1, 1), 8))
-    for _ in range(2):
-        _, cache = lm_decode_step(tp, cfg, cache, tok)
-    with pytest.raises(IndexError, match="past the cache"):
-        lm_decode_step(tp, cfg, cache, tok)
+    for s in range(3):  # slots 0, 1, then one step past the last
+        want, jcache = ref.models.lm_decode_step(jp, jcfg, jcache, ref.jnp.asarray(toks[:, s : s + 1]))
+        got, cache = lm_decode_step(tp, cfg, cache, torch.as_tensor(toks[:, s : s + 1]))
+        _assert_close(got, want)
+        assert cache["pos"] == int(jcache["pos"]) == s + 1
+        _assert_close(cache["k"], jcache["k"])
+        _assert_close(cache["v"], jcache["v"])

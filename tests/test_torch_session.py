@@ -292,9 +292,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_public_names_are_the_reference_but_what_waits():
-    """specwire (ROADMAP A12) and the topology specs (A11) wait."""
-    waiting = {"SPEC_WIRE_VERSION", "decode_spec", "encode_spec",
-               "TopologySpec", "MembershipSpec", "MembershipEvent"}
+    """specwire (ROADMAP A12) waits; the topology specs are lazy attributes,
+    as the reference's."""
+    waiting = {"SPEC_WIRE_VERSION", "decode_spec", "encode_spec"}
     assert set(tapi.__all__) == set(japi.__all__) - waiting
     assert all(hasattr(tapi, name) for name in tapi.__all__)
 
@@ -313,21 +313,17 @@ def test_spec_fields_and_defaults_are_the_reference():
             ExperimentSpec(**bad)
 
 
-class _Tree:
-    """A topology that is not the flat synchronous star (TopologySpec is not ported)."""
-
-    trivial = False
-
-
 @pytest.mark.parametrize(
     "changes,exc,match",
     [
-        (dict(algorithm="fednl-pp", tau=2, fault=tapi.FaultSpec(drop_prob=0.1)), ValueError, "A11"),
+        (dict(algorithm="fednl-pp", tau=2, fault=tapi.FaultSpec(drop_prob=0.1)), ValueError,
+         "needs a wire backend"),
         (dict(aggregate="sparse_allgather"), NotImplementedError, "A13"),
         (dict(devices=2), NotImplementedError, "A13"),
         (dict(hessian="jnp"), ValueError, "one Hessian kernel"),
         (dict(backend="sharded"), NotImplementedError, "A13"),
-        (dict(backend="star-tcp", topology=_Tree()), NotImplementedError, "A11"),
+        (dict(topology=tapi.TopologySpec(kind="tree")), ValueError,
+         "cannot run a non-trivial topology"),
     ],
 )
 def test_fields_not_ported_are_refused_at_solve(changes, exc, match):
@@ -339,12 +335,20 @@ def test_fields_not_ported_are_refused_at_solve(changes, exc, match):
 
 
 def test_topology_refused_and_pallas_runs_the_syrk_kernel():
-    with pytest.raises(NotImplementedError, match="A11"):
-        solve(full_spec(rounds=1, topology=_Tree()), device=CPU)
-    d = tapi.session.spec_to_dict(full_spec())
-    d["topology"] = {"kind": "tree"}
-    with pytest.raises(NotImplementedError, match="A11"):
-        tapi.session.spec_from_dict(d)
+    """The local backend refuses a tree with the reference's error; a spec
+    dict with a topology and a membership rebuilds as the reference's does."""
+    with pytest.raises(ValueError, match="cannot run a non-trivial topology"):
+        solve(full_spec(rounds=1, topology=tapi.TopologySpec(kind="tree")), device=CPU)
+    base = tapi.session.spec_to_dict(full_spec())
+    tree = dict(base, topology={"kind": "tree", "edges": [[0, 2], [1]]})
+    mem = dict(base, membership={"events": [{"round": 1, "action": "leave", "client": 2}]})
+    got = tapi.session.spec_from_dict(tree)
+    assert got.topology == tapi.TopologySpec(kind="tree", edges=((0, 2), (1,)))
+    got_mem = tapi.session.spec_from_dict(mem)
+    assert got_mem.membership == tapi.MembershipSpec(events=(tapi.MembershipEvent(1, "leave", 2),))
+    for d, spec in ((tree, got), (mem, got_mem)):
+        assert tapi.session.spec_to_dict(spec) == japi.session.spec_to_dict(
+            japi.session.spec_from_dict(d))
     want = solve(full_spec(rounds=3), device=CPU)
     for changes in (dict(hessian="pallas"), dict(use_kernel=True)):
         assert_reports_bit_identical(solve(full_spec(rounds=3, **changes), device=CPU), want)

@@ -98,13 +98,12 @@ def test_grid_invalid_axis_values_fail_like_solve():
         solve_many(BASE.grid(backend=["local", "ray"]), device=CPU)
     with pytest.raises(KeyError, match="unknown compressor"):
         solve_many(BASE.grid(compressor=["topk", "bzip2"], rounds=[1]), device=CPU)
-    # a topology on a wire backend (the tree of stars is not ported) is
-    # refused, like solve() refuses it, before anything runs
-    class Tree:
-        trivial = False
+    # a topology on the local backend is refused, like solve() refuses it
+    # (the reference's rule), before anything runs
+    from repro_torch.api import TopologySpec
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        solve_many([BASE, BASE.replace(backend="star-loopback", topology=Tree())], device=CPU)
+    with pytest.raises(ValueError, match="cannot run a non-trivial topology"):
+        solve_many([BASE, BASE.replace(topology=TopologySpec(kind="tree"))], device=CPU)
 
 
 def test_sweep_spec_shape_validation():
