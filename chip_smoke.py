@@ -4,7 +4,8 @@ with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's dense
 inference path (granite-3-2b), sweeps (solve_many's batched groups),
 sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
-stars, async aggregation, elastic membership, TCP process trees, obs).
+stars, async aggregation, elastic membership, TCP process trees, obs),
+and the serving engine with its gateway (FedNLServer, GatewayServer).
 
     python3 chip_smoke.py
 
@@ -132,6 +133,35 @@ raises, and the script exits non-zero without the final line.
              without it, one comm.hop span per aggregator, UPLINK and AGG
              bytes received against the measured frames, hop times by tree
              level, a profiled tree round
+ 12 serve    the FedNL serving engine and its gateway at w8a's whole shape,
+             on the card: (a) the README grid and a TopLEK tenant (tol
+             1e-12) through one FedNLServer(ServeConfig(max_resident=8,
+             admit_per_tick=4, max_group=8)), half submitted, 5 ticks, then
+             the rest, so that memory pressure spills and resumes tenants;
+             the launch counts set to 0 before it and read after it: SYRK =
+             admissions (resumes included) + batched rounds, each selection
+             kernel and threefry dtype once per tick whose chunk holds its
+             branch; each tenant against its own solve() (sent_bits exact,
+             TopLEK with phase 3's boundary allowance; grad norms within
+             TRAJECTORY_RTOL where >= 1e-10; whether it is bitwise); the
+             engine's stats(); (b) one TopK spec alone and in groups of 2, 4
+             and 8, against its solve() and across the sizes; (c) evicted at
+             round 3 to FNLS1 and resumed in a fresh engine, bit for bit the
+             tenant served alone, the file round-tripping byte for byte; (d)
+             a star-loopback TopK tenant and a FedNL-PP tenant (tau 71)
+             beside a batch group, each bit for bit its own session, exact
+             launch counts; (e) a GatewayServer on 127.0.0.1 with the engine
+             on the card: a GatewayClient submits 4 specs and streams their
+             records (= the reports' bit for bit, each within (a)'s bounds of
+             its solve), bad submissions refused naming the field, METRICS
+             returning engine.* series, tick latencies; (f) ms per tick and
+             tenant-rounds per second of an 8-slot group beside phase 8's
+             group, a profiled tick, the state stack and unstack
+Phase 3 also checks a window without causality through
+``models.layers.chunked_attention`` (S = 2,048, q_chunk 512, window 300:
+one launch per query chunk on its key slice) on both flash routes, bf16 at
+head_dim 128 on wgmma and f32 at head_dim 32 on SIMT, against the plain
+version on the same chunks and offsets.
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -217,6 +247,15 @@ ELASTIC_ROUNDS = 10  # (d)
 ELASTIC_JOIN_AT, ELASTIC_LEAVE_AT = 2, 5
 ELASTIC_JOINERS, ELASTIC_LEAVERS = range(130, 142), range(0, 12)
 SUM_TREE_RTOL = SUM_TREE_ATOL = 1e-12  # (b) x against the flat star (the reference's bound)
+# phase 12: the serving engine and its gateway at w8a
+SERVE_ROUNDS = 50  # (a) the README grid's rounds
+SERVE_CONFIG = {"max_resident": 8, "admit_per_tick": 4, "max_group": 8}  # (a): pressure
+SERVE_EARLY, SERVE_EARLY_TICKS = 6, 5  # (a) tenants submitted first, ticks before the rest
+GROUP_SIZES, GROUP_ROUNDS = (1, 2, 4, 8), 10  # (b)
+EVICT_ROUNDS, EVICT_AT = 10, 3  # (c)
+SOLO_STAR_ROUNDS, SOLO_PP_ROUNDS = 3, 5  # (d)
+GATEWAY_ROUNDS = 20  # (e)
+TICK_REPS = 10  # (f) ticks timed of an 8-slot group
 
 
 def emit(obj) -> None:
@@ -479,6 +518,44 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
             row.update(max_ulps=float(ulps.max()), ulp_floor=tfa.BF16_ULP_FLOOR,
                        beyond_1_ulp_without_floor=int((pure > 1).sum()),
                        differing=int((got != want).sum()), elements=got.numel())
+            check(float(ulps.max()) <= 1.0, f"flash {name}: {float(ulps.max())} bf16 ulps")
+            max_err = max(max_err, err)
+        report[name] = row
+        del q, k, v, got, want
+    # a window without causality through models.layers.chunked_attention
+    # (ROADMAP C4): one launch per query chunk on the reference's key slice
+    # of the chunk, its offsets passed to the kernel, against the plain
+    # version on the same chunks and offsets
+    from repro_torch.models import layers
+
+    chunked = {  # name: (b, s, h, kv, dh, dtype)
+        "noncausal_window300_qchunk512_wgmma": (1, 2048, 8, 2, 128, bf16),
+        "noncausal_window300_qchunk512_simt_f32": (2, 2048, 8, 2, 32, f32),
+    }
+    for seed, (name, (b, s, h, kv, dh, dtype)) in enumerate(chunked.items()):
+        q, k, v = flash_inputs(dev, b, s, s, h, kv, dh, dtype, 200 + seed)
+        slices = layers.window_slices(s, s, 300, 512)
+        route = tfa.flash_route(dtype, dh)
+        routes = dict(tfa.flash_attention_cuda.route_launches)
+        got = layers.chunked_attention(q, k, v, causal=False, window=300, q_chunk=512)
+        routes[route] += len(slices)
+        check(tfa.flash_attention_cuda.route_launches == routes,
+              f"flash {name}: not {len(slices)} {route} launches")
+        want = torch.cat([
+            tfa.flash_attention_plain(q[:, q0:q0 + n], k[:, k0:k0 + span], v[:, k0:k0 + span],
+                                      causal=False, window=300, q_offset=q0, k_offset=k0)
+            for q0, n, k0, span in slices], dim=1)
+        torch.cuda.synchronize()
+        check(got.shape == q.shape and bool(torch.isfinite(got).all()), f"flash {name}: output")
+        err = float((got.float() - want.float()).abs().max())
+        row = {"shape": [b, s, s, h, kv, dh], "causal": False, "window": 300, "q_chunk": 512,
+               "slices": [list(sl) for sl in slices], "dtype": str(dtype), "route": route,
+               "launches": len(slices), "max_abs_err": err}
+        if dtype == f32:
+            check(err <= FLASH_F32_ATOL, f"flash {name}: f32 error {err} > {FLASH_F32_ATOL}")
+        else:
+            ulps = tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR)
+            row.update(max_ulps=float(ulps.max()), ulp_floor=tfa.BF16_ULP_FLOOR)
             check(float(ulps.max()) <= 1.0, f"flash {name}: {float(ulps.max())} bf16 ulps")
             max_err = max(max_err, err)
         report[name] = row
@@ -936,7 +1013,7 @@ def sweep_phase(ops) -> dict:
         },
     }
     emit(out)
-    return launches
+    return launches, out
 
 
 def session_phase() -> dict:
@@ -1612,6 +1689,329 @@ def topology_phase(ops, dev, star: dict) -> dict:
     return out
 
 
+def _records_bitwise(got, want) -> bool:
+    """Two RunReports agree record for record bit for bit (floats by their
+    hex, PP models and participants too) and in their final x."""
+    def key(r):
+        return ([None if v is None else float(v).hex() for v in (r.grad_norm, r.f, r.l)],
+                r.sent_elems, r.sent_bits, r.sent_bits_payload, r.sent_bits_wire, r.ls_steps,
+                r.participants, None if r.x is None else np.asarray(r.x).tobytes())
+    return (got.rounds == want.rounds and [key(r) for r in got.records] == [key(r) for r in want.records]
+            and bool(np.array_equal(got.x, want.x)))
+
+
+def _tenant_against_solve(name: str, got, want, n_clients: int) -> dict:
+    """A served tenant against its own solve() on the card: the same rounds,
+    sent_bits exact every round (TopLEK: phase 3's boundary allowance, a
+    round's kept count may differ by one a client), grad norms within
+    TRAJECTORY_RTOL where the solve's is >= SWEEP_GN_FLOOR."""
+    check(got.rounds == want.rounds, f"{name}: {got.rounds} rounds, its solve {want.rounds}")
+    check(bool(np.all(np.isfinite(got.x))) and got.x.shape == want.x.shape, f"{name}: x")
+    differ = [r for r in range(want.rounds) if got.sent_bits[r] != want.sent_bits[r]]
+    if name.endswith("toplek"):
+        for r in differ:
+            d_elems = abs(got.records[r].sent_elems - want.records[r].sent_elems)
+            check(0 < d_elems <= n_clients, f"{name}: round {r} sent_elems differ by {d_elems}")
+    else:
+        check(not differ, f"{name}: sent_bits differ at rounds {differ}")
+    rel = _rel(got.grad_norms, want.grad_norms, SWEEP_GN_FLOOR)
+    check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{name}: grad norms differ: {rel.max()}")
+    return {"bitwise": _records_bitwise(got, want),
+            "max_rel_grad_norm": float(rel.max()) if rel.size else 0.0,
+            "boundary_rounds": differ}
+
+
+def serve_phase(ops, dev, sweep: dict) -> dict:
+    """Phase 12: the FedNL serving engine and its gateway at w8a's whole
+    shape, on the card: (a) the README grid and a TopLEK tenant through one
+    engine under memory pressure, exact launch counts, each tenant against
+    its solve(); (b) one TopK spec in groups of 1, 2, 4 and 8; (c) evict at
+    round 3 and resume in a fresh engine; (d) a star-loopback and a FedNL-PP
+    tenant beside a batch group, each its own session bit for bit; (e) the
+    gateway over TCP on 127.0.0.1; (f) where an 8-slot tick's time goes."""
+    import threading
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.api import (
+        CompressorSpec, DataSpec, ExperimentSpec, load_state, open_session, save_state, solve)
+    from repro_torch.comm.protocol import Frame, MsgType
+    from repro_torch.core.fednl_batch import BatchRoundTable
+    from repro_torch.gateway import GatewayClient, GatewayConfig, GatewayError, GatewayServer
+    from repro_torch.gateway import protocol as gwp
+    from repro_torch.serve_fednl import FedNLServer, ServeConfig
+    from repro_torch.serve_fednl.scheduler import stack_states, unstack_state
+
+    base = ExperimentSpec(data=DataSpec(dataset="w8a", seed=0), rounds=SERVE_ROUNDS)
+    specs = list(base.grid(seed=range(4), compressor=["topk", "randseqk", "natural"]).specs())
+    specs.append(base.replace(compressor=CompressorSpec("toplek"), tol=1e-12))
+    z_np = base.data.build()
+    n_clients = z_np.shape[0]
+    solves: dict = {}
+
+    def solve_of(spec):
+        if spec not in solves:
+            solves[spec] = solve(spec, z=z_np)
+        return solves[spec]
+
+    def label(spec) -> str:
+        return f"seed={spec.seed} {spec.compressor.name}"
+
+    out: dict = {"phase": "serve"}
+
+    # (a) the batched lane under memory pressure; each batched round's chunk
+    # recorded (its branches, its padded slots) to reckon the launches
+    chunks: list[tuple[set, int]] = []
+    table_tick = BatchRoundTable.tick
+
+    def recording_tick(self, comp_idx, state_b):
+        chunks.append(({self.branch_keys[i][0] for i in comp_idx}, len(comp_idx)))
+        return table_tick(self, comp_idx, state_b)
+
+    BatchRoundTable.tick = recording_tick
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with FedNLServer(ServeConfig(**SERVE_CONFIG)) as srv:
+            handles = [srv.submit(spec) for spec in specs[:SERVE_EARLY]]
+            for _ in range(SERVE_EARLY_TICKS):
+                srv.tick()
+            handles += [srv.submit(spec) for spec in specs[SERVE_EARLY:]]
+            srv.serve_until_idle(max_ticks=2000)
+            stats = srv.stats()
+            reports = [h.result() for h in handles]
+    finally:
+        BatchRoundTable.tick = table_tick
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(chunks) == stats["batch_launches"], f"chunks {len(chunks)} vs {stats}")
+    admissions = sum(stats["admissions_by_class"].values())
+    want = {name: 0 for name in launches}
+    want["hessian_syrk_packed"] = admissions + stats["batch_launches"]
+    for comp, kernel in (("topk", "select_topk"), ("randseqk", "select_randseqk"),
+                         ("toplek", "select_toplek"), ("natural", "threefry_uniform_float64")):
+        want[kernel] = sum(comp in branches for branches, _ in chunks)
+    want["threefry_uniform"] = want["threefry_uniform_float64"]
+    check(launches == want, f"serve launches {launches}, want {want}")
+    check(stats["spills"] > 0 and stats["resumes"] == stats["spills"]
+          and stats["finished"] == len(specs), f"serve stats {stats}")
+    against = {label(spec): _tenant_against_solve(f"serve {label(spec)}", got, solve_of(spec),
+                                                  n_clients)
+               for spec, got in zip(specs, reports)}
+    live = sum(r.rounds for r in reports)
+    padded = sum(n for _, n in chunks)
+    check(abs(stats["batch_occupancy"] - live / padded) < 1e-12, "occupancy")
+    emit({"phase": "serve", "part": "stats", "stats": stats})
+    out["batched"] = {
+        "tenants": [label(spec) for spec in specs], "config": SERVE_CONFIG,
+        "submitted_first": SERVE_EARLY, "ticks_before_the_rest": SERVE_EARLY_TICKS,
+        "launches": launches, "admissions": admissions, "slot_rounds_live": live,
+        "slot_rounds_padded": padded, "serve_s": serve_s, "peak_memory_bytes": peak,
+        "bitwise_vs_solve": {k: v["bitwise"] for k, v in against.items()},
+        "max_rel_grad_norm_vs_solve": max(v["max_rel_grad_norm"] for v in against.values()),
+        "toplek_boundary_rounds": against[label(specs[-1])]["boundary_rounds"],
+        "rounds": [r.rounds for r in reports],
+        "final_grad_norms": [r.grad_norms[-1] for r in reports],
+    }
+    emit({"phase": "serve", "part": "a_batched", **out["batched"]})
+    del reports, handles
+
+    # (b) one TopK spec served alone (bucket 1) and in groups of 2, 4 and 8
+    target = base.replace(rounds=GROUP_ROUNDS)
+    partners = [base.replace(rounds=GROUP_ROUNDS, seed=s, compressor=CompressorSpec(c))
+                for s, c in ((1, "randseqk"), (2, "natural"), (3, "topk"), (4, "randseqk"),
+                             (5, "natural"), (6, "topk"), (7, "randseqk"))]
+    by_size = {}
+    for size in GROUP_SIZES:
+        with FedNLServer(ServeConfig(max_resident=8, admit_per_tick=8, max_group=8)) as srv:
+            hs = [srv.submit(spec) for spec in [target] + partners[:size - 1]]
+            srv.serve_until_idle()
+            check(srv.stats()["batch_occupancy"] == 1.0, f"group of {size}: padded")
+            by_size[size] = hs[0].result()
+    want_b = solve_of(target)
+    sizes = {}
+    for size, got in by_size.items():
+        row = _tenant_against_solve(f"group of {size} topk", got, want_b, n_clients)
+        row["bitwise_vs_alone"] = _records_bitwise(got, by_size[1])
+        row["bitwise_vs_group_of_2"] = _records_bitwise(got, by_size[2])
+        rel_alone = _rel(got.grad_norms, by_size[1].grad_norms, 0.0)
+        row["max_rel_grad_norm_vs_alone"] = float(rel_alone.max())
+        sizes[size] = row
+    out["group_size"] = {"spec": "w8a topk seed=0 rounds=10", "by_slots": sizes}
+    emit({"phase": "serve", "part": "b_group_size", **out["group_size"]})
+
+    # (c) evicted at round 3 to FNLS1, resumed alone in a fresh engine
+    spec_c = base.replace(rounds=EVICT_ROUNDS, seed=5, compressor=CompressorSpec("randseqk"))
+    where = ROOT / "build" / "chip_smoke"
+    where.mkdir(parents=True, exist_ok=True)
+    with FedNLServer() as srv:
+        h = srv.submit(spec_c)
+        srv.serve_until_idle()
+        alone = h.result()
+    with FedNLServer(ServeConfig(spill_dir=where / "serve_spills")) as srv:
+        h = srv.submit(spec_c)
+        for _ in range(EVICT_AT):
+            srv.tick()
+        path = srv.evict(h.id)
+    again = where / "serve_evicted_again.fnlsess"
+    save_state(load_state(path), again)
+    check(path.read_bytes() == again.read_bytes(), "serve: FNLS1 load -> save changed the bytes")
+    with FedNLServer() as srv:
+        h = srv.resume(path)
+        check(h.round == EVICT_AT, f"resumed at round {h.round}")
+        srv.serve_until_idle()
+        resumed = h.result()
+    check(_records_bitwise(resumed, alone), "serve: evicted and resumed != served alone")
+    out["spill_resume"] = {"spec": label(spec_c), "evicted_at": EVICT_AT,
+                           "fnls1_bytes": path.stat().st_size, "round_trip_byte_identical": True,
+                           "resumed_bitwise_vs_alone": True}
+    for f in (path, again):
+        f.unlink()
+    (where / "serve_spills").rmdir()
+    emit({"phase": "serve", "part": "c_spill_resume", **out["spill_resume"]})
+
+    # (d) the solo lane beside a batch group, launch counts set to 0 before
+    star = base.replace(rounds=SOLO_STAR_ROUNDS, backend="star-loopback")
+    pp = base.replace(algorithm="fednl-pp", tau=PP_TAU, rounds=SOLO_PP_ROUNDS)
+    pair = [base.replace(rounds=SOLO_STAR_ROUNDS, seed=s) for s in (0, 1)]
+    ops.reset_launch_counts()
+    with FedNLServer() as srv:
+        hs = [srv.submit(spec) for spec in [star, pp] + pair]
+        check([h._tenant.lane for h in hs] == ["solo", "solo", "batch", "batch"], "lanes")
+        srv.serve_until_idle()
+        st_d = srv.stats()
+        served = [h.result() for h in hs]
+    solo_launches = launch_counts(ops)
+    want = {name: 0 for name in solo_launches}
+    want["hessian_syrk_packed"] = (n_clients * (SOLO_STAR_ROUNDS + 1)  # star: init + a round
+                                   + SOLO_PP_ROUNDS + 2  # PP: init, warm-up, rounds
+                                   + len(pair) + st_d["batch_launches"])
+    want["select_topk_idx"] = n_clients * SOLO_STAR_ROUNDS
+    want["select_topk"] = SOLO_PP_ROUNDS + 1 + st_d["batch_launches"]
+    check(solo_launches == want, f"solo lane launches {solo_launches}, want {want}")
+    for spec, got in zip((star, pp), served[:2]):
+        with open_session(spec, z=z_np) as sess:
+            mine = sess.run()
+        check(_records_bitwise(got, mine), f"serve solo {spec.backend} {spec.algorithm}: "
+                                           "not its session bit for bit")
+    for spec, got in zip(pair, served[2:]):
+        _tenant_against_solve(f"solo-lane neighbour {label(spec)}", got, solve_of(spec), n_clients)
+    out["solo_lane"] = {"tenants": ["star-loopback topk 3 rounds",
+                                    f"fednl-pp topk tau={PP_TAU} 5 rounds",
+                                    "2 batched topk 3 rounds"],
+                        "launches": solo_launches, "bitwise_vs_session": True}
+    emit({"phase": "serve", "part": "d_solo_lane", **out["solo_lane"]})
+
+    # (e) the gateway: a port server on 127.0.0.1 with the engine on the card
+    gw_specs = [base.replace(rounds=GATEWAY_ROUNDS, seed=s, compressor=CompressorSpec(c))
+                for s, c in ((0, "topk"), (1, "randseqk"), (2, "natural"), (3, "topk"))]
+    rec = obs.enable(span_capacity=4096)
+    server = GatewayServer(GatewayConfig(port=0, serve=ServeConfig(**SERVE_CONFIG)))
+    ready, addr = threading.Event(), {}
+
+    def announce(host, port):
+        addr.update(host=host, port=port)
+        ready.set()
+
+    thread = threading.Thread(target=server.run, kwargs={"ready": announce}, daemon=True)
+    thread.start()
+    try:
+        check(ready.wait(60), "gateway did not bind")
+        with GatewayClient(addr["host"], addr["port"]) as gwc:
+            hs = [gwc.submit(spec) for spec in gw_specs]
+            streamed, drops = {}, 0
+            for h in hs:
+                with GatewayClient(addr["host"], addr["port"]) as observer:
+                    streamed[h.id] = list(observer.stream(h.id))
+                    drops += observer.stream_drops
+            results = [gwc.result(h.id) for h in hs]
+            refused = {}
+            try:
+                gwc.submit(gw_specs[0], priority="platinum")
+            except GatewayError as exc:
+                refused["priority"] = exc.field
+            raw = json.loads(gwp.pack_submit(gw_specs[0])[4:].decode())
+            raw["spec"]["data"]["warp"] = 1
+            try:
+                gwc._rpc(Frame(type=MsgType.SUBMIT, payload=gwp._pack(
+                    {k: raw[k] for k in ("spec_wire_version", "spec", "until", "tenant_id",
+                                         "options")})))
+            except GatewayError as exc:
+                refused["unknown_field"] = exc.field
+            metrics = gwc.metrics()
+        latencies = server.tick_latencies()
+    finally:
+        server.request_stop()
+        thread.join(60)
+        obs.disable()
+    check(not thread.is_alive(), "the gateway's thread did not stop")
+    check(refused == {"priority": "options.priority", "unknown_field": "data.warp"},
+          f"bad submissions refused as {refused}")
+    check(drops == 0, f"{drops} records dropped")
+    for spec, h, got in zip(gw_specs, hs, results):
+        check(_records_bitwise(dataclasses.replace(got, records=streamed[h.id]), got),
+              f"gateway {label(spec)}: streamed records != the report's")
+        _tenant_against_solve(f"gateway {label(spec)}", got, solve_of(spec), n_clients)
+    series = sorted({k.split("{")[0] for kind in ("counters", "histograms", "gauges")
+                     for k in metrics["metrics"].get(kind, {}) if k.startswith("engine.")})
+    check(metrics["enabled"] and "engine.rounds" in series and "engine.tick" in series,
+          f"METRICS series {series}")
+    lat_ms = np.asarray(latencies) * 1e3
+    out["gateway"] = {
+        "tenants": [label(spec) for spec in gw_specs], "rounds": GATEWAY_ROUNDS,
+        "streamed_equal_reports": True, "refused_fields": refused, "engine_series": series,
+        "ticks": len(latencies), "tick_ms_p50": float(np.percentile(lat_ms, 50)),
+        "tick_ms_p99": float(np.percentile(lat_ms, 99)), "spans_recorded": len(rec.spans()),
+    }
+    emit({"phase": "serve", "part": "e_gateway", **out["gateway"]})
+
+    # (f) where an 8-slot tick's time goes: the first 8 tenants of (a), no
+    # pressure, host clock around synchronised ticks, then one profiled tick
+    with FedNLServer(ServeConfig(max_resident=8, admit_per_tick=8, max_group=8)) as srv:
+        for spec in specs[:8]:
+            srv.submit(spec)
+        srv.tick()  # admission and the first round
+        srv.tick()
+        tick_s = []
+        for _ in range(TICK_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            srv.tick()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t1)
+        prof = trace(srv.tick, 1, "tick")
+        states = [t.state for t in srv._tenants.values() if t.status == "running"]
+        check(len(states) == 8, f"{len(states)} resident")
+        stack_ms = median_ms({"stack": lambda: stack_states(states)}, reps=5, calls=1)["stack"]
+        stacked = stack_states(states)
+        t1 = time.perf_counter()
+        for _ in range(TICK_REPS):
+            [unstack_state(stacked, i) for i in range(8)]
+        unstack_ms = (time.perf_counter() - t1) / TICK_REPS * 1e3
+        del stacked, states
+    ms_tick = statistics.median(tick_s) * 1e3
+    per_slot_ms = prof.get("device_ms_per_tick", float("nan")) / 8
+    out["tick"] = {
+        "slots": 8, "ms_per_tick_median": ms_tick, "ms_per_tick": [t * 1e3 for t in tick_s],
+        "tenant_rounds_per_s": 8 / (ms_tick / 1e3),
+        "sweep_group_ms_per_round_12_specs": sweep["group_ms_per_round"],
+        "sweep_spec_rounds_per_s": 12 / (sweep["group_ms_per_round"] / 1e3),
+        "sum_of_12_solves_ms_per_round": sweep["sequential_ms_per_round_sum"],
+        "stack_8_states_device_ms": stack_ms, "unstack_8_states_host_ms": unstack_ms,
+        "stack_bytes": 2 * 8 * n_clients * z_np.shape[-1] * (z_np.shape[-1] + 1) // 2 * 8,
+        "occupancy_a": stats["batch_occupancy"], "pad_slot_rounds_a": padded - live,
+        "pad_device_ms_a_reckoned": (padded - live) * per_slot_ms,
+        "profiled_tick": prof,
+    }
+    emit({"phase": "serve", "part": "f_tick", **out["tick"]})
+    out["launches"] = launches
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from _leaves(v) if isinstance(v, dict) else (v,)
@@ -2238,7 +2638,7 @@ def main() -> int:
     del lm
 
     # --- 8 sweeps: the README's grid as one batched group ------------------
-    sweep_launches = sweep_phase(ops)
+    sweep_launches, sweep = sweep_phase(ops)
 
     # --- 9 sessions: step, save, restore ------------------------------------
     session_phase()
@@ -2249,6 +2649,11 @@ def main() -> int:
     # --- 11 topologies: trees of stars, async, elastic, TCP tree, obs --------
     topo = topology_phase(ops, dev, star)
     del star["z_np"], star["topk_rep"]
+
+    # --- 12 the serving engine and its gateway ------------------------------
+    t_serve = time.perf_counter()
+    serve = serve_phase(ops, dev, sweep)
+    emit({"phase": "serve", "seconds": time.perf_counter() - t_serve})
 
     kernels = [
         {
@@ -2369,6 +2774,8 @@ def main() -> int:
     for entry in kernels:  # phase 11's launches, each part's counts set to 0 before it
         entry["topology_launches"] = {part: counts.get(entry["name"], 0)
                                       for part, counts in topo.items()}
+    for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
+        entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({

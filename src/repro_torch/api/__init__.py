@@ -6,8 +6,9 @@ that make algorithms, backends and compressors pluggable.  Everything runs
 on the card unless ``device="cpu"`` is asked for.
 
 ``TopologySpec``, ``MembershipSpec`` and ``MembershipEvent`` are lazy
-attributes (``repro_torch.comm.topology``).  Not exported yet: ``specwire``
-(``encode_spec``/``decode_spec``, ROADMAP A12).
+attributes (``repro_torch.comm.topology``); ``encode_spec``/``decode_spec``
+are the versioned wire form of a spec (``repro_torch.api.specwire``), as the
+gateway ships it.
 """
 
 from repro_torch.api.accounting import ACCOUNTINGS, make_bits_fn, payload_bits_fn, wire_bits_fn
@@ -34,6 +35,7 @@ from repro_torch.api.session import (
     save_state,
 )
 from repro_torch.api.spec import CompressorSpec, DataSpec, ExperimentSpec
+from repro_torch.api.specwire import SPEC_WIRE_VERSION, decode_spec, encode_spec
 from repro_torch.api.sweep import SweepSpec
 from repro_torch.comm.transport import FaultSpec
 
@@ -56,6 +58,7 @@ __all__ = [
     "MembershipSpec",
     "TopologySpec",
     "ACCOUNTINGS",
+    "SPEC_WIRE_VERSION",
     "Algorithm",
     "Backend",
     "CompressorSpec",
@@ -74,6 +77,8 @@ __all__ = [
     "load_state",
     "open_session",
     "save_state",
+    "decode_spec",
+    "encode_spec",
     "get_algorithm",
     "get_backend",
     "list_algorithms",

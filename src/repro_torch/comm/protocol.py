@@ -39,7 +39,8 @@ Frames of the tree of stars (``repro_torch.comm.topology``):
               subtree is expected to own, and, in the ack, those it owns.
 
 Every ``MsgType`` value of the reference is here, so the ids stay stable;
-the gateway and metrics frames belong to modules not ported.  Payload
+the gateway's frames (SUBMIT .. GW_ERR) and the METRICS verb carry the
+payloads of ``repro_torch.gateway.protocol``.  Payload
 vectors are numpy float64 arrays on the host: the frames are the
 serialisation boundary.  With a live ``repro_torch.obs`` recorder every frame
 sent and received is counted, with its bytes, by frame type.

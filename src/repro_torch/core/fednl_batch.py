@@ -51,13 +51,26 @@ Two layouts of the client oracles' matrix-vector products:
 
 A branch whose specs are contiguous in the group (the sweep engine orders a
 group by branch) works on views of the rows; other orders gather with
-``index_select`` and scatter back with ``index_copy``.  FedNL-LS's Armijo
-trials run as a host loop over the specs still searching: one host sync for
-the plateau test and one per trial, for the whole group.
+``index_select`` and scatter back with ``index_copy`` (a serving tick's
+slots are in tenant order, so mixed compressors usually take that form).
+FedNL-LS's Armijo trials run as a host loop over the specs still searching:
+one host sync for the plateau test and one per trial, for the whole group.
+
+:class:`BatchRoundTable` is the serving engine's form (``serve_fednl``): a
+growable branch table and one round a tick over slots that sit at different
+rounds (``state.round`` is then a host array, one round index a slot; the
+round reads it nowhere but to advance it).  A tenant's group size changes
+from tick to tick (1, 2, 4 or 8 slots under the power-of-two padding); on
+an H100 the Cholesky of a batch of one gives the (d, d) call's bits, so a
+tenant served alone is its ``solve()`` bit for bit, and batches of 2, 4
+and 8 give one another's bits, which part from the (d, d) call's within
+1.3e-10 relative on grad norms >= 1e-10 (``chip_smoke.py`` phase 12 (b),
+NVIDIA H100 80GB HBM3, 700 W).
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -469,3 +482,97 @@ def make_fednl_ls_batch_round(
         return new_state, metrics
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's round table
+# ---------------------------------------------------------------------------
+
+
+class BatchRoundTable:
+    """One round a tick over a growable compressor table, for one serve group
+    key (one problem ``z``, one group-shared config and Hessian learning
+    rate): port of ``repro.core.fednl_batch.BatchRoundTable``.
+
+    The serving engine re-forms its groups every tick as tenants are
+    admitted, finish or spill, so what it keeps is this table:
+
+      * the group's compressor branches, appended as tenants with new
+        (compressor, k) pairs arrive, so a tenant's branch index never
+        changes meaning;
+      * ``tick(comp_idx, state_b)`` advances every slot one round.
+
+    The reference compiles one tick program per (table length, slot count)
+    and passes ``comp_idx`` to it; here a round is built for a pattern of
+    branch indices (``make_fednl_batch_round`` takes them when it is built:
+    each branch's rows and index tensors), and the last ``_CACHED`` patterns
+    are kept, so a re-formed group with a pattern seen before builds nothing.
+    ``compiles`` counts what the reference counts, one per new (table
+    length, slot bucket) key, so the engine's ``stats()["compiles"]`` and
+    its ``engine.tick`` spans equal the reference's tick for tick.
+
+    Padding slots duplicate live states (``serve_fednl.scheduler``): every
+    op of the round acts per slot, and every reduction over a slot's own
+    rows reads them from a block on a 32-byte boundary (``_aligned``), so a
+    pad slot does not shape a live slot's bits.
+    """
+
+    _CACHED = 32  # rounds kept, by branch-index pattern
+
+    def __init__(self, z, cfg: FedNLConfig, alpha: float,
+                 make_batch_round: Callable | None = None):
+        self.z = z
+        self.cfg = cfg
+        self.alpha = alpha
+        self._make = make_fednl_batch_round if make_batch_round is None else make_batch_round
+        self.branch_keys: list[tuple[str, int]] = []
+        self._comps: list[Compressor] = []
+        self._programs: set[tuple[int, int]] = set()  # (table length, slots) seen
+        self._rounds: OrderedDict[tuple[int, ...], Callable] = OrderedDict()
+        self.compiles = 0
+
+    def branch_index(self, name: str, k: int) -> int:
+        """Index of compressor ``(name, k)`` in the table, appending (and
+        building the Compressor) on first sight."""
+        from repro_torch.compressors import get_compressor
+
+        bk = (name, int(k))
+        if bk not in self.branch_keys:
+            self.branch_keys.append(bk)
+            self._comps.append(get_compressor(name, triu_size(self.z.shape[-1]), int(k)))
+        return self.branch_keys.index(bk)
+
+    def bucket_for(self, n: int, pad_pow2: bool = True) -> int:
+        """Slot count to pad ``n`` live slots to: the smallest bucket already
+        seen at this table length that fits (a draining group keeps its
+        bucket), else the next power of two."""
+        if not pad_pow2:
+            return n
+        fitting = [m for (n_comps, m) in self._programs if n_comps == len(self._comps) and m >= n]
+        if fitting:
+            return min(fitting)
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def tick(self, comp_idx: Sequence[int], state_b):
+        """Advance every slot one round: ``(state_b', metrics_b)``.
+
+        ``comp_idx``: (n_slots,) branch indices; ``state_b``: the algorithm
+        state stacked along a leading slot axis, ``round`` a host array.
+        """
+        pattern = tuple(int(c) for c in comp_idx)
+        key = (len(self._comps), len(pattern))
+        if key not in self._programs:
+            self._programs.add(key)
+            self.compiles += 1
+        round_fn = self._rounds.get(pattern)
+        if round_fn is None:
+            round_fn = self._make(self.z, self.cfg, list(self._comps), pattern, self.alpha, "scan")
+            self._rounds[pattern] = round_fn
+            if len(self._rounds) > self._CACHED:
+                self._rounds.popitem(last=False)
+        else:
+            self._rounds.move_to_end(pattern)
+        return round_fn(state_b)

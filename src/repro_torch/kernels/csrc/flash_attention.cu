@@ -3,7 +3,18 @@
 //   out[b, i, h] = sum_j p_ij v[b, j, g] / sum_j p_ij,   g = h / (H / Kv)
 //   p_ij = exp(s_ij - max_j s_ij) over the visible keys j, 0 elsewhere
 //   s_ij = (q[b, i, h] . k[b, j, g]) * scale       (f32 dot, scale after it)
-//   visible: j < Sk, j <= i when causal, j > i - window when window > 0
+//   visible: j < Sk, j + k_off <= i + q_off when causal,
+//            j + k_off > i + q_off - window when window > 0
+//
+// q_off and k_off are the positions of q's and k's first rows in the whole
+// sequence, passed as their difference pos_off = q_off - k_off (0 for a call on
+// whole sequences): the port's chunked_attention calls the kernel once per
+// query chunk on the reference's key slice of that chunk (a window without
+// causality) and the masks read absolute positions.  Each kernel has a second
+// instantiation for pos_off != 0 (kOff); the one for 0 is the code without
+// offsets, because an offset read at run time slowed the wgmma kernel at
+// granite's 32k layer on an H100, with the same registers and spills (see
+// PERF.md).
 //
 // q (B, Sq, H, dh), k and v (B, Sk, Kv, dh), out (B, Sq, H, dh), all
 // contiguous; the softmax, p and the sums are f32 and the output is rounded
@@ -107,11 +118,13 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kBQ * (DH + 4) + kBK * DH + kBQ * kPLd);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kOff>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-                 int n_heads, int n_kv, int causal, int window, float scale) {
+                 int n_heads, int n_kv, int causal, int window, int pos_off_arg,
+                 float scale) {
+  const int pos_off = kOff ? pos_off_arg : 0;  // kOff: the launcher saw pos_off != 0
   constexpr int kLd = DH + 4;          // padded row of the Q and K tiles
   constexpr int kCols = DH / kSide;    // output columns per thread
   extern __shared__ float4 smem4[];
@@ -142,9 +155,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // the key tiles that hold a visible key for some query of this tile
+  const int p0 = q0 + pos_off;  // the tile's first query, on k's positions
   int k_begin = 0, k_end = sk;
-  if (causal) k_end = min(sk, q0 + kBQ);
-  if (window > 0) k_begin = max(0, q0 - window + 1) / kBK * kBK;
+  if (causal) k_end = min(sk, p0 + kBQ);
+  if (window > 0) k_begin = max(0, p0 - window + 1) / kBK * kBK;
 
   float m[kRows], l[kRows], acc[kRows][kCols];
 #pragma unroll
@@ -199,7 +213,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float corr[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
+      const int qpos = p0 + ty * kRows + i;
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
@@ -268,7 +282,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty * kRows + i;
+    const int qpos = p0 - pos_off + ty * kRows + i;
     if (qpos >= sq) continue;
     const float safe = l[i] > 0.f ? l[i] : 1.f;
     T* orow = out + (b * sq + qpos) * q_row + (long long)h * DH + tx * kCols;
@@ -280,27 +294,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int sk, int n_heads, int n_kv, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int pos_off, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
+  const auto kernel = pos_off != 0 ? flash_fwd_kernel<T, DH, true> : flash_fwd_kernel<T, DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
-  flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, n_heads, n_kv, causal, window, scale);
+      static_cast<T*>(out), sq, sk, n_heads, n_kv, causal, window, pos_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int head_dim, const void* q, const void* k, const void* v, void* out,
              int batch, int sq, int sk, int n_heads, int n_kv, int causal,
-             int window, float scale, cudaStream_t stream) {
+             int window, int pos_off, float scale, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -308,18 +323,19 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, void* ou
 }  // namespace
 
 // q, k, v, out: device pointers (see above); is_bf16: 1 for bf16, 0 for f32;
-// window <= 0: no window.  Returns cudaGetLastError() after the launch.
+// window <= 0: no window; pos_off = q_off - k_off (0 on whole sequences).
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int batch, int sq, int sk,
                                    int n_heads, int n_kv, int head_dim,
-                                   int is_bf16, int causal, int window,
+                                   int is_bf16, int causal, int window, int pos_off,
                                    float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(head_dim, q, k, v, out, batch, sq, sk, n_heads,
-                                   n_kv, causal, window, scale, st);
+                                   n_kv, causal, window, pos_off, scale, st);
   return dispatch<float>(head_dim, q, k, v, out, batch, sq, sk, n_heads, n_kv,
-                         causal, window, scale, st);
+                         causal, window, pos_off, scale, st);
 }
 
 // ===========================================================================
@@ -617,14 +633,15 @@ __device__ __forceinline__ void tile_pv(float (&sc)[64], float (&m)[2], float (&
     for (int c = 0; c < kBK / 16; ++c) fence_regs(pa[part][c]);
 }
 
-template <int DH>
+template <int DH, bool kOff>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out, int sq, int sk, int n_heads,
-                       int n_kv, int causal, int window, float scale) {
+                       int n_kv, int causal, int window, int pos_off_arg, float scale) {
   using C = Cfg<DH>;
+  const int pos_off = kOff ? pos_off_arg : 0;  // kOff: the launcher saw pos_off != 0
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;                      // [half][128 rows][64 columns]
@@ -638,9 +655,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kvh = h / (n_heads / n_kv);
 
   // the key tiles that hold a visible key for some query of this block
+  const int p0 = q0 + pos_off;  // the block's first query, on k's positions
   int k_begin = 0, k_end = sk;
-  if (causal) k_end = min(sk, q0 + kBQ);
-  if (window > 0) k_begin = max(0, q0 - window + 1) / kBK * kBK;
+  if (causal) k_end = min(sk, p0 + kBQ);
+  if (window > 0) k_begin = max(0, p0 - window + 1) / kBK * kBK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
@@ -684,8 +702,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32;
     const int lane = tid % 32;
-    const int row0 = q0 + 64 * cw;                 // this warpgroup's first row
-    const int ra = row0 + 16 * warp + lane / 4;    // this thread's rows: ra and ra + 8
+    // this warpgroup's first row and this thread's rows (ra and ra + 8), on
+    // k's positions; the output row is ra - pos_off
+    const int row0 = q0 + pos_off + 64 * cw;
+    const int ra = row0 + 16 * warp + lane / 4;
     const int kq = 2 * (lane % 4);                 // its first column in each 8-column block
 
     float o[C::kHalves][32];  // per 64-column half: the m64n64 accumulator layout
@@ -737,7 +757,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const long long q_row = static_cast<long long>(n_heads) * DH;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = ra + 8 * r;
+      const int row = ra - pos_off + 8 * r;
       if (row >= sq) continue;
       __nv_bfloat16* orow = out + (static_cast<long long>(b) * sq + row) * q_row +
                             static_cast<long long>(h) * DH + kq;
@@ -794,18 +814,21 @@ bool make_map(CUtensorMap* map, const void* ptr, int cols, int seq, int batch) {
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
-           int n_heads, int n_kv, int causal, int window, float scale, cudaStream_t stream) {
+           int n_heads, int n_kv, int causal, int window, int pos_off, float scale,
+           cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, n_heads * DH, sq, batch) || !make_map(&mk, k, n_kv * DH, sk, batch) ||
       !make_map(&mv, v, n_kv * DH, sk, batch))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Cfg<DH>::kSmem;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel =
+      pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true> : flash_fwd_wgmma_kernel<DH, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
-  flash_fwd_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, sk, n_heads, n_kv, causal, window,
+  kernel<<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, sk, n_heads, n_kv, causal, window, pos_off,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -813,21 +836,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 }  // namespace hopper
 
 // The Hopper route: q, k, v, out bf16 device pointers (layout above, 16-byte
-// aligned); head_dim 64 or 128; window <= 0: no window.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// head_dim or a tensor map the driver refuses).
+// aligned); head_dim 64 or 128; window <= 0: no window; pos_off = q_off - k_off
+// (0 on whole sequences).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for another head_dim or a tensor map that
+// cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                          int batch, int sq, int sk, int n_heads, int n_kv,
-                                         int head_dim, int causal, int window, float scale,
-                                         void* stream) {
+                                         int head_dim, int causal, int window, int pos_off,
+                                         float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
       return hopper::launch<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
-                                scale, st);
+                                pos_off, scale, st);
     case 128:
       return hopper::launch<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
-                                 scale, st);
+                                 pos_off, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,11 +1,15 @@
 """Flash attention: online softmax over key tiles, causal and sliding-window
 masks, every batch row and head in one launch.
 
-    flash_attention_cuda(q, k, v, causal=True, window=None, scale=None)
+    flash_attention_cuda(q, k, v, causal=True, window=None, scale=None,
+                         q_offset=0, k_offset=0)
     q (B, Sq, H, dh), k and v (B, Sk, Kv, dh) -> (B, Sq, H, dh) in q's dtype
 
-Key j is visible to query i when j < Sk, j <= i (causal) and j > i - window
-(window); the logits are f32 dot products times ``scale`` (default
+Key j is visible to query i when j < Sk, j + k_offset <= i + q_offset
+(causal) and j + k_offset > i + q_offset - window (window): the offsets are
+the positions of q's and k's first rows in the whole sequence, 0 on whole
+sequences (``models.layers.chunked_attention`` passes a query chunk and its
+key slice).  The logits are f32 dot products times ``scale`` (default
 dh**-0.5), the softmax and P.V are f32, and a row with no visible key gives
 0.  Query head h reads kv head h // (H // Kv) (GQA).
 
@@ -89,12 +93,12 @@ WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernel's
 PLAIN_Q_CHUNK = 512
 
 # flash_attention_fwd (simt): q, k, v, out, batch, sq, sk, heads, kv heads,
-# head_dim, is_bf16, causal, window, scale, stream; flash_attention_fwd_wgmma
-# takes the same without is_bf16
+# head_dim, is_bf16, causal, window, q_offset - k_offset, scale, stream;
+# flash_attention_fwd_wgmma takes the same without is_bf16
 _SIMT_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 _WGMMA_ARGTYPES = _SIMT_ARGTYPES[:10] + _SIMT_ARGTYPES[11:]
 
@@ -121,6 +125,8 @@ def flash_attention_plain(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
     q_chunk: int = PLAIN_Q_CHUNK,
 ) -> torch.Tensor:
     """The plain PyTorch version: per chunk of queries, f32 logits over all
@@ -131,14 +137,14 @@ def flash_attention_plain(
     sk, kv = k.shape[1], k.shape[2]
     s = dh**-0.5 if scale is None else scale
     kf, vf = k.float(), v.float()
-    kpos = torch.arange(sk, device=q.device)
+    kpos = k_offset + torch.arange(sk, device=q.device)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     for q0 in range(0, sq, q_chunk):
         qc = q[:, q0 : q0 + q_chunk].float()
         c = qc.shape[1]
         qg = qc.reshape(b, c, kv, h // kv, dh)
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * s
-        qpos = torch.arange(q0, q0 + c, device=q.device)[:, None]
+        qpos = q_offset + torch.arange(q0, q0 + c, device=q.device)[:, None]
         mask = torch.ones((c, sk), dtype=torch.bool, device=q.device)
         if causal:
             mask = mask & (kpos[None, :] <= qpos)
@@ -206,6 +212,8 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
 ) -> torch.Tensor:
     """Launch the route's CUDA kernel (:func:`flash_route`) on q's device and
     current stream."""
@@ -229,12 +237,15 @@ def flash_attention_cuda(
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)} exceed the kernel's grid")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    pos_off = int(q_offset) - int(k_offset)
+    if abs(pos_off) >= 2**30:
+        raise ValueError(f"offsets {q_offset}, {k_offset} exceed the kernel's positions")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     s = dh**-0.5 if scale is None else scale
     shape = (b, sq, sk, h, kv, dh)
-    masks = (int(causal), 0 if window is None else int(window), float(s))
+    masks = (int(causal), 0 if window is None else int(window), pos_off, float(s))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "wgmma":

@@ -108,14 +108,16 @@ def attention(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
 ) -> torch.Tensor:
     """Batched GQA flash attention, the models' entry: q (B, Sq, H, dh), k and
-    v (B, Sk, Kv, dh) -> (B, Sq, H, dh)."""
+    v (B, Sk, Kv, dh) -> (B, Sq, H, dh); the offsets are the positions of q's
+    and k's first rows, which the masks read (0 on whole sequences)."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, k_offset=k_offset)
     if _route("flash_attention", q):
-        return flash_attention_mod.flash_attention_cuda(
-            q, k, v, causal=causal, window=window, scale=scale)
-    return flash_attention_mod.flash_attention_plain(
-        q, k, v, causal=causal, window=window, scale=scale)
+        return flash_attention_mod.flash_attention_cuda(q, k, v, **kw)
+    return flash_attention_mod.flash_attention_plain(q, k, v, **kw)
 
 
 def flash_attention(

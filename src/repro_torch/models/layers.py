@@ -69,6 +69,18 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, kv, n_rep, dh).reshape(b, s, kv * n_rep, dh)
 
 
+def window_slices(sq: int, sk: int, window: int, q_chunk: int) -> list[tuple[int, int, int, int]]:
+    """The reference's sliding-window key slice of each query chunk:
+    ``(q_start, q_len, k_start, span)`` with span = min(sk, window + q_chunk -
+    1) and k_start = clip(q_start + q_chunk - span, 0, sk - span); q_chunk
+    becomes sq where it does not divide sq."""
+    if sq % q_chunk:
+        q_chunk = sq
+    span = min(sk, window + q_chunk - 1)
+    return [(q_start, q_chunk, min(max(q_start + q_chunk - span, 0), sk - span), span)
+            for q_start in range(0, sq, q_chunk)]
+
+
 def chunked_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -80,25 +92,27 @@ def chunked_attention(
 ) -> torch.Tensor:
     """Memory-bounded attention: q (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh) -> (B,Sq,H,Dh).
 
-    A CUDA tensor goes to the flash kernel: one launch, no (Sq, Sk) matrix,
-    no repeated kv heads, ``q_chunk`` unused.  A CPU tensor runs the
-    reference's computation: queries in chunks of q_chunk, GQA by repeating
-    kv heads, and for a sliding window the key range per chunk sliced to
-    [chunk_end - (window + q_chunk - 1), chunk_end].
+    A CUDA tensor goes to the flash kernel, with no (Sq, Sk) matrix and no
+    repeated kv heads.  A CPU tensor runs the reference's computation:
+    queries in chunks of q_chunk, GQA by repeating kv heads, and for a
+    sliding window the keys of each chunk sliced to
+    :func:`window_slices`' ``[k_start, k_start + span)``.
 
-    The two compute one function wherever some key is visible to every
-    query, as on every causal path of the models.  Where none is, the kernel
-    writes 0 and the chunked softmax averages all keys; and without
-    causality the chunked window slice also drops keys after the chunk.  So
-    the kernel refuses a window without causality, which no model uses.
+    On the card, every mask but a window without causality is one launch
+    over all keys, ``q_chunk`` unused: there the slice drops no visible key.
+    A window without causality is one launch per query chunk, on the
+    chunk's key slice, with the chunk's and the slice's positions passed to
+    the kernel (``q_offset``, ``k_offset``) so that its window mask reads
+    absolute positions: the reference's function, whose slice drops the
+    keys after the chunk (but where the clip at 0 widens the first chunks'
+    slice).  The two compute one function wherever some key is visible to
+    every query; where none is, the kernel writes 0 and the chunked softmax
+    averages all keys.
     """
     if q.is_cuda:
-        if window is not None and not causal:
-            raise NotImplementedError(
-                "chunked_attention on the card: a window without causality is not "
-                "the kernel's function (the chunked key slice also drops later keys)"
-            )
-        return ops.attention(q, k, v, causal=causal, window=window)
+        if window is None or causal:
+            return ops.attention(q, k, v, causal=causal, window=window)
+        return window_chunk_attention(q, k, v, window, q_chunk)
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     n_rep = h // kv
@@ -109,6 +123,8 @@ def chunked_attention(
     if sq % q_chunk:
         q_chunk = sq  # fall back to a single chunk for odd lengths
     n_chunks = sq // q_chunk
+    # only the last (window + q_chunk - 1) keys can be visible
+    slices = window_slices(sq, sk, window, q_chunk) if window is not None else None
 
     kpos_all = torch.arange(sk, device=q.device)
 
@@ -117,9 +133,7 @@ def chunked_attention(
         qc = q[:, q_start : q_start + q_chunk]
         qpos = q_start + torch.arange(q_chunk, device=q.device)
         if window is not None:
-            # only the last (window + q_chunk - 1) keys can be visible
-            span = min(sk, window + q_chunk - 1)
-            k_start = min(max(q_start + q_chunk - span, 0), sk - span)
+            _, _, k_start, span = slices[ci]
             kc = kf[:, k_start : k_start + span]
             vc = vf[:, k_start : k_start + span]
             kpos = k_start + torch.arange(span, device=q.device)
@@ -136,6 +150,24 @@ def chunked_attention(
         return torch.einsum("bhqk,bkhd->bqhd", p, vc.float()).to(q.dtype)
 
     return torch.cat([one_chunk(ci) for ci in range(n_chunks)], dim=1)
+
+
+def window_chunk_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, q_chunk: int
+) -> torch.Tensor:
+    """A window without causality, as the reference's chunks compute it:
+    ``ops.attention`` once per query chunk on its key slice
+    (:func:`window_slices`), the offsets telling the kernel where both lie.
+    On a CUDA tensor each chunk is one flash launch; on the CPU the kernel's
+    plain version."""
+    parts = []
+    for q_start, q_len, k_start, span in window_slices(q.shape[1], k.shape[1], window, q_chunk):
+        parts.append(ops.attention(
+            q[:, q_start:q_start + q_len].contiguous(),
+            k[:, k_start:k_start + span].contiguous(),
+            v[:, k_start:k_start + span].contiguous(),
+            causal=False, window=window, q_offset=q_start, k_offset=k_start))
+    return torch.cat(parts, dim=1)
 
 
 def decode_attention(

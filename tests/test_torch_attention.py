@@ -293,6 +293,59 @@ def test_chunked_attention_matches_reference(ref, b, s, h, kv, dh, window, q_chu
         assert float(tfa.bf16_ulps(plain, got, tfa.BF16_ULP_FLOOR).max()) <= 1.0
 
 
+# a window without causality: the reference's key slice per query chunk drops
+# the keys after the chunk, but where the clip at 0 widens the first chunks'
+# slice (window + q_chunk - 1 > q_start + q_chunk)
+WINDOW_NONCAUSAL = [
+    (2, 96, 4, 2, 32, 24, 32),
+    (1, 128, 4, 1, 16, 100, 32),  # the first three chunks' slices widened by the clip
+    (2, 64, 2, 2, 32, 8, 16),
+    (1, 80, 4, 4, 16, 33, 32),  # q_chunk does not divide S: one chunk
+    (1, 60, 2, 1, 32, 200, 20),  # window wider than S: every slice is all keys
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window,q_chunk", WINDOW_NONCAUSAL)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_attention_window_without_causality_matches_reference(
+    ref, b, s, h, kv, dh, window, q_chunk, dtype
+):
+    """The CPU path and the card path's chunk loop (``window_chunk_attention``,
+    here on the kernel's plain version with the chunks' offsets) both compute
+    the reference's function."""
+    q, k, v = (_normal(sh, 7 * s + window + i)
+               for i, sh in enumerate([(b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)]))
+    if dtype == "float32":
+        pairs = [(torch.as_tensor(x), ref.jnp.asarray(x)) for x in (q, k, v)]
+    else:
+        pairs = [_bf16_pair(ref, x) for x in (q, k, v)]
+    (qt, qj), (kt, kj), (vt, vj) = pairs
+    want = ref.layers.chunked_attention(qj, kj, vj, causal=False, window=window, q_chunk=q_chunk)
+    got = tl.chunked_attention(qt, kt, vt, causal=False, window=window, q_chunk=q_chunk)
+    chunks = tl.window_chunk_attention(qt, kt, vt, window, q_chunk)
+    for out in (got, chunks):
+        assert out.dtype == qt.dtype and out.shape == (b, s, h, dh)
+        if dtype == "float32":
+            np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+        else:
+            assert _ulps(out, _to_np(want)) <= 1.0
+
+
+def test_window_slices_are_the_reference_slices():
+    """(q_start, q_len, k_start, span) as the reference's one_chunk slices."""
+    assert tl.window_slices(128, 128, 100, 32) == [
+        (0, 32, 0, 131 - 3), (32, 32, 0, 128), (64, 32, 0, 128), (96, 32, 0, 128)]
+    assert tl.window_slices(96, 96, 24, 32) == [(0, 32, 0, 55), (32, 32, 9, 55), (64, 32, 41, 55)]
+    assert tl.window_slices(80, 80, 33, 32) == [(0, 80, 0, 80)]
+    # the kernel's function on whole sequences is the offsets' zero case
+    q, k, v = (torch.as_tensor(_normal((1, 40, 2, 16), 90 + i)) for i in range(3))
+    whole = tfa.flash_attention_plain(q, k, v, causal=False, window=9)
+    # queries from 11 on see no key before 3
+    shifted = tfa.flash_attention_plain(q[:, 11:], k[:, 3:], v[:, 3:], causal=False, window=9,
+                                        q_offset=11, k_offset=3)
+    np.testing.assert_allclose(shifted.numpy(), whole[:, 11:].numpy(), atol=2e-6, rtol=0)
+
+
 def test_chunked_attention_noncausal_matches_reference(ref):
     q, k, v = (_normal((1, 48, 2, 16), 40 + i) for i in range(3))
     want = ref.layers.chunked_attention(*(ref.jnp.asarray(x) for x in (q, k, v)),
@@ -477,5 +530,40 @@ def test_chunked_attention_on_card_is_one_launch(cuda):
     assert tfa.flash_attention_cuda.launches == before + 1
     want = tl.chunked_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=40, q_chunk=32)
     assert float(tfa.bf16_ulps(got.cpu(), want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
-    with pytest.raises(NotImplementedError):
-        tl.chunked_attention(q, k, v, causal=False, window=40)
+    # a window without causality: one launch per query chunk on its key slice
+    before = tfa.flash_attention_cuda.launches
+    got = tl.chunked_attention(q, k, v, causal=False, window=40, q_chunk=32)
+    assert tfa.flash_attention_cuda.launches == before + 3
+    want = tl.chunked_attention(q.cpu(), k.cpu(), v.cpu(), causal=False, window=40, q_chunk=32)
+    assert float(tfa.bf16_ulps(got.cpu(), want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,kv,dh,window,q_chunk,dtype",
+    [
+        (1, 2048, 8, 2, 128, 300, 512, torch.bfloat16),  # the wgmma route
+        (2, 2048, 8, 2, 32, 300, 512, torch.float32),  # the SIMT route
+        (1, 1000, 4, 1, 64, 700, 200, torch.bfloat16),  # widened first slices
+    ],
+)
+def test_window_without_causality_kernel_matches_plain_cuda(cuda, b, s, h, kv, dh, window,
+                                                            q_chunk, dtype):
+    """Each chunk's launch with its offsets against the plain version on the
+    same chunk and offsets."""
+    q, k, v = _card_case(cuda, b, s, s, h, kv, dh, dtype, s + window)
+    slices = tl.window_slices(s, s, window, q_chunk)
+    tops.reset_launch_counts()
+    got = tl.chunked_attention(q, k, v, causal=False, window=window, q_chunk=q_chunk)
+    route = tfa.flash_route(dtype, dh)
+    assert tfa.flash_attention_cuda.route_launches[route] == len(slices)
+    want = torch.cat([
+        tfa.flash_attention_plain(q[:, q0:q0 + n], k[:, k0:k0 + span], v[:, k0:k0 + span],
+                                  causal=False, window=window, q_offset=q0, k_offset=k0)
+        for q0, n, k0, span in slices], dim=1)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0

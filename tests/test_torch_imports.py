@@ -35,7 +35,11 @@ def test_scan_covers_the_package():
     for module in ("api/registry", "api/session", "api/backends", "api/sweep", "api/batch",
                    "core/fednl_batch", "comm/transport", "comm/wire", "comm/protocol",
                    "comm/cost", "comm/star", "comm/star_pp", "comm/topology",
-                   "launch/multiproc", "obs/__init__", "obs/core", "obs/export"):
+                   "launch/multiproc", "obs/__init__", "obs/core", "obs/export",
+                   "api/specwire", "serve_fednl/__init__", "serve_fednl/engine",
+                   "serve_fednl/scheduler", "serve_fednl/spill", "serve_fednl/tenant",
+                   "gateway/__init__", "gateway/protocol", "gateway/server", "gateway/client",
+                   "launch/gateway_serve"):
         assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
@@ -55,7 +59,11 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "repro_torch.serving, repro_torch.launch.serve, repro_torch.train, "
         "repro_torch.api.session, repro_torch.api.sweep, repro_torch.api.batch, "
         "repro_torch.api.backends, repro_torch.core.fednl_batch, repro_torch.comm.transport, "
-        "repro_torch.obs, repro_torch.comm.topology, repro_torch.launch.multiproc\n"
+        "repro_torch.obs, repro_torch.comm.topology, repro_torch.launch.multiproc, "
+        "repro_torch.api.specwire, repro_torch.serve_fednl, repro_torch.gateway, "
+        "repro_torch.launch.gateway_serve\n"
+        "from repro_torch.core.fednl_batch import BatchRoundTable\n"
+        "assert repro_torch.api.encode_spec is repro_torch.api.specwire.encode_spec\n"
         "assert repro_torch.api.TopologySpec is repro_torch.comm.topology.TopologySpec\n"
         "assert repro_torch.api.list_backends() == "
         "['local', 'sharded', 'star-loopback', 'star-tcp']\n"

@@ -292,10 +292,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_public_names_are_the_reference_but_what_waits():
-    """specwire (ROADMAP A12) waits; the topology specs are lazy attributes,
-    as the reference's."""
-    waiting = {"SPEC_WIRE_VERSION", "decode_spec", "encode_spec"}
-    assert set(tapi.__all__) == set(japi.__all__) - waiting
+    """Nothing waits now that specwire is ported; the topology specs are lazy
+    attributes, as the reference's."""
+    assert set(tapi.__all__) == set(japi.__all__)
     assert all(hasattr(tapi, name) for name in tapi.__all__)
 
 
