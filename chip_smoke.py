@@ -5,7 +5,8 @@ inference path (granite-3-2b), sweeps (solve_many's batched groups),
 sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
-and the serving engine with its gateway (FedNLServer, GatewayServer).
+the serving engine with its gateway (FedNLServer, GatewayServer), and the
+sharded backend over torch.distributed.
 
     python3 chip_smoke.py
 
@@ -157,6 +158,28 @@ raises, and the script exits non-zero without the final line.
              returning engine.* series, tick latencies; (f) ms per tick and
              tenant-rounds per second of an 8-slot group beside phase 8's
              group, a profiled tick, the state stack and unstack
+ 13 sharded the sharded backend at w8a's whole shape on a world of one (this
+             process, NCCL on the card), each part's launch counts set to 0
+             before it and read after: (a) dense_psum, TopK, 10 rounds,
+             against the card's local solve: grad norms within 1e-8 * norm
+             + 1e-16 where >= 1e-12, sent_elems and the three bit counts
+             exact, SYRK once a round (+ the warm-up round and init) and
+             select_topk once a round (+ warm-up), nothing else; (b)
+             sparse_allgather the same through select_topk_idx, also
+             against the CPU run of the port; a round of each under
+             set_sync_debug_mode("error"), H^2 - H^1's support equal to
+             the CPU's (round 0 changes nothing under hess0="exact"), 3
+             rounds of each under torch.profiler; (c) RandSeqK and RandK
+             under sparse_allgather, 3 rounds, against the CPU: every
+             client's index set every round, bits, grad norms, launches
+             (RandK: f32 threefry and TopK by keys' index form once a
+             round); (d) a sparse_allgather session stepped 3, saved,
+             restored, run to 10, bit for bit (b)'s run, its FNLS1 file
+             byte-stable and resumed on the CPU; select_topk_idx at (142, T)
+             against its plain version, timed; ms per round beside local's;
+             sharded_uplink_bits and each collective's bytes per rank (at a
+             world of one a copy on the card: the port's path, not a
+             network)
 Phase 3 also checks a window without causality through
 ``models.layers.chunked_attention`` (S = 2,048, q_chunk 512, window 300:
 one launch per query chunk on its key slice) on both flash routes, bf16 at
@@ -256,6 +279,9 @@ EVICT_ROUNDS, EVICT_AT = 10, 3  # (c)
 SOLO_STAR_ROUNDS, SOLO_PP_ROUNDS = 3, 5  # (d)
 GATEWAY_ROUNDS = 20  # (e)
 TICK_REPS = 10  # (f) ticks timed of an 8-slot group
+# phase 13: the sharded backend at w8a, a world of one
+SHARDED_ROUNDS = 10  # (a) dense_psum, (b) sparse_allgather, (d) the session
+SHARDED_RANDOM_ROUNDS = 3  # (c) RandSeqK and RandK under sparse_allgather
 
 
 def emit(obj) -> None:
@@ -2017,6 +2043,238 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
+def sharded_phase(ops, dev, local_ms_per_round: float) -> dict:
+    """Phase 13: the sharded backend at w8a's whole shape on a world of one
+    (NCCL on the card, rank 0 in this process).  (a) dense_psum, TopK, 10
+    rounds, against the card's local solve; (b) sparse_allgather through
+    the index form against the CPU run of the port, and the support of
+    H^2 - H^1 against the CPU's; each with exact launch counts and a round
+    under set_sync_debug_mode("error"); (c) RandSeqK and RandK under
+    sparse_allgather, 3 rounds, against the CPU run: every client's index
+    set every round, bits, grad norms; (d) a sparse_allgather session
+    stepped 3, saved, restored and run to 10, bit for bit (b)'s run, its
+    FNLS1 file resumed on the CPU; then the index form timed at (142, T).
+    Returns each part's launches and the batched index form's figures."""
+    import torch
+    import torch.distributed
+
+    from repro_torch.api import (
+        CompressorSpec, DataSpec, ExperimentSpec, load_state, open_session, save_state, solve)
+    from repro_torch.api.accounting import sharded_uplink_bits
+    from repro_torch.distributed import (
+        make_sharded_fednl_round, shard_problem, sharded_fednl_init, world_of_one)
+    from repro_torch.kernels import compressor_select as tcs
+    from repro_torch.linalg import triu_size
+    from repro_torch.objectives.logreg import logreg_oracles_packed
+
+    t_phase = time.perf_counter()
+    spec = ExperimentSpec(data=DataSpec(dataset="w8a"), rounds=SHARDED_ROUNDS,
+                          backend="sharded", devices=1)
+    z_np = spec.data.build()
+    n_clients, n_i, d = z_np.shape
+    cfg = spec.fednl_config()
+    t_len, k = triu_size(d), cfg.k_for(d)
+    cpu = torch.device("cpu")
+    out: dict = {"launches": {}}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, launch_counts(ops)
+
+    def expected(launches, per_round: tuple, rounds: int, syrk: int) -> dict:
+        want = {name: 0 for name in launches}
+        want.update({name: rounds for name in per_round})
+        want["hessian_syrk_packed"] = syrk
+        return want
+
+    def bits_of(rep) -> dict:
+        return {col: [getattr(r, col) for r in rep.records]
+                for col in ("sent_elems", "sent_bits", "sent_bits_payload", "sent_bits_wire")}
+
+    # (a), (b): solve() on the card, the counts set to 0 before each
+    local = solve(spec.replace(backend="local"), z=z_np, device=dev)
+    reps = {}
+    for agg, kernel in (("dense_psum", "select_topk"), ("sparse_allgather", "select_topk_idx")):
+        path_spec = spec.replace(aggregate=agg)
+        rep, launches = counted(lambda: solve(path_spec, z=z_np, device=dev))
+        # every round and the warm-up round; SYRK also at init
+        want = expected(launches, (kernel,), SHARDED_ROUNDS + 1, SHARDED_ROUNDS + 2)
+        check(launches == want, f"sharded {agg}: launches {launches}, want {want}")
+        check(rep.rounds == SHARDED_ROUNDS and bool(np.all(np.isfinite(rep.grad_norms))),
+              f"sharded {agg}: grad norms {rep.grad_norms}")
+        check(rep.extras == {"devices": 1, "aggregate": agg, "device": local.extras["device"]},
+              f"sharded {agg}: extras {rep.extras}")
+        against = {"local_card": local}
+        if agg == "sparse_allgather":
+            against["sharded_cpu"] = solve(path_spec, z=z_np, device="cpu")
+        rel = {}
+        for name, ref in against.items():
+            rel[name] = _rel(rep.grad_norms, ref.grad_norms, STAR_GN_FLOOR).tolist()
+            check(_norms_close(rep.grad_norms, ref.grad_norms),
+                  f"sharded {agg} vs {name}: grad norms differ {rel[name]}")
+            check(bits_of(rep) == bits_of(ref), f"sharded {agg} vs {name}: bits differ")
+        reps[agg] = rep
+        out["launches"][agg] = launches
+        emit({"phase": "sharded", "part": "a" if agg == "dense_psum" else "b",
+              "spec": f"w8a sharded {agg} topk rounds={SHARDED_ROUNDS} devices=1",
+              "device": rep.extras["device"], "launches": launches,
+              "grad_norms": rep.grad_norms.tolist(), "rel_err_above_floor": rel,
+              "floor": STAR_GN_FLOOR, "rtol": TRAJECTORY_RTOL, "atol": STAR_GN_ATOL,
+              "bits_exact_vs": sorted(against), "sent_bits": rep.sent_bits.tolist(),
+              "bitwise_vs_local": bool(np.array_equal(rep.grad_norms, local.grad_norms)),
+              "init_time_s": rep.init_time_s, "ms_per_round": rep.wall_time_s / rep.rounds * 1e3,
+              "local_ms_per_round": local.wall_time_s / local.rounds * 1e3,
+              "phase4_local_ms_per_round": local_ms_per_round})
+
+    # function-level rounds on a device: the states (for the messages'
+    # supports) and the metrics
+    world_of_one(dev)
+
+    def rounds_on(device, agg: str, comp_cfg, rounds: int):
+        z = shard_problem(z_np, device=device)
+        st = sharded_fednl_init(z, comp_cfg, seed=spec.seed)
+        round_fn = make_sharded_fednl_round(z, comp_cfg, aggregate=agg)
+        states, metrics = [st], []
+        for _ in range(rounds):
+            st, m = round_fn(st)
+            states.append(st)
+            metrics.append(m)
+        return round_fn, states, metrics
+
+    # round 1 (the second: round 0's corrections are 0 under hess0="exact")
+    # under set_sync_debug_mode("error"); sparse_allgather's H^2 - H^1 support
+    syncs = {}
+    for agg in ("dense_psum", "sparse_allgather"):
+        round_fn, states, _ = rounds_on(dev, agg, cfg, 1)  # round 0 also builds NCCL's communicator
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st2, _ = round_fn(states[-1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs[agg] = 0
+        if agg == "sparse_allgather":
+            card_support = (st2.h_global != states[1].h_global).cpu()
+            x1, h1 = states[1].x, states[1].h_local
+        emit({"phase": "trace", "path": f"sharded {agg} topk (world of one)",
+              **trace_rounds(round_fn, st2, 3)})
+        del round_fn, states, st2
+    _, cpu_states, _ = rounds_on(cpu, "sparse_allgather", cfg, 2)
+    cpu_support = cpu_states[2].h_global != cpu_states[1].h_global
+    del cpu_states
+    check(bool(card_support.any()) and torch.equal(card_support, cpu_support),
+          "sparse_allgather: the support of H^2 - H^1 differs from the CPU's")
+    emit({"phase": "sharded", "part": "syncs_and_support", "host_syncs_per_round": syncs,
+          "sync_debug_mode": "error", "support_h2_minus_h1": int(card_support.sum()),
+          "support_equal_to_cpu": True})
+
+    # (c) RandSeqK and RandK under sparse_allgather, card against CPU
+    for comp, per_round in (("randseqk", ("select_randseqk",)),
+                            ("randk", ("threefry_uniform", "threefry_uniform_float32",
+                                       "select_topk_by_keys_idx"))):
+        comp_cfg = spec.replace(compressor=CompressorSpec(comp)).fednl_config()
+        (_, card_st, card_m), launches = counted(
+            lambda: rounds_on(dev, "sparse_allgather", comp_cfg, SHARDED_RANDOM_ROUNDS))
+        want = expected(launches, per_round, SHARDED_RANDOM_ROUNDS, SHARDED_RANDOM_ROUNDS + 1)
+        check(launches == want, f"sharded {comp}: launches {launches}, want {want}")
+        _, cpu_st, cpu_m = rounds_on(cpu, "sparse_allgather", comp_cfg, SHARDED_RANDOM_ROUNDS)
+        sets = 0
+        for r in range(1, SHARDED_RANDOM_ROUNDS):  # round 0 sends zeros
+            card_sets = (card_st[r + 1].h_local != card_st[r].h_local).cpu()
+            check(torch.equal(card_sets, cpu_st[r + 1].h_local != cpu_st[r].h_local),
+                  f"sharded {comp} round {r}: the clients' index sets differ from the CPU's")
+            sets += int(card_sets.sum())
+        for col in ("sent_elems", "sent_bits", "sent_bits_payload", "sent_bits_wire"):
+            check([int(getattr(m, col)) for m in card_m] == [int(getattr(m, col)) for m in cpu_m],
+                  f"sharded {comp}: {col} differ from the CPU's")
+        gn = np.array([float(m.grad_norm) for m in card_m])
+        gn_cpu = np.array([float(m.grad_norm) for m in cpu_m])
+        check(_norms_close(gn, gn_cpu), f"sharded {comp}: grad norms {gn} vs CPU {gn_cpu}")
+        out["launches"][f"sparse_allgather_{comp}"] = launches
+        emit({"phase": "sharded", "part": "c", "compressor": comp, "rounds": SHARDED_RANDOM_ROUNDS,
+              "launches": launches, "index_sets_exact": True, "entries_sent": sets,
+              "grad_norms": gn.tolist(), "cpu_grad_norms": gn_cpu.tolist(),
+              "sent_bits": [int(m.sent_bits) for m in card_m]})
+        del card_st, cpu_st
+
+    # (d) a session: step 3, save, restore, run to 10; the file on the CPU
+    sparse_spec = spec.replace(aggregate="sparse_allgather")
+    where = ROOT / "build" / "chip_smoke"
+    where.mkdir(parents=True, exist_ok=True)
+    path, again = where / "w8a_sharded.fnlsess", where / "w8a_sharded_again.fnlsess"
+    with open_session(sparse_spec, z=z_np, device=dev) as s:
+        s.step(SESSION_SAVE_AT)
+        s.save(path)
+        stepped = s.run()
+    with open_session(sparse_spec, z=z_np, restore=path, device=dev) as s:
+        check(s.round == SESSION_SAVE_AT, f"sharded session restored at round {s.round}")
+        resumed = s.run()
+    for label, got in (("stepped", stepped), ("restored", resumed)):
+        check(_records_bitwise(got, reps["sparse_allgather"]),
+              f"sharded session {label} != the uninterrupted run")
+    save_state(load_state(path), again)
+    check(path.read_bytes() == again.read_bytes(), "sharded FNLS1 load -> save changed the bytes")
+    with open_session(sparse_spec, z=z_np, restore=path, device="cpu") as s:
+        (cpu_rec,) = s.step(1)
+    card_rec = reps["sparse_allgather"].records[SESSION_SAVE_AT]
+    check(cpu_rec.sent_bits == card_rec.sent_bits
+          and _norms_close([cpu_rec.grad_norm], [card_rec.grad_norm]),
+          f"sharded FNLS1 on the CPU: round {SESSION_SAVE_AT} {cpu_rec} vs {card_rec}")
+    emit({"phase": "sharded", "part": "d", "saved_at": SESSION_SAVE_AT,
+          "stepped_bitwise": True, "restored_bitwise": True, "fnls1_bytes": path.stat().st_size,
+          "fnls1_round_trip_byte_identical": True,
+          "cpu_resumed_round": {"grad_norm": cpu_rec.grad_norm, "card": card_rec.grad_norm}})
+    path.unlink()
+    again.unlink()
+
+    # the index form at the sparse path's shape: all the clients' round-1 corrections
+    u = (logreg_oracles_packed(shard_problem(z_np, device=dev), x1, cfg.lam)[2] - h1).contiguous()
+    got, want = tcs.select_topk_idx_cuda(u, k), tcs.select_topk_idx_plain(u, k)
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          f"select_topk_idx: sent or idx differ from the plain version at ({n_clients}, {t_len})")
+    check(bits_equal(got[0], want[0]), "select_topk_idx: u_hat differs at the sharded shape")
+    keys = u.abs().float()
+    ms = median_ms({
+        "kernel": lambda: tcs.select_topk_idx_cuda(u, k),
+        "plain": lambda: tcs.select_topk_idx_plain(u, k),
+        "dense_form": lambda: tcs.select_topk_cuda(u, k),
+        "library": lambda: torch.topk(keys, k, dim=-1),
+    })
+    bnd = bound(u.numel() * 16 + n_clients * (k * 4 + 4), SELECT_OPS_PER_KEY * u.numel(),
+                CUDA_CORE_32BIT_OPS)
+    out["idx_batched"] = {"shape": [n_clients, t_len], "k": k,
+                          "max_abs_err": (got[0] - want[0]).abs().max().item(), **ms,
+                          "bound_ms": bnd[0], "bound_by": bnd[1]}
+    del u, keys, got, want, x1, h1
+    emit({"phase": "sharded", "part": "index_form_batched", **out["idx_batched"],
+          "note": f"ms per call: median over {TIMED_REPS} event pairs around {CALLS_PER_EVENT} "
+                  "calls; dense_form = select_topk on the same rows; library = torch.topk on "
+                  "the same f32 keys"})
+
+    collective_bytes = {  # per rank per round
+        "dense_psum": {"all_reduce_f64": (t_len + d + 2) * 8, "all_reduce_i64": 3 * 8},
+        "sparse_allgather": {"all_gather_idx_i32": n_clients * k * 4,
+                             "all_gather_vals_f64": n_clients * k * 8,
+                             "all_reduce_f64": (d + 2) * 8, "all_reduce_i64": 3 * 8},
+    }
+    emit({"phase": "sharded", "part": "summary",
+          "ms_per_round": {agg: r.wall_time_s / r.rounds * 1e3 for agg, r in reps.items()},
+          "local_ms_per_round": local.wall_time_s / local.rounds * 1e3,
+          "phase4_local_ms_per_round": local_ms_per_round,
+          "sharded_uplink_bits": {agg: sharded_uplink_bits(agg, t_len, k, n_clients)
+                                  for agg in collective_bytes},
+          "collective_bytes_per_rank": collective_bytes,
+          "seconds": time.perf_counter() - t_phase,
+          "note": "a world of one: each collective is a copy on the card, so the phase "
+                  "measures the port's path, not a network"})
+    torch.distributed.destroy_process_group()  # the world of one ends with the phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2655,6 +2913,9 @@ def main() -> int:
     serve = serve_phase(ops, dev, sweep)
     emit({"phase": "serve", "seconds": time.perf_counter() - t_serve})
 
+    # --- 13 the sharded backend: a world of one on NCCL --------------------
+    sharded = sharded_phase(ops, dev, rep.wall_time_s / rep.rounds * 1e3)
+
     kernels = [
         {
             "name": "hessian_syrk_packed", "route": "cuda",
@@ -2776,6 +3037,11 @@ def main() -> int:
                                       for part, counts in topo.items()}
     for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
         entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
+    for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it
+        entry["sharded_launches"] = {part: counts.get(entry["name"], 0)
+                                     for part, counts in sharded["launches"].items()}
+        if entry["name"] == "select_topk_idx":  # the sparse path's (142, T) shape
+            entry["sharded_shape"] = sharded["idx_batched"]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({

@@ -7,6 +7,8 @@
            / ``pp_frame_bits``)
 
 Both map per-client ``sent_elems`` to int64 bits, exactly.
+:func:`sharded_uplink_bits` models what the sharded backend's collective
+moves.
 """
 
 from __future__ import annotations
@@ -14,9 +16,28 @@ from __future__ import annotations
 from typing import Callable
 
 from repro_torch.comm.wire import frame_bits, pp_frame_bits, pp_message_bits
-from repro_torch.compressors.core import Compressor, message_bits
+from repro_torch.compressors.core import FP_BITS, IDX_BITS, Compressor, message_bits
 
 ACCOUNTINGS = ("payload", "wire")
+
+SHARDED_AGGREGATES = ("dense_psum", "sparse_allgather")
+
+
+def sharded_uplink_bits(aggregate: str, t: int, k: int, n_clients: int) -> int:
+    """Per-round uplink bits of the sharded round's collective, a closed-form
+    model: ``dense_psum`` all-reduces the whole packed upper triangle (T
+    FP64 words a client), ``sparse_allgather`` gathers each client's k
+    ``(int32 idx, FP64 val)`` pairs.  The round itself reports the
+    compressor's payload and wire bits, as the reference's does."""
+    if aggregate == "dense_psum":
+        per_client = t * FP_BITS
+    elif aggregate == "sparse_allgather":
+        per_client = k * (FP_BITS + IDX_BITS)
+    else:
+        raise ValueError(
+            f"unknown aggregate {aggregate!r}; use {' | '.join(SHARDED_AGGREGATES)}"
+        )
+    return per_client * n_clients
 
 
 def payload_bits_fn(comp: Compressor, d: int, pp: bool = False) -> Callable:

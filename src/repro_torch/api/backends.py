@@ -15,8 +15,10 @@ same handle, so the streaming path is the batch path.
   star-tcp       a master and one process per client over TCP localhost
                  (``repro_torch.launch.multiproc``); the workers rebuild their
                  shards from ``spec.data``.
-  sharded        registered with the reference's flags and refused by
-                 ``check_spec`` (not ported: ROADMAP A13).
+  sharded        the clients sharded across ranks over ``torch.distributed``
+                 (``repro_torch.distributed``): a world of one in this
+                 process (NCCL on the card, gloo on the CPU), or ``devices``
+                 spawned ranks; ``aggregate`` picks the collective.
 
 A star session restored from a checkpoint rebuilds its clients by replaying
 the recorded broadcasts through the protocol (no client state is saved); the
@@ -26,7 +28,7 @@ Capability matrix (``Backend.supports``), as in the reference:
 
   backend        fednl  fednl-ls  fednl-pp
   local            x       x         x
-  sharded          x       -         -     (not ported: A13)
+  sharded          x       -         -
   star-loopback    x       -         x
   star-tcp         x       -         x
 """
@@ -47,7 +49,13 @@ from repro_torch.api.registry import (
     register_backend,
 )
 from repro_torch.api.report import RoundRecord
-from repro_torch.core.fednl import fednl_init, make_fednl_round, state_from_numpy, state_to_numpy
+from repro_torch.core.fednl import (
+    FedNLState,
+    fednl_init,
+    make_fednl_round,
+    state_from_numpy,
+    state_to_numpy,
+)
 from repro_torch.core.fednl_batch import make_fednl_batch_round, make_fednl_ls_batch_round
 from repro_torch.core.fednl_ls import make_fednl_ls_round
 from repro_torch.core.fednl_pp import fednl_pp_init, make_fednl_pp_round, server_model
@@ -100,15 +108,19 @@ def state_arrays(state, prefix: str = "state.") -> dict[str, np.ndarray]:
     return state_to_numpy(state, prefix=prefix)
 
 
-def restored_state(state0, restore, device, prefix: str = "state."):
-    """Rebuild a state of ``state0``'s type from checkpoint arrays on
-    ``device`` (``state0``, a freshly initialized state, is the template)."""
-    missing = [f for f in state0._fields if prefix + f not in restore.arrays]
+def _check_restore_arrays(fields, restore, prefix: str = "state.") -> None:
+    missing = [f for f in fields if prefix + f not in restore.arrays]
     if missing:
         raise ValueError(
             f"checkpoint is missing state arrays {missing} for backend "
             f"{restore.backend!r} (truncated or foreign checkpoint?)"
         )
+
+
+def restored_state(state0, restore, device, prefix: str = "state."):
+    """Rebuild a state of ``state0``'s type from checkpoint arrays on
+    ``device`` (``state0``, a freshly initialized state, is the template)."""
+    _check_restore_arrays(state0._fields, restore, prefix)
     return state_from_numpy(restore.arrays, device, prefix=prefix, state_type=type(state0))
 
 
@@ -150,8 +162,12 @@ def pp_round_record(r: int, m: dict) -> RoundRecord:
 
 def metric_rows(metrics: list) -> list[dict]:
     """Per-round metrics tuples -> host rows, one copy per column."""
-    cols = metric_columns(metrics)
-    return [{name: col[i] for name, col in cols.items()} for i in range(len(metrics))]
+    return _rows_of(metric_columns(metrics), len(metrics))
+
+
+def _rows_of(cols: dict, n: int) -> list[dict]:
+    """Host columns by name -> ``n`` rows."""
+    return [{name: col[i] for name, col in cols.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -506,35 +522,87 @@ class StarTCPBackend(Backend):
 
 
 # ---------------------------------------------------------------------------
-# registered, not ported: the reference's flags, refused by check_spec
+# sharded: clients sharded across ranks (repro_torch.distributed)
 # ---------------------------------------------------------------------------
 
 
-class _NotPortedBackend(Backend):
+class _ShardedSessionHandle(SessionHandle):
+    """The sharded round at round granularity.  A world of one is this
+    process (rank 0 of a default group of one: NCCL on the card, gloo on
+    the CPU); ``devices > 1`` spawns that many ranks, driven over pipes
+    (``repro_torch.distributed.ShardedWorld``).  Each steps the local
+    handle's loop: init, a warm-up round outside the clock, chunks with one
+    host sync each.  A snapshot gathers ``h_local`` to rank 0, so the FNLS1
+    arrays are the reference's; a restore gives each rank its block."""
+
+    def __init__(self, spec, algo: Algorithm, z, x0, restore=None, device=None):
+        from repro_torch.compressors import get_compressor
+        from repro_torch.distributed import ShardedWorld, ShardRunner, world_of_one, world_size_for
+        from repro_torch.distributed.fednl_shard import check_shardable
+        from repro_torch.linalg import triu_size
+
+        self._spec = spec
+        self._device = device = resolve_device(device)
+        cfg = spec.fednl_config()
+        n_clients, _, d = z.shape
+        self._n_dev = n_dev = world_size_for(spec.devices, device)
+        check_shardable(n_clients, n_dev, get_compressor(cfg.compressor, triu_size(d), cfg.k_for(d)),
+                        spec.aggregate)
+        arrays = None
+        if restore is not None:
+            _check_restore_arrays(FedNLState._fields, restore)
+            arrays = restore.arrays
+        self.round = int(restore.round) if restore is not None else 0
+        self.wall_time_s = 0.0
+        if n_dev == 1:
+            world_of_one(device)
+            self._shards = ShardRunner(z, cfg, seed=spec.seed, aggregate=spec.aggregate,
+                                       device=device, restore=arrays)
+        else:
+            self._shards = ShardedWorld(z, cfg, n_dev, device.type, seed=spec.seed,
+                                        aggregate=spec.aggregate, restore=arrays)
+        self.init_time_s = self._shards.init_time_s
+
+    def step_rounds(self, n: int) -> list[RoundRecord]:
+        t1 = time.perf_counter()
+        cols = self._shards.step(n)
+        self.wall_time_s += time.perf_counter() - t1
+        r0 = self.round
+        self.round += n
+        return [full_round_record(r0 + i, row) for i, row in enumerate(_rows_of(cols, n))]
+
+    def snapshot(self) -> tuple[dict, dict[str, np.ndarray]]:
+        return {"kind": "full"}, self._shards.snapshot()
+
+    def finalize(self) -> dict:
+        return {
+            "x": self._shards.x(),
+            "extras": {"devices": self._n_dev, "aggregate": self._spec.aggregate,
+                       "device": device_name(self._device)},
+        }
+
+    def close(self) -> None:
+        self._shards.close()
+
+
+class ShardedBackend(Backend):
+    name = "sharded"
     supports_sessions = True
 
-    def __init__(self, name: str, item: str, algos: tuple, **flags):
-        self.name = name
-        self.not_ported = item
-        self._algos = algos
-        for flag, value in flags.items():
-            setattr(self, flag, value)
-
     def supports(self, algo: Algorithm) -> bool:
-        # identity, not name: a re-registered custom "fednl" is not the
-        # protocol these backends speak
-        return any(algo is a for a in self._algos)
+        # identity, not name: this backend drives make_sharded_fednl_round
+        # itself, so a re-registered custom "fednl" would silently run the
+        # built-in algorithm instead of its own round
+        return algo is FEDNL  # no sharded LS/PP round builder, as in the reference
 
     def open(self, spec, algo: Algorithm, z, x0, restore=None, device=None) -> SessionHandle:
-        raise NotImplementedError(
-            f"backend {self.name!r} is not ported (ROADMAP {self.not_ported})"
-        )
+        return _ShardedSessionHandle(spec, algo, z, x0, restore=restore, device=device)
 
 
 # bound instances: the sweep engine checks identity against LOCAL_BACKEND
 # (an overwritten "local" registration must not be batched around)
 LOCAL_BACKEND = register_backend(LocalBackend())
-SHARDED_BACKEND = register_backend(_NotPortedBackend("sharded", "A13", (FEDNL,)))
+SHARDED_BACKEND = register_backend(ShardedBackend())
 STAR_LOOPBACK_BACKEND = register_backend(StarLoopbackBackend())
 STAR_TCP_BACKEND = register_backend(StarTCPBackend())
 

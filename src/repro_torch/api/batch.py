@@ -10,8 +10,11 @@ Plans (batch mode "auto"), by the reference's rules:
           group's S * n clients, one selection launch per compressor branch,
           one threefry launch per uniform dtype, the master's solves batched.
           A group past the SYRK kernel's grid (65,535 clients) is split, and
-          the log says so.  On one card the spec axis is not sharded
-          (``devices: 1``).
+          the log says so.  Over several cards a group's stacked specs split
+          into contiguous shards, one per card (the largest card count that
+          divides the group, ``launch/mesh.py``), each running the same
+          round with no collective; one card or the CPU keeps the group
+          whole (``devices: 1``).
   warm    local specs that differ only in ``rounds`` share one trajectory
           prefix: one session steps to each round count and reports there,
           bit-identical to per-spec solves (step composability).
@@ -32,12 +35,14 @@ kernel that fails to build or launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.api.registry import Algorithm, get_algorithm, get_backend
 from repro_torch.api.report import RunReport, SweepReport
@@ -252,6 +257,7 @@ def _run_batched_group(
     from repro_torch.api.backends import full_round_record, metric_rows
     from repro_torch.core.runner import RoundLoop
     from repro_torch.device import device_name
+    from repro_torch.launch.mesh import make_sweep_mesh, sweep_devices_available, sweep_mesh_devices
 
     d, n, _ = specs[idxs[0]].data.dims()
     cap = MAX_GROUP_CLIENTS // n
@@ -268,41 +274,57 @@ def _run_batched_group(
     keys, _ = branch_order([specs[i] for i in idxs], d)
     order = sorted(idxs, key=lambda i: keys.index(_branch_key(specs[i], d)))
     ordered = [specs[i] for i in order]
-    if vectorize == "scan" or all(spec.data == ordered[0].data for spec in ordered):
-        z = z_for(ordered[0])
-    else:
-        z = np.stack([z_for(spec) for spec in ordered])
-
-    def start(zd):
-        group = make_group(ordered, zd, vectorize)
-        return group.state, group.round_fn
-
-    # the sequential runner's loop: init, a warm-up round outside the clock,
-    # then all the rounds as one chunk
-    loop = RoundLoop(z, device, start)
     rounds = ordered[0].rounds
     s_count = len(ordered)
-    metrics = loop.step(rounds)
-    init_s, wall = loop.init_time_s, loop.wall_time_s
+    # contiguous shards of the ordered specs, one per device, each running
+    # the same round with no collective (one shard on one card or the CPU)
+    n_dev = sweep_mesh_devices(s_count, sweep_devices_available(device))
+    per = s_count // n_dev
+    shards = [ordered[i * per:(i + 1) * per] for i in range(n_dev)]
+
+    def shard_z(shard):
+        if vectorize == "scan" or all(spec.data == shard[0].data for spec in shard):
+            return z_for(shard[0])
+        return np.stack([z_for(spec) for spec in shard])
+
+    def run_shard(shard, z, dev):
+        def start(zd):
+            group = make_group(shard, zd, vectorize)
+            return group.state, group.round_fn
+
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            # the sequential runner's loop: init, a warm-up round outside the
+            # clock, then all the rounds as one chunk
+            loop = RoundLoop(z, dev, start)
+            rows = metric_rows(loop.step(rounds))  # per round: (per,) host arrays by name
+            return rows, loop.state.x.cpu().numpy(), loop.init_time_s, loop.wall_time_s
+
+    zs = [shard_z(shard) for shard in shards]  # built here: z_for's cache is not shared
+    if n_dev == 1:
+        results = [run_shard(shards[0], zs[0], device)]
+    else:
+        with ThreadPoolExecutor(max_workers=n_dev) as pool:
+            results = list(pool.map(run_shard, shards, zs, make_sweep_mesh(n_dev, device)))
+    init_s = max(r[2] for r in results)
+    wall = max(r[3] for r in results)
 
     log.append(
         f"batched {s_count} specs as one group: {ordered[0].algorithm}, "
         f"{len(keys)} compressor branch(es), {rounds} rounds, "
-        f"{s_count * n} clients a SYRK launch, vectorize={vectorize}, devices=1 "
+        f"{per * n} clients a SYRK launch, vectorize={vectorize}, devices={n_dev} "
         f"(init {init_s:.2f}s, run {wall:.2f}s)"
     )
-    rows = metric_rows(metrics)  # per round: (S,) host arrays by name
-    x_final = loop.state.x.cpu().numpy()
     where = device_name(device)
     out = {}
     for b, (i, spec) in enumerate(zip(order, ordered)):
-        records = [full_round_record(r, {k: v[b] for k, v in row.items()})
+        rows, x_final = results[b // per][0], results[b // per][1]
+        records = [full_round_record(r, {k: v[b % per] for k, v in row.items()})
                    for r, row in enumerate(rows)]
         out[i] = RunReport(
             spec=spec,
             algorithm=spec.algorithm,
             backend=spec.backend,
-            x=x_final[b],
+            x=x_final[b % per],
             records=records,
             rounds=rounds,
             wall_time_s=wall / s_count,
@@ -314,7 +336,7 @@ def _run_batched_group(
                 "batch_wall_time_s": wall,
                 "batch_init_time_s": init_s,
                 "vectorize": vectorize,
-                "devices": 1,
+                "devices": n_dev,
                 "compressor_branch": _branch_key(spec, d)[0],
             },
         )
@@ -330,6 +352,7 @@ def run_sweep(specs: Sequence, batch_mode: str, sweep: Any, device) -> SweepRepo
     """Plan ``specs`` and run every plan on ``device``."""
     from repro_torch.api.facade import solve
     from repro_torch.api.session import open_session
+    from repro_torch.launch.mesh import sweep_devices_available
 
     t_start = time.perf_counter()
     plans, log = plan_sweep(specs, batch_mode)
@@ -387,6 +410,6 @@ def run_sweep(specs: Sequence, batch_mode: str, sweep: Any, device) -> SweepRepo
             "batched_specs": batched_specs,
             "n_groups": len(plans),
             "n_data_builds": len(z_cache),
-            "devices": 1,
+            "devices": sweep_devices_available(device),
         },
     )

@@ -23,11 +23,7 @@ def check_spec(
 ) -> None:
     """The checks ``solve``, ``open_session`` and ``solve_many`` share, so a
     spec that fails one fails all of them, before anything runs: the
-    reference's capability checks, then what the port cannot run yet."""
-    if backend.not_ported is not None:
-        raise NotImplementedError(
-            f"backend {backend.name!r} is not ported (ROADMAP {backend.not_ported})"
-        )
+    reference's capability checks, then the Hessian path the port lacks."""
     if not backend.supports(algo):
         raise ValueError(
             f"backend {backend.name!r} does not support algorithm {algo.name!r} "
@@ -55,11 +51,6 @@ def check_spec(
             "trees, async aggregation and membership events need a wire "
             "backend (star-loopback / star-tcp) — running the flat sync "
             "star here would silently change the experiment"
-        )
-    if spec.aggregate != "dense_psum" or spec.devices is not None:
-        raise NotImplementedError(
-            f"aggregate={spec.aggregate!r}, devices={spec.devices!r}: the sharded "
-            "collectives are not ported (ROADMAP A13)"
         )
     if spec.hessian_impl == "jnp":
         raise ValueError(

@@ -92,9 +92,7 @@ class Backend:
 
     Subclasses implement :meth:`open` (with ``supports_sessions = True``) or
     the run-to-completion :meth:`run`; ``supports`` says which algorithms
-    the backend can run.  ``not_ported`` names the ROADMAP item of a backend
-    the port registers (so ``list_backends()`` is the reference's) but
-    cannot run yet: ``check_spec`` refuses its specs before anything runs.
+    the backend can run.
     """
 
     name: str = "?"
@@ -103,7 +101,6 @@ class Backend:
     supports_x0: bool = False  # accepts an initial-iterate override
     supports_sessions: bool = False  # implements open() -> SessionHandle
     supports_topology: bool = False  # non-trivial topology / membership
-    not_ported: str | None = None  # ROADMAP item that ports this backend
 
     def supports(self, algo: Algorithm) -> bool:
         return True

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 from typing import Any, Callable
 
@@ -196,8 +197,10 @@ def _record_from_jsonable(d: dict, x: np.ndarray | None) -> RoundRecord:
 
 
 def save_state(state: SessionState, path) -> pathlib.Path:
-    """Write the FNLS1 checkpoint.  Identical SessionStates give identical
-    bytes (sorted JSON keys, hex-exact floats, raw little-endian blobs)."""
+    """Write the FNLS1 checkpoint, atomically: ``path`` holds either its
+    previous content or the whole new file.  Identical SessionStates give
+    identical bytes (sorted JSON keys, hex-exact floats, raw little-endian
+    blobs)."""
     arrays = dict(state.arrays)
     # the per-round PP models ride as one stacked array, not JSON floats
     xs = [r.x for r in state.records if r.x is not None]
@@ -228,13 +231,30 @@ def save_state(state: SessionState, path) -> pathlib.Path:
     }
     hdr = json.dumps(header, sort_keys=True, separators=(",", ":")).encode()
     path = pathlib.Path(path)
-    with open(path, "wb") as f:
-        f.write(_MAGIC)
-        f.write(len(hdr).to_bytes(8, "little"))
-        f.write(hdr)
-        for blob in blobs:
-            f.write(blob)
+    # atomic: the bytes go to a hidden temporary file in the same directory
+    # (no ``*.fnlsess`` glob matches it), reach the disk, and only then take
+    # the final name; a process killed mid-write leaves the previous file
+    # whole and no file under this name
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            _write_fnls1(f, hdr, blobs)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
     return path
+
+
+def _write_fnls1(f, hdr: bytes, blobs: list[bytes]) -> None:
+    """The FNLS1 byte stream: magic, header length, header, array blobs."""
+    f.write(_MAGIC)
+    f.write(len(hdr).to_bytes(8, "little"))
+    f.write(hdr)
+    for blob in blobs:
+        f.write(blob)
 
 
 def load_state(path) -> SessionState:

@@ -4,10 +4,8 @@ Every field of ``repro``'s ``ExperimentSpec``, with the same names, defaults
 and checks, so that a spec -- and an FNLS1 checkpoint, which carries one --
 crosses between the packages; ``topology`` and ``membership`` take the
 port's ``TopologySpec`` and ``MembershipSpec`` (``repro_torch.comm.topology``).
-Fields the port cannot run yet are accepted here and refused by
-``check_spec`` (``solve``, ``open_session``, ``solve_many``) with the
-ROADMAP item that ports them: ``aggregate``, ``devices`` and the
-``sharded`` backend (A13).
+``aggregate`` and ``devices`` shape the ``sharded`` backend only; the
+other backends ignore them, as the reference's do.
 """
 
 from __future__ import annotations
@@ -141,8 +139,8 @@ class ExperimentSpec:
     # --- accounting + execution backend ---------------------------------
     accounting: str = "payload"
     backend: str = "local"
-    aggregate: str = "dense_psum"  # sharded collective (A13)
-    devices: int | None = None  # sharded mesh size (A13)
+    aggregate: str = "dense_psum"  # sharded collective: dense_psum | sparse_allgather
+    devices: int | None = None  # sharded ranks (None -> every card; one on the CPU)
     host: str = "127.0.0.1"  # star-tcp bind address
 
     # --- run control -----------------------------------------------------

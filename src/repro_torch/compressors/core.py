@@ -251,6 +251,10 @@ class Compressor:
     # sweep round draws every row of one dtype in one threefry launch
     entry_uniform: torch.dtype | None = None
     compress_from_uniform: Callable[[torch.Tensor, torch.Tensor], tuple] | None = None
+    # ``compress_sparse(keys, u) -> (idx, vals, sent_elems)``, the batched
+    # (index, value) form of the sparsifiers (TopK, RandK, RandSeqK, TopLEK);
+    # None for the dense ones (Natural, Identity)
+    compress_sparse: Callable[[np.ndarray | None, torch.Tensor], tuple] | None = None
 
 
 def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
@@ -262,20 +266,24 @@ def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
         raise ValueError(f"{name} needs 0 < k <= T, got k={k}, T={t}")
     if name == "topk":
         return Compressor("topk", lambda keys, u: topk(u, k), alpha=1.0, delta=k / t,
-                          bits_per_elem=FP_BITS + IDX_BITS, header_bits=0, k=k)
+                          bits_per_elem=FP_BITS + IDX_BITS, header_bits=0, k=k,
+                          compress_sparse=lambda keys, u: topk_sparse(u, k))
     if name == "randk":
         return Compressor("randk", lambda keys, u: randk(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS, header_bits=FP_BITS,
                           k=k, draws=True, entry_uniform=torch.float32,
-                          compress_from_uniform=lambda u, unif: randk_from_uniform(u, unif, k))
+                          compress_from_uniform=lambda u, unif: randk_from_uniform(u, unif, k),
+                          compress_sparse=lambda keys, u: randk_sparse(keys, u, k))
     if name == "randseqk":
         return Compressor("randseqk", lambda keys, u: randseqk(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS, header_bits=IDX_BITS,
-                          k=k, draws=True)
+                          k=k, draws=True,
+                          compress_sparse=lambda keys, u: randseqk_sparse(keys, u, k))
     if name == "toplek":
         return Compressor("toplek", lambda keys, u: toplek(keys, u, k), alpha=1.0,
                           delta=k / t, bits_per_elem=FP_BITS + IDX_BITS,
-                          header_bits=IDX_BITS, k=k, draws=True)
+                          header_bits=IDX_BITS, k=k, draws=True,
+                          compress_sparse=lambda keys, u: toplek_sparse(keys, u, k))
     if name == "natural":
         return Compressor("natural", lambda keys, u: natural(keys, u), alpha=1.0,
                           delta=8.0 / 9.0, bits_per_elem=NATURAL_BITS, header_bits=0,

@@ -6,7 +6,7 @@ over explicit param dicts.  Attention never materialises (S, S) scores:
 (``kernels/csrc/flash_attention.cu``) and runs CPU tensors through the
 reference's query-chunked softmax, line for line.  The reference's mesh
 plumbing (``constrain``, ``set_sharding_axes``, ``chunked_map``) is not here:
-the sharded backend is ROADMAP A13.
+it waits with the TPU dry-run tooling (ROADMAP A.4).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ step allocates no second cache.  ``cache["pos"]`` is a Python int.
 
 Only the dense family's inference is ported: moe, ssm, hybrid, vlm and
 encdec raise ``NotImplementedError`` naming their ROADMAP item; training
-(``lm_loss``) and the sharding specs are ROADMAP A14 and A13.
+(``lm_loss``) is ROADMAP A14, and the sharding specs wait with the TPU
+dry-run tooling (ROADMAP A.4).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ spans, and export surfaces (Prometheus text, JSONL spans, gateway METRICS).
 
 Quickstart::
 
-    from repro import obs
+    from repro_torch import obs
 
     rec = obs.enable()                 # install a live Recorder
     ... run the engine / gateway ...

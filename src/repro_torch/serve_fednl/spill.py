@@ -20,8 +20,10 @@ opposite directions:
   ``restored_state`` path the local handle uses.
 
 A tenant's new spill supersedes the file of its previous spill (the one it
-was resumed from), which is deleted once the new file is written: the
-newest checkpoint of every spilled or resumed tenant stays on disk, and the
+was resumed from), which is deleted once the new file is written
+(``save_state`` writes atomically, so a process killed mid-spill leaves
+the previous file whole and no file under the new name): the newest
+checkpoint of every spilled or resumed tenant stays on disk, and the
 directory holds one file per tenant, not one per spill (the reference keeps
 every file until shutdown: at w8a's shape a file is 52 MB, and an engine
 under pressure spills a few tenants a tick).

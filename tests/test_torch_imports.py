@@ -39,7 +39,8 @@ def test_scan_covers_the_package():
                    "api/specwire", "serve_fednl/__init__", "serve_fednl/engine",
                    "serve_fednl/scheduler", "serve_fednl/spill", "serve_fednl/tenant",
                    "gateway/__init__", "gateway/protocol", "gateway/server", "gateway/client",
-                   "launch/gateway_serve"):
+                   "launch/gateway_serve", "distributed/__init__", "distributed/fednl_shard",
+                   "distributed/world", "launch/mesh"):
         assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
@@ -51,6 +52,8 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_importing_the_port_loads_no_jax_and_no_kernel():
+    """Importing every module, the sharded backend's included, loads no jax,
+    no repro, no kernel and sets up no process group."""
     code = (
         "import sys, repro_torch, repro_torch.api, repro_torch.core.runner, "
         "repro_torch.kernels.ops, repro_torch.launch.fednl_run, repro_torch.models, "
@@ -61,7 +64,7 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "repro_torch.api.backends, repro_torch.core.fednl_batch, repro_torch.comm.transport, "
         "repro_torch.obs, repro_torch.comm.topology, repro_torch.launch.multiproc, "
         "repro_torch.api.specwire, repro_torch.serve_fednl, repro_torch.gateway, "
-        "repro_torch.launch.gateway_serve\n"
+        "repro_torch.launch.gateway_serve, repro_torch.distributed, repro_torch.launch.mesh\n"
         "from repro_torch.core.fednl_batch import BatchRoundTable\n"
         "assert repro_torch.api.encode_spec is repro_torch.api.specwire.encode_spec\n"
         "assert repro_torch.api.TopologySpec is repro_torch.comm.topology.TopologySpec\n"
@@ -71,6 +74,8 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
         "assert build._library.cache_info().currsize == 0\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
     )
     subprocess.run(
         [sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120,

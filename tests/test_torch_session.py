@@ -72,9 +72,23 @@ def assert_reports_bit_identical(got, want):
 # step composability: step(3) + step(2) == step(5) == solve()
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("algorithm", ["fednl", "fednl-ls", "fednl-pp"])
-def test_step_composability(algorithm):
-    spec = (pp_spec if algorithm == "fednl-pp" else full_spec)(rounds=5)
+# (algorithm, backend overrides): the local backend for the three
+# algorithms, and the sharded backend (a world of one on gloo) for FedNL with
+# both aggregations, as tests/test_session.py adds "sharded"
+SESSION_CASES = [
+    pytest.param("fednl", {}, id="fednl"),
+    pytest.param("fednl-ls", {}, id="fednl-ls"),
+    pytest.param("fednl-pp", {}, id="fednl-pp"),
+    pytest.param("fednl", {"backend": "sharded"}, id="fednl-sharded"),
+    pytest.param("fednl", {"backend": "sharded", "aggregate": "sparse_allgather",
+                           "compressor": CompressorSpec("randseqk")},
+                 id="fednl-sharded-sparse_allgather"),
+]
+
+
+@pytest.mark.parametrize("algorithm,backend", SESSION_CASES)
+def test_step_composability(algorithm, backend):
+    spec = (pp_spec if algorithm == "fednl-pp" else full_spec)(rounds=5, **backend)
     if algorithm == "fednl-ls":
         spec = spec.replace(algorithm="fednl-ls")
     want = solve(spec, device=CPU)
@@ -169,9 +183,10 @@ def test_closed_session_refuses_steps():
 # save -> restore mid-run == uninterrupted run
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("algorithm", ["fednl", "fednl-ls", "fednl-pp"])
-def test_save_restore_midrun(tmp_path, algorithm):
-    spec = pp_spec() if algorithm == "fednl-pp" else full_spec(algorithm=algorithm)
+@pytest.mark.parametrize("algorithm,backend", SESSION_CASES)
+def test_save_restore_midrun(tmp_path, algorithm, backend):
+    spec = pp_spec(**backend) if algorithm == "fednl-pp" else full_spec(algorithm=algorithm,
+                                                                        **backend)
     want = solve(spec, device=CPU)
     ck = tmp_path / "mid.fnlsess"
     with open_session(spec, device=CPU) as s:
@@ -225,6 +240,50 @@ def test_checkpoint_byte_stable(tmp_path, algorithm, comp):
     assert st.spec == spec and st.round == 2 and len(st.records) == 2
     assert st.arrays["state.key"].dtype == np.uint32
     assert st.arrays["state.round"].dtype == np.int64
+
+
+def _torn_writer(f, hdr, blobs):
+    """An FNLS1 write that dies after the magic, as a killed process would."""
+    f.write(b"FNLSESS1")
+    raise OSError("killed mid-write")
+
+
+def test_an_interrupted_save_leaves_no_file_under_its_name(tmp_path, monkeypatch):
+    """save_state is atomic: a write that fails midway leaves neither the
+    final name nor a temporary file, and the earlier checkpoint loads."""
+    with open_session(full_spec(), device=CPU) as s:
+        s.step(2)
+        prev = s.save(tmp_path / "t0000.r2.fnlsess")
+        s.step(1)
+        monkeypatch.setattr(tapi.session, "_write_fnls1", _torn_writer)
+        with pytest.raises(OSError, match="killed mid-write"):
+            s.save(tmp_path / "t0000.r3.fnlsess")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["t0000.r2.fnlsess"]
+    assert load_state(prev).round == 2
+
+
+def test_an_interrupted_spill_keeps_the_previous_spill(tmp_path, monkeypatch):
+    """The serving engine's spill goes through save_state: a spill that
+    fails midway leaves the tenant's previous spill whole, the newest file
+    a resume would pick, and nothing else in the directory."""
+    from repro_torch.serve_fednl import FedNLServer, ServeConfig
+
+    spec = full_spec(rounds=10)
+    with FedNLServer(ServeConfig(spill_dir=tmp_path), device=CPU) as srv:
+        h = srv.submit(spec)
+        for _ in range(3):
+            srv.tick()
+        first = srv.evict(h.id)
+        h2 = srv.resume(first)
+        for _ in range(2):
+            srv.tick()
+        assert h2.round > 3
+        monkeypatch.setattr(tapi.session, "_write_fnls1", _torn_writer)
+        with pytest.raises(OSError, match="killed mid-write"):
+            srv.evict(h2.id)
+        assert sorted(p.name for p in tmp_path.iterdir()) == [first.name]
+        st = load_state(first)
+    assert st.round == 3 and st.spec == spec
 
 
 def test_load_rejects_foreign_files(tmp_path):
@@ -314,15 +373,15 @@ def test_spec_fields_and_defaults_are_the_reference():
 
 @pytest.mark.parametrize(
     "changes,exc,match",
-    [
-        (dict(algorithm="fednl-pp", tau=2, fault=tapi.FaultSpec(drop_prob=0.1)), ValueError,
-         "needs a wire backend"),
-        (dict(aggregate="sparse_allgather"), NotImplementedError, "A13"),
-        (dict(devices=2), NotImplementedError, "A13"),
-        (dict(hessian="jnp"), ValueError, "one Hessian kernel"),
-        (dict(backend="sharded"), NotImplementedError, "A13"),
-        (dict(topology=tapi.TopologySpec(kind="tree")), ValueError,
-         "cannot run a non-trivial topology"),
+    [  # ids as before the sharded cases (changes1, 2 and 4) went
+        pytest.param(dict(algorithm="fednl-pp", tau=2, fault=tapi.FaultSpec(drop_prob=0.1)),
+                     ValueError, "needs a wire backend",
+                     id="changes0-ValueError-needs a wire backend"),
+        pytest.param(dict(hessian="jnp"), ValueError, "one Hessian kernel",
+                     id="changes3-ValueError-one Hessian kernel"),
+        pytest.param(dict(topology=tapi.TopologySpec(kind="tree")), ValueError,
+                     "cannot run a non-trivial topology",
+                     id="changes5-ValueError-cannot run a non-trivial topology"),
     ],
 )
 def test_fields_not_ported_are_refused_at_solve(changes, exc, match):
@@ -426,3 +485,32 @@ def test_port_checkpoint_resumes_in_both_packages(tmp_path, algorithm, comp):
         live = want.grad_norms >= GN_FLOOR
         np.testing.assert_allclose(got.grad_norms[live], want.grad_norms[live], rtol=GN_RTOL)
         assert [r.ls_steps for r in got.records] == [r.ls_steps for r in want.records]
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_sharded_checkpoint_crosses_the_packages(tmp_path, writer):
+    """A sharded session's FNLS1 file, written by one package and resumed by
+    both: the continuations agree within the parity bounds, bits exact."""
+    kw = dict(rounds=8, backend="sharded", aggregate="sparse_allgather")
+    t_spec = ExperimentSpec(data=DataSpec(dataset="tiny", seed=1), **kw)
+    j_spec = japi.ExperimentSpec(data=japi.DataSpec(dataset="tiny", seed=1), **kw)
+    ck = tmp_path / "sharded.fnlsess"
+    if writer == "port":
+        with open_session(t_spec, device=CPU) as s:
+            s.step(3)
+            s.save(ck)
+    else:
+        with japi.open_session(j_spec) as s:
+            s.step(3)
+            s.save(ck)
+    assert load_state(ck).spec == t_spec and japi.load_state(ck).spec == j_spec
+    with japi.open_session(j_spec, restore=ck) as s:
+        want = s.run()
+    with open_session(t_spec, restore=ck, device=CPU) as s:
+        got = s.run()
+    assert got.rounds == want.rounds == 8
+    for col in ("sent_bits", "sent_bits_payload", "sent_bits_wire"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+    live = want.grad_norms >= GN_FLOOR
+    np.testing.assert_allclose(got.grad_norms[live], want.grad_norms[live], rtol=GN_RTOL)
+    np.testing.assert_allclose(got.x, want.x, rtol=X_RTOL)

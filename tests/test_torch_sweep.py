@@ -363,3 +363,49 @@ def test_client_frob_norms_are_the_sequential_rounds():
                         for s in range(s_count)])
     assert got.shape == (s_count, n)
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# the spec axis over several devices (launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch", [1, 4, 6, 7, 12])
+@pytest.mark.parametrize("available", [1, 2, 3, 4, 8])
+def test_sweep_mesh_devices_is_the_reference(batch, available, monkeypatch):
+    """The largest count of the available devices that divides the batch:
+    the reference's rule, its device list faked to ``available`` long."""
+    import jax
+
+    from repro.launch import mesh as j_mesh
+    from repro_torch.launch.mesh import sweep_mesh_devices
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [None] * available)
+    assert sweep_mesh_devices(batch, available) == j_mesh.sweep_mesh_devices(batch)
+
+
+def test_make_sweep_mesh_lists_the_shards_devices():
+    from repro_torch.launch.mesh import make_sweep_mesh, sweep_devices_available
+
+    cpu = torch.device(CPU)
+    assert make_sweep_mesh(3, cpu) == [cpu] * 3
+    assert make_sweep_mesh(2, torch.device("cuda")) == [torch.device("cuda", 0),
+                                                        torch.device("cuda", 1)]
+    assert sweep_devices_available(cpu) == 1
+
+
+@pytest.mark.parametrize("available,shards", [(2, 2), (3, 2), (4, 4)])
+def test_a_group_split_over_devices_is_the_whole_group(available, shards, monkeypatch):
+    """With ``available`` devices (the CPU standing in for each card) a
+    4-spec group runs as ``shards`` contiguous shards, each the same round
+    with no collective: every spec bit for bit its unsplit group's."""
+    from repro_torch.launch import mesh
+
+    sweep = BASE.grid(seed=[0, 1], compressor=["topk", "randseqk"])
+    whole = solve_many(sweep, device=CPU)
+    monkeypatch.setattr(mesh, "sweep_devices_available", lambda device: available)
+    split = solve_many(sweep, device=CPU)
+    assert f"devices={shards}" in split.log[0] and split.extras["devices"] == available
+    assert f"{4 // shards * 8} clients a SYRK launch" in split.log[0]  # tiny: 8 clients
+    for got, want in zip(split.reports, whole.reports):
+        assert got.extras["devices"] == shards and got.extras["batch_size"] == 4
+        assert_bit_identical(got, want)
