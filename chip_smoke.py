@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
-with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's dense
-inference path (granite-3-2b), sweeps (solve_many's batched groups),
+with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's
+inference for every family (dense granite-3-2b; moe, ssm, hybrid, vlm and
+encdec in the zoo phase), sweeps (solve_many's batched groups),
 sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
@@ -29,7 +30,9 @@ raises, and the script exits non-zero without the final line.
              within one bf16 ulp (the ulp taken at no less than 2**-14) at
              granite's 32k layer shape, B = 4, a 4096 window, S = 1000, a
              5-token prompt, non-causal 64 x 256 and dh = 128 (the wgmma
-             route) and bf16 at dh = 32 (the SIMT route), and within 2e-5 in
+             route) and bf16 at dh = 32 and at recurrentgemma-2b's 32k layer
+             (dh = 256, H = 10, Kv = 1, causal window 2048: the SIMT
+             route), and within 2e-5 in
              f32 (the SIMT route); each fixture's route checked; the threefry
              kernel bit-exact in f32 and f64 at (142, 45451), T = 1 and one
              client; TopK by keys bit-exact on the round's real uniforms,
@@ -54,12 +57,34 @@ raises, and the script exits non-zero without the final line.
              launcher's defaults (6 requests, batch 4, 12 new tokens,
              max_len 128), no kernel launch, the same tokens on a second
              engine and from the launcher
+  zoo        granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-2b,
+             llava-next-mistral-7b and seamless-m4t-large-v2 at full width,
+             each freed before the next: (a) the same params on the card
+             and the CPU at a depth cut (2 layers; hybrid 3, so that one is
+             attention; encdec 2 + 2), prefill at B = 2, S = 512 (vlm: and
+             576 image embeddings; encdec: a 512-frame source) and 4 decode
+             steps within LOGIT_ULPS, no argmax differing away from a near
+             tie; moe: each layer's moe_apply on the CPU's router input,
+             routing differing only at near ties, and the end-to-end rows
+             held until their routing differs; (b) make_prefill_step at
+             full depth from seed 0 at prefill_32k (B = 1; vlm 576 + 32,192,
+             encdec source and tokens 32,768): exactly the flash launches
+             and routes of ZOO_FLASH_ROUTES and nothing else, ms, tokens/s,
+             peak memory; (c) prefill against 5 decode steps within
+             depth_logit_ulps (DEPTH_LOGIT_ULPS, grown past 40 layers in
+             proportion to depth; moe exempt: capacity makes them different
+             functions; vlm without image embeddings; encdec with a
+             zero source, whose cross K/V equal the zero cache's); (d)
+             ServeEngine with the launcher's defaults twice and the
+             launcher, the same tokens, no kernel launch; seconds each
   6 times    CUDA-event medians of each kernel, its plain version and its
              library yardstick at the main paths' shapes, beside the card's
              least time: bytes, or the operations the function needs (threefry:
              the hash's 32-bit operations; flash:
              QK^T and three bf16 P.V products over the visible pairs on the
-             bf16 tensor cores); SYRK's ptxas report, dynamic shared memory,
+             bf16 tensor cores; the dh-256 SIMT kernel at recurrentgemma's
+             layer beside SDPA given the window as a boolean mask); SYRK's
+             ptxas report, dynamic shared memory,
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
              schedule stages
   7 trace    one round each of the TopK, RandK and PP paths under
@@ -240,6 +265,17 @@ LOGIT_ULPS = 4
 # the 40-layer prefill against 40-layer sequential decode on the card: the same
 # rounding differences, compounded over 40 residual updates
 DEPTH_LOGIT_ULPS = 8
+DEPTH_LAYERS = 40  # ... at granite's depth; the zoo's deeper models scale it
+
+
+def depth_logit_ulps(n_layers: int) -> float:
+    """The prefill-against-decode bound at ``n_layers``: DEPTH_LOGIT_ULPS at
+    40 layers or fewer, growing with depth past them, as the rounding
+    differences add up one residual update a layer (scripts/
+    depth_drift_probe.py, mamba2-2.7b on an H100: 1.0, 2.0, 3.4, 6.3, 8.6,
+    9.0 ulps at 2, 8, 16, 32, 48, 64 layers; its card and CPU prefills of
+    one prompt, one function, differ by 16.7)."""
+    return DEPTH_LOGIT_ULPS * max(1.0, n_layers / DEPTH_LAYERS)
 LM_CUT_LAYERS = 2  # the card-vs-CPU check's depth cut (granite has 40)
 PREFILL_SEQ = 32768  # launch/specs.py prefill_32k; its global batch of 32 cut to 1
 SWEEP_ROUNDS = 50  # the README's sweep: ExperimentSpec(..., rounds=50).grid(...)
@@ -519,6 +555,8 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         "noncausal_64x256": (1, 64, 256, 32, 8, 64, False, None, bf16),
         "dh128_window200": (2, 777, 777, 8, 2, 128, True, 200, bf16),
         "dh32_simt_route": (2, 1000, 1000, 8, 2, 32, True, 300, bf16),
+        # recurrentgemma-2b's attention layer at its 32k prefill: the SIMT route
+        "recurrentgemma_32k_layer_dh256": (1, PREFILL_SEQ, PREFILL_SEQ, 10, 1, 256, True, 2048, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
     }
     report, max_err = {}, 0.0
@@ -764,6 +802,351 @@ def lm_phase(dev, ops) -> dict:
     })
     return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches,
             "flash_routes": routes}
+
+
+# phase zoo: each family's full-width config, its 32k prefill's flash
+# launches by route: attention layers x launches a layer
+ZOO_FLASH_ROUTES = {
+    "granite-moe-1b-a400m": {"wgmma": 24, "simt": 0},
+    "mamba2-2.7b": {"wgmma": 0, "simt": 0},  # no attention
+    "recurrentgemma-2b": {"wgmma": 0, "simt": 8},  # layers i % 3 == 2 of 26, head_dim 256
+    "llava-next-mistral-7b": {"wgmma": 32, "simt": 0},
+    "seamless-m4t-large-v2": {"wgmma": 72, "simt": 0},  # 24 encoder + 24 self + 24 cross
+}
+
+
+@contextlib.contextmanager
+def record_router_inputs():
+    """Record (on the CPU) the argument of every ``moe_apply`` call of the
+    port's LM code, in call order."""
+    from repro_torch.models import lm as tlm
+
+    calls, orig = [], tlm.moe_apply
+
+    def rec(x, *a, **kw):
+        calls.append(x.detach().to("cpu", copy=True))
+        return orig(x, *a, **kw)
+
+    tlm.moe_apply = rec
+    try:
+        yield calls
+    finally:
+        tlm.moe_apply = orig
+
+
+def route_table(h, router, cfg):
+    """Per token of h (B, S, D): its experts (sorted), their kept flags and
+    the router's probabilities, as the port's dispatch computes them on h's
+    device; returned on the CPU."""
+    import torch
+
+    from repro_torch.models.moe import moe_dispatch
+
+    m = cfg.moe
+    t = h.shape[0] * h.shape[1]
+    r = moe_dispatch(h, router, n_experts=m.n_experts, top_k=m.top_k,
+                     capacity_factor=m.capacity_factor)
+    experts = torch.empty(t * m.top_k, dtype=torch.long, device=h.device)
+    kept = torch.empty(t * m.top_k, dtype=torch.bool, device=h.device)
+    experts[r["order"]], kept[r["order"]] = r["se"], r["keep"]
+    experts, kept = experts.reshape(t, m.top_k), kept.reshape(t, m.top_k)
+    idx = experts.argsort(dim=-1)
+    probs = torch.softmax(h.reshape(t, -1).float() @ router.float(), dim=-1)
+    return experts.gather(-1, idx).cpu(), kept.gather(-1, idx).cpu(), probs.cpu()
+
+
+def routing_differences(card, host, pos0: int, first: dict):
+    """Compare two runs' route tables of one call (tokens of B rows of S
+    positions from ``pos0``): a token may route otherwise only at a near tie
+    (the host's k-th and (k+1)-th probabilities within twice the runs' largest
+    probability difference) and a kept flag may differ only where some
+    assignment flipped (the capacity queues shift).  Rows past their first
+    difference (``first``: batch row -> position) are not compared.  Returns
+    the updated ``first``, the call's counts and its differing tokens (a
+    (B, S) mask)."""
+    import torch
+
+    (ec, kc, pc, b, s), (eh, kh, ph, _, _) = card, host
+    k = ec.shape[1]
+    pos = pos0 + torch.arange(b * s) % s
+    row = torch.arange(b * s) // s
+    live = torch.tensor([int(p) < first.get(int(r), 1 << 30) for r, p in zip(row, pos)])
+    counts = {"tokens": int(live.sum()), "flipped": 0, "queue_shifted": 0}
+    if not bool(live.any()):
+        return first, counts, torch.zeros((b, s), dtype=torch.bool)
+    delta = float((pc - ph).abs()[live].max())
+    top = ph.sort(dim=-1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]
+    flipped = live & (ec != eh).any(-1)
+    shifted = live & ~flipped & (kc != kh).any(-1)
+    worst = float(margin[flipped].max()) if bool(flipped.any()) else 0.0
+    check(worst <= 2 * delta, f"moe: a token routes otherwise at margin {worst} > 2 x {delta}")
+    check(not bool(shifted.any()) or bool(flipped.any()),
+          "moe: a kept flag differs with no assignment flipped")
+    first = dict(first)
+    for t in torch.nonzero(flipped | shifted).flatten().tolist():
+        first[int(row[t])] = min(first.get(int(row[t]), int(pos[t])), int(pos[t]))
+    counts.update(flipped=int(flipped.sum()), queue_shifted=int(shifted.sum()),
+                  max_prob_diff=delta)
+    return first, counts, (flipped | shifted).reshape(b, s)
+
+
+def moe_routes(calls_card, calls_host, cfg, routers, pos0: int, first: dict):
+    """``routing_differences`` over one run's calls (call c is layer c %
+    n_layers)."""
+    counts = []
+    for c, (hc, hh) in enumerate(zip(calls_card, calls_host)):
+        router = routers[c % cfg.n_layers]
+        card = (*route_table(hc, router, cfg), *hc.shape[:2])
+        host = (*route_table(hh, router, cfg), *hh.shape[:2])
+        first, n, _ = routing_differences(card, host, pos0, first)
+        counts.append(n)
+    return first, counts
+
+
+def moe_module_check(cut, p_card, p_cpu, calls_host, dev) -> dict:
+    """Each layer's ``moe_apply`` on the card against the CPU on the same
+    input (the CPU run's router input): routing by the near-tie rule, and
+    the output rows of tokens routed alike within LOGIT_ULPS of the output's
+    scale."""
+    import torch
+
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.moe import moe_apply
+
+    m, report = cut.moe, []
+    for layer, h in enumerate(calls_host[: cut.n_layers]):
+        mp_card = tlm._layer(p_card["blocks"], layer)["moe"]
+        mp_cpu = tlm._layer(p_cpu["blocks"], layer)["moe"]
+        kw = dict(n_experts=m.n_experts, top_k=m.top_k, capacity_factor=m.capacity_factor,
+                  activation=cut.activation)
+        got = moe_apply(h.to(dev), mp_card, **kw).cpu()
+        want = moe_apply(h, mp_cpu, **kw)
+        card = (*route_table(h.to(dev), mp_card["router"], cut), *h.shape[:2])
+        host = (*route_table(h, mp_cpu["router"], cut), *h.shape[:2])
+        _, counts, differing = routing_differences(card, host, 0, {})
+        err = float((got.float() - want.float()).abs()[~differing].max())
+        ulps = err / bf16_ulp_at(float(want.float().abs().max()))
+        check(ulps <= LOGIT_ULPS, f"moe layer {layer}: card vs CPU on one input {ulps} ulps")
+        report.append({"layer": layer, "tokens": h.shape[0] * h.shape[1], **counts,
+                       "output_ulps": ulps})
+    return {"per_layer": report}
+
+
+def zoo_inputs(cfg, batch: int, seq: int, rng, dev) -> dict:
+    """A prefill batch of ``seq`` positions: tokens, and for vlm 576 image
+    embeddings in front of seq - 576 tokens, for encdec a source of ``seq``
+    frames (numpy draws)."""
+    import torch
+
+    n_img = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, size=(batch, seq - n_img)), device=dev)}
+    if n_img:
+        out["img_embeds"] = torch.as_tensor(
+            rng.standard_normal((batch, n_img, cfg.d_model), dtype=np.float32), device=dev)
+    if cfg.family == "encdec":
+        out["src_embeds"] = torch.as_tensor(
+            rng.standard_normal((batch, seq, cfg.d_model), dtype=np.float32), device=dev)
+    return out
+
+
+def zoo_family(arch: str, dev, ops) -> dict:
+    """One family at full width: (a) card against CPU on a depth cut, (b) the
+    32k prefill at full depth, (c) prefill against sequential decode, (d)
+    the serving engine and the launcher.  Returns its kernel facts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import encdec as ted
+    from repro_torch.models import lm as tlm
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    t_family = time.perf_counter()
+    full = get_config(arch)
+    encdec = full.family == "encdec"
+    init = ted.init_encdec_params if encdec else tlm.init_lm_params
+    init_cache = ((lambda c, b, n, d: ted.init_encdec_cache(c, b, n, 16, d)) if encdec
+                  else tlm.init_decode_cache)
+    rng = np.random.default_rng(17)
+    no_launch = {name: 0 for name in ops.launch_counts()}
+
+    # (a) the same params on the card and on the CPU, depth cut
+    cut_layers = 3 if full.family == "hybrid" else LM_CUT_LAYERS
+    cut = dataclasses.replace(full, n_layers=cut_layers,
+                              encoder_layers=LM_CUT_LAYERS if encdec else 0)
+    p_cpu = init(0, cut, "cpu")
+    p_card = tree_to(p_cpu, dev)
+    batch = zoo_inputs(cut, 2, 512 + (cut.n_frontend_tokens if cut.family == "vlm" else 0), rng, "cpu")
+    prefill = make_prefill_step(cut)
+    with record_router_inputs() as calls_card:
+        card = prefill(p_card, {k: v.to(dev) for k, v in batch.items()}).cpu()
+    with record_router_inputs() as calls_host:
+        host = prefill(p_cpu, batch)
+    moe = full.family == "moe"
+    first: dict = {}
+    part_a: dict = {"phase": "zoo", "part": "a_card_vs_cpu", "arch": arch, "family": full.family,
+                    "cut": f"n_layers {cut.n_layers} of {full.n_layers}"
+                           + (f", encoder_layers {cut.encoder_layers} of {full.encoder_layers}"
+                              if encdec else "") + "; full width",
+                    "prefill_batch": {k: list(v.shape) for k, v in batch.items()}}
+    if moe:
+        routers = p_cpu["blocks"]["moe"]["router"]
+        part_a["moe_module"] = moe_module_check(cut, p_card, p_cpu, calls_host, dev)
+        first, counts = moe_routes(calls_card, calls_host, cut, routers, 0, first)
+        part_a["prefill_routing"] = counts
+    held = [b for b in range(2) if b not in first]
+    prefill_ulps = logit_ulps(card[held], host[held]) if held else None
+    check(prefill_ulps is None or prefill_ulps <= LOGIT_ULPS,
+          f"{arch} cut prefill: card vs CPU {prefill_ulps} ulps")
+    argmax = [argmax_rows(card[held], host[held], LOGIT_ULPS)] if held else []
+    c_card, c_cpu = init_cache(cut, 2, 8, dev), init_cache(cut, 2, 8, "cpu")
+    step = make_serve_step(cut)
+    decode_ulps, held_rows, first = [], [], {}
+    toks = batch["tokens"]
+    for s in range(4):
+        t = toks[:, s : s + 1]
+        with record_router_inputs() as dc:
+            lg_card, c_card = step(p_card, c_card, t.to(dev))
+        with record_router_inputs() as dh:
+            lg_cpu, c_cpu = step(p_cpu, c_cpu, t)
+        if moe:
+            first, counts = moe_routes(dc, dh, cut, routers, s, first)
+            part_a.setdefault("decode_routing", []).append(counts)
+        rows = [b for b in range(2) if b not in first]
+        held_rows.append(rows)
+        if rows:
+            decode_ulps.append(logit_ulps(lg_card.cpu()[rows], lg_cpu[rows]))
+            argmax.append(argmax_rows(lg_card.cpu()[rows], lg_cpu[rows], LOGIT_ULPS))
+    check(all(u <= LOGIT_ULPS for u in decode_ulps), f"{arch} cut decode: {decode_ulps} ulps")
+    check(all(bad == 0 for _, bad, _ in argmax),
+          f"{arch} cut: an argmax differs away from a near tie: {argmax}")
+    part_a.update(prefill_logit_ulps=prefill_ulps, decode_logit_ulps=decode_ulps,
+                  tol_ulps=LOGIT_ULPS, argmax_same=[a for a, _, _ in argmax],
+                  min_top2_margin=[m for _, _, m in argmax], seconds=time.perf_counter() - t_family)
+    if moe:
+        part_a.update(rows_held_prefill=held, rows_held_decode=held_rows,
+                      note="moe: a batch row is held to the bound until its routing differs "
+                           "between the card and the CPU, which is allowed only at a near tie "
+                           "(or a capacity queue it shifts); moe_module holds each layer's "
+                           "moe_apply on one input")
+    emit(part_a)
+    del p_cpu, p_card, c_card, c_cpu, card, host
+
+    # (b) full depth from seed 0 on the card: the 32k prefill
+    t0 = time.perf_counter()
+    params = init(0, full, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    prefill = make_prefill_step(full)
+    big = zoo_inputs(full, 1, PREFILL_SEQ, rng, dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()  # the params, the inputs, earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, big)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = dict(ops.flash_attention_mod.flash_attention_cuda.route_launches)
+    want_routes = ZOO_FLASH_ROUTES[arch]
+    check(launches == {**no_launch, "flash_attention": sum(want_routes.values())},
+          f"{arch} 32k prefill launches {launches}")
+    check(routes == want_routes, f"{arch} 32k prefill flash routes {routes}, want {want_routes}")
+    check(logits.shape == (1, tlm.padded_vocab(full)) and bool(torch.isfinite(logits).all()),
+          f"{arch} 32k prefill logits")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    prefill(params, big)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    emit({"phase": "zoo", "part": "b_prefill_32k", "arch": arch, "n_layers": full.n_layers,
+          "encoder_layers": full.encoder_layers, "params": n_params,
+          "param_bytes_f32": n_params * 4, "init_s": init_s,
+          "inputs": {k: list(v.shape) for k, v in big.items()},
+          "cut": "global batch 32 of prefill_32k cut to 1", "first_call_ms": first_s * 1e3,
+          "ms": steady_s * 1e3, "tokens_per_s": PREFILL_SEQ / steady_s,
+          "max_memory_allocated": peak, "memory_allocated_before": before,
+          "launches": launches, "flash_routes": routes,
+          "logit_scale": float(logits.float().abs().max())})
+    del big, logits
+
+    # (c) prefill (the kernels) against sequential decode of a 5-token prompt
+    prompt = torch.as_tensor(rng.integers(0, full.vocab, size=(1, 5)), device=dev)
+    part_c = {"phase": "zoo", "part": "c_prefill_vs_decode", "arch": arch, "prompt_len": 5}
+    if moe:
+        part_c["exempt"] = ("the reference's capacity rule makes them different functions: a "
+                            "5-token prefill has capacity int(1.25*5*8/32) = 1 per expert and "
+                            "drops assignments, a one-token decode step drops none")
+    else:
+        pre = {"tokens": prompt}
+        if encdec:  # decoding reads the zero cross K/V: the K/V of an all-zero source
+            pre["src_embeds"] = torch.zeros((1, 16, full.d_model), device=dev)
+        want = prefill(params, pre)  # vlm without image embeddings
+        cache = init_cache(full, 1, 8, dev)
+        serve_step = make_serve_step(full)
+        for s in range(5):
+            got, cache = serve_step(params, cache, prompt[:, s : s + 1])
+        got = got[:, 0]
+        depth_ulps = logit_ulps(got, want)
+        tol = depth_logit_ulps(full.n_layers)
+        same, bad, margin = argmax_rows(got, want, tol)
+        check(depth_ulps <= tol, f"{arch} prefill vs decode: {depth_ulps} ulps > {tol}")
+        check(bad == 0, f"{arch} prefill vs decode: argmax differs at top-2 margin {margin}")
+        part_c.update(logit_ulps=depth_ulps, tol_ulps=tol, argmax_same=bool(same),
+                      top2_margin=margin)
+        if encdec:
+            part_c["note"] = ("src_embeds of 16 zero frames: the encoder's output is then 0, and "
+                              "so are the cross K/V, which decoding reads from the zero cache")
+        del cache, got, want
+    emit(part_c)
+
+    # (d) the serving engine with the launcher's defaults; the launcher
+    def requests():
+        return [Request(prompt=[(r * 7 + i) % full.vocab for i in range(5)], max_new_tokens=12)
+                for r in range(6)]
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(params, full, batch_size=4, max_len=128, device=dev)
+        for r in requests():
+            engine.submit(r)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(ops.launch_counts() == no_launch, f"{arch} serving launched {ops.launch_counts()}")
+        check(len(done) == 6 and all(r.done and len(r.generated) == 12 for r in done),
+              f"{arch} serving: not every request done with 12 tokens")
+        runs.append({"tokens": [r.generated for r in done], "wall_s": wall, "steps": engine.steps,
+                     "peak": torch.cuda.max_memory_allocated()})
+        del engine
+    check(runs[0]["tokens"] == runs[1]["tokens"], f"{arch} serving: a second engine gave other tokens")
+    del params
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launched = serve_launcher.main(["--arch", arch, "--device", str(dev)])
+    check([r.generated for r in launched] == runs[0]["tokens"],
+          f"{arch}: the launcher's tokens differ from the engine's (same seed, same card)")
+    del launched
+    total = sum(len(t) for t in runs[0]["tokens"])
+    seconds = time.perf_counter() - t_family
+    emit({"phase": "zoo", "part": "d_serve", "arch": arch, "requests": 6, "batch": 4,
+          "new_tokens": 12, "max_len": 128, "steps": runs[0]["steps"], "tokens": total,
+          "ms_per_step": [r["wall_s"] / r["steps"] * 1e3 for r in runs],
+          "tokens_per_s": [total / r["wall_s"] for r in runs],
+          "max_memory_allocated": [r["peak"] for r in runs], "launches": no_launch,
+          "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
+          "family_seconds": seconds})
+    torch.cuda.empty_cache()
+    return {"routes": routes, "launches": launches, "seconds": seconds}
 
 
 def _reports_bitwise(got, want) -> bool:
@@ -2699,6 +3082,12 @@ def main() -> int:
     # --- 5 the LM path: granite-3-2b, the launch counts set to 0 before each -
     lm = lm_phase(dev, ops)
 
+    # --- zoo: the moe, ssm, hybrid, vlm and encdec families ----------------
+    t_zoo = time.perf_counter()
+    zoo = {arch: zoo_family(arch, dev, ops) for arch in ZOO_FLASH_ROUTES}  # each freed after it
+    emit({"phase": "zoo", "seconds": time.perf_counter() - t_zoo,
+          "family_seconds": {arch: z["seconds"] for arch, z in zoo.items()}})
+
     # --- 6 times at the main paths' shapes -------------------------------------
     zs = hw[..., None] * z
     keys = rank_keys(delta1)
@@ -2765,6 +3154,39 @@ def main() -> int:
     }
     flash_bound = bound(flash_bytes, 4 * product_flops, BF16_TENSOR_FLOPS)
     del fq, fk, fv, qt, kt, vt
+    # head_dim 256 at recurrentgemma-2b's layer (the SIMT route), beside SDPA
+    # given the causal window as a boolean mask and the kv head repeated
+    gq, gk, gv = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, 10, 1, 256, torch.bfloat16, 101)
+    rg_window = 2048
+    gfns = {
+        "kernel": lambda: tfa.flash_attention_cuda(gq, gk, gv, causal=True, window=rg_window),
+        "plain": lambda: tfa.flash_attention_plain(gq, gk, gv, causal=True, window=rg_window),
+    }
+    pos = torch.arange(PREFILL_SEQ, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - rg_window)
+    gqt = gq.transpose(1, 2)
+    gkt, gvt = (t.transpose(1, 2).expand(-1, 10, -1, -1).contiguous() for t in (gk, gv))
+    sdpa_dh256 = {"backends": "flash, memory-efficient", "mask": "boolean (S, S) causal window 2048"}
+    try:  # the yardstick only: the port never calls SDPA
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            F.scaled_dot_product_attention(gqt, gkt, gvt, attn_mask=band)
+            torch.cuda.synchronize()
+        gfns["library"] = lambda: F.scaled_dot_product_attention(gqt, gkt, gvt, attn_mask=band)
+    except RuntimeError as err:
+        sdpa_dh256["not_given"] = str(err).splitlines()[0][:300]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        flash256_ms = median_ms(gfns, reps=FLASH_TIMED_REPS, calls=1)
+    visible256 = tfa.visible_pairs(PREFILL_SEQ, PREFILL_SEQ, True, rg_window) * gq.shape[2]
+    flops256 = 2 * gq.shape[3] * visible256
+    flash256_bound = bound((2 * gq.numel() + gk.numel() + gv.numel()) * gq.element_size(),
+                           4 * flops256, BF16_TENSOR_FLOPS)
+    flash256_parts = {
+        "qk_bf16_tensor": flops256 / BF16_TENSOR_FLOPS * 1e3,
+        "pv_three_bf16_products_tensor": 3 * flops256 / BF16_TENSOR_FLOPS * 1e3,
+        "bytes": (2 * gq.numel() + gk.numel() + gv.numel()) * 2 / HBM_BYTES_PER_S * 1e3,
+        "f32_cuda_cores_both_products": 2 * flops256 / CUDA_CORE_32BIT_OPS * 1e3,
+    }
+    del gq, gk, gv, gqt, gkt, gvt, band, pos
     syrk_bound = bound(
         (z.numel() + hw.numel() + h_kernel.numel()) * 8,
         2 * n_i * t_len * n_clients,
@@ -2843,6 +3265,16 @@ def main() -> int:
                   "library = F.scaled_dot_product_attention(is_causal, enable_gqa) on the "
                   "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
                   "same function at lower precision"})
+    emit({"phase": "times", "flash_attention_dh256": flash256_ms,
+          "shape": [1, PREFILL_SEQ, 10, 1, 256], "causal": True, "window": rg_window,
+          "dtype": "bfloat16", "route": tfa.flash_route(torch.bfloat16, 256),
+          "bound_ms": flash256_bound[0], "bound_by": flash256_bound[1],
+          "bound_parts_ms": flash256_parts, "visible_pairs": visible256, "library": sdpa_dh256,
+          "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one call; "
+                  "bound as the head_dim-64 row: (QK^T + 3 P.V bf16 products) over the visible "
+                  "pairs at 989 TFLOP/s; the SIMT kernel runs both products in f32 on the CUDA "
+                  "cores; library = SDPA with the window as a boolean mask over all S x S "
+                  "pairs, the kv head repeated beforehand, p rounded to bf16"})
 
     # --- 7 no host sync in a round; where the time goes (torch.profiler) ----
     pp_cfg = pp_spec.fednl_config()
@@ -2997,13 +3429,25 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
             "kernels": {"wgmma": "flash_fwd_wgmma_kernel (bf16, head_dim 64 and 128)",
-                        "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16 and 32)"},
+                        "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16, 32 and 256)"},
             "prefill_32k_routes": flash_routes,
             "launches": flash_launches, "max_abs_err": flash_err,
             "sweep_launches": sweep_launches["flash_attention"],
             "ms": flash_ms["kernel"], "plain_ms": flash_ms["plain"],
             "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
             "library_ms": flash_ms["library"],
+            "zoo_routes": {arch: z["routes"] for arch, z in zoo.items()},
+        },
+        {
+            "name": "flash_attention_dh256", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:95 (at head_dim 256)",
+            "kernels": {"simt": "flash_fwd_kernel, DH = 256 (bf16 and f32)"},
+            "launches": zoo["recurrentgemma-2b"]["routes"]["simt"],
+            "max_abs_err": flash_report["recurrentgemma_32k_layer_dh256"]["max_abs_err"],
+            "ms": flash256_ms["kernel"], "plain_ms": flash256_ms["plain"],
+            "bound_ms": flash256_bound[0], "bound_by": flash256_bound[1],
+            "library_ms": flash256_ms.get("library"),
         },
     ]
     for name, launched, replaces in (
@@ -3037,6 +3481,10 @@ def main() -> int:
                                       for part, counts in topo.items()}
     for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
         entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
+    for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
+        if entry["name"] != "flash_attention_dh256":
+            entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
+                                     for arch, z in zoo.items()}
     for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it
         entry["sharded_launches"] = {part: counts.get(entry["name"], 0)
                                      for part, counts in sharded["launches"].items()}

@@ -60,7 +60,10 @@
 //   * P.V is issued in 4 batches of 32 keys: p and its split for a batch are
 //     computed while the products of the batches before it run.
 //
-// flash_fwd_kernel -- the SIMT kernel: f32 at any head_dim, bf16 at 16 and 32.
+// flash_fwd_kernel -- the SIMT kernel: f32 at any head_dim, bf16 at 16, 32 and
+// 256 (recurrentgemma-2b's head_dim; the wgmma kernel has no instantiation
+// there: its 128-key K and V tiles would take 64 KB each and its O fragment
+// 128 registers a thread).
 //   * one launch per attention call: blockIdx.x is a 64-query tile (the
 //     heaviest causal tiles first), blockIdx.y the query head, blockIdx.z the
 //     batch row; the kv head is h / (H / Kv), so GQA repeats nothing;
@@ -75,7 +78,10 @@
 //     shared memory in f32 and each thread accumulates a 4 x (dh/16) block of
 //     P.V in f32 -- p is never rounded to bf16, as in the reference;
 //   * masked logits are the reference's -1e30 sentinel and give p = 0 even
-//     while the running max is still -1e30 (expf, not __expf, throughout).
+//     while the running max is still -1e30 (expf, not __expf, throughout);
+//   * at head_dim 256 the tiles take smem_bytes<256>() = 216,064 B, under the
+//     227 KB a block may opt into, so one block runs on an SM, and each
+//     thread carries 4 x 16 accumulators and 4 x 16 partial P.V sums.
 
 #include <cstdint>
 
@@ -316,6 +322,7 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, void* ou
     case 32: return launch<T, 32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,8 +24,10 @@ the dtype and head_dim alone:
 * ``wgmma`` (``flash_fwd_wgmma_kernel``): bf16 at head_dim 64 and 128, the
   models' path;
 * ``simt`` (``flash_fwd_kernel``): f32 at any head_dim, and bf16 at head_dim
-  16 and 32, which appear only in reduced configurations.  An f32 q.k is
-  not exact on bf16 tensor cores, so f32 stays on the CUDA cores.
+  16 and 32, which appear only in reduced configurations, and at 256,
+  recurrentgemma-2b's, where the wgmma kernel's 128-key tiles and O
+  fragment do not fit (a redesign waits in ROADMAP).  An f32 q.k is not
+  exact on bf16 tensor cores, so f32 stays on the CUDA cores.
 
 What bounds the wgmma route on an H100: operations, on the bf16 tensor
 cores.  The reference keeps p in f32 for P.V.  That needs no f32 pipe: any
@@ -70,9 +72,11 @@ another 64 registers a thread.  Forcing the two warpgroups to alternate on
 the tensor cores was slower.  Causal tiles on the diagonal are computed
 whole.
 
-``flash_fwd_kernel``, the port's first flash kernel, unchanged: one block
-per (64-query tile, head, batch row), K/V tiles in shared memory as f32,
-4 x 4 logits and 4 x dh/16 outputs per thread in f32 FMA on the CUDA cores.
+``flash_fwd_kernel``, the port's first flash kernel: one block per
+(64-query tile, head, batch row), K/V tiles in shared memory as f32, 4 x 4
+logits and 4 x dh/16 outputs per thread in f32 FMA on the CUDA cores.  At
+head_dim 256 its tiles take 216,064 B of shared memory (one block per SM)
+and each thread 64 accumulators.
 
 ``flash_attention_plain`` is the same function in plain PyTorch, chunked
 over queries (the logits of one chunk at a time), for the CPU and for
@@ -88,7 +92,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30  # the reference's mask sentinel (flash_attention.py:31)
-HEAD_DIMS = (16, 32, 64, 128)  # the SIMT kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the SIMT kernel's instantiations
 WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernel's
 PLAIN_Q_CHUNK = 512
 

@@ -3,9 +3,10 @@ ServeEngine (the counterpart of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b [--reduced] [--device cpu]
 
-The same flags as the reference, plus ``--device`` (default ``cuda``).  The
-params are drawn from a torch generator seeded with 0 on the device, or
-restored from ``--checkpoint`` (a flat ``.npz`` written by either package).
+The same flags as the reference, plus ``--device`` (default ``cuda``), for
+every architecture of ``repro_torch.configs``, encdec included.  The params
+are drawn from a torch generator seeded with 0 on the device, or restored
+from ``--checkpoint`` (a flat ``.npz`` written by either package).
 """
 
 import argparse
@@ -14,7 +15,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import init_lm_params
+from repro_torch.models import init_encdec_params, init_lm_params
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.train.checkpoint import load_checkpoint
 
@@ -33,7 +34,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = init_lm_params(0, cfg, args.device)
+    init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+    params = init(0, cfg, args.device)
     if args.checkpoint:
         params = load_checkpoint(args.checkpoint, params)
 

@@ -1,0 +1,154 @@
+"""Encoder-decoder backbone, seamless-m4t-large-v2 (port of
+``repro.models.encdec``).
+
+As in the reference, the audio frontend is a stub: the caller supplies frame
+embeddings (B, S_src, d_model) and a learned projection stands in for the
+modality bridge.  A bidirectional encoder and a causal decoder with
+cross-attention, layers stacked and looped over.  On the card each
+attention is one flash launch: the encoder's non-causal over all frames,
+the decoder's causal, and the cross-attention non-causal over the encoder's
+output (Sq != Sk).
+
+Decoding writes the self-attention keys and values into the caller's cache
+in place, as ``lm_decode_step`` does.  The cross K/V of the cache stay what
+``init_encdec_cache`` made them, zeros, as in the reference: nothing fills
+them (ROADMAP C6), so a decode step's cross-attention adds 0.  Training
+(``encdec_loss``) waits with ROADMAP A14's train step.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
+    chunked_attention,
+    decode_attention,
+    mlp_apply,
+    rms_norm,
+)
+from repro_torch.models.lm import (
+    _attn_apply,
+    _attn_decode,
+    _embed,
+    _head_matrix,
+    _layer,
+    attn_init,
+    mlp_init,
+    padded_vocab,
+    param_initializers,
+)
+
+
+def init_encdec_params(seed: int, cfg: ArchConfig,
+                       device: str | torch.device | None = None) -> dict:
+    """Random f32 params of the reference's names, shapes and scales, drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (None: the
+    card); other draws than the reference's (see ``init_lm_params``)."""
+    d, nl, ne = cfg.d_model, cfg.n_layers, cfg.encoder_layers
+    normal, dense, zeros = param_initializers(seed, nl, device)
+    enc_dense = functools.partial(dense, layers=ne)
+    return {
+        "embed": normal((padded_vocab(cfg), d), 0.02),
+        "frontend_proj": normal((d, d), d**-0.5),
+        "enc_blocks": {"ln1": zeros(ne, d), "ln2": zeros(ne, d),
+                       "attn": attn_init(cfg, enc_dense), "mlp": mlp_init(cfg, enc_dense)},
+        "enc_norm": zeros(d),
+        "dec_blocks": {"ln1": zeros(nl, d), "ln2": zeros(nl, d), "lnc": zeros(nl, d),
+                       "attn": attn_init(cfg, dense), "cross": attn_init(cfg, dense),
+                       "mlp": mlp_init(cfg, dense)},
+        "final_norm": zeros(d),
+    }
+
+
+def _ffn(c, bp, cfg: ArchConfig):
+    return c + mlp_apply(rms_norm(c, bp["ln2"], cfg.norm_eps), bp["mlp"], cfg.activation)
+
+
+def _proj(h, w, cfg: ArchConfig, heads: int):
+    b, s, _ = h.shape
+    return (h @ w.to(h.dtype)).reshape(b, s, heads, cfg.head_dim)
+
+
+def encode(params, cfg: ArchConfig, src_embeds):
+    """src_embeds: (B, S_src, D) frontend-stub frame embeddings -> the
+    encoder's output (B, S_src, D) bf16."""
+    x = src_embeds.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        bp = _layer(params["enc_blocks"], i)
+        x = x + _attn_apply(x, bp, cfg, positions, None, causal=False)
+        x = _ffn(x, bp, cfg)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_apply(c, bp, cfg: ArchConfig, enc_out):
+    h = rms_norm(c, bp["lnc"], cfg.norm_eps)
+    q = _proj(h, bp["cross"]["wq"], cfg, cfg.n_heads)
+    k = _proj(enc_out, bp["cross"]["wk"], cfg, cfg.n_kv)
+    v = _proj(enc_out, bp["cross"]["wv"], cfg, cfg.n_kv)
+    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+    return o.reshape(c.shape[0], c.shape[1], cfg.attn_dim) @ bp["cross"]["wo"].to(h.dtype)
+
+
+def _decoder_blocks(x, params, cfg: ArchConfig, enc_out, positions):
+    for i in range(cfg.n_layers):
+        bp = _layer(params["dec_blocks"], i)
+        x = x + _attn_apply(x, bp, cfg, positions, None)
+        x = x + _cross_apply(x, bp, cfg, enc_out)
+        x = _ffn(x, bp, cfg)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def encdec_prefill(params, cfg: ArchConfig, src_embeds, tokens):
+    """Encode the source and run the decoder context; last-position logits
+    (B, Vp)."""
+    enc_out = encode(params, cfg, src_embeds)
+    x = _embed(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = _decoder_blocks(x, params, cfg, enc_out, positions)
+    return h[:, -1] @ _head_matrix(params).to(h.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_encdec_cache(cfg: ArchConfig, batch: int, seq_len: int, src_len: int,
+                      device: str | torch.device | None = None) -> dict:
+    """Zeroed cache on ``device`` (None: the card): pos 0, self k and v
+    (n_layers, batch, seq_len, n_kv, head_dim) and cross ck and cv
+    (n_layers, batch, src_len, n_kv, head_dim), bf16."""
+    dev = resolve_device(device)
+
+    def zeros(length):
+        return torch.zeros((cfg.n_layers, batch, length, cfg.n_kv, cfg.head_dim),
+                           dtype=COMPUTE_DTYPE, device=dev)
+
+    return {"pos": 0, "k": zeros(seq_len), "v": zeros(seq_len), "ck": zeros(src_len),
+            "cv": zeros(src_len)}
+
+
+def encdec_decode_step(params, cfg: ArchConfig, cache, tokens):
+    """One decoder token against the cached self and cross K/V: tokens
+    (B, 1) -> (logits (B, 1, Vp), cache), k and v written in place and pos
+    advanced by one."""
+    pos = cache["pos"]
+    x = _embed(params, tokens)
+    src_len = cache["ck"].shape[2]
+    for i in range(cfg.n_layers):
+        bp = _layer(params["dec_blocks"], i)
+        b = x.shape[0]
+        c = x + _attn_decode(x, bp, cfg, cache["k"][i], cache["v"][i], pos, None)
+        h = rms_norm(c, bp["lnc"], cfg.norm_eps)
+        q = _proj(h, bp["cross"]["wq"], cfg, cfg.n_heads)
+        o = decode_attention(q, cache["ck"][i], cache["cv"][i], src_len)
+        c = c + o.reshape(b, 1, cfg.attn_dim) @ bp["cross"]["wo"].to(h.dtype)
+        x = _ffn(c, bp, cfg)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = h @ _head_matrix(params).to(h.dtype).T
+    return logits, dict(cache, pos=pos + 1)

@@ -1,17 +1,22 @@
-"""Decoder LM, dense family (port of ``repro.models.lm``).
+"""Unified decoder LM covering the dense, moe, ssm, hybrid and vlm families
+(port of ``repro.models.lm``).
 
 As in the reference, layer params are stacked with a leading n_layers axis,
 params are f32 and compute casts to bf16 (COMPUTE_DTYPE).  The reference's
-``lax.scan`` over layers is a Python loop over that axis; remat is not needed
-for inference.  Decoding updates the KV cache in place (the reference returns
-a new cache): ``lm_decode_step`` writes each layer's new key and value into
-``cache["k"]`` and ``cache["v"]`` and returns the same tensors, so a decode
-step allocates no second cache.  ``cache["pos"]`` is a Python int.
+``lax.scan`` over layers is a Python loop over that axis, and its
+``lax.cond`` between a hybrid layer's two branches a Python branch on
+``layer_types(cfg)[i]``; remat is not needed for inference.  Hybrid layers
+keep both branches' params, as in the reference.  The vlm family prepends
+``img_embeds @ img_proj`` to the token embeddings.
 
-Only the dense family's inference is ported: moe, ssm, hybrid, vlm and
-encdec raise ``NotImplementedError`` naming their ROADMAP item; training
-(``lm_loss``) is ROADMAP A14, and the sharding specs wait with the TPU
-dry-run tooling (ROADMAP A.4).
+Decoding updates the cache in place (the reference returns a new cache):
+``lm_decode_step`` writes each layer's new key and value, and the ssm and
+hybrid families' conv and recurrent state, into the cache's tensors and
+returns the same tensors, so a decode step allocates no second cache.
+``cache["pos"]`` is a Python int.
+
+Training (``lm_loss``) waits with ROADMAP A14's train step, and the sharding
+specs wait with the TPU dry-run tooling (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -31,26 +36,14 @@ from repro_torch.models.layers import (
     rms_norm,
     rope,
 )
+from repro_torch.models.moe import moe_apply, moe_apply_dense
+from repro_torch.models.rglru import rglru_apply, rglru_decode_step
+from repro_torch.models.ssm import ssd_apply, ssd_decode_step
 
 VOCAB_ALIGN = 256  # pad vocab so 16 (model) and 16 (data) both divide it
-
-_NOT_PORTED = {
-    "moe": "ROADMAP A14 (moe: models/moe.py, the expert dispatch)",
-    "ssm": "ROADMAP A14 (ssm: models/ssm.py, the SSD scan)",
-    "hybrid": "ROADMAP A14 (hybrid: models/rglru.py, the RG-LRU recurrence)",
-    "vlm": "ROADMAP A14 (vlm: the vision frontend and img_proj)",
-    "encdec": "ROADMAP A14 (encdec: models/encdec.py)",
-}
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a family this package does not run yet."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
-        )
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+# leaves the reference reads in f32 (router softmax, SSD decay, RG-LRU gates):
+# cast_for_compute leaves them so
+F32_LEAVES = frozenset({"router", "A_log", "dt_bias", "D", "w_r", "w_i", "b_r", "b_i", "lambda"})
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -72,48 +65,103 @@ def layer_types(cfg: ArchConfig) -> np.ndarray:
 # init
 # ---------------------------------------------------------------------------
 
-def init_lm_params(seed: int, cfg: ArchConfig, device: str | torch.device | None = None) -> dict:
-    """Random f32 params of the reference's shapes and scales, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (None: the card).
-
-    The draws are torch's, not ``jax.random``'s: the same seed gives other
-    weights than the reference.  To compare with it, carry its weights over
-    with :func:`params_from_numpy`."""
-    check_ported(cfg)
+def param_initializers(seed: int, nl: int, device: str | torch.device | None = None):
+    """(normal, dense, zeros) drawing f32 tensors on ``device`` from one
+    ``torch.Generator`` seeded with ``seed``: ``dense(shape, scale=None,
+    layers=nl)`` is the reference's ``_dense_init`` over ``layers`` stacked
+    layers, its scale 1/sqrt(fan_in) with fan_in = shape[-2]."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    nl, d = cfg.n_layers, cfg.d_model
 
     def normal(shape, std):
         return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).mul_(std)
 
-    def dense(shape):  # fan-in scaling of the reference's _dense_init
-        return normal((nl, *shape), 1.0 / np.sqrt(shape[-2]))
+    def dense(shape, scale=None, layers=nl):
+        return normal((layers, *shape), 1.0 / np.sqrt(shape[-2]) if scale is None else scale)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
-    vp = padded_vocab(cfg)
-    mlp = {"w1": dense((d, cfg.d_ff)), "w2": dense((cfg.d_ff, d))}
-    if cfg.activation == "silu_glu":
-        mlp["w1g"] = dense((d, cfg.d_ff))
-    params: dict[str, Any] = {
-        "embed": normal((vp, d), 0.02),
-        "final_norm": zeros(d),
-        "blocks": {
-            "ln1": zeros(nl, d),
-            "attn": {
-                "wq": dense((d, cfg.attn_dim)),
-                "wk": dense((d, cfg.kv_dim)),
-                "wv": dense((d, cfg.kv_dim)),
-                "wo": dense((cfg.attn_dim, d)),
-            },
-            "ln2": zeros(nl, d),
-            "mlp": mlp,
-        },
+    return normal, dense, zeros
+
+
+def attn_init(cfg: ArchConfig, dense) -> dict:
+    """The attention leaves of one stack of layers."""
+    d = cfg.d_model
+    return {
+        "wq": dense((d, cfg.attn_dim)),
+        "wk": dense((d, cfg.kv_dim)),
+        "wv": dense((d, cfg.kv_dim)),
+        "wo": dense((cfg.attn_dim, d)),
     }
+
+
+def mlp_init(cfg: ArchConfig, dense) -> dict:
+    """The MLP leaves of one stack of layers."""
+    mlp = {"w1": dense((cfg.d_model, cfg.d_ff)), "w2": dense((cfg.d_ff, cfg.d_model))}
+    if cfg.activation == "silu_glu":
+        mlp["w1g"] = dense((cfg.d_model, cfg.d_ff))
+    return mlp
+
+
+def init_lm_params(seed: int, cfg: ArchConfig, device: str | torch.device | None = None) -> dict:
+    """Random f32 params of the reference's names, shapes and scales for
+    every decoder family, drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (None: the card).
+
+    The draws are torch's, not ``jax.random``'s: the same seed gives other
+    weights than the reference.  To compare with it, carry its weights over
+    with :func:`params_from_numpy`."""
+    nl, d = cfg.n_layers, cfg.d_model
+    normal, dense, zeros = param_initializers(seed, nl, device)
+    vp = padded_vocab(cfg)
+    blocks: dict[str, Any] = {"ln1": zeros(nl, d)}
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di = s.expand * d
+        nh = di // s.head_dim
+        conv_dim = di + 2 * s.d_state
+        blocks["ssm"] = {
+            "in_proj": dense((d, 2 * di + 2 * s.d_state + nh)),
+            "conv_w": dense((s.conv_width, conv_dim), scale=0.3),
+            "conv_b": zeros(nl, conv_dim),
+            "dt_bias": zeros(nl, nh),
+            "A_log": zeros(nl, nh),
+            "D": zeros(nl, nh).fill_(1.0),
+            "gate_norm": zeros(nl, di),
+            "out_proj": dense((di, d)),
+        }
+    else:
+        blocks["attn"] = attn_init(cfg, dense)
+        blocks["ln2"] = zeros(nl, d)
+        if cfg.family == "moe":
+            e = cfg.moe.n_experts
+            blocks["moe"] = {"router": dense((d, e)), "w1": dense((e, d, cfg.d_ff)),
+                             "w2": dense((e, cfg.d_ff, d))}
+            if cfg.activation == "silu_glu":
+                blocks["moe"]["w1g"] = dense((e, d, cfg.d_ff))
+        else:
+            blocks["mlp"] = mlp_init(cfg, dense)
+        if cfg.family == "hybrid":
+            lru = cfg.hybrid.lru_width or d
+            blocks["rglru"] = {
+                "w_x": dense((d, lru)),
+                "w_gate": dense((d, lru)),
+                "conv_w": dense((4, lru), scale=0.3),
+                "conv_b": zeros(nl, lru),
+                "w_r": dense((lru, lru)),
+                "b_r": zeros(nl, lru),
+                "w_i": dense((lru, lru)),
+                "b_i": zeros(nl, lru),
+                "lambda": zeros(nl, lru).fill_(0.5),
+                "w_out": dense((lru, d)),
+            }
+    params: dict[str, Any] = {"embed": normal((vp, d), 0.02), "final_norm": zeros(d),
+                              "blocks": blocks}
     if not cfg.tie_embeddings:
         params["head"] = normal((vp, d), 0.02)
+    if cfg.frontend == "vision":
+        params["img_proj"] = normal((d, d), 1.0 / np.sqrt(d))
     return params
 
 
@@ -128,14 +176,15 @@ def params_from_numpy(tree, device: str | torch.device | None = None):
 
 def cast_for_compute(params: dict) -> dict:
     """The params with every matrix that the forward casts to bf16 at each use
-    (embed, head, the attention and MLP weights) cast once; norm scales stay
-    f32.  The forward then computes the same numbers, and a decode step reads
-    half the bytes."""
+    (embeddings, head, projections, attention, MLP and expert weights, conv
+    filters) cast once; norm scales and the leaves the forward reads in f32
+    (:data:`F32_LEAVES`) stay f32.  The forward then computes the same
+    numbers, and a decode step reads half the bytes."""
     out = {}
     for key, val in params.items():
         if isinstance(val, dict):
             out[key] = cast_for_compute(val)
-        elif key.startswith("ln") or key.endswith("norm"):
+        elif key.startswith("ln") or key.endswith("norm") or key in F32_LEAVES:
             out[key] = val
         else:
             out[key] = val.to(COMPUTE_DTYPE)
@@ -151,7 +200,7 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _attn_apply(x, bp, cfg: ArchConfig, positions, window):
+def _attn_apply(x, bp, cfg: ArchConfig, positions, window, causal: bool = True):
     b, s, _ = x.shape
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     q = (h @ bp["attn"]["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -159,24 +208,43 @@ def _attn_apply(x, bp, cfg: ArchConfig, positions, window):
     v = (h @ bp["attn"]["wv"].to(h.dtype)).reshape(b, s, cfg.n_kv, cfg.head_dim)
     q = rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=True, window=window, q_chunk=cfg.q_chunk)
+    o = chunked_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.q_chunk)
     return o.reshape(b, s, cfg.attn_dim) @ bp["attn"]["wo"].to(h.dtype)
 
 
 def _ffn_apply(x, bp, cfg: ArchConfig):
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        m = cfg.moe
+        if cfg.moe_dense_decode and x.shape[1] == 1:
+            return moe_apply_dense(h, bp["moe"], n_experts=m.n_experts, top_k=m.top_k,
+                                   activation=cfg.activation)
+        return moe_apply(h, bp["moe"], n_experts=m.n_experts, top_k=m.top_k,
+                         capacity_factor=m.capacity_factor, activation=cfg.activation)
     return mlp_apply(h, bp["mlp"], cfg.activation)
 
 
-def _block_apply(x, bp, cfg: ArchConfig, positions):
-    """One dense transformer block; bp is the per-layer slice of the params."""
+def _block_apply(x, bp, layer_type: int, cfg: ArchConfig, positions):
+    """One block; bp is the per-layer slice of the params."""
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        return x + ssd_apply(rms_norm(x, bp["ln1"], cfg.norm_eps), bp["ssm"],
+                             d_state=s.d_state, head_dim=s.head_dim, expand=s.expand,
+                             chunk=s.chunk, norm_eps=cfg.norm_eps)
+    if cfg.family == "hybrid":
+        if layer_type == 0:
+            x = x + _attn_apply(x, bp, cfg, positions, cfg.hybrid.local_window)
+        else:
+            x = x + rglru_apply(rms_norm(x, bp["ln1"], cfg.norm_eps), bp["rglru"])
+        return x + _ffn_apply(x, bp, cfg)
+    # dense / moe / vlm
     x = x + _attn_apply(x, bp, cfg, positions, cfg.window)
     return x + _ffn_apply(x, bp, cfg)
 
 
 def _run_blocks(x, params, cfg: ArchConfig, positions):
-    for i in range(cfg.n_layers):
-        x = _block_apply(x, _layer(params["blocks"], i), cfg, positions)
+    for i, lt in enumerate(layer_types(cfg)):
+        x = _block_apply(x, _layer(params["blocks"], i), int(lt), cfg, positions)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -188,19 +256,27 @@ def _embed(params, tokens):
     return params["embed"].to(COMPUTE_DTYPE)[tokens]
 
 
-def lm_forward(params, cfg: ArchConfig, tokens):
-    """Full-sequence logits (B, S, Vp)."""
-    check_ported(cfg)
+def _inputs(params, tokens, img_embeds):
+    """Token embeddings, after the projected image embeddings if given."""
     x = _embed(params, tokens)
+    if img_embeds is None:
+        return x
+    img = img_embeds.to(COMPUTE_DTYPE) @ params["img_proj"].to(COMPUTE_DTYPE)
+    return torch.cat([img, x], dim=1)
+
+
+def lm_forward(params, cfg: ArchConfig, tokens, img_embeds=None):
+    """Full-sequence logits (B, S, Vp); with ``img_embeds`` (B, n_img, D) the
+    sequence is the n_img image positions then the tokens."""
+    x = _inputs(params, tokens, img_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     h = _run_blocks(x, params, cfg, positions)
     return h @ _head_matrix(params).to(h.dtype).T
 
 
-def lm_prefill(params, cfg: ArchConfig, tokens):
+def lm_prefill(params, cfg: ArchConfig, tokens, img_embeds=None):
     """Prefill: run the full context, return last-position logits (B, Vp)."""
-    check_ported(cfg)
-    x = _embed(params, tokens)
+    x = _inputs(params, tokens, img_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     h = _run_blocks(x, params, cfg, positions)
     return h[:, -1] @ _head_matrix(params).to(h.dtype).T
@@ -221,17 +297,31 @@ def cache_window(cfg: ArchConfig, seq_len: int) -> int:
 
 def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int,
                       device: str | torch.device | None = None) -> dict:
-    """Zeroed KV cache on ``device`` (None: the card): k and v
-    (n_layers, batch, window, n_kv, head_dim) bf16, pos 0."""
-    check_ported(cfg)
+    """Zeroed cache on ``device`` (None: the card), pos 0, the reference's
+    leaves: k and v (n_layers, batch, window, n_kv, head_dim) bf16; ssm:
+    conv (n_layers, batch, conv_width - 1, d_inner + 2 d_state) bf16 and ssm
+    (n_layers, batch, heads, head_dim, d_state) f32 in their place; hybrid:
+    also conv (n_layers, batch, 3, lru) bf16 and h (n_layers, batch, lru)
+    f32."""
     dev = resolve_device(device)
-    w = cache_window(cfg, seq_len)
-    shape = (cfg.n_layers, batch, w, cfg.n_kv, cfg.head_dim)
-    return {
-        "pos": 0,
-        "k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev),
-        "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev),
-    }
+    nl = cfg.n_layers
+    cache: dict[str, Any] = {"pos": 0}
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        cache["conv"] = torch.zeros((nl, batch, s.conv_width - 1, di + 2 * s.d_state),
+                                    dtype=COMPUTE_DTYPE, device=dev)
+        cache["ssm"] = torch.zeros((nl, batch, di // s.head_dim, s.head_dim, s.d_state),
+                                   dtype=torch.float32, device=dev)
+        return cache
+    shape = (nl, batch, cache_window(cfg, seq_len), cfg.n_kv, cfg.head_dim)
+    cache["k"] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev)
+    if cfg.family == "hybrid":
+        lru = cfg.hybrid.lru_width or cfg.d_model
+        cache["conv"] = torch.zeros((nl, batch, 3, lru), dtype=COMPUTE_DTYPE, device=dev)
+        cache["h"] = torch.zeros((nl, batch, lru), dtype=torch.float32, device=dev)
+    return cache
 
 
 def _attn_decode(x, bp, cfg: ArchConfig, k_cache, v_cache, pos: int, window):
@@ -258,13 +348,25 @@ def _attn_decode(x, bp, cfg: ArchConfig, k_cache, v_cache, pos: int, window):
 
 def lm_decode_step(params, cfg: ArchConfig, cache, tokens):
     """One decode step: tokens (B, 1) -> (logits (B, 1, Vp), cache), the
-    cache's k and v updated in place and its pos advanced by one."""
-    check_ported(cfg)
+    cache's tensors updated in place and its pos advanced by one."""
     pos = cache["pos"]
     x = _embed(params, tokens)
-    for i in range(cfg.n_layers):
+    for i, lt in enumerate(layer_types(cfg)):
         bp = _layer(params["blocks"], i)
-        out = _attn_decode(x, bp, cfg, cache["k"][i], cache["v"][i], pos, cfg.window)
+        if cfg.family == "ssm":
+            s = cfg.ssm
+            out, _ = ssd_decode_step(
+                rms_norm(x, bp["ln1"], cfg.norm_eps),
+                {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, bp["ssm"],
+                d_state=s.d_state, head_dim=s.head_dim, expand=s.expand, norm_eps=cfg.norm_eps)
+            x = x + out
+            continue
+        if cfg.family == "hybrid" and lt == 1:
+            out, _ = rglru_decode_step(rms_norm(x, bp["ln1"], cfg.norm_eps),
+                                       {"conv": cache["conv"][i], "h": cache["h"][i]}, bp["rglru"])
+        else:
+            window = cfg.hybrid.local_window if cfg.family == "hybrid" else cfg.window
+            out = _attn_decode(x, bp, cfg, cache["k"][i], cache["v"][i], pos, window)
         mid = x + out
         x = mid + _ffn_apply(mid, bp, cfg)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)

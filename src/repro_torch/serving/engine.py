@@ -3,14 +3,17 @@
 
 The reference's shape, slot for slot: fixed-batch slots, greedy sampling,
 per-slot stop conditions, prompt consumption through the same decode step
-(sequential prefill), one shared monotone cache position, so one engine
-serves one wave of requests.  The decode step runs no kernel: decoding
-attends with a plain einsum against the KV cache, as in the reference.
+(sequential prefill, right for every family's state), one shared monotone
+cache position, so one engine serves one wave of requests.  The decode step
+runs no kernel: decoding attends with a plain einsum against the KV cache,
+as in the reference.  An encdec engine decodes against a cross K/V of
+``src_len`` zero positions, as the reference's does (ROADMAP C6).
 
 The engine holds the params with their matrices cast to bf16 once
-(``cast_for_compute``); the reference casts f32 weights at each use.  The
-numbers are the same and a step reads half the weight bytes; the copy costs
-two bytes per parameter on top of the caller's f32 params.
+(``cast_for_compute``; the leaves read in f32 stay f32); the reference
+casts f32 weights at each use.  The numbers are the same and a step reads
+half the weight bytes; the copy costs two bytes per parameter on top of the
+caller's f32 params.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import init_encdec_cache
 from repro_torch.models.lm import cast_for_compute, init_decode_cache
 from repro_torch.train.step import make_serve_step
 
@@ -36,7 +40,7 @@ class Request:
 
 class ServeEngine:
     def __init__(self, params, cfg: ArchConfig, batch_size: int = 4,
-                 max_len: int = 256, eos_id: int | None = None,
+                 max_len: int = 256, src_len: int = 16, eos_id: int | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.params = cast_for_compute(params)
@@ -45,7 +49,10 @@ class ServeEngine:
         self.max_len = max_len
         self.eos = eos_id
         self.step = make_serve_step(cfg)
-        self.cache = init_decode_cache(cfg, batch_size, max_len, self.device)
+        if cfg.family == "encdec":
+            self.cache = init_encdec_cache(cfg, batch_size, max_len, src_len, self.device)
+        else:
+            self.cache = init_decode_cache(cfg, batch_size, max_len, self.device)
         self.slots: list[Request | None] = [None] * batch_size
         self._pending: list[Request] = []
         self._cursor = np.zeros(batch_size, dtype=np.int64)  # prompt position

@@ -268,6 +268,7 @@ def test_visible_pairs_matches_brute_force(sq, sk, causal, window):
         (2, 96, 4, 2, 32, 24, 32),
         (1, 80, 4, 4, 16, 33, 32),  # q_chunk does not divide S: one chunk
         (2, 128, 4, 1, 32, 100, 32),  # window wider than a chunk
+        (1, 96, 2, 1, 256, 40, 32),  # recurrentgemma's head_dim and one kv head
     ],
 )
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -520,6 +521,32 @@ def test_flash_simt_route_takes_bf16_dh32_cuda(cuda):
     want = tfa.flash_attention_plain(q, k, v, causal=True, window=100)
     torch.cuda.synchronize()
     assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,dh,causal,window",
+    [
+        (1, 1000, 1000, 10, 1, 256, True, 300),  # recurrentgemma's heads, a window
+        (2, 300, 300, 4, 2, 256, True, None),
+        (1, 64, 200, 4, 4, 256, False, None),  # Sq != Sk
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_head_dim_256_takes_simt_cuda(cuda, b, sq, sk, h, kv, dh, causal, window, dtype):
+    """head_dim 256 runs the SIMT kernel in both dtypes, once, within one
+    bf16 ulp (f32: 2e-5) of the plain version."""
+    q, k, v = _card_case(cuda, b, sq, sk, h, kv, dh, dtype, sq + 2 * sk)
+    tops.reset_launch_counts()
+    got = tops.attention(q, k, v, causal=causal, window=window)
+    assert tfa.flash_attention_cuda.route_launches == {"wgmma": 0, "simt": 1}
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max()) <= 1.0
 
 
 @pytest.mark.cuda

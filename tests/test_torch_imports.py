@@ -32,6 +32,8 @@ def test_scan_covers_the_package():
     assert "src/repro_torch/core/fednl_pp.py" in names
     assert "src/repro_torch/baselines/numpy_reference.py" in names
     assert "src/repro_torch/models/lm.py" in names
+    for module in ("moe", "ssm", "rglru", "encdec"):
+        assert f"src/repro_torch/models/{module}.py" in names
     for module in ("api/registry", "api/session", "api/backends", "api/sweep", "api/batch",
                    "core/fednl_batch", "comm/transport", "comm/wire", "comm/protocol",
                    "comm/cost", "comm/star", "comm/star_pp", "comm/topology",
@@ -64,7 +66,9 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "repro_torch.api.backends, repro_torch.core.fednl_batch, repro_torch.comm.transport, "
         "repro_torch.obs, repro_torch.comm.topology, repro_torch.launch.multiproc, "
         "repro_torch.api.specwire, repro_torch.serve_fednl, repro_torch.gateway, "
-        "repro_torch.launch.gateway_serve, repro_torch.distributed, repro_torch.launch.mesh\n"
+        "repro_torch.launch.gateway_serve, repro_torch.distributed, repro_torch.launch.mesh, "
+        "repro_torch.models.moe, repro_torch.models.ssm, repro_torch.models.rglru, "
+        "repro_torch.models.encdec\n"
         "from repro_torch.core.fednl_batch import BatchRoundTable\n"
         "assert repro_torch.api.encode_spec is repro_torch.api.specwire.encode_spec\n"
         "assert repro_torch.api.TopologySpec is repro_torch.comm.topology.TopologySpec\n"

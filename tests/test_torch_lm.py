@@ -252,16 +252,6 @@ def test_checkpoint_crosses_packages(ref, tmp_path):
         load_checkpoint(str(tmp_path / "jax_ckpt"), init_lm_params(0, dataclasses.replace(cfg, n_layers=3), "cpu"))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-2.7b", "recurrentgemma-2b",
-                                  "llava-next-mistral-7b", "seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        init_lm_params(0, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        make_prefill_step(cfg)
-
-
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None resolves to it")
