@@ -29,11 +29,11 @@ raises, and the script exits non-zero without the final line.
              (counted; none allowed on the dyadic fixture); flash attention
              within one bf16 ulp (the ulp taken at no less than 2**-14) at
              granite's 32k layer shape, B = 4, a 4096 window, S = 1000, a
-             5-token prompt, non-causal 64 x 256 and dh = 128 (the wgmma
-             route) and bf16 at dh = 32 and at recurrentgemma-2b's 32k layer
-             (dh = 256, H = 10, Kv = 1, causal window 2048: the SIMT
-             route), and within 2e-5 in
-             f32 (the SIMT route); each fixture's route checked; the threefry
+             5-token prompt, non-causal 64 x 256, dh = 128 and
+             recurrentgemma-2b's 32k layer (dh = 256, H = 10, Kv = 1, causal
+             window 2048) (the wgmma route) and bf16 at dh = 32 (the SIMT
+             route), and within 2e-5 in f32 (the SIMT route, dh 64 and
+             256); each fixture's route checked; the threefry
              kernel bit-exact in f32 and f64 at (142, 45451), T = 1 and one
              client; TopK by keys bit-exact on the round's real uniforms,
              forced ties at the k-th key, k = 1 and k = T
@@ -82,9 +82,11 @@ raises, and the script exits non-zero without the final line.
              least time: bytes, or the operations the function needs (threefry:
              the hash's 32-bit operations; flash:
              QK^T and three bf16 P.V products over the visible pairs on the
-             bf16 tensor cores; the dh-256 SIMT kernel at recurrentgemma's
-             layer beside SDPA given the window as a boolean mask); SYRK's
-             ptxas report, dynamic shared memory,
+             bf16 tensor cores; the dh-256 wgmma kernel at recurrentgemma's
+             layer, with ptxas's report of its instantiations, and the dh-128
+             one at llava-next-mistral-7b's, each beside SDPA given the
+             window as a boolean mask); SYRK's ptxas report, dynamic shared
+             memory,
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
              schedule stages
   7 trace    one round each of the TopK, RandK and PP paths under
@@ -208,8 +210,8 @@ raises, and the script exits non-zero without the final line.
 Phase 3 also checks a window without causality through
 ``models.layers.chunked_attention`` (S = 2,048, q_chunk 512, window 300:
 one launch per query chunk on its key slice) on both flash routes, bf16 at
-head_dim 128 on wgmma and f32 at head_dim 32 on SIMT, against the plain
-version on the same chunks and offsets.
+head_dim 128 and 256 on wgmma and f32 at head_dim 32 on SIMT, against the
+plain version on the same chunks and offsets.
 Then the kernels line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -555,9 +557,11 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         "noncausal_64x256": (1, 64, 256, 32, 8, 64, False, None, bf16),
         "dh128_window200": (2, 777, 777, 8, 2, 128, True, 200, bf16),
         "dh32_simt_route": (2, 1000, 1000, 8, 2, 32, True, 300, bf16),
-        # recurrentgemma-2b's attention layer at its 32k prefill: the SIMT route
+        # recurrentgemma-2b's attention layer at its 32k prefill: the wgmma route
         "recurrentgemma_32k_layer_dh256": (1, PREFILL_SEQ, PREFILL_SEQ, 10, 1, 256, True, 2048, bf16),
+        "dh256_kv2_window300_s1000": (2, 1000, 1000, 8, 2, 256, True, 300, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
+        "f32_dh256_simt_window2048": (1, 4096, 4096, 10, 1, 256, True, 2048, f32),
     }
     report, max_err = {}, 0.0
     for seed, (name, (b, sq, sk, h, kv, dh, causal, window, dtype)) in enumerate(cases.items()):
@@ -594,6 +598,7 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
 
     chunked = {  # name: (b, s, h, kv, dh, dtype)
         "noncausal_window300_qchunk512_wgmma": (1, 2048, 8, 2, 128, bf16),
+        "noncausal_window300_qchunk512_wgmma_dh256": (1, 2048, 10, 1, 256, bf16),
         "noncausal_window300_qchunk512_simt_f32": (2, 2048, 8, 2, 32, f32),
     }
     for seed, (name, (b, s, h, kv, dh, dtype)) in enumerate(chunked.items()):
@@ -625,6 +630,54 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         report[name] = row
         del q, k, v, got, want
     return report, max_err
+
+
+def flash_window_layer(dev, tfa, h: int, kv: int, dh: int, window: int, seed: int) -> dict:
+    """Flash at one model's 32k attention layer (B 1, S PREFILL_SEQ, causal
+    window), bf16: the kernel, its plain version and SDPA given the causal
+    window as a boolean (S, S) mask and the kv heads repeated, as CUDA-event
+    medians of FLASH_TIMED_REPS pairs around one call; the bound (QK^T and
+    three bf16 P.V products over the visible pairs on the tensor cores, or
+    the bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, h, kv, dh, torch.bfloat16, seed)
+    fns = {
+        "kernel": lambda: tfa.flash_attention_cuda(q, k, v, causal=True, window=window),
+        "plain": lambda: tfa.flash_attention_plain(q, k, v, causal=True, window=window),
+    }
+    pos = torch.arange(PREFILL_SEQ, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(h // kv, dim=1).contiguous() for t in (k, v))
+    library = {"backends": "flash, memory-efficient",
+               "mask": f"boolean (S, S) causal window {window}, kv heads repeated"}
+    try:  # the yardstick only: the port never calls SDPA
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+            torch.cuda.synchronize()
+        fns["library"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    except RuntimeError as err:
+        library["not_given"] = str(err).splitlines()[0][:300]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        ms = median_ms(fns, reps=FLASH_TIMED_REPS, calls=1)
+    visible = tfa.visible_pairs(PREFILL_SEQ, PREFILL_SEQ, True, window) * h
+    flops = 2 * dh * visible  # QK^T, and again each P.V product
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return {
+        "ms": ms, "shape": [1, PREFILL_SEQ, h, kv, dh], "causal": True, "window": window,
+        "dtype": "bfloat16", "route": tfa.flash_route(torch.bfloat16, dh),
+        "bound": bound(nbytes, 4 * flops, BF16_TENSOR_FLOPS),
+        "bound_parts_ms": {
+            "qk_bf16_tensor": flops / BF16_TENSOR_FLOPS * 1e3,
+            "pv_three_bf16_products_tensor": 3 * flops / BF16_TENSOR_FLOPS * 1e3,
+            "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "exp_mufu": visible / MUFU_EXP_PER_S * 1e3,
+        },
+        "visible_pairs": visible, "library": library,
+    }
 
 
 def bf16_ulp_at(scale: float) -> float:
@@ -809,7 +862,7 @@ def lm_phase(dev, ops) -> dict:
 ZOO_FLASH_ROUTES = {
     "granite-moe-1b-a400m": {"wgmma": 24, "simt": 0},
     "mamba2-2.7b": {"wgmma": 0, "simt": 0},  # no attention
-    "recurrentgemma-2b": {"wgmma": 0, "simt": 8},  # layers i % 3 == 2 of 26, head_dim 256
+    "recurrentgemma-2b": {"wgmma": 8, "simt": 0},  # layers i % 3 == 2 of 26, head_dim 256
     "llava-next-mistral-7b": {"wgmma": 32, "simt": 0},
     "seamless-m4t-large-v2": {"wgmma": 72, "simt": 0},  # 24 encoder + 24 self + 24 cross
 }
@@ -3154,39 +3207,16 @@ def main() -> int:
     }
     flash_bound = bound(flash_bytes, 4 * product_flops, BF16_TENSOR_FLOPS)
     del fq, fk, fv, qt, kt, vt
-    # head_dim 256 at recurrentgemma-2b's layer (the SIMT route), beside SDPA
-    # given the causal window as a boolean mask and the kv head repeated
-    gq, gk, gv = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, 10, 1, 256, torch.bfloat16, 101)
-    rg_window = 2048
-    gfns = {
-        "kernel": lambda: tfa.flash_attention_cuda(gq, gk, gv, causal=True, window=rg_window),
-        "plain": lambda: tfa.flash_attention_plain(gq, gk, gv, causal=True, window=rg_window),
-    }
-    pos = torch.arange(PREFILL_SEQ, device=dev)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - rg_window)
-    gqt = gq.transpose(1, 2)
-    gkt, gvt = (t.transpose(1, 2).expand(-1, 10, -1, -1).contiguous() for t in (gk, gv))
-    sdpa_dh256 = {"backends": "flash, memory-efficient", "mask": "boolean (S, S) causal window 2048"}
-    try:  # the yardstick only: the port never calls SDPA
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-            F.scaled_dot_product_attention(gqt, gkt, gvt, attn_mask=band)
-            torch.cuda.synchronize()
-        gfns["library"] = lambda: F.scaled_dot_product_attention(gqt, gkt, gvt, attn_mask=band)
-    except RuntimeError as err:
-        sdpa_dh256["not_given"] = str(err).splitlines()[0][:300]
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-        flash256_ms = median_ms(gfns, reps=FLASH_TIMED_REPS, calls=1)
-    visible256 = tfa.visible_pairs(PREFILL_SEQ, PREFILL_SEQ, True, rg_window) * gq.shape[2]
-    flops256 = 2 * gq.shape[3] * visible256
-    flash256_bound = bound((2 * gq.numel() + gk.numel() + gv.numel()) * gq.element_size(),
-                           4 * flops256, BF16_TENSOR_FLOPS)
-    flash256_parts = {
-        "qk_bf16_tensor": flops256 / BF16_TENSOR_FLOPS * 1e3,
-        "pv_three_bf16_products_tensor": 3 * flops256 / BF16_TENSOR_FLOPS * 1e3,
-        "bytes": (2 * gq.numel() + gk.numel() + gv.numel()) * 2 / HBM_BYTES_PER_S * 1e3,
-        "f32_cuda_cores_both_products": 2 * flops256 / CUDA_CORE_32BIT_OPS * 1e3,
-    }
-    del gq, gk, gv, gqt, gkt, gvt, band, pos
+    # head_dim 256 at recurrentgemma-2b's layer and 128 at llava-next-mistral-
+    # 7b's (both the wgmma route), each beside SDPA given the causal window as
+    # a boolean mask
+    flash256 = flash_window_layer(dev, tfa, 10, 1, 256, 2048, 101)
+    flash128 = flash_window_layer(dev, tfa, 32, 8, 128, 4096, 102)
+    if "flash_attention" in reports:
+        flash256["ptxas"] = {fn: lines for fn, lines in build.ptxas_entries(
+            reports["flash_attention"]).items() if "flash_fwd_wgmma_kernelILi256E" in fn}
+    else:
+        flash256["ptxas"] = "not measured (library built before this run)"
     syrk_bound = bound(
         (z.numel() + hw.numel() + h_kernel.numel()) * 8,
         2 * n_i * t_len * n_clients,
@@ -3265,16 +3295,15 @@ def main() -> int:
                   "library = F.scaled_dot_product_attention(is_causal, enable_gqa) on the "
                   "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
                   "same function at lower precision"})
-    emit({"phase": "times", "flash_attention_dh256": flash256_ms,
-          "shape": [1, PREFILL_SEQ, 10, 1, 256], "causal": True, "window": rg_window,
-          "dtype": "bfloat16", "route": tfa.flash_route(torch.bfloat16, 256),
-          "bound_ms": flash256_bound[0], "bound_by": flash256_bound[1],
-          "bound_parts_ms": flash256_parts, "visible_pairs": visible256, "library": sdpa_dh256,
-          "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one call; "
-                  "bound as the head_dim-64 row: (QK^T + 3 P.V bf16 products) over the visible "
-                  "pairs at 989 TFLOP/s; the SIMT kernel runs both products in f32 on the CUDA "
-                  "cores; library = SDPA with the window as a boolean mask over all S x S "
-                  "pairs, the kv head repeated beforehand, p rounded to bf16"})
+    for name, layer in (("flash_attention_dh256", flash256), ("flash_attention_dh128", flash128)):
+        emit({"phase": "times", name: layer["ms"],
+              **{key: val for key, val in layer.items() if key not in ("ms", "bound")},
+              "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
+              "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one "
+                      "call, the three in turns; bound as the head_dim-64 row: (QK^T + 3 P.V "
+                      "bf16 products) over the visible pairs at 989 TFLOP/s; library = SDPA "
+                      "with the window as a boolean mask over all S x S pairs, the kv heads "
+                      "repeated beforehand, p rounded to bf16"})
 
     # --- 7 no host sync in a round; where the time goes (torch.profiler) ----
     pp_cfg = pp_spec.fednl_config()
@@ -3428,8 +3457,8 @@ def main() -> int:
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
-            "kernels": {"wgmma": "flash_fwd_wgmma_kernel (bf16, head_dim 64 and 128)",
-                        "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16, 32 and 256)"},
+            "kernels": {"wgmma": "flash_fwd_wgmma_kernel (bf16, head_dim 64, 128 and 256)",
+                        "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16 and 32)"},
             "prefill_32k_routes": flash_routes,
             "launches": flash_launches, "max_abs_err": flash_err,
             "sweep_launches": sweep_launches["flash_attention"],
@@ -3438,17 +3467,20 @@ def main() -> int:
             "library_ms": flash_ms["library"],
             "zoo_routes": {arch: z["routes"] for arch, z in zoo.items()},
         },
-        {
-            "name": "flash_attention_dh256", "route": "cuda",
+        *({
+            "name": f"flash_attention_dh{dh}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:95 (at head_dim 256)",
-            "kernels": {"simt": "flash_fwd_kernel, DH = 256 (bf16 and f32)"},
-            "launches": zoo["recurrentgemma-2b"]["routes"]["simt"],
-            "max_abs_err": flash_report["recurrentgemma_32k_layer_dh256"]["max_abs_err"],
-            "ms": flash256_ms["kernel"], "plain_ms": flash256_ms["plain"],
-            "bound_ms": flash256_bound[0], "bound_by": flash256_bound[1],
-            "library_ms": flash256_ms.get("library"),
-        },
+            "replaces": f"src/repro/kernels/flash_attention.py:95 (at head_dim {dh})",
+            "kernels": {"wgmma": f"flash_fwd_wgmma_kernel, DH = {dh} (bf16)",
+                        "simt": f"flash_fwd_kernel, DH = {dh} (f32)"},
+            "layer": arch, "launches": zoo[arch]["routes"]["wgmma"],
+            "max_abs_err": flash_report[fixture]["max_abs_err"],
+            "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
+            "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
+            "library_ms": layer["ms"].get("library"),
+        } for dh, arch, fixture, layer in (
+            (256, "recurrentgemma-2b", "recurrentgemma_32k_layer_dh256", flash256),
+            (128, "llava-next-mistral-7b", "dh128_window200", flash128))),
     ]
     for name, launched, replaces in (
         ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
@@ -3482,7 +3514,7 @@ def main() -> int:
     for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
         entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
     for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
-        if entry["name"] != "flash_attention_dh256":
+        if entry["name"] not in ("flash_attention_dh256", "flash_attention_dh128"):
             entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
                                      for arch, z in zoo.items()}
     for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it

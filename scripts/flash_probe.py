@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""The port's flash kernel at head_dim 256 and variants of it, on one NVIDIA GPU.
+
+    python3 scripts/flash_probe.py [--baseline FILE]
+
+Runs from the root of a checkout on a machine with a card and nvcc; imports
+``repro_torch`` from ``src/`` and nothing of ``repro`` or JAX.  Prints one
+JSON line per measurement, then the card's name and power limit.
+
+  build    src/repro_torch/kernels/csrc/flash_attention.cu and variants of
+           it, built from the same text with one change each, into
+           build/flash_probe/ (one nvcc each, in parallel); ptxas's
+           registers, spills and wgmma warnings for each head_dim-256
+           instantiation:
+             kernel           the source as it is: each consumer computes
+                              the whole S; 3 stages, 4 P.V batches
+             dh256_stages2    a 2-stage K/V ring at head_dim 256
+             dh256_phases2    P.V of a 64-key tile in two batches of 32 keys
+             dh256_half_s     S over half of head_dim: what the duplicated
+                              S costs at most (wrong results; timed only)
+             dh256_split_s    each consumer's S over its half of head_dim,
+                              the two partial S exchanged through shared
+                              memory (a barrier of the 256 consumer threads
+                              a tile, two copies by tile parity) and added
+                              in one order by both; 2 stages
+             simt_bf16        the SIMT kernel also taking bf16 at head_dim
+                              256 (the route before the wgmma kernel had it)
+           and, with --baseline, another flash_attention.cu as it is (for
+           example the parent commit's, unpacked by git archive), and whether
+           each wgmma instantiation's SASS (cuobjdump beside nvcc, addresses
+           and encodings dropped) is the same in both
+  check    each variant against the plain version (flash_attention_plain)
+           within one bf16 ulp (taken at no less than 2**-14) at small shapes
+           (GQA, windows, padding, Sq != Sk, a window without causality at
+           an offset) and at recurrentgemma-2b's 32k layer (B 1, S 32,768,
+           H 10, Kv 1, causal window 2048)
+  times    CUDA-event medians of 5 event pairs around one call, the variants
+           in turns, at recurrentgemma-2b's layer; with the source as it is
+           also the head_dim-64 kernel at granite-3-2b's layer (H 32, Kv 8,
+           causal) and the head_dim-128 kernel at llava-next-mistral-7b's
+           (H 32, Kv 8, causal window 4096), in turns with the baseline's
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "flash_probe"
+REPS = 5
+SEQ = 32768
+
+SPLIT_S_EXCHANGE = """// S = S0 + S1 from the two consumers' partial S over their halves of
+// head_dim: thread t of either consumer holds the same fragment positions;
+// buf is [consumer][N / 4][128 threads] float4, two copies by tile parity.
+template <int N>
+__device__ __forceinline__ void exchange_s(float (&sc)[N], uint32_t buf, int cw, int tid) {
+  const uint32_t mine = buf + (cw * (N / 4) * 128 + tid) * 16;
+  const uint32_t theirs = buf + ((1 - cw) * (N / 4) * 128 + tid) * 16;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\\n" ::"r"(mine + j * 128 * 16),
+                 "f"(sc[4 * j]), "f"(sc[4 * j + 1]), "f"(sc[4 * j + 2]), "f"(sc[4 * j + 3])
+                 : "memory");
+  asm volatile("bar.sync 1, 256;\\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    float t[4];
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\\n"
+                 : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+                 : "r"(theirs + j * 128 * 16)
+                 : "memory");
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sc[4 * j + i] = cw == 0 ? __fadd_rn(sc[4 * j + i], t[i]) : __fadd_rn(t[i], sc[4 * j + i]);
+  }
+}
+
+// The rest of one tile after S = Q K^T"""
+SPLIT_S_LOOP = """      constexpr int kSteps = C::kColSplit ? DH / 32 : DH / 16;
+      const int step0 = C::kColSplit ? kSteps * cw : 0;
+      float sc[kBK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kSteps; ++kc) {
+        const uint32_t off = ((step0 + kc) / 4) * C::kPanelBytes + (kc % 4) * 32;
+        wgmma_ss(sc, smem_desc(q_wg + off), smem_desc(k_s + off), kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      if constexpr (C::kColSplit)
+        exchange_s(sc, ring + C::kStages * C::kStageBytes + (it & 1) * 8 * kBQ * kBK, cw, tid);
+"""
+STAGES = ("static constexpr int kStages = DH == 128 ? 2 : 3;",
+          "static constexpr int kStages = DH == 64 ? 3 : 2;")
+VARIANTS = {  # name: [(text in flash_attention.cu, its replacement)]
+    "kernel": [],
+    "dh256_stages2": [STAGES],
+    "dh256_phases2": [("static constexpr int kPhases = 4;",
+                       "static constexpr int kPhases = kColSplit ? 2 : 4;")],
+    "dh256_half_s": [("for (int kc = 0; kc < DH / 16; ++kc) {",
+                      "for (int kc = 0; kc < (C::kColSplit ? DH / 32 : DH / 16); ++kc) {")],
+    "dh256_split_s": [
+        STAGES,
+        ("static constexpr int kBarOffset = kTileBytes + kStages * kStageBytes;",
+         "static constexpr int kBarOffset = kTileBytes + kStages * kStageBytes +\n"
+         "                                    (kColSplit ? 16 * kBQ * kBK : 0);"),
+        ("// The rest of one tile after S = Q K^T", SPLIT_S_EXCHANGE),
+        ("""      float sc[kBK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        const uint32_t off = (kc / 4) * C::kPanelBytes + (kc % 4) * 32;
+        wgmma_ss(sc, smem_desc(q_wg + off), smem_desc(k_s + off), kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+""", SPLIT_S_LOOP),
+    ],
+    "simt_bf16": [("if constexpr (std::is_same<T, float>::value) {", "if constexpr (true) {")],
+}
+TIMED_ONLY = ("dh256_half_s",)
+ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+# (b, sq, sk, h, kv, causal, window, q_offset, k_offset)
+CHECKS = {
+    "rg_heads_window300_s1000": (1, 1000, 1000, 10, 1, True, 300, 0, 0),
+    "kv2_window300_s1000": (2, 1000, 1000, 8, 2, True, 300, 0, 0),
+    "kv2_b2_s300": (2, 300, 300, 4, 2, True, None, 0, 0),
+    "noncausal_64x200": (1, 64, 200, 4, 4, False, None, 0, 0),
+    "prompt_sq5": (1, 5, 5, 10, 1, True, None, 0, 0),
+    "noncausal_window300_offset400": (1, 300, 700, 4, 1, False, 300, 500, 100),
+    "recurrentgemma_32k_layer": (1, SEQ, SEQ, 10, 1, True, 2048, 0, 0),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def build(kbuild, sources: dict[str, str]) -> dict[str, Path]:
+    """One nvcc per source, all started together; ptxas's report of the
+    head_dim-256 instantiations emitted."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        src = OUT / f"{name}.cu"
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{report}")
+        emit({"build": name, "ptxas": {fn: lines for fn, lines in kbuild.ptxas_entries(report).items()
+                                       if "ILi256E" in fn}})
+    return {name: OUT / f"{name}.so" for name in sources}
+
+
+def sass_by_function(kbuild, lib: Path) -> dict[str, list[str]]:
+    """The instructions of each function in a library, without their
+    addresses and encodings."""
+    cuobjdump = Path(kbuild.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out[name] = []
+        elif name is not None and "/*" in line and ";" in line:
+            out[name].append(line.split(";")[0].split("*/")[-1].strip())
+    return out
+
+
+def median_ms(fns: dict) -> dict[str, float]:
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    events = {name: [] for name in fns}
+    for _ in range(REPS):
+        for name, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events[name].append((start, end))
+    torch.cuda.synchronize()
+    return {name: statistics.median(s.elapsed_time(e) for s, e in pairs)
+            for name, pairs in events.items()}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import flash_attention as tfa
+
+    text = (kbuild.CSRC / "flash_attention.cu").read_text()
+    sources = {}
+    for name, subs in VARIANTS.items():
+        variant = text
+        for old, new in subs:
+            if old not in variant:
+                raise RuntimeError(f"{name}: {old!r} not in flash_attention.cu")
+            variant = variant.replace(old, new)
+        sources[name] = variant
+    baseline = None
+    if "--baseline" in sys.argv:
+        baseline = Path(sys.argv[sys.argv.index("--baseline") + 1]).read_text()
+        sources["baseline"] = baseline
+    libs = build(kbuild, sources)
+    dev = torch.device("cuda")
+
+    def caller(name: str):
+        lib = ctypes.CDLL(str(libs[name]))
+        simt = name == "simt_bf16"
+        fn = lib.flash_attention_fwd if simt else lib.flash_attention_fwd_wgmma
+        fn.argtypes = ARGTYPES[:10] + [ctypes.c_int] + ARGTYPES[10:] if simt else ARGTYPES
+        fn.restype = ctypes.c_int
+
+        def call(q, k, v, causal, window, pos_off=0):
+            out = torch.empty_like(q)
+            b, sq, h, dh = q.shape
+            args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1],
+                    h, k.shape[2], dh]
+            if simt:
+                args.append(1)
+            code = fn(*args, int(causal), window or 0, pos_off, dh**-0.5,
+                      torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"{name}: cudaError {code}")
+            return out
+
+        return call
+
+    calls = {name: caller(name) for name in VARIANTS}
+    base_call = caller("baseline") if baseline is not None else None
+    if baseline is not None:
+        mine, theirs = (sass_by_function(kbuild, libs[n]) for n in ("kernel", "baseline"))
+        emit({"sass_same_as_baseline": {
+            fn: (mine[fn] == theirs[fn]) if fn in theirs else "not in baseline"
+            for fn in sorted(mine) if "wgmma" in fn},
+            "instructions": {fn: [len(mine[fn]), len(theirs.get(fn, []))]
+                             for fn in sorted(mine) if "wgmma" in fn}})
+
+    def inputs(b, sq, sk, h, kv, dh, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+                for s in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))]
+
+    failed = []
+    for seed, (case, (b, sq, sk, h, kv, causal, window, q_off, k_off)) in enumerate(CHECKS.items()):
+        q, k, v = inputs(b, sq, sk, h, kv, 256, 300 + seed)
+        want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         q_offset=q_off, k_offset=k_off)
+        row = {"check": case, "shape": [b, sq, sk, h, kv, 256], "causal": causal,
+               "window": window, "pos_off": q_off - k_off}
+        for name, call in calls.items():
+            if name in TIMED_ONLY:
+                continue
+            if name == "simt_bf16" and sq == SEQ:
+                continue  # 37 ms a call on the CUDA cores: timed below, checked in chip_smoke
+            got = call(q, k, v, causal, window, q_off - k_off)
+            torch.cuda.synchronize()
+            ulps = float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max())
+            finite = bool(torch.isfinite(got).all())
+            row[name] = {"max_ulps": ulps, "finite": finite,
+                         "max_abs_err": float((got.float() - want.float()).abs().max())}
+            if ulps > 1.0 or not finite:
+                failed.append(f"{case} {name}")
+        emit(row)
+        del q, k, v, want
+
+    q, k, v = inputs(1, SEQ, SEQ, 10, 1, 256, 101)
+    ms = median_ms({name: (lambda call=call: call(q, k, v, True, 2048)) for name, call in calls.items()})
+    visible = tfa.visible_pairs(SEQ, SEQ, True, 2048) * 10
+    emit({"times": "recurrentgemma_32k_layer", "ms": ms, "visible_pairs": visible,
+          "bound_ms": 4 * 2 * 256 * visible / 989e12 * 1e3})
+    del q, k, v
+    for case, (dh, window) in {"granite_32k_layer_dh64": (64, None),
+                               "llava_32k_layer_dh128": (128, 4096)}.items():
+        q, k, v = inputs(1, SEQ, SEQ, 32, 8, dh, 100)
+        got = calls["kernel"](q, k, v, True, window)
+        want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
+        ulps = float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max())
+        if ulps > 1.0:
+            failed.append(case)
+        fns = {"kernel": lambda: calls["kernel"](q, k, v, True, window)}
+        if base_call is not None:  # baseline, kernel, kernel, baseline
+            fns = {"baseline": lambda: base_call(q, k, v, True, window), **fns,
+                   "kernel_again": fns["kernel"],
+                   "baseline_again": lambda: base_call(q, k, v, True, window)}
+        t = median_ms(fns)
+        visible = tfa.visible_pairs(SEQ, SEQ, True, window) * 32
+        emit({"times": case, "ms": t, "max_ulps": ulps,
+              "bound_ms": 4 * 2 * dh * visible / 989e12 * 1e3})
+        del q, k, v, got, want
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if failed:
+        print(f"flash_probe: beyond one bf16 ulp: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

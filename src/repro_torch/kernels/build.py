@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -109,3 +110,22 @@ def check_launch(kernel: str, code: int) -> None:
     """Raise if a launcher's ``cudaGetLastError()`` was not cudaSuccess."""
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {code}")
+
+
+def ptxas_entries(report: str) -> dict[str, list[str]]:
+    """nvcc's ``-Xptxas=-v`` report by kernel: each entry function's mangled
+    name and its lines on registers, spills and wgmma, as ptxas printed them
+    (a wgmma warning names its function)."""
+    entries: dict[str, list[str]] = {}
+    name = None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            entries[name] = []
+        elif "warning" in line and "wgmma" in line:
+            named = re.search(r"function '([^']+)'", line)
+            entries.setdefault(named.group(1) if named else str(name), []).append(line.strip())
+        elif name is not None and ("registers" in line or "spill" in line):
+            entries[name].append(line.strip())
+    return entries

@@ -27,19 +27,35 @@
 // kernels, chosen by the wrapper from the dtype and head_dim alone (see
 // kernels/flash_attention.py for the design note):
 //
-// flash_fwd_wgmma_kernel -- bf16 at head_dim 64 and 128, on the tensor cores.
-//   * one block of three warpgroups per (128-query tile, head, batch row), the
+// flash_fwd_wgmma_kernel -- bf16 at head_dim 64, 128 and 256, on the tensor
+// cores.
+//   * one block of three warpgroups per (query tile, head, batch row), the
 //     heaviest causal tiles first: warpgroup 0 is the producer, one thread of
-//     which loads Q once and keeps a ring of K/V tiles (128 keys; 3 stages at
-//     dh 64, 2 at dh 128) full by TMA, signalled through mbarriers;
-//     warpgroups 1 and 2 each own 64 query rows (setmaxnreg: 24 / 240);
-//   * TMA boxes of 64 columns x 128 rows over (B, S, H*dh), 128-byte
-//     swizzled; a dh of 128 is two such column halves; rows past S arrive as
-//     zeros, so nothing is padded on the host and keys past Sk are masked;
-//     GQA loads kv head h / (H / Kv) and repeats nothing;
-//   * S = Q K^T by wgmma m64n128k16 from shared memory with an f32
-//     accumulator: q and k are bf16, so every product is exact and this is
-//     the reference's f32 dot up to the order of the sums; then s = S * scale;
+//     which loads Q once and keeps a ring of K/V tiles full by TMA, signalled
+//     through mbarriers; warpgroups 1 and 2 are the consumers (setmaxnreg:
+//     24 / 240).  Cfg<DH> sets the tiles and the split:
+//       dh 64, 128: 128 queries and 128-key tiles (3 stages at dh 64, 2 at
+//       128); each consumer owns 64 query rows and every column (row split);
+//       dh 256: 64 queries and 64-key tiles, 3 stages (Q 32 KB, a stage of K
+//       and V 64 KB: 230,456 B with the alignment and the barriers).  Both
+//       consumers own the same 64 rows and split the output columns: each
+//       computes the whole S and the same softmax, so m and l are bitwise
+//       equal in both and nothing is exchanged, and each writes 128 columns.
+//       A thread holds S (32), the split p (48), O (2 x 32) and one P.V
+//       accumulator (32): ~180 registers of 240, where 128-key tiles and a
+//       row split would take ~320 (ptxas: 168 a thread at launch, before
+//       setmaxnreg, no spills).  The cost is one product of five computed
+//       twice (S), and its exponentials; splitting S by head_dim between
+//       the consumers and adding the halves through shared memory ran
+//       slower on an H100 (scripts/flash_probe.py);
+//   * TMA boxes of 64 columns x (128 or 64) rows over (B, S, H*dh),
+//     128-byte swizzled; a head_dim is dh / 64 such column panels; rows past
+//     S arrive as zeros, so nothing is padded on the host and keys past Sk
+//     are masked; GQA loads kv head h / (H / Kv) and repeats nothing;
+//   * S = Q K^T by wgmma m64n128k16 (m64n64k16 at dh 256) from shared memory
+//     with an f32 accumulator: q and k are bf16, so every product is exact
+//     and this is the reference's f32 dot up to the order of the sums; then
+//     s = S * scale;
 //   * the running max, denominator and accumulator stay in registers;
 //     masked logits are the -1e30 sentinel and give p = 0, tested only on the
 //     tiles that the causal, window or Sk edge crosses for the warpgroup's
@@ -57,13 +73,18 @@
 //     zero and is added to the running O on the CUDA cores (O = O corr +
 //     P.V, as the reference adds each tile's dot).  The one-bf16-ulp checks
 //     on the card are what hold the result;
-//   * P.V is issued in 4 batches of 32 keys: p and its split for a batch are
-//     computed while the products of the batches before it run.
+//   * P.V is issued in 4 batches a tile (32 keys at dh 64 and 128, 16 at
+//     256): p and its split for a batch are computed while the products of
+//     the batches before it run.  At dh 256, 4 batches and 3 stages ran
+//     1-2% faster than 2 batches or 2 stages (scripts/flash_probe.py).
+//   What still holds it back: a consumer waits for its S before its softmax
+//   and for each panel's P.V before the next, so its exponentials and
+//   conversions overlap the tensor cores only through the other consumer
+//   and the batches; at dh 256 the two consumers run the same softmax at
+//   the same time, and S is computed twice.
 //
-// flash_fwd_kernel -- the SIMT kernel: f32 at any head_dim, bf16 at 16, 32 and
-// 256 (recurrentgemma-2b's head_dim; the wgmma kernel has no instantiation
-// there: its 128-key K and V tiles would take 64 KB each and its O fragment
-// 128 registers a thread).
+// flash_fwd_kernel -- the SIMT kernel: f32 at any head_dim, bf16 at 16 and 32
+// (head dims that only reduced configurations have).
 //   * one launch per attention call: blockIdx.x is a 64-query tile (the
 //     heaviest causal tiles first), blockIdx.y the query head, blockIdx.z the
 //     batch row; the kv head is h / (H / Kv), so GQA repeats nothing;
@@ -79,11 +100,12 @@
 //     P.V in f32 -- p is never rounded to bf16, as in the reference;
 //   * masked logits are the reference's -1e30 sentinel and give p = 0 even
 //     while the running max is still -1e30 (expf, not __expf, throughout);
-//   * at head_dim 256 the tiles take smem_bytes<256>() = 216,064 B, under the
-//     227 KB a block may opt into, so one block runs on an SM, and each
-//     thread carries 4 x 16 accumulators and 4 x 16 partial P.V sums.
+//   * at head_dim 256 (f32) the tiles take smem_bytes<256>() = 216,064 B,
+//     under the 227 KB a block may opt into, so one block runs on an SM, and
+//     each thread carries 4 x 16 accumulators and 4 x 16 partial P.V sums.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -313,6 +335,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 at every head_dim; bf16 only where flash_route sends it to this kernel
+// (16 and 32: the wgmma kernel takes 64, 128 and 256)
 template <typename T>
 int dispatch(int head_dim, const void* q, const void* k, const void* v, void* out,
              int batch, int sq, int sk, int n_heads, int n_kv, int causal,
@@ -320,18 +344,23 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v, void* ou
   switch (head_dim) {
     case 16: return launch<T, 16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
     case 32: return launch<T, 32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if constexpr (std::is_same<T, float>::value) {
+    switch (head_dim) {
+      case 64: return launch<T, 64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+      case 128: return launch<T, 128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+      case 256: return launch<T, 256>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, k, v, out: device pointers (see above); is_bf16: 1 for bf16, 0 for f32;
-// window <= 0: no window; pos_off = q_off - k_off (0 on whole sequences).
-// Returns cudaGetLastError() after the launch.
+// q, k, v, out: device pointers (see above); is_bf16: 1 for bf16 (head_dim 16
+// or 32), 0 for f32 (16, 32, 64, 128 or 256); window <= 0: no window;
+// pos_off = q_off - k_off (0 on whole sequences).  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for another dtype and head_dim).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int batch, int sq, int sk,
                                    int n_heads, int n_kv, int head_dim,
@@ -346,31 +375,44 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // ===========================================================================
-// The Hopper route: bf16 at head_dim 64 and 128 (flash_fwd_wgmma_kernel)
+// The Hopper route: bf16 at head_dim 64, 128 and 256 (flash_fwd_wgmma_kernel)
 // ===========================================================================
 
 namespace hopper {
 
-constexpr int kBQ = 128;          // query rows per block: two consumer warpgroups of 64
-constexpr int kBK = 128;          // keys per tile
 constexpr int kThreads = 384;     // warpgroup 0 the producer, 1 and 2 the consumers
 constexpr int kRowBytes = 128;    // one swizzled row: 64 bf16 columns
-constexpr int kHalfCols = 64;     // a head_dim of 128 is two such column halves
+constexpr int kPanelCols = 64;    // a panel: 64 columns of Q, K or V, one swizzled row a row
 constexpr int kConsumerWarps = 8; // arrivals that free a stage: one per consumer warp
 constexpr float kNeg = -1e30f;    // the reference's _NEG
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The tiles, and how the two consumer warpgroups share a block's work.  At
+// head_dim 64 and 128 (row split) each consumer owns 64 of the block's 128
+// query rows and every column, over 128-key tiles.  At head_dim 256 (column
+// split) a 128-key K or V tile would take 64 KB and O 128 registers a thread,
+// so a block has 64 query rows and 64-key tiles, and both consumers own those
+// rows and write their own 128 of the 256 output columns.  Each computes the
+// whole S and the same softmax: the same instructions on the same data, so m
+// and l are bitwise equal in both and nothing is exchanged.
 template <int DH>
 struct Cfg {
-  static constexpr int kHalves = DH / kHalfCols;
-  static constexpr int kStages = DH == 64 ? 3 : 2;               // the K/V ring
-  static constexpr int kHalfBytes = kBQ * kRowBytes;             // 128 rows x 64 columns
-  static constexpr int kTileBytes = kHalves * kHalfBytes;        // the Q tile, one K or one V tile
-  static constexpr int kStageBytes = 2 * kTileBytes;             // K, then V
+  static constexpr bool kColSplit = DH == 256;
+  static constexpr int kBQ = kColSplit ? 64 : 128;                // query rows per block
+  static constexpr int kBK = kColSplit ? 64 : 128;                // keys per tile
+  static constexpr int kPanels = DH / kPanelCols;                 // of Q, K and V
+  static constexpr int kOutPanels = kColSplit ? kPanels / 2 : kPanels;  // a consumer's output
+  static constexpr int kStages = DH == 128 ? 2 : 3;                // the K/V ring
+  static constexpr int kPhases = 4;                               // P.V batches of a tile
+  static constexpr int kPanelBytes = kBQ * kRowBytes;             // kBQ rows x 64 columns
+  static constexpr int kTileBytes = kPanels * kPanelBytes;        // the Q tile, one K or one V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;              // K, then V
   static constexpr int kBarOffset = kTileBytes + kStages * kStageBytes;
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);  // + 1024-B alignment
+  static_assert(kBQ == kBK, "one box shape serves Q, K and V");
+  static_assert((kBK / 16) % kPhases == 0, "whole 16-key chunks in each P.V batch");
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
 };
-static_assert(kBQ == kBK, "one half-tile size serves Q, K and V");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -403,7 +445,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One box of the tensor map (64 columns x 128 rows x 1 batch row) into
+// One box of the tensor map (64 columns x Cfg::kBQ rows x 1 batch row) into
 // shared memory, 128-byte swizzled; rows past the tensor's edge arrive as 0.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int col, int row, int batch) {
@@ -416,7 +458,7 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 
 // wgmma shared-memory descriptor, 128-byte swizzle.  Both strides are 1024
 // bytes, the distance between groups of 8 swizzled rows: every operand here
-// is read in slices that span one 64-column half, so the only stride the
+// is read in slices that span one 64-column panel, so the only stride the
 // hardware uses is the one between 8-row groups (of Q or K along M or N, of V
 // along the key axis), whichever of the two fields it reads it from.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
@@ -474,11 +516,12 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& a1, uint32_t&
   a3 = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
 }
 
-// The online softmax of one 64 x 128 tile in registers, first part: s = S *
-// scale, masked to -1e30 on a tile that an edge crosses (kEdge), the running
-// max m and the rescale factor corr of the earlier tiles.
-template <bool kEdge>
-__device__ __forceinline__ void softmax_max(float (&sc)[64], float (&m)[2], float (&corr)[2],
+// The online softmax of one 64 x kBK tile in registers (N = kBK / 2
+// accumulators a thread), first part: s = S * scale, masked to -1e30 on a
+// tile that an edge crosses (kEdge), the running max m and the rescale
+// factor corr of the earlier tiles.
+template <bool kEdge, int N>
+__device__ __forceinline__ void softmax_max(float (&sc)[N], float (&m)[2], float (&corr)[2],
                                             float scale, int k0, int ra, int kq, int sk,
                                             int causal, int window) {
   // row r's max in four independent chains (k = 8-column block % 4): two
@@ -487,7 +530,7 @@ __device__ __forceinline__ void softmax_max(float (&sc)[64], float (&m)[2], floa
 #pragma unroll
   for (int k = 0; k < 4; ++k) mx[k][0] = m[0], mx[k][1] = m[1];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     float x = __fmul_rn(sc[i], scale);  // scale after the dot, as the reference
     if (kEdge) {
       const int key = k0 + 8 * (i / 4) + kq + (i & 1);
@@ -516,9 +559,10 @@ __device__ __forceinline__ void softmax_max(float (&sc)[64], float (&m)[2], floa
 // (ra + 8, +8+kq) are accumulator pairs 8c + 2j, 8c + 2j + 1.  exp is
 // ex2.approx with log2 e folded into one FFMA: about 2 f32 ulps of p, and
 // the rounding of m log2 e is a factor common to the row's p in one tile.
-template <bool kEdge>
-__device__ __forceinline__ void exp_split(float (&sc)[64], const float (&m)[2], float (&rs)[4][2],
-                                          uint32_t (&pa)[3][kBK / 16][4], int c0, int n_chunks) {
+template <bool kEdge, int kChunks>
+__device__ __forceinline__ void exp_split(float (&sc)[8 * kChunks], const float (&m)[2],
+                                          float (&rs)[4][2], uint32_t (&pa)[3][kChunks][4],
+                                          int c0, int n_chunks) {
   const float neg_m_log2e[2] = {-m[0] * kLog2e, -m[1] * kLog2e};
 #pragma unroll
   for (int k = 0; k < 8 * n_chunks; ++k) {
@@ -537,7 +581,7 @@ __device__ __forceinline__ void exp_split(float (&sc)[64], const float (&m)[2], 
 }
 
 // d (64 x 128, f32) {+}= A (64 x 16, smem) * B (16 x 128, smem, K-major); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -563,6 +607,25 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, f32) {+}= A (64 x 16, smem) * B (16 x 64, smem, K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64, f32) {+}= A (64 x 16, registers) * B (16 x 64, smem, MN-major); scale_d = 0
 // overwrites d
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -584,32 +647,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-constexpr int kPhases = 4;                        // P.V issued in this many batches of keys
-constexpr int kPhaseChunks = kBK / 16 / kPhases;  // 16-key chunks per batch
-
 // The rest of one tile after S = Q K^T: the online softmax, P split into its
 // three bf16 parts, this tile's P.V = P1 V + P2 V + P3 V in a fresh f32
-// accumulator per 64-column half (V, keys x DH, is MN-major), then O = O corr
-// + P.V on the CUDA cores, as the reference adds each tile's dot: the tensor
-// cores' accumulation spans 128 keys, never the whole row.  P.V is issued in
-// kPhases batches of keys, and p of each batch is computed while the
+// accumulator per 64-column panel of the consumer's output (V, keys x DH, is
+// MN-major; v_s is its first output panel), then O = O corr + P.V on the
+// CUDA cores, as the reference adds each tile's dot: the tensor cores'
+// accumulation spans one tile's keys, never the whole row.  P.V is issued in
+// C::kPhases batches of keys, and p of each batch is computed while the
 // products of the batches before it run.
-template <bool kEdge, int DH>
-__device__ __forceinline__ void tile_pv(float (&sc)[64], float (&m)[2], float (&l)[2],
-                                        float (&o)[DH / 64][32], uint32_t v_s, float scale,
-                                        int k0, int ra, int kq, int sk, int causal,
-                                        int window) {
+template <bool kEdge, typename C>
+__device__ __forceinline__ void tile_pv(float (&sc)[C::kBK / 2], float (&m)[2], float (&l)[2],
+                                        float (&o)[C::kOutPanels][32], uint32_t v_s, float scale,
+                                        int k0, int ra, int kq, int sk, int causal, int window) {
+  constexpr int kChunks = C::kBK / 16;                 // 16-key chunks of the tile
+  constexpr int kPhaseChunks = kChunks / C::kPhases;   // ... per batch
   float corr[2], rs[4][2] = {};
-  uint32_t pa[3][kBK / 16][4];
+  uint32_t pa[3][kChunks][4];
   softmax_max<kEdge>(sc, m, corr, scale, k0, ra, kq, sk, causal, window);
 #pragma unroll
-  for (int half = 0; half < DH / 64; ++half) {
+  for (int panel = 0; panel < C::kOutPanels; ++panel) {
     float pv[32] = {};  // overwritten by the first product (scale_d = 0)
-    const uint32_t v_half = v_s + half * kBK * kRowBytes;
+    const uint32_t v_panel = v_s + panel * C::kPanelBytes;
 #pragma unroll
-    for (int ph = 0; ph < kPhases; ++ph) {
+    for (int ph = 0; ph < C::kPhases; ++ph) {
       const int c0 = ph * kPhaseChunks;
-      if (half == 0) {
+      if (panel == 0) {
         // after the last batch's issue: keep this batch's p from being
         // computed before it
 #pragma unroll
@@ -617,19 +679,19 @@ __device__ __forceinline__ void tile_pv(float (&sc)[64], float (&m)[2], float (&
           asm volatile("" : "+f"(sc[8 * c0 + k])::"memory");
         exp_split<kEdge>(sc, m, rs, pa, c0, kPhaseChunks);
       }
-      if (half == 0 || ph == 0) wgmma_fence();
+      if (panel == 0 || ph == 0) wgmma_fence();
 #pragma unroll
       for (int part = 0; part < 3; ++part)
 #pragma unroll
         for (int c = c0; c < c0 + kPhaseChunks; ++c)
-          wgmma_rs_n64(pv, pa[part][c], smem_desc(v_half + c * 16 * kRowBytes),
+          wgmma_rs_n64(pv, pa[part][c], smem_desc(v_panel + c * 16 * kRowBytes),
                        part > 0 || c > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(pv);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[half][i] = o[half][i] * corr[(i / 2) & 1] + pv[i];
+    for (int i = 0; i < 32; ++i) o[panel][i] = o[panel][i] * corr[(i / 2) & 1] + pv[i];
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -637,7 +699,7 @@ __device__ __forceinline__ void tile_pv(float (&sc)[64], float (&m)[2], float (&
 #pragma unroll
   for (int part = 0; part < 3; ++part)
 #pragma unroll
-    for (int c = 0; c < kBK / 16; ++c) fence_regs(pa[part][c]);
+    for (int c = 0; c < kChunks; ++c) fence_regs(pa[part][c]);
 }
 
 template <int DH, bool kOff>
@@ -648,10 +710,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ out, int sq, int sk, int n_heads,
                        int n_kv, int causal, int window, int pos_off_arg, float scale) {
   using C = Cfg<DH>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK;
   const int pos_off = kOff ? pos_off_arg : 0;  // kOff: the launcher saw pos_off != 0
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base;                      // [half][128 rows][64 columns]
+  const uint32_t q_s = base;                      // [panel][kBQ rows][64 columns]
   const uint32_t ring = base + C::kTileBytes;     // stage s: K tile, then V tile
   const uint32_t bars = base + C::kBarOffset;     // full[kStages], empty[kStages], q
   const uint32_t q_bar = bars + 16 * C::kStages;
@@ -685,8 +748,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0 && n_tiles > 0) {
       mbar_expect_tx(q_bar, C::kTileBytes);
 #pragma unroll
-      for (int half = 0; half < C::kHalves; ++half)
-        tma_load(q_s + half * C::kHalfBytes, &tm_q, q_bar, h * DH + half * kHalfCols, q0, b);
+      for (int panel = 0; panel < C::kPanels; ++panel)
+        tma_load(q_s + panel * C::kPanelBytes, &tm_q, q_bar, h * DH + panel * kPanelCols, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % C::kStages;
         mbar_wait(bars + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
@@ -695,49 +758,54 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int k0 = k_begin + it * kBK;
         mbar_expect_tx(full, C::kStageBytes);
 #pragma unroll
-        for (int half = 0; half < C::kHalves; ++half) {
-          const int col = kvh * DH + half * kHalfCols;
-          tma_load(k_s + half * C::kHalfBytes, &tm_k, full, col, k0, b);
-          tma_load(k_s + C::kTileBytes + half * C::kHalfBytes, &tm_v, full, col, k0, b);
+        for (int panel = 0; panel < C::kPanels; ++panel) {
+          const int col = kvh * DH + panel * kPanelCols;
+          tma_load(k_s + panel * C::kPanelBytes, &tm_k, full, col, k0, b);
+          tma_load(k_s + C::kTileBytes + panel * C::kPanelBytes, &tm_v, full, col, k0, b);
         }
       }
     }
   } else {
-    // ---- consumers: 64 query rows each ----
+    // ---- consumers: 64 query rows each; row split: rows 64 cw.. of the
+    // block and every column; column split: the block's rows and output
+    // panels kOutPanels cw.. ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int cw = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32;
     const int lane = tid % 32;
+    const int panel0 = C::kColSplit ? C::kOutPanels * cw : 0;  // its first output panel
     // this warpgroup's first row and this thread's rows (ra and ra + 8), on
-    // k's positions; the output row is ra - pos_off
-    const int row0 = q0 + pos_off + 64 * cw;
+    // k's positions; the output row is ra - pos_off.  (Row and Q offsets are
+    // written out apart: formed from one shared term, the row split's code
+    // was scheduled otherwise by ptxas and ran ~1.5% slower on an H100.)
+    const int row0 = q0 + pos_off + (C::kColSplit ? 0 : 64 * cw);
     const int ra = row0 + 16 * warp + lane / 4;
     const int kq = 2 * (lane % 4);                 // its first column in each 8-column block
 
-    float o[C::kHalves][32];  // per 64-column half: the m64n64 accumulator layout
+    float o[C::kOutPanels][32];  // per 64-column panel: the m64n64 accumulator layout
 #pragma unroll
-    for (int half = 0; half < C::kHalves; ++half)
+    for (int panel = 0; panel < C::kOutPanels; ++panel)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[half][i] = 0.f;
+      for (int i = 0; i < 32; ++i) o[panel][i] = 0.f;
     float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
     if (n_tiles > 0) mbar_wait(q_bar, 0);
-    const uint32_t q_wg = q_s + 64 * cw * kRowBytes;
+    const uint32_t q_wg = q_s + (C::kColSplit ? 0 : 64 * cw * kRowBytes);
 
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % C::kStages;
       const int k0 = k_begin + it * kBK;
       const uint32_t k_s = ring + s * C::kStageBytes;
-      const uint32_t v_s = k_s + C::kTileBytes;
+      const uint32_t v_s = k_s + C::kTileBytes + panel0 * C::kPanelBytes;
       mbar_wait(bars + 8 * s, (it / C::kStages) & 1);
 
-      // S = Q K^T (64 x 128, f32): bf16 products are exact, sums in f32
-      float sc[64];
+      // S = Q K^T (64 x kBK, f32): bf16 products are exact, sums in f32
+      float sc[kBK / 2];
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc) {
-        const uint32_t off = (kc / 4) * C::kHalfBytes + (kc % 4) * 32;
-        wgmma_ss_n128(sc, smem_desc(q_wg + off), smem_desc(k_s + off), kc > 0);
+        const uint32_t off = (kc / 4) * C::kPanelBytes + (kc % 4) * 32;
+        wgmma_ss(sc, smem_desc(q_wg + off), smem_desc(k_s + off), kc > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -746,9 +814,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // masked logits only on tiles that an edge crosses for these rows
       if (k0 + kBK > sk || (causal && k0 + kBK - 1 > row0) ||
           (window > 0 && k0 <= row0 + 63 - window))
-        tile_pv<true, DH>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
+        tile_pv<true, C>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
       else
-        tile_pv<false, DH>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
+        tile_pv<false, C>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
     }
@@ -767,14 +835,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = ra - pos_off + 8 * r;
       if (row >= sq) continue;
       __nv_bfloat16* orow = out + (static_cast<long long>(b) * sq + row) * q_row +
-                            static_cast<long long>(h) * DH + kq;
+                            static_cast<long long>(h) * DH + panel0 * kPanelCols + kq;
 #pragma unroll
-      for (int half = 0; half < C::kHalves; ++half)
+      for (int panel = 0; panel < C::kOutPanels; ++panel)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + half * kHalfCols + 8 * j) =
-              __floats2bfloat162_rn(o[half][4 * j + 2 * r] / safe[r],
-                                    o[half][4 * j + 2 * r + 1] / safe[r]);
+          *reinterpret_cast<__nv_bfloat162*>(orow + panel * kPanelCols + 8 * j) =
+              __floats2bfloat162_rn(o[panel][4 * j + 2 * r] / safe[r],
+                                    o[panel][4 * j + 2 * r + 1] / safe[r]);
     }
   }
 }
@@ -804,14 +872,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (batch, seq, cols) bf16 tensor as TMA boxes of 64 columns x 128 rows.
-bool make_map(CUtensorMap* map, const void* ptr, int cols, int seq, int batch) {
+// A (batch, seq, cols) bf16 tensor as TMA boxes of 64 columns x box_rows rows.
+bool make_map(CUtensorMap* map, const void* ptr, int cols, int seq, int batch, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[2] = {2ull * cols, 2ull * cols * seq};
-  const cuuint32_t box[3] = {kHalfCols, kBQ, 1};
+  const cuuint32_t box[3] = {kPanelCols, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -823,18 +891,19 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
            int n_heads, int n_kv, int causal, int window, int pos_off, float scale,
            cudaStream_t stream) {
+  using C = Cfg<DH>;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, n_heads * DH, sq, batch) || !make_map(&mk, k, n_kv * DH, sk, batch) ||
-      !make_map(&mv, v, n_kv * DH, sk, batch))
+  if (!make_map(&mq, q, n_heads * DH, sq, batch, C::kBQ) ||
+      !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
+      !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Cfg<DH>::kSmem;
   const auto kernel =
       pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true> : flash_fwd_wgmma_kernel<DH, false>;
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((sq + C::kBQ - 1) / C::kBQ, n_heads, batch);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, sk, n_heads, n_kv, causal, window, pos_off,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -843,8 +912,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 }  // namespace hopper
 
 // The Hopper route: q, k, v, out bf16 device pointers (layout above, 16-byte
-// aligned); head_dim 64 or 128; window <= 0: no window; pos_off = q_off - k_off
-// (0 on whole sequences).  Returns cudaGetLastError() after the launch
+// aligned); head_dim 64, 128 or 256; window <= 0: no window; pos_off = q_off -
+// k_off (0 on whole sequences).  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for another head_dim or a tensor map that
 // cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
@@ -858,6 +927,9 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
                                 pos_off, scale, st);
     case 128:
       return hopper::launch<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
+                                 pos_off, scale, st);
+    case 256:
+      return hopper::launch<256>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
                                  pos_off, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -21,13 +21,11 @@ Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas`` (body
 ``csrc/flash_attention.cu``, two kernels; :func:`flash_route` picks one from
 the dtype and head_dim alone:
 
-* ``wgmma`` (``flash_fwd_wgmma_kernel``): bf16 at head_dim 64 and 128, the
-  models' path;
+* ``wgmma`` (``flash_fwd_wgmma_kernel``): bf16 at head_dim 64, 128 and 256,
+  the models' path;
 * ``simt`` (``flash_fwd_kernel``): f32 at any head_dim, and bf16 at head_dim
-  16 and 32, which appear only in reduced configurations, and at 256,
-  recurrentgemma-2b's, where the wgmma kernel's 128-key tiles and O
-  fragment do not fit (a redesign waits in ROADMAP).  An f32 q.k is not
-  exact on bf16 tensor cores, so f32 stays on the CUDA cores.
+  16 and 32, which appear only in reduced configurations.  An f32 q.k is
+  not exact on bf16 tensor cores, so f32 stays on the CUDA cores.
 
 What bounds the wgmma route on an H100: operations, on the bf16 tensor
 cores.  The reference keeps p in f32 for P.V.  That needs no f32 pipe: any
@@ -44,39 +42,59 @@ once, the output written once, 335 MB) take 0.10 ms, and the 17.2 G
 exponentials about 4.1 ms at the 16 results per SM per clock of the MUFU
 pipe.  With P.V on the f32 CUDA cores, as the SIMT kernel runs it, the
 bound would be 35.05 ms; rounding p to bf16, as library flash kernels do,
-would give 4.45 ms and another function.
+would give 4.45 ms and another function.  At recurrentgemma-2b's layer
+(dh = 256, H = 10, Kv = 1, causal window 2048: 650 M visible pairs) the
+bound is 1.35 ms.
 
 What the design does about it (``flash_fwd_wgmma_kernel``): one block per
-(128-query tile, head, batch row), the heaviest causal tiles first; one
-producer warp loads Q once and keeps a ring of 128-key K/V tiles full by TMA
+(query tile, head, batch row), the heaviest causal tiles first; one
+producer warp loads Q once and keeps a ring of K/V tiles full by TMA
 (128-byte swizzle, 64-column boxes, zero fill past the sequence's end, so
-nothing is padded); two consumer warpgroups of 64 query rows run QK^T as
-``wgmma`` m64n128k16 from shared memory and the online softmax in registers
-(p = ex2(s log2 e - m log2 e): one FFMA and ``ex2.approx``; masked logits
-are the -1e30 sentinel, tested only in the instantiation for tiles that an
-edge crosses); they split p into its three bf16 parts in the register-A
-fragment layout (two conversion instructions per pair of p, the rest shifts,
-masks and subtractions) and issue three register-A ``wgmma`` m64n64k16 per
-16 keys and 64 columns, in four batches of 32 keys, so that p of one batch
-is computed while the products of the batches before it run.  Each tile's
-P.V starts from zero and is added to the running O on the CUDA cores, as
-the reference adds each tile's dot: the tensor cores' f32 accumulation is
-not a chain of round-to-nearest FMAs, and carried over a whole 32k row it
-drifted past one bf16 ulp near zero.  The
-one-bf16-ulp checks on the card hold the result.  Known costs left: a
-warpgroup waits for its QK^T before its softmax and for its last P.V batch
-before the next tile, so its exponentials and conversions (16 results per
-clock per SM each) overlap the tensor cores only in part, through the other
-warpgroup and the batches; issuing the next tile's QK^T early would need
-another 64 registers a thread.  Forcing the two warpgroups to alternate on
-the tensor cores was slower.  Causal tiles on the diagonal are computed
-whole.
+nothing is padded); two consumer warpgroups run QK^T as ``wgmma`` from
+shared memory and the online softmax in registers (p = ex2(s log2 e - m
+log2 e): one FFMA and ``ex2.approx``; masked logits are the -1e30 sentinel,
+tested only in the instantiation for tiles that an edge crosses); they
+split p into its three bf16 parts in the register-A fragment layout (two
+conversion instructions per pair of p, the rest shifts, masks and
+subtractions) and issue three register-A ``wgmma`` m64n64k16 per 16 keys
+and 64 columns, in four batches a tile, so that p of one batch is computed
+while the products of the batches before it run.  Each tile's P.V starts
+from zero and is added to the running O on the CUDA cores, as the
+reference adds each tile's dot: the tensor cores' f32 accumulation is not a
+chain of round-to-nearest FMAs, and carried over a whole 32k row it drifted
+past one bf16 ulp near zero.  The one-bf16-ulp checks on the card hold the
+result.  The tiles and the consumers' split depend on head_dim:
+
+* 64 and 128: 128 queries a block and 128-key tiles (3 and 2 stages); each
+  consumer owns 64 query rows, S by m64n128k16;
+* 256: a 128-key K or V tile would take 64 KB and O 128 registers a thread
+  (about 320 with S and the split p, against the 240 of ``setmaxnreg``), so
+  a block has 64 queries, tiles of 64 keys and 3 stages (230,456 B of
+  shared memory), and both consumers own the same 64 rows: each computes
+  the whole S (m64n64k16), the same softmax (the same instructions on the
+  same data, so m and l agree bit for bit and nothing is exchanged) and
+  writes its own 128 of the 256 output columns: S 32, the split p 48, O 64
+  and a P.V accumulator 32 registers, ~180 in all.  S is computed twice:
+  one product of five, and its exponentials, twice.
+
+Known costs left: a warpgroup waits for its S before its softmax and for
+each panel's P.V before the next, so its exponentials and conversions (16
+results per clock per SM each) overlap the tensor cores only in part,
+through the other warpgroup and the batches; issuing the next tile's S
+early would need another 64 registers a thread at head_dim 64 and 128.
+Forcing the two warpgroups to alternate on the tensor cores was slower.
+Causal tiles on the diagonal are computed whole.  At head_dim 256 the two
+consumers run the same softmax at the same time, and S is computed twice:
+with S over half of head_dim (timing only) the kernel took 14% less time on
+an H100, but splitting S between the consumers and adding the halves
+through shared memory (32 KB a tile each, and a barrier) took 3% more
+(``scripts/flash_probe.py``).
 
 ``flash_fwd_kernel``, the port's first flash kernel: one block per
 (64-query tile, head, batch row), K/V tiles in shared memory as f32, 4 x 4
 logits and 4 x dh/16 outputs per thread in f32 FMA on the CUDA cores.  At
-head_dim 256 its tiles take 216,064 B of shared memory (one block per SM)
-and each thread 64 accumulators.
+head_dim 256 (f32) its tiles take 216,064 B of shared memory (one block per
+SM) and each thread 64 accumulators.
 
 ``flash_attention_plain`` is the same function in plain PyTorch, chunked
 over queries (the logits of one chunk at a time), for the CPU and for
@@ -92,8 +110,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30  # the reference's mask sentinel (flash_attention.py:31)
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the SIMT kernel's instantiations
-WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernel's
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims either route takes
+WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 at these runs the wgmma kernel
 PLAIN_Q_CHUNK = 512
 
 # flash_attention_fwd (simt): q, k, v, out, batch, sq, sk, heads, kv heads,
@@ -164,8 +182,8 @@ def flash_attention_plain(
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The CUDA kernel that takes a call: ``"wgmma"`` for bf16 at head_dim 64
-    or 128, ``"simt"`` for the rest."""
+    """The CUDA kernel that takes a call: ``"wgmma"`` for bf16 at head_dim 64,
+    128 or 256, ``"simt"`` for the rest (f32, and bf16 at 16 and 32)."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "simt"
 
 

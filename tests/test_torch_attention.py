@@ -45,6 +45,12 @@ FLASH_SHAPES = [
     (256, 256, 2, 64, False, 128),
     (64, 256, 1, 32, False, None),  # cross-attention shape
 ]
+# recurrentgemma-2b's head_dim with its one kv head (the Pallas kernel takes
+# as many kv heads as query heads)
+FLASH_SHAPES_DH256 = [
+    (128, 128, 1, 256, True, None),
+    (192, 192, 1, 256, True, 64),
+]
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +108,7 @@ def test_flash_plain_matches_pallas_f32(ref, sq, sk, hn, dh, causal, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("sq,sk,hn,dh,causal,window", FLASH_SHAPES)
+@pytest.mark.parametrize("sq,sk,hn,dh,causal,window", FLASH_SHAPES + FLASH_SHAPES_DH256)
 def test_flash_plain_matches_pallas_bf16(ref, sq, sk, hn, dh, causal, window):
     q, k, v = (_normal(s, 7 * sq + sk + i) for i, s in enumerate([(sq, hn, dh), (sk, hn, dh), (sk, hn, dh)]))
     (qt, qj), (kt, kj), (vt, vj) = (_bf16_pair(ref, x) for x in (q, k, v))
@@ -218,6 +224,8 @@ def _plain_split_pv(q, k, v, causal, window):
         (1, 200, 200, 4, 4, 128, True, 50),
         (1, 64, 256, 4, 1, 64, False, None),
         (1, 130, 130, 8, 1, 64, True, 129),
+        (1, 200, 200, 4, 1, 256, True, None),  # recurrentgemma's head_dim, one kv head
+        (1, 200, 200, 4, 1, 256, True, 70),
     ],
 )
 def test_flash_plain_with_split_pv_matches_plain(b, sq, sk, h, kv, dh, causal, window):
@@ -236,9 +244,11 @@ def test_flash_plain_with_split_pv_matches_plain(b, sq, sk, h, kv, dh, causal, w
 def test_flash_route_is_a_function_of_dtype_and_head_dim():
     for dtype in (torch.bfloat16, torch.float32):
         for dh in tfa.HEAD_DIMS:
-            want = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
+            want = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128, 256) else "simt"
             assert tfa.flash_route(dtype, dh) == want
-    assert tfa.WGMMA_HEAD_DIMS == (64, 128)
+    assert tfa.WGMMA_HEAD_DIMS == (64, 128, 256)
+    assert tfa.flash_route(torch.bfloat16, 256) == "wgmma"
+    assert tfa.flash_route(torch.float32, 256) == "simt"
 
 
 @pytest.mark.parametrize(
@@ -525,22 +535,27 @@ def test_flash_simt_route_takes_bf16_dh32_cuda(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,sq,sk,h,kv,dh,causal,window",
+    "b,sq,sk,h,kv,dh,causal,window,q_offset,k_offset",
     [
-        (1, 1000, 1000, 10, 1, 256, True, 300),  # recurrentgemma's heads, a window
-        (2, 300, 300, 4, 2, 256, True, None),
-        (1, 64, 200, 4, 4, 256, False, None),  # Sq != Sk
+        (1, 1000, 1000, 10, 1, 256, True, 300, 0, 0),  # recurrentgemma's heads, a window
+        (2, 300, 300, 4, 2, 256, True, None, 0, 0),
+        (1, 64, 200, 4, 4, 256, False, None, 0, 0),  # Sq != Sk
+        (2, 1000, 1000, 8, 2, 256, True, 300, 0, 0),  # Kv 2, a window and Sq not multiples of 64
+        (1, 300, 700, 4, 1, 256, False, 300, 500, 100),  # a window without causality at an offset
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_head_dim_256_takes_simt_cuda(cuda, b, sq, sk, h, kv, dh, causal, window, dtype):
-    """head_dim 256 runs the SIMT kernel in both dtypes, once, within one
-    bf16 ulp (f32: 2e-5) of the plain version."""
+def test_flash_head_dim_256_takes_simt_cuda(cuda, b, sq, sk, h, kv, dh, causal, window, q_offset,
+                                            k_offset, dtype):
+    """head_dim 256 runs the wgmma kernel in bf16 and the SIMT kernel in f32,
+    once, within one bf16 ulp (f32: 2e-5) of the plain version."""
     q, k, v = _card_case(cuda, b, sq, sk, h, kv, dh, dtype, sq + 2 * sk)
     tops.reset_launch_counts()
-    got = tops.attention(q, k, v, causal=causal, window=window)
-    assert tfa.flash_attention_cuda.route_launches == {"wgmma": 0, "simt": 1}
-    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    offsets = dict(q_offset=q_offset, k_offset=k_offset)
+    got = tops.attention(q, k, v, causal=causal, window=window, **offsets)
+    want_routes = {"wgmma": 1, "simt": 0} if dtype == torch.bfloat16 else {"wgmma": 0, "simt": 1}
+    assert tfa.flash_attention_cuda.route_launches == want_routes
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window, **offsets)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
     if dtype == torch.float32:
@@ -572,6 +587,7 @@ def test_chunked_attention_on_card_is_one_launch(cuda):
         (1, 2048, 8, 2, 128, 300, 512, torch.bfloat16),  # the wgmma route
         (2, 2048, 8, 2, 32, 300, 512, torch.float32),  # the SIMT route
         (1, 1000, 4, 1, 64, 700, 200, torch.bfloat16),  # widened first slices
+        (1, 2048, 10, 1, 256, 300, 512, torch.bfloat16),  # the wgmma route at head_dim 256
     ],
 )
 def test_window_without_causality_kernel_matches_plain_cuda(cuda, b, s, h, kv, dh, window,
