@@ -6,8 +6,9 @@ encdec in the zoo phase), sweeps (solve_many's batched groups),
 sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
-the serving engine with its gateway (FedNLServer, GatewayServer), and the
-sharded backend over torch.distributed.
+the serving engine with its gateway (FedNLServer, GatewayServer), the
+sharded backend over torch.distributed, and LM training (granite-3-2b at
+full width and depth, with flash attention's hand-written backward).
 
     python3 chip_smoke.py
 
@@ -97,7 +98,28 @@ raises, and the script exits non-zero without the final line.
              wall time (SYRK's ms per TopK round beside it); the host's ms per
              round for the key split, the clients' keys and draws, and their
              upload
-  8 sweep    solve_many of the README's grid at w8a's full shape: 4 seeds x
+  train      LM training (ROADMAP A14 item 2), granite-3-2b: (a) the
+             forward's training instantiation and the two backward kernels
+             (flash_attention_bwd.cu) against their plain versions at every
+             route's fixtures (bf16 wgmma at head_dim 64/128/256, bf16 SIMT at
+             16/32, f32; GQA, windows, Sq != Sk, rows with no visible key,
+             C4's offsets): O rounded equal to the inference output bit for
+             bit, dq, dk, dv within BWD_CARD_ULPS bf16 ulps (f32:
+             BWD_F32_RTOL) of scale, two runs the same bits; then at the
+             training layer (B 2, S 4,096, H 32, Kv 8, dh 64, causal), timed
+             beside the plain versions and SDPA's forward and backward, with
+             the bounds on the tensor cores and the CUDA cores; (b) full width
+             at 2 layers, B 1, S 512: the loss and every leaf's gradient on
+             the card against the CPU (1e-3, 2e-2 relative L2), and a train
+             step run twice from one state, bit for bit; (c) full width and
+             depth: 6 steps of make_train_step (accum 2, B 4, S 4,096, remat
+             "full", AdamW lr 1e-3) with exactly 160 training-forward launches
+             (wgmma) and 80 of each backward kernel a step and nothing else,
+             the loss falling, ms per step, tokens/s, peak memory, the last
+             step profiled by kind of kernel, AdamW's update timed alone; (d)
+             the training launcher, --reduced --steps 30: the loss falls by
+             more than 0.5
+  8 sweep   solve_many of the README's grid at w8a's full shape: 4 seeds x
              {topk, randseqk, natural}, 50 rounds, planned as one batched
              group of 12 specs; the launch counts set to 0 before it and read
              after it: SYRK once a round on 1,704 clients (and at init and in
@@ -968,9 +990,10 @@ def moe_module_check(cut, p_card, p_cpu, calls_host, dev) -> dict:
     from repro_torch.models.moe import moe_apply
 
     m, report = cut.moe, []
+    layers_card = tlm._layers(p_card["blocks"], cut.n_layers)
+    layers_cpu = tlm._layers(p_cpu["blocks"], cut.n_layers)
     for layer, h in enumerate(calls_host[: cut.n_layers]):
-        mp_card = tlm._layer(p_card["blocks"], layer)["moe"]
-        mp_cpu = tlm._layer(p_cpu["blocks"], layer)["moe"]
+        mp_card, mp_cpu = layers_card[layer]["moe"], layers_cpu[layer]["moe"]
         kw = dict(n_experts=m.n_experts, top_k=m.top_k, capacity_factor=m.capacity_factor,
                   activation=cut.activation)
         got = moe_apply(h.to(dev), mp_card, **kw).cpu()
@@ -1200,6 +1223,371 @@ def zoo_family(arch: str, dev, ops) -> dict:
           "family_seconds": seconds})
     torch.cuda.empty_cache()
     return {"routes": routes, "launches": launches, "seconds": seconds}
+
+
+# phase train: LM training at granite-3-2b's full width (ROADMAP A14 item 2)
+TRAIN_LAYER = (2, 4096, 32, 8, 64)  # a microbatch of train_4k at granite's layer: B, S, H, Kv, dh
+TRAIN_SEQ = 4096  # launch/specs.py train_4k's sequence
+# train_4k's global batch of 256 cut to 4, in 2 microbatches of 2; 6 steps
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4, 2, 6
+TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ = 2, 512  # the card-vs-CPU depth cut, B 1
+BWD_CARD_ULPS = 2  # backward kernels against the plain backward, bf16: ulps of each gradient's scale
+BWD_F32_RTOL = 1e-5  # ... f32: of each gradient's scale
+# card against CPU at the depth cut: the CPU tests' per-family bounds against the
+# reference (bf16 compute rounded at other places)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 1e-3, 2e-2
+BWD_FIXTURES = {  # name: (b, sq, sk, h, kv, dh, causal, window, q_offset, k_offset, dtype)
+    "bf16_dh64_kv8_causal": (2, 777, 777, 32, 8, 64, True, None, 0, 0, "bf16"),
+    "bf16_dh128_kv2_window": (1, 600, 600, 8, 2, 128, True, 200, 0, 0, "bf16"),
+    "bf16_dh256_kv1_window": (1, 500, 500, 10, 1, 256, True, 128, 0, 0, "bf16"),
+    "bf16_dh32_noncausal_cross": (2, 300, 170, 8, 2, 32, False, None, 0, 0, "bf16"),
+    "bf16_dh16_kv4": (1, 256, 256, 4, 4, 16, True, None, 0, 0, "bf16"),
+    "bf16_dh64_rows_with_no_key": (1, 300, 300, 8, 2, 64, True, None, 0, 40, "bf16"),
+    "f32_dh64_causal": (2, 500, 500, 8, 2, 64, True, None, 0, 0, "f32"),
+    "f32_dh256_window": (1, 300, 300, 4, 1, 256, True, 100, 0, 0, "f32"),
+    "f32_dh32_noncausal": (1, 200, 330, 4, 2, 32, False, None, 0, 0, "f32"),
+    # C4: a window without causality on a query chunk and its key slice
+    "bf16_dh128_c4_offsets": (1, 512, 811, 8, 2, 128, False, 300, 1024, 725, "bf16"),
+    "f32_dh64_c4_offsets": (1, 512, 811, 8, 2, 64, False, 300, 1024, 725, "f32"),
+}
+
+
+def ulps_of_scale(got, want) -> float:
+    """max |got - want| in bf16 ulps of want's largest magnitude."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err / bf16_ulp_at(scale) if scale > 0 else err
+
+
+def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
+    """The training forward and the backward kernels against their plain
+    versions on the same inputs (the backward's on the kernel's own O and
+    lse): the forward's O rounded is the inference kernel's output bit for
+    bit, its f32 O and lse within 1e-5 of scale; dq, dk, dv within
+    BWD_CARD_ULPS (bf16) or BWD_F32_RTOL (f32) of scale; a second backward
+    the same bits (no atomics)."""
+    import torch
+
+    o, lse = tfa.flash_attention_train_cuda(q, k, v, **kw)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    o_plain, lse_plain = tfa.flash_attention_train_plain(q, k, v, **kw)
+    inference = tfa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(o.to(q.dtype), inference),
+          f"flash bwd {name}: the training forward's O does not round to the inference output")
+    finite = torch.isfinite(lse_plain)
+    check(torch.equal(torch.isfinite(lse), finite), f"flash bwd {name}: lse's +inf rows differ")
+    lse_err = float((lse[finite] - lse_plain[finite]).abs().max()) if bool(finite.any()) else 0.0
+    lse_scale = float(lse_plain[finite].abs().max()) if bool(finite.any()) else 0.0
+    o_err = float((o - o_plain).abs().max())
+    check(lse_err <= 1e-5 * max(1.0, lse_scale), f"flash bwd {name}: lse error {lse_err}")
+    check(o_err <= 1e-5 * float(o_plain.abs().max()), f"flash bwd {name}: f32 O error {o_err}")
+    row = {"shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3]],
+           "causal": kw["causal"], "window": kw.get("window"),
+           "offsets": [kw.get("q_offset", 0), kw.get("k_offset", 0)], "dtype": str(q.dtype), "forward_route": tfa.flash_route(q.dtype, q.shape[3]),
+           "o_f32_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+           "rows_with_no_key": int((~finite).sum())}
+    for gname, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        check(g.dtype == w.dtype == q.dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"flash bwd {name}: {gname} {g.dtype} {tuple(g.shape)}")
+        check(torch.equal(g, g2), f"flash bwd {name}: {gname} differs between two runs")
+        row[f"{gname}_max_abs_err"] = float((g.float() - w.float()).abs().max())
+        if q.dtype == torch.bfloat16:
+            ulps = ulps_of_scale(g, w)
+            check(ulps <= BWD_CARD_ULPS, f"flash bwd {name}: {gname} {ulps} bf16 ulps of scale")
+            row[f"{gname}_ulps_of_scale"] = ulps
+        else:
+            rel = row[f"{gname}_max_abs_err"] / float(w.abs().max())
+            check(rel <= BWD_F32_RTOL, f"flash bwd {name}: {gname} {rel} of scale")
+            row[f"{gname}_rel_of_scale"] = rel
+    return row
+
+
+def flash_bwd_phase(dev, tfa) -> dict:
+    """The backward kernels against the plain backward at every route's
+    fixtures, then at granite-3-2b's training layer (TRAIN_LAYER, causal):
+    held as the fixtures and timed (CUDA-event medians of FLASH_TIMED_REPS
+    pairs around one call) beside the training and inference forwards, the
+    plain versions and SDPA's forward and backward, with the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    report = {}
+    for seed, (name, spec) in enumerate(BWD_FIXTURES.items()):
+        b, sq, sk, h, kv, dh, causal, window, q_off, k_off, dt = spec
+        q, k, v = flash_inputs(dev, b, sq, sk, h, kv, dh, dtypes[dt], 400 + seed)
+        do = flash_inputs(dev, b, sq, sk, h, kv, dh, dtypes[dt], 500 + seed)[0]
+        kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
+        report[name] = bwd_against_plain(tfa, q, k, v, do, kw, name)
+        del q, k, v, do
+    emit({"phase": "train", "part": "a_flash_bwd_fixtures", "fixtures": report,
+          "tol": {"bf16_ulps_of_scale": BWD_CARD_ULPS, "f32_rel_of_scale": BWD_F32_RTOL}})
+
+    b, s, h, kv, dh = TRAIN_LAYER
+    q, k, v = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, 700)
+    do = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, 701)[0]
+    layer = bwd_against_plain(tfa, q, k, v, do, {"causal": True}, "granite_training_layer")
+    o, lse = tfa.flash_attention_train_cuda(q, k, v, causal=True)
+    _, dsum = tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal=True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    fns = {
+        "train_forward": lambda: tfa.flash_attention_train_cuda(q, k, v, causal=True),
+        "inference_forward": lambda: tfa.flash_attention_cuda(q, k, v, causal=True),
+        "bwd_dq": lambda: tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal=True),
+        "bwd_dkdv": lambda: tfa.flash_attention_bwd_dkdv_cuda(q, k, v, lse, do, dsum, causal=True),
+        "plain_train_forward": lambda: tfa.flash_attention_train_plain(q, k, v, causal=True),
+        "plain_backward": lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+    }
+    library = {"backends": "flash, memory-efficient", "call": "F.scaled_dot_product_attention("
+               "is_causal=True, enable_gqa=True) in bf16; rounds p to bf16: another function"}
+    try:  # the yardstick only: the port never calls SDPA
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            torch.autograd.grad(out_t, (qt, kt, vt), dot, retain_graph=True)
+            torch.cuda.synchronize()
+        fns["sdpa_forward"] = lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), is_causal=True, enable_gqa=True)
+        fns["sdpa_backward"] = lambda: torch.autograd.grad(out_t, (qt, kt, vt), dot,
+                                                           retain_graph=True)
+    except RuntimeError as err:
+        library["not_given"] = str(err).splitlines()[0][:300]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        ms = median_ms(fns, reps=FLASH_TIMED_REPS, calls=1)
+    pairs = tfa.visible_pairs(s, s, True, None) * h * b
+    prod = 2 * dh * pairs  # the FLOP of one head_dim product over the visible pairs
+    el, n_q, n_kv, n_row = q.element_size(), q.numel(), k.numel(), lse.numel()
+    dq_bytes = (3 * n_q + 2 * n_kv) * el + 4 * (n_q + 2 * n_row)  # q k v do dq; o lse D
+    dkdv_bytes = (2 * n_q + 4 * n_kv) * el + 4 * 2 * n_row  # q do k v dk dv; lse D
+    pair_bytes = (3 * n_q + 4 * n_kv) * el + 4 * (n_q + n_row)
+    fwd_bytes = (n_q + 2 * n_kv) * el + 4 * (n_q + n_row)  # q k v; O f32 and lse
+    bounds = {  # (ms, by): the least time for each function's work
+        # P and dS in three bf16 parts (split_bf16x3): S, dP one product, dQ three
+        "bwd_dq": bound(dq_bytes, 5 * prod, BF16_TENSOR_FLOPS),
+        "bwd_dkdv": bound(dkdv_bytes, 8 * prod, BF16_TENSOR_FLOPS),  # S, dP; dV, dK three each
+        "backward": bound(pair_bytes, 11 * prod, BF16_TENSOR_FLOPS),
+        "train_forward": bound(fwd_bytes, 4 * prod, BF16_TENSOR_FLOPS),  # QK^T, 3 P.V products
+    }
+    cuda_cores = {"bwd_dq": 3 * prod / CUDA_CORE_32BIT_OPS * 1e3,  # S, dP, dQ in f32 FMA
+                  "bwd_dkdv": 4 * prod / CUDA_CORE_32BIT_OPS * 1e3,  # S, dP, dV, dK
+                  "backward": 5 * prod / CUDA_CORE_32BIT_OPS * 1e3}
+    out = {"check": layer, "ms": ms, "visible_pairs": pairs, "bound": bounds,
+           "bound_cuda_cores_ms": cuda_cores, "library": library,
+           "kernels_do_products": {"bwd_dq": 3, "bwd_dkdv": 4}}
+    emit({"phase": "train", "part": "a_flash_bwd_granite_layer",
+          "shape": list(TRAIN_LAYER), "causal": True, "dtype": "bfloat16", **out,
+          "note": "ms per call: CUDA-event medians, the functions in turns; bound: the bf16 "
+                  "products of each function on the tensor cores (P and dS in three bf16 "
+                  "parts) at 989 TFLOP/s, or its bytes; bound_cuda_cores_ms: the f32 FMA "
+                  "products of the function at 67 TFLOP/s"})
+    del q, k, v, do, o, lse, dsum, qt, kt, vt, dot, fns
+    out.pop("check")
+    return {"fixtures": report, "layer": layer, **out}
+
+
+def train_depth_cut(dev) -> dict:
+    """granite-3-2b at full width, TRAIN_CUT_LAYERS layers, B 1, S
+    TRAIN_CUT_SEQ: the loss and every leaf's gradient on the card against
+    the CPU from the same params and batch, and one train step run twice
+    from one state on the card, bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step, synthetic_batch
+    from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
+    from repro_torch.train.step import batch_to, loss_for, value_and_grad
+
+    cut = dataclasses.replace(get_config("granite-3-2b"), n_layers=TRAIN_CUT_LAYERS, accum_steps=1)
+    p_cpu = init_lm_params(0, cut, "cpu")
+    p_card = tree_to(p_cpu, dev)
+    batch = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0)
+    t0 = time.perf_counter()
+    loss_card, g_card = value_and_grad(loss_for(cut), p_card, [batch_to(batch, dev)])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = value_and_grad(loss_for(cut), p_cpu, [batch_to(batch, torch.device("cpu"))])
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train depth cut: loss {float(loss_card)} vs CPU "
+          f"{float(loss_cpu)}")
+    rel = {}
+    for (path, gc), gh in zip(_named(g_card), tree_leaves(g_cpu)):
+        check(bool(torch.isfinite(gc).all()), f"train depth cut: {path} not finite")
+        gc = gc.cpu().double()
+        rel[path] = float(torch.linalg.norm(gc - gh.double()) / torch.linalg.norm(gh.double()))
+        check(rel[path] <= TRAIN_GRAD_REL_L2, f"train depth cut: {path} rel L2 {rel[path]}")
+    norm_card, norm_cpu = float(global_norm(g_card)), float(global_norm(g_cpu))
+    check(abs(norm_card - norm_cpu) <= TRAIN_GRAD_REL_L2 * norm_cpu,
+          f"train depth cut: grad norm {norm_card} vs CPU {norm_cpu}")
+    del g_card, g_cpu, p_cpu
+    step = make_train_step(cut, AdamWConfig(lr=1e-3))
+    runs = []
+    for _ in range(2):
+        params = tree_map(torch.clone, p_card)
+        new, _, m = step(params, adamw_init(params), batch)
+        runs.append((m["loss"], m["grad_norm"], new))
+    (l1, n1, a), (l2, n2, b_) = runs
+    same = (torch.equal(l1, l2) and torch.equal(n1, n2)
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b_))))
+    check(same, "train depth cut: two steps from one state differ on the card")
+    out = {"cut": f"n_layers {TRAIN_CUT_LAYERS} of 40; full width", "batch_seq": [1, TRAIN_CUT_SEQ],
+           "loss_card": float(loss_card), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
+           "grad_norm_card": norm_card, "grad_norm_cpu": norm_cpu,
+           "worst_leaf_rel_l2": max(rel.items(), key=lambda kv: kv[1]),
+           "leaves": len(rel), "tol": {"loss_rel": TRAIN_LOSS_RTOL,
+                                       "grad_rel_l2": TRAIN_GRAD_REL_L2},
+           "card_forward_backward_s": card_s, "cpu_forward_backward_s": cpu_s,
+           "step_twice_bitwise": True, "step_loss": float(l1), "step_grad_norm": float(n1)}
+    emit({"phase": "train", "part": "b_depth_cut_card_vs_cpu", **out})
+    del runs, a, b_, p_card
+    return out
+
+
+def _named(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, keys sorted (jax.tree.leaves order)."""
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            yield from _named(val, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def _kernel_split(prof, n_steps: int) -> dict:
+    """Device ms per step by kind of kernel, from a profile's averages."""
+    import torch
+
+    kinds = {"flash_forward": ("flash_fwd",), "flash_backward": ("flash_bwd",),
+             "matmuls": ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_")}
+    split = {kind: 0.0 for kind in (*kinds, "other")}
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        kind = next((k for k, marks in kinds.items() if any(m in e.key for m in marks)), "other")
+        split[kind] += e.self_device_time_total / n_steps / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    return {"device_ms_per_step": split, "device_ms_total": sum(split.values()),
+            "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n_steps
+                             / 1e3, "calls_per_step": e.count / n_steps} for e in top]}
+
+
+def train_full(dev, ops) -> dict:
+    """granite-3-2b at full width and depth: TRAIN_STEPS steps of
+    make_train_step (accum TRAIN_ACCUM, remat "full", AdamW lr 1e-3) on
+    synthetic_token_stream at B TRAIN_BATCH, S TRAIN_SEQ; the launch counts
+    set to 0 before each step and read after it; the last step profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm_params
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update, make_train_step,
+                                   synthetic_token_stream)
+    from repro_torch.train.optimizer import tree_map
+
+    full = dataclasses.replace(get_config("granite-3-2b"), accum_steps=TRAIN_ACCUM)
+    check(full.remat_policy == "full", f"granite-3-2b's remat policy {full.remat_policy}")
+    no_launch = {name: 0 for name in ops.launch_counts()}
+    want = {**no_launch, "flash_attention_train": 2 * full.n_layers * TRAIN_ACCUM,
+            "flash_attention_bwd_dq": full.n_layers * TRAIN_ACCUM,
+            "flash_attention_bwd_dkdv": full.n_layers * TRAIN_ACCUM}
+    fwd = ops.flash_attention_mod
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm_params(0, full, dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    allocated_after_init = torch.cuda.memory_allocated()
+    step = make_train_step(full, AdamWConfig(lr=1e-3))
+    stream = synthetic_token_stream(full, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]  # set-up: numpy, before the clock
+    losses, norms, wall, counts = [], [], [], []
+    prof = None
+    for i, batch in enumerate(batches):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        profiled = i == TRAIN_STEPS - 1
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof_i:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        if profiled:
+            prof = prof_i
+        launched = ops.launch_counts()
+        routes = (dict(fwd.flash_attention_train_cuda.route_launches),
+                  dict(fwd.flash_attention_cuda.route_launches))
+        check(launched == want, f"train step {i}: launches {launched}, want {want}")
+        check(routes == ({"wgmma": want["flash_attention_train"], "simt": 0},
+                         {"wgmma": 0, "simt": 0}), f"train step {i}: flash routes {routes}")
+        counts.append(launched)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms), f"train: losses {losses}, norms {norms}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    timed = wall[1:-1]  # after the first step, before the profiled one
+    ms = statistics.median(timed) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    split = _kernel_split(prof, 1)
+    # AdamW alone at full width: CUDA events around one update (zero grads)
+    grads = tree_map(torch.zeros_like, params)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    adamw_update(params, grads, opt, AdamWConfig(lr=1e-3))
+    end.record()
+    torch.cuda.synchronize()
+    adamw_ms = start.elapsed_time(end)
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = {"arch": full.name, "n_layers": full.n_layers, "params": n_params,
+           "batch_seq": [TRAIN_BATCH, TRAIN_SEQ], "accum_steps": TRAIN_ACCUM,
+           "microbatch": TRAIN_BATCH // TRAIN_ACCUM, "remat_policy": full.remat_policy,
+           "cut": "train_4k's global batch of 256 cut to 4", "steps": TRAIN_STEPS, "lr": 1e-3,
+           "init_s": init_s, "losses": losses, "grad_norms": norms, "wall_s": wall,
+           "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "ms_per_step_note": f"median of steps 2..{TRAIN_STEPS - 1} (host clock, synchronised)",
+           "launches_per_step": counts[0], "launches_total": {
+               name: sum(c[name] for c in counts) for name in counts[0]},
+           "flash_train_routes_per_step": {"wgmma": want["flash_attention_train"], "simt": 0},
+           "max_memory_allocated": peak, "allocated_after_init": allocated_after_init,
+           "profiled_step": split, "adamw_update_ms": adamw_ms}
+    emit({"phase": "train", "part": "c_full_width", **out})
+    del params, opt, grads, batches, prof
+    return out
+
+
+def train_phase(dev, ops, tfa) -> dict:
+    """LM training (ROADMAP A14 item 2): (a) the backward kernels, (b) the
+    depth cut card against CPU, (c) full width and depth, (d) the launcher."""
+    import torch
+
+    from repro_torch.launch import train as train_launcher
+
+    t_phase = time.perf_counter()
+    bwd = flash_bwd_phase(dev, tfa)
+    cut = train_depth_cut(dev)
+    full = train_full(dev, ops)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, losses = train_launcher.main(["--arch", "granite-3-2b", "--reduced", "--steps", "30",
+                                         "--batch", "8", "--seq", "32", "--lr", "1e-3",
+                                         "--device", str(dev)])
+    check(losses[-1] < losses[0] - 0.5, f"train launcher: the loss fell {losses[0] - losses[-1]}")
+    emit({"phase": "train", "part": "d_launcher", "argv": "--arch granite-3-2b --reduced "
+          "--steps 30 --batch 8 --seq 32 --lr 1e-3", "first_loss": losses[0],
+          "last_loss": losses[-1], "printed": out.getvalue().strip().splitlines()[-1]})
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "train", "seconds": seconds})
+    return {"bwd": bwd, "cut": cut, "full": full, "seconds": seconds}
 
 
 def _reports_bitwise(got, want) -> bool:
@@ -3356,6 +3744,9 @@ def main() -> int:
     flash_routes = lm["flash_routes"]
     del lm
 
+    # --- train: LM training at granite-3-2b's full width --------------------
+    train = train_phase(dev, ops, tfa)
+
     # --- 8 sweeps: the README's grid as one batched group ------------------
     sweep_launches, sweep = sweep_phase(ops)
 
@@ -3482,6 +3873,39 @@ def main() -> int:
             (256, "recurrentgemma-2b", "recurrentgemma_32k_layer_dh256", flash256),
             (128, "llava-next-mistral-7b", "dh128_window200", flash128))),
     ]
+    tl = train["bwd"]  # granite-3-2b's training layer (TRAIN_LAYER), the train phase
+    pair = {"ms": tl["ms"]["bwd_dq"] + tl["ms"]["bwd_dkdv"], "bound_ms": tl["bound"]["backward"][0],
+            "bound_cuda_cores_ms": tl["bound_cuda_cores_ms"]["backward"],
+            "plain_ms": tl["ms"]["plain_backward"],
+            "sdpa_backward_ms": tl["ms"].get("sdpa_backward")}
+    for name, key, kernel, err in (
+            ("flash_attention_train", "train_forward",
+             "flash_fwd_wgmma_kernel<64, *, true> (bf16, head_dim 64/128/256) and "
+             "flash_fwd_kernel<*, *, *, true> (f32; bf16 at 16 and 32)", "o_f32_max_abs_err"),
+            ("flash_attention_bwd_dq", "bwd_dq", "flash_bwd_dq_kernel (SIMT)", "dq_max_abs_err"),
+            ("flash_attention_bwd_dkdv", "bwd_dkdv", "flash_bwd_dkdv_kernel (SIMT)",
+             "dk_max_abs_err")):
+        forward = name == "flash_attention_train"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention"
+                      + (".cu" if forward else "_bwd.cu"),
+            "replaces": "src/repro/kernels/flash_attention.py:95 (its forward, writing O in f32 "
+                        "and the row lse for the backward)" if forward else
+                        "src/repro/models/layers.py:135 (XLA's derivative of chunked_attention, "
+                        "the jnp twin of src/repro/kernels/flash_attention.py:95; not a Pallas "
+                        "kernel)",
+            "kernels": kernel, "layer": "granite-3-2b training, B 2, S 4096, H 32, Kv 8, dh 64",
+            "launches": train["full"]["launches_total"][name],
+            "launches_per_step": train["full"]["launches_per_step"][name],
+            "max_abs_err": tl["layer"][err],
+            "ms": tl["ms"][key],
+            "plain_ms": tl["ms"]["plain_train_forward" if forward else "plain_backward"],
+            "bound_ms": tl["bound"][key][0], "bound_by": tl["bound"][key][1],
+            "library_ms": tl["ms"].get("sdpa_forward") if forward else None,
+            **({} if forward else {"bound_cuda_cores_ms": tl["bound_cuda_cores_ms"][key],
+                                   "backward_pair": pair}),
+        })
     for name, launched, replaces in (
         ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
          "src/repro/kernels/compressor_select.py:67 (select_topk_pallas's selection, with the "

@@ -27,8 +27,12 @@ JSON line per measurement, then the card's name and power limit.
                               256 (the route before the wgmma kernel had it)
            and, with --baseline, another flash_attention.cu as it is (for
            example the parent commit's, unpacked by git archive), and whether
-           each wgmma instantiation's SASS (cuobjdump beside nvcc, addresses
-           and encodings dropped) is the same in both
+           each forward instantiation's SASS (cuobjdump beside nvcc,
+           addresses and encodings dropped; wgmma and SIMT) is the same in
+           both, the instantiations matched by kernel and template arguments
+           after cu++filt: a kernel here with one more trailing bool
+           argument than the baseline's (kTrain) is matched with it false,
+           and its training instantiations (true) are listed apart
   check    each variant against the plain version (flash_attention_plain)
            within one bf16 ulp (taken at no less than 2**-14) at small shapes
            (GQA, windows, padding, Sq != Sk, a window without causality at
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -183,6 +188,41 @@ def sass_by_function(kbuild, lib: Path) -> dict[str, list[str]]:
     return out
 
 
+def forward_instantiations(kbuild, sass: dict[str, list[str]]) -> dict[tuple, str]:
+    """The flash forward kernels of ``sass`` by (kernel, template arguments),
+    demangled by cu++filt beside nvcc."""
+    names = sorted(fn for fn in sass if "flash_fwd" in fn)
+    if not names:
+        return {}
+    filt = Path(kbuild.nvcc()).with_name("cu++filt")
+    plain = subprocess.run([str(filt), *names], capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    out = {}
+    for mangled, readable in zip(names, plain):
+        found = re.search(r"(\w+)<([^<>]*)>\(", readable)
+        if found:
+            out[(found.group(1), tuple(a.strip() for a in found.group(2).split(",")))] = mangled
+    return out
+
+
+def compare_sass(kbuild, mine: dict, theirs: dict) -> dict:
+    """Each baseline forward instantiation against this source's one with the
+    same arguments (and kTrain false where this source has one more)."""
+    ours, base = forward_instantiations(kbuild, mine), forward_instantiations(kbuild, theirs)
+    pairs, training = {}, []
+    for (kernel, args), fn in sorted(ours.items()):
+        key = (kernel, args) if (kernel, args) in base else (kernel, args[:-1])
+        if key not in base or (key[1] != args and args[-1] not in ("false", "(bool)0")):
+            training.append(f"{kernel}<{', '.join(args)}>")
+            continue
+        pairs[f"{kernel}<{', '.join(key[1])}>"] = (mine[fn], theirs[base[key]])
+    return {"sass_same_as_baseline": {label: a == b for label, (a, b) in pairs.items()},
+            "instructions": {label: [len(a), len(b)] for label, (a, b) in pairs.items()},
+            "not_in_this_source": sorted(f"{k}<{', '.join(a)}>" for k, a in base
+                                         if f"{k}<{', '.join(a)}>" not in pairs),
+            "only_in_this_source": training}
+
+
 def median_ms(fns: dict) -> dict[str, float]:
     import torch
 
@@ -254,11 +294,7 @@ def main() -> int:
     base_call = caller("baseline") if baseline is not None else None
     if baseline is not None:
         mine, theirs = (sass_by_function(kbuild, libs[n]) for n in ("kernel", "baseline"))
-        emit({"sass_same_as_baseline": {
-            fn: (mine[fn] == theirs[fn]) if fn in theirs else "not in baseline"
-            for fn in sorted(mine) if "wgmma" in fn},
-            "instructions": {fn: [len(mine[fn]), len(theirs.get(fn, []))]
-                             for fn in sorted(mine) if "wgmma" in fn}})
+        emit(compare_sass(kbuild, mine, theirs))
 
     def inputs(b, sq, sk, h, kv, dh, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)

@@ -20,6 +20,16 @@
 // contiguous; the softmax, p and the sums are f32 and the output is rounded
 // to the input type once.  A row with no visible key gives 0.
 //
+// Each kernel has a training instantiation (kTrain, entry points *_train):
+// it writes O unrounded in f32, and after O in the same buffer the row's
+// log-sum-exp lse = m + log(l) in f32, (B, H, Sq), +inf for a row with no
+// visible key (so exp(s - lse) = 0 for every key); the backward
+// (flash_attention_bwd.cu) reads both.  Rounded to bf16 by the caller, O is
+// the inference instantiation's output: the same f32 value, rounded to
+// nearest.  The inference instantiations are the code without kTrain, so
+// their SASS is the one they had before it (scripts/flash_probe.py
+// --baseline compares them).
+//
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _flash_kernel), which the JAX package reaches
 // through repro/kernels/ops.py:flash_attention and whose jnp twin
@@ -140,16 +150,26 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// The output type: the input type for inference, f32 for training.
+template <typename T, bool kTrain>
+using OutT = typename std::conditional<kTrain, float, T>::type;
+
+// A row's log-sum-exp from its max m and sum l = sum exp(s - m); +inf where
+// no key is visible (l = 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 template <int DH>
 constexpr size_t smem_bytes() {
   // Q and K tiles [64][DH + 4], V tile [64][DH], P tile [64][kPLd], f32
   return sizeof(float) * (2 * kBQ * (DH + 4) + kBK * DH + kBQ * kPLd);
 }
 
-template <typename T, int DH, bool kOff>
+template <typename T, int DH, bool kOff, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
+                 const T* __restrict__ v, OutT<T, kTrain>* __restrict__ out, int sq, int sk,
                  int n_heads, int n_kv, int causal, int window, int pos_off_arg,
                  float scale) {
   const int pos_off = kOff ? pos_off_arg : 0;  // kOff: the launcher saw pos_off != 0
@@ -313,43 +333,50 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = p0 - pos_off + ty * kRows + i;
     if (qpos >= sq) continue;
     const float safe = l[i] > 0.f ? l[i] : 1.f;
-    T* orow = out + (b * sq + qpos) * q_row + (long long)h * DH + tx * kCols;
+    OutT<T, kTrain>* orow = out + (b * sq + qpos) * q_row + (long long)h * DH + tx * kCols;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store1(orow + c, acc[i][c] / safe);
+    if constexpr (kTrain) {
+      // the lse after O: (B, H, Sq)
+      if (tx == 0)
+        out[(long long)gridDim.z * sq * q_row + (b * n_heads + h) * sq + qpos] =
+            row_lse(m[i], l[i]);
+    }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kTrain>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int sk, int n_heads, int n_kv, int causal, int window,
            int pos_off, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  const auto kernel = pos_off != 0 ? flash_fwd_kernel<T, DH, true> : flash_fwd_kernel<T, DH, false>;
+  const auto kernel = pos_off != 0 ? flash_fwd_kernel<T, DH, true, kTrain>
+                                   : flash_fwd_kernel<T, DH, false, kTrain>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, n_heads, n_kv, causal, window, pos_off, scale);
+      static_cast<OutT<T, kTrain>*>(out), sq, sk, n_heads, n_kv, causal, window, pos_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // f32 at every head_dim; bf16 only where flash_route sends it to this kernel
 // (16 and 32: the wgmma kernel takes 64, 128 and 256)
-template <typename T>
+template <typename T, bool kTrain>
 int dispatch(int head_dim, const void* q, const void* k, const void* v, void* out,
              int batch, int sq, int sk, int n_heads, int n_kv, int causal,
              int window, int pos_off, float scale, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    case 16: return launch<T, 16, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+    case 32: return launch<T, 32, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
   }
   if constexpr (std::is_same<T, float>::value) {
     switch (head_dim) {
-      case 64: return launch<T, 64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-      case 128: return launch<T, 128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
-      case 256: return launch<T, 256>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+      case 64: return launch<T, 64, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+      case 128: return launch<T, 128, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
+      case 256: return launch<T, 256, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window, pos_off, scale, stream);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -368,10 +395,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(head_dim, q, k, v, out, batch, sq, sk, n_heads,
-                                   n_kv, causal, window, pos_off, scale, st);
-  return dispatch<float>(head_dim, q, k, v, out, batch, sq, sk, n_heads, n_kv,
-                         causal, window, pos_off, scale, st);
+    return dispatch<__nv_bfloat16, false>(head_dim, q, k, v, out, batch, sq, sk, n_heads,
+                                          n_kv, causal, window, pos_off, scale, st);
+  return dispatch<float, false>(head_dim, q, k, v, out, batch, sq, sk, n_heads, n_kv,
+                                causal, window, pos_off, scale, st);
+}
+
+// The training instantiation of the same: out is f32, B * Sq * H * dh for O
+// and then B * H * Sq for the lse.
+extern "C" int flash_attention_fwd_train(const void* q, const void* k, const void* v,
+                                         void* out, int batch, int sq, int sk,
+                                         int n_heads, int n_kv, int head_dim,
+                                         int is_bf16, int causal, int window, int pos_off,
+                                         float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return dispatch<__nv_bfloat16, true>(head_dim, q, k, v, out, batch, sq, sk, n_heads,
+                                         n_kv, causal, window, pos_off, scale, st);
+  return dispatch<float, true>(head_dim, q, k, v, out, batch, sq, sk, n_heads, n_kv,
+                               causal, window, pos_off, scale, st);
 }
 
 // ===========================================================================
@@ -702,12 +744,12 @@ __device__ __forceinline__ void tile_pv(float (&sc)[C::kBK / 2], float (&m)[2], 
     for (int c = 0; c < kChunks; ++c) fence_regs(pa[part][c]);
 }
 
-template <int DH, bool kOff>
+template <int DH, bool kOff, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ out, int sq, int sk, int n_heads,
+                       OutT<__nv_bfloat16, kTrain>* __restrict__ out, int sq, int sk, int n_heads,
                        int n_kv, int causal, int window, int pos_off_arg, float scale) {
   using C = Cfg<DH>;
   constexpr int kBQ = C::kBQ, kBK = C::kBK;
@@ -821,7 +863,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
     }
 
-    // out = O / l (0 where no key is visible), rounded to bf16 once
+    // out = O / l (0 where no key is visible), rounded to bf16 once (training:
+    // O / l in f32, and the lse)
     float safe[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -834,15 +877,30 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; r < 2; ++r) {
       const int row = ra - pos_off + 8 * r;
       if (row >= sq) continue;
-      __nv_bfloat16* orow = out + (static_cast<long long>(b) * sq + row) * q_row +
-                            static_cast<long long>(h) * DH + panel0 * kPanelCols + kq;
+      OutT<__nv_bfloat16, kTrain>* orow =
+          out + (static_cast<long long>(b) * sq + row) * q_row + static_cast<long long>(h) * DH +
+          panel0 * kPanelCols + kq;
+      if constexpr (kTrain) {
 #pragma unroll
-      for (int panel = 0; panel < C::kOutPanels; ++panel)
+        for (int panel = 0; panel < C::kOutPanels; ++panel)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + panel * kPanelCols + 8 * j) =
-              __floats2bfloat162_rn(o[panel][4 * j + 2 * r] / safe[r],
-                                    o[panel][4 * j + 2 * r + 1] / safe[r]);
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float2*>(orow + panel * kPanelCols + 8 * j) =
+                make_float2(o[panel][4 * j + 2 * r] / safe[r],
+                            o[panel][4 * j + 2 * r + 1] / safe[r]);
+        // the lse after O, (B, H, Sq): one lane of the row's quad, one consumer
+        if (kq == 0 && (!C::kColSplit || cw == 0))
+          out[static_cast<long long>(gridDim.z) * sq * q_row +
+              (static_cast<long long>(b) * n_heads + h) * sq + row] = row_lse(m[r], l[r]);
+      } else {
+#pragma unroll
+        for (int panel = 0; panel < C::kOutPanels; ++panel)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + panel * kPanelCols + 8 * j) =
+                __floats2bfloat162_rn(o[panel][4 * j + 2 * r] / safe[r],
+                                      o[panel][4 * j + 2 * r + 1] / safe[r]);
+      }
     }
   }
 }
@@ -887,7 +945,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int cols, int seq, int batch, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, bool kTrain>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
            int n_heads, int n_kv, int causal, int window, int pos_off, float scale,
            cudaStream_t stream) {
@@ -897,16 +955,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
       !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
       !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel =
-      pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true> : flash_fwd_wgmma_kernel<DH, false>;
+  const auto kernel = pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true, kTrain>
+                                   : flash_fwd_wgmma_kernel<DH, false, kTrain>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + C::kBQ - 1) / C::kBQ, n_heads, batch);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), sq, sk, n_heads, n_kv, causal, window, pos_off,
-      scale);
+      mq, mk, mv, static_cast<OutT<__nv_bfloat16, kTrain>*>(out), sq, sk, n_heads, n_kv, causal,
+      window, pos_off, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTrain>
+int dispatch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
+             int n_heads, int n_kv, int head_dim, int causal, int window, int pos_off,
+             float scale, cudaStream_t st) {
+  switch (head_dim) {
+    case 64:
+      return launch<64, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
+                                pos_off, scale, st);
+    case 128:
+      return launch<128, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
+                                 pos_off, scale, st);
+    case 256:
+      return launch<256, kTrain>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
+                                 pos_off, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace hopper
@@ -920,18 +997,17 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
                                          int batch, int sq, int sk, int n_heads, int n_kv,
                                          int head_dim, int causal, int window, int pos_off,
                                          float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return hopper::launch<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
-                                pos_off, scale, st);
-    case 128:
-      return hopper::launch<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
-                                 pos_off, scale, st);
-    case 256:
-      return hopper::launch<256>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, window,
-                                 pos_off, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return hopper::dispatch<false>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, causal,
+                                 window, pos_off, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The training instantiation of the same: out is f32, B * Sq * H * dh for O
+// and then B * H * Sq for the lse.
+extern "C" int flash_attention_fwd_wgmma_train(const void* q, const void* k, const void* v,
+                                               void* out, int batch, int sq, int sk,
+                                               int n_heads, int n_kv, int head_dim, int causal,
+                                               int window, int pos_off, float scale,
+                                               void* stream) {
+  return hopper::dispatch<true>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, causal,
+                                window, pos_off, scale, static_cast<cudaStream_t>(stream));
 }

@@ -99,6 +99,29 @@ SM) and each thread 64 accumulators.
 ``flash_attention_plain`` is the same function in plain PyTorch, chunked
 over queries (the logits of one chunk at a time), for the CPU and for
 holding both kernels to it on the card.
+
+Training (:class:`FlashAttention`, the autograd Function that
+``ops.attention`` takes when a gradient is wanted):
+
+* the forward is each route's training instantiation
+  (:func:`flash_attention_train_cuda`): O unrounded in f32 and the row
+  log-sum-exp ``lse`` (B, H, Sq) in f32, +inf for a row with no visible key;
+  O rounded to bf16 is the inference kernel's output;
+* the backward is ``csrc/flash_attention_bwd.cu``, two SIMT kernels with
+  no atomics (:func:`flash_attention_bwd_cuda`): ``flash_bwd_dq_kernel``
+  (D = rowsum(dO O) and dq) then ``flash_bwd_dkdv_kernel`` (dk and dv,
+  summed over the query heads of each kv head inside the block).  It ports
+  no Pallas kernel: it is the derivative that XLA takes of
+  ``repro/models/layers.py:chunked_attention``.  What bounds it is
+  operations: five head_dim products over the visible pairs (S, dP, dQ,
+  dK, dV) at 67 TFLOP/s on the CUDA cores, or eleven bf16 products (P and
+  dS in three bf16 parts) at 989 TFLOP/s on the tensor cores; these kernels
+  compute seven on the CUDA cores (each recomputes S and dP).  At
+  granite-3-2b's training layer (B 2, S 4,096, H 32, Kv 8, dh 64, causal:
+  537 M visible pairs) that is 5.1 ms on the CUDA cores and 0.76 ms on the
+  tensor cores;
+* ``flash_attention_train_plain`` and ``flash_attention_bwd_plain`` are the
+  same functions in plain PyTorch, for the CPU and the checks on the card.
 """
 
 from __future__ import annotations
@@ -116,13 +139,18 @@ PLAIN_Q_CHUNK = 512
 
 # flash_attention_fwd (simt): q, k, v, out, batch, sq, sk, heads, kv heads,
 # head_dim, is_bf16, causal, window, q_offset - k_offset, scale, stream;
-# flash_attention_fwd_wgmma takes the same without is_bf16
+# flash_attention_fwd_wgmma takes the same without is_bf16 (and the *_train
+# entry points the same as theirs)
 _SIMT_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 _WGMMA_ARGTYPES = _SIMT_ARGTYPES[:10] + _SIMT_ARGTYPES[11:]
+# flash_attention_bwd_dq: q, k, v, o, lse, dout, dq, dsum; flash_attention_bwd_dkdv:
+# q, k, v, lse, dout, dsum, dk, dv; then both: batch, sq, sk, heads, kv heads,
+# head_dim, is_bf16, causal, window, q_offset - k_offset, scale, stream
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 8 + _SIMT_ARGTYPES[4:]
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -139,6 +167,62 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
+def _chunk_logits(qc, kf, q0, *, causal, window, scale, q_offset, k_offset):
+    """One query chunk's f32 logits (b, kv, rep, c, sk) times ``scale``, the
+    queries grouped by kv head, and the chunk's visibility mask (c, sk)."""
+    b, c, h, dh = qc.shape
+    sk, kv = kf.shape[1], kf.shape[2]
+    qg = qc.float().reshape(b, c, kv, h // kv, dh)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+    kpos = k_offset + torch.arange(sk, device=qc.device)
+    qpos = q_offset + torch.arange(q0, q0 + c, device=qc.device)[:, None]
+    mask = torch.ones((c, sk), dtype=torch.bool, device=qc.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos)
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos - window)
+    return logits, mask
+
+
+def flash_attention_train_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    q_chunk: int = PLAIN_Q_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the training forward: per chunk of
+    queries, f32 logits over all keys, masked softmax, f32 P.V divided by
+    the row sum (0 where no key is visible) -> O (B, Sq, H, dh) f32 and the
+    row log-sum-exp (B, H, Sq) f32, +inf where no key is visible."""
+    _check_shapes(q, k, v)
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    s = dh**-0.5 if scale is None else scale
+    kf, vf = k.float(), v.float()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        qc = q[:, q0 : q0 + q_chunk]
+        c = qc.shape[1]
+        logits, mask = _chunk_logits(qc, kf, q0, causal=causal, window=window, scale=s,
+                                     q_offset=q_offset, k_offset=k_offset)
+        logits = logits.masked_fill(~mask, NEG)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(logits - m), 0.0)
+        denom = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bgrqk,bkgd->bgrqd", p, vf) / torch.where(denom > 0, denom, 1.0)
+        out[:, q0 : q0 + c] = o.permute(0, 3, 1, 2, 4).reshape(b, c, h, dh)
+        row_lse = torch.where(denom > 0, m + torch.log(denom), torch.inf)
+        lse[:, :, q0 : q0 + c] = row_lse.reshape(b, h, c)
+    return out, lse
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -151,34 +235,60 @@ def flash_attention_plain(
     k_offset: int = 0,
     q_chunk: int = PLAIN_Q_CHUNK,
 ) -> torch.Tensor:
-    """The plain PyTorch version: per chunk of queries, f32 logits over all
-    keys, masked softmax, f32 P.V, divided by the row sum (0 where no key is
-    visible), rounded to q's dtype."""
+    """The plain PyTorch version: :func:`flash_attention_train_plain`'s O
+    rounded to q's dtype."""
+    return flash_attention_train_plain(
+        q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset,
+        k_offset=k_offset, q_chunk=q_chunk)[0].to(q.dtype)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    q_chunk: int = PLAIN_Q_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward, given the training
+    forward's f32 O and lse and the output's gradient ``do``: per chunk of
+    queries, P = exp(s - lse) on the visible keys (0 elsewhere), dP = dO V^T,
+    D = rowsum(dO O), dS = P (dP - D); dq = scale dS K, and dk = scale dS^T Q
+    and dv = P^T dO summed in f32 over the query heads of each kv head and
+    over the chunks.  -> (dq, dk, dv) in the inputs' dtypes, each rounded
+    once."""
     _check_shapes(q, k, v)
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     s = dh**-0.5 if scale is None else scale
     kf, vf = k.float(), v.float()
-    kpos = k_offset + torch.arange(sk, device=q.device)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, q_chunk):
-        qc = q[:, q0 : q0 + q_chunk].float()
+        qc = q[:, q0 : q0 + q_chunk]
         c = qc.shape[1]
-        qg = qc.reshape(b, c, kv, h // kv, dh)
-        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * s
-        qpos = q_offset + torch.arange(q0, q0 + c, device=q.device)[:, None]
-        mask = torch.ones((c, sk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos)
-        if window is not None:
-            mask = mask & (kpos[None, :] > qpos - window)
-        logits = logits.masked_fill(~mask, NEG)
-        m = logits.amax(dim=-1, keepdim=True)
-        p = torch.where(mask, torch.exp(logits - m), 0.0)
-        denom = p.sum(dim=-1, keepdim=True)
-        o = torch.einsum("bgrqk,bkgd->bgrqd", p, vf) / torch.where(denom > 0, denom, 1.0)
-        out[:, q0 : q0 + c] = o.permute(0, 3, 1, 2, 4).reshape(b, c, h, dh).to(q.dtype)
-    return out
+        logits, mask = _chunk_logits(qc, kf, q0, causal=causal, window=window, scale=s,
+                                     q_offset=q_offset, k_offset=k_offset)
+        grouped = (b, c, kv, h // kv, dh)
+        lse_c = lse[:, :, q0 : q0 + c].reshape(b, kv, h // kv, c, 1)
+        p = torch.where(mask, torch.exp(logits - lse_c), 0.0)
+        doc = do[:, q0 : q0 + c].float().reshape(grouped)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", doc, vf)
+        dsum = (doc * o[:, q0 : q0 + c].reshape(grouped)).sum(-1).permute(0, 2, 3, 1)
+        ds = p * (dp - dsum[..., None])
+        dq[:, q0 : q0 + c] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * s).reshape(
+            b, c, h, dh).to(q.dtype)
+        dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qc.float().reshape(grouped))
+        dv += torch.einsum("bgrqk,bqgrd->bkgd", p, doc)
+    return dq, (dk * s).to(k.dtype), dv.to(v.dtype)
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -226,19 +336,10 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> torc
     return (g - w).abs() / torch.ldexp(torch.ones_like(mag), e - 8)
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int | None = None,
-    scale: float | None = None,
-    q_offset: int = 0,
-    k_offset: int = 0,
-) -> torch.Tensor:
-    """Launch the route's CUDA kernel (:func:`flash_route`) on q's device and
-    current stream."""
+def _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset):
+    """Check what the kernels take -> ((batch, sq, sk, heads, kv heads,
+    head_dim), (causal, window, q_offset - k_offset, scale)) as they take
+    them."""
     _check_shapes(q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -254,7 +355,6 @@ def flash_attention_cuda(
     sk, kv = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention has head_dim {HEAD_DIMS}, got {dh}")
-    route = flash_route(q.dtype, dh)
     if b > 65535 or h > 65535 or max(sq, sk) >= 2**31 - 64:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)} exceed the kernel's grid")
     if window is not None and window <= 0:
@@ -262,23 +362,49 @@ def flash_attention_cuda(
     pos_off = int(q_offset) - int(k_offset)
     if abs(pos_off) >= 2**30:
         raise ValueError(f"offsets {q_offset}, {k_offset} exceed the kernel's positions")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     s = dh**-0.5 if scale is None else scale
-    shape = (b, sq, sk, h, kv, dh)
-    masks = (int(causal), 0 if window is None else int(window), pos_off, float(s))
+    return (b, sq, sk, h, kv, dh), (int(causal), 0 if window is None else int(window), pos_off,
+                                    float(s))
+
+
+def _launch_fwd(train: bool, q, k, v, out, shape, masks) -> str:
+    """The forward kernel of q's route into ``out`` on q's device and current
+    stream (``train``: the training instantiation); returns the route."""
+    route = flash_route(q.dtype, shape[-1])
+    suffix = "_train" if train else ""
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "wgmma":
-            fn = build.function("flash_attention", "flash_attention_fwd_wgmma", _WGMMA_ARGTYPES)
+            fn = build.function("flash_attention", f"flash_attention_fwd_wgmma{suffix}",
+                                _WGMMA_ARGTYPES)
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape, *masks,
                       stream)
         else:
-            fn = build.function("flash_attention", "flash_attention_fwd", _SIMT_ARGTYPES)
+            fn = build.function("flash_attention", f"flash_attention_fwd{suffix}", _SIMT_ARGTYPES)
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape,
                       int(q.dtype == torch.bfloat16), *masks, stream)
-    build.check_launch(f"flash_attention ({route})", code)
+    build.check_launch(f"flash_attention{suffix} ({route})", code)
+    return route
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+) -> torch.Tensor:
+    """Launch the route's CUDA kernel (:func:`flash_route`) on q's device and
+    current stream."""
+    shape, masks = _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    route = _launch_fwd(False, q, k, v, out, shape, masks)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.route_launches[route] += 1
     return out
@@ -287,3 +413,131 @@ def flash_attention_cuda(
 flash_attention_cuda.launches = 0
 # launches by route since the last reset (ops.reset_launch_counts)
 flash_attention_cuda.route_launches = {"wgmma": 0, "simt": 0}
+
+
+def flash_attention_train_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The route's training instantiation -> (O (B, Sq, H, dh) f32, lse
+    (B, H, Sq) f32), views of one buffer that the kernel fills."""
+    shape, masks = _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
+    b, sq, _, h, _, _ = shape
+    n = q.numel()
+    buf = torch.empty(n + b * h * sq, dtype=torch.float32, device=q.device)
+    o, lse = buf[:n].view(q.shape), buf[n:].view(b, h, sq)
+    if n == 0:
+        return o, lse
+    route = _launch_fwd(True, q, k, v, buf, shape, masks)
+    flash_attention_train_cuda.launches += 1
+    flash_attention_train_cuda.route_launches[route] += 1
+    return o, lse
+
+
+flash_attention_train_cuda.launches = 0
+flash_attention_train_cuda.route_launches = {"wgmma": 0, "simt": 0}
+
+
+def _check_saved(q, do, **rows) -> None:
+    """do like q; each of ``rows`` f32: ``o`` like q, the others (B, H, Sq)
+    (lse, D); all contiguous, aligned, on q's device."""
+    b, sq, h, _ = q.shape
+    want = [("do", do, q.shape, q.dtype)] + [
+        (name, t, q.shape if name == "o" else (b, h, sq), torch.float32)
+        for name, t in rows.items()]
+    for name, t, shape, dtype in want:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {tuple(shape)} {dtype} on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention backward needs {name} contiguous and 16-byte aligned")
+
+
+def _launch_bwd(symbol: str, pointers, shape, masks, dtype) -> None:
+    with torch.cuda.device(pointers[0].device):
+        stream = torch.cuda.current_stream(pointers[0].device).cuda_stream
+        fn = build.function("flash_attention_bwd", symbol, _BWD_ARGTYPES)
+        code = fn(*(t.data_ptr() for t in pointers), *shape, int(dtype == torch.bfloat16),
+                  *masks, stream)
+    build.check_launch(symbol, code)
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, *, causal=True, window=None, scale=None,
+                                q_offset=0, k_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_bwd_dq_kernel`` -> (dq like q, D = rowsum(dO O) (B, H, Sq)
+    f32, which :func:`flash_attention_bwd_dkdv_cuda` reads)."""
+    shape, masks = _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
+    _check_saved(q, do, o=o, lse=lse)
+    b, sq, _, h, _, _ = shape
+    dq = torch.empty_like(q)
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch_bwd("flash_attention_bwd_dq", (q, k, v, o, lse, do, dq, dsum), shape, masks, q.dtype)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq, dsum
+
+
+flash_attention_bwd_dq_cuda.launches = 0
+
+
+def flash_attention_bwd_dkdv_cuda(q, k, v, lse, do, dsum, *, causal=True, window=None,
+                                  scale=None, q_offset=0,
+                                  k_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_bwd_dkdv_kernel`` -> (dk like k, dv like v), given the dq
+    kernel's D."""
+    shape, masks = _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
+    _check_saved(q, do, lse=lse, dsum=dsum)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_attention_bwd_dkdv", (q, k, v, lse, do, dsum, dk, dv), shape, masks,
+                q.dtype)
+    flash_attention_bwd_dkdv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkdv_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=None, scale=None,
+                             q_offset=0, k_offset=0):
+    """The backward on the card: the dq kernel, then the dkdv kernel on the
+    same stream -> (dq, dk, dv) in the inputs' dtypes.  With no query or no
+    key there is nothing to launch: the gradients are zeros."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, k_offset=k_offset)
+    if q.numel() == 0 or k.numel() == 0:
+        _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dsum = flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
+    dk, dv = flash_attention_bwd_dkdv_cuda(q, k, v, lse, do, dsum, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: q (B, Sq, H, dh), k and v (B, Sk, Kv,
+    dh) -> (B, Sq, H, dh) in q's dtype, as ``ops.attention``.  The forward
+    runs the training instantiation on a CUDA tensor (the plain version on a
+    CPU tensor) and saves q, k, v, O in f32 and the lse; the backward runs
+    the backward kernels (the plain backward on the CPU).  No fallback: a
+    failed build or launch raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, k_offset):
+        kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
+                  k_offset=k_offset)
+        forward = flash_attention_train_cuda if q.is_cuda else flash_attention_train_plain
+        o, lse = forward(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o.to(q.dtype, copy=True)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        backward = flash_attention_bwd_cuda if do.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = backward(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

@@ -4,7 +4,9 @@
 Each routes on the device of its input, and on nothing else: a CPU tensor
 goes to the kernel's plain PyTorch version, a CUDA tensor launches the CUDA
 kernel (or raises).  There is no fallback from the kernel to the plain
-version.
+version.  ``attention`` also routes on whether a gradient is wanted: then it
+is the autograd Function (the forward's training instantiation and the
+backward kernels on the card).
 """
 
 from __future__ import annotations
@@ -113,9 +115,16 @@ def attention(
 ) -> torch.Tensor:
     """Batched GQA flash attention, the models' entry: q (B, Sq, H, dh), k and
     v (B, Sk, Kv, dh) -> (B, Sq, H, dh); the offsets are the positions of q's
-    and k's first rows, which the masks read (0 on whole sequences)."""
+    and k's first rows, which the masks read (0 on whole sequences).  Where
+    grad is enabled and q, k or v requires it, the autograd Function
+    ``FlashAttention``; otherwise the inference kernel (or its plain
+    version)."""
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, k_offset=k_offset)
-    if _route("flash_attention", q):
+    on_card = _route("flash_attention", q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention_mod.FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
+                                                        k_offset)
+    if on_card:
         return flash_attention_mod.flash_attention_cuda(q, k, v, **kw)
     return flash_attention_mod.flash_attention_plain(q, k, v, **kw)
 
@@ -146,6 +155,10 @@ KERNELS = {
     "select_topk_by_keys_idx": compressor_select.select_topk_by_keys_idx_cuda,
     "select_toplek_idx": compressor_select.select_toplek_idx_cuda,
     "flash_attention": flash_attention_mod.flash_attention_cuda,
+    # the training instantiation of flash's forward, and the backward's two kernels
+    "flash_attention_train": flash_attention_mod.flash_attention_train_cuda,
+    "flash_attention_bwd_dq": flash_attention_mod.flash_attention_bwd_dq_cuda,
+    "flash_attention_bwd_dkdv": flash_attention_mod.flash_attention_bwd_dkdv_cuda,
     "threefry_uniform": threefry.threefry_uniform_cuda,
 }
 
@@ -159,5 +172,6 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     for by in (flash_attention_mod.flash_attention_cuda.route_launches,
+               flash_attention_mod.flash_attention_train_cuda.route_launches,
                threefry.threefry_uniform_cuda.dtype_launches):
         by.update({name: 0 for name in by})

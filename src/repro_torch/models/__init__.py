@@ -3,6 +3,7 @@
 
 from repro_torch.models.encdec import (
     encdec_decode_step,
+    encdec_loss,
     encdec_prefill,
     encode,
     init_encdec_cache,
@@ -14,6 +15,7 @@ from repro_torch.models.lm import (
     init_lm_params,
     lm_decode_step,
     lm_forward,
+    lm_loss,
     lm_prefill,
     params_from_numpy,
 )
@@ -25,6 +27,7 @@ __all__ = [
     "cast_for_compute",
     "init_lm_params",
     "lm_forward",
+    "lm_loss",
     "lm_prefill",
     "init_decode_cache",
     "lm_decode_step",
@@ -32,6 +35,7 @@ __all__ = [
     "init_encdec_params",
     "encode",
     "encdec_prefill",
+    "encdec_loss",
     "init_encdec_cache",
     "encdec_decode_step",
     "moe_apply",

@@ -12,8 +12,12 @@ output (Sq != Sk).
 Decoding writes the self-attention keys and values into the caller's cache
 in place, as ``lm_decode_step`` does.  The cross K/V of the cache stay what
 ``init_encdec_cache`` made them, zeros, as in the reference: nothing fills
-them (ROADMAP C6), so a decode step's cross-attention adds 0.  Training
-(``encdec_loss``) waits with ROADMAP A14's train step.
+them (ROADMAP C6), so a decode step's cross-attention adds 0.
+
+Training: ``encdec_loss`` is the encoder and the decoder, then the
+decoder's chunked CE (``lm.chunked_loss``).  As in the reference, every
+encoder and decoder layer is rematerialised in full (``jax.checkpoint``
+whatever ``cfg.remat_policy`` says) when a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -36,8 +40,11 @@ from repro_torch.models.lm import (
     _attn_decode,
     _embed,
     _head_matrix,
-    _layer,
+    _layers,
+    _remat,
+    _wants_grad,
     attn_init,
+    chunked_loss,
     mlp_init,
     padded_vocab,
     param_initializers,
@@ -79,10 +86,14 @@ def encode(params, cfg: ArchConfig, src_embeds):
     encoder's output (B, S_src, D) bf16."""
     x = src_embeds.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        bp = _layer(params["enc_blocks"], i)
-        x = x + _attn_apply(x, bp, cfg, positions, None, causal=False)
-        x = _ffn(x, bp, cfg)
+
+    def block(c, bp):
+        c = c + _attn_apply(c, bp, cfg, positions, None, causal=False)
+        return _ffn(c, bp, cfg)
+
+    policy = "full" if _wants_grad(x) else "none"
+    for bp in _layers(params["enc_blocks"], cfg.encoder_layers):
+        x = _remat(functools.partial(block, bp=bp), policy)(x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -96,12 +107,25 @@ def _cross_apply(c, bp, cfg: ArchConfig, enc_out):
 
 
 def _decoder_blocks(x, params, cfg: ArchConfig, enc_out, positions):
-    for i in range(cfg.n_layers):
-        bp = _layer(params["dec_blocks"], i)
-        x = x + _attn_apply(x, bp, cfg, positions, None)
-        x = x + _cross_apply(x, bp, cfg, enc_out)
-        x = _ffn(x, bp, cfg)
+    def block(c, enc, bp):
+        c = c + _attn_apply(c, bp, cfg, positions, None)
+        c = c + _cross_apply(c, bp, cfg, enc)
+        return _ffn(c, bp, cfg)
+
+    policy = "full" if _wants_grad(x) or _wants_grad(enc_out) else "none"
+    for bp in _layers(params["dec_blocks"], cfg.n_layers):
+        x = _remat(functools.partial(block, bp=bp), policy)(x, enc_out)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def encdec_loss(params, cfg: ArchConfig, batch, *, loss_chunk: int = 1024):
+    """The decoder's masked next-token CE given the source: batch holds
+    ``src_embeds`` (B, S_src, D), ``tokens`` and ``labels`` (B, S)."""
+    enc_out = encode(params, cfg, batch["src_embeds"])
+    x = _embed(params, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = _decoder_blocks(x, params, cfg, enc_out, positions)
+    return chunked_loss(h, _head_matrix(params), batch["labels"], cfg.vocab, loss_chunk)
 
 
 def encdec_prefill(params, cfg: ArchConfig, src_embeds, tokens):
@@ -140,8 +164,7 @@ def encdec_decode_step(params, cfg: ArchConfig, cache, tokens):
     pos = cache["pos"]
     x = _embed(params, tokens)
     src_len = cache["ck"].shape[2]
-    for i in range(cfg.n_layers):
-        bp = _layer(params["dec_blocks"], i)
+    for i, bp in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
         b = x.shape[0]
         c = x + _attn_decode(x, bp, cfg, cache["k"][i], cache["v"][i], pos, None)
         h = rms_norm(c, bp["lnc"], cfg.norm_eps)

@@ -108,6 +108,11 @@ def chunked_attention(
     slice).  The two compute one function wherever some key is visible to
     every query; where none is, the kernel writes 0 and the chunked softmax
     averages all keys.
+
+    Training: where grad is enabled and q, k or v requires it, the same
+    launches go through ``ops.attention``'s autograd Function (the forward's
+    training instantiation, then the backward kernels); on the CPU autograd
+    differentiates the chunked softmax, as XLA does the reference's.
     """
     if q.is_cuda:
         if window is None or causal:

@@ -3,11 +3,21 @@
 
 As in the reference, layer params are stacked with a leading n_layers axis,
 params are f32 and compute casts to bf16 (COMPUTE_DTYPE).  The reference's
-``lax.scan`` over layers is a Python loop over that axis, and its
-``lax.cond`` between a hybrid layer's two branches a Python branch on
-``layer_types(cfg)[i]``; remat is not needed for inference.  Hybrid layers
-keep both branches' params, as in the reference.  The vlm family prepends
-``img_embeds @ img_proj`` to the token embeddings.
+``lax.scan`` over layers is a Python loop over that axis (the stacked
+leaves unbound once, so that a layer's gradient is one slice of one stacked
+gradient), and its ``lax.cond`` between a hybrid layer's two branches a
+Python branch on ``layer_types(cfg)[i]``: the untaken branch's slices get a
+zero gradient, as under ``lax.cond``.  Hybrid layers keep both branches'
+params, as in the reference.  The vlm family prepends ``img_embeds @
+img_proj`` to the token embeddings.
+
+Training: ``lm_loss`` is the reference's masked next-token cross-entropy,
+the head and CE in chunks of ``loss_chunk`` positions.  Where a gradient is
+wanted, each layer runs under ``cfg.remat_policy`` (``_remat``: "full"
+recomputes the layer in the backward, "dots" keeps its matrix products,
+"none" keeps everything) and each loss chunk is recomputed in the
+backward, so that one chunk's f32 logits are alive at a time; without a
+gradient (prefill, ``lm_forward``) nothing is wrapped.
 
 Decoding updates the cache in place (the reference returns a new cache):
 ``lm_decode_step`` writes each layer's new key and value, and the ssm and
@@ -15,16 +25,21 @@ hybrid families' conv and recurrent state, into the cache's tensors and
 returns the same tensors, so a decode step allocates no second cache.
 ``cache["pos"]`` is a Python int.
 
-Training (``lm_loss``) waits with ROADMAP A14's train step, and the sharding
-specs wait with the TPU dry-run tooling (ROADMAP A.4).
+The sharding specs wait with the TPU dry-run tooling (ROADMAP A.4).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -195,9 +210,46 @@ def cast_for_compute(params: dict) -> dict:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _layer(tree: dict, i: int) -> dict:
-    """The i-th layer's slice of the stacked block params."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _layers(tree: dict, n: int) -> list[dict]:
+    """Every layer's slice of the stacked block params, each leaf unbound
+    once: under autograd a leaf's gradient is then one stack of the layers'
+    gradients (zeros for a layer that does not use it), where ``n``
+    indexings would each add a full-size gradient."""
+    out: list[dict] = [{} for _ in range(n)]
+    for key, val in tree.items():
+        parts = _layers(val, n) if isinstance(val, dict) else val.unbind(0)
+        for layer, part in zip(out, parts):
+            layer[key] = part
+    return out
+
+
+# the products that the "dots" policy keeps: 2-D matrix products, XLA's dots
+# without batch dimensions (x @ w reaches aten.mm)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under a per-layer rematerialisation policy, as the reference's
+    ``jax.checkpoint``: "full" recomputes everything in the backward, "dots"
+    saves the 2-D matrix products (``checkpoint_dots_with_no_batch_dims``)
+    and recomputes the rest, "none" is ``fn`` itself."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_dots))
+    if policy != "full":
+        raise ValueError(f"remat_policy {policy!r}: full, dots or none")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 def _attn_apply(x, bp, cfg: ArchConfig, positions, window, causal: bool = True):
@@ -243,8 +295,11 @@ def _block_apply(x, bp, layer_type: int, cfg: ArchConfig, positions):
 
 
 def _run_blocks(x, params, cfg: ArchConfig, positions):
-    for i, lt in enumerate(layer_types(cfg)):
-        x = _block_apply(x, _layer(params["blocks"], i), int(lt), cfg, positions)
+    policy = cfg.remat_policy if _wants_grad(x) else "none"
+    for bp, lt in zip(_layers(params["blocks"], cfg.n_layers), layer_types(cfg)):
+        block = functools.partial(_block_apply, bp=bp, layer_type=int(lt), cfg=cfg,
+                                  positions=positions)
+        x = _remat(block, policy)(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -272,6 +327,51 @@ def lm_forward(params, cfg: ArchConfig, tokens, img_embeds=None):
     positions = torch.arange(x.shape[1], device=x.device)
     h = _run_blocks(x, params, cfg, positions)
     return h @ _head_matrix(params).to(h.dtype).T
+
+
+def _chunk_ce(hs, head, labels, vocab: int):
+    """One chunk's summed masked CE and its count of labels: logits = hs @
+    head.T (bf16), in f32 log-softmax; labels past the vocab (padded rows)
+    and negative ones are masked."""
+    logits = (hs @ head.T).float()
+    lsf = torch.where(labels < vocab, labels, -1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lsf.clamp(min=0)[..., None].long())[..., 0]
+    mask = (lsf >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_loss(h, head, labels, vocab: int, loss_chunk: int = 1024):
+    """Mean masked CE of h (B, S, D) against labels (B, S) over the head
+    (Vp, D), in chunks of ``loss_chunk`` positions (all of S where it does
+    not divide S); each chunk recomputed in the backward when a gradient is
+    wanted."""
+    head = head.to(h.dtype)
+    s = h.shape[1]
+    chunk = loss_chunk if s % loss_chunk == 0 else s
+    ce = _remat(_chunk_ce, "full") if _wants_grad(h) else _chunk_ce
+    parts = [ce(h[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk], vocab)
+             for c0 in range(0, s, chunk)]
+    if len(parts) == 1:
+        num, den = parts[0]
+    else:
+        num, den = (torch.stack(x).sum() for x in zip(*parts))
+    return num / torch.clamp(den, min=1.0)
+
+
+def lm_loss(params, cfg: ArchConfig, batch, *, loss_chunk: int = 1024):
+    """Masked next-token CE (a scalar f32 tensor): batch holds ``tokens`` and
+    ``labels`` (B, S) (negative labels masked) and, for vlm, ``img_embeds``
+    (B, n_img, D), whose positions get label -1."""
+    labels = batch["labels"]
+    img = batch.get("img_embeds")
+    x = _inputs(params, batch["tokens"], img)
+    if img is not None:
+        pad = torch.full(img.shape[:2], -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = _run_blocks(x, params, cfg, positions)
+    return chunked_loss(h, _head_matrix(params), labels, cfg.vocab, loss_chunk)
 
 
 def lm_prefill(params, cfg: ArchConfig, tokens, img_embeds=None):
@@ -351,8 +451,7 @@ def lm_decode_step(params, cfg: ArchConfig, cache, tokens):
     cache's tensors updated in place and its pos advanced by one."""
     pos = cache["pos"]
     x = _embed(params, tokens)
-    for i, lt in enumerate(layer_types(cfg)):
-        bp = _layer(params["blocks"], i)
+    for i, (bp, lt) in enumerate(zip(_layers(params["blocks"], cfg.n_layers), layer_types(cfg))):
         if cfg.family == "ssm":
             s = cfg.ssm
             out, _ = ssd_decode_step(

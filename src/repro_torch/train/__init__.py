@@ -1,7 +1,21 @@
-"""The inference half of ``repro.train``: the prefill and serve steps and
-checkpoints.  Training (the train step, AdamW, data) is ROADMAP A14."""
+"""Training and inference steps, AdamW, the synthetic token stream, EF21 and
+checkpoints (port of ``repro.train``)."""
 
 from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from repro_torch.train.step import make_prefill_step, make_serve_step
+from repro_torch.train.data import synthetic_batch, synthetic_token_stream
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.step import loss_for, make_prefill_step, make_serve_step, make_train_step
 
-__all__ = ["make_prefill_step", "make_serve_step", "save_checkpoint", "load_checkpoint"]
+__all__ = [
+    "adamw_init",
+    "adamw_update",
+    "AdamWConfig",
+    "make_train_step",
+    "make_serve_step",
+    "make_prefill_step",
+    "loss_for",
+    "synthetic_batch",
+    "synthetic_token_stream",
+    "save_checkpoint",
+    "load_checkpoint",
+]

@@ -1,18 +1,96 @@
-"""prefill_step / serve_step builders for every architecture family (port of
-the inference half of ``repro.train.step``).
+"""train_step / prefill_step / serve_step builders for every architecture
+family (port of ``repro.train.step``).
+
+`make_train_step(cfg)` returns (params, opt_state, batch) -> (params,
+opt_state, {"loss", "grad_norm"}): the loss and its gradient over
+``cfg.accum_steps`` microbatches (the global batch (B, ...) split into
+(A, B/A, ...) in order), the grads added in f32 in microbatch order and the
+loss and grads divided by A, then one AdamW update (``train.optimizer``,
+which updates params, m and v in place).  A param that the loss does not
+reach (a hybrid model's untaken branch) gets a zero gradient, as
+``jax.value_and_grad`` gives it, so AdamW's weight decay still moves it.
+The batch may hold numpy arrays (``train.data``) or tensors; they are moved
+to the params' device.
 
 `make_prefill_step(cfg)` returns (params, batch) -> last-position logits
 (B, Vp): the batch holds ``tokens``, and ``src_embeds`` for encdec and
 optionally ``img_embeds`` for vlm.  `make_serve_step(cfg)` returns
 (params, cache, tokens) -> (logits, cache), one token with a KV/state cache.
-The train step, ``loss_for`` and AdamW are ROADMAP A14.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
+import torch
+
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.encdec import encdec_decode_step, encdec_prefill
-from repro_torch.models.lm import lm_decode_step, lm_prefill
+from repro_torch.models.encdec import encdec_decode_step, encdec_loss, encdec_prefill
+from repro_torch.models.lm import lm_decode_step, lm_loss, lm_prefill
+from repro_torch.train.optimizer import AdamWConfig, adamw_update, tree_leaves, tree_map
+
+
+def loss_for(cfg: ArchConfig) -> Callable:
+    if cfg.family == "encdec":
+        return lambda params, batch: encdec_loss(params, cfg, batch)
+    return lambda params, batch: lm_loss(params, cfg, batch)
+
+
+def _split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """The batch's rows in ``accum`` consecutive microbatches."""
+    def split(x):
+        b = x.shape[0]
+        assert b % accum == 0, (b, accum)
+        return x.reshape(accum, b // accum, *x.shape[1:])
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
+
+
+def batch_to(batch: dict, device: torch.device) -> dict:
+    """A batch's arrays as tensors on ``device``: tokens and labels int64,
+    embeddings as they are (f32)."""
+    out = {}
+    for key, val in batch.items():
+        t = torch.as_tensor(val, device=device)
+        out[key] = t.long() if key in ("tokens", "labels") else t
+    return out
+
+
+def value_and_grad(loss_fn: Callable, params, microbatches) -> tuple[torch.Tensor, dict]:
+    """The summed loss of ``microbatches`` and its gradient with respect to
+    every leaf of ``params``: each microbatch's backward adds into the
+    gradients in f32, in order; a leaf the loss does not reach gets zeros,
+    as ``jax.value_and_grad`` gives it.  The params are not changed."""
+    # the params' storage, as autograd leaves of this call only
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = None
+    for mb in microbatches:
+        mb_loss = loss_fn(live, mb)
+        mb_loss.backward()
+        loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
+    grads = tree_map(lambda p, leaf: torch.zeros_like(p) if leaf.grad is None else leaf.grad,
+                     params, live)
+    return loss, grads
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None):
+    opt_cfg = opt_cfg or AdamWConfig()
+    loss_fn = loss_for(cfg)
+    accum = max(1, cfg.accum_steps)
+
+    def train_step(params, opt_state, batch):
+        batch = batch_to(batch, tree_leaves(params)[0].device)
+        micro = _split_microbatches(batch, accum) if accum > 1 else [batch]
+        loss, grads = value_and_grad(loss_fn, params, micro)
+        if accum > 1:
+            loss = loss / accum
+            for g in tree_leaves(grads):
+                g.div_(accum)
+        new_params, new_opt, gnorm = adamw_update(params, grads, opt_state, opt_cfg)
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig):

@@ -42,7 +42,8 @@ def test_scan_covers_the_package():
                    "serve_fednl/scheduler", "serve_fednl/spill", "serve_fednl/tenant",
                    "gateway/__init__", "gateway/protocol", "gateway/server", "gateway/client",
                    "launch/gateway_serve", "distributed/__init__", "distributed/fednl_shard",
-                   "distributed/world", "launch/mesh"):
+                   "distributed/world", "launch/mesh", "train/data", "train/optimizer",
+                   "train/grad_compress", "train/step", "launch/train"):
         assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
@@ -68,7 +69,8 @@ def test_importing_the_port_loads_no_jax_and_no_kernel():
         "repro_torch.api.specwire, repro_torch.serve_fednl, repro_torch.gateway, "
         "repro_torch.launch.gateway_serve, repro_torch.distributed, repro_torch.launch.mesh, "
         "repro_torch.models.moe, repro_torch.models.ssm, repro_torch.models.rglru, "
-        "repro_torch.models.encdec\n"
+        "repro_torch.models.encdec, repro_torch.train.data, repro_torch.train.optimizer, "
+        "repro_torch.train.grad_compress, repro_torch.launch.train\n"
         "from repro_torch.core.fednl_batch import BatchRoundTable\n"
         "assert repro_torch.api.encode_spec is repro_torch.api.specwire.encode_spec\n"
         "assert repro_torch.api.TopologySpec is repro_torch.comm.topology.TopologySpec\n"

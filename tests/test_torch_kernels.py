@@ -526,6 +526,7 @@ NO_LAUNCHES = {
     "hessian_syrk_packed": 0, "select_topk": 0, "select_topk_by_keys": 0, "select_randseqk": 0,
     "select_toplek": 0, "flash_attention": 0, "threefry_uniform": 0,
     "select_topk_idx": 0, "select_topk_by_keys_idx": 0, "select_toplek_idx": 0,
+    "flash_attention_train": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
 }
 
 
