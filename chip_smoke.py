@@ -101,20 +101,29 @@ raises, and the script exits non-zero without the final line.
   train      LM training (ROADMAP A14 item 2), granite-3-2b: (a) the
              forward's training instantiation and the two backward kernels
              (flash_attention_bwd.cu) against their plain versions at every
-             route's fixtures (bf16 wgmma at head_dim 64/128/256, bf16 SIMT at
-             16/32, f32; GQA, windows, Sq != Sk, rows with no visible key,
-             C4's offsets): O rounded equal to the inference output bit for
-             bit, dq, dk, dv within BWD_CARD_ULPS bf16 ulps (f32:
-             BWD_F32_RTOL) of scale, two runs the same bits; then at the
-             training layer (B 2, S 4,096, H 32, Kv 8, dh 64, causal), timed
-             beside the plain versions and SDPA's forward and backward, with
-             the bounds on the tensor cores and the CUDA cores; (b) full width
+             route's fixtures (forward: bf16 wgmma at head_dim 64/128/256;
+             backward: bf16 wgmma at 64/128, SIMT at 16/32/256; f32 SIMT;
+             GQA, windows, Sq != Sk, Sq off the tiles, rows with no visible
+             key, C4's offsets), each fixture's backward route reported and
+             its launches counted: O rounded equal to the inference output
+             bit for bit, dq, dk, dv within BWD_CARD_ULPS bf16 ulps (f32:
+             BWD_F32_RTOL) of scale and, bf16, rounded otherwise than the
+             plain backward in at most BWD_DIFFER_SHARE of their nonzero
+             elements, while the control (P and dS rounded to bf16 once,
+             SDPA's function) must exceed that share; two runs the same
+             bits; ptxas's
+             registers and spills of the wgmma backward's instantiations;
+             then at the training layer (B 2, S 4,096, H 32, Kv 8, dh 64,
+             causal), timed beside the plain versions and SDPA's forward and
+             backward, with the bounds on the tensor cores and the CUDA
+             cores and the two kernels' 13-product floor; (b) full width
              at 2 layers, B 1, S 512: the loss and every leaf's gradient on
              the card against the CPU (1e-3, 2e-2 relative L2), and a train
              step run twice from one state, bit for bit; (c) full width and
              depth: 6 steps of make_train_step (accum 2, B 4, S 4,096, remat
              "full", AdamW lr 1e-3) with exactly 160 training-forward launches
-             (wgmma) and 80 of each backward kernel a step and nothing else,
+             and 80 of each backward kernel a step, all on the wgmma route,
+             and nothing else,
              the loss falling, ms per step, tokens/s, peak memory, the last
              step profiled by kind of kernel, AdamW's update timed alone; (d)
              the training launcher, --reduced --steps 30: the loss falls by
@@ -1249,6 +1258,11 @@ BWD_FIXTURES = {  # name: (b, sq, sk, h, kv, dh, causal, window, q_offset, k_off
     # C4: a window without causality on a query chunk and its key slice
     "bf16_dh128_c4_offsets": (1, 512, 811, 8, 2, 128, False, 300, 1024, 725, "bf16"),
     "f32_dh64_c4_offsets": (1, 512, 811, 8, 2, 64, False, 300, 1024, 725, "f32"),
+    # the wgmma backward's edges: Sq != Sk without causality, a window, Sq not
+    # a multiple of its 128-query (dq) or 64-query (dk/dv) tiles
+    "bf16_dh64_noncausal_cross": (2, 400, 700, 16, 4, 64, False, None, 0, 0, "bf16"),
+    "bf16_dh64_kv8_window": (1, 900, 900, 32, 8, 64, True, 256, 0, 0, "bf16"),
+    "bf16_dh128_sq_not_tile": (2, 333, 333, 8, 2, 128, True, None, 0, 0, "bf16"),
 }
 
 
@@ -1264,14 +1278,28 @@ def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
     versions on the same inputs (the backward's on the kernel's own O and
     lse): the forward's O rounded is the inference kernel's output bit for
     bit, its f32 O and lse within 1e-5 of scale; dq, dk, dv within
-    BWD_CARD_ULPS (bf16) or BWD_F32_RTOL (f32) of scale; a second backward
-    the same bits (no atomics)."""
+    BWD_CARD_ULPS (bf16) or BWD_F32_RTOL (f32) of scale; bf16: each
+    gradient's differ share (tfa.differ_share against the plain backward)
+    at most tfa.BWD_DIFFER_SHARE, and the control's (the plain backward
+    with P and dS rounded to bf16 once) above it, or the check cannot tell
+    the split products from one rounding; a second backward
+    the same bits (no atomics); both backward kernels on flash_bwd_route's
+    route."""
     import torch
 
     o, lse = tfa.flash_attention_train_cuda(q, k, v, **kw)
+    kernels = (tfa.flash_attention_bwd_dq_cuda, tfa.flash_attention_bwd_dkdv_cuda)
+    before = [dict(fn.route_launches) for fn in kernels]
     got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     again = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    route = tfa.flash_bwd_route(q.dtype, q.shape[3])
+    for fn, was in zip(kernels, before):
+        ran = {r: fn.route_launches[r] - was[r] for r in was}
+        check(ran == {"wgmma": 0, "simt": 0, route: 2},
+              f"flash bwd {name}: {fn.__name__} ran {ran}, want 2 on {route}")
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    control = (tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, round_p_ds=True, **kw)
+               if q.dtype == torch.bfloat16 else None)
     o_plain, lse_plain = tfa.flash_attention_train_plain(q, k, v, **kw)
     inference = tfa.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -1286,7 +1314,8 @@ def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
     check(o_err <= 1e-5 * float(o_plain.abs().max()), f"flash bwd {name}: f32 O error {o_err}")
     row = {"shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3]],
            "causal": kw["causal"], "window": kw.get("window"),
-           "offsets": [kw.get("q_offset", 0), kw.get("k_offset", 0)], "dtype": str(q.dtype), "forward_route": tfa.flash_route(q.dtype, q.shape[3]),
+           "offsets": [kw.get("q_offset", 0), kw.get("k_offset", 0)], "dtype": str(q.dtype),
+           "forward_route": tfa.flash_route(q.dtype, q.shape[3]), "backward_route": route,
            "o_f32_max_abs_err": o_err, "lse_max_abs_err": lse_err,
            "rows_with_no_key": int((~finite).sum())}
     for gname, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
@@ -1298,6 +1327,16 @@ def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
             ulps = ulps_of_scale(g, w)
             check(ulps <= BWD_CARD_ULPS, f"flash bwd {name}: {gname} {ulps} bf16 ulps of scale")
             row[f"{gname}_ulps_of_scale"] = ulps
+            share = tfa.differ_share(g, w)
+            c = control[("dq", "dk", "dv").index(gname)]
+            row[f"{gname}_differ_share"] = share
+            row[f"{gname}_control_differ_share"] = tfa.differ_share(c, w)
+            row[f"{gname}_control_ulps_of_scale"] = ulps_of_scale(c, w)
+            check(share <= tfa.BWD_DIFFER_SHARE,
+                  f"flash bwd {name}: {gname} differs from the plain backward in {share}")
+            check(row[f"{gname}_control_differ_share"] > tfa.BWD_DIFFER_SHARE,
+                  f"flash bwd {name}: {gname}'s control (P and dS rounded once) differs in "
+                  f"only {row[f'{gname}_control_differ_share']}")
         else:
             rel = row[f"{gname}_max_abs_err"] / float(w.abs().max())
             check(rel <= BWD_F32_RTOL, f"flash bwd {name}: {gname} {rel} of scale")
@@ -1305,17 +1344,21 @@ def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
     return row
 
 
-def flash_bwd_phase(dev, tfa) -> dict:
+def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
     """The backward kernels against the plain backward at every route's
     fixtures, then at granite-3-2b's training layer (TRAIN_LAYER, causal):
     held as the fixtures and timed (CUDA-event medians of FLASH_TIMED_REPS
     pairs around one call) beside the training and inference forwards, the
-    plain versions and SDPA's forward and backward, with the bounds."""
+    plain versions and SDPA's forward and backward, with the bounds; and
+    ptxas's registers and spills of the wgmma instantiations (from
+    ``bwd_report``, nvcc's output for flash_attention_bwd.cu in this run)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    from repro_torch.kernels import build
+
     report = {}
     for seed, (name, spec) in enumerate(BWD_FIXTURES.items()):
         b, sq, sk, h, kv, dh, causal, window, q_off, k_off, dt = spec
@@ -1324,8 +1367,14 @@ def flash_bwd_phase(dev, tfa) -> dict:
         kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
         report[name] = bwd_against_plain(tfa, q, k, v, do, kw, name)
         del q, k, v, do
+    ptxas = ({fn: lines for fn, lines in build.ptxas_entries(bwd_report).items()
+              if "flash_bwd" in fn and "wgmma" in fn} if bwd_report is not None
+             else "not measured (library built before this run)")
     emit({"phase": "train", "part": "a_flash_bwd_fixtures", "fixtures": report,
-          "tol": {"bf16_ulps_of_scale": BWD_CARD_ULPS, "f32_rel_of_scale": BWD_F32_RTOL}})
+          "tol": {"bf16_ulps_of_scale": BWD_CARD_ULPS, "f32_rel_of_scale": BWD_F32_RTOL,
+                  "bf16_differ_share": tfa.BWD_DIFFER_SHARE},
+          "routes": {name: row["backward_route"] for name, row in report.items()},
+          "ptxas_wgmma": ptxas})
 
     b, s, h, kv, dh = TRAIN_LAYER
     q, k, v = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, 700)
@@ -1375,18 +1424,30 @@ def flash_bwd_phase(dev, tfa) -> dict:
     cuda_cores = {"bwd_dq": 3 * prod / CUDA_CORE_32BIT_OPS * 1e3,  # S, dP, dQ in f32 FMA
                   "bwd_dkdv": 4 * prod / CUDA_CORE_32BIT_OPS * 1e3,  # S, dP, dV, dK
                   "backward": 5 * prod / CUDA_CORE_32BIT_OPS * 1e3}
+    route = tfa.flash_bwd_route(q.dtype, dh)
+    # the products each kernel of the route runs over the visible pairs: on
+    # the tensor cores S, dP and three a split product (dq: dQ; dkdv: dV, dK);
+    # on the CUDA cores S, dP and one f32 product each
+    do_products = ({"bwd_dq": 5, "bwd_dkdv": 8} if route == "wgmma" else
+                   {"bwd_dq": 3, "bwd_dkdv": 4})
+    floors = {  # the route's own floor: its products at the rate of their pipe
+        "two_kernel_products_ms": 13 * prod / BF16_TENSOR_FLOPS * 1e3,
+        "exp_mufu_ms": 2 * pairs / MUFU_EXP_PER_S * 1e3,  # each kernel's p, on 537 M pairs
+    }
     out = {"check": layer, "ms": ms, "visible_pairs": pairs, "bound": bounds,
-           "bound_cuda_cores_ms": cuda_cores, "library": library,
-           "kernels_do_products": {"bwd_dq": 3, "bwd_dkdv": 4}}
+           "bound_cuda_cores_ms": cuda_cores, "library": library, "backward_route": route,
+           "kernels_do_products": do_products, "floors": floors}
     emit({"phase": "train", "part": "a_flash_bwd_granite_layer",
           "shape": list(TRAIN_LAYER), "causal": True, "dtype": "bfloat16", **out,
           "note": "ms per call: CUDA-event medians, the functions in turns; bound: the bf16 "
                   "products of each function on the tensor cores (P and dS in three bf16 "
                   "parts) at 989 TFLOP/s, or its bytes; bound_cuda_cores_ms: the f32 FMA "
-                  "products of the function at 67 TFLOP/s"})
+                  "products of the function at 67 TFLOP/s; floors: the 13 bf16 products of "
+                  "the two kernels (each recomputes S and dP), and their 2 x pairs "
+                  "exponentials on the MUFU pipe"})
     del q, k, v, do, o, lse, dsum, qt, kt, vt, dot, fns
     out.pop("check")
-    return {"fixtures": report, "layer": layer, **out}
+    return {"fixtures": report, "layer": layer, "ptxas_wgmma": ptxas, **out}
 
 
 def train_depth_cut(dev) -> dict:
@@ -1528,6 +1589,11 @@ def train_full(dev, ops) -> dict:
         check(launched == want, f"train step {i}: launches {launched}, want {want}")
         check(routes == ({"wgmma": want["flash_attention_train"], "simt": 0},
                          {"wgmma": 0, "simt": 0}), f"train step {i}: flash routes {routes}")
+        bwd_routes = (dict(fwd.flash_attention_bwd_dq_cuda.route_launches),
+                      dict(fwd.flash_attention_bwd_dkdv_cuda.route_launches))
+        check(bwd_routes == ({"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
+                             {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}),
+              f"train step {i}: flash backward routes {bwd_routes}")
         counts.append(launched)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
@@ -1557,6 +1623,9 @@ def train_full(dev, ops) -> dict:
            "launches_per_step": counts[0], "launches_total": {
                name: sum(c[name] for c in counts) for name in counts[0]},
            "flash_train_routes_per_step": {"wgmma": want["flash_attention_train"], "simt": 0},
+           "flash_bwd_routes_per_step": {
+               "dq": {"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
+               "dkdv": {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}},
            "max_memory_allocated": peak, "allocated_after_init": allocated_after_init,
            "profiled_step": split, "adamw_update_ms": adamw_ms}
     emit({"phase": "train", "part": "c_full_width", **out})
@@ -1564,7 +1633,7 @@ def train_full(dev, ops) -> dict:
     return out
 
 
-def train_phase(dev, ops, tfa) -> dict:
+def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
     """LM training (ROADMAP A14 item 2): (a) the backward kernels, (b) the
     depth cut card against CPU, (c) full width and depth, (d) the launcher."""
     import torch
@@ -1572,7 +1641,7 @@ def train_phase(dev, ops, tfa) -> dict:
     from repro_torch.launch import train as train_launcher
 
     t_phase = time.perf_counter()
-    bwd = flash_bwd_phase(dev, tfa)
+    bwd = flash_bwd_phase(dev, tfa, bwd_report)
     cut = train_depth_cut(dev)
     full = train_full(dev, ops)
     out = io.StringIO()
@@ -3745,7 +3814,7 @@ def main() -> int:
     del lm
 
     # --- train: LM training at granite-3-2b's full width --------------------
-    train = train_phase(dev, ops, tfa)
+    train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"))
 
     # --- 8 sweeps: the README's grid as one batched group ------------------
     sweep_launches, sweep = sweep_phase(ops)
@@ -3877,13 +3946,18 @@ def main() -> int:
     pair = {"ms": tl["ms"]["bwd_dq"] + tl["ms"]["bwd_dkdv"], "bound_ms": tl["bound"]["backward"][0],
             "bound_cuda_cores_ms": tl["bound_cuda_cores_ms"]["backward"],
             "plain_ms": tl["ms"]["plain_backward"],
-            "sdpa_backward_ms": tl["ms"].get("sdpa_backward")}
+            "sdpa_backward_ms": tl["ms"].get("sdpa_backward"),
+            "two_kernel_floor_ms": tl["floors"]["two_kernel_products_ms"]}
     for name, key, kernel, err in (
             ("flash_attention_train", "train_forward",
              "flash_fwd_wgmma_kernel<64, *, true> (bf16, head_dim 64/128/256) and "
              "flash_fwd_kernel<*, *, *, true> (f32; bf16 at 16 and 32)", "o_f32_max_abs_err"),
-            ("flash_attention_bwd_dq", "bwd_dq", "flash_bwd_dq_kernel (SIMT)", "dq_max_abs_err"),
-            ("flash_attention_bwd_dkdv", "bwd_dkdv", "flash_bwd_dkdv_kernel (SIMT)",
+            ("flash_attention_bwd_dq", "bwd_dq",
+             {"wgmma": "flash_bwd_dq_wgmma_kernel (bf16, head_dim 64/128)",
+              "simt": "flash_bwd_dq_kernel (f32; bf16 at 16, 32 and 256)"}, "dq_max_abs_err"),
+            ("flash_attention_bwd_dkdv", "bwd_dkdv",
+             {"wgmma": "flash_bwd_dkdv_wgmma_kernel (bf16, head_dim 64/128)",
+              "simt": "flash_bwd_dkdv_kernel (f32; bf16 at 16, 32 and 256)"},
              "dk_max_abs_err")):
         forward = name == "flash_attention_train"
         kernels.append({
@@ -3904,6 +3978,7 @@ def main() -> int:
             "bound_ms": tl["bound"][key][0], "bound_by": tl["bound"][key][1],
             "library_ms": tl["ms"].get("sdpa_forward") if forward else None,
             **({} if forward else {"bound_cuda_cores_ms": tl["bound_cuda_cores_ms"][key],
+                                   "layer_route": tl["backward_route"],
                                    "backward_pair": pair}),
         })
     for name, launched, replaces in (

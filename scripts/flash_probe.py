@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's flash kernel at head_dim 256 and variants of it, on one NVIDIA GPU.
 
-    python3 scripts/flash_probe.py [--baseline FILE]
+    python3 scripts/flash_probe.py [--baseline FILE] [--baseline-bwd FILE]
 
 Runs from the root of a checkout on a machine with a card and nvcc; imports
 ``repro_torch`` from ``src/`` and nothing of ``repro`` or JAX.  Prints one
@@ -43,12 +43,36 @@ JSON line per measurement, then the card's name and power limit.
            also the head_dim-64 kernel at granite-3-2b's layer (H 32, Kv 8,
            causal) and the head_dim-128 kernel at llava-next-mistral-7b's
            (H 32, Kv 8, causal window 4096), in turns with the baseline's
+  bwd      with --baseline-bwd, another flash_attention_bwd.cu (for example
+           the parent commit's) built beside src/.../flash_attention_bwd.cu
+           and variants of it (BWD_VARIANTS, one change each):
+             bwd_four_groups  the split products one 16-row chunk a commit
+                              group (the source: kSplitBatch = 2 chunks)
+             bwd_one_group    all four chunks split, then issued as one
+                              group
+             bwd_trunc        P and dS split by truncation (each part the
+                              next 8 significant bits: also exact)
+           (ptxas's registers and spills of each one's wgmma
+           instantiations), and at granite-3-2b's training layer (B 2, S
+           4,096, H 32, Kv 8, dh 64, causal, bf16) every backward pair
+           against the plain backward (bf16 ulps of each gradient's scale,
+           and the share of its nonzero elements rounded otherwise,
+           differ_share, within BWD_DIFFER_SHARE) and timed in turns
+           (baseline, kernel, the variants, then the same in reverse;
+           CUDA-event medians of BWD_REPS pairs around one call): the dq
+           kernel, the dkdv kernel and the pair.  This source's pairs are
+           its wgmma entry points; the baseline's is the wgmma pair if it
+           has one, else its SIMT pair (is_bf16 = 1)
+
+Every source is compiled with src/repro_torch/kernels/csrc on the include
+path, for hopper.cuh.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -58,7 +82,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "flash_probe"
 REPS = 5
+BWD_REPS = 11
 SEQ = 32768
+TRAIN_LAYER = (2, 4096, 32, 8, 64)  # granite-3-2b's training layer: B, S, H, Kv, dh
 
 SPLIT_S_EXCHANGE = """// S = S0 + S1 from the two consumers' partial S over their halves of
 // head_dim: thread t of either consumer holds the same fragment positions;
@@ -132,9 +158,33 @@ VARIANTS = {  # name: [(text in flash_attention.cu, its replacement)]
     "simt_bf16": [("if constexpr (std::is_same<T, float>::value) {", "if constexpr (true) {")],
 }
 TIMED_ONLY = ("dh256_half_s",)
+SPLIT3_TRUNC = """// split3 by truncation: each part the next 8 significant bits (exact)
+__device__ __forceinline__ void split3_trunc(float x, float y, uint32_t& a1, uint32_t& a2,
+                                             uint32_t& a3) {
+  a1 = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+  x = __fsub_rn(x, __uint_as_float(a1 << 16));
+  y = __fsub_rn(y, __uint_as_float(a1 & 0xffff0000u));
+  a2 = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+  x = __fsub_rn(x, __uint_as_float(a2 << 16));
+  y = __fsub_rn(y, __uint_as_float(a2 & 0xffff0000u));
+  a3 = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+}
+
+constexpr int kSplitBatch ="""
+BATCH = "constexpr int kSplitBatch = 2;"
+BWD_VARIANTS = {  # name: [(text in flash_attention_bwd.cu, its replacement)]
+    "bwd_four_groups": [(BATCH, "constexpr int kSplitBatch = 1;")],
+    "bwd_one_group": [(BATCH, "constexpr int kSplitBatch = 4;")],
+    "bwd_trunc": [("constexpr int kSplitBatch =", SPLIT3_TRUNC),
+                  ("        split3(x[8 * c + 2 * j]", "        split3_trunc(x[8 * c + 2 * j]")],
+}
 ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 )
+# the backward's wgmma entry points: 8 pointers, batch .. head_dim, causal,
+# window, pos_off, scale, stream; the SIMT ones take is_bf16 after head_dim
+BWD_ARGTYPES = [ctypes.c_void_p] * 8 + ARGTYPES[4:]
+BWD_SIMT_ARGTYPES = BWD_ARGTYPES[:14] + [ctypes.c_int] + BWD_ARGTYPES[14:]
 
 # (b, sq, sk, h, kv, causal, window, q_offset, k_offset)
 CHECKS = {
@@ -152,23 +202,30 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def reported(name: str, fn: str) -> bool:
+    """The instantiations whose ptxas lines a build emits: the backward's
+    wgmma kernels in a backward source, the head_dim-256 ones elsewhere."""
+    return "flash_bwd" in fn and "wgmma" in fn if name.startswith("bwd") else "ILi256E" in fn
+
+
 def build(kbuild, sources: dict[str, str]) -> dict[str, Path]:
-    """One nvcc per source, all started together; ptxas's report of the
-    head_dim-256 instantiations emitted."""
+    """One nvcc per source, all started together, with csrc/ on the include
+    path; ptxas's report of the instantiations ``reported`` names emitted."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         src = OUT / f"{name}.cu"
         src.write_text(text)
         procs[name] = subprocess.Popen(
-            [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(src)],
+            [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC), "-o",
+             str(OUT / f"{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         report = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{report}")
         emit({"build": name, "ptxas": {fn: lines for fn, lines in kbuild.ptxas_entries(report).items()
-                                       if "ILi256E" in fn}})
+                                       if reported(name, fn)}})
     return {name: OUT / f"{name}.so" for name in sources}
 
 
@@ -223,14 +280,14 @@ def compare_sass(kbuild, mine: dict, theirs: dict) -> dict:
             "only_in_this_source": training}
 
 
-def median_ms(fns: dict) -> dict[str, float]:
+def median_ms(fns: dict, reps: int = REPS) -> dict[str, float]:
     import torch
 
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     events = {name: [] for name in fns}
-    for _ in range(REPS):
+    for _ in range(reps):
         for name, fn in fns.items():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -240,6 +297,106 @@ def median_ms(fns: dict) -> dict[str, float]:
     torch.cuda.synchronize()
     return {name: statistics.median(s.elapsed_time(e) for s, e in pairs)
             for name, pairs in events.items()}
+
+
+def backward_pair(lib: Path, dev):
+    """(dq, dkdv) callers of a backward library's bf16 entry points: the
+    wgmma pair where the library has it, else the SIMT pair."""
+    import torch
+
+    so = ctypes.CDLL(str(lib))
+    wgmma = hasattr(so, "flash_attention_bwd_dq_wgmma")
+    fns = []
+    for symbol in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        fn = getattr(so, f"{symbol}_wgmma" if wgmma else symbol)
+        fn.argtypes = BWD_ARGTYPES if wgmma else BWD_SIMT_ARGTYPES
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+
+    def launch(fn, pointers, q, k):
+        b, sq, h, dh = q.shape
+        args = [t.data_ptr() for t in pointers] + [b, sq, k.shape[1], h, k.shape[2], dh]
+        if not wgmma:
+            args.append(1)
+        code = fn(*args, 1, 0, 0, dh**-0.5, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"{lib.name}: cudaError {code}")
+
+    def dq(q, k, v, o, lse, do, dq_out, dsum):
+        launch(fns[0], (q, k, v, o, lse, do, dq_out, dsum), q, k)
+
+    def dkdv(q, k, v, lse, do, dsum, dk, dv):
+        launch(fns[1], (q, k, v, lse, do, dsum, dk, dv), q, k)
+
+    return ("wgmma" if wgmma else "simt"), dq, dkdv
+
+
+def apply(name: str, text: str, subs, source: str) -> str:
+    """``text`` with every occurrence of each (old, new) of ``subs`` replaced."""
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f"{name}: {old!r} not in {source}")
+        text = text.replace(old, new)
+    return text
+
+
+def bwd_against_baseline(kbuild, tfa, baseline_text: str) -> list[str]:
+    """The backward pairs at granite-3-2b's training layer (this source, its
+    BWD_VARIANTS and the baseline): checked against the plain backward and
+    timed in turns.  Returns the failed checks."""
+    import torch
+
+    text = (kbuild.CSRC / "flash_attention_bwd.cu").read_text()
+    sources = {"bwd_kernel": text,
+               **{name: apply(name, text, subs, "flash_attention_bwd.cu")
+                  for name, subs in BWD_VARIANTS.items()},
+               "bwd_baseline": baseline_text}
+    libs = build(kbuild, sources)
+    dev = torch.device("cuda")
+    b, s, h, kv, dh = TRAIN_LAYER
+    gen = torch.Generator(device=dev).manual_seed(700)
+    q, do = (torch.randn((b, s, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, kv, dh), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = tfa.flash_attention_train_cuda(q, k, v, causal=True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    dq_out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    names = ["baseline", "kernel", *(n.removeprefix("bwd_") for n in BWD_VARIANTS)]
+    failed, fns, routes = [], {}, {}
+    for name in names:
+        route, dq, dkdv = backward_pair(libs[f"bwd_{name}"], dev)
+        routes[name] = route
+        dq(q, k, v, o, lse, do, dq_out, dsum)
+        dkdv(q, k, v, lse, do, dsum, dk, dv)
+        torch.cuda.synchronize()
+        ulps, shares = {}, {}
+        for gname, got, w in zip(("dq", "dk", "dv"), (dq_out, dk, dv), want):
+            scale = float(w.float().abs().max())
+            ulps[gname] = (float((got.float() - w.float()).abs().max())
+                           / 2.0 ** (math.frexp(scale)[1] - 8))
+            shares[gname] = tfa.differ_share(got, w)
+            if ulps[gname] > 2.0 or shares[gname] > tfa.BWD_DIFFER_SHARE:
+                failed.append(f"bwd {name} {gname}")
+        emit({"bwd_check": name, "route": route, "ulps_of_scale": ulps, "differ_share": shares})
+        fns[f"{name}_dq"] = lambda dq=dq: dq(q, k, v, o, lse, do, dq_out, dsum)
+        fns[f"{name}_dkdv"] = lambda dkdv=dkdv: dkdv(q, k, v, lse, do, dsum, dk, dv)
+    turns = {}
+    for turn in names + [f"{n}_again" for n in reversed(names)]:
+        lib = turn.removesuffix("_again")
+        turns[f"{turn}_dq"] = fns[f"{lib}_dq"]
+        turns[f"{turn}_dkdv"] = fns[f"{lib}_dkdv"]
+        turns[f"{turn}_pair"] = lambda lib=lib: (fns[f"{lib}_dq"](), fns[f"{lib}_dkdv"]())
+    ms = median_ms(turns, BWD_REPS)
+    pairs = tfa.visible_pairs(s, s, True, None) * h * b
+    prod = 2 * dh * pairs
+    emit({"times": "granite_training_layer_backward", "shape": list(TRAIN_LAYER), "causal": True,
+          "routes": routes, "ms": ms, "visible_pairs": pairs,
+          "bound_ms": 11 * prod / 989e12 * 1e3, "two_kernel_floor_ms": 13 * prod / 989e12 * 1e3,
+          "speedup_pair": (ms["baseline_pair"] + ms["baseline_again_pair"])
+          / (ms["kernel_pair"] + ms["kernel_again_pair"])})
+    return failed
 
 
 def main() -> int:
@@ -253,14 +410,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as tfa
 
     text = (kbuild.CSRC / "flash_attention.cu").read_text()
-    sources = {}
-    for name, subs in VARIANTS.items():
-        variant = text
-        for old, new in subs:
-            if old not in variant:
-                raise RuntimeError(f"{name}: {old!r} not in flash_attention.cu")
-            variant = variant.replace(old, new)
-        sources[name] = variant
+    sources = {name: apply(name, text, subs, "flash_attention.cu")
+               for name, subs in VARIANTS.items()}
     baseline = None
     if "--baseline" in sys.argv:
         baseline = Path(sys.argv[sys.argv.index("--baseline") + 1]).read_text()
@@ -290,6 +441,11 @@ def main() -> int:
 
         return call
 
+    failed = []
+    if "--baseline-bwd" in sys.argv:
+        failed += bwd_against_baseline(
+            kbuild, tfa, Path(sys.argv[sys.argv.index("--baseline-bwd") + 1]).read_text())
+
     calls = {name: caller(name) for name in VARIANTS}
     base_call = caller("baseline") if baseline is not None else None
     if baseline is not None:
@@ -301,7 +457,6 @@ def main() -> int:
         return [torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
                 for s in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))]
 
-    failed = []
     for seed, (case, (b, sq, sk, h, kv, causal, window, q_off, k_off)) in enumerate(CHECKS.items()):
         q, k, v = inputs(b, sq, sk, h, kv, 256, 300 + seed)
         want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window,

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/<name>-<hash>.so``
-in the checkout, where the hash covers the source text and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  The build
+in the checkout, where the hash covers the source text, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is.  The build
 happens at the first launch of any kernel (or on an explicit
 :func:`build_all`): one nvcc per source, all started together.  The sources
 have plain ``extern "C"`` launchers and include no PyTorch header, which
@@ -48,11 +49,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the shared library of ``csrc/<name>.cu`` is (or will be) built."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the shared library of ``csrc/<name>.cu`` is (or will be) built.
+    The hash covers every ``csrc/*.cuh`` too, so an edited header rebuilds
+    the sources that may include it."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, str]:

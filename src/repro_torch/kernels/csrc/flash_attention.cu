@@ -121,6 +121,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;                // query rows per block
@@ -422,13 +424,6 @@ extern "C" int flash_attention_fwd_train(const void* q, const void* k, const voi
 
 namespace hopper {
 
-constexpr int kThreads = 384;     // warpgroup 0 the producer, 1 and 2 the consumers
-constexpr int kRowBytes = 128;    // one swizzled row: 64 bf16 columns
-constexpr int kPanelCols = 64;    // a panel: 64 columns of Q, K or V, one swizzled row a row
-constexpr int kConsumerWarps = 8; // arrivals that free a stage: one per consumer warp
-constexpr float kNeg = -1e30f;    // the reference's _NEG
-constexpr float kLog2e = 1.4426950408889634f;
-
 // The tiles, and how the two consumer warpgroups share a block's work.  At
 // head_dim 64 and 128 (row split) each consumer owns 64 of the block's 128
 // query rows and every column, over 128-key tiles.  At head_dim 256 (column
@@ -455,108 +450,6 @@ struct Cfg {
   static_assert((kBK / 16) % kPhases == 0, "whole 16-key chunks in each P.V batch");
   static_assert(kSmem <= 232448, "more shared memory than a block may use");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of the tensor map (64 columns x Cfg::kBQ rows x 1 batch row) into
-// shared memory, 128-byte swizzled; rows past the tensor's edge arrive as 0.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  Both strides are 1024
-// bytes, the distance between groups of 8 swizzled rows: every operand here
-// is read in slices that span one 64-column panel, so the only stride the
-// hardware uses is the one between 8-row groups (of Q or K along M or N, of V
-// along the key axis), whichever of the two fields it reads it from.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t kStride = 1024 >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kStride << 16) | (kStride << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from reading or reusing registers that an asynchronous
-// wgmma writes or reads before the wait that ends it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// p (x, y) = p1 + p2 + p3 exactly, each part bf16 (round to nearest, then the
-// exact f32 remainder): three A-fragment registers, low half x.  Only the
-// packing is a conversion instruction (16 a clock per SM, as ex2): a bf16
-// widens to f32 by a shift or a mask, and the last remainder has at most 8
-// significant bits, so its f32 high halves are its bf16 values.
-__device__ __forceinline__ void split3(float x, float y, uint32_t& a1, uint32_t& a2,
-                                       uint32_t& a3) {
-  a1 = as_u32(__floats2bfloat162_rn(x, y));
-  x = __fsub_rn(x, __uint_as_float(a1 << 16));
-  y = __fsub_rn(y, __uint_as_float(a1 & 0xffff0000u));
-  a2 = as_u32(__floats2bfloat162_rn(x, y));
-  x = __fsub_rn(x, __uint_as_float(a2 << 16));
-  y = __fsub_rn(y, __uint_as_float(a2 & 0xffff0000u));
-  a3 = __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
-}
 
 // The online softmax of one 64 x kBK tile in registers (N = kBK / 2
 // accumulators a thread), first part: s = S * scale, masked to -1e30 on a
@@ -621,74 +514,6 @@ __device__ __forceinline__ void exp_split(float (&sc)[8 * kChunks], const float 
     for (int j = 0; j < 4; ++j)
       split3(sc[8 * c + 2 * j], sc[8 * c + 2 * j + 1], pa[0][c][j], pa[1][c][j], pa[2][c][j]);
 }
-
-// d (64 x 128, f32) {+}= A (64 x 16, smem) * B (16 x 128, smem, K-major); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, f32) {+}= A (64 x 16, smem) * B (16 x 64, smem, K-major); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, f32) {+}= A (64 x 16, registers) * B (16 x 64, smem, MN-major); scale_d = 0
-// overwrites d
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 // The rest of one tile after S = Q K^T: the online softmax, P split into its
 // three bf16 parts, this tile's P.V = P1 V + P2 V + P3 V in a fresh f32
 // accumulator per 64-column panel of the consumer's output (V, keys x DH, is
@@ -905,61 +730,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
-// entry-point query (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (batch, seq, cols) bf16 tensor as TMA boxes of 64 columns x box_rows rows.
-bool make_map(CUtensorMap* map, const void* ptr, int cols, int seq, int batch, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {2ull * cols, 2ull * cols * seq};
-  const cuuint32_t box[3] = {kPanelCols, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH, bool kTrain>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
            int n_heads, int n_kv, int causal, int window, int pos_off, float scale,
            cudaStream_t stream) {
   using C = Cfg<DH>;
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, n_heads * DH, sq, batch, C::kBQ) ||
-      !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
-      !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // the runtime call first: it binds the device's context to this thread,
+  // which the tensor maps' encoding reads (see make_map)
   const auto kernel = pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true, kTrain>
                                    : flash_fwd_wgmma_kernel<DH, false, kTrain>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, n_heads * DH, sq, batch, C::kBQ) ||
+      !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
+      !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((sq + C::kBQ - 1) / C::kBQ, n_heads, batch);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       mq, mk, mv, static_cast<OutT<__nv_bfloat16, kTrain>*>(out), sq, sk, n_heads, n_kv, causal,

@@ -18,11 +18,68 @@
 // The function is the derivative that XLA takes of
 // repro/models/layers.py:chunked_attention, the jnp twin of the Pallas kernel
 // repro/kernels/flash_attention.py:flash_attention_pallas (which has no
-// backward).  Two kernels, launched in this order on one stream, both
-// deterministic: no atomics, every output element written by one thread
-// after sums in a fixed order.  Templated on T (bf16 or f32) and DH (16, 32,
-// 64, 128, 256); 256 threads as 16 x 16; every operand staged in shared
-// memory as f32 and every product an f32 FMA on the CUDA cores.
+// backward).  Two kernels a route, launched in this order on one stream (the
+// second reads the D that the first writes), both deterministic: no atomics,
+// every output element written by one thread after sums in a fixed order.
+// The wrapper (kernels/flash_attention.py:flash_bwd_route) picks the route
+// from the dtype and head_dim alone.
+//
+// What bounds it on an H100: operations.  Over the visible pairs the
+// function needs five products of head_dim FMAs (S, dP, dQ, dK, dV).  On the
+// bf16 tensor cores, with P and dS each split into three exact bf16 parts as
+// the forward splits p (S and dP one product each, dV, dQ and dK three
+// each), that is 11 bf16 products, 22 dh FLOP a pair at 989 TFLOP/s; with S
+// and dP recomputed by both kernels, 13.  On the CUDA cores the five take
+// 10 dh FLOP a pair at 67 TFLOP/s.
+//
+// The Hopper route, bf16 at head_dim 64 and 128 (namespace hopper below,
+// built from the forward's pieces in hopper.cuh): one producer warpgroup
+// whose one thread loads by TMA (128-byte swizzled 64-column boxes, zero
+// fill past the sequence's end, so nothing is padded) and two consumer
+// warpgroups (setmaxnreg 40 / 232) that run every product as wgmma:
+//   * S = Q K^T and dP = dO V^T (or S^T and dP^T) from shared memory, one
+//     bf16 product each, f32 accumulators;
+//   * p = ex2(s scale log2 e - lse log2 e), one FFMA and ex2.approx as in the
+//     forward; masks tested only on the tiles that the causal, window, Sk or
+//     Sq edge crosses (a second instantiation of the tile, as the forward's);
+//     dS = p (dP - D) in f32;
+//   * P and dS split in registers into three bf16 parts (split3: exact), and
+//     each of dV, dQ, dK three register-A wgmma m64n64k16 per 16 rows and 64
+//     columns with the other operand (K, dO or Q as it lies in shared
+//     memory) MN-major, two 16-row chunks a commit group so that the next
+//     chunks' split overlaps them.  The products are exact; the sums over tiles stay in
+//     the wgmma accumulators (their f32 sums are not a chain of
+//     round-to-nearest FMAs, which the 2-ulps-of-scale checks on the card
+//     allow: PERF.md gives the measured ulps).
+// flash_bwd_dq_wgmma_kernel -- one block per (128-query tile, head, batch
+//   row), the heaviest causal tiles first; Q and dO loaded once, 64-key K/V
+//   tiles through a ring (4 stages at head_dim 64, 3 at 128); each consumer
+//   owns 64 query rows and every column: D = dO . O for its rows from the
+//   f32 O in global memory (written for the second kernel), then per key
+//   tile S, dP, dS and dQ += dS K.  A thread holds S 32, dP 32, dS's parts
+//   48 and dQ 32 or 64 registers.
+// flash_bwd_dkdv_wgmma_kernel -- one block per (key tile, kv head, batch
+//   row); K and V loaded once; a ring of 4 stages of (Q, dO, the tile's 64
+//   lse and 64 D by 1-D tensor maps, each box 68 elements from the 16-byte
+//   aligned element at or before the tile's first row: TMA faults on a box
+//   that starts unaligned, as at Sq = 257) over the H / Kv query heads of the kv
+//   head and the 64-query tiles that see the block's keys, so that the GQA
+//   sum stays in the block.  S^T = K Q^T and dP^T = V dO^T come out keys x
+//   queries, which is the register-A layout of P^T and dS^T: dV += P^T dO is
+//   issued first, dS^T formed while it runs, and dK += dS^T Q once P's parts
+//   are free, so both splits are never live at once.  Head_dim 64: 128 keys
+//   a block, 64 a consumer, every column (dK and dV 32 registers each);
+//   head_dim 128: 64 keys a block, both consumers compute the same S^T and
+//   dP^T (the same instructions on the same data) and each owns 64 columns
+//   of dk and dv, since a row split would need 128 registers for dK and dV
+//   alone (two products of eight computed twice).
+//
+// The SIMT route, f32 at any head_dim and bf16 at 16, 32 and 256 (the
+// anonymous namespace below), the port's first backward: templated on T
+// (bf16 or f32) and DH (16, 32, 64, 128, 256), instantiated for f32 at
+// every head_dim and for bf16 at 16, 32 and 256; 256 threads as 16 x 16; every
+// operand staged in shared memory as f32 and every product an f32 FMA on the
+// CUDA cores, seven of them over the visible pairs.
 //
 // flash_bwd_dq_kernel -- one block per (query tile, head, batch row), the
 //   heaviest causal tiles first: D for its rows (written for the second
@@ -39,20 +96,15 @@
 // Tiles: the block's own rows (queries, or keys) are 64, 32 at head_dim 256
 // so that the f32 tiles fit shared memory (the dq kernel takes 208,640 B
 // there, the dkdv kernel 217,600 B); the tile looped over is 64 rows.
-//
-// What bounds it on an H100: operations.  Over the visible pairs the
-// function needs five products of head_dim FMAs (S, dP, dQ, dK, dV); these
-// kernels compute seven (each recomputes S and dP).  On the CUDA cores the
-// five take 10 dh FLOP a pair at 67 TFLOP/s.  On the bf16 tensor cores, with
-// P and dS each split into three bf16 parts as the forward splits p (S and dP
-// one product each, dV, dQ and dK three each), 22 dh FLOP a pair at 989
-// TFLOP/s.  This is the simple kernel; its redesign for the tensor cores
-// waits in ROADMAP B.
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -429,9 +481,13 @@ int dispatch_dq(int head_dim, const void* q, const void* k, const void* v, const
   switch (head_dim) {
     REPRO_DQ(16)
     REPRO_DQ(32)
-    REPRO_DQ(64)
-    REPRO_DQ(128)
     REPRO_DQ(256)
+  }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at 64 and 128: the wgmma route
+    switch (head_dim) {
+      REPRO_DQ(64)
+      REPRO_DQ(128)
+    }
   }
 #undef REPRO_DQ
   return static_cast<int>(cudaErrorInvalidValue);
@@ -449,9 +505,13 @@ int dispatch_dkdv(int head_dim, const void* q, const void* k, const void* v, con
   switch (head_dim) {
     REPRO_DKDV(16)
     REPRO_DKDV(32)
-    REPRO_DKDV(64)
-    REPRO_DKDV(128)
     REPRO_DKDV(256)
+  }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at 64 and 128: the wgmma route
+    switch (head_dim) {
+      REPRO_DKDV(64)
+      REPRO_DKDV(128)
+    }
   }
 #undef REPRO_DKDV
   return static_cast<int>(cudaErrorInvalidValue);
@@ -463,7 +523,8 @@ int dispatch_dkdv(int head_dim, const void* q, const void* k, const void* v, con
 // if is_bf16, else f32); o (B, Sq, H, dh) f32 and lse (B, H, Sq) f32 from the
 // forward's training instantiation; dsum (B, H, Sq) f32 receives D.  window
 // <= 0: no window; pos_off = q_off - k_off.  Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for another head_dim).
+// the launch (cudaErrorInvalidValue for another head_dim, and for bf16 at
+// head_dim 64 or 128: flash_attention_bwd_dq_wgmma takes those).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dsum,
                                       int batch, int sq, int sk, int n_heads, int n_kv,
@@ -491,4 +552,650 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k, const void
                                         sk, n_heads, n_kv, causal, window, pos_off, scale, st);
   return dispatch_dkdv<float>(head_dim, q, k, v, lse, dout, dsum, dk, dv, batch, sq, sk,
                               n_heads, n_kv, causal, window, pos_off, scale, st);
+}
+
+// ===========================================================================
+// The Hopper route: bf16 at head_dim 64 and 128 (flash_bwd_dq_wgmma_kernel,
+// flash_bwd_dkdv_wgmma_kernel)
+// ===========================================================================
+
+namespace hopper {
+
+// setmaxnreg: the producer warpgroup's TMA loop, and the two consumers
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536, "more registers than an SM has");
+
+// dq: a block owns 128 query rows, 64 a consumer (row split), and loops over
+// 64-key tiles; Q and dO are loaded once, K and V stream through a ring.
+template <int DH>
+struct DqCfg {
+  static constexpr int kBQ = 128;                                // query rows per block
+  static constexpr int kBK = 64;                                 // keys per tile
+  static constexpr int kPanels = DH / kPanelCols;                // of Q, dO, K and V
+  static constexpr int kStages = DH == 64 ? 4 : 3;               // the K/V ring
+  static constexpr int kQPanelBytes = kBQ * kRowBytes;
+  static constexpr int kQTileBytes = kPanels * kQPanelBytes;     // Q, or dO
+  static constexpr int kKPanelBytes = kBK * kRowBytes;
+  static constexpr int kKTileBytes = kPanels * kKPanelBytes;     // one K or one V tile
+  static constexpr int kStageBytes = 2 * kKTileBytes;            // K, then V
+  static constexpr int kBarOffset = 2 * kQTileBytes + kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);  // + 1024-B alignment
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+};
+
+// dk and dv: a block owns a key tile and loops over its kv head's query heads
+// and the 64-query tiles that see its keys; K and V are loaded once, and Q,
+// dO and their rows' lse and D stream through a ring.  At head_dim 64 (row
+// split) the block owns 128 keys, 64 a consumer.  At head_dim 128 dK and dV
+// alone would take 128 registers a thread, so (column split) the block owns
+// 64 keys, both consumers compute the same S^T and dP^T, and each sums and
+// writes its own 64 of the 128 columns of dk and dv.
+template <int DH>
+struct DkdvCfg {
+  static constexpr bool kColSplit = DH == 128;
+  static constexpr int kBK = kColSplit ? 64 : 128;               // keys per block
+  static constexpr int kBQ = 64;                                 // queries per tile
+  static constexpr int kPanels = DH / kPanelCols;
+  static constexpr int kOutPanels = kColSplit ? kPanels / 2 : kPanels;  // a consumer's columns
+  static constexpr int kStages = 4;
+  static constexpr int kKPanelBytes = kBK * kRowBytes;
+  static constexpr int kKTileBytes = kPanels * kKPanelBytes;     // K, or V
+  static constexpr int kQPanelBytes = kBQ * kRowBytes;
+  static constexpr int kQTileBytes = kPanels * kQPanelBytes;     // one Q or one dO tile
+  // the tile's lse, or D: a 1-D TMA box must start 16-byte aligned, so kBQ
+  // + 4 f32 from the aligned element at or before the tile's first row
+  static constexpr int kStatBox = kBQ + 4;
+  static constexpr int kStatBytes = kStatBox * 4;
+  static constexpr int kStatSlot = 384;                          // a box's 128-B aligned slot
+  static constexpr int kStageTx = 2 * kQTileBytes + 2 * kStatBytes;  // Q, dO, lse, D
+  static constexpr int kStageBytes = (kStageTx + 1023) / 1024 * 1024;
+  static constexpr int kBarOffset = 2 * kKTileBytes + kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+  static_assert(kStatBytes <= kStatSlot && 2 * kQTileBytes + kStatSlot + kStatBytes <= kStageBytes,
+                "the lse and D boxes fit their slots");
+  static_assert(kOutPanels == 1, "one 64-column panel of dk and dv a consumer");
+  static_assert(kSmem <= 232448, "more shared memory than a block may use");
+};
+
+// A box of a 1-D f32 tensor map (a head's lse or D rows) into shared
+// memory; `at`, the first element, must be 16-byte aligned (a multiple of
+// 4), and elements past the end arrive as 0.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int at) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(at)
+      : "memory");
+}
+
+// Key key visible to the query at position qpos (both on k's positions).
+__device__ __forceinline__ bool sees(int qpos, int key, int sk, int causal, int window) {
+  return key < sk && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
+}
+
+// p = exp(s scale - lse) as the forward's exp: one FFMA and ex2.approx, with
+// nl = -lse log2 e (-inf where the row sees no key, so p = 0).
+__device__ __forceinline__ float bwd_p(float s, float scale, float nl) {
+  return ex2(fmaf(__fmul_rn(s, scale), kLog2e, nl));
+}
+
+// 16-key (or 16-query) chunks of a split tile a commit group: the split of
+// a batch overlaps the products of the one before it (scripts/flash_probe.py
+// times 1, 2 and 4; PERF.md gives the readings)
+constexpr int kSplitBatch = 2;
+
+// A 64 x 64 tile x (32 accumulators, the m64n64 layout) split into its three
+// bf16 parts in the register-A layout (16-column chunk c, registers j = 0..3
+// are accumulator pairs 8c + 2j, 8c + 2j + 1; see the forward's exp_split),
+// and acc[panel] += A1 B + A2 B + A3 B over a 64-row tile of B (16 rows a
+// chunk, MN-major, the panel's 64 columns at b_s + panel * panel_bytes),
+// kSplitBatch chunks a commit group; issued and committed, not waited for.
+template <int kPanels>
+__device__ __forceinline__ void split_and_issue(const float (&x)[32], uint32_t (&pa)[3][4][4],
+                                                float (&acc)[kPanels][32], uint32_t b_s,
+                                                int panel_bytes) {
+#pragma unroll
+  for (int c0 = 0; c0 < 4; c0 += kSplitBatch) {
+#pragma unroll
+    for (int c = c0; c < c0 + kSplitBatch; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split3(x[8 * c + 2 * j], x[8 * c + 2 * j + 1], pa[0][c][j], pa[1][c][j], pa[2][c][j]);
+    wgmma_fence();
+#pragma unroll
+    for (int panel = 0; panel < kPanels; ++panel)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int c = c0; c < c0 + kSplitBatch; ++c)
+          wgmma_rs_n64(acc[panel], pa[part][c],
+                       smem_desc(b_s + panel * panel_bytes + c * 16 * kRowBytes), 1);
+    wgmma_commit();
+  }
+}
+
+// One 64 x 64 tile of S = A1 B1^T and dP = A2 B2^T from shared memory (both
+// operands K-major over head_dim: a_* of 64 rows in panels of a_panel
+// bytes, b_* of 64 rows in panels of b_panel bytes), waited for.
+template <int DH>
+__device__ __forceinline__ void s_and_dp(float (&sc)[32], float (&dp)[32], uint32_t a1,
+                                         uint32_t b1, uint32_t a2, uint32_t b2, int a_panel,
+                                         int b_panel) {
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc)
+    wgmma_ss(sc, smem_desc(a1 + (kc / 4) * a_panel + (kc % 4) * 32),
+             smem_desc(b1 + (kc / 4) * b_panel + (kc % 4) * 32), kc > 0);
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc)
+    wgmma_ss(dp, smem_desc(a2 + (kc / 4) * a_panel + (kc % 4) * 32),
+             smem_desc(b2 + (kc / 4) * b_panel + (kc % 4) * 32), kc > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(sc);
+  fence_regs(dp);
+}
+
+// The rest of one dq tile after S and dP: dS = P (dP - D) in registers,
+// masked only where an edge crosses the tile (kEdge), split into three bf16
+// parts, and dQ += dS1 K + dS2 K + dS3 K (K MN-major) in the wgmma
+// accumulators, which carry the sum over every key tile.
+template <bool kEdge, typename C>
+__device__ __forceinline__ void dq_tile(float (&sc)[32], const float (&dp)[32],
+                                        float (&acc)[C::kPanels][32], uint32_t k_s,
+                                        const float (&nl)[2], const float (&dsum)[2], float scale,
+                                        int k0, int ra, int kq, int sk, int causal, int window) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) & 1;
+    float p = bwd_p(sc[i], scale, nl[r]);
+    if (kEdge && !sees(ra + 8 * r, k0 + 8 * (i / 4) + kq + (i & 1), sk, causal, window)) p = 0.f;
+    sc[i] = __fmul_rn(p, __fsub_rn(dp[i], dsum[r]));
+  }
+  uint32_t pa[3][4][4];
+  split_and_issue(sc, pa, acc, k_s, C::kKPanelBytes);
+  wgmma_wait_all();
+#pragma unroll
+  for (int panel = 0; panel < C::kPanels; ++panel) fence_regs(acc[panel]);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(pa[part][c]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ o, const float* __restrict__ lse,
+                          const __nv_bfloat16* __restrict__ dout,
+                          __nv_bfloat16* __restrict__ dq, float* __restrict__ dsum_out, int sq,
+                          int sk, int n_heads, int n_kv, int causal, int window, int pos_off,
+                          float scale) {
+  using C = DqCfg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                         // [panel][128 rows][64 columns]
+  const uint32_t do_s = base + C::kQTileBytes;
+  const uint32_t ring = base + 2 * C::kQTileBytes;   // stage s: K tile, then V tile
+  const uint32_t bars = base + C::kBarOffset;        // full[kStages], empty[kStages], q
+  const uint32_t q_bar = bars + 16 * C::kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kBQ;  // the heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (n_heads / n_kv);
+
+  // the key tiles that hold a visible key for some query of this block
+  const int p0 = q0 + pos_off;  // the block's first query, on k's positions
+  int k_begin = 0, k_end = sk;
+  if (causal) k_end = min(sk, p0 + C::kBQ);
+  if (window > 0) k_begin = max(0, p0 - window + 1) / C::kBK * C::kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + C::kBK - 1) / C::kBK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (C::kStages + s), kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: Q and dO once, then the ring of K/V tiles, by TMA ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_bar, 2 * C::kQTileBytes);
+#pragma unroll
+      for (int panel = 0; panel < C::kPanels; ++panel) {
+        const int col = h * DH + panel * kPanelCols;
+        tma_load(q_s + panel * C::kQPanelBytes, &tm_q, q_bar, col, q0, b);
+        tma_load(do_s + panel * C::kQPanelBytes, &tm_do, q_bar, col, q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(bars + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t k_s = ring + s * C::kStageBytes;
+        const int k0 = k_begin + it * C::kBK;
+        mbar_expect_tx(full, C::kStageBytes);
+#pragma unroll
+        for (int panel = 0; panel < C::kPanels; ++panel) {
+          const int col = kvh * DH + panel * kPanelCols;
+          tma_load(k_s + panel * C::kKPanelBytes, &tm_k, full, col, k0, b);
+          tma_load(k_s + C::kKTileBytes + panel * C::kKPanelBytes, &tm_v, full, col, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each and every column ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row0 = p0 + 64 * cw;                 // this warpgroup's first row, on k's positions
+    const int ra = row0 + 16 * warp + lane / 4;    // this thread's rows ra and ra + 8
+    const int kq = 2 * (lane % 4);                 // its first column in each 8-column block
+    const int qa = ra - pos_off;                   // ... as query rows
+
+    // D = dO . O (the forward's f32 O) for rows qa and qa + 8: each thread
+    // of the row's quad sums a quarter of the columns, and the quad adds
+    // them; the same value in all four.  Also the rows' -lse log2 e.
+    const long long q_row = static_cast<long long>(n_heads) * DH;
+    const long long stat = (static_cast<long long>(b) * n_heads + h) * sq;
+    float dsum[2], nl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qa + 8 * r;
+      float d = 0.f;
+      if (row < sq) {
+        const long long at = (static_cast<long long>(b) * sq + row) * q_row +
+                             static_cast<long long>(h) * DH + (lane % 4) * (DH / 4);
+        const float4* o4 = reinterpret_cast<const float4*>(o + at);
+        const uint4* d8 = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+        for (int j = 0; j < DH / 32; ++j) {
+          const uint4 w = d8[j];
+          const float4 oa = o4[2 * j], ob = o4[2 * j + 1];
+          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+          const float ov[8] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            d = fmaf(__uint_as_float(words[e] << 16), ov[2 * e], d);
+            d = fmaf(__uint_as_float(words[e] & 0xffff0000u), ov[2 * e + 1], d);
+          }
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      dsum[r] = d;
+      nl[r] = row < sq ? -lse[stat + row] * kLog2e : -pos_inf();
+      if (row < sq && kq == 0) dsum_out[stat + row] = d;
+    }
+
+    float acc[C::kPanels][32];  // dQ per 64-column panel: the m64n64 accumulator layout
+#pragma unroll
+    for (int panel = 0; panel < C::kPanels; ++panel)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[panel][i] = 0.f;
+    if (n_tiles > 0) mbar_wait(q_bar, 0);
+    const uint32_t q_wg = q_s + 64 * cw * kRowBytes, do_wg = do_s + 64 * cw * kRowBytes;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::kStages;
+      const int k0 = k_begin + it * C::kBK;
+      const uint32_t k_s = ring + s * C::kStageBytes;
+      mbar_wait(bars + 8 * s, (it / C::kStages) & 1);
+
+      // S = Q K^T and dP = dO V^T (64 x 64, f32): bf16 products are exact
+      float sc[32], dp[32];
+      s_and_dp<DH>(sc, dp, q_wg, k_s, do_wg, k_s + C::kKTileBytes, C::kQPanelBytes,
+                   C::kKPanelBytes);
+      // masks only on tiles that an edge crosses for these rows
+      if (k0 + C::kBK > sk || (causal && k0 + C::kBK - 1 > row0) ||
+          (window > 0 && k0 <= row0 + 63 - window))
+        dq_tile<true, C>(sc, dp, acc, k_s, nl, dsum, scale, k0, ra, kq, sk, causal, window);
+      else
+        dq_tile<false, C>(sc, dp, acc, k_s, nl, dsum, scale, k0, ra, kq, sk, causal, window);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
+    }
+
+    // dq = scale dQ, rounded to bf16 once
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qa + 8 * r;
+      if (row >= sq) continue;
+      __nv_bfloat16* orow = dq + (static_cast<long long>(b) * sq + row) * q_row +
+                            static_cast<long long>(h) * DH + kq;
+#pragma unroll
+      for (int panel = 0; panel < C::kPanels; ++panel)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + panel * kPanelCols + 8 * j) =
+              __floats2bfloat162_rn(acc[panel][4 * j + 2 * r] * scale,
+                                    acc[panel][4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// The rest of one dk/dv tile after S^T and dP^T (keys x queries): P^T =
+// exp(S^T scale - lse) by column, split into three bf16 parts, and dV +=
+// P^T dO issued; dS^T = P^T (dP^T - D) formed while it runs; then, once the
+// parts of P are free, dS^T split and dK += dS^T Q (dO and Q MN-major; the
+// consumer's columns start col_off bytes into each tile).  Masked only where
+// an edge crosses the tile (kEdge).
+template <bool kEdge, typename C>
+__device__ __forceinline__ void dkdv_tile(float (&sc)[32], const float (&dp)[32],
+                                          float (&dka)[C::kOutPanels][32],
+                                          float (&dva)[C::kOutPanels][32], uint32_t st,
+                                          uint32_t col_off, const float* lse_s, const float* d_s,
+                                          float scale, int q0, int kr, int kq, int sq, int sk,
+                                          int causal, int window, int pos_off) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {  // 8-query blocks
+    const float nl[2] = {-lse_s[8 * j + kq] * kLog2e, -lse_s[8 * j + kq + 1] * kLog2e};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float p = bwd_p(sc[i], scale, nl[e & 1]);
+      if (kEdge) {
+        const int qi = q0 + 8 * j + kq + (e & 1);
+        if (qi >= sq || !sees(qi + pos_off, kr + 8 * (e >> 1), sk, causal, window)) p = 0.f;
+      }
+      sc[i] = p;
+    }
+  }
+  uint32_t pa[3][4][4];
+  split_and_issue(sc, pa, dva, st + C::kQTileBytes + col_off, C::kQPanelBytes);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float d[2] = {d_s[8 * j + kq], d_s[8 * j + kq + 1]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[4 * j + e] = __fmul_rn(sc[4 * j + e], __fsub_rn(dp[4 * j + e], d[e & 1]));
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int panel = 0; panel < C::kOutPanels; ++panel) fence_regs(dva[panel]);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(pa[part][c]);
+  split_and_issue(sc, pa, dka, st + col_off, C::kQPanelBytes);
+  wgmma_wait_all();
+#pragma unroll
+  for (int panel = 0; panel < C::kOutPanels; ++panel) fence_regs(dka[panel]);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(pa[part][c]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_lse,
+                            const __grid_constant__ CUtensorMap tm_dsum,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                            int sq, int sk, int n_heads, int n_kv, int causal, int window,
+                            int pos_off, float scale) {
+  using C = DkdvCfg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;                         // [panel][kBK rows][64 columns]
+  const uint32_t v_s = base + C::kKTileBytes;
+  const uint32_t ring = base + 2 * C::kKTileBytes;   // stage s: Q, dO, 64 lse, 64 D
+  const uint32_t bars = base + C::kBarOffset;        // full[kStages], empty[kStages], kv
+  const uint32_t kv_bar = bars + 16 * C::kStages;
+
+  const int k0 = blockIdx.x * C::kBK;  // the first key tiles see the most causal queries: first
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = n_heads / n_kv;
+
+  // the queries i that see a key of this block (query position i + pos_off)
+  const long long first = static_cast<long long>(k0) - pos_off;
+  int q_begin = 0, q_end = sq;
+  if (causal) q_begin = static_cast<int>(min(static_cast<long long>(sq), max(0ll, first)));
+  if (window > 0)
+    q_end = static_cast<int>(max(0ll, min(static_cast<long long>(sq), first + C::kBK - 1 + window)));
+  const int per_head = q_end > q_begin ? (q_end - q_begin + C::kBQ - 1) / C::kBQ : 0;
+  const int n_tiles = rep * per_head;  // tile it: query head g rep + it / per_head
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (C::kStages + s), kConsumerWarps);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: K and V once, then the ring of Q, dO, lse and D tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(kv_bar, 2 * C::kKTileBytes);
+#pragma unroll
+      for (int panel = 0; panel < C::kPanels; ++panel) {
+        const int col = g * DH + panel * kPanelCols;
+        tma_load(k_s + panel * C::kKPanelBytes, &tm_k, kv_bar, col, k0, b);
+        tma_load(v_s + panel * C::kKPanelBytes, &tm_v, kv_bar, col, k0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % C::kStages;
+        const int h = g * rep + it / per_head;
+        const int q0 = q_begin + (it % per_head) * C::kBQ;
+        mbar_wait(bars + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t st = ring + s * C::kStageBytes;
+        mbar_expect_tx(full, C::kStageTx);
+#pragma unroll
+        for (int panel = 0; panel < C::kPanels; ++panel) {
+          const int col = h * DH + panel * kPanelCols;
+          tma_load(st + panel * C::kQPanelBytes, &tm_q, full, col, q0, b);
+          tma_load(st + C::kQTileBytes + panel * C::kQPanelBytes, &tm_do, full, col, q0, b);
+        }
+        // the tile's rows of lse and D from the aligned element at or before
+        // them (the launcher keeps B H Sq < 2^31)
+        const int at = ((b * n_heads + h) * sq + q0) & ~3;
+        tma_load_1d(st + 2 * C::kQTileBytes, &tm_lse, full, at);
+        tma_load_1d(st + 2 * C::kQTileBytes + C::kStatSlot, &tm_dsum, full, at);
+      }
+    }
+  } else {
+    // ---- consumers: row split, 64 keys each and every column; column
+    // split, the block's 64 keys and 64 columns each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int kr0 = k0 + (C::kColSplit ? 0 : 64 * cw);  // this warpgroup's first key
+    const int kr = kr0 + 16 * warp + lane / 4;         // this thread's keys kr and kr + 8
+    const int kq = 2 * (lane % 4);                     // its first query in each 8-query block
+    const int panel0 = C::kColSplit ? cw : 0;          // its first column panel of dk and dv
+    const unsigned char* smem_at = smem_raw + (base - raw);  // base as a generic pointer
+
+    float dka[C::kOutPanels][32], dva[C::kOutPanels][32];
+#pragma unroll
+    for (int panel = 0; panel < C::kOutPanels; ++panel)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dka[panel][i] = dva[panel][i] = 0.f;
+    if (n_tiles > 0) mbar_wait(kv_bar, 0);
+    const uint32_t k_wg = k_s + (C::kColSplit ? 0 : 64 * cw * kRowBytes);
+    const uint32_t v_wg = v_s + (C::kColSplit ? 0 : 64 * cw * kRowBytes);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::kStages;
+      const int h = g * rep + it / per_head;
+      const int q0 = q_begin + (it % per_head) * C::kBQ;
+      const uint32_t st = ring + s * C::kStageBytes;
+      // the tile's first row in the stage's lse and D boxes
+      const int shift = ((b * n_heads + h) * sq + q0) & 3;
+      const float* lse_s =
+          reinterpret_cast<const float*>(smem_at + (st - base) + 2 * C::kQTileBytes) + shift;
+      const float* d_s = lse_s + C::kStatSlot / 4;
+      mbar_wait(bars + 8 * s, (it / C::kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, f32)
+      float sc[32], dp[32];
+      s_and_dp<DH>(sc, dp, k_wg, st, v_wg, st + C::kQTileBytes, C::kKPanelBytes,
+                   C::kQPanelBytes);
+      const int qp0 = q0 + pos_off;  // the tile's first query, on k's positions
+      if (kr0 + 64 > sk || q0 + C::kBQ > sq || (causal && kr0 + 63 > qp0) ||
+          (window > 0 && kr0 <= qp0 + C::kBQ - 1 - window))
+        dkdv_tile<true, C>(sc, dp, dka, dva, st, panel0 * C::kQPanelBytes, lse_s, d_s, scale, q0,
+                           kr, kq, sq, sk, causal, window, pos_off);
+      else
+        dkdv_tile<false, C>(sc, dp, dka, dva, st, panel0 * C::kQPanelBytes, lse_s, d_s, scale, q0,
+                            kr, kq, sq, sk, causal, window, pos_off);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
+    }
+
+    // dk = scale dK and dv = dV, rounded to bf16 once
+    const long long kv_row = static_cast<long long>(n_kv) * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kr + 8 * r;
+      if (key >= sk) continue;
+      const long long at = (static_cast<long long>(b) * sk + key) * kv_row +
+                           static_cast<long long>(g) * DH + panel0 * kPanelCols + kq;
+#pragma unroll
+      for (int panel = 0; panel < C::kOutPanels; ++panel)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          const long long e = at + panel * kPanelCols + 8 * j;
+          *reinterpret_cast<__nv_bfloat162*>(dk + e) =
+              __floats2bfloat162_rn(dka[panel][i] * scale, dka[panel][i + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + e) =
+              __floats2bfloat162_rn(dva[panel][i], dva[panel][i + 1]);
+        }
+    }
+  }
+}
+
+// A 1-D f32 tensor (n elements, 16-byte aligned) as TMA boxes of `box`.
+bool make_map_1d(CUtensorMap* map, const void* ptr, long long n, int box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};  // rank 1: not read
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t steps[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides,
+                boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* lse,
+              const void* dout, void* dq, void* dsum, int batch, int sq, int sk, int n_heads,
+              int n_kv, int causal, int window, int pos_off, float scale, cudaStream_t stream) {
+  using C = DqCfg<DH>;
+  // the runtime call first: it binds the device's context to this thread,
+  // which the tensor maps' encoding reads (see make_map)
+  const auto kernel = flash_bwd_dq_wgmma_kernel<DH>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, q, n_heads * DH, sq, batch, C::kBQ) ||
+      !make_map(&mdo, dout, n_heads * DH, sq, batch, C::kBQ) ||
+      !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
+      !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((sq + C::kBQ - 1) / C::kBQ, n_heads, batch);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<__nv_bfloat16*>(dq),
+      static_cast<float*>(dsum), sq, sk, n_heads, n_kv, causal, window, pos_off, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* lse, const void* dout,
+                const void* dsum, void* dk, void* dv, int batch, int sq, int sk, int n_heads,
+                int n_kv, int causal, int window, int pos_off, float scale, cudaStream_t stream) {
+  using C = DkdvCfg<DH>;
+  const auto kernel = flash_bwd_dkdv_wgmma_kernel<DH>;  // first: see launch_dq
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(batch) * n_heads * sq;
+  CUtensorMap mq, mk, mv, mdo, mlse, mdsum;
+  if (rows >= (1ll << 31) || !make_map(&mq, q, n_heads * DH, sq, batch, C::kBQ) ||
+      !make_map(&mdo, dout, n_heads * DH, sq, batch, C::kBQ) ||
+      !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
+      !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK) ||
+      !make_map_1d(&mlse, lse, rows, C::kStatBox) || !make_map_1d(&mdsum, dsum, rows, C::kStatBox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((sk + C::kBK - 1) / C::kBK, n_kv, batch);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, mlse, mdsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), sq, sk, n_heads, n_kv, causal, window, pos_off, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
+// The Hopper route: bf16 at head_dim 64 or 128, the arguments of
+// flash_attention_bwd_dq without is_bf16 (every pointer 16-byte aligned).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// another head_dim or a tensor map that cuTensorMapEncodeTiled refuses).
+extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                            const void* o, const void* lse, const void* dout,
+                                            void* dq, void* dsum, int batch, int sq, int sk,
+                                            int n_heads, int n_kv, int head_dim, int causal,
+                                            int window, int pos_off, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return hopper::launch_dq<64>(q, k, v, o, lse, dout, dq, dsum, batch, sq, sk, n_heads, n_kv,
+                                   causal, window, pos_off, scale, st);
+    case 128:
+      return hopper::launch_dq<128>(q, k, v, o, lse, dout, dq, dsum, batch, sq, sk, n_heads,
+                                    n_kv, causal, window, pos_off, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same for dk and dv, as flash_attention_bwd_dkdv without is_bf16; also
+// cudaErrorInvalidValue when B * H * Sq reaches 2^31 (the lse and D rows are
+// addressed by one int).
+extern "C" int flash_attention_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
+                                              const void* lse, const void* dout,
+                                              const void* dsum, void* dk, void* dv, int batch,
+                                              int sq, int sk, int n_heads, int n_kv,
+                                              int head_dim, int causal, int window, int pos_off,
+                                              float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return hopper::launch_dkdv<64>(q, k, v, lse, dout, dsum, dk, dv, batch, sq, sk, n_heads,
+                                     n_kv, causal, window, pos_off, scale, st);
+    case 128:
+      return hopper::launch_dkdv<128>(q, k, v, lse, dout, dsum, dk, dv, batch, sq, sk, n_heads,
+                                      n_kv, causal, window, pos_off, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

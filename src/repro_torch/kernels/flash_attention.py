@@ -107,19 +107,28 @@ Training (:class:`FlashAttention`, the autograd Function that
   (:func:`flash_attention_train_cuda`): O unrounded in f32 and the row
   log-sum-exp ``lse`` (B, H, Sq) in f32, +inf for a row with no visible key;
   O rounded to bf16 is the inference kernel's output;
-* the backward is ``csrc/flash_attention_bwd.cu``, two SIMT kernels with
-  no atomics (:func:`flash_attention_bwd_cuda`): ``flash_bwd_dq_kernel``
-  (D = rowsum(dO O) and dq) then ``flash_bwd_dkdv_kernel`` (dk and dv,
-  summed over the query heads of each kv head inside the block).  It ports
+* the backward is ``csrc/flash_attention_bwd.cu``, two kernels a route
+  with no atomics (:func:`flash_attention_bwd_cuda`), the dq kernel (D =
+  rowsum(dO O) and dq) then the dkdv kernel (dk and dv, summed over the
+  query heads of each kv head inside the block); :func:`flash_bwd_route`
+  picks the route from the dtype and head_dim alone: ``wgmma``
+  (``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkdv_wgmma_kernel``) for bf16
+  at head_dim 64 and 128, ``simt`` (``flash_bwd_dq_kernel``,
+  ``flash_bwd_dkdv_kernel``) for f32 and bf16 at 16, 32 and 256.  It ports
   no Pallas kernel: it is the derivative that XLA takes of
   ``repro/models/layers.py:chunked_attention``.  What bounds it is
   operations: five head_dim products over the visible pairs (S, dP, dQ,
   dK, dV) at 67 TFLOP/s on the CUDA cores, or eleven bf16 products (P and
-  dS in three bf16 parts) at 989 TFLOP/s on the tensor cores; these kernels
-  compute seven on the CUDA cores (each recomputes S and dP).  At
-  granite-3-2b's training layer (B 2, S 4,096, H 32, Kv 8, dh 64, causal:
-  537 M visible pairs) that is 5.1 ms on the CUDA cores and 0.76 ms on the
-  tensor cores;
+  dS in three bf16 parts, :func:`split_bf16x3`) at 989 TFLOP/s on the
+  tensor cores, thirteen when both kernels recompute S and dP, as these
+  do.  At granite-3-2b's training layer (B 2, S 4,096, H 32, Kv 8, dh 64,
+  causal: 537 M visible pairs) that is 5.1 ms on the CUDA cores, 0.76 ms on
+  the tensor cores and 0.90 ms for the thirteen.  The wgmma kernels run
+  every product on the tensor cores as the forward runs P.V: S and dP from
+  shared memory, P and dS split into three register-A parts, K, Q and dO
+  as MN-major B operands, the sums over tiles in the wgmma accumulators;
+  the SIMT kernels stage every operand as f32 and run seven products as
+  f32 FMAs;
 * ``flash_attention_train_plain`` and ``flash_attention_bwd_plain`` are the
   same functions in plain PyTorch, for the CPU and the checks on the card.
 """
@@ -135,6 +144,7 @@ from repro_torch.kernels import build
 NEG = -1e30  # the reference's mask sentinel (flash_attention.py:31)
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims either route takes
 WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 at these runs the wgmma kernel
+WGMMA_BWD_HEAD_DIMS = (64, 128)  # ... and the wgmma backward kernels
 PLAIN_Q_CHUNK = 512
 
 # flash_attention_fwd (simt): q, k, v, out, batch, sq, sk, heads, kv heads,
@@ -151,6 +161,9 @@ _WGMMA_ARGTYPES = _SIMT_ARGTYPES[:10] + _SIMT_ARGTYPES[11:]
 # q, k, v, lse, dout, dsum, dk, dv; then both: batch, sq, sk, heads, kv heads,
 # head_dim, is_bf16, causal, window, q_offset - k_offset, scale, stream
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 8 + _SIMT_ARGTYPES[4:]
+# flash_attention_bwd_dq_wgmma and flash_attention_bwd_dkdv_wgmma: the same
+# without is_bf16
+_BWD_WGMMA_ARGTYPES = (ctypes.c_void_p,) * 8 + _WGMMA_ARGTYPES[4:]
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -256,6 +269,7 @@ def flash_attention_bwd_plain(
     q_offset: int = 0,
     k_offset: int = 0,
     q_chunk: int = PLAIN_Q_CHUNK,
+    round_p_ds: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the backward, given the training
     forward's f32 O and lse and the output's gradient ``do``: per chunk of
@@ -263,7 +277,9 @@ def flash_attention_bwd_plain(
     D = rowsum(dO O), dS = P (dP - D); dq = scale dS K, and dk = scale dS^T Q
     and dv = P^T dO summed in f32 over the query heads of each kv head and
     over the chunks.  -> (dq, dk, dv) in the inputs' dtypes, each rounded
-    once."""
+    once.  ``round_p_ds`` rounds P and dS to the inputs' dtype before their
+    products, as SDPA does: another function, which the checks on the card
+    take as the control that their bound must reject."""
     _check_shapes(q, k, v)
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -284,6 +300,8 @@ def flash_attention_bwd_plain(
         dp = torch.einsum("bqgrd,bkgd->bgrqk", doc, vf)
         dsum = (doc * o[:, q0 : q0 + c].reshape(grouped)).sum(-1).permute(0, 2, 3, 1)
         ds = p * (dp - dsum[..., None])
+        if round_p_ds:
+            p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
         dq[:, q0 : q0 + c] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * s).reshape(
             b, c, h, dh).to(q.dtype)
         dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qc.float().reshape(grouped))
@@ -295,6 +313,13 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that takes a call: ``"wgmma"`` for bf16 at head_dim 64,
     128 or 256, ``"simt"`` for the rest (f32, and bf16 at 16 and 32)."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "simt"
+
+
+def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels that take a call: ``"wgmma"`` for bf16 at
+    head_dim 64 or 128, ``"simt"`` for the rest (f32, and bf16 at 16, 32
+    and 256)."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_BWD_HEAD_DIMS else "simt"
 
 
 def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -334,6 +359,22 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> torc
     mag = torch.maximum(torch.maximum(g.abs(), w.abs()), torch.tensor(floor, device=g.device))
     _, e = torch.frexp(mag)
     return (g - w).abs() / torch.ldexp(torch.ones_like(mag), e - 8)
+
+
+# the largest share of a bf16 gradient's nonzero elements that the backward
+# kernels may round otherwise than the plain backward (differ_share): with P
+# and dS exact in three bf16 parts both round the same f32 sums once and
+# differ where the sums' order crosses a rounding boundary (the CPU emulation
+# of the split: at most 0.001); with P and dS rounded to bf16 once, as SDPA
+# does (flash_attention_bwd_plain's round_p_ds), about 0.4 of them differ
+BWD_DIFFER_SHARE = 0.2
+
+
+def differ_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of the elements, among those nonzero in got or want, whose
+    values differ (0 where every element is zero in both)."""
+    nonzero = (got != 0) | (want != 0)
+    return float((got != want)[nonzero].float().mean()) if bool(nonzero.any()) else 0.0
 
 
 def _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset):
@@ -460,47 +501,65 @@ def _check_saved(q, do, **rows) -> None:
             raise ValueError(f"flash_attention backward needs {name} contiguous and 16-byte aligned")
 
 
-def _launch_bwd(symbol: str, pointers, shape, masks, dtype) -> None:
+def _launch_bwd(symbol: str, pointers, shape, masks, dtype) -> str:
+    """The backward kernel ``symbol`` of the route (:func:`flash_bwd_route`)
+    on the first pointer's device and current stream; returns the route."""
+    route = flash_bwd_route(dtype, shape[-1])
     with torch.cuda.device(pointers[0].device):
         stream = torch.cuda.current_stream(pointers[0].device).cuda_stream
-        fn = build.function("flash_attention_bwd", symbol, _BWD_ARGTYPES)
-        code = fn(*(t.data_ptr() for t in pointers), *shape, int(dtype == torch.bfloat16),
-                  *masks, stream)
-    build.check_launch(symbol, code)
+        ptrs = [t.data_ptr() for t in pointers]
+        if route == "wgmma":
+            b, sq, _, h, _, _ = shape
+            if b * h * sq >= 2**31:
+                raise ValueError(f"{symbol}: B * H * Sq = {b * h * sq} exceeds the kernel's rows")
+            fn = build.function("flash_attention_bwd", f"{symbol}_wgmma", _BWD_WGMMA_ARGTYPES)
+            code = fn(*ptrs, *shape, *masks, stream)
+        else:
+            fn = build.function("flash_attention_bwd", symbol, _BWD_ARGTYPES)
+            code = fn(*ptrs, *shape, int(dtype == torch.bfloat16), *masks, stream)
+    build.check_launch(f"{symbol} ({route})", code)
+    return route
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, *, causal=True, window=None, scale=None,
                                 q_offset=0, k_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
-    """``flash_bwd_dq_kernel`` -> (dq like q, D = rowsum(dO O) (B, H, Sq)
-    f32, which :func:`flash_attention_bwd_dkdv_cuda` reads)."""
+    """The route's dq kernel (``flash_bwd_dq_wgmma_kernel`` or
+    ``flash_bwd_dq_kernel``) -> (dq like q, D = rowsum(dO O) (B, H, Sq) f32,
+    which :func:`flash_attention_bwd_dkdv_cuda` reads)."""
     shape, masks = _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
     _check_saved(q, do, o=o, lse=lse)
     b, sq, _, h, _, _ = shape
     dq = torch.empty_like(q)
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch_bwd("flash_attention_bwd_dq", (q, k, v, o, lse, do, dq, dsum), shape, masks, q.dtype)
+    route = _launch_bwd("flash_attention_bwd_dq", (q, k, v, o, lse, do, dq, dsum), shape, masks,
+                        q.dtype)
     flash_attention_bwd_dq_cuda.launches += 1
+    flash_attention_bwd_dq_cuda.route_launches[route] += 1
     return dq, dsum
 
 
 flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dq_cuda.route_launches = {"wgmma": 0, "simt": 0}
 
 
 def flash_attention_bwd_dkdv_cuda(q, k, v, lse, do, dsum, *, causal=True, window=None,
                                   scale=None, q_offset=0,
                                   k_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
-    """``flash_bwd_dkdv_kernel`` -> (dk like k, dv like v), given the dq
+    """The route's dk/dv kernel (``flash_bwd_dkdv_wgmma_kernel`` or
+    ``flash_bwd_dkdv_kernel``) -> (dk like k, dv like v), given the dq
     kernel's D."""
     shape, masks = _kernel_args(q, k, v, causal, window, scale, q_offset, k_offset)
     _check_saved(q, do, lse=lse, dsum=dsum)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_attention_bwd_dkdv", (q, k, v, lse, do, dsum, dk, dv), shape, masks,
-                q.dtype)
+    route = _launch_bwd("flash_attention_bwd_dkdv", (q, k, v, lse, do, dsum, dk, dv), shape,
+                        masks, q.dtype)
     flash_attention_bwd_dkdv_cuda.launches += 1
+    flash_attention_bwd_dkdv_cuda.route_launches[route] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkdv_cuda.launches = 0
+flash_attention_bwd_dkdv_cuda.route_launches = {"wgmma": 0, "simt": 0}
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=None, scale=None,

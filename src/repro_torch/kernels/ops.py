@@ -173,5 +173,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for by in (flash_attention_mod.flash_attention_cuda.route_launches,
                flash_attention_mod.flash_attention_train_cuda.route_launches,
+               flash_attention_mod.flash_attention_bwd_dq_cuda.route_launches,
+               flash_attention_mod.flash_attention_bwd_dkdv_cuda.route_launches,
                threefry.threefry_uniform_cuda.dtype_launches):
         by.update({name: 0 for name in by})

@@ -18,9 +18,19 @@ magnitude in the reference):
     in f32: 1e-5 of the scale;
   * the Function on the CPU: its gradient is the plain backward's, bit for
     bit (the same calls);
+  * the wgmma route's arithmetic emulated on the CPU (P and dS split into
+    three bf16 parts, each part's product bf16 x bf16 in f32, the parts'
+    products added in f32) against the plain backward: 2 bf16 ulps of the
+    scale, the bound the kernels are held to on the card;
+  * the share of each bf16 gradient's nonzero elements that differ from
+    the plain backward's (``differ_share``): at most ``BWD_DIFFER_SHARE``
+    (0.2) for the split emulation and the kernels, and above it for the
+    control, P and dS rounded to bf16 once (``round_p_ds``, SDPA's
+    function), which 2 ulps of the scale cannot tell from the split;
   * on the card (``cuda``): the kernels against the plain backward on the
     same O and lse, bf16 within 2 bf16 ulps of the scale (both sum in f32
-    and round once), f32 within 1e-5 of the scale; the training forward's O
+    and round once) and within the differ share, with the control beyond
+    it, f32 within 1e-5 of the scale; the training forward's O
     rounded to bf16 is the inference kernel's output bit for bit.
 
 The JAX reference is imported inside a fixture; whether a card is present is
@@ -28,6 +38,7 @@ decided inside a fixture too.
 """
 
 import math
+import threading
 import types
 
 import numpy as np
@@ -206,6 +217,112 @@ def test_without_grad_attention_is_the_inference_call():
     assert torch.equal(out, tfa.flash_attention_plain(q, k, v, causal=True))
 
 
+def test_flash_bwd_route():
+    """bf16 at head_dim 64 and 128 on the wgmma backward; f32 everywhere and
+    bf16 at 16, 32 and 256 on the SIMT one (the forward keeps 256 on wgmma)."""
+    for dh in tfa.HEAD_DIMS:
+        assert tfa.flash_bwd_route(torch.float32, dh) == "simt"
+        want = "wgmma" if dh in (64, 128) else "simt"
+        assert tfa.flash_bwd_route(torch.bfloat16, dh) == want
+    assert tfa.flash_route(torch.bfloat16, 256) == "wgmma"
+    assert tfa.flash_bwd_route(torch.bfloat16, 256) == "simt"
+
+
+def _emulated_wgmma_grads(q, k, v, o, lse, do, *, causal, window, q_offset=0, k_offset=0):
+    """The wgmma backward's arithmetic on the CPU, head by head: S and dP
+    products of bf16 inputs in f32, p = exp(s - lse) on the visible keys, dS
+    = p (dP - D) with D = rowsum(dO O); then each of dV, dQ and dK as the sum
+    of three products, one per bf16 part of P or dS (``split_bf16x3``), each
+    bf16 x bf16 in f32; dk and dv summed over the kv head's query heads in
+    f32, each gradient rounded to bf16 once."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    s = dh**-0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    qpos = q_offset + torch.arange(sq)[:, None]
+    kpos = k_offset + torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    dq = torch.zeros(q.shape)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for hh in range(h):
+        g = hh // (h // kv)
+        logits = qf[:, :, hh] @ kf[:, :, g].transpose(1, 2) * s
+        p = torch.where(mask, torch.exp(logits - lse[:, hh, :, None]), 0.0)
+        dp = dof[:, :, hh] @ vf[:, :, g].transpose(1, 2)
+        ds = p * (dp - (dof[:, :, hh] * o[:, :, hh]).sum(-1)[..., None])
+        for part in tfa.split_bf16x3(ds):
+            dq[:, :, hh] += part.float() @ kf[:, :, g]
+            dk[:, :, g] += part.float().transpose(1, 2) @ qf[:, :, hh]
+        for part in tfa.split_bf16x3(p):
+            dv[:, :, g] += part.float().transpose(1, 2) @ dof[:, :, hh]
+    return (dq * s).to(q.dtype), (dk * s).to(k.dtype), dv.to(v.dtype)
+
+
+# (b, sq, sk, h, kv, dh, causal, window, q_offset, k_offset): FIXTURES' shapes
+# and masks on whole sequences, and rows with no visible key (lse = +inf)
+EMULATED = {
+    **{name: (*spec[:8], 0, 0) for name, spec in FIXTURES.items()},
+    "rows_with_no_key_causal": (1, 48, 40, 4, 2, 16, True, None, 0, 12),
+    "rows_with_no_key_window": (2, 64, 16, 4, 2, 32, False, 8, 8, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_split_products_emulation_matches_plain_backward(name):
+    """dV, dQ and dK formed as the wgmma kernels form them (three bf16
+    parts of P or dS, each part's product exact in f32) are the plain
+    backward's within the card's bound; rows with no visible key get 0."""
+    b, sq, sk, h, kv, dh, causal, window, q_off, k_off = EMULATED[name]
+    q, k, v, do = _inputs(b, sq, sk, h, kv, dh, torch.bfloat16, seed=len(name) + 100)
+    kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
+    o, lse = tfa.flash_attention_train_plain(q, k, v, **kw)
+    got = _emulated_wgmma_grads(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    _check(got, want, torch.bfloat16, ulps=CARD_BF16_ULPS)
+    no_key = ~torch.isfinite(lse)  # (b, h, sq)
+    assert bool(no_key.any()) == name.startswith("rows_with_no_key")
+    assert bool((got[0].permute(0, 2, 1, 3)[no_key] == 0).all())
+
+
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_differ_share_tells_the_split_from_one_rounding(name):
+    """The split products round like the plain backward but for a few
+    elements; P and dS rounded to bf16 once (SDPA's function, the control)
+    change the rounding of many more: the share bound passes the one and
+    rejects the other, at every gradient."""
+    b, sq, sk, h, kv, dh, causal, window, q_off, k_off = EMULATED[name]
+    q, k, v, do = _inputs(b, sq, sk, h, kv, dh, torch.bfloat16, seed=len(name) + 100)
+    kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
+    o, lse = tfa.flash_attention_train_plain(q, k, v, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    split = _emulated_wgmma_grads(q, k, v, o, lse, do, **kw)
+    control = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, round_p_ds=True, **kw)
+    for gname, g, c, w in zip(("dq", "dk", "dv"), split, control, want):
+        assert tfa.differ_share(g, w) <= tfa.BWD_DIFFER_SHARE, (gname, tfa.differ_share(g, w))
+        assert tfa.differ_share(c, w) > tfa.BWD_DIFFER_SHARE, (gname, tfa.differ_share(c, w))
+
+
+def test_differ_share_counts_nonzero_elements():
+    want = torch.tensor([0.0, 0.0, 1.0, 2.0, 3.0, 4.0])
+    got = torch.tensor([0.0, 0.5, 1.0, 2.0, 3.0, 4.5])
+    assert tfa.differ_share(got, want) == pytest.approx(2 / 5)
+    assert tfa.differ_share(torch.zeros(3), torch.zeros(3)) == 0.0
+
+
+def test_split_bf16x3_is_exact_for_gradients():
+    """dS takes both signs and spans many binades: its three bf16 parts add
+    back to it exactly in f32 where |dS| >= 2**-110 (split_bf16x3)."""
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.standard_normal(4096).astype(np.float32)
+                        * np.exp2(rng.integers(-100, 20, 4096)).astype(np.float32))
+    p1, p2, p3 = tfa.split_bf16x3(x)
+    assert torch.equal((p1.float() + p2.float()) + p3.float(), x)
+
+
 def test_train_plain_lse_is_the_log_sum_exp_and_inf_where_nothing_is_visible():
     q, k, v, _ = _inputs(1, 20, 16, 2, 1, 16, torch.float32, seed=11)
     o, lse = tfa.flash_attention_train_plain(q, k, v, causal=True, k_offset=4)
@@ -233,6 +350,13 @@ CARD_FIXTURES = {
     "f32_dh64_causal": (2, 200, 200, 8, 2, 64, True, None, 0, 0, torch.float32),
     "f32_dh256_window": (1, 160, 160, 2, 1, 256, True, 50, 0, 0, torch.float32),
     "f32_dh128_offsets": (1, 100, 150, 4, 2, 128, False, 40, 30, 0, torch.float32),
+    # the wgmma backward: Sq != Sk without causality, a window, C4's offsets,
+    # Sq not a multiple of the 128-query (dq) or 64-query (dk/dv) tile, and
+    # B H Sq rows of lse whose heads start off 16-byte alignment (Sq odd)
+    "bf16_dh64_noncausal_cross": (2, 200, 333, 8, 2, 64, False, None, 0, 0, torch.bfloat16),
+    "bf16_dh64_window_kv4": (1, 301, 301, 8, 4, 64, True, 77, 0, 0, torch.bfloat16),
+    "bf16_dh128_offsets": (1, 100, 150, 4, 2, 128, False, 40, 30, 0, torch.bfloat16),
+    "bf16_dh128_sq_not_tile": (2, 190, 190, 4, 1, 128, True, None, 0, 0, torch.bfloat16),
 }
 
 
@@ -248,12 +372,21 @@ def test_backward_kernels_match_plain_backward_on_card(cuda, name):
     assert torch.equal(torch.isfinite(lse), finite)
     torch.testing.assert_close(lse[finite], lse_plain[finite], rtol=1e-5, atol=1e-5)
     assert _rel_of_scale(o, o_plain) <= 1e-5
+    tops.reset_launch_counts()
     got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     _check(got, want, dtype, ulps=CARD_BF16_ULPS)
+    if dtype == torch.bfloat16:
+        control = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, round_p_ds=True, **kw)
+        for gname, g, c, w in zip(("dq", "dk", "dv"), got, control, want):
+            assert tfa.differ_share(g, w) <= tfa.BWD_DIFFER_SHARE, (gname, tfa.differ_share(g, w))
+            assert tfa.differ_share(c, w) > tfa.BWD_DIFFER_SHARE, (gname, tfa.differ_share(c, w))
     again = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    route = tfa.flash_bwd_route(dtype, dh)
+    for fn in (tfa.flash_attention_bwd_dq_cuda, tfa.flash_attention_bwd_dkdv_cuda):
+        assert fn.route_launches == {"wgmma": 0, "simt": 0, route: 2}
 
 
 @pytest.mark.cuda
@@ -267,6 +400,25 @@ def test_training_forward_rounds_to_the_inference_output(cuda, dtype, dh):
 
 
 @pytest.mark.cuda
+def test_wgmma_kernels_launch_from_a_fresh_thread(cuda):
+    """The tensor maps' encoding reads the thread's current context: a
+    thread that has made no CUDA runtime call (an autograd worker; here a
+    plain thread, its tensors from PyTorch's cache) launches the wgmma
+    forward and backward as the main thread does, to the same bits."""
+    q, k, v, do = (t.to(cuda) for t in _inputs(1, 200, 200, 8, 2, 64, torch.bfloat16, seed=3))
+    o, lse = tfa.flash_attention_train_cuda(q, k, v, causal=True)
+    want = (o, *tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True))
+    got = []
+    worker = threading.Thread(target=lambda: got.extend(
+        (tfa.flash_attention_train_cuda(q, k, v, causal=True)[0],
+         *tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True))))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_function_on_card_launches_training_forward_and_backward(cuda):
     q, k, v, do = (t.to(cuda) for t in _inputs(2, 256, 256, 8, 2, 64, torch.bfloat16, seed=1))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -277,6 +429,8 @@ def test_function_on_card_launches_training_forward_and_backward(cuda):
     assert counts["flash_attention"] == 0 and counts["flash_attention_train"] == 1
     assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkdv"] == 1
     assert tfa.flash_attention_train_cuda.route_launches == {"wgmma": 1, "simt": 0}
+    assert tfa.flash_attention_bwd_dq_cuda.route_launches == {"wgmma": 1, "simt": 0}
+    assert tfa.flash_attention_bwd_dkdv_cuda.route_launches == {"wgmma": 1, "simt": 0}
     o, lse = tfa.flash_attention_train_plain(q, k, v, causal=True)
     _check(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), torch.bfloat16,
            ulps=CARD_BF16_ULPS)
