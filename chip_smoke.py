@@ -98,13 +98,13 @@ raises, and the script exits non-zero without the final line.
              wall time (SYRK's ms per TopK round beside it); the host's ms per
              round for the key split, the clients' keys and draws, and their
              upload
-  train      LM training (ROADMAP A14 item 2), granite-3-2b: (a) the
+  train      LM training, granite-3-2b and recurrentgemma-2b: (a) the
              forward's training instantiation and the two backward kernels
              (flash_attention_bwd.cu) against their plain versions at every
-             route's fixtures (forward: bf16 wgmma at head_dim 64/128/256;
-             backward: bf16 wgmma at 64/128, SIMT at 16/32/256; f32 SIMT;
-             GQA, windows, Sq != Sk, Sq off the tiles, rows with no visible
-             key, C4's offsets), each fixture's backward route reported and
+             route's fixtures (forward and backward: bf16 wgmma at head_dim
+             64/128/256, SIMT at 16/32; f32 SIMT; GQA, windows, Sq != Sk,
+             Sq off the tiles, rows with no visible key, C4's offsets, at
+             head_dim 256 Kv 1 and 2), each fixture's backward route reported and
              its launches counted: O rounded equal to the inference output
              bit for bit, dq, dk, dv within BWD_CARD_ULPS bf16 ulps (f32:
              BWD_F32_RTOL) of scale and, bf16, rounded otherwise than the
@@ -112,22 +112,28 @@ raises, and the script exits non-zero without the final line.
              elements, while the control (P and dS rounded to bf16 once,
              SDPA's function) must exceed that share; two runs the same
              bits; ptxas's
-             registers and spills of the wgmma backward's instantiations;
-             then at the training layer (B 2, S 4,096, H 32, Kv 8, dh 64,
-             causal), timed beside the plain versions and SDPA's forward and
-             backward, with the bounds on the tensor cores and the CUDA
-             cores and the two kernels' 13-product floor; (b) full width
-             at 2 layers, B 1, S 512: the loss and every leaf's gradient on
-             the card against the CPU (1e-3, 2e-2 relative L2), and a train
-             step run twice from one state, bit for bit; (c) full width and
-             depth: 6 steps of make_train_step (accum 2, B 4, S 4,096, remat
-             "full", AdamW lr 1e-3) with exactly 160 training-forward launches
-             and 80 of each backward kernel a step, all on the wgmma route,
-             and nothing else,
-             the loss falling, ms per step, tokens/s, peak memory, the last
-             step profiled by kind of kernel, AdamW's update timed alone; (d)
-             the training launcher, --reduced --steps 30: the loss falls by
-             more than 0.5
+             registers and spills of the wgmma backward's instantiations (0
+             spills, no wgmma warning); then at granite-3-2b's training layer
+             (B 2, S 4,096, H 32, Kv 8, dh 64, causal) and recurrentgemma-2b's
+             (H 10, Kv 1, dh 256, causal window 2048; the dkdv kernel's
+             cluster split and waves), each held as the fixtures and timed
+             beside the plain versions and SDPA's forward and backward (the
+             window as a boolean mask, the kv heads repeated), with the
+             bounds on the tensor cores and the CUDA cores, the 13-product
+             floor and the products the kernels run; (b) full width at 2
+             layers (recurrentgemma-2b: 3, one of them attention), B 1, S
+             512: the loss and every leaf's gradient on the card against the
+             CPU (1e-3, 2e-2 relative L2), the backward launched once an
+             attention layer on the wgmma route, and a train step run twice
+             from one state, bit for bit; (c) full width and depth: 6 steps
+             of make_train_step (accum 2, B 4, S 4,096, remat "full", AdamW
+             lr 1e-3) with exactly 160 (recurrentgemma-2b: 32)
+             training-forward launches and 80 (16) of each backward kernel a
+             step, all on the wgmma route, and nothing else, the loss
+             falling, ms per step, tokens/s, peak memory, the last step
+             profiled by kind of kernel (the flash backward's share),
+             AdamW's update timed alone; (d) the training launcher,
+             --reduced --steps 30: the loss falls by more than 0.5
   8 sweep   solve_many of the README's grid at w8a's full shape: 4 seeds x
              {topk, randseqk, natural}, 50 rounds, planned as one batched
              group of 12 specs; the launch counts set to 0 before it and read
@@ -1234,12 +1240,16 @@ def zoo_family(arch: str, dev, ops) -> dict:
     return {"routes": routes, "launches": launches, "seconds": seconds}
 
 
-# phase train: LM training at granite-3-2b's full width (ROADMAP A14 item 2)
+# phase train: LM training at granite-3-2b's and recurrentgemma-2b's full width
 TRAIN_LAYER = (2, 4096, 32, 8, 64)  # a microbatch of train_4k at granite's layer: B, S, H, Kv, dh
+RG_TRAIN_LAYER = (2, 4096, 10, 1, 256)  # ... at recurrentgemma-2b's attention layer
+RG_WINDOW = 2048  # recurrentgemma-2b's local window (causal)
 TRAIN_SEQ = 4096  # launch/specs.py train_4k's sequence
 # train_4k's global batch of 256 cut to 4, in 2 microbatches of 2; 6 steps
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4, 2, 6
-TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ = 2, 512  # the card-vs-CPU depth cut, B 1
+# the card-vs-CPU depth cut, B 1: granite 2 layers; recurrentgemma 3, since
+# its (rglru, rglru, attn) pattern puts no attention layer in the first 2
+TRAIN_CUT_LAYERS, RG_CUT_LAYERS, TRAIN_CUT_SEQ = 2, 3, 512
 BWD_CARD_ULPS = 2  # backward kernels against the plain backward, bf16: ulps of each gradient's scale
 BWD_F32_RTOL = 1e-5  # ... f32: of each gradient's scale
 # card against CPU at the depth cut: the CPU tests' per-family bounds against the
@@ -1263,6 +1273,13 @@ BWD_FIXTURES = {  # name: (b, sq, sk, h, kv, dh, causal, window, q_offset, k_off
     "bf16_dh64_noncausal_cross": (2, 400, 700, 16, 4, 64, False, None, 0, 0, "bf16"),
     "bf16_dh64_kv8_window": (1, 900, 900, 32, 8, 64, True, 256, 0, 0, "bf16"),
     "bf16_dh128_sq_not_tile": (2, 333, 333, 8, 2, 128, True, None, 0, 0, "bf16"),
+    # ... at head_dim 256 (64-query dq blocks, each key tile's (query head,
+    # query tile) pairs split over a dkdv cluster): Sq != Sk without causality at Kv 2, Sq off the
+    # tiles under a window at Kv 1, C4's offsets, rows with no visible key
+    "bf16_dh256_noncausal_cross_kv2": (2, 400, 700, 10, 2, 256, False, None, 0, 0, "bf16"),
+    "bf16_dh256_sq_not_tile_kv1": (2, 333, 333, 10, 1, 256, True, 128, 0, 0, "bf16"),
+    "bf16_dh256_c4_offsets": (1, 512, 811, 10, 2, 256, False, 300, 1024, 725, "bf16"),
+    "bf16_dh256_rows_with_no_key": (1, 300, 300, 8, 2, 256, True, None, 0, 40, "bf16"),
 }
 
 
@@ -1344,70 +1361,62 @@ def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
     return row
 
 
-def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
-    """The backward kernels against the plain backward at every route's
-    fixtures, then at granite-3-2b's training layer (TRAIN_LAYER, causal):
-    held as the fixtures and timed (CUDA-event medians of FLASH_TIMED_REPS
-    pairs around one call) beside the training and inference forwards, the
-    plain versions and SDPA's forward and backward, with the bounds; and
-    ptxas's registers and spills of the wgmma instantiations (from
-    ``bwd_report``, nvcc's output for flash_attention_bwd.cu in this run)."""
+def bwd_layer(dev, tfa, label: str, layer: tuple, window, seed: int) -> dict:
+    """The backward kernels at one training layer (B, S, H, Kv, dh; causal,
+    ``window``): held as the fixtures, then timed (CUDA-event medians of
+    FLASH_TIMED_REPS pairs around one call) beside the training and
+    inference forwards, the plain versions and SDPA's forward and backward
+    (with a window: the window as a boolean (S, S) mask and the kv heads
+    repeated), with the bounds."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    from repro_torch.kernels import build
-
-    report = {}
-    for seed, (name, spec) in enumerate(BWD_FIXTURES.items()):
-        b, sq, sk, h, kv, dh, causal, window, q_off, k_off, dt = spec
-        q, k, v = flash_inputs(dev, b, sq, sk, h, kv, dh, dtypes[dt], 400 + seed)
-        do = flash_inputs(dev, b, sq, sk, h, kv, dh, dtypes[dt], 500 + seed)[0]
-        kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
-        report[name] = bwd_against_plain(tfa, q, k, v, do, kw, name)
-        del q, k, v, do
-    ptxas = ({fn: lines for fn, lines in build.ptxas_entries(bwd_report).items()
-              if "flash_bwd" in fn and "wgmma" in fn} if bwd_report is not None
-             else "not measured (library built before this run)")
-    emit({"phase": "train", "part": "a_flash_bwd_fixtures", "fixtures": report,
-          "tol": {"bf16_ulps_of_scale": BWD_CARD_ULPS, "f32_rel_of_scale": BWD_F32_RTOL,
-                  "bf16_differ_share": tfa.BWD_DIFFER_SHARE},
-          "routes": {name: row["backward_route"] for name, row in report.items()},
-          "ptxas_wgmma": ptxas})
-
-    b, s, h, kv, dh = TRAIN_LAYER
-    q, k, v = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, 700)
-    do = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, 701)[0]
-    layer = bwd_against_plain(tfa, q, k, v, do, {"causal": True}, "granite_training_layer")
-    o, lse = tfa.flash_attention_train_cuda(q, k, v, causal=True)
-    _, dsum = tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal=True)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    b, s, h, kv, dh = layer
+    q, k, v = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, seed)
+    do = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, seed + 1)[0]
+    kw = {"causal": True, "window": window}
+    checked = bwd_against_plain(tfa, q, k, v, do, kw, label)
+    o, lse = tfa.flash_attention_train_cuda(q, k, v, **kw)
+    _, dsum = tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    if window is None:
+        kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (k, v))
+        sdpa_kw = {"is_causal": True, "enable_gqa": True}
+        call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) in bf16"
+    else:
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(h // kv, dim=1).detach().requires_grad_()
+                  for t in (k, v))
+        sdpa_kw = {"attn_mask": band}
+        call = (f"F.scaled_dot_product_attention(attn_mask=boolean (S, S) causal window "
+                f"{window}) in bf16, the kv heads repeated")
     dot = do.transpose(1, 2)
     fns = {
-        "train_forward": lambda: tfa.flash_attention_train_cuda(q, k, v, causal=True),
-        "inference_forward": lambda: tfa.flash_attention_cuda(q, k, v, causal=True),
-        "bwd_dq": lambda: tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal=True),
-        "bwd_dkdv": lambda: tfa.flash_attention_bwd_dkdv_cuda(q, k, v, lse, do, dsum, causal=True),
-        "plain_train_forward": lambda: tfa.flash_attention_train_plain(q, k, v, causal=True),
-        "plain_backward": lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+        "train_forward": lambda: tfa.flash_attention_train_cuda(q, k, v, **kw),
+        "inference_forward": lambda: tfa.flash_attention_cuda(q, k, v, **kw),
+        "bwd_dq": lambda: tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, **kw),
+        "bwd_dkdv": lambda: tfa.flash_attention_bwd_dkdv_cuda(q, k, v, lse, do, dsum, **kw),
+        "plain_train_forward": lambda: tfa.flash_attention_train_plain(q, k, v, **kw),
+        "plain_backward": lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
     }
-    library = {"backends": "flash, memory-efficient", "call": "F.scaled_dot_product_attention("
-               "is_causal=True, enable_gqa=True) in bf16; rounds p to bf16: another function"}
+    library = {"backends": "flash, memory-efficient",
+               "call": f"{call}; rounds p to bf16: another function"}
     try:  # the yardstick only: the port never calls SDPA
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-            out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            out_t = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
             torch.autograd.grad(out_t, (qt, kt, vt), dot, retain_graph=True)
             torch.cuda.synchronize()
         fns["sdpa_forward"] = lambda: F.scaled_dot_product_attention(
-            qt.detach(), kt.detach(), vt.detach(), is_causal=True, enable_gqa=True)
+            qt.detach(), kt.detach(), vt.detach(), **sdpa_kw)
         fns["sdpa_backward"] = lambda: torch.autograd.grad(out_t, (qt, kt, vt), dot,
                                                            retain_graph=True)
     except RuntimeError as err:
         library["not_given"] = str(err).splitlines()[0][:300]
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
         ms = median_ms(fns, reps=FLASH_TIMED_REPS, calls=1)
-    pairs = tfa.visible_pairs(s, s, True, None) * h * b
+    pairs = tfa.visible_pairs(s, s, True, window) * h * b
     prod = 2 * dh * pairs  # the FLOP of one head_dim product over the visible pairs
     el, n_q, n_kv, n_row = q.element_size(), q.numel(), k.numel(), lse.numel()
     dq_bytes = (3 * n_q + 2 * n_kv) * el + 4 * (n_q + 2 * n_row)  # q k v do dq; o lse D
@@ -1426,34 +1435,93 @@ def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
                   "backward": 5 * prod / CUDA_CORE_32BIT_OPS * 1e3}
     route = tfa.flash_bwd_route(q.dtype, dh)
     # the products each kernel of the route runs over the visible pairs: on
-    # the tensor cores S, dP and three a split product (dq: dQ; dkdv: dV, dK);
-    # on the CUDA cores S, dP and one f32 product each
-    do_products = ({"bwd_dq": 5, "bwd_dkdv": 8} if route == "wgmma" else
-                   {"bwd_dq": 3, "bwd_dkdv": 4})
+    # the tensor cores S, dP and three a split product (dq: dQ; dkdv: dV,
+    # dK), and at head_dim 256 S and dP twice in dq (both consumers) and S
+    # twice in dkdv (the role split); on the CUDA cores S, dP and one f32
+    # product each
+    if route == "wgmma":
+        do_products = {"bwd_dq": 7, "bwd_dkdv": 9} if dh == 256 else {"bwd_dq": 5, "bwd_dkdv": 8}
+    else:
+        do_products = {"bwd_dq": 3, "bwd_dkdv": 4}
+    exps = 4 if route == "wgmma" and dh == 256 else 2  # p computed per pair, both kernels
     floors = {  # the route's own floor: its products at the rate of their pipe
         "two_kernel_products_ms": 13 * prod / BF16_TENSOR_FLOPS * 1e3,
-        "exp_mufu_ms": 2 * pairs / MUFU_EXP_PER_S * 1e3,  # each kernel's p, on 537 M pairs
+        "design_products_ms": sum(do_products.values()) * prod
+        / (BF16_TENSOR_FLOPS if route == "wgmma" else CUDA_CORE_32BIT_OPS) * 1e3,
+        "exp_mufu_ms": exps * pairs / MUFU_EXP_PER_S * 1e3,
     }
-    out = {"check": layer, "ms": ms, "visible_pairs": pairs, "bound": bounds,
+    grid = tfa.flash_bwd_dkdv_grid(b, s, kv) if route == "wgmma" and dh == 256 else None
+    out = {"check": checked, "ms": ms, "visible_pairs": pairs, "bound": bounds,
            "bound_cuda_cores_ms": cuda_cores, "library": library, "backward_route": route,
-           "kernels_do_products": do_products, "floors": floors}
-    emit({"phase": "train", "part": "a_flash_bwd_granite_layer",
-          "shape": list(TRAIN_LAYER), "causal": True, "dtype": "bfloat16", **out,
+           "kernels_do_products": do_products, "floors": floors, "dkdv_grid": grid}
+    emit({"phase": "train", "part": f"a_flash_bwd_{label}", "shape": list(layer), "causal": True,
+          "window": window, "dtype": "bfloat16", **out,
           "note": "ms per call: CUDA-event medians, the functions in turns; bound: the bf16 "
                   "products of each function on the tensor cores (P and dS in three bf16 "
                   "parts) at 989 TFLOP/s, or its bytes; bound_cuda_cores_ms: the f32 FMA "
                   "products of the function at 67 TFLOP/s; floors: the 13 bf16 products of "
-                  "the two kernels (each recomputes S and dP), and their 2 x pairs "
-                  "exponentials on the MUFU pipe"})
+                  "two kernels that each recompute S and dP, the products the route's "
+                  "kernels run (kernels_do_products), and their exponentials on the MUFU "
+                  "pipe"})
     del q, k, v, do, o, lse, dsum, qt, kt, vt, dot, fns
-    out.pop("check")
-    return {"fixtures": report, "layer": layer, "ptxas_wgmma": ptxas, **out}
+    torch.cuda.empty_cache()
+    out["layer"] = out.pop("check")
+    return out
 
 
-def train_depth_cut(dev) -> dict:
-    """granite-3-2b at full width, TRAIN_CUT_LAYERS layers, B 1, S
-    TRAIN_CUT_SEQ: the loss and every leaf's gradient on the card against
-    the CPU from the same params and batch, and one train step run twice
+def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
+    """The backward kernels against the plain backward at every route's
+    fixtures, then at granite-3-2b's training layer (TRAIN_LAYER, causal)
+    and recurrentgemma-2b's (RG_TRAIN_LAYER, causal window RG_WINDOW), each
+    held as the fixtures and timed (bwd_layer); and ptxas's registers and
+    spills of the wgmma instantiations (from ``bwd_report``, nvcc's output
+    for flash_attention_bwd.cu in this run): no spill and no wgmma
+    warning."""
+    import torch
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    from repro_torch.kernels import build
+
+    report = {}
+    for seed, (name, spec) in enumerate(BWD_FIXTURES.items()):
+        b, sq, sk, h, kv, dh, causal, window, q_off, k_off, dt = spec
+        q, k, v = flash_inputs(dev, b, sq, sk, h, kv, dh, dtypes[dt], 400 + seed)
+        do = flash_inputs(dev, b, sq, sk, h, kv, dh, dtypes[dt], 500 + seed)[0]
+        kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
+        report[name] = bwd_against_plain(tfa, q, k, v, do, kw, name)
+        del q, k, v, do
+    ptxas = ({fn: lines for fn, lines in build.ptxas_entries(bwd_report).items()
+              if "flash_bwd" in fn and "wgmma" in fn} if bwd_report is not None
+             else "not measured (library built before this run)")
+    if bwd_report is not None:
+        check(sum("ILi256E" in fn for fn in ptxas) == 2,
+              f"ptxas: not two head_dim-256 wgmma backward instantiations: {sorted(ptxas)}")
+        for fn, lines in ptxas.items():
+            check(any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in lines)
+                  and not any("warning" in ln for ln in lines), f"ptxas {fn}: {lines}")
+    emit({"phase": "train", "part": "a_flash_bwd_fixtures", "fixtures": report,
+          "tol": {"bf16_ulps_of_scale": BWD_CARD_ULPS, "f32_rel_of_scale": BWD_F32_RTOL,
+                  "bf16_differ_share": tfa.BWD_DIFFER_SHARE},
+          "routes": {name: row["backward_route"] for name, row in report.items()},
+          "ptxas_wgmma": ptxas})
+    granite = bwd_layer(dev, tfa, "granite_training_layer", TRAIN_LAYER, None, 700)
+    rg = bwd_layer(dev, tfa, "recurrentgemma_training_layer", RG_TRAIN_LAYER, RG_WINDOW, 710)
+    return {"fixtures": report, "ptxas_wgmma": ptxas, **granite, "rg": rg}
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers of a decoder config (a hybrid's pattern's
+    "attn" layers; every layer of the others)."""
+    from repro_torch.models.lm import layer_types
+
+    return int((layer_types(cfg) == 0).sum())
+
+
+def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
+    """``arch`` at full width, ``n_layers`` layers, B 1, S TRAIN_CUT_SEQ: the
+    loss and every leaf's gradient on the card against the CPU from the
+    same params and batch (the card's backward launched once an attention
+    layer, each kernel on the wgmma route), and one train step run twice
     from one state on the card, bit for bit."""
     import torch
 
@@ -1463,29 +1531,39 @@ def train_depth_cut(dev) -> dict:
     from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
     from repro_torch.train.step import batch_to, loss_for, value_and_grad
 
-    cut = dataclasses.replace(get_config("granite-3-2b"), n_layers=TRAIN_CUT_LAYERS, accum_steps=1)
+    cut = dataclasses.replace(get_config(arch), n_layers=n_layers, accum_steps=1)
+    n_attn = attention_layers(cut)
+    check(n_attn > 0, f"train depth cut {arch}: {n_layers} layers hold no attention layer")
     p_cpu = init_lm_params(0, cut, "cpu")
     p_card = tree_to(p_cpu, dev)
     batch = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0)
+    fwd = ops.flash_attention_mod
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     loss_card, g_card = value_and_grad(loss_for(cut), p_card, [batch_to(batch, dev)])
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
+    launched = {name: n for name, n in ops.launch_counts().items() if n}
+    bwd_routes = (dict(fwd.flash_attention_bwd_dq_cuda.route_launches),
+                  dict(fwd.flash_attention_bwd_dkdv_cuda.route_launches))
+    check(launched.get("flash_attention_bwd_dq") == launched.get("flash_attention_bwd_dkdv")
+          == n_attn and bwd_routes == ({"wgmma": n_attn, "simt": 0},) * 2,
+          f"train depth cut {arch}: launches {launched}, backward routes {bwd_routes}")
     t0 = time.perf_counter()
     loss_cpu, g_cpu = value_and_grad(loss_for(cut), p_cpu, [batch_to(batch, torch.device("cpu"))])
     cpu_s = time.perf_counter() - t0
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"train depth cut: loss {float(loss_card)} vs CPU "
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train depth cut {arch}: loss {float(loss_card)} vs CPU "
           f"{float(loss_cpu)}")
     rel = {}
     for (path, gc), gh in zip(_named(g_card), tree_leaves(g_cpu)):
-        check(bool(torch.isfinite(gc).all()), f"train depth cut: {path} not finite")
+        check(bool(torch.isfinite(gc).all()), f"train depth cut {arch}: {path} not finite")
         gc = gc.cpu().double()
         rel[path] = float(torch.linalg.norm(gc - gh.double()) / torch.linalg.norm(gh.double()))
-        check(rel[path] <= TRAIN_GRAD_REL_L2, f"train depth cut: {path} rel L2 {rel[path]}")
+        check(rel[path] <= TRAIN_GRAD_REL_L2, f"train depth cut {arch}: {path} rel L2 {rel[path]}")
     norm_card, norm_cpu = float(global_norm(g_card)), float(global_norm(g_cpu))
     check(abs(norm_card - norm_cpu) <= TRAIN_GRAD_REL_L2 * norm_cpu,
-          f"train depth cut: grad norm {norm_card} vs CPU {norm_cpu}")
+          f"train depth cut {arch}: grad norm {norm_card} vs CPU {norm_cpu}")
     del g_card, g_cpu, p_cpu
     step = make_train_step(cut, AdamWConfig(lr=1e-3))
     runs = []
@@ -1496,8 +1574,10 @@ def train_depth_cut(dev) -> dict:
     (l1, n1, a), (l2, n2, b_) = runs
     same = (torch.equal(l1, l2) and torch.equal(n1, n2)
             and all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b_))))
-    check(same, "train depth cut: two steps from one state differ on the card")
-    out = {"cut": f"n_layers {TRAIN_CUT_LAYERS} of 40; full width", "batch_seq": [1, TRAIN_CUT_SEQ],
+    check(same, f"train depth cut {arch}: two steps from one state differ on the card")
+    full_layers = get_config(arch).n_layers
+    out = {"arch": arch, "cut": f"n_layers {n_layers} of {full_layers}; full width",
+           "attention_layers": n_attn, "card_launches": launched, "batch_seq": [1, TRAIN_CUT_SEQ],
            "loss_card": float(loss_card), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
            "grad_norm_card": norm_card, "grad_norm_cpu": norm_cpu,
            "worst_leaf_rel_l2": max(rel.items(), key=lambda kv: kv[1]),
@@ -1537,11 +1617,14 @@ def _kernel_split(prof, n_steps: int) -> dict:
                              / 1e3, "calls_per_step": e.count / n_steps} for e in top]}
 
 
-def train_full(dev, ops) -> dict:
-    """granite-3-2b at full width and depth: TRAIN_STEPS steps of
-    make_train_step (accum TRAIN_ACCUM, remat "full", AdamW lr 1e-3) on
+def train_full(dev, ops, arch: str, steps: int) -> dict:
+    """``arch`` at full width and depth: ``steps`` steps of make_train_step
+    (accum TRAIN_ACCUM, remat "full", AdamW lr 1e-3) on
     synthetic_token_stream at B TRAIN_BATCH, S TRAIN_SEQ; the launch counts
-    set to 0 before each step and read after it; the last step profiled."""
+    set to 0 before each step and read after it (two training forwards an
+    attention layer and microbatch under remat "full", one of each backward
+    kernel, all on the wgmma route, and nothing else); the last step
+    profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1551,12 +1634,13 @@ def train_full(dev, ops) -> dict:
                                    synthetic_token_stream)
     from repro_torch.train.optimizer import tree_map
 
-    full = dataclasses.replace(get_config("granite-3-2b"), accum_steps=TRAIN_ACCUM)
-    check(full.remat_policy == "full", f"granite-3-2b's remat policy {full.remat_policy}")
+    full = dataclasses.replace(get_config(arch), accum_steps=TRAIN_ACCUM)
+    check(full.remat_policy == "full", f"{arch}'s remat policy {full.remat_policy}")
+    n_attn = attention_layers(full)
     no_launch = {name: 0 for name in ops.launch_counts()}
-    want = {**no_launch, "flash_attention_train": 2 * full.n_layers * TRAIN_ACCUM,
-            "flash_attention_bwd_dq": full.n_layers * TRAIN_ACCUM,
-            "flash_attention_bwd_dkdv": full.n_layers * TRAIN_ACCUM}
+    want = {**no_launch, "flash_attention_train": 2 * n_attn * TRAIN_ACCUM,
+            "flash_attention_bwd_dq": n_attn * TRAIN_ACCUM,
+            "flash_attention_bwd_dkdv": n_attn * TRAIN_ACCUM}
     fwd = ops.flash_attention_mod
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1568,13 +1652,13 @@ def train_full(dev, ops) -> dict:
     allocated_after_init = torch.cuda.memory_allocated()
     step = make_train_step(full, AdamWConfig(lr=1e-3))
     stream = synthetic_token_stream(full, TRAIN_BATCH, TRAIN_SEQ)
-    batches = [next(stream) for _ in range(TRAIN_STEPS)]  # set-up: numpy, before the clock
+    batches = [next(stream) for _ in range(steps)]  # set-up: numpy, before the clock
     losses, norms, wall, counts = [], [], [], []
     prof = None
     for i, batch in enumerate(batches):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
-        profiled = i == TRAIN_STEPS - 1
+        profiled = i == steps - 1
         with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof_i:
             t0 = time.perf_counter()
@@ -1586,20 +1670,21 @@ def train_full(dev, ops) -> dict:
         launched = ops.launch_counts()
         routes = (dict(fwd.flash_attention_train_cuda.route_launches),
                   dict(fwd.flash_attention_cuda.route_launches))
-        check(launched == want, f"train step {i}: launches {launched}, want {want}")
+        check(launched == want, f"{arch} train step {i}: launches {launched}, want {want}")
         check(routes == ({"wgmma": want["flash_attention_train"], "simt": 0},
-                         {"wgmma": 0, "simt": 0}), f"train step {i}: flash routes {routes}")
+                         {"wgmma": 0, "simt": 0}), f"{arch} train step {i}: flash routes {routes}")
         bwd_routes = (dict(fwd.flash_attention_bwd_dq_cuda.route_launches),
                       dict(fwd.flash_attention_bwd_dkdv_cuda.route_launches))
         check(bwd_routes == ({"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
                              {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}),
-              f"train step {i}: flash backward routes {bwd_routes}")
+              f"{arch} train step {i}: flash backward routes {bwd_routes}")
         counts.append(launched)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
-    check(all(math.isfinite(x) for x in losses + norms), f"train: losses {losses}, norms {norms}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{arch} train: losses {losses}, norms {norms}")
+    check(losses[-1] < losses[0], f"{arch} train: the loss did not fall: {losses}")
     timed = wall[1:-1]  # after the first step, before the profiled one
     ms = statistics.median(timed) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1613,13 +1698,15 @@ def train_full(dev, ops) -> dict:
     torch.cuda.synchronize()
     adamw_ms = start.elapsed_time(end)
     n_params = sum(t.numel() for t in _leaves(params))
-    out = {"arch": full.name, "n_layers": full.n_layers, "params": n_params,
+    device_ms = split["device_ms_total"]
+    out = {"arch": full.name, "n_layers": full.n_layers, "attention_layers": n_attn,
+           "params": n_params, "f32_params_grads_m_v_bytes": 4 * 4 * n_params,
            "batch_seq": [TRAIN_BATCH, TRAIN_SEQ], "accum_steps": TRAIN_ACCUM,
            "microbatch": TRAIN_BATCH // TRAIN_ACCUM, "remat_policy": full.remat_policy,
-           "cut": "train_4k's global batch of 256 cut to 4", "steps": TRAIN_STEPS, "lr": 1e-3,
+           "cut": "train_4k's global batch of 256 cut to 4", "steps": steps, "lr": 1e-3,
            "init_s": init_s, "losses": losses, "grad_norms": norms, "wall_s": wall,
            "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
-           "ms_per_step_note": f"median of steps 2..{TRAIN_STEPS - 1} (host clock, synchronised)",
+           "ms_per_step_note": f"median of steps 2..{steps - 1} (host clock, synchronised)",
            "launches_per_step": counts[0], "launches_total": {
                name: sum(c[name] for c in counts) for name in counts[0]},
            "flash_train_routes_per_step": {"wgmma": want["flash_attention_train"], "simt": 0},
@@ -1627,23 +1714,30 @@ def train_full(dev, ops) -> dict:
                "dq": {"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
                "dkdv": {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}},
            "max_memory_allocated": peak, "allocated_after_init": allocated_after_init,
-           "profiled_step": split, "adamw_update_ms": adamw_ms}
+           "profiled_step": split, "adamw_update_ms": adamw_ms,
+           "flash_backward_share_of_device_ms": split["device_ms_per_step"]["flash_backward"]
+           / device_ms if device_ms else None}
     emit({"phase": "train", "part": "c_full_width", **out})
     del params, opt, grads, batches, prof
     return out
 
 
 def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
-    """LM training (ROADMAP A14 item 2): (a) the backward kernels, (b) the
-    depth cut card against CPU, (c) full width and depth, (d) the launcher."""
+    """LM training: (a) the backward kernels, (b) the depth cut card against
+    CPU and (c) full width and depth, granite-3-2b and then
+    recurrentgemma-2b, (d) the launcher."""
     import torch
 
     from repro_torch.launch import train as train_launcher
 
     t_phase = time.perf_counter()
     bwd = flash_bwd_phase(dev, tfa, bwd_report)
-    cut = train_depth_cut(dev)
-    full = train_full(dev, ops)
+    cut = train_depth_cut(dev, ops, "granite-3-2b", TRAIN_CUT_LAYERS)
+    full = train_full(dev, ops, "granite-3-2b", TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    rg_cut = train_depth_cut(dev, ops, "recurrentgemma-2b", RG_CUT_LAYERS)
+    rg_full = train_full(dev, ops, "recurrentgemma-2b", TRAIN_STEPS)
+    torch.cuda.empty_cache()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         _, losses = train_launcher.main(["--arch", "granite-3-2b", "--reduced", "--steps", "30",
@@ -1656,7 +1750,8 @@ def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     emit({"phase": "train", "seconds": seconds})
-    return {"bwd": bwd, "cut": cut, "full": full, "seconds": seconds}
+    return {"bwd": bwd, "cut": cut, "full": full, "rg_cut": rg_cut, "rg_full": rg_full,
+            "seconds": seconds}
 
 
 def _reports_bitwise(got, want) -> bool:
@@ -3813,7 +3908,7 @@ def main() -> int:
     flash_routes = lm["flash_routes"]
     del lm
 
-    # --- train: LM training at granite-3-2b's full width --------------------
+    # --- train: LM training at granite-3-2b's and recurrentgemma-2b's full width
     train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"))
 
     # --- 8 sweeps: the README's grid as one batched group ------------------
@@ -3953,11 +4048,11 @@ def main() -> int:
              "flash_fwd_wgmma_kernel<64, *, true> (bf16, head_dim 64/128/256) and "
              "flash_fwd_kernel<*, *, *, true> (f32; bf16 at 16 and 32)", "o_f32_max_abs_err"),
             ("flash_attention_bwd_dq", "bwd_dq",
-             {"wgmma": "flash_bwd_dq_wgmma_kernel (bf16, head_dim 64/128)",
-              "simt": "flash_bwd_dq_kernel (f32; bf16 at 16, 32 and 256)"}, "dq_max_abs_err"),
+             {"wgmma": "flash_bwd_dq_wgmma_kernel (bf16, head_dim 64/128/256)",
+              "simt": "flash_bwd_dq_kernel (f32; bf16 at 16 and 32)"}, "dq_max_abs_err"),
             ("flash_attention_bwd_dkdv", "bwd_dkdv",
-             {"wgmma": "flash_bwd_dkdv_wgmma_kernel (bf16, head_dim 64/128)",
-              "simt": "flash_bwd_dkdv_kernel (f32; bf16 at 16, 32 and 256)"},
+             {"wgmma": "flash_bwd_dkdv_wgmma_kernel (bf16, head_dim 64/128/256)",
+              "simt": "flash_bwd_dkdv_kernel (f32; bf16 at 16 and 32)"},
              "dk_max_abs_err")):
         forward = name == "flash_attention_train"
         kernels.append({
@@ -3972,6 +4067,9 @@ def main() -> int:
             "kernels": kernel, "layer": "granite-3-2b training, B 2, S 4096, H 32, Kv 8, dh 64",
             "launches": train["full"]["launches_total"][name],
             "launches_per_step": train["full"]["launches_per_step"][name],
+            "launches_per_step_by_arch": {
+                cell["arch"]: cell["launches_per_step"][name]
+                for cell in (train["full"], train["rg_full"])},
             "max_abs_err": tl["layer"][err],
             "ms": tl["ms"][key],
             "plain_ms": tl["ms"]["plain_train_forward" if forward else "plain_backward"],
@@ -3980,6 +4078,39 @@ def main() -> int:
             **({} if forward else {"bound_cuda_cores_ms": tl["bound_cuda_cores_ms"][key],
                                    "layer_route": tl["backward_route"],
                                    "backward_pair": pair}),
+        })
+    rg = tl["rg"]  # recurrentgemma-2b's training layer (RG_TRAIN_LAYER), the train phase
+    rg_pair = {"ms": rg["ms"]["bwd_dq"] + rg["ms"]["bwd_dkdv"],
+               "bound_ms": rg["bound"]["backward"][0],
+               "bound_cuda_cores_ms": rg["bound_cuda_cores_ms"]["backward"],
+               "plain_ms": rg["ms"]["plain_backward"],
+               "sdpa_backward_ms": rg["ms"].get("sdpa_backward"),
+               "two_kernel_floor_ms": rg["floors"]["two_kernel_products_ms"],
+               "design_floor_ms": rg["floors"]["design_products_ms"]}
+    for name, key, kernel, err in (
+            ("flash_attention_bwd_dq", "bwd_dq", "flash_bwd_dq_wgmma_kernel<256> (64 queries a "
+             "block; both consumers compute S and dP, each sums half of dq's columns)",
+             "dq_max_abs_err"),
+            ("flash_attention_bwd_dkdv", "bwd_dkdv", "flash_bwd_dkdv_wgmma_kernel<256> (64 keys "
+             "a block; one consumer sums dv, the other dk; each key tile's (query head, query tile) "
+             "pairs split over a cluster of dkdv_split blocks, the partial sums added in rank "
+             "order)", "dk_max_abs_err")):
+        kernels.append({
+            "name": f"{name}_dh256", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:135 (XLA's derivative of chunked_attention "
+                        "at head_dim 256; not a Pallas kernel)",
+            "kernels": kernel,
+            "layer": "recurrentgemma-2b training, B 2, S 4096, H 10, Kv 1, dh 256, causal "
+                     "window 2048",
+            "launches": train["rg_full"]["launches_total"][name],
+            "launches_per_step": train["rg_full"]["launches_per_step"][name],
+            "max_abs_err": rg["layer"][err], "ms": rg["ms"][key],
+            "plain_ms": rg["ms"]["plain_backward"],
+            "bound_ms": rg["bound"][key][0], "bound_by": rg["bound"][key][1],
+            "library_ms": None, "bound_cuda_cores_ms": rg["bound_cuda_cores_ms"][key],
+            "layer_route": rg["backward_route"], "kernels_do_products": rg["kernels_do_products"],
+            "dkdv_grid": rg["dkdv_grid"], "backward_pair": rg_pair,
         })
     for name, launched, replaces in (
         ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
@@ -4013,7 +4144,8 @@ def main() -> int:
     for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
         entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
     for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
-        if entry["name"] not in ("flash_attention_dh256", "flash_attention_dh128"):
+        if entry["name"] not in ("flash_attention_dh256", "flash_attention_dh128",
+                                 "flash_attention_bwd_dq_dh256", "flash_attention_bwd_dkdv_dh256"):
             entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
                                      for arch, z in zoo.items()}
     for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it

@@ -52,17 +52,25 @@ JSON line per measurement, then the card's name and power limit.
                               group
              bwd_trunc        P and dS split by truncation (each part the
                               next 8 significant bits: also exact)
+             bwd_split<n>     head_dim 256: each key tile's (query head,
+                              query tile) pairs split over a cluster of n
+                              blocks, for n in SPLITS (1: no cluster; the
+                              source's rule takes 4 at recurrentgemma-2b's
+                              layer)
            (ptxas's registers and spills of each one's wgmma
-           instantiations), and at granite-3-2b's training layer (B 2, S
-           4,096, H 32, Kv 8, dh 64, causal, bf16) every backward pair
-           against the plain backward (bf16 ulps of each gradient's scale,
-           and the share of its nonzero elements rounded otherwise,
-           differ_share, within BWD_DIFFER_SHARE) and timed in turns
-           (baseline, kernel, the variants, then the same in reverse;
-           CUDA-event medians of BWD_REPS pairs around one call): the dq
-           kernel, the dkdv kernel and the pair.  This source's pairs are
-           its wgmma entry points; the baseline's is the wgmma pair if it
-           has one, else its SIMT pair (is_bf16 = 1)
+           instantiations, and each head_dim-256 dkdv launch's split,
+           blocks and clusters the card holds at once), and at each
+           training layer of BWD_LAYERS (granite-3-2b's: B 2, S 4,096, H 32,
+           Kv 8, dh 64, causal; recurrentgemma-2b's: H 10, Kv 1, dh 256,
+           causal window 2048; bf16) every backward pair against the plain
+           backward (bf16 ulps of each gradient's scale, and the share of
+           its nonzero elements rounded otherwise, differ_share, within
+           BWD_DIFFER_SHARE) and timed in turns (baseline, kernel, the
+           variants, then the same in reverse; CUDA-event medians of
+           BWD_REPS pairs around one call): the dq kernel, the dkdv kernel
+           and the pair.  This source's pairs are its wgmma entry points;
+           the baseline's is its wgmma pair at head_dim 64 and its SIMT
+           pair (is_bf16 = 1) at 256, the parent commit's route there
 
 Every source is compiled with src/repro_torch/kernels/csrc on the include
 path, for hopper.cuh.
@@ -84,7 +92,9 @@ OUT = ROOT / "build" / "flash_probe"
 REPS = 5
 BWD_REPS = 11
 SEQ = 32768
-TRAIN_LAYER = (2, 4096, 32, 8, 64)  # granite-3-2b's training layer: B, S, H, Kv, dh
+# the training layers: (B, S, H, Kv, dh), the causal window
+BWD_LAYERS = {"granite_training_layer": ((2, 4096, 32, 8, 64), None),
+              "recurrentgemma_training_layer": ((2, 4096, 10, 1, 256), 2048)}
 
 SPLIT_S_EXCHANGE = """// S = S0 + S1 from the two consumers' partial S over their halves of
 // head_dim: thread t of either consumer holds the same fragment positions;
@@ -172,12 +182,17 @@ __device__ __forceinline__ void split3_trunc(float x, float y, uint32_t& a1, uin
 
 constexpr int kSplitBatch ="""
 BATCH = "constexpr int kSplitBatch = 2;"
+SPLITS = (1, 2, 3, 5, 8)  # the head_dim-256 dkdv kernel's other cluster sizes timed
 BWD_VARIANTS = {  # name: [(text in flash_attention_bwd.cu, its replacement)]
     "bwd_four_groups": [(BATCH, "constexpr int kSplitBatch = 1;")],
     "bwd_one_group": [(BATCH, "constexpr int kSplitBatch = 4;")],
     "bwd_trunc": [("constexpr int kSplitBatch =", SPLIT3_TRUNC),
                   ("        split3(x[8 * c + 2 * j]", "        split3_trunc(x[8 * c + 2 * j]")],
+    **{f"bwd_split{n}": [("  while (n < kMaxSplit && blocks * n < kSplitWaves * sms) n *= 2;",
+                          f"  n = {n};")]
+       for n in SPLITS},
 }
+SPLIT_ONLY = tuple(f"bwd_split{n}" for n in SPLITS)  # the source's kernel below head_dim 256
 ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 )
@@ -299,13 +314,12 @@ def median_ms(fns: dict, reps: int = REPS) -> dict[str, float]:
             for name, pairs in events.items()}
 
 
-def backward_pair(lib: Path, dev):
+def backward_pair(lib: Path, wgmma: bool):
     """(dq, dkdv) callers of a backward library's bf16 entry points: the
-    wgmma pair where the library has it, else the SIMT pair."""
+    wgmma pair, or the SIMT pair."""
     import torch
 
     so = ctypes.CDLL(str(lib))
-    wgmma = hasattr(so, "flash_attention_bwd_dq_wgmma")
     fns = []
     for symbol in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
         fn = getattr(so, f"{symbol}_wgmma" if wgmma else symbol)
@@ -313,22 +327,22 @@ def backward_pair(lib: Path, dev):
         fn.restype = ctypes.c_int
         fns.append(fn)
 
-    def launch(fn, pointers, q, k):
+    def launch(fn, pointers, q, k, window):
         b, sq, h, dh = q.shape
         args = [t.data_ptr() for t in pointers] + [b, sq, k.shape[1], h, k.shape[2], dh]
         if not wgmma:
             args.append(1)
-        code = fn(*args, 1, 0, 0, dh**-0.5, torch.cuda.current_stream().cuda_stream)
+        code = fn(*args, 1, window or 0, 0, dh**-0.5, torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError(f"{lib.name}: cudaError {code}")
 
-    def dq(q, k, v, o, lse, do, dq_out, dsum):
-        launch(fns[0], (q, k, v, o, lse, do, dq_out, dsum), q, k)
+    def dq(q, k, v, o, lse, do, dq_out, dsum, window):
+        launch(fns[0], (q, k, v, o, lse, do, dq_out, dsum), q, k, window)
 
-    def dkdv(q, k, v, lse, do, dsum, dk, dv):
-        launch(fns[1], (q, k, v, lse, do, dsum, dk, dv), q, k)
+    def dkdv(q, k, v, lse, do, dsum, dk, dv, window):
+        launch(fns[1], (q, k, v, lse, do, dsum, dk, dv), q, k, window)
 
-    return ("wgmma" if wgmma else "simt"), dq, dkdv
+    return dq, dkdv
 
 
 def apply(name: str, text: str, subs, source: str) -> str:
@@ -341,9 +355,9 @@ def apply(name: str, text: str, subs, source: str) -> str:
 
 
 def bwd_against_baseline(kbuild, tfa, baseline_text: str) -> list[str]:
-    """The backward pairs at granite-3-2b's training layer (this source, its
-    BWD_VARIANTS and the baseline): checked against the plain backward and
-    timed in turns.  Returns the failed checks."""
+    """The backward pairs at each training layer of BWD_LAYERS (this source,
+    its BWD_VARIANTS and the baseline): checked against the plain backward
+    and timed in turns.  Returns the failed checks."""
     import torch
 
     text = (kbuild.CSRC / "flash_attention_bwd.cu").read_text()
@@ -353,49 +367,61 @@ def bwd_against_baseline(kbuild, tfa, baseline_text: str) -> list[str]:
                "bwd_baseline": baseline_text}
     libs = build(kbuild, sources)
     dev = torch.device("cuda")
-    b, s, h, kv, dh = TRAIN_LAYER
-    gen = torch.Generator(device=dev).manual_seed(700)
-    q, do = (torch.randn((b, s, h, dh), generator=gen, device=dev).to(torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn((b, s, kv, dh), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    o, lse = tfa.flash_attention_train_cuda(q, k, v, causal=True)
-    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
-    dq_out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    names = ["baseline", "kernel", *(n.removeprefix("bwd_") for n in BWD_VARIANTS)]
-    failed, fns, routes = [], {}, {}
-    for name in names:
-        route, dq, dkdv = backward_pair(libs[f"bwd_{name}"], dev)
-        routes[name] = route
-        dq(q, k, v, o, lse, do, dq_out, dsum)
-        dkdv(q, k, v, lse, do, dsum, dk, dv)
-        torch.cuda.synchronize()
-        ulps, shares = {}, {}
-        for gname, got, w in zip(("dq", "dk", "dv"), (dq_out, dk, dv), want):
-            scale = float(w.float().abs().max())
-            ulps[gname] = (float((got.float() - w.float()).abs().max())
-                           / 2.0 ** (math.frexp(scale)[1] - 8))
-            shares[gname] = tfa.differ_share(got, w)
-            if ulps[gname] > 2.0 or shares[gname] > tfa.BWD_DIFFER_SHARE:
-                failed.append(f"bwd {name} {gname}")
-        emit({"bwd_check": name, "route": route, "ulps_of_scale": ulps, "differ_share": shares})
-        fns[f"{name}_dq"] = lambda dq=dq: dq(q, k, v, o, lse, do, dq_out, dsum)
-        fns[f"{name}_dkdv"] = lambda dkdv=dkdv: dkdv(q, k, v, lse, do, dsum, dk, dv)
-    turns = {}
-    for turn in names + [f"{n}_again" for n in reversed(names)]:
-        lib = turn.removesuffix("_again")
-        turns[f"{turn}_dq"] = fns[f"{lib}_dq"]
-        turns[f"{turn}_dkdv"] = fns[f"{lib}_dkdv"]
-        turns[f"{turn}_pair"] = lambda lib=lib: (fns[f"{lib}_dq"](), fns[f"{lib}_dkdv"]())
-    ms = median_ms(turns, BWD_REPS)
-    pairs = tfa.visible_pairs(s, s, True, None) * h * b
-    prod = 2 * dh * pairs
-    emit({"times": "granite_training_layer_backward", "shape": list(TRAIN_LAYER), "causal": True,
-          "routes": routes, "ms": ms, "visible_pairs": pairs,
-          "bound_ms": 11 * prod / 989e12 * 1e3, "two_kernel_floor_ms": 13 * prod / 989e12 * 1e3,
-          "speedup_pair": (ms["baseline_pair"] + ms["baseline_again_pair"])
-          / (ms["kernel_pair"] + ms["kernel_again_pair"])})
+    failed = []
+    for layer, ((b, s, h, kv, dh), window) in BWD_LAYERS.items():
+        gen = torch.Generator(device=dev).manual_seed(700)
+        q, do = (torch.randn((b, s, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((b, s, kv, dh), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=True, window=window)
+        o, lse = tfa.flash_attention_train_cuda(q, k, v, **kw)
+        want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        dq_out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dsum = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        names = ["baseline", "kernel", *(n.removeprefix("bwd_") for n in BWD_VARIANTS
+                                         if dh == 256 or n not in SPLIT_ONLY)]
+        fns, routes, grids = {}, {}, {}
+        for name in names:
+            wgmma = not (name == "baseline" and dh == 256)
+            routes[name] = "wgmma" if wgmma else "simt"
+            dq, dkdv = backward_pair(libs[f"bwd_{name}"], wgmma)
+            if dh == 256 and wgmma:
+                grids[name] = tfa.flash_bwd_dkdv_grid(b, s, kv, lib=libs[f"bwd_{name}"])
+            dq(q, k, v, o, lse, do, dq_out, dsum, window)
+            dkdv(q, k, v, lse, do, dsum, dk, dv, window)
+            torch.cuda.synchronize()
+            ulps, shares = {}, {}
+            for gname, got, w in zip(("dq", "dk", "dv"), (dq_out, dk, dv), want):
+                scale = float(w.float().abs().max())
+                ulps[gname] = (float((got.float() - w.float()).abs().max())
+                               / 2.0 ** (math.frexp(scale)[1] - 8))
+                shares[gname] = tfa.differ_share(got, w)
+                if ulps[gname] > 2.0 or shares[gname] > tfa.BWD_DIFFER_SHARE:
+                    failed.append(f"bwd {layer} {name} {gname}")
+            emit({"bwd_check": name, "layer": layer, "route": routes[name],
+                  "ulps_of_scale": ulps, "differ_share": shares})
+            fns[f"{name}_dq"] = lambda dq=dq: dq(q, k, v, o, lse, do, dq_out, dsum, window)
+            fns[f"{name}_dkdv"] = lambda dkdv=dkdv: dkdv(q, k, v, lse, do, dsum, dk, dv, window)
+        turns = {}
+        for turn in names + [f"{n}_again" for n in reversed(names)]:
+            lib = turn.removesuffix("_again")
+            turns[f"{turn}_dq"] = fns[f"{lib}_dq"]
+            turns[f"{turn}_dkdv"] = fns[f"{lib}_dkdv"]
+            turns[f"{turn}_pair"] = lambda lib=lib: (fns[f"{lib}_dq"](), fns[f"{lib}_dkdv"]())
+        ms = median_ms(turns, BWD_REPS)
+        pairs = tfa.visible_pairs(s, s, True, window) * h * b
+        prod = 2 * dh * pairs
+        emit({"times": f"{layer}_backward", "shape": [b, s, h, kv, dh], "causal": True,
+              "window": window, "routes": routes, "dkdv_grid": grids or None, "ms": ms,
+              "visible_pairs": pairs, "bound_ms": 11 * prod / 989e12 * 1e3,
+              "two_kernel_floor_ms": 13 * prod / 989e12 * 1e3,
+              "design_floor_ms": (16 if dh == 256 else 13) * prod / 989e12 * 1e3,
+              "cuda_core_bound_ms": 5 * prod / 67e12 * 1e3,
+              "speedup_pair": (ms["baseline_pair"] + ms["baseline_again_pair"])
+              / (ms["kernel_pair"] + ms["kernel_again_pair"])})
+        del q, k, v, do, o, lse, want, dq_out, dk, dv, dsum, fns, turns
+        torch.cuda.empty_cache()
     return failed
 
 

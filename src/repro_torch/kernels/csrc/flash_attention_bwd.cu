@@ -32,7 +32,7 @@
 // and dP recomputed by both kernels, 13.  On the CUDA cores the five take
 // 10 dh FLOP a pair at 67 TFLOP/s.
 //
-// The Hopper route, bf16 at head_dim 64 and 128 (namespace hopper below,
+// The Hopper route, bf16 at head_dim 64, 128 and 256 (namespace hopper below,
 // built from the forward's pieces in hopper.cuh): one producer warpgroup
 // whose one thread loads by TMA (128-byte swizzled 64-column boxes, zero
 // fill past the sequence's end, so nothing is padded) and two consumer
@@ -57,7 +57,9 @@
 //   owns 64 query rows and every column: D = dO . O for its rows from the
 //   f32 O in global memory (written for the second kernel), then per key
 //   tile S, dP, dS and dQ += dS K.  A thread holds S 32, dP 32, dS's parts
-//   48 and dQ 32 or 64 registers.
+//   48 and dQ 32 or 64 registers.  Head_dim 256: 64 queries a block, a
+//   2-stage ring (192 KB), both consumers compute the same S and dP and
+//   each owns 128 of dq's columns (dQ 64 registers): 7 products.
 // flash_bwd_dkdv_wgmma_kernel -- one block per (key tile, kv head, batch
 //   row); K and V loaded once; a ring of 4 stages of (Q, dO, the tile's 64
 //   lse and 64 D by 1-D tensor maps, each box 68 elements from the 16-byte
@@ -72,12 +74,19 @@
 //   head_dim 128: 64 keys a block, both consumers compute the same S^T and
 //   dP^T (the same instructions on the same data) and each owns 64 columns
 //   of dk and dv, since a row split would need 128 registers for dK and dV
-//   alone (two products of eight computed twice).
+//   alone (two products of eight computed twice).  Head_dim 256 (role
+//   split, 2 stages): 64 keys a block; consumer 0 computes S^T and sums dV
+//   over all 256 columns, consumer 1 computes S^T and dP^T and sums dK (128
+//   accumulators each): 9 products.  With one kv head the blocks are few
+//   (recurrentgemma-2b's training layer: 128, under one wave), so a key
+//   tile's (query head, query tile) pairs are split over a cluster of
+//   blocks (dkdv_split), whose partial dk and dv are added in rank order
+//   through distributed shared memory and written once.
 //
-// The SIMT route, f32 at any head_dim and bf16 at 16, 32 and 256 (the
+// The SIMT route, f32 at any head_dim and bf16 at 16 and 32 (the
 // anonymous namespace below), the port's first backward: templated on T
 // (bf16 or f32) and DH (16, 32, 64, 128, 256), instantiated for f32 at
-// every head_dim and for bf16 at 16, 32 and 256; 256 threads as 16 x 16; every
+// every head_dim and for bf16 at 16 and 32; 256 threads as 16 x 16; every
 // operand staged in shared memory as f32 and every product an f32 FMA on the
 // CUDA cores, seven of them over the visible pairs.
 //
@@ -481,12 +490,12 @@ int dispatch_dq(int head_dim, const void* q, const void* k, const void* v, const
   switch (head_dim) {
     REPRO_DQ(16)
     REPRO_DQ(32)
-    REPRO_DQ(256)
   }
-  if constexpr (std::is_same<T, float>::value) {  // bf16 at 64 and 128: the wgmma route
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at 64, 128, 256: the wgmma route
     switch (head_dim) {
       REPRO_DQ(64)
       REPRO_DQ(128)
+      REPRO_DQ(256)
     }
   }
 #undef REPRO_DQ
@@ -505,12 +514,12 @@ int dispatch_dkdv(int head_dim, const void* q, const void* k, const void* v, con
   switch (head_dim) {
     REPRO_DKDV(16)
     REPRO_DKDV(32)
-    REPRO_DKDV(256)
   }
-  if constexpr (std::is_same<T, float>::value) {  // bf16 at 64 and 128: the wgmma route
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at 64, 128, 256: the wgmma route
     switch (head_dim) {
       REPRO_DKDV(64)
       REPRO_DKDV(128)
+      REPRO_DKDV(256)
     }
   }
 #undef REPRO_DKDV
@@ -524,7 +533,7 @@ int dispatch_dkdv(int head_dim, const void* q, const void* k, const void* v, con
 // forward's training instantiation; dsum (B, H, Sq) f32 receives D.  window
 // <= 0: no window; pos_off = q_off - k_off.  Returns cudaGetLastError() after
 // the launch (cudaErrorInvalidValue for another head_dim, and for bf16 at
-// head_dim 64 or 128: flash_attention_bwd_dq_wgmma takes those).
+// head_dim 64, 128 or 256: flash_attention_bwd_dq_wgmma takes those).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dsum,
                                       int batch, int sq, int sk, int n_heads, int n_kv,
@@ -555,8 +564,8 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k, const void
 }
 
 // ===========================================================================
-// The Hopper route: bf16 at head_dim 64 and 128 (flash_bwd_dq_wgmma_kernel,
-// flash_bwd_dkdv_wgmma_kernel)
+// The Hopper route: bf16 at head_dim 64, 128 and 256
+// (flash_bwd_dq_wgmma_kernel, flash_bwd_dkdv_wgmma_kernel)
 // ===========================================================================
 
 namespace hopper {
@@ -566,14 +575,22 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536, "more registers than an SM has");
 
-// dq: a block owns 128 query rows, 64 a consumer (row split), and loops over
-// 64-key tiles; Q and dO are loaded once, K and V stream through a ring.
+// dq: a block loops over 64-key tiles; Q and dO are loaded once, K and V
+// stream through a ring.  At head_dim 64 and 128 (row split) the block owns
+// 128 query rows, 64 a consumer, and every column.  At head_dim 256 Q and dO
+// of 128 rows and two K/V stages would take 256 KB, and dQ over every column
+// 128 registers a thread, so (column split, as the forward's) the block owns
+// 64 rows, both consumers compute the same S and dP (the same instructions
+// on the same data), and each sums and writes its own 128 of dq's columns:
+// dQ 64, S 32, dP 32 and dS's parts 48 registers; 2 stages, 192 KB.
 template <int DH>
 struct DqCfg {
-  static constexpr int kBQ = 128;                                // query rows per block
+  static constexpr bool kColSplit = DH == 256;
+  static constexpr int kBQ = kColSplit ? 64 : 128;               // query rows per block
   static constexpr int kBK = 64;                                 // keys per tile
   static constexpr int kPanels = DH / kPanelCols;                // of Q, dO, K and V
-  static constexpr int kStages = DH == 64 ? 4 : 3;               // the K/V ring
+  static constexpr int kOutPanels = kColSplit ? kPanels / 2 : kPanels;  // a consumer's dq panels
+  static constexpr int kStages = DH == 64 ? 4 : DH == 128 ? 3 : 2;      // the K/V ring
   static constexpr int kQPanelBytes = kBQ * kRowBytes;
   static constexpr int kQTileBytes = kPanels * kQPanelBytes;     // Q, or dO
   static constexpr int kKPanelBytes = kBK * kRowBytes;
@@ -585,20 +602,29 @@ struct DqCfg {
 };
 
 // dk and dv: a block owns a key tile and loops over its kv head's query heads
-// and the 64-query tiles that see its keys; K and V are loaded once, and Q,
-// dO and their rows' lse and D stream through a ring.  At head_dim 64 (row
-// split) the block owns 128 keys, 64 a consumer.  At head_dim 128 dK and dV
-// alone would take 128 registers a thread, so (column split) the block owns
-// 64 keys, both consumers compute the same S^T and dP^T, and each sums and
-// writes its own 64 of the 128 columns of dk and dv.
+// and the 64-query tiles that see its keys (at head_dim 256, its cluster
+// rank's share of those pairs); K and V are loaded once, and Q, dO and their
+// rows' lse and D stream through a ring.  At head_dim 64 (row split) the
+// block owns 128 keys, 64 a consumer.  At head_dim 128 dK and dV alone
+// would take 128 registers a thread, so (column split) the block owns 64
+// keys, both consumers compute the same S^T and dP^T, and each sums and
+// writes its own 64 of the 128 columns of dk and dv.  At head_dim 256 the
+// column split would hold dK 64 + dV 64 + S^T 32 + dP^T 32 + a split's parts
+// 48 = 240 registers, over the 232 a consumer has, so (role split) the block
+// owns 64 keys, consumer 0 computes S^T alone and sums dV over every column
+// (dV 128 + P 32 + its parts 48), consumer 1 computes S^T and dP^T and sums
+// dK (dK 128 + S^T 32 + dP^T 32, then dS^T in dP^T's place and its parts
+// 48): 9 products a tile, against 10 for the column split.  K and V take 64
+// KB and a stage of Q, dO, lse and D 65 KB: 2 stages.
 template <int DH>
 struct DkdvCfg {
   static constexpr bool kColSplit = DH == 128;
-  static constexpr int kBK = kColSplit ? 64 : 128;               // keys per block
+  static constexpr bool kRoleSplit = DH == 256;                  // consumer 0 dv, consumer 1 dk
+  static constexpr int kBK = kColSplit || kRoleSplit ? 64 : 128; // keys per block
   static constexpr int kBQ = 64;                                 // queries per tile
   static constexpr int kPanels = DH / kPanelCols;
   static constexpr int kOutPanels = kColSplit ? kPanels / 2 : kPanels;  // a consumer's columns
-  static constexpr int kStages = 4;
+  static constexpr int kStages = kRoleSplit ? 2 : 4;
   static constexpr int kKPanelBytes = kBK * kRowBytes;
   static constexpr int kKTileBytes = kPanels * kKPanelBytes;     // K, or V
   static constexpr int kQPanelBytes = kBQ * kRowBytes;
@@ -614,9 +640,68 @@ struct DkdvCfg {
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
   static_assert(kStatBytes <= kStatSlot && 2 * kQTileBytes + kStatSlot + kStatBytes <= kStageBytes,
                 "the lse and D boxes fit their slots");
-  static_assert(kOutPanels == 1, "one 64-column panel of dk and dv a consumer");
+  static_assert(kRoleSplit || kOutPanels == 1, "one 64-column panel of dk and dv a consumer");
+  // the role split's partial sums of a cluster, stashed over the ring: a
+  // float2 per pair of accumulators, [consumer][64 pairs][128 threads]
+  static constexpr int kStashBytes = 2 * 64 * 128 * 8;
+  static_assert(!kRoleSplit || kStashBytes <= kStages * kStageBytes, "the stash fits the ring");
   static_assert(kSmem <= 232448, "more shared memory than a block may use");
 };
+
+// dkdv at head_dim 256: the (key tile, kv head, batch row) blocks are few
+// when the kv heads are (recurrentgemma-2b's layer: 64 x 1 x 2 = 128 blocks,
+// under one wave of 132 SMs, the last key tiles of a window seeing 1 of 33
+// query tiles), so a key tile's sequence of (query head, query tile) pairs
+// is split over a cluster of n blocks, rank r taking pairs [r T / n, (r +
+// 1) T / n) of its T (whole heads when n divides H / Kv); the cluster adds
+// the n partial sums through distributed shared memory in rank order.  A
+// cluster's blocks share a GPC, so n also sets how many SMs work at once
+// (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3: 66 clusters of 2,
+// 39 of 3, 30 of 4, 22 of 5, 15 of 8): n is the smallest power of two that
+// gives kSplitWaves waves of the card's SMs, at most kMaxSplit (1 when the
+// blocks alone give that many: a cluster of one adds its own stash).
+// scripts/flash_probe.py times the choices; PERF.md gives the readings.
+constexpr int kMaxSplit = 8;
+constexpr int kSplitWaves = 2;
+
+inline int dkdv_split(int blocks) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int n = 1;
+  while (n < kMaxSplit && blocks * n < kSplitWaves * sms) n *= 2;
+  return n;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every block of the cluster: shared-memory writes before
+// it are seen by the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The float2 at shared address `at` in the block of cluster rank `rank`.
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t at, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(at), "r"(rank));
+  float2 x;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x.x), "=f"(x.y)
+               : "r"(remote)
+               : "memory");
+  return x;
+}
 
 // A box of a 1-D f32 tensor map (a head's lse or D rows) into shared
 // memory; `at`, the first element, must be 16-byte aligned (a multiple of
@@ -700,11 +785,12 @@ __device__ __forceinline__ void s_and_dp(float (&sc)[32], float (&dp)[32], uint3
 
 // The rest of one dq tile after S and dP: dS = P (dP - D) in registers,
 // masked only where an edge crosses the tile (kEdge), split into three bf16
-// parts, and dQ += dS1 K + dS2 K + dS3 K (K MN-major) in the wgmma
-// accumulators, which carry the sum over every key tile.
+// parts, and dQ += dS1 K + dS2 K + dS3 K (K MN-major, the consumer's first
+// panel at k_s) in the wgmma accumulators, which carry the sum over every
+// key tile.
 template <bool kEdge, typename C>
 __device__ __forceinline__ void dq_tile(float (&sc)[32], const float (&dp)[32],
-                                        float (&acc)[C::kPanels][32], uint32_t k_s,
+                                        float (&acc)[C::kOutPanels][32], uint32_t k_s,
                                         const float (&nl)[2], const float (&dsum)[2], float scale,
                                         int k0, int ra, int kq, int sk, int causal, int window) {
 #pragma unroll
@@ -718,7 +804,7 @@ __device__ __forceinline__ void dq_tile(float (&sc)[32], const float (&dp)[32],
   split_and_issue(sc, pa, acc, k_s, C::kKPanelBytes);
   wgmma_wait_all();
 #pragma unroll
-  for (int panel = 0; panel < C::kPanels; ++panel) fence_regs(acc[panel]);
+  for (int panel = 0; panel < C::kOutPanels; ++panel) fence_regs(acc[panel]);
 #pragma unroll
   for (int part = 0; part < 3; ++part)
 #pragma unroll
@@ -795,13 +881,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    // ---- consumers: 64 query rows each and every column ----
+    // ---- consumers: row split, 64 query rows each and every column; column
+    // split, the block's 64 rows and 128 columns each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
     const int cw = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32;
     const int lane = tid % 32;
-    const int row0 = p0 + 64 * cw;                 // this warpgroup's first row, on k's positions
+    const int row0 = p0 + (C::kColSplit ? 0 : 64 * cw);  // this warpgroup's first row, on k's positions
+    const int panel0 = C::kColSplit ? C::kOutPanels * cw : 0;  // its first column panel of dq
     const int ra = row0 + 16 * warp + lane / 4;    // this thread's rows ra and ra + 8
     const int kq = 2 * (lane % 4);                 // its first column in each 8-column block
     const int qa = ra - pos_off;                   // ... as query rows
@@ -838,16 +926,18 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       dsum[r] = d;
       nl[r] = row < sq ? -lse[stat + row] * kLog2e : -pos_inf();
-      if (row < sq && kq == 0) dsum_out[stat + row] = d;
+      if (row < sq && kq == 0 && (!C::kColSplit || cw == 0)) dsum_out[stat + row] = d;
     }
 
-    float acc[C::kPanels][32];  // dQ per 64-column panel: the m64n64 accumulator layout
+    float acc[C::kOutPanels][32];  // dQ per 64-column panel: the m64n64 accumulator layout
 #pragma unroll
-    for (int panel = 0; panel < C::kPanels; ++panel)
+    for (int panel = 0; panel < C::kOutPanels; ++panel)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[panel][i] = 0.f;
     if (n_tiles > 0) mbar_wait(q_bar, 0);
-    const uint32_t q_wg = q_s + 64 * cw * kRowBytes, do_wg = do_s + 64 * cw * kRowBytes;
+    const uint32_t wg_rows = C::kColSplit ? 0 : 64 * cw * kRowBytes;
+    const uint32_t q_wg = q_s + wg_rows, do_wg = do_s + wg_rows;
+    const uint32_t k_panel0 = panel0 * C::kKPanelBytes;  // the consumer's columns of K
 
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % C::kStages;
@@ -862,9 +952,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // masks only on tiles that an edge crosses for these rows
       if (k0 + C::kBK > sk || (causal && k0 + C::kBK - 1 > row0) ||
           (window > 0 && k0 <= row0 + 63 - window))
-        dq_tile<true, C>(sc, dp, acc, k_s, nl, dsum, scale, k0, ra, kq, sk, causal, window);
+        dq_tile<true, C>(sc, dp, acc, k_s + k_panel0, nl, dsum, scale, k0, ra, kq, sk, causal,
+                         window);
       else
-        dq_tile<false, C>(sc, dp, acc, k_s, nl, dsum, scale, k0, ra, kq, sk, causal, window);
+        dq_tile<false, C>(sc, dp, acc, k_s + k_panel0, nl, dsum, scale, k0, ra, kq, sk, causal,
+                          window);
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
     }
@@ -875,9 +967,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = qa + 8 * r;
       if (row >= sq) continue;
       __nv_bfloat16* orow = dq + (static_cast<long long>(b) * sq + row) * q_row +
-                            static_cast<long long>(h) * DH + kq;
+                            static_cast<long long>(h) * DH + panel0 * kPanelCols + kq;
 #pragma unroll
-      for (int panel = 0; panel < C::kPanels; ++panel)
+      for (int panel = 0; panel < C::kOutPanels; ++panel)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + panel * kPanelCols + 8 * j) =
@@ -893,13 +985,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // parts of P are free, dS^T split and dK += dS^T Q (dO and Q MN-major; the
 // consumer's columns start col_off bytes into each tile).  Masked only where
 // an edge crosses the tile (kEdge).
-template <bool kEdge, typename C>
-__device__ __forceinline__ void dkdv_tile(float (&sc)[32], const float (&dp)[32],
-                                          float (&dka)[C::kOutPanels][32],
-                                          float (&dva)[C::kOutPanels][32], uint32_t st,
-                                          uint32_t col_off, const float* lse_s, const float* d_s,
-                                          float scale, int q0, int kr, int kq, int sq, int sk,
-                                          int causal, int window, int pos_off) {
+// P^T = exp(S^T scale - lse) of one keys x queries tile in place, by query
+// column (the tile's lse at lse_s), masked only where an edge crosses the
+// tile (kEdge).
+template <bool kEdge>
+__device__ __forceinline__ void p_tile(float (&sc)[32], const float* lse_s, float scale, int q0,
+                                       int kr, int kq, int sq, int sk, int causal, int window,
+                                       int pos_off) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {  // 8-query blocks
     const float nl[2] = {-lse_s[8 * j + kq] * kLog2e, -lse_s[8 * j + kq + 1] * kLog2e};
@@ -914,8 +1006,11 @@ __device__ __forceinline__ void dkdv_tile(float (&sc)[32], const float (&dp)[32]
       sc[i] = p;
     }
   }
-  uint32_t pa[3][4][4];
-  split_and_issue(sc, pa, dva, st + C::kQTileBytes + col_off, C::kQPanelBytes);
+}
+
+// dS^T = P^T (dP^T - D) in place of P^T, by query column (D at d_s).
+__device__ __forceinline__ void ds_tile(float (&sc)[32], const float (&dp)[32], const float* d_s,
+                                        int kq) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float d[2] = {d_s[8 * j + kq], d_s[8 * j + kq + 1]};
@@ -923,6 +1018,19 @@ __device__ __forceinline__ void dkdv_tile(float (&sc)[32], const float (&dp)[32]
     for (int e = 0; e < 4; ++e)
       sc[4 * j + e] = __fmul_rn(sc[4 * j + e], __fsub_rn(dp[4 * j + e], d[e & 1]));
   }
+}
+
+template <bool kEdge, typename C>
+__device__ __forceinline__ void dkdv_tile(float (&sc)[32], const float (&dp)[32],
+                                          float (&dka)[C::kOutPanels][32],
+                                          float (&dva)[C::kOutPanels][32], uint32_t st,
+                                          uint32_t col_off, const float* lse_s, const float* d_s,
+                                          float scale, int q0, int kr, int kq, int sq, int sk,
+                                          int causal, int window, int pos_off) {
+  p_tile<kEdge>(sc, lse_s, scale, q0, kr, kq, sq, sk, causal, window, pos_off);
+  uint32_t pa[3][4][4];
+  split_and_issue(sc, pa, dva, st + C::kQTileBytes + col_off, C::kQPanelBytes);
+  ds_tile(sc, dp, d_s, kq);
   wgmma_wait_all();
 #pragma unroll
   for (int panel = 0; panel < C::kOutPanels; ++panel) fence_regs(dva[panel]);
@@ -938,6 +1046,86 @@ __device__ __forceinline__ void dkdv_tile(float (&sc)[32], const float (&dp)[32]
   for (int part = 0; part < 3; ++part)
 #pragma unroll
     for (int c = 0; c < 4; ++c) fence_regs(pa[part][c]);
+}
+
+// S^T = K Q^T alone (64 x 64, f32), waited for: the dv consumer's product.
+template <int DH>
+__device__ __forceinline__ void s_only(float (&sc)[32], uint32_t a, uint32_t b, int a_panel,
+                                       int b_panel) {
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc)
+    wgmma_ss(sc, smem_desc(a + (kc / 4) * a_panel + (kc % 4) * 32),
+             smem_desc(b + (kc / 4) * b_panel + (kc % 4) * 32), kc > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(sc);
+}
+
+// One tile of the role split after S^T (and dP^T): P^T; for the dk
+// consumer (kDk) dS^T in its place; then split into three bf16 parts and
+// dV += P^T dO or dK += dS^T Q over every column (dO or Q MN-major),
+// waited for.
+template <bool kDk, bool kEdge, typename C>
+__device__ __forceinline__ void role_tile(float (&sc)[32], const float (&dp)[32],
+                                          float (&acc)[C::kOutPanels][32], uint32_t st,
+                                          const float* lse_s, const float* d_s, float scale,
+                                          int q0, int kr, int kq, int sq, int sk, int causal,
+                                          int window, int pos_off) {
+  p_tile<kEdge>(sc, lse_s, scale, q0, kr, kq, sq, sk, causal, window, pos_off);
+  if constexpr (kDk) ds_tile(sc, dp, d_s, kq);
+  uint32_t pa[3][4][4];
+  split_and_issue(sc, pa, acc, kDk ? st : st + C::kQTileBytes, C::kQPanelBytes);
+  wgmma_wait_all();
+#pragma unroll
+  for (int panel = 0; panel < C::kOutPanels; ++panel) fence_regs(acc[panel]);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(pa[part][c]);
+}
+
+// A role-split consumer's loop over the ring: n_tiles tiles, the pairs
+// it_lo on of the key tile's (query head from h0, query tile) sequence,
+// per_head tiles a head.
+template <bool kDk, int DH>
+__device__ __forceinline__ void role_loop(float (&acc)[DkdvCfg<DH>::kOutPanels][32],
+                                          uint32_t k_s, uint32_t v_s, uint32_t ring,
+                                          uint32_t bars, const unsigned char* smem_at,
+                                          uint32_t base, int n_tiles, int per_head, int h0,
+                                          int it_lo,
+                                          int q_begin, int b, int n_heads, int k0, int kr,
+                                          int kq, int lane, int sq, int sk, int causal,
+                                          int window, int pos_off, float scale) {
+  using C = DkdvCfg<DH>;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % C::kStages;
+    const int h = h0 + (it_lo + it) / per_head;
+    const int q0 = q_begin + (it_lo + it) % per_head * C::kBQ;
+    const uint32_t st = ring + s * C::kStageBytes;
+    // the tile's first row in the stage's lse and D boxes
+    const int shift = ((b * n_heads + h) * sq + q0) & 3;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem_at + (st - base) + 2 * C::kQTileBytes) + shift;
+    const float* d_s = lse_s + C::kStatSlot / 4;
+    mbar_wait(bars + 8 * s, (it / C::kStages) & 1);
+
+    float sc[32], dp[32];  // S^T = K Q^T, and dP^T = V dO^T for dk (64 keys x 64 queries)
+    if constexpr (kDk)
+      s_and_dp<DH>(sc, dp, k_s, st, v_s, st + C::kQTileBytes, C::kKPanelBytes, C::kQPanelBytes);
+    else
+      s_only<DH>(sc, k_s, st, C::kKPanelBytes, C::kQPanelBytes);
+    const int qp0 = q0 + pos_off;  // the tile's first query, on k's positions
+    if (k0 + 64 > sk || q0 + C::kBQ > sq || (causal && k0 + 63 > qp0) ||
+        (window > 0 && k0 <= qp0 + C::kBQ - 1 - window))
+      role_tile<kDk, true, C>(sc, dp, acc, st, lse_s, d_s, scale, q0, kr, kq, sq, sk, causal,
+                              window, pos_off);
+    else
+      role_tile<kDk, false, C>(sc, dp, acc, st, lse_s, d_s, scale, q0, kr, kq, sq, sk, causal,
+                               window, pos_off);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
+  }
 }
 
 template <int DH>
@@ -961,7 +1149,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bars = base + C::kBarOffset;        // full[kStages], empty[kStages], kv
   const uint32_t kv_bar = bars + 16 * C::kStages;
 
-  const int k0 = blockIdx.x * C::kBK;  // the first key tiles see the most causal queries: first
+  // the first key tiles see the most causal queries: first.  Role split:
+  // the cluster's n blocks share a key tile, rank r summing its share of
+  // the tile's (query head, query tile) pairs (dkdv_split).
+  int n_split = 1, rank = 0;
+  if constexpr (C::kRoleSplit) {
+    n_split = static_cast<int>(cluster_size());
+    rank = static_cast<int>(cluster_rank());
+  }
+  const int k0 = blockIdx.x / n_split * C::kBK;
   const int g = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = n_heads / n_kv;
@@ -973,7 +1169,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (window > 0)
     q_end = static_cast<int>(max(0ll, min(static_cast<long long>(sq), first + C::kBK - 1 + window)));
   const int per_head = q_end > q_begin ? (q_end - q_begin + C::kBQ - 1) / C::kBQ : 0;
-  const int n_tiles = rep * per_head;  // tile it: query head g rep + it / per_head
+  // tile it is pair f = it_lo + it: query head g rep + f / per_head, query
+  // tile f % per_head
+  const int it_lo = rank * rep * per_head / n_split;
+  const int n_tiles = (rank + 1) * rep * per_head / n_split - it_lo;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
@@ -999,8 +1198,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % C::kStages;
-        const int h = g * rep + it / per_head;
-        const int q0 = q_begin + (it % per_head) * C::kBQ;
+        const int h = g * rep + (it_lo + it) / per_head;
+        const int q0 = q_begin + (it_lo + it) % per_head * C::kBQ;
         mbar_wait(bars + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
         const uint32_t full = bars + 8 * s;
         const uint32_t st = ring + s * C::kStageBytes;
@@ -1018,6 +1217,74 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_load_1d(st + 2 * C::kQTileBytes + C::kStatSlot, &tm_dsum, full, at);
       }
     }
+    if constexpr (C::kRoleSplit) {  // the consumers' two cluster barriers (below)
+      cluster_sync();
+      cluster_sync();
+    }
+  } else if constexpr (C::kRoleSplit) {
+    // ---- consumers: the block's 64 keys; consumer 0 dv, consumer 1 dk ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int kr = k0 + 16 * warp + lane / 4;  // this thread's keys kr and kr + 8
+    const int kq = 2 * (lane % 4);             // its first query (column) in each 8-block
+    const unsigned char* smem_at = smem_raw + (base - raw);  // base as a generic pointer
+
+    float acc[C::kOutPanels][32];  // dV or dK over every column
+#pragma unroll
+    for (int panel = 0; panel < C::kOutPanels; ++panel)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[panel][i] = 0.f;
+    if (n_tiles > 0) mbar_wait(kv_bar, 0);
+    const int h0 = g * rep;
+    if (cw == 0)
+      role_loop<false, DH>(acc, k_s, v_s, ring, bars, smem_at, base, n_tiles, per_head, h0,
+                           it_lo, q_begin, b, n_heads, k0, kr, kq, lane, sq, sk, causal, window,
+                           pos_off, scale);
+    else
+      role_loop<true, DH>(acc, k_s, v_s, ring, bars, smem_at, base, n_tiles, per_head, h0,
+                          it_lo, q_begin, b, n_heads, k0, kr, kq, lane, sq, sk, causal, window,
+                          pos_off, scale);
+
+    // dv = dV and dk = scale dK, rounded to bf16 once; a cluster's partial
+    // sums first added in rank order
+    __nv_bfloat16* out = cw == 0 ? dv : dk;
+    const float mul = cw == 0 ? 1.f : scale;
+    const long long row0 = static_cast<long long>(b) * sk;
+    const long long col0 = static_cast<long long>(g) * DH + kq;
+    const long long kv_row = static_cast<long long>(n_kv) * DH;
+    // pair p (accumulators 2p and 2p + 1 of the 128) of thread tid of
+    // consumer cw at ring + ((cw 64 + p) 128 + tid) 8, once both
+    // consumers are done with the ring
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const uint32_t stash = ring + (cw * 64 * 128 + tid) * 8;
+#pragma unroll
+    for (int panel = 0; panel < C::kOutPanels; ++panel)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2)
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         stash + (panel * 16 + e / 2) * 128 * 8),
+                     "f"(acc[panel][e]), "f"(acc[panel][e + 1])
+                     : "memory");
+    cluster_sync();
+    // rank r adds and writes pairs [r 64 / n, (r + 1) 64 / n)
+    for (int p = rank * 64 / n_split; p < (rank + 1) * 64 / n_split; ++p) {
+      const uint32_t at = stash + p * 128 * 8;
+      float2 x = ld_cluster_f2(at, 0);
+      for (int src = 1; src < n_split; ++src) {
+        const float2 y = ld_cluster_f2(at, src);
+        x.x = __fadd_rn(x.x, y.x);
+        x.y = __fadd_rn(x.y, y.y);
+      }
+      const int panel = p / 16, j = (p % 16) / 2, key = kr + 8 * (p & 1);
+      if (key < sk)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + key) * kv_row + col0 +
+                                           panel * kPanelCols + 8 * j) =
+            __floats2bfloat162_rn(x.x * mul, x.y * mul);
+    }
+    cluster_sync();  // no block leaves while the cluster reads its stash
   } else {
     // ---- consumers: row split, 64 keys each and every column; column
     // split, the block's 64 keys and 64 columns each ----
@@ -1043,8 +1310,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % C::kStages;
-      const int h = g * rep + it / per_head;
-      const int q0 = q_begin + (it % per_head) * C::kBQ;
+      const int h = g * rep + (it_lo + it) / per_head;
+      const int q0 = q_begin + (it_lo + it) % per_head * C::kBQ;
       const uint32_t st = ring + s * C::kStageBytes;
       // the tile's first row in the stage's lse and D boxes
       const int shift = ((b * n_heads + h) * sq + q0) & 3;
@@ -1130,6 +1397,30 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The head_dim-256 dkdv launch: a cluster of dkdv_split blocks a key tile.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute cluster;
+  int split;
+
+  ClusterLaunch(int batch, int sk, int n_kv, cudaStream_t stream) {
+    using C = DkdvCfg<256>;
+    const int key_tiles = (sk + C::kBK - 1) / C::kBK;
+    split = dkdv_split(key_tiles * n_kv * batch);
+    cfg.gridDim = dim3(key_tiles * split, n_kv, batch);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = C::kSmem;
+    cfg.stream = stream;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = split;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;  // cfg points at cluster
+};
+
 template <int DH>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* lse, const void* dout,
                 const void* dsum, void* dk, void* dv, int batch, int sq, int sk, int n_heads,
@@ -1147,6 +1438,14 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* lse, co
       !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK) ||
       !make_map_1d(&mlse, lse, rows, C::kStatBox) || !make_map_1d(&mdsum, dsum, rows, C::kStatBox))
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (C::kRoleSplit) {
+    const ClusterLaunch launch(batch, sk, n_kv, stream);
+    const cudaError_t launched = cudaLaunchKernelEx(
+        &launch.cfg, kernel, mq, mk, mv, mdo, mlse, mdsum, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), sq, sk, n_heads, n_kv, causal, window, pos_off, scale);
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid((sk + C::kBK - 1) / C::kBK, n_kv, batch);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       mq, mk, mv, mdo, mlse, mdsum, static_cast<__nv_bfloat16*>(dk),
@@ -1154,9 +1453,21 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* lse, co
   return static_cast<int>(cudaGetLastError());
 }
 
+// The head_dim-256 dkdv launch's cluster: the split n that launch_dkdv
+// takes for these shapes and how many such clusters the card holds at once.
+int dkdv_grid(int batch, int sk, int n_kv, int* split, int* clusters) {
+  const auto kernel = flash_bwd_dkdv_wgmma_kernel<256>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DkdvCfg<256>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ClusterLaunch launch(batch, sk, n_kv, nullptr);
+  *split = launch.split;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &launch.cfg));
+}
+
 }  // namespace hopper
 
-// The Hopper route: bf16 at head_dim 64 or 128, the arguments of
+// The Hopper route: bf16 at head_dim 64, 128 or 256, the arguments of
 // flash_attention_bwd_dq without is_bf16 (every pointer 16-byte aligned).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // another head_dim or a tensor map that cuTensorMapEncodeTiled refuses).
@@ -1172,6 +1483,9 @@ extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const 
                                    causal, window, pos_off, scale, st);
     case 128:
       return hopper::launch_dq<128>(q, k, v, o, lse, dout, dq, dsum, batch, sq, sk, n_heads,
+                                    n_kv, causal, window, pos_off, scale, st);
+    case 256:
+      return hopper::launch_dq<256>(q, k, v, o, lse, dout, dq, dsum, batch, sq, sk, n_heads,
                                     n_kv, causal, window, pos_off, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1195,7 +1509,19 @@ extern "C" int flash_attention_bwd_dkdv_wgmma(const void* q, const void* k, cons
     case 128:
       return hopper::launch_dkdv<128>(q, k, v, lse, dout, dsum, dk, dv, batch, sq, sk, n_heads,
                                       n_kv, causal, window, pos_off, scale, st);
+    case 256:
+      return hopper::launch_dkdv<256>(q, k, v, lse, dout, dsum, dk, dv, batch, sq, sk, n_heads,
+                                      n_kv, causal, window, pos_off, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// At head_dim 256: the split (the cluster's blocks a key tile) that
+// flash_attention_bwd_dkdv_wgmma takes for these shapes, and how many such
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+// Returns a cudaError_t.
+extern "C" int flash_attention_bwd_dkdv_wgmma_grid(int batch, int sk, int n_kv, int* split,
+                                                   int* clusters) {
+  return hopper::dkdv_grid(batch, sk, n_kv, split, clusters);
 }

@@ -113,8 +113,8 @@ Training (:class:`FlashAttention`, the autograd Function that
   query heads of each kv head inside the block); :func:`flash_bwd_route`
   picks the route from the dtype and head_dim alone: ``wgmma``
   (``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkdv_wgmma_kernel``) for bf16
-  at head_dim 64 and 128, ``simt`` (``flash_bwd_dq_kernel``,
-  ``flash_bwd_dkdv_kernel``) for f32 and bf16 at 16, 32 and 256.  It ports
+  at head_dim 64, 128 and 256, ``simt`` (``flash_bwd_dq_kernel``,
+  ``flash_bwd_dkdv_kernel``) for f32 and bf16 at 16 and 32.  It ports
   no Pallas kernel: it is the derivative that XLA takes of
   ``repro/models/layers.py:chunked_attention``.  What bounds it is
   operations: five head_dim products over the visible pairs (S, dP, dQ,
@@ -123,7 +123,12 @@ Training (:class:`FlashAttention`, the autograd Function that
   tensor cores, thirteen when both kernels recompute S and dP, as these
   do.  At granite-3-2b's training layer (B 2, S 4,096, H 32, Kv 8, dh 64,
   causal: 537 M visible pairs) that is 5.1 ms on the CUDA cores, 0.76 ms on
-  the tensor cores and 0.90 ms for the thirteen.  The wgmma kernels run
+  the tensor cores and 0.90 ms for the thirteen; at recurrentgemma-2b's (B
+  2, S 4,096, H 10, Kv 1, dh 256, causal window 2048: 126 M visible pairs)
+  4.8, 0.72 and 0.85 ms, and 1.04 ms for the sixteen products that the
+  head_dim-256 design runs (dq 7: both consumers compute S and dP and each
+  owns half of dq's columns; dkdv 9: one consumer sums dv, the other
+  computes dP and sums dk).  The wgmma kernels run
   every product on the tensor cores as the forward runs P.V: S and dP from
   shared memory, P and dS split into three register-A parts, K, Q and dO
   as MN-major B operands, the sums over tiles in the wgmma accumulators;
@@ -144,7 +149,7 @@ from repro_torch.kernels import build
 NEG = -1e30  # the reference's mask sentinel (flash_attention.py:31)
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims either route takes
 WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 at these runs the wgmma kernel
-WGMMA_BWD_HEAD_DIMS = (64, 128)  # ... and the wgmma backward kernels
+WGMMA_BWD_HEAD_DIMS = (64, 128, 256)  # ... and the wgmma backward kernels
 PLAIN_Q_CHUNK = 512
 
 # flash_attention_fwd (simt): q, k, v, out, batch, sq, sk, heads, kv heads,
@@ -317,9 +322,32 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels that take a call: ``"wgmma"`` for bf16 at
-    head_dim 64 or 128, ``"simt"`` for the rest (f32, and bf16 at 16, 32
-    and 256)."""
+    head_dim 64, 128 or 256, ``"simt"`` for the rest (f32, and bf16 at 16
+    and 32)."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_BWD_HEAD_DIMS else "simt"
+
+
+def flash_bwd_dkdv_grid(batch: int, sk: int, n_kv: int, lib=None) -> dict:
+    """The head_dim-256 dkdv launch on the current card: the split the
+    kernel's launcher takes (``split``: ``dkdv_split`` in the source, each
+    key tile's (query head, 64-query tile) pairs over a cluster of that
+    many blocks), its blocks, and how many of its clusters the card holds
+    at once (``clusters_at_once``), from which the waves follow.  ``lib``:
+    the path of another build of ``csrc/flash_attention_bwd.cu`` to ask in
+    place of the package's own."""
+    argtypes = (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2
+    symbol = "flash_attention_bwd_dkdv_wgmma_grid"
+    if lib is None:
+        fn = build.function("flash_attention_bwd", symbol, argtypes)
+    else:
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    split, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    build.check_launch(symbol, fn(batch, sk, n_kv, ctypes.addressof(split),
+                                  ctypes.addressof(clusters)))
+    blocks = -(-sk // 64) * n_kv * batch * split.value
+    return {"split": split.value, "blocks": blocks, "clusters_at_once": clusters.value,
+            "waves": blocks / max(1, clusters.value * split.value)}
 
 
 def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -75,6 +75,15 @@ def value_and_grad(loss_fn: Callable, params, microbatches) -> tuple[torch.Tenso
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None):
+    """(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm"}): one step over ``cfg.accum_steps`` microbatches.
+
+    Unlike the reference's pure step, this one writes the new params and
+    AdamW's m and v into the caller's tensors in place, and returns those
+    same tensors (the step count is a new tensor): one copy of the f32
+    state is what lets a full-width step fit one card.  So a state must not
+    be stepped twice from the same values (a retry, a comparison of two
+    learning rates): copy its tensors first."""
     opt_cfg = opt_cfg or AdamWConfig()
     loss_fn = loss_for(cfg)
     accum = max(1, cfg.accum_steps)

@@ -218,25 +218,30 @@ def test_without_grad_attention_is_the_inference_call():
 
 
 def test_flash_bwd_route():
-    """bf16 at head_dim 64 and 128 on the wgmma backward; f32 everywhere and
-    bf16 at 16, 32 and 256 on the SIMT one (the forward keeps 256 on wgmma)."""
+    """bf16 at head_dim 64, 128 and 256 on the wgmma backward, as on the
+    forward; f32 everywhere and bf16 at 16 and 32 on the SIMT one."""
     for dh in tfa.HEAD_DIMS:
         assert tfa.flash_bwd_route(torch.float32, dh) == "simt"
-        want = "wgmma" if dh in (64, 128) else "simt"
+        want = "wgmma" if dh in (64, 128, 256) else "simt"
         assert tfa.flash_bwd_route(torch.bfloat16, dh) == want
     assert tfa.flash_route(torch.bfloat16, 256) == "wgmma"
-    assert tfa.flash_bwd_route(torch.bfloat16, 256) == "simt"
+    assert tfa.flash_bwd_route(torch.bfloat16, 256) == "wgmma"
 
 
-def _emulated_wgmma_grads(q, k, v, o, lse, do, *, causal, window, q_offset=0, k_offset=0):
+def _emulated_wgmma_grads(q, k, v, o, lse, do, *, causal, window, q_offset=0, k_offset=0,
+                          n_split=1):
     """The wgmma backward's arithmetic on the CPU, head by head: S and dP
     products of bf16 inputs in f32, p = exp(s - lse) on the visible keys, dS
     = p (dP - D) with D = rowsum(dO O); then each of dV, dQ and dK as the sum
     of three products, one per bf16 part of P or dS (``split_bf16x3``), each
     bf16 x bf16 in f32; dk and dv summed over the kv head's query heads in
-    f32, each gradient rounded to bf16 once."""
+    f32, each gradient rounded to bf16 once.  At head_dim 256 each 64-key
+    tile's dk and dv are summed as the dkdv kernel's cluster of ``n_split``
+    blocks sums them (``_cluster_dkdv``); which consumer forms which product (dq's column
+    split, dkdv's role split) leaves every element's sum as it is."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
     s = dh**-0.5
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     qpos = q_offset + torch.arange(sq)[:, None]
@@ -248,18 +253,63 @@ def _emulated_wgmma_grads(q, k, v, o, lse, do, *, causal, window, q_offset=0, k_
         mask &= kpos > qpos - window
     dq = torch.zeros(q.shape)
     dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    ds_parts, p_parts = {}, {}
     for hh in range(h):
-        g = hh // (h // kv)
+        g = hh // rep
         logits = qf[:, :, hh] @ kf[:, :, g].transpose(1, 2) * s
         p = torch.where(mask, torch.exp(logits - lse[:, hh, :, None]), 0.0)
         dp = dof[:, :, hh] @ vf[:, :, g].transpose(1, 2)
         ds = p * (dp - (dof[:, :, hh] * o[:, :, hh]).sum(-1)[..., None])
         for part in tfa.split_bf16x3(ds):
             dq[:, :, hh] += part.float() @ kf[:, :, g]
-            dk[:, :, g] += part.float().transpose(1, 2) @ qf[:, :, hh]
-        for part in tfa.split_bf16x3(p):
-            dv[:, :, g] += part.float().transpose(1, 2) @ dof[:, :, hh]
+        ds_parts[hh], p_parts[hh] = tfa.split_bf16x3(ds), tfa.split_bf16x3(p)
+        if dh != 256:
+            for part in ds_parts[hh]:
+                dk[:, :, g] += part.float().transpose(1, 2) @ qf[:, :, hh]
+            for part in p_parts[hh]:
+                dv[:, :, g] += part.float().transpose(1, 2) @ dof[:, :, hh]
+    if dh == 256:
+        dk, dv = _cluster_dkdv(qf, dof, ds_parts, p_parts, kv, n_split, causal=causal,
+                               window=window, pos_off=q_offset - k_offset)
     return (dq * s).to(q.dtype), (dk * s).to(k.dtype), dv.to(v.dtype)
+
+
+def _cluster_dkdv(qf, dof, ds_parts, p_parts, kv, n, *, causal, window, pos_off):
+    """dk / scale and dv in f32 as the head_dim-256 dkdv kernel sums them
+    with a cluster of n blocks a key tile (the launcher's ``split``): for
+    each 64-key tile, the T (query head, 64-query tile) pairs that see it
+    in order, rank r summing pairs [r T / n, (r + 1) T / n) from zero, and
+    the n partial sums added in rank order."""
+    b, sq, h, _ = qf.shape
+    sk = ds_parts[0][0].shape[2]
+    rep = h // kv
+    dk = torch.zeros((b, sk, kv, qf.shape[3]))
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, sk, 64):
+        keys = slice(k0, min(sk, k0 + 64))
+        q_begin, q_end = 0, sq
+        if causal:
+            q_begin = min(sq, max(0, k0 - pos_off))
+        if window is not None:
+            q_end = max(0, min(sq, k0 - pos_off + 63 + window))
+        per_head = -(-(q_end - q_begin) // 64) if q_end > q_begin else 0
+        for g in range(kv):
+            total = rep * per_head
+            sums = []
+            for r in range(n):
+                part_k, part_v = torch.zeros_like(dk[:, keys, g]), torch.zeros_like(dv[:, keys, g])
+                for f in range(r * total // n, (r + 1) * total // n):
+                    hh, q0 = g * rep + f // per_head, q_begin + f % per_head * 64
+                    rows = slice(q0, q0 + 64)
+                    for part in ds_parts[hh]:
+                        part_k += part[:, rows, keys].float().transpose(1, 2) @ qf[:, rows, hh]
+                    for part in p_parts[hh]:
+                        part_v += part[:, rows, keys].float().transpose(1, 2) @ dof[:, rows, hh]
+                sums.append((part_k, part_v))
+            for part_k, part_v in sums:  # the cluster's partial sums in rank order
+                dk[:, keys, g] += part_k
+                dv[:, keys, g] += part_v
+    return dk, dv
 
 
 # (b, sq, sk, h, kv, dh, causal, window, q_offset, k_offset): FIXTURES' shapes
@@ -268,7 +318,24 @@ EMULATED = {
     **{name: (*spec[:8], 0, 0) for name, spec in FIXTURES.items()},
     "rows_with_no_key_causal": (1, 48, 40, 4, 2, 16, True, None, 0, 12),
     "rows_with_no_key_window": (2, 64, 16, 4, 2, 32, False, 8, 8, 0),
+    # head_dim 256: Kv 1 under a window with Sq off the 64-row tiles, C4's
+    # offsets, Sq != Sk without causality, rows with no visible key; the
+    # dkdv kernel's cluster of EMULATED_SPLIT blocks a key tile
+    "dh256_kv1_window": (1, 100, 100, 10, 1, 256, True, 40, 0, 0),
+    "dh256_c4_offsets": (1, 70, 90, 4, 2, 256, False, 30, 40, 20),
+    "dh256_noncausal_cross": (2, 40, 72, 4, 1, 256, False, None, 0, 0),
+    "rows_with_no_key_dh256": (1, 48, 40, 4, 1, 256, True, None, 0, 12),
+    "dh256_kv1_window_split1": (1, 100, 100, 10, 1, 256, True, 40, 0, 0),
+    "dh256_kv1_window_split3": (1, 100, 100, 10, 1, 256, True, 40, 0, 0),
+    "dh256_c4_offsets_split2": (1, 70, 90, 4, 2, 256, False, 30, 40, 20),
+    "dh256_noncausal_cross_split5": (2, 40, 72, 4, 1, 256, False, None, 0, 0),
 }
+# the cluster size n of each head_dim-256 fixture: 8, what the launcher
+# takes on an H100 for so few key tiles, and other n, uneven shares too
+EMULATED_SPLIT = {"dh256_kv1_window": 8, "dh256_c4_offsets": 8, "dh256_noncausal_cross": 8,
+                  "rows_with_no_key_dh256": 8, "dh256_kv1_window_split1": 1,
+                  "dh256_kv1_window_split3": 3, "dh256_c4_offsets_split2": 2,
+                  "dh256_noncausal_cross_split5": 5}
 
 
 @pytest.mark.parametrize("name", list(EMULATED))
@@ -280,7 +347,7 @@ def test_split_products_emulation_matches_plain_backward(name):
     q, k, v, do = _inputs(b, sq, sk, h, kv, dh, torch.bfloat16, seed=len(name) + 100)
     kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
     o, lse = tfa.flash_attention_train_plain(q, k, v, **kw)
-    got = _emulated_wgmma_grads(q, k, v, o, lse, do, **kw)
+    got = _emulated_wgmma_grads(q, k, v, o, lse, do, n_split=EMULATED_SPLIT.get(name, 1), **kw)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     _check(got, want, torch.bfloat16, ulps=CARD_BF16_ULPS)
     no_key = ~torch.isfinite(lse)  # (b, h, sq)
@@ -299,7 +366,8 @@ def test_differ_share_tells_the_split_from_one_rounding(name):
     kw = dict(causal=causal, window=window, q_offset=q_off, k_offset=k_off)
     o, lse = tfa.flash_attention_train_plain(q, k, v, **kw)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    split = _emulated_wgmma_grads(q, k, v, o, lse, do, **kw)
+    split = _emulated_wgmma_grads(q, k, v, o, lse, do, n_split=EMULATED_SPLIT.get(name, 1),
+                                  **kw)
     control = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, round_p_ds=True, **kw)
     for gname, g, c, w in zip(("dq", "dk", "dv"), split, control, want):
         assert tfa.differ_share(g, w) <= tfa.BWD_DIFFER_SHARE, (gname, tfa.differ_share(g, w))
@@ -357,6 +425,12 @@ CARD_FIXTURES = {
     "bf16_dh64_window_kv4": (1, 301, 301, 8, 4, 64, True, 77, 0, 0, torch.bfloat16),
     "bf16_dh128_offsets": (1, 100, 150, 4, 2, 128, False, 40, 30, 0, torch.bfloat16),
     "bf16_dh128_sq_not_tile": (2, 190, 190, 4, 1, 128, True, None, 0, 0, torch.bfloat16),
+    # ... at head_dim 256 (the dq kernel's 64-query tiles, the dkdv kernel's
+    # (query head, query tile) pairs of a key tile split over a cluster)
+    "bf16_dh256_noncausal_cross": (2, 200, 333, 10, 2, 256, False, None, 0, 0, torch.bfloat16),
+    "bf16_dh256_offsets": (1, 100, 150, 4, 1, 256, False, 40, 30, 0, torch.bfloat16),
+    "bf16_dh256_sq_not_tile": (2, 333, 333, 10, 1, 256, True, 64, 0, 0, torch.bfloat16),
+    "bf16_dh256_no_visible_rows": (1, 128, 128, 4, 2, 256, True, None, 0, 20, torch.bfloat16),
 }
 
 
@@ -387,6 +461,13 @@ def test_backward_kernels_match_plain_backward_on_card(cuda, name):
     route = tfa.flash_bwd_route(dtype, dh)
     for fn in (tfa.flash_attention_bwd_dq_cuda, tfa.flash_attention_bwd_dkdv_cuda):
         assert fn.route_launches == {"wgmma": 0, "simt": 0, route: 2}
+    if route == "wgmma" and dh == 256:  # dk and dv summed as the launcher's cluster sums
+        n = tfa.flash_bwd_dkdv_grid(b, sk, kv)["split"]
+        cpu = [t.cpu() for t in (q, k, v, o, lse, do)]
+        emulated = _emulated_wgmma_grads(*cpu, n_split=n, **kw)
+        _check([g.cpu() for g in got], emulated, dtype, ulps=CARD_BF16_ULPS)
+        for gname, g, e in zip(("dq", "dk", "dv"), got, emulated):
+            assert tfa.differ_share(g.cpu(), e) <= tfa.BWD_DIFFER_SHARE, gname
 
 
 @pytest.mark.cuda

@@ -374,6 +374,35 @@ def test_three_train_steps_match_reference(ref):
     assert int(to["step"]) == 3
 
 
+def test_train_step_updates_the_callers_state_in_place():
+    """The port's step writes the new params, m and v into the caller's
+    tensors and returns those same tensors (the reference's step is pure):
+    the same objects at the same addresses, holding what a step from copies
+    of the state gives; the step count is a new tensor."""
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), accum_steps=2)
+    params = init_lm_params(0, cfg, "cpu")
+    opt = adamw_init(params)
+    before = topt.tree_map(torch.clone, params)
+    copies = topt.tree_map(torch.clone, params), topt.tree_map(torch.clone, opt)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    batch = synthetic_batch(cfg, 4, 32, seed=0)
+
+    def state(p, o):
+        return topt.tree_leaves(p) + topt.tree_leaves(o["m"]) + topt.tree_leaves(o["v"])
+
+    mine = state(params, opt)
+    addresses = [t.data_ptr() for t in mine]
+    new_params, new_opt, _ = step(params, opt, batch)
+    got = state(new_params, new_opt)
+    assert len(got) == len(mine) and all(g is m for g, m in zip(got, mine))
+    assert [t.data_ptr() for t in got] == addresses
+    want_params, want_opt, _ = step(*copies, batch)
+    assert all(torch.equal(g, w) for g, w in zip(got, state(want_params, want_opt)))
+    assert any(not torch.equal(g, b) for g, b in zip(topt.tree_leaves(new_params),
+                                                     topt.tree_leaves(before)))
+    assert int(new_opt["step"]) == 1 and int(opt["step"]) == 0
+
+
 def test_accumulation_matches_single_batch_and_the_reference(ref):
     """tests/test_train.py:42 for the port (accum 2 and 4 against 1: loss
     rtol 2e-2, the first leaf within 3e-3), and the port's accum 2 against
