@@ -7,8 +7,10 @@ sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
 the serving engine with its gateway (FedNLServer, GatewayServer), the
-sharded backend over torch.distributed, and LM training (granite-3-2b at
-full width and depth, with flash attention's hand-written backward).
+sharded backend over torch.distributed, LM training (granite-3-2b and
+recurrentgemma-2b at full width and depth, with flash attention's
+hand-written backward), and the roofline of every full-width run
+(repro_torch.roofline: counted flops and bytes, mfu).
 
     python3 chip_smoke.py
 
@@ -244,6 +246,28 @@ raises, and the script exits non-zero without the final line.
              sharded_uplink_bits and each collective's bytes per rank (at a
              world of one a copy on the card: the port's path, not a
              network)
+  roofline   the full-width runs measured above, counted (repro_torch.roofline,
+             the steps from repro_torch.launch.specs.build_dryrun): the
+             datasheet's ceilings (H100_SXM bf16, H100_SXM_FP64) and this
+             card's measured ones (measure_machine: an 8192 GEMM and a copy,
+             bf16 and f64); granite-3-2b's and recurrentgemma-2b's train
+             steps (train_4k cut to B 4, accum 2) and the 32k prefills of
+             granite-3-2b and the zoo's five families (prefill_32k cut to B
+             1), each counted on meta in ROOFLINE_WORKERS spawned processes;
+             meanwhile step_cost refuses CUDA tensors (an argument, and a
+             tensor made inside the step), granite-3-2b's 2-layer full-width
+             train step (B 1, S 512) counts the same flops and bytes on meta
+             and on the CPU, and phase 7's w8a TopK round is counted on the
+             CPU with the real data; one line a run: flops, bytes, model
+             flops (6 N D, 2 N D; the round: the packed Hessians' products),
+             useful fraction, the three terms on each machine (the round's on
+             the FP64 ones), the dominant term, the measured seconds and
+             peak memory, mfu = model flops / (seconds x peak), at most
+             ROOFLINE_SHARE_MAX on every machine, and the compute term's
+             share of the seconds (reported: the plain program's products
+             count every S**2 attention pair, which flash skips)
+Every 32k prefill and train step takes its shape from
+``repro_torch.launch.specs.SHAPES``, its global batch cut to CUT_BATCH.
 Phase 3 also checks a window without causality through
 ``models.layers.chunked_attention`` (S = 2,048, q_chunk 512, window 300:
 one launch per query chunk on its key slice) on both flash routes, bf16 at
@@ -316,7 +340,10 @@ def depth_logit_ulps(n_layers: int) -> float:
     one prompt, one function, differ by 16.7)."""
     return DEPTH_LOGIT_ULPS * max(1.0, n_layers / DEPTH_LAYERS)
 LM_CUT_LAYERS = 2  # the card-vs-CPU check's depth cut (granite has 40)
-PREFILL_SEQ = 32768  # launch/specs.py prefill_32k; its global batch of 32 cut to 1
+# the repo's shapes (repro_torch.launch.specs.SHAPES) as one card runs them:
+# prefill_32k's global batch of 32 and train_4k's of 256 cut to these
+CUT_BATCH = {"prefill_32k": 1, "train_4k": 4}
+ONE_CARD = {"data": 1, "model": 1}  # the mesh axes of one card (build_dryrun)
 SWEEP_ROUNDS = 50  # the README's sweep: ExperimentSpec(..., rounds=50).grid(...)
 SWEEP_GN_FLOOR = 1e-10  # group vs solve() grad norms compared where the solve's is above
 LS_GROUP_ROUNDS = 10
@@ -354,9 +381,21 @@ EVICT_ROUNDS, EVICT_AT = 10, 3  # (c)
 SOLO_STAR_ROUNDS, SOLO_PP_ROUNDS = 3, 5  # (d)
 GATEWAY_ROUNDS = 20  # (e)
 TICK_REPS = 10  # (f) ticks timed of an 8-slot group
+# the roofline phase: full-width steps counted on meta in spawned processes
+ROOFLINE_WORKERS = 4
+ROOFLINE_SHARE_MAX = 1.05  # mfu: model flops over a measured time at peak
 # phase 13: the sharded backend at w8a, a world of one
 SHARDED_ROUNDS = 10  # (a) dense_psum, (b) sparse_allgather, (d) the session
 SHARDED_RANDOM_ROUNDS = 3  # (c) RandSeqK and RandK under sparse_allgather
+
+
+def shape_of(name: str):
+    """``name``'s ShapeSpec from ``repro_torch.launch.specs.SHAPES`` with its
+    global batch cut to ``CUT_BATCH[name]``, as ``build_dryrun``'s
+    ``batch_override`` cuts it."""
+    from repro_torch.launch.specs import SHAPES
+
+    return dataclasses.replace(SHAPES[name], batch=CUT_BATCH[name])
 
 
 def emit(obj) -> None:
@@ -585,8 +624,9 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
+    seq = shape_of("prefill_32k").seq
     cases = {  # name: (b, sq, sk, h, kv, dh, causal, window, dtype)
-        "granite_32k_layer": (1, PREFILL_SEQ, PREFILL_SEQ, 32, 8, 64, True, None, bf16),
+        "granite_32k_layer": (1, seq, seq, 32, 8, 64, True, None, bf16),
         "b4_s4096": (4, 4096, 4096, 32, 8, 64, True, None, bf16),
         "s8192_window4096": (1, 8192, 8192, 32, 8, 64, True, 4096, bf16),
         "s1000_padding": (1, 1000, 1000, 32, 8, 64, True, None, bf16),
@@ -595,7 +635,7 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         "dh128_window200": (2, 777, 777, 8, 2, 128, True, 200, bf16),
         "dh32_simt_route": (2, 1000, 1000, 8, 2, 32, True, 300, bf16),
         # recurrentgemma-2b's attention layer at its 32k prefill: the wgmma route
-        "recurrentgemma_32k_layer_dh256": (1, PREFILL_SEQ, PREFILL_SEQ, 10, 1, 256, True, 2048, bf16),
+        "recurrentgemma_32k_layer_dh256": (1, seq, seq, 10, 1, 256, True, 2048, bf16),
         "dh256_kv2_window300_s1000": (2, 1000, 1000, 8, 2, 256, True, 300, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
         "f32_dh256_simt_window2048": (1, 4096, 4096, 10, 1, 256, True, 2048, f32),
@@ -670,7 +710,7 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
 
 
 def flash_window_layer(dev, tfa, h: int, kv: int, dh: int, window: int, seed: int) -> dict:
-    """Flash at one model's 32k attention layer (B 1, S PREFILL_SEQ, causal
+    """Flash at one model's 32k attention layer (B 1, prefill_32k's S, causal
     window), bf16: the kernel, its plain version and SDPA given the causal
     window as a boolean (S, S) mask and the kv heads repeated, as CUDA-event
     medians of FLASH_TIMED_REPS pairs around one call; the bound (QK^T and
@@ -680,12 +720,13 @@ def flash_window_layer(dev, tfa, h: int, kv: int, dh: int, window: int, seed: in
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q, k, v = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, h, kv, dh, torch.bfloat16, seed)
+    seq = shape_of("prefill_32k").seq
+    q, k, v = flash_inputs(dev, 1, seq, seq, h, kv, dh, torch.bfloat16, seed)
     fns = {
         "kernel": lambda: tfa.flash_attention_cuda(q, k, v, causal=True, window=window),
         "plain": lambda: tfa.flash_attention_plain(q, k, v, causal=True, window=window),
     }
-    pos = torch.arange(PREFILL_SEQ, device=dev)
+    pos = torch.arange(seq, device=dev)
     band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
     qt = q.transpose(1, 2)
     kt, vt = (t.transpose(1, 2).repeat_interleave(h // kv, dim=1).contiguous() for t in (k, v))
@@ -700,11 +741,11 @@ def flash_window_layer(dev, tfa, h: int, kv: int, dh: int, window: int, seed: in
         library["not_given"] = str(err).splitlines()[0][:300]
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
         ms = median_ms(fns, reps=FLASH_TIMED_REPS, calls=1)
-    visible = tfa.visible_pairs(PREFILL_SEQ, PREFILL_SEQ, True, window) * h
+    visible = tfa.visible_pairs(seq, seq, True, window) * h
     flops = 2 * dh * visible  # QK^T, and again each P.V product
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     return {
-        "ms": ms, "shape": [1, PREFILL_SEQ, h, kv, dh], "causal": True, "window": window,
+        "ms": ms, "shape": [1, seq, h, kv, dh], "causal": True, "window": window,
         "dtype": "bfloat16", "route": tfa.flash_route(torch.bfloat16, dh),
         "bound": bound(nbytes, 4 * flops, BF16_TENSOR_FLOPS),
         "bound_parts_ms": {
@@ -804,7 +845,9 @@ def lm_phase(dev, ops) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
     prefill = make_prefill_step(full)
-    batch = {"tokens": torch.as_tensor(rng.integers(0, full.vocab, size=(1, PREFILL_SEQ)), device=dev)}
+    shape = shape_of("prefill_32k")
+    batch = {"tokens": torch.as_tensor(rng.integers(0, full.vocab, size=(shape.batch, shape.seq)),
+                                       device=dev)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -818,7 +861,8 @@ def lm_phase(dev, ops) -> dict:
           f"32k prefill launches {launches}, want {full.n_layers} flash launches")
     check(routes == {"wgmma": full.n_layers, "simt": 0},
           f"32k prefill flash routes {routes}, want all {full.n_layers} on wgmma")
-    check(logits.shape == (1, vp) and bool(torch.isfinite(logits).all()), "32k prefill logits")
+    check(logits.shape == (shape.batch, vp) and bool(torch.isfinite(logits).all()),
+          "32k prefill logits")
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     prefill(params, batch)
@@ -827,9 +871,10 @@ def lm_phase(dev, ops) -> dict:
     emit({
         "phase": "lm", "part": "prefill_32k", "arch": full.name, "n_layers": full.n_layers,
         "params": n_params, "param_bytes_f32": n_params * 4, "init_s": init_s,
-        "batch_seq": [1, PREFILL_SEQ], "cut": "global batch 32 of prefill_32k cut to 1",
+        "batch_seq": [shape.batch, shape.seq],
+        "cut": f"global batch 32 of prefill_32k cut to {shape.batch}",
         "first_call_ms": first_s * 1e3, "ms": steady_s * 1e3,
-        "tokens_per_s": PREFILL_SEQ / steady_s, "max_memory_allocated": peak,
+        "tokens_per_s": shape.batch * shape.seq / steady_s, "max_memory_allocated": peak,
         "launches": launches, "flash_routes": routes,
         "logit_scale": float(logits.float().abs().max()),
     })
@@ -891,7 +936,7 @@ def lm_phase(dev, ops) -> dict:
         "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
     })
     return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches,
-            "flash_routes": routes}
+            "flash_routes": routes, "ms": steady_s * 1e3, "max_memory_allocated": peak}
 
 
 # phase zoo: each family's full-width config, its 32k prefill's flash
@@ -1132,7 +1177,8 @@ def zoo_family(arch: str, dev, ops) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
     prefill = make_prefill_step(full)
-    big = zoo_inputs(full, 1, PREFILL_SEQ, rng, dev)
+    shape = shape_of("prefill_32k")
+    big = zoo_inputs(full, shape.batch, shape.seq, rng, dev)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()  # the params, the inputs, earlier phases' tensors
     torch.cuda.reset_peak_memory_stats()
@@ -1147,7 +1193,8 @@ def zoo_family(arch: str, dev, ops) -> dict:
     check(launches == {**no_launch, "flash_attention": sum(want_routes.values())},
           f"{arch} 32k prefill launches {launches}")
     check(routes == want_routes, f"{arch} 32k prefill flash routes {routes}, want {want_routes}")
-    check(logits.shape == (1, tlm.padded_vocab(full)) and bool(torch.isfinite(logits).all()),
+    check(logits.shape == (shape.batch, tlm.padded_vocab(full))
+          and bool(torch.isfinite(logits).all()),
           f"{arch} 32k prefill logits")
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
@@ -1158,8 +1205,9 @@ def zoo_family(arch: str, dev, ops) -> dict:
           "encoder_layers": full.encoder_layers, "params": n_params,
           "param_bytes_f32": n_params * 4, "init_s": init_s,
           "inputs": {k: list(v.shape) for k, v in big.items()},
-          "cut": "global batch 32 of prefill_32k cut to 1", "first_call_ms": first_s * 1e3,
-          "ms": steady_s * 1e3, "tokens_per_s": PREFILL_SEQ / steady_s,
+          "cut": f"global batch 32 of prefill_32k cut to {shape.batch}",
+          "first_call_ms": first_s * 1e3,
+          "ms": steady_s * 1e3, "tokens_per_s": shape.batch * shape.seq / steady_s,
           "max_memory_allocated": peak, "memory_allocated_before": before,
           "launches": launches, "flash_routes": routes,
           "logit_scale": float(logits.float().abs().max())})
@@ -1237,16 +1285,17 @@ def zoo_family(arch: str, dev, ops) -> dict:
           "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
           "family_seconds": seconds})
     torch.cuda.empty_cache()
-    return {"routes": routes, "launches": launches, "seconds": seconds}
+    return {"routes": routes, "launches": launches, "seconds": seconds, "ms": steady_s * 1e3,
+            "max_memory_allocated": peak}
 
 
 # phase train: LM training at granite-3-2b's and recurrentgemma-2b's full width
 TRAIN_LAYER = (2, 4096, 32, 8, 64)  # a microbatch of train_4k at granite's layer: B, S, H, Kv, dh
 RG_TRAIN_LAYER = (2, 4096, 10, 1, 256)  # ... at recurrentgemma-2b's attention layer
 RG_WINDOW = 2048  # recurrentgemma-2b's local window (causal)
-TRAIN_SEQ = 4096  # launch/specs.py train_4k's sequence
-# train_4k's global batch of 256 cut to 4, in 2 microbatches of 2; 6 steps
-TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4, 2, 6
+# train_4k (S 4,096) at its batch cut to 4 (CUT_BATCH), in 2 microbatches of
+# 2; 6 steps
+TRAIN_ACCUM, TRAIN_STEPS = 2, 6
 # the card-vs-CPU depth cut, B 1: granite 2 layers; recurrentgemma 3, since
 # its (rglru, rglru, attn) pattern puts no attention layer in the first 2
 TRAIN_CUT_LAYERS, RG_CUT_LAYERS, TRAIN_CUT_SEQ = 2, 3, 512
@@ -1620,7 +1669,7 @@ def _kernel_split(prof, n_steps: int) -> dict:
 def train_full(dev, ops, arch: str, steps: int) -> dict:
     """``arch`` at full width and depth: ``steps`` steps of make_train_step
     (accum TRAIN_ACCUM, remat "full", AdamW lr 1e-3) on
-    synthetic_token_stream at B TRAIN_BATCH, S TRAIN_SEQ; the launch counts
+    synthetic_token_stream at train_4k's S and cut batch; the launch counts
     set to 0 before each step and read after it (two training forwards an
     attention layer and microbatch under remat "full", one of each backward
     kernel, all on the wgmma route, and nothing else); the last step
@@ -1651,7 +1700,8 @@ def train_full(dev, ops, arch: str, steps: int) -> dict:
     init_s = time.perf_counter() - t0
     allocated_after_init = torch.cuda.memory_allocated()
     step = make_train_step(full, AdamWConfig(lr=1e-3))
-    stream = synthetic_token_stream(full, TRAIN_BATCH, TRAIN_SEQ)
+    shape = shape_of("train_4k")
+    stream = synthetic_token_stream(full, shape.batch, shape.seq)
     batches = [next(stream) for _ in range(steps)]  # set-up: numpy, before the clock
     losses, norms, wall, counts = [], [], [], []
     prof = None
@@ -1687,7 +1737,7 @@ def train_full(dev, ops, arch: str, steps: int) -> dict:
     check(losses[-1] < losses[0], f"{arch} train: the loss did not fall: {losses}")
     timed = wall[1:-1]  # after the first step, before the profiled one
     ms = statistics.median(timed) * 1e3
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = shape.batch * shape.seq
     split = _kernel_split(prof, 1)
     # AdamW alone at full width: CUDA events around one update (zero grads)
     grads = tree_map(torch.zeros_like, params)
@@ -1701,9 +1751,10 @@ def train_full(dev, ops, arch: str, steps: int) -> dict:
     device_ms = split["device_ms_total"]
     out = {"arch": full.name, "n_layers": full.n_layers, "attention_layers": n_attn,
            "params": n_params, "f32_params_grads_m_v_bytes": 4 * 4 * n_params,
-           "batch_seq": [TRAIN_BATCH, TRAIN_SEQ], "accum_steps": TRAIN_ACCUM,
-           "microbatch": TRAIN_BATCH // TRAIN_ACCUM, "remat_policy": full.remat_policy,
-           "cut": "train_4k's global batch of 256 cut to 4", "steps": steps, "lr": 1e-3,
+           "batch_seq": [shape.batch, shape.seq], "accum_steps": TRAIN_ACCUM,
+           "microbatch": shape.batch // TRAIN_ACCUM, "remat_policy": full.remat_policy,
+           "cut": f"train_4k's global batch of 256 cut to {shape.batch}", "steps": steps,
+           "lr": 1e-3,
            "init_s": init_s, "losses": losses, "grad_norms": norms, "wall_s": wall,
            "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
            "ms_per_step_note": f"median of steps 2..{steps - 1} (host clock, synchronised)",
@@ -3263,6 +3314,179 @@ def sharded_phase(ops, dev, local_ms_per_round: float) -> dict:
     return out
 
 
+# the roofline phase's meta counts, longest first: (arch, shape, accum_steps)
+ROOFLINE_RUNS = (
+    ("seamless-m4t-large-v2", "prefill_32k", None),
+    ("granite-3-2b", "train_4k", TRAIN_ACCUM),
+    ("mamba2-2.7b", "prefill_32k", None),
+    ("llava-next-mistral-7b", "prefill_32k", None),
+    ("granite-3-2b", "prefill_32k", None),
+    ("recurrentgemma-2b", "train_4k", TRAIN_ACCUM),
+    ("granite-moe-1b-a400m", "prefill_32k", None),
+    ("recurrentgemma-2b", "prefill_32k", None),
+)
+
+
+def count_on_meta(arch: str, shape_name: str, accum: int | None) -> dict:
+    """One full-width step counted on meta (run in a spawned process): the
+    step ``build_dryrun`` gives for ``arch`` at ``shape_name`` with its
+    batch cut as this script runs it (train_4k: accum_steps ``accum``, as
+    the train phase measured it), its ``step_cost`` and 6 N D or 2 N D."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import roofline as rl
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import build_dryrun
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if accum is not None:
+        cfg = dataclasses.replace(cfg, accum_steps=accum)
+    shape = shape_of(shape_name)
+    spec = build_dryrun(cfg, shape_name, ONE_CARD, batch_override=shape.batch)
+    cost = rl.step_cost(spec.step_fn, *spec.args)
+    params = spec.args[0]
+    return {"arch": arch, "shape": shape_name, "batch_seq": [shape.batch, shape.seq],
+            "note": spec.note, "cost": dataclasses.asdict(cost),
+            "params": rl.count_params(params), "active_params": rl.active_params(cfg, params),
+            "model_flops": rl.model_flops_global(cfg, params, tokens=shape.batch * shape.seq,
+                                                 kind=shape.kind),
+            "count_s": time.perf_counter() - t0}
+
+
+def roofline_line(run: str, cost: dict, model_flops: float, measured_s: float,
+                  peak_mem: float, machines: list) -> dict:
+    """One run's roofline on each machine (the first the datasheet's, whose
+    terms name the dominant one), its mfu (model flops over the measured
+    time at each machine's peak), held at most ROOFLINE_SHARE_MAX, and the
+    compute and memory terms' shares of the measured time, reported, not
+    held: they count the plain program's work (all S**2 attention pairs,
+    the logits' unfused bytes), which the card's kernels do not do, so
+    neither is a floor of the card's time."""
+    from repro_torch import roofline as rl
+
+    step = rl.StepCost(**cost)
+    terms, shares = {}, {}
+    for machine in machines:
+        r = rl.analyze(step, chips=1, model_flops_global=model_flops, machine=machine,
+                       peak_mem_bytes=peak_mem)
+        terms[machine.name] = {"compute_s": r.compute_s, "memory_s": r.memory_s,
+                               "collective_s": r.collective_s, "dominant": r.dominant}
+        shares[machine.name] = {"mfu": model_flops / (measured_s * machine.peak_flops),
+                                "compute_share": r.compute_s / measured_s}
+        mfu = shares[machine.name]["mfu"]
+        check(0 <= mfu <= ROOFLINE_SHARE_MAX,
+              f"roofline {run}: mfu {mfu} on {machine.name} above {ROOFLINE_SHARE_MAX}")
+        if machine is machines[0]:
+            first = r
+    return {"phase": "roofline", "run": run, **first.as_dict(), "terms": terms,
+            "measured_s": measured_s, **shares[machines[0].name], "shares": shares,
+            "memory_term_over_measured": first.memory_s / measured_s,
+            "flops_by_op": cost["flops_by_op"], "aten_ops": cost["ops"]}
+
+
+def roofline_phase(dev, smi: str, measured: dict) -> None:
+    """The roofline of every full-width run measured before it, from counts
+    alone (the times are the earlier phases'): the machines (datasheet and
+    measured on this card); the meta counts of ROOFLINE_RUNS in
+    ROOFLINE_WORKERS spawned processes while this process checks that a
+    CUDA tensor makes ``step_cost`` raise, that granite-3-2b's 2-layer
+    full-width train step (B 1, S TRAIN_CUT_SEQ) counts the same on meta
+    and on the CPU, and counts phase 7's w8a TopK round on the CPU with
+    the real data; then one line a run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch import roofline as rl
+    from repro_torch.api import DataSpec, ExperimentSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core.fednl import fednl_init, make_fednl_round
+    from repro_torch.linalg import triu_size
+    from repro_torch.models import init_lm_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step, synthetic_batch
+
+    t_phase = time.perf_counter()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=ROOFLINE_WORKERS, mp_context=spawn) as pool:
+        futures = [pool.submit(count_on_meta, *run) for run in ROOFLINE_RUNS]
+
+        bf16 = [rl.H100_SXM, rl.measure_machine(dev, dtype=torch.bfloat16)]
+        fp64 = [rl.H100_SXM_FP64, rl.measure_machine(dev, dtype=torch.float64)]
+        emit({"phase": "roofline", "part": "machines", "nvidia_smi": smi,
+              "datasheet": [dataclasses.asdict(m) for m in (bf16[0], fp64[0])],
+              "measured": [dataclasses.asdict(m) for m in (bf16[1], fp64[1])],
+              "note": "measured: the best (8192, 8192) product and copy of 2 x 8192**2 "
+                      "elements on this card, CUDA events"})
+
+        refused = []
+        for fn, args in ((torch.mul, (torch.ones(4, device=dev), 2.0)),
+                         (lambda: torch.ones(4, device=dev) * 2, ())):
+            try:
+                rl.step_cost(fn, *args)
+            except ValueError as err:
+                refused.append(str(err)[:120])
+        check(len(refused) == 2, f"step_cost counted CUDA tensors: {refused}")
+
+        cut = dataclasses.replace(get_config("granite-3-2b"), n_layers=TRAIN_CUT_LAYERS,
+                                  accum_steps=1)
+        batch = {k: torch.as_tensor(v) for k, v in
+                 synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0).items()}
+        step = make_train_step(cut, AdamWConfig(lr=1e-3))
+        counts = {}
+        for where in ("meta", "cpu"):
+            params = init_lm_params(0, cut, where)
+            on = {k: v.to(where) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            counts[where] = (rl.step_cost(step, params, adamw_init(params), on),
+                             time.perf_counter() - t0)
+            del params
+        (meta, meta_s), (cpu, cpu_s) = counts["meta"], counts["cpu"]
+        check(meta.flops == cpu.flops and meta.bytes == cpu.bytes,
+              f"the 2-layer train step: meta {meta.flops} flops, {meta.bytes} bytes; CPU "
+              f"{cpu.flops}, {cpu.bytes}")
+        emit({"phase": "roofline", "part": "meta_equals_cpu", "arch": cut.name,
+              "cut": f"n_layers {TRAIN_CUT_LAYERS}; full width", "batch_seq": [1, TRAIN_CUT_SEQ],
+              "flops": meta.flops, "bytes": meta.bytes, "flops_equal": True, "bytes_equal": True,
+              "aten_ops": {"meta": meta.ops, "cpu": cpu.ops}, "meta_s": meta_s, "cpu_s": cpu_s,
+              "cuda_refused": refused,
+              "note": "aten ops differ by the CPU's lift_fresh of torch.tensor(scalar) in AdamW, "
+                      "which moves no bytes"})
+
+        spec = ExperimentSpec(data=DataSpec(dataset="w8a"))
+        cfg = spec.fednl_config()
+        z = torch.as_tensor(spec.data.build(), dtype=torch.float64)
+        n_clients, n_i, d = z.shape
+        t0 = time.perf_counter()
+        round_cost = rl.step_cost(make_fednl_round(z, cfg), fednl_init(z, cfg))
+        round_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = [f.result() for f in futures]
+        waited_s = time.perf_counter() - t0
+
+    for res in results:
+        arch, shape_name = res["arch"], res["shape"]
+        meas = measured[(arch, shape_name)]
+        line = roofline_line(f"{arch} {shape_name}", res["cost"], res["model_flops"],
+                             meas["ms"] / 1e3, meas["max_memory_allocated"], bf16)
+        line.update(counted_on="meta", batch_seq=res["batch_seq"], note=res["note"],
+                    params=res["params"], active_params=res["active_params"],
+                    measured_by=meas["by"], count_s=res["count_s"])
+        emit(line)
+    # the round: model flops are the packed Hessians' products, what SYRK must do
+    hess_flops = 2.0 * n_clients * n_i * triu_size(d)
+    line = roofline_line("w8a topk round", dataclasses.asdict(round_cost), hess_flops,
+                         measured["round"]["device_ms"] / 1e3, float("nan"), fp64)
+    wall_s = measured["round"]["wall_ms"] / 1e3
+    line.update(counted_on="cpu", shape=[n_clients, n_i, d], count_s=round_s,
+                measured_by="phase 7: device ms per TopK round under torch.profiler",
+                wall_s=wall_s, mfu_wall=hess_flops / (wall_s * fp64[0].peak_flops),
+                model_flops_note="2 n n_i d(d+1)/2: the packed Hessians' products")
+    emit(line)
+    emit({"phase": "roofline", "seconds": time.perf_counter() - t_phase,
+          "workers": ROOFLINE_WORKERS, "waited_for_the_counts_s": waited_s})
+
+
 def main() -> int:
     import torch
 
@@ -3735,7 +3959,8 @@ def main() -> int:
         "plain": lambda: select_topk_by_keys_plain(delta1, unif_keys, k),
         "library": lambda: torch.topk(unif_keys, k, dim=-1),
     })
-    fq, fk, fv = flash_inputs(dev, 1, PREFILL_SEQ, PREFILL_SEQ, 32, 8, 64, torch.bfloat16, 100)
+    seq = shape_of("prefill_32k").seq
+    fq, fk, fv = flash_inputs(dev, 1, seq, seq, 32, 8, 64, torch.bfloat16, 100)
     qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk, fv))
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
         flash_ms = median_ms({
@@ -3745,7 +3970,7 @@ def main() -> int:
                 qt, kt, vt, is_causal=True, enable_gqa=True),
         }, reps=FLASH_TIMED_REPS, calls=1)
     # the (query, key) pairs that the causal mask leaves visible, over the heads
-    visible = tfa.visible_pairs(PREFILL_SEQ, PREFILL_SEQ, True, None) * fq.shape[2]
+    visible = tfa.visible_pairs(seq, seq, True, None) * fq.shape[2]
     product_flops = 2 * fq.shape[3] * visible  # QK^T, and again each P.V product
     flash_bytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
     flash_parts = {  # ms
@@ -3838,7 +4063,7 @@ def main() -> int:
                   "library = torch.rand of the same shape and type (another generator, "
                   "timed only); TopK by keys library = torch.topk on the same f32 keys"})
     emit({"phase": "times", "flash_attention": flash_ms,
-          "shape": [1, PREFILL_SEQ, 32, 8, 64], "causal": True, "dtype": "bfloat16",
+          "shape": [1, seq, 32, 8, 64], "causal": True, "dtype": "bfloat16",
           "route": tfa.flash_route(torch.bfloat16, 64),
           "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
           "bound_parts_ms": flash_parts, "visible_pairs": visible,
@@ -3906,10 +4131,25 @@ def main() -> int:
     del serve_params, decode
     flash_launches = lm["launches"]["flash_attention"]
     flash_routes = lm["flash_routes"]
+    by_prefill = "the lm and zoo phases: host clock around one synchronised 32k prefill"
+    measured = {  # the full-width runs' times for the roofline phase
+        ("granite-3-2b", "prefill_32k"): {"ms": lm["ms"], "by": by_prefill,
+                                          "max_memory_allocated": lm["max_memory_allocated"]},
+        **{(arch, "prefill_32k"): {"ms": z["ms"], "by": by_prefill,
+                                   "max_memory_allocated": z["max_memory_allocated"]}
+           for arch, z in zoo.items()},
+        "round": {"device_ms": topk_trace.get("device_ms_per_round"),
+                  "wall_ms": rep.wall_time_s / rep.rounds * 1e3},
+    }
+    check(measured["round"]["device_ms"] is not None, "phase 7 measured no device time")
     del lm
 
     # --- train: LM training at granite-3-2b's and recurrentgemma-2b's full width
     train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"))
+    for cell in (train["full"], train["rg_full"]):
+        measured[(cell["arch"], "train_4k")] = {
+            "ms": cell["ms_per_step"], "max_memory_allocated": cell["max_memory_allocated"],
+            "by": "the train phase: median host-clock ms per synchronised step"}
 
     # --- 8 sweeps: the README's grid as one batched group ------------------
     sweep_launches, sweep = sweep_phase(ops)
@@ -3931,6 +4171,9 @@ def main() -> int:
 
     # --- 13 the sharded backend: a world of one on NCCL --------------------
     sharded = sharded_phase(ops, dev, rep.wall_time_s / rep.rounds * 1e3)
+
+    # --- roofline: every full-width run above, counted -----------------------
+    roofline_phase(dev, smi, measured)
 
     kernels = [
         {

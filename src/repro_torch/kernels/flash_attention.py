@@ -608,9 +608,9 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention under autograd: q (B, Sq, H, dh), k and v (B, Sk, Kv,
     dh) -> (B, Sq, H, dh) in q's dtype, as ``ops.attention``.  The forward
     runs the training instantiation on a CUDA tensor (the plain version on a
-    CPU tensor) and saves q, k, v, O in f32 and the lse; the backward runs
-    the backward kernels (the plain backward on the CPU).  No fallback: a
-    failed build or launch raises."""
+    CPU or meta tensor) and saves q, k, v, O in f32 and the lse; the
+    backward runs the backward kernels (the plain backward on the CPU and
+    on meta).  No fallback: a failed build or launch raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_offset, k_offset):

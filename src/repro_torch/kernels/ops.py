@@ -2,11 +2,12 @@
 (port of ``repro.kernels.ops``).
 
 Each routes on the device of its input, and on nothing else: a CPU tensor
-goes to the kernel's plain PyTorch version, a CUDA tensor launches the CUDA
-kernel (or raises).  There is no fallback from the kernel to the plain
-version.  ``attention`` also routes on whether a gradient is wanted: then it
-is the autograd Function (the forward's training instantiation and the
-backward kernels on the card).
+goes to the kernel's plain PyTorch version, and so does a ``meta`` tensor
+(a step counted without data, ``roofline.step_cost``); a CUDA tensor
+launches the CUDA kernel (or raises).  There is no fallback from the kernel
+to the plain version.  ``attention`` also routes on whether a gradient is
+wanted: then it is the autograd Function (the forward's training
+instantiation and the backward kernels on the card).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def _route(name: str, t: torch.Tensor) -> bool:
     """True for the CUDA kernel, False for the plain version."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: no kernel for device {t.device}")
 

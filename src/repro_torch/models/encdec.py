@@ -18,6 +18,9 @@ Training: ``encdec_loss`` is the encoder and the decoder, then the
 decoder's chunked CE (``lm.chunked_loss``).  As in the reference, every
 encoder and decoder layer is rematerialised in full (``jax.checkpoint``
 whatever ``cfg.remat_policy`` says) when a gradient is wanted.
+
+``encdec_param_specs`` and ``encdec_cache_specs`` are the reference's
+sharding specs (``launch.mesh.P`` trees), read by ``launch.specs``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     chunked_attention,
@@ -69,6 +73,32 @@ def init_encdec_params(seed: int, cfg: ArchConfig,
                        "attn": attn_init(cfg, dense), "cross": attn_init(cfg, dense),
                        "mlp": mlp_init(cfg, dense)},
         "final_norm": zeros(d),
+    }
+
+
+def encdec_param_specs(cfg: ArchConfig, serve_tp2d: bool = False) -> dict:
+    """Sharding specs of :func:`init_encdec_params`' tree, the scheme of
+    ``lm.lm_param_specs``."""
+    both = ("data", "model")
+    if serve_tp2d:
+        d2, d2t = P(None, None, both), P(None, both, None)
+        embed_spec, fp = P(both, None), P(None, both)
+    else:
+        d2, d2t = P(None, "data", "model"), P(None, "model", "data")
+        embed_spec, fp = P("model", "data"), P("data", "model")
+    attn_spec = {"wq": d2, "wk": d2, "wv": d2, "wo": d2t}
+    mlp_spec = {"w1": d2, "w2": d2t}
+    if cfg.activation == "silu_glu":
+        mlp_spec = dict(mlp_spec, w1g=d2)
+    return {
+        "embed": embed_spec,
+        "frontend_proj": fp,
+        "enc_blocks": {"ln1": P(None, None), "ln2": P(None, None), "attn": attn_spec,
+                       "mlp": mlp_spec},
+        "enc_norm": P(None),
+        "dec_blocks": {"ln1": P(None, None), "ln2": P(None, None), "lnc": P(None, None),
+                       "attn": attn_spec, "cross": attn_spec, "mlp": mlp_spec},
+        "final_norm": P(None),
     }
 
 
@@ -155,6 +185,19 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, seq_len: int, src_len: int,
 
     return {"pos": 0, "k": zeros(seq_len), "v": zeros(seq_len), "ck": zeros(src_len),
             "cv": zeros(src_len)}
+
+
+def encdec_cache_specs(cfg: ArchConfig, *, batch_axis, seq_axis=None) -> dict:
+    """Sharding specs of :func:`init_encdec_cache`'s tree: batch over
+    ``batch_axis``, the self K/V's sequence over ``seq_axis``, head_dim over
+    "model"."""
+    return {
+        "pos": P(),
+        "k": P(None, batch_axis, seq_axis, None, "model"),
+        "v": P(None, batch_axis, seq_axis, None, "model"),
+        "ck": P(None, batch_axis, None, None, "model"),
+        "cv": P(None, batch_axis, None, None, "model"),
+    }
 
 
 def encdec_decode_step(params, cfg: ArchConfig, cache, tokens):

@@ -25,7 +25,9 @@ hybrid families' conv and recurrent state, into the cache's tensors and
 returns the same tensors, so a decode step allocates no second cache.
 ``cache["pos"]`` is a Python int.
 
-The sharding specs wait with the TPU dry-run tooling (ROADMAP A.4).
+``lm_param_specs`` and ``cache_specs`` are the reference's sharding specs
+(``launch.mesh.P`` trees) of the params and the cache; ``launch.specs``
+reads them, and nothing applies them to a mesh yet (ROADMAP A.4 c).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     chunked_attention,
@@ -84,9 +87,11 @@ def param_initializers(seed: int, nl: int, device: str | torch.device | None = N
     """(normal, dense, zeros) drawing f32 tensors on ``device`` from one
     ``torch.Generator`` seeded with ``seed``: ``dense(shape, scale=None,
     layers=nl)`` is the reference's ``_dense_init`` over ``layers`` stacked
-    layers, its scale 1/sqrt(fan_in) with fan_in = shape[-2]."""
+    layers, its scale 1/sqrt(fan_in) with fan_in = shape[-2].  On ``meta``
+    (shapes without values, the counterpart of ``jax.eval_shape``) nothing
+    is drawn and there is no generator."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
     def normal(shape, std):
         return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).mul_(std)
@@ -178,6 +183,76 @@ def init_lm_params(seed: int, cfg: ArchConfig, device: str | torch.device | None
     if cfg.frontend == "vision":
         params["img_proj"] = normal((d, d), 1.0 / np.sqrt(d))
     return params
+
+
+def lm_param_specs(cfg: ArchConfig, serve_tp2d: bool = False) -> dict:
+    """Sharding specs of :func:`init_lm_params`' tree (the reference's
+    scheme): weights over ("data", "model"), norms and f32 leaves whole
+    (a ``P`` is immutable, so leaves may share one).
+
+    serve_tp2d=True (decode-time, cfg.serve_sharding == "tp2d"): feature dims
+    shard over BOTH mesh axes and nothing shards over d_model, so per-layer
+    matmuls need no weight all-gathers -- decode psums activations instead.
+    """
+    both = ("data", "model")
+    if serve_tp2d:
+        d2 = P(None, None, both)  # (L, D, F): F over 256 ways
+        d2t = P(None, both, None)  # (L, F, D): contract -> psum
+        vec = P(None, both)
+        embed_spec = P(both, None)  # padded vocab divides 256
+    else:
+        d2 = P(None, "data", "model")  # (L, D, F)-like
+        d2t = P(None, "model", "data")  # (L, F, D)-like
+        vec = P(None, "model")
+        embed_spec = P("model", "data")
+    specs: dict[str, Any] = {
+        "embed": embed_spec,
+        "final_norm": P(None),
+        "blocks": {"ln1": P(None, None)},
+    }
+    blocks = specs["blocks"]
+    if cfg.family == "ssm":
+        blocks["ssm"] = {
+            "in_proj": d2,
+            "conv_w": P(None, None, both if serve_tp2d else "model"),
+            "conv_b": vec,
+            "dt_bias": P(None, None),
+            "A_log": P(None, None),
+            "D": P(None, None),
+            "gate_norm": vec,
+            "out_proj": d2t,
+        }
+    else:
+        blocks["attn"] = {"wq": d2, "wk": d2, "wv": d2, "wo": d2t}
+        blocks["ln2"] = P(None, None)
+        if cfg.family == "moe":
+            moe_d2 = P(None, None, None, both) if serve_tp2d else P(None, None, "data", "model")
+            moe_d2t = P(None, None, both, None) if serve_tp2d else P(None, None, "model", "data")
+            blocks["moe"] = {"router": P(None, None, None), "w1": moe_d2, "w2": moe_d2t}
+            if cfg.activation == "silu_glu":
+                blocks["moe"]["w1g"] = moe_d2
+        else:
+            blocks["mlp"] = {"w1": d2, "w2": d2t}
+            if cfg.activation == "silu_glu":
+                blocks["mlp"]["w1g"] = d2
+        if cfg.family == "hybrid":
+            blocks["rglru"] = {
+                "w_x": d2,
+                "w_gate": d2,
+                "conv_w": P(None, None, both if serve_tp2d else "model"),
+                "conv_b": vec,
+                "w_r": d2,
+                "b_r": vec,
+                "w_i": d2,
+                "b_i": vec,
+                "lambda": vec,
+                "w_out": d2t,
+            }
+    if not cfg.tie_embeddings:
+        specs["head"] = embed_spec
+    if cfg.frontend == "vision":
+        specs["img_proj"] = P(None, both) if serve_tp2d else P("data", "model")
+    return specs
 
 
 def params_from_numpy(tree, device: str | torch.device | None = None):
@@ -422,6 +497,24 @@ def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int,
         cache["conv"] = torch.zeros((nl, batch, 3, lru), dtype=COMPUTE_DTYPE, device=dev)
         cache["h"] = torch.zeros((nl, batch, lru), dtype=torch.float32, device=dev)
     return cache
+
+
+def cache_specs(cfg: ArchConfig, *, batch_axis, seq_axis=None) -> dict:
+    """Sharding specs of :func:`init_decode_cache`'s tree (batch over
+    ``batch_axis``; for batch=1 long-context shapes pass batch_axis=None and
+    seq_axis="data"): head_dim over "model", since the kv head count can be
+    under the axis's 16 and the 64..256-wide head_dim always divides it."""
+    specs: dict[str, Any] = {"pos": P()}
+    if cfg.family == "ssm":
+        specs["conv"] = P(None, batch_axis, None, "model")
+        specs["ssm"] = P(None, batch_axis, "model", None, None)
+        return specs
+    specs["k"] = P(None, batch_axis, seq_axis, None, "model")
+    specs["v"] = P(None, batch_axis, seq_axis, None, "model")
+    if cfg.family == "hybrid":
+        specs["conv"] = P(None, batch_axis, None, "model")
+        specs["h"] = P(None, batch_axis, "model")
+    return specs
 
 
 def _attn_decode(x, bp, cfg: ArchConfig, k_cache, v_cache, pos: int, window):

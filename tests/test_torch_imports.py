@@ -43,7 +43,8 @@ def test_scan_covers_the_package():
                    "gateway/__init__", "gateway/protocol", "gateway/server", "gateway/client",
                    "launch/gateway_serve", "distributed/__init__", "distributed/fednl_shard",
                    "distributed/world", "launch/mesh", "train/data", "train/optimizer",
-                   "train/grad_compress", "train/step", "launch/train"):
+                   "train/grad_compress", "train/step", "launch/train", "roofline",
+                   "launch/specs"):
         assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 

@@ -567,23 +567,66 @@ def test_reset_launch_counts_clears_the_counts_by_route_and_by_dtype():
     assert tops.launch_counts() == NO_LAUNCHES
 
 
+class _Elsewhere:
+    """A stand-in for a tensor on a device with no kernel and no plain
+    route: only its device is read before the refusal."""
+
+    device = torch.device("mps")
+
+
 def test_ops_refuse_other_devices():
-    meta = torch.zeros(2, 6, device="meta", dtype=torch.float64)
+    other = _Elsewhere()
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.select_topk(meta, 2)
+        tops.select_topk(other, 2)
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.select_randseqk(meta, 2, torch.zeros(2, dtype=torch.int64, device="meta"))
+        tops.select_randseqk(other, 2, torch.zeros(2, dtype=torch.int64))
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.select_toplek(meta, 2, torch.zeros(2, dtype=torch.float64, device="meta"))
+        tops.select_toplek(other, 2, torch.zeros(2, dtype=torch.float64))
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.select_topk_by_keys(meta, torch.zeros(2, 6, device="meta"), 2)
+        tops.select_topk_by_keys(other, torch.zeros(2, 6), 2)
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.threefry_uniform(torch.zeros(2, 2, dtype=torch.int32, device="meta"), 6, torch.float32)
+        tops.threefry_uniform(other, 6, torch.float32)
     with pytest.raises(ValueError, match="no kernel for device"):
-        tops.hessian_syrk_packed(
-            torch.zeros(1, 3, 2, device="meta", dtype=torch.float64),
-            torch.zeros(1, 3, device="meta", dtype=torch.float64), 0.0,
-        )
+        tops.hessian_syrk_packed(other, torch.zeros(1, 3, dtype=torch.float64), 0.0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.attention(other, other, other)
+
+
+def _route_calls(device: str) -> dict:
+    """Each op of ``kernels.ops`` on small zero inputs on ``device``."""
+    u = torch.zeros(2, 6, dtype=torch.float64, device=device)
+    return {
+        "select_topk": lambda: tops.select_topk(u, 2),
+        "select_randseqk": lambda: tops.select_randseqk(
+            u, 2, torch.zeros(2, dtype=torch.int64, device=device)),
+        "select_toplek": lambda: tops.select_toplek(
+            u, 2, torch.zeros(2, dtype=torch.float64, device=device)),
+        "select_topk_by_keys": lambda: tops.select_topk_by_keys(
+            u, torch.zeros(2, 6, device=device), 2),
+        "threefry_uniform": lambda: tops.threefry_uniform(
+            torch.zeros(2, 2, dtype=torch.int32, device=device), 6, torch.float32),
+        "hessian_syrk_packed": lambda: tops.hessian_syrk_packed(
+            torch.zeros(1, 3, 2, dtype=torch.float64, device=device),
+            torch.zeros(1, 3, dtype=torch.float64, device=device), 0.0),
+        "attention": lambda: tops.attention(
+            *[torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16, device=device)] * 3),
+    }
+
+
+def test_ops_take_the_plain_versions_on_meta():
+    """A meta tensor (a step counted without data) takes the plain versions,
+    as a CPU tensor does: the same shapes and dtypes, no launch."""
+    def outs(call):
+        out = call()
+        return out if isinstance(out, tuple) else (out,)
+
+    tops.reset_launch_counts()
+    cpu, meta = _route_calls("cpu"), _route_calls("meta")
+    for name in cpu:
+        got, want = outs(meta[name]), outs(cpu[name])
+        assert all(o.device.type == "meta" for o in got), name
+        assert [(o.shape, o.dtype) for o in got] == [(o.shape, o.dtype) for o in want], name
+    assert tops.launch_counts() == NO_LAUNCHES
 
 
 def test_cuda_wrappers_refuse_before_building():
