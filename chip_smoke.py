@@ -136,6 +136,25 @@ raises, and the script exits non-zero without the final line.
              profiled by kind of kernel (the flash backward's share),
              AdamW's update timed alone; (d) the training launcher,
              --reduced --steps 30: the loss falls by more than 0.5
+  mesh       the mesh layer (after train): (a) granite-3-2b at full width
+             and depth through launch/train.py's main with --mesh 1x1
+             (DTensor params and AdamW state, each attention's flash
+             launches through local_map), (c)'s seed, batches, accum,
+             remat and 6 steps: the losses and final params bit for bit
+             (c)'s, 160 + 80 + 80 flash launches a step all on the wgmma
+             route, ms a step and peak memory beside (c)'s; (b) meanwhile,
+             in three spawned fake worlds of 256 or 512 ranks
+             (launch.dryrun.FakeWorld), the dry run's records of
+             granite-3-2b's train_4k and prefill_32k on 16 x 16 with their
+             probes (status ok), the FedNL dry run on both meshes (per-rank
+             collective bytes equal to fednl_shard's closed form) and
+             granite-3-2b's train_4k at B 4 counted on a 1 x 1 mesh (no
+             collective bytes; its product flops equal to the roofline
+             phase's plain count, checked there); one line a record: per-rank
+             flops, bytes, collective bytes by kind, the three terms on the
+             datasheet's ceilings and on this card's measured peak and HBM
+             rate (the collective term at the datasheet's NVLink rate), the
+             useful fraction
   8 sweep   solve_many of the README's grid at w8a's full shape: 4 seeds x
              {topk, randseqk, natural}, 50 rounds, planned as one batched
              group of 12 specs; the launch counts set to 0 before it and read
@@ -1666,7 +1685,7 @@ def _kernel_split(prof, n_steps: int) -> dict:
                              / 1e3, "calls_per_step": e.count / n_steps} for e in top]}
 
 
-def train_full(dev, ops, arch: str, steps: int) -> dict:
+def train_full(dev, ops, arch: str, steps: int, keep_final: bool = False) -> dict:
     """``arch`` at full width and depth: ``steps`` steps of make_train_step
     (accum TRAIN_ACCUM, remat "full", AdamW lr 1e-3) on
     synthetic_token_stream at train_4k's S and cut batch; the launch counts
@@ -1732,6 +1751,8 @@ def train_full(dev, ops, arch: str, steps: int) -> dict:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
+    # the mesh phase holds its run to these, bit for bit (before AdamW's timing moves them)
+    final = tree_map(lambda p: p.cpu(), params) if keep_final else None
     check(all(math.isfinite(x) for x in losses + norms),
           f"{arch} train: losses {losses}, norms {norms}")
     check(losses[-1] < losses[0], f"{arch} train: the loss did not fall: {losses}")
@@ -1769,6 +1790,8 @@ def train_full(dev, ops, arch: str, steps: int) -> dict:
            "flash_backward_share_of_device_ms": split["device_ms_per_step"]["flash_backward"]
            / device_ms if device_ms else None}
     emit({"phase": "train", "part": "c_full_width", **out})
+    if keep_final:
+        out["final_params"] = final
     del params, opt, grads, batches, prof
     return out
 
@@ -1784,7 +1807,7 @@ def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
     t_phase = time.perf_counter()
     bwd = flash_bwd_phase(dev, tfa, bwd_report)
     cut = train_depth_cut(dev, ops, "granite-3-2b", TRAIN_CUT_LAYERS)
-    full = train_full(dev, ops, "granite-3-2b", TRAIN_STEPS)
+    full = train_full(dev, ops, "granite-3-2b", TRAIN_STEPS, keep_final=True)
     torch.cuda.empty_cache()
     rg_cut = train_depth_cut(dev, ops, "recurrentgemma-2b", RG_CUT_LAYERS)
     rg_full = train_full(dev, ops, "recurrentgemma-2b", TRAIN_STEPS)
@@ -1803,6 +1826,233 @@ def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
     emit({"phase": "train", "seconds": seconds})
     return {"bwd": bwd, "cut": cut, "full": full, "rg_cut": rg_cut, "rg_full": rg_full,
             "seconds": seconds}
+
+
+MESH_RECORDS = (("granite-3-2b", "train_4k"), ("granite-3-2b", "prefill_32k"))
+MESH_ONE_CARD_BATCH = CUT_BATCH["train_4k"]
+
+
+def mesh_world_records(jobs, fednl: bool) -> dict:
+    """In a fake world (launch.dryrun.FakeWorld): each (arch, shape) of
+    ``jobs`` through the dry run's run_one with its probes, on 16 x 16 or
+    2 x 16 x 16 as the world's size says, and the FedNL dry run when
+    ``fednl``; each with its seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import run_fednl_dryrun, run_one
+
+    multi_pod = dist.get_world_size() == 512
+    out = {"records": [], "fednl": None}
+    for arch, shape in jobs:
+        t0 = time.perf_counter()
+        rec = run_one(arch, shape, multi_pod, verbose=False)
+        out["records"].append({**rec, "seconds": time.perf_counter() - t0})
+    if fednl:
+        t0 = time.perf_counter()
+        out["fednl"] = {"records": run_fednl_dryrun(multi_pod),
+                        "seconds": time.perf_counter() - t0}
+    return out
+
+
+def mesh_one_card_count(arch: str, accum: int, batch: int) -> dict:
+    """In a fake world: ``arch``'s train_4k step (accum ``accum``, batch
+    ``batch``) counted on a 1 x 1 mesh (rank 0), as the roofline phase
+    counts it with no mesh."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import roofline as rl
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _register_mesh_axes, _with_out_layout
+    from repro_torch.launch.specs import build_dryrun
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), accum_steps=accum)
+    mesh = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+    _register_mesh_axes(mesh)
+    spec = build_dryrun(cfg, "train_4k", mesh, batch_override=batch)
+    cost = rl.step_cost(_with_out_layout(spec), *spec.args)
+    return {"flops": cost.flops, "bytes": cost.bytes, "coll": dict(cost.coll),
+            "note": spec.note, "seconds": time.perf_counter() - t0}
+
+
+def mesh_line(rec: dict, machines: list) -> dict:
+    """One dry-run record's line: status, per-rank flops, bytes and
+    collective bytes by kind, the three terms on each machine, the useful
+    fraction."""
+    r = rec.get("roofline", {})
+    coll = rec.get("collectives", {})
+    total = float(sum(coll.values()))
+    terms = {}
+    for m in machines:
+        t = {"compute_s": r["flops"] / m.peak_flops, "memory_s": r["hbm_bytes"] / m.hbm_bw,
+             "collective_s": total / m.ici_bw}
+        terms[m.name] = {**t, "dominant": max(t, key=t.get).removesuffix("_s")}
+    return {"phase": "mesh", "part": "b_dry_run", "arch": rec["arch"], "shape": rec["shape"],
+            "mesh": rec["mesh"], "status": rec["status"], "flops_per_rank": r.get("flops"),
+            "hbm_bytes_per_rank": r.get("hbm_bytes"), "collective_bytes_per_rank": coll,
+            "terms": terms, "useful_fraction": r.get("useful_fraction"),
+            "model_flops_per_rank": r.get("model_flops"), "note": rec.get("note"),
+            "memory_analysis": rec.get("memory_analysis"), "meta_step_s": rec.get("meta_step_s"),
+            "seconds": rec.get("seconds")}
+
+
+def mesh_phase(dev, ops, train: dict) -> dict:
+    """The mesh layer on the card: (a) granite-3-2b at full width and depth
+    through launch/train.py's main with ``--mesh 1x1`` (params and AdamW's
+    state DTensors, each attention's flash launches through local_map),
+    the train phase's seed, batches, accumulation, remat and steps: the
+    losses and final params bit for bit the unsharded run's, 2 A + A + A
+    flash launches a step (A attention layers) all on the wgmma route, ms
+    a step and peak memory beside the unsharded run's; meanwhile (b) in
+    three spawned fake worlds (launch.dryrun.FakeWorld) the dry run's
+    records of MESH_RECORDS on 16 x 16 with their probes, the FedNL dry run
+    on both meshes (per-rank collective bytes equal to the closed form) and
+    granite-3-2b's cut train_4k step counted on a 1 x 1 mesh (its product
+    flops checked against the roofline phase's plain count there); one
+    line a record, with the three terms on the datasheet's ceilings and on
+    this card's measured peak and HBM rate (the collective term at the
+    datasheet's NVLink rate: one card measures no link)."""
+    import threading
+
+    import torch
+
+    from repro_torch import roofline as rl
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_launcher
+
+    t_phase = time.perf_counter()
+    world_out: dict = {}
+
+    def in_world(key, multi_pod, calls):
+        try:
+            with dryrun.FakeWorld(multi_pod) as world:
+                world_out[key] = [world.call(fn, *args) for fn, args in calls]
+        except Exception as err:  # noqa: BLE001 -- checked below
+            world_out[key] = err
+
+    t_worlds = time.perf_counter()
+    plans = {
+        "train": (False, [(mesh_world_records, (MESH_RECORDS[:1], False))]),
+        "prefill": (False, [(mesh_world_records, (MESH_RECORDS[1:], True)),
+                            (mesh_one_card_count, ("granite-3-2b", TRAIN_ACCUM,
+                                                   MESH_ONE_CARD_BATCH))]),
+        "multi_pod": (True, [(mesh_world_records, ((), True))]),
+    }
+    workers = [threading.Thread(target=in_world, args=(key, mp, calls))
+               for key, (mp, calls) in plans.items()]
+    for w in workers:
+        w.start()
+
+    # (a) the 1 x 1 mesh on the card
+    base = train["full"]
+    full_params = base.pop("final_params")
+    steps, shape = base["steps"], base["batch_seq"]
+    n_attn = base["attention_layers"]
+    want = {"flash_attention_train": 2 * n_attn * TRAIN_ACCUM * steps,
+            "flash_attention_bwd_dq": n_attn * TRAIN_ACCUM * steps,
+            "flash_attention_bwd_dkdv": n_attn * TRAIN_ACCUM * steps}
+    fwd = ops.flash_attention_mod
+    for fn in (fwd.flash_attention_train_cuda, fwd.flash_attention_cuda,
+               fwd.flash_attention_bwd_dq_cuda, fwd.flash_attention_bwd_dkdv_cuda):
+        fn.route_launches.update({k: 0 for k in fn.route_launches})
+    wall = []
+    real_step = train_launcher.make_train_step
+
+    def timed_step(*args, **kw):
+        step = real_step(*args, **kw)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    argv = ["--arch", "granite-3-2b", "--steps", str(steps), "--batch", str(shape[0]), "--seq",
+            str(shape[1]), "--lr", "1e-3", "--accum", str(TRAIN_ACCUM), "--mesh", "1x1",
+            "--device", str(dev)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    train_launcher.make_train_step = timed_step
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            params, losses = train_launcher.main(argv)
+    finally:
+        train_launcher.make_train_step = real_step
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    check(launched == want, f"mesh 1x1: launches {launched}, want {want}")
+    routes = {name: dict(fn.route_launches) for name, fn in (
+        ("train", fwd.flash_attention_train_cuda), ("inference", fwd.flash_attention_cuda),
+        ("dq", fwd.flash_attention_bwd_dq_cuda), ("dkdv", fwd.flash_attention_bwd_dkdv_cuda))}
+    check(routes == {"train": {"wgmma": want["flash_attention_train"], "simt": 0},
+                     "inference": {"wgmma": 0, "simt": 0},
+                     "dq": {"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
+                     "dkdv": {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}},
+          f"mesh 1x1: flash routes {routes}")
+    check(losses == base["losses"], f"mesh 1x1 losses {losses} != unsharded {base['losses']}")
+    unsharded = dict(_named(full_params))
+    check(sorted(unsharded) == sorted(path for path, _ in _named(params)),
+          "mesh 1x1: the final params' leaves differ from the unsharded run's")
+    differ = [path for path, g in _named(params) if not torch.equal(g.cpu(), unsharded[path])]
+    check(not differ, f"mesh 1x1: final params differ from the unsharded run's: {differ[:5]}")
+    del params, full_params
+    torch.cuda.empty_cache()
+    ms = statistics.median(wall[1:]) * 1e3
+    emit({"phase": "mesh", "part": "a_train_1x1", "arch": "granite-3-2b",
+          "argv": " ".join(argv), "losses": losses, "losses_bitwise": True,
+          "final_params_bitwise": True, "launches": launched,
+          "launches_per_step": {k: v // steps for k, v in launched.items()},
+          "flash_routes": routes, "wall_s": wall, "ms_per_step": ms,
+          "ms_per_step_note": f"median of steps 2..{steps} (host clock, synchronised)",
+          "max_memory_allocated": peak, "unsharded": {
+              "ms_per_step": base["ms_per_step"],
+              "max_memory_allocated": base["max_memory_allocated"]},
+          "unsharded_pr26": {"ms_per_step": 1337.2, "max_memory_gb": 54.25,
+                             "card": "NVIDIA H100 80GB HBM3, 700.00 W"}})
+
+    # (b) the dry run, collected
+    link = rl.H100_SXM.ici_bw  # one card measures no link: the datasheet's NVLink rate
+    bf16 = [rl.H100_SXM, dataclasses.replace(rl.measure_machine(dev, dtype=torch.bfloat16),
+                                             ici_bw=link)]
+    fp64 = [rl.H100_SXM_FP64, dataclasses.replace(rl.measure_machine(dev, dtype=torch.float64),
+                                                  ici_bw=link)]
+    for w in workers:
+        w.join()
+    worlds_s = time.perf_counter() - t_worlds
+    for key, val in world_out.items():
+        check(not isinstance(val, Exception), f"mesh phase: the {key} fake world failed: {val}")
+    records = world_out["train"][0]["records"] + world_out["prefill"][0]["records"]
+    fednl = world_out["prefill"][0]["fednl"]["records"] + world_out["multi_pod"][0]["fednl"][
+        "records"]
+    one_card = world_out["prefill"][1]
+    for rec in records:
+        check(rec["status"] == "ok", f"mesh dry run {rec['arch']} {rec['shape']}: {rec}")
+        emit(mesh_line(rec, bf16))
+    for rec in fednl:
+        check(rec["status"] == "ok", f"mesh dry run {rec['arch']} {rec['mesh']}: {rec}")
+        got = {k: v for k, v in rec["collectives"].items() if v}
+        check(got == {k: v for k, v in rec["closed_form"].items() if v},
+              f"{rec['arch']} {rec['mesh']}: collectives {got} != {rec['closed_form']}")
+        emit({**mesh_line({**rec, "note": "w8a's d 301, n_i 348, 16 clients a data shard"}, fp64),
+              "closed_form": rec["closed_form"], "collectives_equal_closed_form": True})
+    check(sum(one_card["coll"].values()) == 0,
+          f"the 1 x 1 mesh's train step moved collective bytes: {one_card['coll']}")
+    emit({"phase": "mesh", "part": "b_one_card_count", "arch": "granite-3-2b",
+          "shape": f"train_4k, B {MESH_ONE_CARD_BATCH}, accum {TRAIN_ACCUM}", **one_card,
+          "note": "its product flops are checked against the roofline phase's plain count"})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "seconds": seconds, "fake_worlds_s": worlds_s,
+          "machines": [dataclasses.asdict(m) for m in bf16 + fp64]})
+    return {"launches": launched, "ms_per_step": ms, "max_memory_allocated": peak,
+            "one_card": one_card, "seconds": seconds}
 
 
 def _reports_bitwise(got, want) -> bool:
@@ -3384,7 +3634,7 @@ def roofline_line(run: str, cost: dict, model_flops: float, measured_s: float,
             "flops_by_op": cost["flops_by_op"], "aten_ops": cost["ops"]}
 
 
-def roofline_phase(dev, smi: str, measured: dict) -> None:
+def roofline_phase(dev, smi: str, measured: dict, mesh_one_card: dict) -> None:
     """The roofline of every full-width run measured before it, from counts
     alone (the times are the earlier phases'): the machines (datasheet and
     measured on this card); the meta counts of ROOFLINE_RUNS in
@@ -3464,6 +3714,14 @@ def roofline_phase(dev, smi: str, measured: dict) -> None:
         results = [f.result() for f in futures]
         waited_s = time.perf_counter() - t0
 
+    granite_train = next(r for r in results if r["arch"] == "granite-3-2b"
+                         and r["shape"] == "train_4k")
+    check(mesh_one_card["flops"] == granite_train["cost"]["flops"],
+          f"granite-3-2b train_4k: the 1 x 1 mesh's flops {mesh_one_card['flops']} != the plain "
+          f"count's {granite_train['cost']['flops']}")
+    emit({"phase": "roofline", "part": "mesh_one_card_equals_plain", "arch": "granite-3-2b",
+          "flops": mesh_one_card["flops"], "flops_equal": True,
+          "bytes": {"mesh_1x1": mesh_one_card["bytes"], "plain": granite_train["cost"]["bytes"]}})
     for res in results:
         arch, shape_name = res["arch"], res["shape"]
         meas = measured[(arch, shape_name)]
@@ -4151,6 +4409,9 @@ def main() -> int:
             "ms": cell["ms_per_step"], "max_memory_allocated": cell["max_memory_allocated"],
             "by": "the train phase: median host-clock ms per synchronised step"}
 
+    # --- mesh: --mesh 1x1 on the card, the dry run in fake worlds ------------
+    mesh = mesh_phase(dev, ops, train)
+
     # --- 8 sweeps: the README's grid as one batched group ------------------
     sweep_launches, sweep = sweep_phase(ops)
 
@@ -4173,7 +4434,7 @@ def main() -> int:
     sharded = sharded_phase(ops, dev, rep.wall_time_s / rep.rounds * 1e3)
 
     # --- roofline: every full-width run above, counted -----------------------
-    roofline_phase(dev, smi, measured)
+    roofline_phase(dev, smi, measured, mesh["one_card"])
 
     kernels = [
         {
@@ -4391,6 +4652,8 @@ def main() -> int:
                                  "flash_attention_bwd_dq_dh256", "flash_attention_bwd_dkdv_dh256"):
             entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
                                      for arch, z in zoo.items()}
+    for entry in kernels:  # the mesh phase's --mesh 1x1 run, the counts set to 0 before it
+        entry["mesh_launches"] = mesh["launches"].get(entry["name"], 0)
     for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it
         entry["sharded_launches"] = {part: counts.get(entry["name"], 0)
                                      for part, counts in sharded["launches"].items()}

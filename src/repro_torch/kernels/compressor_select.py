@@ -103,7 +103,11 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _idx_plain(keep: torch.Tensor, k: int) -> torch.Tensor:
-    """The index forms' idx from a keep mask with k kept per row."""
+    """The index forms' idx from a keep mask with k kept per row (on meta,
+    where nonzero's count is a value it does not have, the kept indices
+    in order by a stable sort of the mask)."""
+    if keep.device.type == "meta":
+        return torch.argsort(~keep, dim=-1, stable=True)[..., :k].to(torch.int32)
     return keep.nonzero()[:, -1].reshape(*keep.shape[:-1], k).to(torch.int32)
 
 

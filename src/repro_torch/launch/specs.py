@@ -1,14 +1,17 @@
 """Input specs and sharding specs for the dry run (port of
 ``repro.launch.specs``).
 
-``build_dryrun(cfg, shape_name, axis_sizes)`` returns what counting one
+``build_dryrun(cfg, shape_name, mesh)`` returns what counting one
 (architecture x input shape x mesh) step needs: the step function and its
 arguments as ``meta`` tensors (shapes and dtypes, no storage; params and
 optimizer state come from the real init functions on meta, the
-counterpart of ``jax.eval_shape``), with the sharding specs (``P`` trees)
-of its inputs and outputs.  ``roofline.step_cost(spec.step_fn,
-*spec.args)`` counts it.  The specs are not placements yet: nothing
-applies them to a mesh (ROADMAP A.4 c).
+counterpart of ``jax.eval_shape``), with the shardings of its inputs and
+outputs.  Given a ``DeviceMesh`` (``launch.mesh.make_production_mesh``)
+the arguments are meta DTensors laid out on it by their specs and the
+shardings are placement trees; given axis sizes alone (``{"data": 1,
+"model": 1}``: one card) the arguments are plain meta tensors and the
+shardings the ``P`` trees.  ``roofline.step_cost(spec.step_fn,
+*spec.args)`` counts it, per rank on a mesh.
 
 Shapes (assigned):
     train_4k     seq 4,096    global_batch 256   -> train_step
@@ -27,7 +30,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import P, data_axes
+from repro_torch.launch.mesh import P, data_axes, distribute_tree, mesh_axis_sizes, placements_tree
 from repro_torch.models.encdec import (
     encdec_cache_specs,
     encdec_param_specs,
@@ -144,13 +147,26 @@ def _batch_abstract(cfg: ArchConfig, batch: int, seq: int, *, dp):
 
 
 def build_dryrun(
-    cfg: ArchConfig, shape_name: str, axis_sizes: dict[str, int], *,
-    batch_override: int | None = None,
+    cfg: ArchConfig, shape_name: str, mesh, *, batch_override: int | None = None,
 ) -> DryRunSpec:
-    """The step of ``shape_name`` for ``cfg`` on a mesh of ``axis_sizes``
-    (e.g. ``launch.mesh.production_axis_sizes()``; ``{"data": 1, "model":
-    1}`` for one card), its arguments on meta, its input and output specs;
+    """The step of ``shape_name`` for ``cfg`` on ``mesh``: a ``DeviceMesh``
+    (its arguments meta DTensors, its shardings placements) or a dict of
+    axis sizes (e.g. ``launch.mesh.production_axis_sizes()``; ``{"data": 1,
+    "model": 1}`` for one card: plain meta arguments, ``P`` specs);
     ``batch_override`` replaces the shape's global batch."""
+    if isinstance(mesh, dict):
+        return _build(cfg, shape_name, mesh, batch_override)
+    spec = _build(cfg, shape_name, mesh_axis_sizes(mesh), batch_override)
+    if spec.skip:
+        return spec
+    return dataclasses.replace(
+        spec, args=distribute_tree(spec.args, spec.in_shardings, mesh),
+        in_shardings=placements_tree(spec.in_shardings, mesh),
+        out_shardings=placements_tree(spec.out_shardings, mesh))
+
+
+def _build(cfg: ArchConfig, shape_name: str, axis_sizes: dict[str, int],
+           batch_override: int | None) -> DryRunSpec:
     shape = SHAPES[shape_name]
     if batch_override is not None:
         shape = dataclasses.replace(shape, batch=batch_override)

@@ -20,7 +20,10 @@ encoder and decoder layer is rematerialised in full (``jax.checkpoint``
 whatever ``cfg.remat_policy`` says) when a gradient is wanted.
 
 ``encdec_param_specs`` and ``encdec_cache_specs`` are the reference's
-sharding specs (``launch.mesh.P`` trees), read by ``launch.specs``.
+sharding specs (``launch.mesh.P`` trees), read by ``launch.specs`` and
+``launch.train --mesh``; the activations are pinned with
+``layers.constrain`` at the reference's places (q, k and v on head_dim over
+tp, as its ``_proj_qkv``).
 """
 
 from __future__ import annotations
@@ -35,16 +38,21 @@ from repro_torch.launch.mesh import P
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     chunked_attention,
+    constrain,
     decode_attention,
     mlp_apply,
+    reduced,
     rms_norm,
+    rope,
+    split_heads,
+    weight,
 )
 from repro_torch.models.lm import (
-    _attn_apply,
     _attn_decode,
     _embed,
     _head_matrix,
     _layers,
+    _positions,
     _remat,
     _wants_grad,
     attn_init,
@@ -107,19 +115,33 @@ def _ffn(c, bp, cfg: ArchConfig):
 
 
 def _proj(h, w, cfg: ArchConfig, heads: int):
-    b, s, _ = h.shape
-    return (h @ w.to(h.dtype)).reshape(b, s, heads, cfg.head_dim)
+    return constrain(split_heads(h @ w.to(h.dtype), heads, cfg.head_dim), "dp", None, None, "tp")
+
+
+def _attn(c, bp, cfg: ArchConfig, positions, causal: bool):
+    """Self-attention of a block (the reference's, with ``_proj``'s
+    head_dim-pinned q, k and v)."""
+    h = rms_norm(c, bp["ln1"], cfg.norm_eps)
+    q = _proj(h, bp["attn"]["wq"], cfg, cfg.n_heads)
+    k = _proj(h, bp["attn"]["wk"], cfg, cfg.n_kv)
+    v = _proj(h, bp["attn"]["wv"], cfg, cfg.n_kv)
+    q = rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk)
+    return reduced(o.reshape(c.shape[0], c.shape[1], cfg.attn_dim)
+                   @ weight(bp["attn"]["wo"], h.dtype))
 
 
 def encode(params, cfg: ArchConfig, src_embeds):
     """src_embeds: (B, S_src, D) frontend-stub frame embeddings -> the
     encoder's output (B, S_src, D) bf16."""
-    x = src_embeds.to(COMPUTE_DTYPE) @ params["frontend_proj"].to(COMPUTE_DTYPE)
-    positions = torch.arange(x.shape[1], device=x.device)
+    x = src_embeds.to(COMPUTE_DTYPE) @ weight(params["frontend_proj"], COMPUTE_DTYPE)
+    positions = _positions(x)
 
     def block(c, bp):
-        c = c + _attn_apply(c, bp, cfg, positions, None, causal=False)
-        return _ffn(c, bp, cfg)
+        c = constrain(c, "dp", None, None)
+        c = c + _attn(c, bp, cfg, positions, causal=False)
+        return constrain(_ffn(c, bp, cfg), "dp", None, None)
 
     policy = "full" if _wants_grad(x) else "none"
     for bp in _layers(params["enc_blocks"], cfg.encoder_layers):
@@ -133,14 +155,16 @@ def _cross_apply(c, bp, cfg: ArchConfig, enc_out):
     k = _proj(enc_out, bp["cross"]["wk"], cfg, cfg.n_kv)
     v = _proj(enc_out, bp["cross"]["wv"], cfg, cfg.n_kv)
     o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-    return o.reshape(c.shape[0], c.shape[1], cfg.attn_dim) @ bp["cross"]["wo"].to(h.dtype)
+    return reduced(o.reshape(c.shape[0], c.shape[1], cfg.attn_dim)
+                   @ weight(bp["cross"]["wo"], h.dtype))
 
 
 def _decoder_blocks(x, params, cfg: ArchConfig, enc_out, positions):
     def block(c, enc, bp):
-        c = c + _attn_apply(c, bp, cfg, positions, None)
+        c = constrain(c, "dp", None, None)
+        c = c + _attn(c, bp, cfg, positions, causal=True)
         c = c + _cross_apply(c, bp, cfg, enc)
-        return _ffn(c, bp, cfg)
+        return constrain(_ffn(c, bp, cfg), "dp", None, None)
 
     policy = "full" if _wants_grad(x) or _wants_grad(enc_out) else "none"
     for bp in _layers(params["dec_blocks"], cfg.n_layers):
@@ -153,8 +177,7 @@ def encdec_loss(params, cfg: ArchConfig, batch, *, loss_chunk: int = 1024):
     ``src_embeds`` (B, S_src, D), ``tokens`` and ``labels`` (B, S)."""
     enc_out = encode(params, cfg, batch["src_embeds"])
     x = _embed(params, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    h = _decoder_blocks(x, params, cfg, enc_out, positions)
+    h = _decoder_blocks(x, params, cfg, enc_out, _positions(x))
     return chunked_loss(h, _head_matrix(params), batch["labels"], cfg.vocab, loss_chunk)
 
 
@@ -163,9 +186,8 @@ def encdec_prefill(params, cfg: ArchConfig, src_embeds, tokens):
     (B, Vp)."""
     enc_out = encode(params, cfg, src_embeds)
     x = _embed(params, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
-    h = _decoder_blocks(x, params, cfg, enc_out, positions)
-    return h[:, -1] @ _head_matrix(params).to(h.dtype).T
+    h = _decoder_blocks(x, params, cfg, enc_out, _positions(x))
+    return h[:, -1] @ weight(_head_matrix(params), h.dtype).T
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +235,8 @@ def encdec_decode_step(params, cfg: ArchConfig, cache, tokens):
         h = rms_norm(c, bp["lnc"], cfg.norm_eps)
         q = _proj(h, bp["cross"]["wq"], cfg, cfg.n_heads)
         o = decode_attention(q, cache["ck"][i], cache["cv"][i], src_len)
-        c = c + o.reshape(b, 1, cfg.attn_dim) @ bp["cross"]["wo"].to(h.dtype)
+        c = c + reduced(o.reshape(b, 1, cfg.attn_dim) @ weight(bp["cross"]["wo"], h.dtype))
         x = _ffn(c, bp, cfg)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = h @ _head_matrix(params).to(h.dtype).T
+    logits = h @ weight(_head_matrix(params), h.dtype).T
     return logits, dict(cache, pos=pos + 1)

@@ -27,7 +27,9 @@ returns the same tensors, so a decode step allocates no second cache.
 
 ``lm_param_specs`` and ``cache_specs`` are the reference's sharding specs
 (``launch.mesh.P`` trees) of the params and the cache; ``launch.specs``
-reads them, and nothing applies them to a mesh yet (ROADMAP A.4 c).
+and ``launch.train --mesh`` lay the params and caches out by them, and the
+forward pins its activations with ``layers.constrain`` at the reference's
+places (a no-op off a mesh).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -49,10 +52,18 @@ from repro_torch.launch.mesh import P
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     chunked_attention,
+    constrain,
     decode_attention,
+    is_dtensor,
+    like,
     mlp_apply,
+    on_shards,
+    reduced,
     rms_norm,
     rope,
+    split_heads,
+    weight,
+    write_slot,
 )
 from repro_torch.models.moe import moe_apply, moe_apply_dense
 from repro_torch.models.rglru import rglru_apply, rglru_decode_step
@@ -330,13 +341,18 @@ def _wants_grad(x: torch.Tensor) -> bool:
 def _attn_apply(x, bp, cfg: ArchConfig, positions, window, causal: bool = True):
     b, s, _ = x.shape
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q = (h @ bp["attn"]["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ bp["attn"]["wk"].to(h.dtype)).reshape(b, s, cfg.n_kv, cfg.head_dim)
-    v = (h @ bp["attn"]["wv"].to(h.dtype)).reshape(b, s, cfg.n_kv, cfg.head_dim)
+    q = split_heads(h @ weight(bp["attn"]["wq"], h.dtype), cfg.n_heads, cfg.head_dim)
+    k = split_heads(h @ weight(bp["attn"]["wk"], h.dtype), cfg.n_kv, cfg.head_dim)
+    v = split_heads(h @ weight(bp["attn"]["wv"], h.dtype), cfg.n_kv, cfg.head_dim)
+    # heads over tp where divisible (falls back per-dim inside constrain)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, None, "tp")
+    v = constrain(v, "dp", None, None, "tp")
     q = rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     o = chunked_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.q_chunk)
-    return o.reshape(b, s, cfg.attn_dim) @ bp["attn"]["wo"].to(h.dtype)
+    o = constrain(o, "dp", None, "tp", None)
+    return reduced(o.reshape(b, s, cfg.attn_dim) @ weight(bp["attn"]["wo"], h.dtype))
 
 
 def _ffn_apply(x, bp, cfg: ArchConfig):
@@ -355,18 +371,27 @@ def _block_apply(x, bp, layer_type: int, cfg: ArchConfig, positions):
     """One block; bp is the per-layer slice of the params."""
     if cfg.family == "ssm":
         s = cfg.ssm
+        x = constrain(x, "dp", None, None)
         return x + ssd_apply(rms_norm(x, bp["ln1"], cfg.norm_eps), bp["ssm"],
                              d_state=s.d_state, head_dim=s.head_dim, expand=s.expand,
                              chunk=s.chunk, norm_eps=cfg.norm_eps)
     if cfg.family == "hybrid":
+        x = constrain(x, "dp", None, None)
+        if is_dtensor(x) and _wants_grad(x):
+            # a zero term of the untaken branch's leaves, so that each layer's
+            # slice of them gets a gradient: autograd's unbind fills a missing
+            # one with a plain zero tensor, which does not stack with DTensors
+            untaken = bp["rglru"] if layer_type == 0 else bp["attn"]
+            x = x + (0.0 * sum(leaf.sum() for leaf in untaken.values())).to(x.dtype)
         if layer_type == 0:
             x = x + _attn_apply(x, bp, cfg, positions, cfg.hybrid.local_window)
         else:
             x = x + rglru_apply(rms_norm(x, bp["ln1"], cfg.norm_eps), bp["rglru"])
-        return x + _ffn_apply(x, bp, cfg)
+        return constrain(x + _ffn_apply(x, bp, cfg), "dp", None, None)
     # dense / moe / vlm
+    x = constrain(x, "dp", None, None)
     x = x + _attn_apply(x, bp, cfg, positions, cfg.window)
-    return x + _ffn_apply(x, bp, cfg)
+    return constrain(x + _ffn_apply(x, bp, cfg), "dp", None, None)
 
 
 def _run_blocks(x, params, cfg: ArchConfig, positions):
@@ -383,15 +408,46 @@ def _head_matrix(params):
 
 
 def _embed(params, tokens):
+    if is_dtensor(tokens):
+        return reduced(_embed_on_mesh(weight(params["embed"], COMPUTE_DTYPE), tokens))
     return params["embed"].to(COMPUTE_DTYPE)[tokens]
 
 
-def _inputs(params, tokens, img_embeds):
-    """Token embeddings, after the projected image embeddings if given."""
-    x = _embed(params, tokens)
+def _embed_on_mesh(table, tokens):
+    """The lookup in a vocab-sharded table: each rank looks up the tokens
+    in its rows and zeros the others', a partial sum over the axes that
+    shard the vocab."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    (rows, _), (first, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+
+    def lookup(tok, tab):
+        at = tok - first
+        mine = (at >= 0) & (at < rows)
+        return tab[at.clamp(0, rows - 1)] * mine[..., None]
+
+    out = tuple(Partial() if pl == Shard(0) else tp
+                for pl, tp in zip(table.placements, tokens.placements))
+    return on_shards(lookup, out_placements=out,
+                     in_placements=(tuple(tokens.placements), tuple(table.placements)))(
+        tokens, table)
+
+
+def _positions(x):
+    """0..S-1 for x (B, S, ...), on x's mesh where x is a DTensor."""
+    return like(x, torch.arange(x.shape[1], device=x.device))
+
+
+def _inputs(params, tokens, img_embeds, x=None):
+    """Token embeddings (``x`` where given), after the projected image
+    embeddings if given."""
+    x = _embed(params, tokens) if x is None else x
     if img_embeds is None:
         return x
-    img = img_embeds.to(COMPUTE_DTYPE) @ params["img_proj"].to(COMPUTE_DTYPE)
+    img = img_embeds.to(COMPUTE_DTYPE) @ weight(params["img_proj"], COMPUTE_DTYPE)
     return torch.cat([img, x], dim=1)
 
 
@@ -399,21 +455,45 @@ def lm_forward(params, cfg: ArchConfig, tokens, img_embeds=None):
     """Full-sequence logits (B, S, Vp); with ``img_embeds`` (B, n_img, D) the
     sequence is the n_img image positions then the tokens."""
     x = _inputs(params, tokens, img_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    h = _run_blocks(x, params, cfg, positions)
-    return h @ _head_matrix(params).to(h.dtype).T
+    h = _run_blocks(x, params, cfg, _positions(x))
+    return h @ weight(_head_matrix(params), h.dtype).T
 
 
 def _chunk_ce(hs, head, labels, vocab: int):
     """One chunk's summed masked CE and its count of labels: logits = hs @
     head.T (bf16), in f32 log-softmax; labels past the vocab (padded rows)
     and negative ones are masked."""
-    logits = (hs @ head.T).float()
+    logits = constrain(hs @ head.T, "dp", None, "tp").float()
     lsf = torch.where(labels < vocab, labels, -1)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lsf.clamp(min=0)[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        gold = reduced(_gold_on_mesh(logits, lsf.clamp(min=0).long()))
+    else:
+        gold = torch.gather(logits, -1, lsf.clamp(min=0)[..., None].long())[..., 0]
     mask = (lsf >= 0).float()
     return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def _gold_on_mesh(logits, labels):
+    """Each label's logit from vocab-sharded logits (B, S, Vp): each rank
+    reads the labels in its columns and zeros the others', a partial sum
+    over the axes that shard the vocab."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    (_, _, cols), (_, _, first) = compute_local_shape_and_global_offset(
+        logits.shape, logits.device_mesh, logits.placements)
+    last = Shard(logits.ndim - 1)
+
+    def gold(lg, lab):
+        at = lab - first
+        mine = (at >= 0) & (at < cols)
+        return torch.gather(lg, -1, at.clamp(0, cols - 1)[..., None])[..., 0] * mine
+
+    out = tuple(Partial() if pl == last else pl for pl in logits.placements)
+    return on_shards(gold, out_placements=out, in_placements=(
+        tuple(logits.placements), tuple(Replicate() if pl == last else pl
+                                        for pl in logits.placements)))(logits, labels)
 
 
 def chunked_loss(h, head, labels, vocab: int, loss_chunk: int = 1024):
@@ -421,7 +501,7 @@ def chunked_loss(h, head, labels, vocab: int, loss_chunk: int = 1024):
     (Vp, D), in chunks of ``loss_chunk`` positions (all of S where it does
     not divide S); each chunk recomputed in the backward when a gradient is
     wanted."""
-    head = head.to(h.dtype)
+    head = weight(head, h.dtype)
     s = h.shape[1]
     chunk = loss_chunk if s % loss_chunk == 0 else s
     ce = _remat(_chunk_ce, "full") if _wants_grad(h) else _chunk_ce
@@ -440,21 +520,21 @@ def lm_loss(params, cfg: ArchConfig, batch, *, loss_chunk: int = 1024):
     (B, n_img, D), whose positions get label -1."""
     labels = batch["labels"]
     img = batch.get("img_embeds")
-    x = _inputs(params, batch["tokens"], img)
+    x = _inputs(params, batch["tokens"], img,
+                constrain(_embed(params, batch["tokens"]), "dp", None, None))
     if img is not None:
-        pad = torch.full(img.shape[:2], -1, dtype=labels.dtype, device=labels.device)
+        pad = like(labels, torch.full(img.shape[:2], -1, dtype=labels.dtype,
+                                      device=labels.device))
         labels = torch.cat([pad, labels], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)
-    h = _run_blocks(x, params, cfg, positions)
+    h = _run_blocks(x, params, cfg, _positions(x))
     return chunked_loss(h, _head_matrix(params), labels, cfg.vocab, loss_chunk)
 
 
 def lm_prefill(params, cfg: ArchConfig, tokens, img_embeds=None):
     """Prefill: run the full context, return last-position logits (B, Vp)."""
     x = _inputs(params, tokens, img_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    h = _run_blocks(x, params, cfg, positions)
-    return h[:, -1] @ _head_matrix(params).to(h.dtype).T
+    h = _run_blocks(x, params, cfg, _positions(x))
+    return h[:, -1] @ weight(_head_matrix(params), h.dtype).T
 
 
 # ---------------------------------------------------------------------------
@@ -522,21 +602,26 @@ def _attn_decode(x, bp, cfg: ArchConfig, k_cache, v_cache, pos: int, window):
     cache slices in place."""
     b = x.shape[0]
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q = (h @ bp["attn"]["wq"].to(h.dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    k = (h @ bp["attn"]["wk"].to(h.dtype)).reshape(b, 1, cfg.n_kv, cfg.head_dim)
-    v = (h @ bp["attn"]["wv"].to(h.dtype)).reshape(b, 1, cfg.n_kv, cfg.head_dim)
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = split_heads(h @ weight(bp["attn"]["wq"], h.dtype), cfg.n_heads, cfg.head_dim)
+    k = split_heads(h @ weight(bp["attn"]["wk"], h.dtype), cfg.n_kv, cfg.head_dim)
+    v = split_heads(h @ weight(bp["attn"]["wv"], h.dtype), cfg.n_kv, cfg.head_dim)
+    posv = like(x, torch.full((1,), pos, dtype=torch.int32, device=x.device))
     q = rope(q, posv, cfg.rope_fraction, cfg.rope_theta)
     k = rope(k, posv, cfg.rope_fraction, cfg.rope_theta)
+    # head_dim over tp, as the cache: the QK contraction then partial-sums
+    # over dh instead of gathering the cache every step
+    q = constrain(q, "dp", None, None, "tp")
+    k = constrain(k, "dp", None, None, "tp")
+    v = constrain(v, "dp", None, None, "tp")
     s_cache = k_cache.shape[1]
     ring = window is not None and s_cache == window
     # past the last slot the write lands on the last slot, as the reference's
     # dynamic_update_slice clamps its start, and every slot is attended
     slot = (pos % window) if ring else min(max(pos, 0), s_cache - 1)
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
+    write_slot(k_cache, slot, k[:, 0])
+    write_slot(v_cache, slot, v[:, 0])
     o = decode_attention(q, k_cache, v_cache, pos + 1, ring=ring)
-    return o.reshape(b, 1, cfg.attn_dim) @ bp["attn"]["wo"].to(h.dtype)
+    return reduced(o.reshape(b, 1, cfg.attn_dim) @ weight(bp["attn"]["wo"], h.dtype))
 
 
 def lm_decode_step(params, cfg: ArchConfig, cache, tokens):
@@ -562,5 +647,5 @@ def lm_decode_step(params, cfg: ArchConfig, cache, tokens):
         mid = x + out
         x = mid + _ffn_apply(mid, bp, cfg)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = h @ _head_matrix(params).to(h.dtype).T
+    logits = h @ weight(_head_matrix(params), h.dtype).T
     return logits, dict(cache, pos=pos + 1)

@@ -16,13 +16,20 @@ expert's capacity are dropped.  What changes with the framework:
   summed left to right.  The reference's ``out.at[st].add`` would be an
   ``index_add_`` over colliding rows, which on the card sums in the order
   its atomics land.
+
+On a mesh (DTensors) the block runs on each rank's shards
+(``layers.on_shards``): each data shard routes and dispatches its own
+tokens (the capacity is of its tokens), the expert weights are gathered
+over dp and keep their d_ff over tp, so each rank's products are its
+slice of d_ff and the output is a partial sum over tp.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import mlp_apply
+from repro_torch.launch.mesh import P
+from repro_torch.models.layers import activation_spec, is_dtensor, mesh_placements, mlp_apply, on_shards
 
 
 def _route(xf: torch.Tensor, router: torch.Tensor, top_k: int):
@@ -37,7 +44,10 @@ def _route(xf: torch.Tensor, router: torch.Tensor, top_k: int):
 def _experts(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
     """Every expert's MLP: x (E, C, D), or (t, D) for all experts alike ->
     (E, C or t, D), batched matrix products over the expert axis."""
-    return mlp_apply(x, {"w1": p["w1"], "w1g": p.get("w1g", p["w1"]), "w2": p["w2"]}, activation)
+    # the reference vmaps mlp_apply over the experts: its constraint sees one
+    # expert's (1, C, F), so the expert axis is never pinned
+    return mlp_apply(x, {"w1": p["w1"], "w1g": p.get("w1g", p["w1"]), "w2": p["w2"]}, activation,
+                     lead=None)
 
 
 def moe_dispatch(x: torch.Tensor, router: torch.Tensor, *, n_experts: int, top_k: int,
@@ -57,9 +67,39 @@ def moe_dispatch(x: torch.Tensor, router: torch.Tensor, *, n_experts: int, top_k
             "pos": pos, "keep": pos < capacity, "capacity": capacity}
 
 
+def _on_mesh(fn, x: torch.Tensor, p: dict):
+    """``fn(x, p)`` with x (B, S, D) and the expert leaves on each rank's
+    shards: tokens over dp where they divide, the router whole, w1/w1g
+    (E, D, F) and w2 (E, F, D) with F over tp where it divides (gathered
+    over dp), the output (B, S, D) a partial sum over tp."""
+    if not is_dtensor(x):
+        return fn(x, p)
+    from torch.distributed.tensor import Partial
+
+    keys = sorted(p)
+    dp = activation_spec(x.shape, ("dp",))[0]
+    tp = activation_spec(p["w1"].shape, (None, None, "tp"))[2]
+    leaf = {"router": P(), "w1": P(None, None, tp), "w1g": P(None, None, tp),
+            "w2": P(None, tp, None)}
+    out = list(mesh_placements(x, P(dp)))
+    if tp is not None:
+        out[x.device_mesh.mesh_dim_names.index(tp)] = Partial()
+    return on_shards(lambda xl, *leaves: fn(xl, dict(zip(keys, leaves))),
+                     out_placements=tuple(out),
+                     in_placements=(mesh_placements(x, P(dp)),)
+                     + tuple(mesh_placements(x, leaf[k]) for k in keys))(x, *(p[k] for k in keys))
+
+
 def moe_apply(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
               capacity_factor: float, activation: str) -> torch.Tensor:
     """x: (B, S, D).  p: router (D, E), w1/w1g (E, D, F), w2 (E, F, D)."""
+    return _on_mesh(lambda xl, pl: _moe_apply(xl, pl, n_experts=n_experts, top_k=top_k,
+                                              capacity_factor=capacity_factor,
+                                              activation=activation), x, p)
+
+
+def _moe_apply(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
+               capacity_factor: float, activation: str) -> torch.Tensor:
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -87,6 +127,12 @@ def moe_apply_dense(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
     """Every expert on every token, combined with the renormalised top-k
     gate weights: E / top_k times the products of ``moe_apply`` and no
     dispatch (the decode form, ``cfg.moe_dense_decode``)."""
+    return _on_mesh(lambda xl, pl: _moe_apply_dense(xl, pl, n_experts=n_experts, top_k=top_k,
+                                                    activation=activation), x, p)
+
+
+def _moe_apply_dense(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
+                     activation: str) -> torch.Tensor:
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)

@@ -26,6 +26,13 @@ Where the counts differ from XLA's:
 * the port's loop over layers is a Python loop, so nothing is rolled: the
   counts are those of the reference's ``unroll_layers=True`` modules.
 
+On a mesh (DTensor arguments) the counts are per rank, as the reference's
+of an SPMD module: the ops each rank runs on its local shards (this
+process's rank), and the collectives that DTensor issues between them
+(``_c10d_functional``), by the same five kinds.  The global op that
+DTensor dispatches, and the shape propagation it runs under a fake mode,
+are not counted.
+
 Ceilings: :data:`H100_SXM` and :data:`H100_SXM_FP64` are NVIDIA's
 datasheet ceilings of the card; :func:`measure_machine` measures a device's
 own (the card's, or the CPU's).  :func:`analyze` takes one of them: it has
@@ -39,7 +46,10 @@ import math
 import time
 from typing import Any
 
+import weakref
+
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -118,7 +128,17 @@ _C10D_KINDS = {
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
     "send": "collective-permute", "recv_": "collective-permute",
     "recv_any_source_": "collective-permute",
+    # DTensor's functional collectives; their result is the op's output
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
 }
+# functional ops that wait for or wrap a collective's result, moving nothing
+_FUNCOL_PASSIVE = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
 
 # ops that allocate or rename storage without moving its bytes
 _NO_TRAFFIC = frozenset({
@@ -156,8 +176,12 @@ class _CostMode(TorchDispatchMode):
     """One pass over a step's aten ops: the products' flops by
     ``FlopCounterMode``'s formulas and rules (an op without a formula is
     first decomposed where it can be, as that mode does, so the totals are
-    its own), each op's input and output bytes, and each c10d collective's
-    (name, result bytes); a CUDA tensor raises."""
+    its own), each op's input and output bytes, each collective's (name,
+    result bytes), and the peak of the storage its ops allocate that is
+    alive at once; a CUDA tensor raises.  An op on DTensors is left to
+    DTensor (``NotImplemented``), whose ops on the local shards and whose
+    collectives come back here; ops under a fake mode (DTensor's shape
+    propagation) pass uncounted."""
 
     def __init__(self):
         super().__init__()
@@ -165,9 +189,35 @@ class _CostMode(TorchDispatchMode):
         self.bytes = 0
         self.ops = 0
         self.collectives: list[tuple[str, int]] = []
+        self.live = 0
+        self.peak = 0
+        self._storages: set[int] = set()
+
+    def _freed(self, key: int, nbytes: int) -> None:
+        self._storages.discard(key)
+        self.live -= nbytes
+
+    def _track(self, outputs) -> None:
+        """Add the new storages among ``outputs`` to the live bytes, each
+        until the storage is freed."""
+        for t in outputs:
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._storages:
+                continue
+            self._storages.add(key)
+            self.live += st.nbytes()
+            weakref.finalize(st, self._freed, key, st.nbytes())
+        self.peak = max(self.peak, self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if func.namespace == "_c10d_functional":
+            return self._funcol(func, args, kwargs)
         if func not in flop_registry and func is not torch.ops.prim.device.default:
             with self:
                 decomposed = func.decompose(*args, **kwargs)
@@ -188,7 +238,33 @@ class _CostMode(TorchDispatchMode):
             self.collectives.append((func._opname, sum(map(_tensor_bytes, _tensors(args[0])))))
         if not (func.is_view or func._schema.name in _NO_TRAFFIC):
             self.bytes += sum(map(_tensor_bytes, inputs + outputs))
+        self._track(outputs)
         return out
+
+    def _funcol(self, func, args, kwargs):
+        """A functional collective: its result bytes under its kind (a
+        wait or a wrap of one, or a collective over a group of one, moves
+        nothing)."""
+        out = func(*args, **kwargs)
+        if func._opname not in _FUNCOL_PASSIVE and _group_size(func, args, kwargs) > 1:
+            inputs, outputs = _tensors((args, kwargs)), _tensors(out)
+            self.ops += 1
+            self.collectives.append((f"_c10d_functional.{func._opname}",
+                                     sum(map(_tensor_bytes, outputs))))
+            self.bytes += sum(map(_tensor_bytes, inputs + outputs))
+            self._track(outputs)
+        return out
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The rank count of a functional collective's group (its argument
+    named ``group_name``)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    names = [a.name for a in func._schema.arguments]
+    name = kwargs.get("group_name", args[names.index("group_name")]
+                      if "group_name" in names[:len(args)] else None)
+    return _resolve_process_group(name).size() if name is not None else 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +278,7 @@ class StepCost:
     coll: dict[str, int]
     flops_by_op: dict[str, int]
     ops: int
+    peak_bytes: int = 0  # the most storage the step's ops held at once
 
 
 def step_cost(fn, *args, **kw) -> StepCost:
@@ -223,11 +300,14 @@ def step_cost(fn, *args, **kw) -> StepCost:
     import torch.fx.experimental._config as fx_config
 
     mode = _CostMode()
+    for t in _tensors((args, kw)):  # the arguments' storage is not the step's
+        local = t._local_tensor if isinstance(t, DTensor) else t
+        mode._storages.add(id(local.untyped_storage()))
     with fx_config.patch(meta_nonzero_assume_all_nonzero=True), mode:
         fn(*args, **kw)
     return StepCost(flops=float(sum(mode.flops_by_op.values())), bytes=float(mode.bytes),
                     coll=collective_bytes(mode.collectives), flops_by_op=mode.flops_by_op,
-                    ops=mode.ops)
+                    ops=mode.ops, peak_bytes=mode.peak)
 
 
 def collective_bytes(recorded) -> dict[str, int]:

@@ -17,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.models.layers import like
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -81,8 +83,8 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
-    b1 = torch.tensor(cfg.b1, dtype=torch.float32, device=step.device)
-    b2 = torch.tensor(cfg.b2, dtype=torch.float32, device=step.device)
+    b1 = like(step, torch.tensor(cfg.b1, dtype=torch.float32, device=step.device))
+    b2 = like(step, torch.tensor(cfg.b2, dtype=torch.float32, device=step.device))
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
 

@@ -10,7 +10,10 @@ which updates params, m and v in place).  A param that the loss does not
 reach (a hybrid model's untaken branch) gets a zero gradient, as
 ``jax.value_and_grad`` gives it, so AdamW's weight decay still moves it.
 The batch may hold numpy arrays (``train.data``) or tensors; they are moved
-to the params' device.
+to the params' device.  On a mesh (DTensor params, ``launch.train --mesh``)
+the batch must already be DTensors on it; each gradient is reduced to its
+param's placements before the update (a partial sum over the data axis
+becomes the param's layout) and the loss is replicated.
 
 `make_prefill_step(cfg)` returns (params, batch) -> last-position logits
 (B, Vp): the batch holds ``tokens``, and ``src_embeds`` for encdec and
@@ -23,8 +26,10 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import is_dtensor
 from repro_torch.models.encdec import encdec_decode_step, encdec_loss, encdec_prefill
 from repro_torch.models.lm import lm_decode_step, lm_loss, lm_prefill
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, tree_leaves, tree_map
@@ -37,10 +42,15 @@ def loss_for(cfg: ArchConfig) -> Callable:
 
 
 def _split_microbatches(batch: dict, accum: int) -> list[dict]:
-    """The batch's rows in ``accum`` consecutive microbatches."""
+    """The batch's rows in ``accum`` consecutive microbatches.  Where a
+    mesh splits the batch over data, microbatch i is rows i, i + accum, i
+    + 2 accum, ...: each rank's rows of it are its own; the step's
+    gradient sums the same rows."""
     def split(x):
         b = x.shape[0]
         assert b % accum == 0, (b, accum)
+        if is_dtensor(x) and x.to_local().shape[0] != b:  # the batch is split over data
+            return x.reshape(b // accum, accum, *x.shape[1:]).transpose(0, 1)
         return x.reshape(accum, b // accum, *x.shape[1:])
 
     parts = {k: split(v) for k, v in batch.items()}
@@ -68,10 +78,21 @@ def value_and_grad(loss_fn: Callable, params, microbatches) -> tuple[torch.Tenso
     for mb in microbatches:
         mb_loss = loss_fn(live, mb)
         mb_loss.backward()
-        loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
-    grads = tree_map(lambda p, leaf: torch.zeros_like(p) if leaf.grad is None else leaf.grad,
-                     params, live)
+        mb_loss = _laid_out_as(mb_loss.detach(), None)
+        loss = mb_loss if loss is None else loss + mb_loss
+    grads = tree_map(lambda p, leaf: torch.zeros_like(p) if leaf.grad is None
+                     else _laid_out_as(leaf.grad, p), params, live)
     return loss, grads
+
+
+def _laid_out_as(t: torch.Tensor, like: torch.Tensor | None) -> torch.Tensor:
+    """A DTensor ``t`` redistributed to ``like``'s placements (replicated
+    where ``like`` is None); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    want = tuple(like.placements) if like is not None else tuple(
+        Replicate() for _ in range(t.device_mesh.ndim))
+    return t if tuple(t.placements) == want else t.redistribute(t.device_mesh, want)
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None):
@@ -89,7 +110,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None):
     accum = max(1, cfg.accum_steps)
 
     def train_step(params, opt_state, batch):
-        batch = batch_to(batch, tree_leaves(params)[0].device)
+        if not is_dtensor(tree_leaves(params)[0]):
+            batch = batch_to(batch, tree_leaves(params)[0].device)
         micro = _split_microbatches(batch, accum) if accum > 1 else [batch]
         loss, grads = value_and_grad(loss_fn, params, micro)
         if accum > 1:

@@ -443,5 +443,6 @@ def test_launcher_lowers_the_loss_and_saves_a_checkpoint(tmp_path):
     restored = load_checkpoint(path, topt.tree_map(torch.zeros_like, params))
     for g, w in zip(topt.tree_leaves(restored), topt.tree_leaves(params)):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="A.4"):
+    # a process outside any group is a world of one: a 2 x 1 mesh is refused
+    with pytest.raises(ValueError, match="2x1 holds 2 ranks; the default process group has 1"):
         train_launcher.main(argv + ["--mesh", "2x1"])
