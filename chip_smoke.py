@@ -7,9 +7,10 @@ sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
 the serving engine with its gateway (FedNLServer, GatewayServer), the
-sharded backend over torch.distributed, LM training (granite-3-2b and
-recurrentgemma-2b at full width and depth, with flash attention's
-hand-written backward), and the roofline of every full-width run
+sharded backend over torch.distributed, LM training (every family at
+full width: at full depth but llava-next-mistral-7b's 12 of 32 layers, with
+flash attention's hand-written backward), and the roofline of every
+full-width run
 (repro_torch.roofline: counted flops and bytes, mfu).
 
     python3 chip_smoke.py
@@ -100,7 +101,7 @@ raises, and the script exits non-zero without the final line.
              wall time (SYRK's ms per TopK round beside it); the host's ms per
              round for the key split, the clients' keys and draws, and their
              upload
-  train      LM training, granite-3-2b and recurrentgemma-2b: (a) the
+  train      LM training, every family: (a) the
              forward's training instantiation and the two backward kernels
              (flash_attention_bwd.cu) against their plain versions at every
              route's fixtures (forward and backward: bf16 wgmma at head_dim
@@ -116,26 +117,41 @@ raises, and the script exits non-zero without the final line.
              bits; ptxas's
              registers and spills of the wgmma backward's instantiations (0
              spills, no wgmma warning); then at granite-3-2b's training layer
-             (B 2, S 4,096, H 32, Kv 8, dh 64, causal) and recurrentgemma-2b's
+             (B 2, S 4,096, H 32, Kv 8, dh 64, causal), recurrentgemma-2b's
              (H 10, Kv 1, dh 256, causal window 2048; the dkdv kernel's
-             cluster split and waves), each held as the fixtures and timed
+             cluster split and waves), seamless-m4t-large-v2's (H 16, Kv 16,
+             dh 64, non-causal) and llava-next-mistral-7b's (S 576 + 4,096,
+             H 32, Kv 8, dh 128, causal window 4096), each held as the
+             fixtures and timed
              beside the plain versions and SDPA's forward and backward (the
              window as a boolean mask, the kv heads repeated), with the
              bounds on the tensor cores and the CUDA cores, the 13-product
-             floor and the products the kernels run; (b) full width at 2
-             layers (recurrentgemma-2b: 3, one of them attention), B 1, S
-             512: the loss and every leaf's gradient on the card against the
-             CPU (1e-3, 2e-2 relative L2), the backward launched once an
-             attention layer on the wgmma route, and a train step run twice
-             from one state, bit for bit; (c) full width and depth: 6 steps
-             of make_train_step (accum 2, B 4, S 4,096, remat "full", AdamW
-             lr 1e-3) with exactly 160 (recurrentgemma-2b: 32)
-             training-forward launches and 80 (16) of each backward kernel a
-             step, all on the wgmma route, and nothing else, the loss
-             falling, ms per step, tokens/s, peak memory, the last step
-             profiled by kind of kernel (the flash backward's share),
-             AdamW's update timed alone; (d) the training launcher,
-             --reduced --steps 30: the loss falls by more than 0.5
+             floor and the products the kernels run; then for each of
+             TRAIN_CELLS (granite-3-2b, recurrentgemma-2b,
+             granite-moe-1b-a400m, mamba2-2.7b, seamless-m4t-large-v2,
+             llava-next-mistral-7b), each freed before the next: (b) full
+             width at 2 layers (recurrentgemma-2b: 3, one of them
+             attention; seamless: 2 encoder and 2 decoder layers), B 1, S
+             512 (llava: after 576 image embeddings; seamless: a 512-frame
+             source; moe: S 64, the first seed whose routing on the card
+             and the CPU agrees before each row's first difference, a near
+             tie, for half its labels, the rest masked, with both runs'
+             routing tables): the loss and every leaf's gradient on the
+             card against the CPU (1e-3, 2e-2 relative L2), the launches of
+             expected_train_launches on the wgmma route, and a train step
+             run twice from one state, bit for bit; (c) full width and
+             depth (llava: 12 of its 32 layers): 6 steps (the last four
+             cells: 4, for the run's time) of make_train_step (accum 2, B 4,
+             S 4,096, remat "full", AdamW lr 1e-3) with exactly
+             expected_train_launches' flash launches
+             a step (granite-3-2b 160 + 80 + 80, recurrentgemma-2b 32 + 16
+             + 16, granite-moe 96 + 48 + 48, mamba2 none, seamless 288 +
+             144 + 144, llava 48 + 24 + 24), all on the wgmma route, and
+             nothing else, the loss falling, ms per step, tokens/s, peak
+             memory under 80 GB, the last step profiled by kind of kernel
+             (the flash backward's share), AdamW's update timed alone; (d)
+             the training launcher, --reduced --steps 30: the loss falls by
+             more than 0.5
   mesh       the mesh layer (after train): (a) granite-3-2b at full width
              and depth through launch/train.py's main with --mesh 1x1
              (DTensor params and AdamW state, each attention's flash
@@ -150,7 +166,8 @@ raises, and the script exits non-zero without the final line.
              collective bytes equal to fednl_shard's closed form) and
              granite-3-2b's train_4k at B 4 counted on a 1 x 1 mesh (no
              collective bytes; its product flops equal to the roofline
-             phase's plain count, checked there); one line a record: per-rank
+             phase's plain count, checked there), and beside them the
+             roofline phase's meta counts; one line a record: per-rank
              flops, bytes, collective bytes by kind, the three terms on the
              datasheet's ceilings and on this card's measured peak and HBM
              rate (the collective term at the datasheet's NVLink rate), the
@@ -269,11 +286,12 @@ raises, and the script exits non-zero without the final line.
              the steps from repro_torch.launch.specs.build_dryrun): the
              datasheet's ceilings (H100_SXM bf16, H100_SXM_FP64) and this
              card's measured ones (measure_machine: an 8192 GEMM and a copy,
-             bf16 and f64); granite-3-2b's and recurrentgemma-2b's train
-             steps (train_4k cut to B 4, accum 2) and the 32k prefills of
+             bf16 and f64); the train phase's six train steps (train_4k
+             cut to B 4, accum 2; llava at 12 layers) and the 32k prefills of
              granite-3-2b and the zoo's five families (prefill_32k cut to B
-             1), each counted on meta in ROOFLINE_WORKERS spawned processes;
-             meanwhile step_cost refuses CUDA tensors (an argument, and a
+             1), each counted on meta in ROOFLINE_WORKERS spawned processes
+             (during the mesh phase, after its timed steps, beside the fake
+             worlds); step_cost refuses CUDA tensors (an argument, and a
              tensor made inside the step), granite-3-2b's 2-layer full-width
              train step (B 1, S 512) counts the same flops and bytes on meta
              and on the CPU, and phase 7's w8a TopK round is counted on the
@@ -292,7 +310,7 @@ Phase 3 also checks a window without causality through
 one launch per query chunk on its key slice) on both flash routes, bf16 at
 head_dim 128 and 256 on wgmma and f32 at head_dim 32 on SIMT, against the
 plain version on the same chunks and offsets.
-Then the kernels line, the nvidia-smi line, and
+Then the kernels line, the run's seconds, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -401,7 +419,7 @@ SOLO_STAR_ROUNDS, SOLO_PP_ROUNDS = 3, 5  # (d)
 GATEWAY_ROUNDS = 20  # (e)
 TICK_REPS = 10  # (f) ticks timed of an 8-slot group
 # the roofline phase: full-width steps counted on meta in spawned processes
-ROOFLINE_WORKERS = 4
+ROOFLINE_WORKERS = 6
 ROOFLINE_SHARE_MAX = 1.05  # mfu: model flops over a measured time at peak
 # phase 13: the sharded backend at w8a, a world of one
 SHARDED_ROUNDS = 10  # (a) dense_psum, (b) sparse_allgather, (d) the session
@@ -1308,16 +1326,42 @@ def zoo_family(arch: str, dev, ops) -> dict:
             "max_memory_allocated": peak}
 
 
-# phase train: LM training at granite-3-2b's and recurrentgemma-2b's full width
+# phase train: LM training at every family's full width
 TRAIN_LAYER = (2, 4096, 32, 8, 64)  # a microbatch of train_4k at granite's layer: B, S, H, Kv, dh
 RG_TRAIN_LAYER = (2, 4096, 10, 1, 256)  # ... at recurrentgemma-2b's attention layer
 RG_WINDOW = 2048  # recurrentgemma-2b's local window (causal)
+# seamless-m4t-large-v2's encoder self-attention (non-causal, MHA; its cross
+# attention has the same shapes at train_4k), and llava-next-mistral-7b's
+# layer: 576 image positions before the 4,096 tokens, causal window 4,096
+SEAMLESS_TRAIN_LAYER = (2, 4096, 16, 16, 64)
+LLAVA_TRAIN_LAYER, LLAVA_WINDOW = (2, 576 + 4096, 32, 8, 128), 4096
+LLAVA_TRAIN_LAYERS = 12  # llava's full-width train step: 12 of its 32 layers
 # train_4k (S 4,096) at its batch cut to 4 (CUT_BATCH), in 2 microbatches of
-# 2; 6 steps
-TRAIN_ACCUM, TRAIN_STEPS = 2, 6
+# 2; 6 steps (the cells this phase gained last, 4: the run's 1,200 s)
+TRAIN_ACCUM, TRAIN_STEPS, TRAIN_STEPS_SHORT = 2, 6, 4
 # the card-vs-CPU depth cut, B 1: granite 2 layers; recurrentgemma 3, since
 # its (rglru, rglru, attn) pattern puts no attention layer in the first 2
 TRAIN_CUT_LAYERS, RG_CUT_LAYERS, TRAIN_CUT_SEQ = 2, 3, 512
+# the train phase's cells in order: (arch, depth cut's layers (encdec: of the
+# encoder and of the decoder), full-width run's layers (None: all), steps)
+TRAIN_CELLS = (
+    ("granite-3-2b", TRAIN_CUT_LAYERS, None, TRAIN_STEPS),
+    ("recurrentgemma-2b", RG_CUT_LAYERS, None, TRAIN_STEPS),
+    ("granite-moe-1b-a400m", 2, None, TRAIN_STEPS_SHORT),
+    ("mamba2-2.7b", 2, None, TRAIN_STEPS_SHORT),
+    ("seamless-m4t-large-v2", 2, None, TRAIN_STEPS_SHORT),
+    # its f32 params, grads, m and v at 32 layers (~114 GB) do not fit one card
+    ("llava-next-mistral-7b", 2, LLAVA_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
+)
+# the moe depth cut: B 1, S MOE_CUT_SEQ, the first of MOE_HELD_SEEDS seeds
+# whose labels before the first routing difference are MOE_HELD_SHARE of its
+# own; at S 512 on an H100 no seed of 16 came near (a first difference
+# within 6-162 tokens: the card's and the CPU's bf16 roundings part the
+# router's probabilities by up to 1e-3 at layer 0 and 3e-3 at layer 1, and
+# a token's 8th and 9th experts lie that close at ~0.7% of layer 0's tokens
+# and ~2.7% of layer 1's)
+MOE_CUT_SEQ, MOE_HELD_SEEDS, MOE_HELD_SHARE = 64, 32, 0.5
+PEAK_BYTES_MAX = 80e9  # a full-width train step's peak device memory
 BWD_CARD_ULPS = 2  # backward kernels against the plain backward, bf16: ulps of each gradient's scale
 BWD_F32_RTOL = 1e-5  # ... f32: of each gradient's scale
 # card against CPU at the depth cut: the CPU tests' per-family bounds against the
@@ -1348,6 +1392,10 @@ BWD_FIXTURES = {  # name: (b, sq, sk, h, kv, dh, causal, window, q_offset, k_off
     "bf16_dh256_sq_not_tile_kv1": (2, 333, 333, 10, 1, 256, True, 128, 0, 0, "bf16"),
     "bf16_dh256_c4_offsets": (1, 512, 811, 10, 2, 256, False, 300, 1024, 725, "bf16"),
     "bf16_dh256_rows_with_no_key": (1, 300, 300, 8, 2, 256, True, None, 0, 40, "bf16"),
+    # the training layers first run here: seamless's MHA (H = Kv) without
+    # causality, and llava's window below S with S off the 64-query tiles
+    "bf16_dh64_mha_noncausal": (2, 500, 500, 16, 16, 64, False, None, 0, 0, "bf16"),
+    "bf16_dh128_window_below_s_off_tiles": (1, 1000, 1000, 32, 8, 128, True, 300, 0, 0, "bf16"),
 }
 
 
@@ -1429,13 +1477,14 @@ def bwd_against_plain(tfa, q, k, v, do, kw: dict, name: str) -> dict:
     return row
 
 
-def bwd_layer(dev, tfa, label: str, layer: tuple, window, seed: int) -> dict:
-    """The backward kernels at one training layer (B, S, H, Kv, dh; causal,
-    ``window``): held as the fixtures, then timed (CUDA-event medians of
-    FLASH_TIMED_REPS pairs around one call) beside the training and
-    inference forwards, the plain versions and SDPA's forward and backward
-    (with a window: the window as a boolean (S, S) mask and the kv heads
-    repeated), with the bounds."""
+def bwd_layer(dev, tfa, label: str, layer: tuple, window, seed: int,
+              causal: bool = True) -> dict:
+    """The backward kernels at one training layer (B, S, H, Kv, dh;
+    ``causal``, ``window``): held as the fixtures, then timed (CUDA-event
+    medians of FLASH_TIMED_REPS pairs around one call) beside the training
+    and inference forwards, the plain versions and SDPA's forward and
+    backward (with a window: the window as a boolean (S, S) mask and the kv
+    heads repeated), with the bounds."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1443,15 +1492,16 @@ def bwd_layer(dev, tfa, label: str, layer: tuple, window, seed: int) -> dict:
     b, s, h, kv, dh = layer
     q, k, v = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, seed)
     do = flash_inputs(dev, b, s, s, h, kv, dh, torch.bfloat16, seed + 1)[0]
-    kw = {"causal": True, "window": window}
+    kw = {"causal": causal, "window": window}
     checked = bwd_against_plain(tfa, q, k, v, do, kw, label)
     o, lse = tfa.flash_attention_train_cuda(q, k, v, **kw)
     _, dsum = tfa.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
     qt = q.transpose(1, 2).detach().requires_grad_()
     if window is None:
         kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (k, v))
-        sdpa_kw = {"is_causal": True, "enable_gqa": True}
-        call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) in bf16"
+        sdpa_kw = {"is_causal": causal, "enable_gqa": h != kv}
+        call = (f"F.scaled_dot_product_attention(is_causal={causal}, enable_gqa={h != kv}) "
+                "in bf16")
     else:
         pos = torch.arange(s, device=dev)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
@@ -1484,7 +1534,7 @@ def bwd_layer(dev, tfa, label: str, layer: tuple, window, seed: int) -> dict:
         library["not_given"] = str(err).splitlines()[0][:300]
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
         ms = median_ms(fns, reps=FLASH_TIMED_REPS, calls=1)
-    pairs = tfa.visible_pairs(s, s, True, window) * h * b
+    pairs = tfa.visible_pairs(s, s, causal, window) * h * b
     prod = 2 * dh * pairs  # the FLOP of one head_dim product over the visible pairs
     el, n_q, n_kv, n_row = q.element_size(), q.numel(), k.numel(), lse.numel()
     dq_bytes = (3 * n_q + 2 * n_kv) * el + 4 * (n_q + 2 * n_row)  # q k v do dq; o lse D
@@ -1522,7 +1572,7 @@ def bwd_layer(dev, tfa, label: str, layer: tuple, window, seed: int) -> dict:
     out = {"check": checked, "ms": ms, "visible_pairs": pairs, "bound": bounds,
            "bound_cuda_cores_ms": cuda_cores, "library": library, "backward_route": route,
            "kernels_do_products": do_products, "floors": floors, "dkdv_grid": grid}
-    emit({"phase": "train", "part": f"a_flash_bwd_{label}", "shape": list(layer), "causal": True,
+    emit({"phase": "train", "part": f"a_flash_bwd_{label}", "shape": list(layer), "causal": causal,
           "window": window, "dtype": "bfloat16", **out,
           "note": "ms per call: CUDA-event medians, the functions in turns; bound: the bf16 "
                   "products of each function on the tensor cores (P and dS in three bf16 "
@@ -1574,37 +1624,154 @@ def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
           "ptxas_wgmma": ptxas})
     granite = bwd_layer(dev, tfa, "granite_training_layer", TRAIN_LAYER, None, 700)
     rg = bwd_layer(dev, tfa, "recurrentgemma_training_layer", RG_TRAIN_LAYER, RG_WINDOW, 710)
-    return {"fixtures": report, "ptxas_wgmma": ptxas, **granite, "rg": rg}
+    seamless = bwd_layer(dev, tfa, "seamless_training_layer", SEAMLESS_TRAIN_LAYER, None, 720,
+                         causal=False)
+    llava = bwd_layer(dev, tfa, "llava_training_layer", LLAVA_TRAIN_LAYER, LLAVA_WINDOW, 730)
+    return {"fixtures": report, "ptxas_wgmma": ptxas, **granite, "rg": rg, "seamless": seamless,
+            "llava": llava}
 
 
-def attention_layers(cfg) -> int:
-    """The attention layers of a decoder config (a hybrid's pattern's
-    "attn" layers; every layer of the others)."""
+def train_attention_calls(cfg) -> int:
+    """The attention calls of one forward of ``cfg``'s training loss: a
+    decoder's attention layers (a hybrid's pattern's "attn" layers; none
+    for ssm), or an encoder-decoder's encoder self-attentions, decoder
+    self-attentions and cross-attentions."""
     from repro_torch.models.lm import layer_types
 
-    return int((layer_types(cfg) == 0).sum())
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else int((layer_types(cfg) == 0).sum())
+
+
+def expected_train_launches(cfg, accum: int) -> dict:
+    """The flash launches of one train step of ``cfg`` over ``accum``
+    microbatches: a microbatch runs the training forward of each attention
+    call twice where its layer is recomputed in the backward (remat "full",
+    or "dots", which keeps only matrix products; an encoder-decoder's layers
+    always), once under "none", and each backward kernel once."""
+    calls = train_attention_calls(cfg) * accum
+    recomputed = cfg.family == "encdec" or cfg.remat_policy != "none"
+    return {"flash_attention_train": (2 if recomputed else 1) * calls,
+            "flash_attention_bwd_dq": calls, "flash_attention_bwd_dkdv": calls}
+
+
+def init_params(cfg, device):
+    """Seed-0 params of ``cfg`` on ``device`` (encdec: init_encdec_params)."""
+    from repro_torch.models import init_encdec_params, init_lm_params
+
+    return (init_encdec_params if cfg.family == "encdec" else init_lm_params)(0, cfg, device)
+
+
+def routing_report(tables, first: dict) -> list:
+    """Per layer, the two runs' routing tables (route_table on each run's
+    device): digests of the tokens before each row's first difference
+    (equal), each run's tokens per expert and kept assignments, and the
+    first differing tokens' experts on both sides."""
+    import hashlib
+
+    import torch
+
+    out = []
+    for layer, (card, host) in enumerate(tables):
+        (ec, kc, _, b, s), (eh, kh, _, _, _) = card, host
+        pos, row = torch.arange(b * s) % s, torch.arange(b * s) // s
+        held = torch.tensor([int(p) < first.get(int(r), 1 << 30) for r, p in zip(row, pos)])
+        differ = torch.nonzero((ec != eh).any(-1) | (kc != kh).any(-1)).flatten().tolist()
+
+        def digest(e, kept):
+            return hashlib.sha256(e[held].numpy().tobytes() + kept[held].numpy().tobytes()
+                                  ).hexdigest()[:16]
+
+        out.append({
+            "layer": layer, "held_tokens": int(held.sum()),
+            "sha256_16": {"card": digest(ec, kc), "cpu": digest(eh, kh)},
+            "tokens_per_expert": {"card": torch.bincount(ec.flatten()).tolist(),
+                                  "cpu": torch.bincount(eh.flatten()).tolist()},
+            "kept": {"card": int(kc.sum()), "cpu": int(kh.sum())},
+            "differing_tokens": len(differ),
+            "first_differing": [{"token": t, "card": ec[t].tolist(), "cpu": eh[t].tolist(),
+                                 "card_kept": kc[t].tolist(), "cpu_kept": kh[t].tolist()}
+                                for t in differ[:4]]})
+    return out
+
+
+def moe_held_batch(cut, p_card, p_cpu, dev) -> tuple[dict, dict]:
+    """The moe depth cut's batch, B 1, S MOE_CUT_SEQ: seeds in order, each
+    batch's loss run on the card and on the CPU with every moe_apply's input
+    recorded and each run's routing of it computed on its own device
+    (route_table); a token may route otherwise only at a near tie, and a
+    kept flag differ only where an assignment flipped (routing_differences).
+    The first seed whose labels before each row's first routing difference
+    are at least MOE_HELD_SHARE of the row is taken, its labels from that
+    difference on masked (-1), as the CPU tests hold the port against the
+    reference: the loss and every gradient are then of tokens routed alike
+    on both devices (causal attention, and capacity queues filled in token
+    order)."""
+    import torch
+
+    from repro_torch.models import lm as tlm
+    from repro_torch.train import synthetic_batch
+    from repro_torch.train.step import batch_to, loss_for
+
+    routers = [(c["moe"]["router"], h["moe"]["router"]) for c, h in
+               zip(tlm._layers(p_card["blocks"], cut.n_layers),
+                   tlm._layers(p_cpu["blocks"], cut.n_layers))]
+    tried = []
+    for seed in range(MOE_HELD_SEEDS):
+        batch = synthetic_batch(cut, 1, MOE_CUT_SEQ, seed=seed)
+        runs = []
+        for params, where in ((p_card, dev), (p_cpu, torch.device("cpu"))):
+            with record_router_inputs() as calls, torch.no_grad():
+                loss_for(cut)(params, batch_to(batch, where))
+            runs.append(calls)
+        first, counts, tables = {}, [], []
+        for (hc, hh), (rc, rh) in zip(zip(*runs), routers):
+            card = (*route_table(hc.to(dev), rc, cut), *hc.shape[:2])
+            host = (*route_table(hh, rh, cut), *hh.shape[:2])
+            first, n, _ = routing_differences(card, host, 0, first)
+            counts.append(n)
+            tables.append((card, host))
+        labels = batch["labels"].copy()
+        for row, pos in first.items():
+            labels[row, pos:] = -1
+        share = float((labels >= 0).sum() / (batch["labels"] >= 0).sum())
+        tried.append({"seed": seed, "first_difference": first, "held_share": share,
+                      "per_layer": counts})
+        if share >= MOE_HELD_SHARE:
+            return dict(batch, labels=labels), {
+                "seed": seed, "tried": tried, "held_share": share,
+                "routing_tables": routing_report(tables, first)}
+    check(False, f"moe depth cut: no seed of {MOE_HELD_SEEDS} holds {MOE_HELD_SHARE} of its "
+          f"labels before a routing difference: {tried}")
 
 
 def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
-    """``arch`` at full width, ``n_layers`` layers, B 1, S TRAIN_CUT_SEQ: the
-    loss and every leaf's gradient on the card against the CPU from the
-    same params and batch (the card's backward launched once an attention
-    layer, each kernel on the wgmma route), and one train step run twice
-    from one state on the card, bit for bit."""
+    """``arch`` at full width, ``n_layers`` layers (encdec: ``n_layers``
+    encoder and decoder layers), B 1, S TRAIN_CUT_SEQ (vlm: after its
+    images; encdec: a source of as many frames; moe: moe_held_batch's, S
+    MOE_CUT_SEQ): the loss and every leaf's gradient on the card against
+    the CPU from the same params (drawn on the card) and batch, the card's
+    launches those of expected_train_launches, each on the wgmma route, and
+    one train step run twice from one state on the card, bit for bit."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import init_lm_params
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step, synthetic_batch
     from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
     from repro_torch.train.step import batch_to, loss_for, value_and_grad
 
-    cut = dataclasses.replace(get_config(arch), n_layers=n_layers, accum_steps=1)
-    n_attn = attention_layers(cut)
-    check(n_attn > 0, f"train depth cut {arch}: {n_layers} layers hold no attention layer")
-    p_cpu = init_lm_params(0, cut, "cpu")
-    p_card = tree_to(p_cpu, dev)
-    batch = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0)
+    full_cfg = get_config(arch)
+    cut = dataclasses.replace(full_cfg, n_layers=n_layers, accum_steps=1,
+                              **({"encoder_layers": n_layers} if full_cfg.family == "encdec"
+                                 else {}))
+    want = expected_train_launches(cut, 1)
+    check(want["flash_attention_bwd_dq"] > 0 or cut.family == "ssm",
+          f"train depth cut {arch}: {n_layers} layers hold no attention layer")
+    p_card = init_params(cut, dev)
+    p_cpu = tree_to(p_card, torch.device("cpu"))
+    batch, moe = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0), None
+    if cut.family == "moe":
+        batch, moe = moe_held_batch(cut, p_card, p_cpu, dev)
     fwd = ops.flash_attention_mod
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1612,13 +1779,17 @@ def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launched = {name: n for name, n in ops.launch_counts().items() if n}
-    bwd_routes = (dict(fwd.flash_attention_bwd_dq_cuda.route_launches),
-                  dict(fwd.flash_attention_bwd_dkdv_cuda.route_launches))
-    check(launched.get("flash_attention_bwd_dq") == launched.get("flash_attention_bwd_dkdv")
-          == n_attn and bwd_routes == ({"wgmma": n_attn, "simt": 0},) * 2,
-          f"train depth cut {arch}: launches {launched}, backward routes {bwd_routes}")
+    routes = tuple(dict(fn.route_launches) for fn in (
+        fwd.flash_attention_train_cuda, fwd.flash_attention_bwd_dq_cuda,
+        fwd.flash_attention_bwd_dkdv_cuda))
+    check(launched == {name: n for name, n in want.items() if n}
+          and routes == tuple({"wgmma": want[name], "simt": 0} for name in want),
+          f"train depth cut {arch}: launches {launched}, routes {routes}, want {want}")
     t0 = time.perf_counter()
-    loss_cpu, g_cpu = value_and_grad(loss_for(cut), p_cpu, [batch_to(batch, torch.device("cpu"))])
+    # the CPU keeps every activation: the same numbers as remat "full" on the
+    # CPU (tests/test_torch_train.py), a quarter less work
+    loss_cpu, g_cpu = value_and_grad(loss_for(dataclasses.replace(cut, remat_policy="none")),
+                                     p_cpu, [batch_to(batch, torch.device("cpu"))])
     cpu_s = time.perf_counter() - t0
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
     check(loss_rel <= TRAIN_LOSS_RTOL, f"train depth cut {arch}: loss {float(loss_card)} vs CPU "
@@ -1626,8 +1797,8 @@ def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
     rel = {}
     for (path, gc), gh in zip(_named(g_card), tree_leaves(g_cpu)):
         check(bool(torch.isfinite(gc).all()), f"train depth cut {arch}: {path} not finite")
-        gc = gc.cpu().double()
-        rel[path] = float(torch.linalg.norm(gc - gh.double()) / torch.linalg.norm(gh.double()))
+        gh = gh.to(dev).double()  # the norms on the card, in f64
+        rel[path] = float(torch.linalg.norm(gc.double() - gh) / torch.linalg.norm(gh))
         check(rel[path] <= TRAIN_GRAD_REL_L2, f"train depth cut {arch}: {path} rel L2 {rel[path]}")
     norm_card, norm_cpu = float(global_norm(g_card)), float(global_norm(g_cpu))
     check(abs(norm_card - norm_cpu) <= TRAIN_GRAD_REL_L2 * norm_cpu,
@@ -1643,9 +1814,13 @@ def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
     same = (torch.equal(l1, l2) and torch.equal(n1, n2)
             and all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b_))))
     check(same, f"train depth cut {arch}: two steps from one state differ on the card")
-    full_layers = get_config(arch).n_layers
-    out = {"arch": arch, "cut": f"n_layers {n_layers} of {full_layers}; full width",
-           "attention_layers": n_attn, "card_launches": launched, "batch_seq": [1, TRAIN_CUT_SEQ],
+    layers = (f"n_layers {n_layers} of {full_cfg.n_layers}" if cut.family != "encdec" else
+              f"encoder_layers and n_layers {n_layers} of {full_cfg.encoder_layers} and "
+              f"{full_cfg.n_layers}")
+    out = {"arch": arch, "cut": f"{layers}; full width",
+           "attention_calls": train_attention_calls(cut), "card_launches": launched,
+           "batch_seq": list(np.shape(batch["tokens"])),
+           "inputs": {k: list(np.shape(v)) for k, v in batch.items()},
            "loss_card": float(loss_card), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
            "grad_norm_card": norm_card, "grad_norm_cpu": norm_cpu,
            "worst_leaf_rel_l2": max(rel.items(), key=lambda kv: kv[1]),
@@ -1653,6 +1828,8 @@ def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
                                        "grad_rel_l2": TRAIN_GRAD_REL_L2},
            "card_forward_backward_s": card_s, "cpu_forward_backward_s": cpu_s,
            "step_twice_bitwise": True, "step_loss": float(l1), "step_grad_norm": float(n1)}
+    if moe is not None:
+        out["moe_held_batch"] = moe
     emit({"phase": "train", "part": "b_depth_cut_card_vs_cpu", **out})
     del runs, a, b_, p_card
     return out
@@ -1669,51 +1846,60 @@ def _named(tree, prefix=""):
 
 
 def _kernel_split(prof, n_steps: int) -> dict:
-    """Device ms per step by kind of kernel, from a profile's averages."""
+    """Device ms per step by kind of kernel, summed from the profile's raw
+    device events (building the profiler's event tree for key_averages
+    took ~18 s at mamba2-2.7b's ~10^5 launches a step)."""
     import torch
 
     kinds = {"flash_forward": ("flash_fwd",), "flash_backward": ("flash_bwd",),
              "matmuls": ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_")}
     split = {kind: 0.0 for kind in (*kinds, "other")}
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    for e in kernels:
-        kind = next((k for k, marks in kinds.items() if any(m in e.key for m in marks)), "other")
-        split[kind] += e.self_device_time_total / n_steps / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    by_name: dict[str, list[int]] = {}  # kernel name: [ns, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            total = by_name.setdefault(e.name(), [0, 0])
+            total[0] += e.duration_ns()
+            total[1] += 1
+    for name, (ns, _) in by_name.items():
+        kind = next((k for k, marks in kinds.items() if any(m in name for m in marks)), "other")
+        split[kind] += ns / n_steps / 1e6
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
     return {"device_ms_per_step": split, "device_ms_total": sum(split.values()),
-            "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n_steps
-                             / 1e3, "calls_per_step": e.count / n_steps} for e in top]}
+            "top_kernels": [{"name": name[:90], "ms_per_step": ns / n_steps / 1e6,
+                             "calls_per_step": count / n_steps}
+                            for name, (ns, count) in top]}
 
 
-def train_full(dev, ops, arch: str, steps: int, keep_final: bool = False) -> dict:
-    """``arch`` at full width and depth: ``steps`` steps of make_train_step
-    (accum TRAIN_ACCUM, remat "full", AdamW lr 1e-3) on
-    synthetic_token_stream at train_4k's S and cut batch; the launch counts
-    set to 0 before each step and read after it (two training forwards an
-    attention layer and microbatch under remat "full", one of each backward
-    kernel, all on the wgmma route, and nothing else); the last step
+def train_full(dev, ops, arch: str, steps: int, n_layers: int | None = None,
+               keep_final: bool = False) -> dict:
+    """``arch`` at full width and depth (``n_layers``: a depth cut at full
+    width): ``steps`` steps of make_train_step (accum TRAIN_ACCUM, remat
+    "full", AdamW lr 1e-3) on synthetic_token_stream at train_4k's S and
+    cut batch (vlm: after 576 image positions; encdec: a source of S
+    frames); the launch counts set to 0 before each step and read after it
+    (expected_train_launches, all on the wgmma route, and nothing else);
+    the loss falling, peak memory under PEAK_BYTES_MAX; the last step
     profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.models import init_lm_params
     from repro_torch.train import (AdamWConfig, adamw_init, adamw_update, make_train_step,
                                    synthetic_token_stream)
     from repro_torch.train.optimizer import tree_map
 
-    full = dataclasses.replace(get_config(arch), accum_steps=TRAIN_ACCUM)
+    published = get_config(arch)
+    full = dataclasses.replace(published, accum_steps=TRAIN_ACCUM,
+                               **({"n_layers": n_layers} if n_layers else {}))
     check(full.remat_policy == "full", f"{arch}'s remat policy {full.remat_policy}")
-    n_attn = attention_layers(full)
     no_launch = {name: 0 for name in ops.launch_counts()}
-    want = {**no_launch, "flash_attention_train": 2 * n_attn * TRAIN_ACCUM,
-            "flash_attention_bwd_dq": n_attn * TRAIN_ACCUM,
-            "flash_attention_bwd_dkdv": n_attn * TRAIN_ACCUM}
+    per_step = expected_train_launches(full, TRAIN_ACCUM)
+    want = {**no_launch, **per_step}
     fwd = ops.flash_attention_mod
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_lm_params(0, full, dev)
+    params = init_params(full, dev)
     opt = adamw_init(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1728,7 +1914,9 @@ def train_full(dev, ops, arch: str, steps: int, keep_final: bool = False) -> dic
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         profiled = i == steps - 1
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+        # the device's kernels only: host ops as well took ~90 s to gather at
+        # mamba2-2.7b's ~10^5 launches a step
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof_i:
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, batch)
@@ -1756,10 +1944,18 @@ def train_full(dev, ops, arch: str, steps: int, keep_final: bool = False) -> dic
     check(all(math.isfinite(x) for x in losses + norms),
           f"{arch} train: losses {losses}, norms {norms}")
     check(losses[-1] < losses[0], f"{arch} train: the loss did not fall: {losses}")
+    check(peak <= PEAK_BYTES_MAX, f"{arch} train: peak memory {peak} bytes")
     timed = wall[1:-1]  # after the first step, before the profiled one
     ms = statistics.median(timed) * 1e3
     tokens = shape.batch * shape.seq
+    # positions a row runs through: vlm's images before its tokens, encdec's
+    # source frames beside them
+    extra = (full.n_frontend_tokens if full.family == "vlm" else
+             shape.seq if full.family == "encdec" else 0)
+    t0 = time.perf_counter()
     split = _kernel_split(prof, 1)
+    check(split["device_ms_total"] > 0, f"{arch} train: the profiled step shows no device time")
+    split["gather_s"] = time.perf_counter() - t0
     # AdamW alone at full width: CUDA events around one update (zero grads)
     grads = tree_map(torch.zeros_like, params)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1770,15 +1966,22 @@ def train_full(dev, ops, arch: str, steps: int, keep_final: bool = False) -> dic
     adamw_ms = start.elapsed_time(end)
     n_params = sum(t.numel() for t in _leaves(params))
     device_ms = split["device_ms_total"]
-    out = {"arch": full.name, "n_layers": full.n_layers, "attention_layers": n_attn,
-           "params": n_params, "f32_params_grads_m_v_bytes": 4 * 4 * n_params,
-           "batch_seq": [shape.batch, shape.seq], "accum_steps": TRAIN_ACCUM,
+    cut = f"train_4k's global batch of 256 cut to {shape.batch}"
+    if n_layers:
+        cut += f"; n_layers {n_layers} of {published.n_layers} at full width"
+    out = {"arch": full.name, "n_layers": full.n_layers, "encoder_layers": full.encoder_layers,
+           "attention_calls": train_attention_calls(full), "params": n_params,
+           "f32_params_grads_m_v_bytes": 4 * 4 * n_params,
+           "batch_seq": [shape.batch, shape.seq], "positions_per_row": shape.seq + extra,
+           "accum_steps": TRAIN_ACCUM,
            "microbatch": shape.batch // TRAIN_ACCUM, "remat_policy": full.remat_policy,
-           "cut": f"train_4k's global batch of 256 cut to {shape.batch}", "steps": steps,
-           "lr": 1e-3,
+           "cut": cut, "steps": steps, "lr": 1e-3,
            "init_s": init_s, "losses": losses, "grad_norms": norms, "wall_s": wall,
            "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
-           "ms_per_step_note": f"median of steps 2..{steps - 1} (host clock, synchronised)",
+           "positions_per_s": shape.batch * (shape.seq + extra) / (ms / 1e3),
+           "ms_per_step_note": f"median of steps 2..{steps - 1} (host clock, synchronised); "
+                               "tokens: the labelled tokens, B x S",
+           "launches_want_per_step": per_step,
            "launches_per_step": counts[0], "launches_total": {
                name: sum(c[name] for c in counts) for name in counts[0]},
            "flash_train_routes_per_step": {"wgmma": want["flash_attention_train"], "simt": 0},
@@ -1797,21 +2000,26 @@ def train_full(dev, ops, arch: str, steps: int, keep_final: bool = False) -> dic
 
 
 def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
-    """LM training: (a) the backward kernels, (b) the depth cut card against
-    CPU and (c) full width and depth, granite-3-2b and then
-    recurrentgemma-2b, (d) the launcher."""
+    """LM training: (a) the backward kernels, then for each of TRAIN_CELLS,
+    each freed before the next, (b) the depth cut card against CPU and (c)
+    full width and depth (llava-next-mistral-7b: 12 layers), (d) the
+    launcher."""
     import torch
 
     from repro_torch.launch import train as train_launcher
 
     t_phase = time.perf_counter()
     bwd = flash_bwd_phase(dev, tfa, bwd_report)
-    cut = train_depth_cut(dev, ops, "granite-3-2b", TRAIN_CUT_LAYERS)
-    full = train_full(dev, ops, "granite-3-2b", TRAIN_STEPS, keep_final=True)
-    torch.cuda.empty_cache()
-    rg_cut = train_depth_cut(dev, ops, "recurrentgemma-2b", RG_CUT_LAYERS)
-    rg_full = train_full(dev, ops, "recurrentgemma-2b", TRAIN_STEPS)
-    torch.cuda.empty_cache()
+    cells, cell_s = {}, {}
+    for arch, cut_layers, full_layers, steps in TRAIN_CELLS:
+        t0 = time.perf_counter()
+        cut = train_depth_cut(dev, ops, arch, cut_layers)
+        torch.cuda.empty_cache()
+        full = train_full(dev, ops, arch, steps, n_layers=full_layers,
+                          keep_final=arch == "granite-3-2b")
+        torch.cuda.empty_cache()
+        cells[arch] = {"cut": cut, "full": full}
+        cell_s[arch] = time.perf_counter() - t0
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         _, losses = train_launcher.main(["--arch", "granite-3-2b", "--reduced", "--steps", "30",
@@ -1823,9 +2031,9 @@ def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
           "last_loss": losses[-1], "printed": out.getvalue().strip().splitlines()[-1]})
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
-    emit({"phase": "train", "seconds": seconds})
-    return {"bwd": bwd, "cut": cut, "full": full, "rg_cut": rg_cut, "rg_full": rg_full,
-            "seconds": seconds}
+    emit({"phase": "train", "seconds": seconds, "cell_seconds": cell_s})
+    return {"bwd": bwd, "cells": cells, "full": cells["granite-3-2b"]["full"],
+            "rg_full": cells["recurrentgemma-2b"]["full"], "seconds": seconds}
 
 
 MESH_RECORDS = (("granite-3-2b", "train_4k"), ("granite-3-2b", "prefill_32k"))
@@ -1903,8 +2111,8 @@ def mesh_phase(dev, ops, train: dict) -> dict:
     through launch/train.py's main with ``--mesh 1x1`` (params and AdamW's
     state DTensors, each attention's flash launches through local_map),
     the train phase's seed, batches, accumulation, remat and steps: the
-    losses and final params bit for bit the unsharded run's, 2 A + A + A
-    flash launches a step (A attention layers) all on the wgmma route, ms
+    losses and final params bit for bit the unsharded run's, the flash
+    launches of expected_train_launches a step, all on the wgmma route, ms
     a step and peak memory beside the unsharded run's; meanwhile (b) in
     three spawned fake worlds (launch.dryrun.FakeWorld) the dry run's
     records of MESH_RECORDS on 16 x 16 with their probes, the FedNL dry run
@@ -1914,7 +2122,9 @@ def mesh_phase(dev, ops, train: dict) -> dict:
     line a record, with the three terms on the datasheet's ceilings and on
     this card's measured peak and HBM rate (the collective term at the
     datasheet's NVLink rate: one card measures no link)."""
+    import multiprocessing
     import threading
+    from concurrent.futures import ProcessPoolExecutor
 
     import torch
 
@@ -1949,10 +2159,7 @@ def mesh_phase(dev, ops, train: dict) -> dict:
     base = train["full"]
     full_params = base.pop("final_params")
     steps, shape = base["steps"], base["batch_seq"]
-    n_attn = base["attention_layers"]
-    want = {"flash_attention_train": 2 * n_attn * TRAIN_ACCUM * steps,
-            "flash_attention_bwd_dq": n_attn * TRAIN_ACCUM * steps,
-            "flash_attention_bwd_dkdv": n_attn * TRAIN_ACCUM * steps}
+    want = {name: n * steps for name, n in base["launches_want_per_step"].items()}
     fwd = ops.flash_attention_mod
     for fn in (fwd.flash_attention_train_cuda, fwd.flash_attention_cuda,
                fwd.flash_attention_bwd_dq_cuda, fwd.flash_attention_bwd_dkdv_cuda):
@@ -2018,41 +2225,51 @@ def mesh_phase(dev, ops, train: dict) -> dict:
           "unsharded_pr26": {"ms_per_step": 1337.2, "max_memory_gb": 54.25,
                              "card": "NVIDIA H100 80GB HBM3, 700.00 W"}})
 
-    # (b) the dry run, collected
-    link = rl.H100_SXM.ici_bw  # one card measures no link: the datasheet's NVLink rate
-    bf16 = [rl.H100_SXM, dataclasses.replace(rl.measure_machine(dev, dtype=torch.bfloat16),
-                                             ici_bw=link)]
-    fp64 = [rl.H100_SXM_FP64, dataclasses.replace(rl.measure_machine(dev, dtype=torch.float64),
-                                                  ici_bw=link)]
-    for w in workers:
-        w.join()
-    worlds_s = time.perf_counter() - t_worlds
-    for key, val in world_out.items():
-        check(not isinstance(val, Exception), f"mesh phase: the {key} fake world failed: {val}")
-    records = world_out["train"][0]["records"] + world_out["prefill"][0]["records"]
-    fednl = world_out["prefill"][0]["fednl"]["records"] + world_out["multi_pod"][0]["fednl"][
-        "records"]
-    one_card = world_out["prefill"][1]
-    for rec in records:
-        check(rec["status"] == "ok", f"mesh dry run {rec['arch']} {rec['shape']}: {rec}")
-        emit(mesh_line(rec, bf16))
-    for rec in fednl:
-        check(rec["status"] == "ok", f"mesh dry run {rec['arch']} {rec['mesh']}: {rec}")
-        got = {k: v for k, v in rec["collectives"].items() if v}
-        check(got == {k: v for k, v in rec["closed_form"].items() if v},
-              f"{rec['arch']} {rec['mesh']}: collectives {got} != {rec['closed_form']}")
-        emit({**mesh_line({**rec, "note": "w8a's d 301, n_i 348, 16 clients a data shard"}, fp64),
-              "closed_form": rec["closed_form"], "collectives_equal_closed_form": True})
-    check(sum(one_card["coll"].values()) == 0,
-          f"the 1 x 1 mesh's train step moved collective bytes: {one_card['coll']}")
-    emit({"phase": "mesh", "part": "b_one_card_count", "arch": "granite-3-2b",
-          "shape": f"train_4k, B {MESH_ONE_CARD_BATCH}, accum {TRAIN_ACCUM}", **one_card,
-          "note": "its product flops are checked against the roofline phase's plain count"})
+    # (b) the dry run, collected; meanwhile, the card idle, the roofline
+    # phase's meta counts in spawned processes beside the fake worlds
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=ROOFLINE_WORKERS, mp_context=spawn) as pool:
+        futures = [pool.submit(count_on_meta, *run) for run in ROOFLINE_RUNS]
+        link = rl.H100_SXM.ici_bw  # one card measures no link: the datasheet's NVLink rate
+        bf16 = [rl.H100_SXM, dataclasses.replace(rl.measure_machine(dev, dtype=torch.bfloat16),
+                                                 ici_bw=link)]
+        fp64 = [rl.H100_SXM_FP64,
+                dataclasses.replace(rl.measure_machine(dev, dtype=torch.float64), ici_bw=link)]
+        for w in workers:
+            w.join()
+        worlds_s = time.perf_counter() - t_worlds
+        for key, val in world_out.items():
+            check(not isinstance(val, Exception),
+                  f"mesh phase: the {key} fake world failed: {val}")
+        records = world_out["train"][0]["records"] + world_out["prefill"][0]["records"]
+        fednl = (world_out["prefill"][0]["fednl"]["records"]
+                 + world_out["multi_pod"][0]["fednl"]["records"])
+        one_card = world_out["prefill"][1]
+        for rec in records:
+            check(rec["status"] == "ok", f"mesh dry run {rec['arch']} {rec['shape']}: {rec}")
+            emit(mesh_line(rec, bf16))
+        for rec in fednl:
+            check(rec["status"] == "ok", f"mesh dry run {rec['arch']} {rec['mesh']}: {rec}")
+            got = {k: v for k, v in rec["collectives"].items() if v}
+            check(got == {k: v for k, v in rec["closed_form"].items() if v},
+                  f"{rec['arch']} {rec['mesh']}: collectives {got} != {rec['closed_form']}")
+            emit({**mesh_line({**rec, "note": "w8a's d 301, n_i 348, 16 clients a data shard"},
+                              fp64),
+                  "closed_form": rec["closed_form"], "collectives_equal_closed_form": True})
+        check(sum(one_card["coll"].values()) == 0,
+              f"the 1 x 1 mesh's train step moved collective bytes: {one_card['coll']}")
+        emit({"phase": "mesh", "part": "b_one_card_count", "arch": "granite-3-2b",
+              "shape": f"train_4k, B {MESH_ONE_CARD_BATCH}, accum {TRAIN_ACCUM}", **one_card,
+              "note": "its product flops are checked against the roofline phase's plain count"})
+        t0 = time.perf_counter()
+        counts = [f.result() for f in futures]
+        counts_waited_s = time.perf_counter() - t0
     seconds = time.perf_counter() - t_phase
     emit({"phase": "mesh", "seconds": seconds, "fake_worlds_s": worlds_s,
+          "roofline_counts_waited_s": counts_waited_s,
           "machines": [dataclasses.asdict(m) for m in bf16 + fp64]})
     return {"launches": launched, "ms_per_step": ms, "max_memory_allocated": peak,
-            "one_card": one_card, "seconds": seconds}
+            "one_card": one_card, "roofline_counts": counts, "seconds": seconds}
 
 
 def _reports_bitwise(got, want) -> bool:
@@ -3566,22 +3783,28 @@ def sharded_phase(ops, dev, local_ms_per_round: float) -> dict:
 
 # the roofline phase's meta counts, longest first: (arch, shape, accum_steps)
 ROOFLINE_RUNS = (
-    ("seamless-m4t-large-v2", "prefill_32k", None),
-    ("granite-3-2b", "train_4k", TRAIN_ACCUM),
-    ("mamba2-2.7b", "prefill_32k", None),
-    ("llava-next-mistral-7b", "prefill_32k", None),
-    ("granite-3-2b", "prefill_32k", None),
-    ("recurrentgemma-2b", "train_4k", TRAIN_ACCUM),
-    ("granite-moe-1b-a400m", "prefill_32k", None),
-    ("recurrentgemma-2b", "prefill_32k", None),
+    ("mamba2-2.7b", "train_4k", TRAIN_ACCUM, None),
+    ("seamless-m4t-large-v2", "train_4k", TRAIN_ACCUM, None),
+    ("seamless-m4t-large-v2", "prefill_32k", None, None),
+    ("granite-moe-1b-a400m", "train_4k", TRAIN_ACCUM, None),
+    ("granite-3-2b", "train_4k", TRAIN_ACCUM, None),
+    ("mamba2-2.7b", "prefill_32k", None, None),
+    ("llava-next-mistral-7b", "train_4k", TRAIN_ACCUM, LLAVA_TRAIN_LAYERS),
+    ("llava-next-mistral-7b", "prefill_32k", None, None),
+    ("granite-3-2b", "prefill_32k", None, None),
+    ("recurrentgemma-2b", "train_4k", TRAIN_ACCUM, None),
+    ("granite-moe-1b-a400m", "prefill_32k", None, None),
+    ("recurrentgemma-2b", "prefill_32k", None, None),
 )
 
 
-def count_on_meta(arch: str, shape_name: str, accum: int | None) -> dict:
+def count_on_meta(arch: str, shape_name: str, accum: int | None,
+                  n_layers: int | None) -> dict:
     """One full-width step counted on meta (run in a spawned process): the
     step ``build_dryrun`` gives for ``arch`` at ``shape_name`` with its
-    batch cut as this script runs it (train_4k: accum_steps ``accum``, as
-    the train phase measured it), its ``step_cost`` and 6 N D or 2 N D."""
+    batch cut as this script runs it (train_4k: accum_steps ``accum``, and
+    ``n_layers`` where the train phase cut the depth, as it measured it),
+    its ``step_cost`` and 6 N D or 2 N D."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import roofline as rl
     from repro_torch.configs import get_config
@@ -3591,12 +3814,14 @@ def count_on_meta(arch: str, shape_name: str, accum: int | None) -> dict:
     cfg = get_config(arch)
     if accum is not None:
         cfg = dataclasses.replace(cfg, accum_steps=accum)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     shape = shape_of(shape_name)
     spec = build_dryrun(cfg, shape_name, ONE_CARD, batch_override=shape.batch)
     cost = rl.step_cost(spec.step_fn, *spec.args)
     params = spec.args[0]
     return {"arch": arch, "shape": shape_name, "batch_seq": [shape.batch, shape.seq],
-            "note": spec.note, "cost": dataclasses.asdict(cost),
+            "n_layers": cfg.n_layers, "note": spec.note, "cost": dataclasses.asdict(cost),
             "params": rl.count_params(params), "active_params": rl.active_params(cfg, params),
             "model_flops": rl.model_flops_global(cfg, params, tokens=shape.batch * shape.seq,
                                                  kind=shape.kind),
@@ -3634,18 +3859,15 @@ def roofline_line(run: str, cost: dict, model_flops: float, measured_s: float,
             "flops_by_op": cost["flops_by_op"], "aten_ops": cost["ops"]}
 
 
-def roofline_phase(dev, smi: str, measured: dict, mesh_one_card: dict) -> None:
+def roofline_phase(dev, smi: str, measured: dict, mesh: dict) -> None:
     """The roofline of every full-width run measured before it, from counts
-    alone (the times are the earlier phases'): the machines (datasheet and
-    measured on this card); the meta counts of ROOFLINE_RUNS in
-    ROOFLINE_WORKERS spawned processes while this process checks that a
-    CUDA tensor makes ``step_cost`` raise, that granite-3-2b's 2-layer
-    full-width train step (B 1, S TRAIN_CUT_SEQ) counts the same on meta
-    and on the CPU, and counts phase 7's w8a TopK round on the CPU with
-    the real data; then one line a run."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    alone (the times are the earlier phases'; the meta counts of
+    ROOFLINE_RUNS the mesh phase's): the machines (datasheet and measured
+    on this card); checks that a CUDA tensor makes ``step_cost`` raise,
+    that granite-3-2b's 2-layer full-width train step (B 1, S
+    TRAIN_CUT_SEQ) counts the same on meta and on the CPU, and counts
+    phase 7's w8a TopK round on the CPU with the real data; then one line
+    a run."""
     import torch
 
     from repro_torch import roofline as rl
@@ -3657,65 +3879,60 @@ def roofline_phase(dev, smi: str, measured: dict, mesh_one_card: dict) -> None:
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step, synthetic_batch
 
     t_phase = time.perf_counter()
-    spawn = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=ROOFLINE_WORKERS, mp_context=spawn) as pool:
-        futures = [pool.submit(count_on_meta, *run) for run in ROOFLINE_RUNS]
+    bf16 = [rl.H100_SXM, rl.measure_machine(dev, dtype=torch.bfloat16)]
+    fp64 = [rl.H100_SXM_FP64, rl.measure_machine(dev, dtype=torch.float64)]
+    emit({"phase": "roofline", "part": "machines", "nvidia_smi": smi,
+          "datasheet": [dataclasses.asdict(m) for m in (bf16[0], fp64[0])],
+          "measured": [dataclasses.asdict(m) for m in (bf16[1], fp64[1])],
+          "note": "measured: the best (8192, 8192) product and copy of 2 x 8192**2 "
+                  "elements on this card, CUDA events"})
 
-        bf16 = [rl.H100_SXM, rl.measure_machine(dev, dtype=torch.bfloat16)]
-        fp64 = [rl.H100_SXM_FP64, rl.measure_machine(dev, dtype=torch.float64)]
-        emit({"phase": "roofline", "part": "machines", "nvidia_smi": smi,
-              "datasheet": [dataclasses.asdict(m) for m in (bf16[0], fp64[0])],
-              "measured": [dataclasses.asdict(m) for m in (bf16[1], fp64[1])],
-              "note": "measured: the best (8192, 8192) product and copy of 2 x 8192**2 "
-                      "elements on this card, CUDA events"})
+    refused = []
+    for fn, args in ((torch.mul, (torch.ones(4, device=dev), 2.0)),
+                     (lambda: torch.ones(4, device=dev) * 2, ())):
+        try:
+            rl.step_cost(fn, *args)
+        except ValueError as err:
+            refused.append(str(err)[:120])
+    check(len(refused) == 2, f"step_cost counted CUDA tensors: {refused}")
 
-        refused = []
-        for fn, args in ((torch.mul, (torch.ones(4, device=dev), 2.0)),
-                         (lambda: torch.ones(4, device=dev) * 2, ())):
-            try:
-                rl.step_cost(fn, *args)
-            except ValueError as err:
-                refused.append(str(err)[:120])
-        check(len(refused) == 2, f"step_cost counted CUDA tensors: {refused}")
-
-        cut = dataclasses.replace(get_config("granite-3-2b"), n_layers=TRAIN_CUT_LAYERS,
-                                  accum_steps=1)
-        batch = {k: torch.as_tensor(v) for k, v in
-                 synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0).items()}
-        step = make_train_step(cut, AdamWConfig(lr=1e-3))
-        counts = {}
-        for where in ("meta", "cpu"):
-            params = init_lm_params(0, cut, where)
-            on = {k: v.to(where) for k, v in batch.items()}
-            t0 = time.perf_counter()
-            counts[where] = (rl.step_cost(step, params, adamw_init(params), on),
-                             time.perf_counter() - t0)
-            del params
-        (meta, meta_s), (cpu, cpu_s) = counts["meta"], counts["cpu"]
-        check(meta.flops == cpu.flops and meta.bytes == cpu.bytes,
-              f"the 2-layer train step: meta {meta.flops} flops, {meta.bytes} bytes; CPU "
-              f"{cpu.flops}, {cpu.bytes}")
-        emit({"phase": "roofline", "part": "meta_equals_cpu", "arch": cut.name,
-              "cut": f"n_layers {TRAIN_CUT_LAYERS}; full width", "batch_seq": [1, TRAIN_CUT_SEQ],
-              "flops": meta.flops, "bytes": meta.bytes, "flops_equal": True, "bytes_equal": True,
-              "aten_ops": {"meta": meta.ops, "cpu": cpu.ops}, "meta_s": meta_s, "cpu_s": cpu_s,
-              "cuda_refused": refused,
-              "note": "aten ops differ by the CPU's lift_fresh of torch.tensor(scalar) in AdamW, "
-                      "which moves no bytes"})
-
-        spec = ExperimentSpec(data=DataSpec(dataset="w8a"))
-        cfg = spec.fednl_config()
-        z = torch.as_tensor(spec.data.build(), dtype=torch.float64)
-        n_clients, n_i, d = z.shape
+    cut = dataclasses.replace(get_config("granite-3-2b"), n_layers=TRAIN_CUT_LAYERS,
+                              accum_steps=1)
+    batch = {k: torch.as_tensor(v) for k, v in
+             synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0).items()}
+    step = make_train_step(cut, AdamWConfig(lr=1e-3))
+    counts = {}
+    for where in ("meta", "cpu"):
+        params = init_lm_params(0, cut, where)
+        on = {k: v.to(where) for k, v in batch.items()}
         t0 = time.perf_counter()
-        round_cost = rl.step_cost(make_fednl_round(z, cfg), fednl_init(z, cfg))
-        round_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        results = [f.result() for f in futures]
-        waited_s = time.perf_counter() - t0
+        counts[where] = (rl.step_cost(step, params, adamw_init(params), on),
+                         time.perf_counter() - t0)
+        del params
+    (meta, meta_s), (cpu, cpu_s) = counts["meta"], counts["cpu"]
+    check(meta.flops == cpu.flops and meta.bytes == cpu.bytes,
+          f"the 2-layer train step: meta {meta.flops} flops, {meta.bytes} bytes; CPU "
+          f"{cpu.flops}, {cpu.bytes}")
+    emit({"phase": "roofline", "part": "meta_equals_cpu", "arch": cut.name,
+          "cut": f"n_layers {TRAIN_CUT_LAYERS}; full width", "batch_seq": [1, TRAIN_CUT_SEQ],
+          "flops": meta.flops, "bytes": meta.bytes, "flops_equal": True, "bytes_equal": True,
+          "aten_ops": {"meta": meta.ops, "cpu": cpu.ops}, "meta_s": meta_s, "cpu_s": cpu_s,
+          "cuda_refused": refused,
+          "note": "aten ops differ by the CPU's lift_fresh of torch.tensor(scalar) in AdamW, "
+                  "which moves no bytes"})
 
+    spec = ExperimentSpec(data=DataSpec(dataset="w8a"))
+    cfg = spec.fednl_config()
+    z = torch.as_tensor(spec.data.build(), dtype=torch.float64)
+    n_clients, n_i, d = z.shape
+    t0 = time.perf_counter()
+    round_cost = rl.step_cost(make_fednl_round(z, cfg), fednl_init(z, cfg))
+    round_s = time.perf_counter() - t0
+
+    results = mesh["roofline_counts"]
     granite_train = next(r for r in results if r["arch"] == "granite-3-2b"
                          and r["shape"] == "train_4k")
+    mesh_one_card = mesh["one_card"]
     check(mesh_one_card["flops"] == granite_train["cost"]["flops"],
           f"granite-3-2b train_4k: the 1 x 1 mesh's flops {mesh_one_card['flops']} != the plain "
           f"count's {granite_train['cost']['flops']}")
@@ -3725,9 +3942,13 @@ def roofline_phase(dev, smi: str, measured: dict, mesh_one_card: dict) -> None:
     for res in results:
         arch, shape_name = res["arch"], res["shape"]
         meas = measured[(arch, shape_name)]
+        check(meas.get("n_layers", res["n_layers"]) == res["n_layers"],
+              f"roofline {arch} {shape_name}: counted {res['n_layers']} layers, measured "
+              f"{meas.get('n_layers')}")
         line = roofline_line(f"{arch} {shape_name}", res["cost"], res["model_flops"],
                              meas["ms"] / 1e3, meas["max_memory_allocated"], bf16)
         line.update(counted_on="meta", batch_seq=res["batch_seq"], note=res["note"],
+                    n_layers=res["n_layers"],
                     params=res["params"], active_params=res["active_params"],
                     measured_by=meas["by"], count_s=res["count_s"])
         emit(line)
@@ -3741,8 +3962,7 @@ def roofline_phase(dev, smi: str, measured: dict, mesh_one_card: dict) -> None:
                 wall_s=wall_s, mfu_wall=hess_flops / (wall_s * fp64[0].peak_flops),
                 model_flops_note="2 n n_i d(d+1)/2: the packed Hessians' products")
     emit(line)
-    emit({"phase": "roofline", "seconds": time.perf_counter() - t_phase,
-          "workers": ROOFLINE_WORKERS, "waited_for_the_counts_s": waited_s})
+    emit({"phase": "roofline", "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -3787,6 +4007,7 @@ def main() -> int:
     from repro_torch.objectives.logreg import logreg_oracles_packed
 
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
 
     # --- 1 card ------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -4402,11 +4623,12 @@ def main() -> int:
     check(measured["round"]["device_ms"] is not None, "phase 7 measured no device time")
     del lm
 
-    # --- train: LM training at granite-3-2b's and recurrentgemma-2b's full width
+    # --- train: LM training at every family's full width ---------------------
     train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"))
-    for cell in (train["full"], train["rg_full"]):
-        measured[(cell["arch"], "train_4k")] = {
-            "ms": cell["ms_per_step"], "max_memory_allocated": cell["max_memory_allocated"],
+    for cell in train["cells"].values():
+        measured[(cell["full"]["arch"], "train_4k")] = {
+            "ms": cell["full"]["ms_per_step"], "n_layers": cell["full"]["n_layers"],
+            "max_memory_allocated": cell["full"]["max_memory_allocated"],
             "by": "the train phase: median host-clock ms per synchronised step"}
 
     # --- mesh: --mesh 1x1 on the card, the dry run in fake worlds ------------
@@ -4434,7 +4656,7 @@ def main() -> int:
     sharded = sharded_phase(ops, dev, rep.wall_time_s / rep.rounds * 1e3)
 
     # --- roofline: every full-width run above, counted -----------------------
-    roofline_phase(dev, smi, measured, mesh["one_card"])
+    roofline_phase(dev, smi, measured, mesh)
 
     kernels = [
         {
@@ -4572,8 +4794,8 @@ def main() -> int:
             "launches": train["full"]["launches_total"][name],
             "launches_per_step": train["full"]["launches_per_step"][name],
             "launches_per_step_by_arch": {
-                cell["arch"]: cell["launches_per_step"][name]
-                for cell in (train["full"], train["rg_full"])},
+                arch: cell["full"]["launches_per_step"][name]
+                for arch, cell in train["cells"].items()},
             "max_abs_err": tl["layer"][err],
             "ms": tl["ms"][key],
             "plain_ms": tl["ms"]["plain_train_forward" if forward else "plain_backward"],
@@ -4616,6 +4838,43 @@ def main() -> int:
             "layer_route": rg["backward_route"], "kernels_do_products": rg["kernels_do_products"],
             "dkdv_grid": rg["dkdv_grid"], "backward_pair": rg_pair,
         })
+    # the training layers first run by this phase's cells: seamless's
+    # non-causal MHA (encoder self and cross attention) at head_dim 64 and
+    # llava's causal window at head_dim 128, each with its cell's launches
+    for layer, arch, suffix, desc in (
+            (train["bwd"]["seamless"], "seamless-m4t-large-v2", "dh64_mha_noncausal",
+             "seamless-m4t-large-v2 training, B 2, S 4096, H 16, Kv 16, dh 64, non-causal"),
+            (train["bwd"]["llava"], "llava-next-mistral-7b", "dh128_window",
+             "llava-next-mistral-7b training, B 2, S 576 + 4096, H 32, Kv 8, dh 128, causal "
+             "window 4096")):
+        cell = train["cells"][arch]["full"]
+        for name, key, err in (("flash_attention_train", "train_forward", "o_f32_max_abs_err"),
+                               ("flash_attention_bwd_dq", "bwd_dq", "dq_max_abs_err"),
+                               ("flash_attention_bwd_dkdv", "bwd_dkdv", "dk_max_abs_err")):
+            forward = name == "flash_attention_train"
+            kernels.append({
+                "name": f"{name}_{suffix}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention"
+                          + (".cu" if forward else "_bwd.cu"),
+                "replaces": "src/repro/kernels/flash_attention.py:95 (its forward, writing O in "
+                            "f32 and the row lse)" if forward else
+                            "src/repro/models/layers.py:135 (XLA's derivative of "
+                            "chunked_attention; not a Pallas kernel)",
+                "layer": desc, "launches": cell["launches_total"][name],
+                "launches_per_step": cell["launches_per_step"][name],
+                "max_abs_err": layer["layer"][err], "ms": layer["ms"][key],
+                "plain_ms": layer["ms"]["plain_train_forward" if forward else "plain_backward"],
+                "bound_ms": layer["bound"][key][0], "bound_by": layer["bound"][key][1],
+                "library_ms": layer["ms"].get("sdpa_forward") if forward else None,
+                **({} if forward else {
+                    "layer_route": layer["backward_route"],
+                    "backward_pair": {
+                        "ms": layer["ms"]["bwd_dq"] + layer["ms"]["bwd_dkdv"],
+                        "bound_ms": layer["bound"]["backward"][0],
+                        "plain_ms": layer["ms"]["plain_backward"],
+                        "sdpa_backward_ms": layer["ms"].get("sdpa_backward"),
+                        "two_kernel_floor_ms": layer["floors"]["two_kernel_products_ms"]}}),
+            })
     for name, launched, replaces in (
         ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
          "src/repro/kernels/compressor_select.py:67 (select_topk_pallas's selection, with the "
@@ -4648,8 +4907,8 @@ def main() -> int:
     for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
         entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
     for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
-        if entry["name"] not in ("flash_attention_dh256", "flash_attention_dh128",
-                                 "flash_attention_bwd_dq_dh256", "flash_attention_bwd_dkdv_dh256"):
+        if not entry["name"].endswith(("_dh256", "_dh128", "_dh64_mha_noncausal",
+                                       "_dh128_window")):
             entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
                                      for arch, z in zoo.items()}
     for entry in kernels:  # the mesh phase's --mesh 1x1 run, the counts set to 0 before it
@@ -4660,6 +4919,7 @@ def main() -> int:
         if entry["name"] == "select_topk_idx":  # the sparse path's (142, T) shape
             entry["sharded_shape"] = sharded["idx_batched"]
     emit({"kernels": kernels})
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -160,11 +160,13 @@ def _ssd_mix(proj, conv_w, conv_b, dt_bias, a_log, d_skip, *, n_heads: int, head
     decay_to_end = torch.exp(ca[:, :, -1:, :] - ca)  # (B, nc, Q, H)
     s_chunk = torch.einsum("bcjn,bcjhp->bchpn", bh, xw * decay_to_end[..., None])
     chunk_decay = torch.exp(ca[:, :, -1, :])  # (B, nc, H)
-    h_in = torch.empty_like(s_chunk)  # the state entering each chunk
-    h_state = torch.zeros_like(s_chunk[:, 0])
-    for c in range(nc):
-        h_in[:, c] = h_state
-        h_state = h_state * chunk_decay[:, c, :, None, None] + s_chunk[:, c]
+    # the state entering each chunk, stacked once as lax.scan stacks its
+    # outputs: under autograd, writing each into a slice of one tensor would
+    # copy the whole stack's gradient once a chunk in the backward
+    states = [torch.zeros_like(s_chunk[:, 0])]
+    for c in range(nc - 1):
+        states.append(states[-1] * chunk_decay[:, c, :, None, None] + s_chunk[:, c])
+    h_in = torch.stack(states, dim=1)
 
     # "bcin,bchpn,bcih->bcihp" with n summed out first
     y_inter = torch.einsum("bcin,bchpn->bcihp", ch, h_in) * torch.exp(ca)[..., None]

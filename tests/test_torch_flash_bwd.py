@@ -431,6 +431,10 @@ CARD_FIXTURES = {
     "bf16_dh256_offsets": (1, 100, 150, 4, 1, 256, False, 40, 30, 0, torch.bfloat16),
     "bf16_dh256_sq_not_tile": (2, 333, 333, 10, 1, 256, True, 64, 0, 0, torch.bfloat16),
     "bf16_dh256_no_visible_rows": (1, 128, 128, 4, 2, 256, True, None, 0, 20, torch.bfloat16),
+    # the training layers of seamless (MHA, H = Kv, without causality) and
+    # llava (a window below S, S off the 64-query tiles) at head_dim 64 and 128
+    "bf16_dh64_mha_noncausal": (2, 200, 200, 8, 8, 64, False, None, 0, 0, torch.bfloat16),
+    "bf16_dh128_window_below_s": (1, 300, 300, 8, 2, 128, True, 100, 0, 0, torch.bfloat16),
 }
 
 

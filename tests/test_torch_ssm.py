@@ -96,6 +96,32 @@ def test_ssd_apply_matches_reference(ref, seq, chunk, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("seq,chunk", [(64, 8), (50, 16)], ids=["8_chunks", "chunk_does_not_divide"])
+def test_ssd_apply_gradients_match_reference(ref, seq, chunk):
+    """The backward through the chunk scan (the states entering each chunk,
+    stacked once): the gradients of x and of every leaf against
+    ``jax.vjp`` of the reference's mixer on the same cotangent, f32, within
+    1e-4 of each gradient's largest magnitude (the f32 sums of the backward's
+    products, in other orders, over up to 8 chunks)."""
+    p = _params(2)
+    rng = np.random.default_rng(seq + chunk)
+    x = rng.standard_normal((2, seq, D_MODEL)).astype(np.float32)
+    cot = rng.standard_normal((2, seq, D_MODEL)).astype(np.float32)
+    kw = dict(d_state=N, head_dim=P, expand=EXPAND, chunk=chunk)
+    xt = torch.as_tensor(x).requires_grad_()
+    pt = {k: torch.as_tensor(v).requires_grad_() for k, v in p.items()}
+    tssm.ssd_apply(xt, pt, **kw).backward(torch.as_tensor(cot))
+    grads = ref.jax.jit(lambda xj, pj, c: ref.jax.vjp(
+        lambda a, b: ref.ssm.ssd_apply(a, b, **kw), xj, pj)[1](c))
+    gx, gp = grads(ref.jnp.asarray(x), {k: ref.jnp.asarray(v) for k, v in p.items()},
+                   ref.jnp.asarray(cot))
+    for name, got, want in [("x", xt.grad, gx)] + [(k, pt[k].grad, gp[k]) for k in sorted(p)]:
+        want = np.asarray(want)
+        assert got is not None and tuple(got.shape) == want.shape, name
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()), err_msg=name)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_decode_steps_match_reference(ref, dtype):
     """Six decode steps from a zero state against the reference's steps:

@@ -34,8 +34,10 @@ Tolerances:
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,7 +45,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import train as train_launcher
-from repro_torch.models import init_lm_params, params_from_numpy
+from repro_torch.models import init_encdec_params, init_lm_params, params_from_numpy
 from repro_torch.train import (
     AdamWConfig,
     adamw_init,
@@ -331,7 +333,22 @@ def test_hybrid_untaken_branch_gets_zero_gradient_and_weight_decay():
 
 
 def test_remat_policies_give_the_same_loss_and_gradients():
-    cfg = get_config("granite-3-2b").reduced()
+    _remat_policies_agree("granite-3-2b")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b", "recurrentgemma-2b",
+                                  "llava-next-mistral-7b"])
+def test_remat_policies_give_the_same_loss_and_gradients_every_family(arch):
+    """As granite's: chip_smoke.py's train depth cut holds the card's remat
+    "full" against the CPU without remat (encdec remats every layer
+    whatever the policy).  recurrentgemma-2b at 3 layers, one attention."""
+    _remat_policies_agree(arch)
+
+
+def _remat_policies_agree(arch):
+    cfg = get_config(arch).reduced()
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=3)
     params = init_lm_params(0, cfg, "cpu")
     batch = batch_to(synthetic_batch(cfg, 2, 64, seed=2), CPU)
     runs = {policy: value_and_grad(loss_for(dataclasses.replace(cfg, remat_policy=policy)),
@@ -342,6 +359,47 @@ def test_remat_policies_give_the_same_loss_and_gradients():
         assert torch.equal(runs[policy][0], loss), policy
         for g, w in zip(topt.tree_leaves(runs[policy][1]), topt.tree_leaves(grads)):
             assert torch.equal(g, w), policy
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded by its path (the repo's root is no package)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attention_calls_of_a_train_step_are_chip_smokes_launches(arch, monkeypatch):
+    """One CPU train step (accum 2, remat "full") calls chunked_attention as
+    often as chip_smoke.py's expected_train_launches has the card launch
+    flash's training forward (each call, and again where its layer is
+    recomputed in the backward), and its backward kernels half as often.
+    recurrentgemma-2b at 3 layers, so that one is attention."""
+    from repro_torch.models import encdec as tencdec
+    from repro_torch.models import lm as tlm
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), accum_steps=2)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=3)
+    assert cfg.remat_policy == "full"
+    calls = []
+    plain = tlm.chunked_attention
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tlm, "chunked_attention", counted)
+    monkeypatch.setattr(tencdec, "chunked_attention", counted)
+    init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+    params = init(0, cfg, "cpu")
+    make_train_step(cfg)(params, adamw_init(params), synthetic_batch(cfg, 4, 32, seed=0))
+    want = _chip_smoke().expected_train_launches(cfg, 2)
+    assert len(calls) == want["flash_attention_train"], (len(calls), want)
+    assert want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkdv"] == len(calls) // 2
+    assert (len(calls) > 0) == (cfg.family != "ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -357,14 +415,24 @@ def _max_param_diff(ref, tp, jp) -> float:
                for g, (_, w) in zip(topt.tree_leaves(tp), _named_leaves(ref, jp)))
 
 
-def test_three_train_steps_match_reference(ref):
-    jcfg, jp, cfg, tp = _carried(ref, "granite-3-2b")
+def _three_steps(ref, arch, accum, monkeypatch=None):
+    """Three train steps of the port and of the reference's jitted step from
+    the same params on batches of B 4, S 32 (moe: each microbatch held by
+    _moe_held_batch at the step's params), held to STEP_LOSS_RTOL,
+    GRAD_REL_L2 and ADAMW_PART lr a step."""
+    jcfg, jp, cfg, tp = _carried(ref, arch, accum_steps=accum)
     lr = 1e-3
     jstep = ref.jax.jit(ref.step.make_train_step(jcfg, ref.opt.AdamWConfig(lr=lr)))
     step = make_train_step(cfg, AdamWConfig(lr=lr))
     jo, to = ref.opt.adamw_init(jp), adamw_init(tp)
     for i in range(3):
         batch = synthetic_batch(cfg, 4, 32, seed=i)
+        if cfg.family == "moe":  # each microbatch routes (and fills its queues) alone
+            rows = 4 // accum
+            parts = [_moe_held_batch(ref, jcfg, jp, cfg, tp,
+                                     {k: v[r:r + rows] for k, v in batch.items()}, monkeypatch)
+                     for r in range(0, 4, rows)]
+            batch = {k: np.concatenate([part[k] for part in parts]) for k in batch}
         jp, jo, jm = jstep(jp, jo, _jbatch(ref, batch))
         tp, to, tm = step(tp, to, batch)
         assert abs(float(tm["loss"]) - float(jm["loss"])) <= STEP_LOSS_RTOL * float(jm["loss"])
@@ -374,13 +442,35 @@ def test_three_train_steps_match_reference(ref):
     assert int(to["step"]) == 3
 
 
+def test_three_train_steps_match_reference(ref):
+    _three_steps(ref, "granite-3-2b", 1)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
+                                  "seamless-m4t-large-v2", "llava-next-mistral-7b"])
+def test_three_train_steps_match_reference_other_families(ref, arch, monkeypatch):
+    """The families first trained at full width on the card, with
+    accumulation 2, as the card's full-width runs."""
+    _three_steps(ref, arch, 2, monkeypatch)
+
+
 def test_train_step_updates_the_callers_state_in_place():
     """The port's step writes the new params, m and v into the caller's
     tensors and returns those same tensors (the reference's step is pure):
     the same objects at the same addresses, holding what a step from copies
     of the state gives; the step count is a new tensor."""
-    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), accum_steps=2)
-    params = init_lm_params(0, cfg, "cpu")
+    _in_place("granite-3-2b")
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a != "granite-3-2b"])
+def test_train_step_updates_the_callers_state_in_place_every_family(arch):
+    _in_place(arch)
+
+
+def _in_place(arch):
+    cfg = dataclasses.replace(get_config(arch).reduced(), accum_steps=2)
+    init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+    params = init(0, cfg, "cpu")
     opt = adamw_init(params)
     before = topt.tree_map(torch.clone, params)
     copies = topt.tree_map(torch.clone, params), topt.tree_map(torch.clone, opt)
