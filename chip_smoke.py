@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
 with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's
 inference for every family (dense granite-3-2b; moe, ssm, hybrid, vlm and
-encdec in the zoo phase), sweeps (solve_many's batched groups),
+encdec, and the dense chatglm3-6b, nemotron-4-15b and yi-34b, in the zoo
+phase), sweeps (solve_many's batched groups),
 sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
@@ -33,9 +34,11 @@ raises, and the script exits non-zero without the final line.
              (counted; none allowed on the dyadic fixture); flash attention
              within one bf16 ulp (the ulp taken at no less than 2**-14) at
              granite's 32k layer shape, B = 4, a 4096 window, S = 1000, a
-             5-token prompt, non-causal 64 x 256, dh = 128 and
+             5-token prompt, non-causal 64 x 256, dh = 128,
              recurrentgemma-2b's 32k layer (dh = 256, H = 10, Kv = 1, causal
-             window 2048) (the wgmma route) and bf16 at dh = 32 (the SIMT
+             window 2048) and the 32k layers of chatglm3-6b, nemotron-4-15b
+             and yi-34b (dh = 128, H/Kv = 32/2, 48/8, 56/8, causal, no
+             window) (the wgmma route) and bf16 at dh = 32 (the SIMT
              route), and within 2e-5 in f32 (the SIMT route, dh 64 and
              256); each fixture's route checked; the threefry
              kernel bit-exact in f32 and f64 at (142, 45451), T = 1 and one
@@ -61,10 +64,12 @@ raises, and the script exits non-zero without the final line.
              launcher's defaults (6 requests, batch 4, 12 new tokens,
              max_len 128), no kernel launch, the same tokens on a second
              engine and from the launcher
-  zoo        granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-2b,
-             llava-next-mistral-7b and seamless-m4t-large-v2 at full width,
-             each freed before the next: (a) the same params on the card
-             and the CPU at a depth cut (2 layers; hybrid 3, so that one is
+  zoo        (after phase 7, once granite-3-2b's params are freed)
+             granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-2b,
+             llava-next-mistral-7b, seamless-m4t-large-v2, chatglm3-6b,
+             nemotron-4-15b and yi-34b at full width, each freed before the
+             next: (a) the same params, drawn on the card and copied to the
+             CPU, on both at a depth cut (2 layers; hybrid 3, so that one is
              attention; encdec 2 + 2), prefill at B = 2, S = 512 (vlm: and
              576 image embeddings; encdec: a 512-frame source) and 4 decode
              steps within LOGIT_ULPS, no argmax differing away from a near
@@ -72,24 +77,35 @@ raises, and the script exits non-zero without the final line.
              routing differing only at near ties, and the end-to-end rows
              held until their routing differs; (b) make_prefill_step at
              full depth from seed 0 at prefill_32k (B = 1; vlm 576 + 32,192,
-             encdec source and tokens 32,768): exactly the flash launches
+             encdec source and tokens 32,768; yi-34b at 28 of its 60
+             layers, ZOO_DENSE_DEPTHS): exactly the flash launches
              and routes of ZOO_FLASH_ROUTES and nothing else, ms, tokens/s,
-             peak memory; (c) prefill against 5 decode steps within
+             peak memory (at most PEAK_BYTES_MAX); (c) at (b)'s depth,
+             prefill against 5 decode steps within
              depth_logit_ulps (DEPTH_LOGIT_ULPS, grown past 40 layers in
              proportion to depth; moe exempt: capacity makes them different
              functions; vlm without image embeddings; encdec with a
              zero source, whose cross K/V equal the zero cache's); (d)
              ServeEngine with the launcher's defaults twice and the
-             launcher, the same tokens, no kernel launch; seconds each
-  6 times    CUDA-event medians of each kernel, its plain version and its
-             library yardstick at the main paths' shapes, beside the card's
+             launcher, the same tokens, no kernel launch (nemotron-4-15b
+             and yi-34b: the engines at 20 and 18 layers, the deepest whose
+             f32 params and the engine's bf16 copy fit ZOO_PARAM_BYTES_MAX;
+             their launcher, which serves full depth, not run); seconds each
+  6 times    CUDA-event medians of each kernel, its plain version (at a
+             model's 32k flash layer one pair: 40-70 times the kernel's) and
+             its library yardstick at the main paths' shapes, beside the card's
              least time: bytes, or the operations the function needs (threefry:
-             the hash's 32-bit operations; flash:
+             the least integer instructions its function needs per element
+             over the two integer pipes, 64 a clock per SM each at
+             nvidia-smi's highest SM clock, its SASS loop's counts
+             (cuobjdump) printed beside; flash:
              QK^T and three bf16 P.V products over the visible pairs on the
              bf16 tensor cores; the dh-256 wgmma kernel at recurrentgemma's
              layer, with ptxas's report of its instantiations, and the dh-128
              one at llava-next-mistral-7b's, each beside SDPA given the
-             window as a boolean mask); SYRK's ptxas report, dynamic shared
+             window as a boolean mask, and at chatglm3-6b's, nemotron-4-15b's
+             and yi-34b's causal layers beside SDPA(is_causal, enable_gqa));
+             SYRK's ptxas report, dynamic shared
              memory,
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
              schedule stages
@@ -288,8 +304,9 @@ raises, and the script exits non-zero without the final line.
              card's measured ones (measure_machine: an 8192 GEMM and a copy,
              bf16 and f64); the train phase's six train steps (train_4k
              cut to B 4, accum 2; llava at 12 layers) and the 32k prefills of
-             granite-3-2b and the zoo's five families (prefill_32k cut to B
-             1), each counted on meta in ROOFLINE_WORKERS spawned processes
+             granite-3-2b and the zoo's eight configs (prefill_32k cut to B
+             1; yi-34b at the zoo's 28 layers), each counted on meta in
+             ROOFLINE_WORKERS spawned processes
              (during the mesh phase, after its timed steps, beside the fake
              worlds); step_cost refuses CUDA tensors (an argument, and a
              tensor made inside the step), granite-3-2b's 2-layer full-width
@@ -321,6 +338,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -345,10 +363,29 @@ MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 # the integer work TopK's function needs per key: the f32 key, four radix
 # passes of a digit, a compare and a count, and the final compare
 SELECT_OPS_PER_KEY = 14
-# the 32-bit operations threefry's function needs per element: the key's two
-# additions, 20 rounds of add, rotate and xor, 5 key injections of two adds,
-# and 4 to make the float from the bits
-THREEFRY_OPS_PER_ELEM = 2 + 20 * 3 + 5 * 2 + 4
+# the least 32-bit integer instructions threefry's function needs per
+# element: 20 rounds of an add, a rotation and a xor; the key added to the
+# counter and 5 key injections, two adds each (their k + i is per client,
+# not per element): 32 adds, in 27 instructions, as IADD3 joins the key's
+# and each injection's add to x0 but the last with x0's next add; and the
+# float from the words: f32 a xor and one IMAD.HI ((s >> 9) + 0x3F800000,
+# the or's bits being clear), f64 three (two IMAD.HI, one IMAD).  Only the
+# xors (f32 21: the rounds' and the words'; f64 20) need the INT32 pipe: a
+# rotation by r is also IMAD.WIDE by 2^r on the FMA pipe, its two halves
+# ORed by the xor's LOP3, and a two-input add is also an IMAD.
+THREEFRY_INT_INSTRS_PER_ELEM = {"float32": 20 + 20 + 27 + 2, "float64": 20 + 20 + 27 + 3}
+THREEFRY_XORS_PER_ELEM = {"float32": 21, "float64": 20}
+# Hopper's integer pipes, each 64 instructions a clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0: 32-bit integer add, shift, bitwise, compare: 64): the INT32 pipe
+# takes adds, logic, shifts, funnel shifts, compares and selects; IMAD and
+# its aliases (IMAD.MOV, IMAD.SHL, IMAD.IADD, which the compiler uses to
+# spread integer work) go to the FMA pipe's heavy half
+INT32_PIPE_PER_SM_CLOCK = 64
+INT_ALU_OPCODES = frozenset({"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
+                             "LEA", "SEL", "PRMT", "IABS", "IMNMX", "FLO", "POPC", "BREV",
+                             "BMSK", "SGXT", "ICMP"})
+INT_FMA_OPCODES = frozenset({"IMAD", "IMUL", "IDP"})
 PP_TAU = 71  # FedNL-PP's participants per round at w8a: half the 142 clients
 
 SYRK_TOL = 1e-13  # of max(|Z|^T |h| |Z|): FP64 sums of n_i = 348 terms, any order
@@ -358,6 +395,7 @@ DRAW_REPS = 200  # host draw timing: rounds of draws averaged
 TIMED_REPS = 21  # event pairs per function; the median is reported
 CALLS_PER_EVENT = 10
 FLASH_TIMED_REPS = 5  # at the 32k prefill shape: one call per event pair
+FLASH_PLAIN_REPS = 1  # ... of the plain version at a model's 32k layer (0.5-2 s a call)
 FLASH_F32_ATOL = 2e-5  # f32 flash against its plain version (the JAX package's own bound)
 # card vs CPU logits of the 2-layer cut, in bf16 ulps of the logit scale (the
 # largest |logit|): bf16 activations rounded after differently ordered sums
@@ -598,18 +636,115 @@ def syrk_build_facts(build, report: str | None) -> dict:
     else:
         facts["ptxas"] = [ln.strip() for ln in report.splitlines()
                           if "registers" in ln or "spill" in ln or "smem" in ln]
-    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    if not cuobjdump.is_file():
+    sass = cuobjdump_sass(build, "hessian_syrk")
+    if sass is None:
         facts["sass"] = "not measured (no cuobjdump beside nvcc)"
         return facts
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("hessian_syrk"))],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
     ops = [ln.split(";")[0].split("*/")[-1].strip() for ln in sass.splitlines() if "/*" in ln]
     opcode = [op.split()[1] if op.startswith("@") else op.split()[0] for op in ops if op]
     facts["sass"] = {name: sum(o.startswith(name) for o in opcode)
                      for name in ("DMMA", "LDGSTS", "DFMA", "DMUL")}
     facts["sass"]["dmma_shapes"] = sorted({o for o in opcode if o.startswith("DMMA")})
     return facts
+
+
+def cuobjdump_sass(build, name: str) -> str | None:
+    """The SASS listing of ``csrc/<name>.cu``'s library (cuobjdump beside
+    nvcc), or None where there is no cuobjdump."""
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        return None
+    return subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+
+
+def sass_functions(sass: str) -> dict[str, list[str]]:
+    """cuobjdump -sass's listing split by kernel: mangled name -> its lines."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
+def sass_loops(lines: list[str]) -> dict:
+    """One kernel's SASS lines: the opcodes (mnemonics without their
+    modifiers) of the whole kernel and of each innermost loop, the
+    instructions from a branch target to a branch back to it that enclose
+    no other such branch."""
+    instrs, at_addr, labels = [], {}, {}
+    for line in lines:
+        label = re.match(r"\s*\.(L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(instrs)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", line)
+        if not m:
+            continue
+        text = m.group(2).strip()
+        if text.startswith("@"):  # a predicate guard
+            text = text.split(None, 1)[1]
+        target = re.search(r"\(\.(L_x_\d+)\)|\b0x([0-9a-f]+)\s*$", text)
+        at_addr[int(m.group(1), 16)] = len(instrs)
+        instrs.append((text.split()[0].split(".")[0],
+                       None if target is None else target.group(1) or int(target.group(2), 16)))
+    back = []
+    for i, (op, target) in enumerate(instrs):
+        lo = labels.get(target) if isinstance(target, str) else at_addr.get(target)
+        if op in ("BRA", "JMP") and lo is not None and lo <= i:
+            back.append((lo, i))
+    loops = []
+    for lo, hi in back:
+        if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in back):
+            counts: dict[str, int] = {}
+            for op, _ in instrs[lo:hi + 1]:
+                counts[op] = counts.get(op, 0) + 1
+            loops.append({"instructions": hi - lo + 1, "opcodes": counts})
+    total: dict[str, int] = {}
+    for op, _ in instrs:
+        total[op] = total.get(op, 0) + 1
+    return {"instructions": len(instrs), "opcodes": total, "loops": loops}
+
+
+def threefry_sass_facts(build) -> dict | None:
+    """The threefry kernels as compiled: for each dtype, the integer
+    instructions on each integer pipe of the one loop that stores (one
+    element a trip: its STG count), per element, and the whole kernel's
+    (at w8a's grid, 45,451 / 256 blocks by 142 clients, each thread draws
+    one element, so its prologue runs once an element too).  None where no
+    cuobjdump is at hand."""
+    sass = cuobjdump_sass(build, "threefry")
+    if sass is None:
+        return None
+    out = {}
+    for name, lines in sass_functions(sass).items():
+        if "threefry_uniform_kernel" not in name:
+            continue
+        facts = sass_loops(lines)
+        storing = [lp for lp in facts["loops"] if any(op.startswith("STG") for op in lp["opcodes"])]
+        check(len(storing) == 1, f"threefry SASS: {len(storing)} loops store in {name}")
+        ops, kernel_ops = storing[0]["opcodes"], facts["opcodes"]
+        stores = sum(n for op, n in ops.items() if op.startswith("STG"))
+        out["float64" if "ILb1E" in name else "float32"] = {
+            "function": name, "loop": storing[0], "stores": stores,
+            "int_alu_per_elem": sum(ops.get(o, 0) for o in INT_ALU_OPCODES) / stores,
+            "int_fma_per_elem": sum(ops.get(o, 0) for o in INT_FMA_OPCODES) / stores,
+            "kernel_instructions": facts["instructions"],
+            "kernel_int_alu": sum(kernel_ops.get(o, 0) for o in INT_ALU_OPCODES),
+            "kernel_int_fma": sum(kernel_ops.get(o, 0) for o in INT_FMA_OPCODES)}
+    check(sorted(out) == ["float32", "float64"], f"threefry SASS: kernels {sorted(out)}")
+    return out
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def host_draw_ms(prng, upload_draws, n_clients: int, t: int, device) -> dict:
@@ -660,6 +795,8 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
     error over the bf16 cases."""
     import torch
 
+    from repro_torch.configs import get_config
+
     bf16, f32 = torch.bfloat16, torch.float32
     seq = shape_of("prefill_32k").seq
     cases = {  # name: (b, sq, sk, h, kv, dh, causal, window, dtype)
@@ -673,6 +810,9 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         "dh32_simt_route": (2, 1000, 1000, 8, 2, 32, True, 300, bf16),
         # recurrentgemma-2b's attention layer at its 32k prefill: the wgmma route
         "recurrentgemma_32k_layer_dh256": (1, seq, seq, 10, 1, 256, True, 2048, bf16),
+        # the dense configs' 32k layers: head_dim 128, causal, no window
+        **{f"{arch}_32k_layer": (1, seq, seq, c.n_heads, c.n_kv, c.head_dim, True, None, bf16)
+           for arch, c in ((a, get_config(a)) for a in ZOO_DENSE_DEPTHS)},
         "dh256_kv2_window300_s1000": (2, 1000, 1000, 8, 2, 256, True, 300, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
         "f32_dh256_simt_window2048": (1, 4096, 4096, 10, 1, 256, True, 2048, f32),
@@ -746,38 +886,45 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
     return report, max_err
 
 
-def flash_window_layer(dev, tfa, h: int, kv: int, dh: int, window: int, seed: int) -> dict:
-    """Flash at one model's 32k attention layer (B 1, prefill_32k's S, causal
-    window), bf16: the kernel, its plain version and SDPA given the causal
-    window as a boolean (S, S) mask and the kv heads repeated, as CUDA-event
-    medians of FLASH_TIMED_REPS pairs around one call; the bound (QK^T and
-    three bf16 P.V products over the visible pairs on the tensor cores, or
-    the bytes)."""
+def flash_layer(dev, tfa, h: int, kv: int, dh: int, window: int | None, seed: int) -> dict:
+    """Flash at one model's 32k attention layer (B 1, prefill_32k's S, causal,
+    with ``window`` or none), bf16: the kernel and SDPA (without a window:
+    is_causal and enable_gqa; with one: the causal window as a boolean (S,
+    S) mask and the kv heads repeated), as CUDA-event medians of
+    FLASH_TIMED_REPS pairs around one call, in turns, and the plain version
+    over FLASH_PLAIN_REPS pairs; the bound (QK^T and three bf16 P.V products
+    over the visible pairs on the tensor cores, or the bytes)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     seq = shape_of("prefill_32k").seq
     q, k, v = flash_inputs(dev, 1, seq, seq, h, kv, dh, torch.bfloat16, seed)
-    fns = {
-        "kernel": lambda: tfa.flash_attention_cuda(q, k, v, causal=True, window=window),
-        "plain": lambda: tfa.flash_attention_plain(q, k, v, causal=True, window=window),
-    }
-    pos = torch.arange(seq, device=dev)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    fns = {"kernel": lambda: tfa.flash_attention_cuda(q, k, v, causal=True, window=window)}
     qt = q.transpose(1, 2)
-    kt, vt = (t.transpose(1, 2).repeat_interleave(h // kv, dim=1).contiguous() for t in (k, v))
-    library = {"backends": "flash, memory-efficient",
-               "mask": f"boolean (S, S) causal window {window}, kv heads repeated"}
+    if window is None:
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        sdpa_kw = {"is_causal": True, "enable_gqa": h != kv}
+        library = {"backends": "flash, memory-efficient",
+                   "call": f"is_causal=True, enable_gqa={h != kv}"}
+    else:
+        pos = torch.arange(seq, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(h // kv, dim=1).contiguous() for t in (k, v))
+        sdpa_kw = {"attn_mask": band}
+        library = {"backends": "flash, memory-efficient",
+                   "mask": f"boolean (S, S) causal window {window}, kv heads repeated"}
     try:  # the yardstick only: the port never calls SDPA
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+            F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
             torch.cuda.synchronize()
-        fns["library"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        fns["library"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
     except RuntimeError as err:
         library["not_given"] = str(err).splitlines()[0][:300]
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
         ms = median_ms(fns, reps=FLASH_TIMED_REPS, calls=1)
+    ms.update(median_ms({"plain": lambda: tfa.flash_attention_plain(
+        q, k, v, causal=True, window=window)}, reps=FLASH_PLAIN_REPS, calls=1))
     visible = tfa.visible_pairs(seq, seq, True, window) * h
     flops = 2 * dh * visible  # QK^T, and again each P.V product
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -984,7 +1131,35 @@ ZOO_FLASH_ROUTES = {
     "recurrentgemma-2b": {"wgmma": 8, "simt": 0},  # layers i % 3 == 2 of 26, head_dim 256
     "llava-next-mistral-7b": {"wgmma": 32, "simt": 0},
     "seamless-m4t-large-v2": {"wgmma": 72, "simt": 0},  # 24 encoder + 24 self + 24 cross
+    # the dense configs granite-3-2b does not cover, head_dim 128 causal
+    # without a window, at ZOO_DENSE_DEPTHS' prefill depth
+    "chatglm3-6b": {"wgmma": 28, "simt": 0},  # H 32, Kv 2; rotary on half the head dims
+    "nemotron-4-15b": {"wgmma": 32, "simt": 0},  # H 48, Kv 8; squared ReLU, untied 256k head
+    "yi-34b": {"wgmma": 28, "simt": 0},  # H 56, Kv 8, d_model 7168: 28 of its 60 layers
 }
+# the depths at which the zoo runs the dense configs above: (b) and (c) at
+# the first, (d) at the second (ServeEngine holds a bf16 copy of its
+# params beside the caller's f32 ones).  Each is the config's depth or the
+# deepest cut whose f32 params (for (d): and the bf16 copy) fit
+# ZOO_PARAM_BYTES_MAX: 80 GB less what a 32k prefill adds above its params
+# (the bf16 embedding and head, a layer's bf16 weights, its activations at
+# S 32,768; phase line b's max_memory_allocated - memory_allocated_before)
+ZOO_PARAM_BYTES_MAX = 67e9
+ZOO_DENSE_DEPTHS = {  # arch: (layers of (b) and (c), layers of (d))
+    "chatglm3-6b": (28, 28),  # full depth: 23.9 GB f32, 35.9 GB with the engine's copy
+    "nemotron-4-15b": (32, 20),  # 62.5 GB; the engine at 20 of 32 layers: 65.7 GB
+    "yi-34b": (28, 18),  # 66.2 GB at 28 of 60 layers; the engine at 18: 65.8 GB
+}
+
+
+def zoo_param_bytes(cfg, n_layers: int, engine: bool) -> int:
+    """The bytes of ``cfg``'s f32 params at ``n_layers`` (counted on meta)
+    and, with ``engine``, of ServeEngine's bf16 copy beside them."""
+    from repro_torch.models.lm import cast_for_compute, init_lm_params
+
+    params = init_lm_params(0, dataclasses.replace(cfg, n_layers=n_layers), "meta")
+    trees = [params, cast_for_compute(params)] if engine else [params]
+    return sum(t.numel() * t.element_size() for tree in trees for t in _leaves(tree))
 
 
 @contextlib.contextmanager
@@ -1126,7 +1301,9 @@ def zoo_inputs(cfg, batch: int, seq: int, rng, dev) -> dict:
 def zoo_family(arch: str, dev, ops) -> dict:
     """One family at full width: (a) card against CPU on a depth cut, (b) the
     32k prefill at full depth, (c) prefill against sequential decode, (d)
-    the serving engine and the launcher.  Returns its kernel facts."""
+    the serving engine and the launcher; a config of ZOO_DENSE_DEPTHS runs
+    (b) and (c) at its first depth, (d) at its second, and the launcher
+    only at full depth.  Returns its kernel facts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1144,13 +1321,36 @@ def zoo_family(arch: str, dev, ops) -> dict:
                   else tlm.init_decode_cache)
     rng = np.random.default_rng(17)
     no_launch = {name: 0 for name in ops.launch_counts()}
+    prefill_layers, engine_layers = ZOO_DENSE_DEPTHS.get(arch, (full.n_layers, full.n_layers))
+    deep = dataclasses.replace(full, n_layers=prefill_layers)
+    served = dataclasses.replace(full, n_layers=engine_layers)
+    budget = {}  # the bytes each cut holds, against ZOO_PARAM_BYTES_MAX
+    if arch in ZOO_DENSE_DEPTHS:
+        budget = {"prefill": zoo_param_bytes(full, prefill_layers, False),
+                  "engine": zoo_param_bytes(full, engine_layers, True),
+                  "engine_full_depth": zoo_param_bytes(full, full.n_layers, True)}
+        check(budget["prefill"] <= ZOO_PARAM_BYTES_MAX and budget["engine"] <= ZOO_PARAM_BYTES_MAX,
+              f"{arch}: the zoo's cuts hold {budget}, above {ZOO_PARAM_BYTES_MAX}")
 
-    # (a) the same params on the card and on the CPU, depth cut
+    def depth_cut(n_layers: int, engine: bool) -> str | None:
+        if n_layers == full.n_layers:
+            return None
+        held = budget["engine" if engine else "prefill"]
+        return (f"n_layers {n_layers} of {full.n_layers}: the deepest cut whose f32 params"
+                + (" and ServeEngine's bf16 copy" if engine else "")
+                + f" ({held / 1e9:.1f} GB) fit {ZOO_PARAM_BYTES_MAX / 1e9:.0f} GB of the card's 80")
+
+    # (a) the same params on the card and on the CPU, depth cut: drawn on
+    # the card (a host draw of nemotron-4-15b's 3.9 B takes tens of
+    # seconds); the CPU holds them as the forward computes with them, the
+    # matrices cast to bf16 once (cast_for_compute: the same logits bit for
+    # bit, tests/test_torch_lm.py, test_torch_zoo.py, test_torch_encdec.py),
+    # so that half the bytes cross and no step casts them again
     cut_layers = 3 if full.family == "hybrid" else LM_CUT_LAYERS
     cut = dataclasses.replace(full, n_layers=cut_layers,
                               encoder_layers=LM_CUT_LAYERS if encdec else 0)
-    p_cpu = init(0, cut, "cpu")
-    p_card = tree_to(p_cpu, dev)
+    p_card = init(0, cut, dev)
+    p_cpu = tree_to(tlm.cast_for_compute(p_card), "cpu")
     batch = zoo_inputs(cut, 2, 512 + (cut.n_frontend_tokens if cut.family == "vlm" else 0), rng, "cpu")
     prefill = make_prefill_step(cut)
     with record_router_inputs() as calls_card:
@@ -1163,7 +1363,9 @@ def zoo_family(arch: str, dev, ops) -> dict:
                     "cut": f"n_layers {cut.n_layers} of {full.n_layers}"
                            + (f", encoder_layers {cut.encoder_layers} of {full.encoder_layers}"
                               if encdec else "") + "; full width",
-                    "prefill_batch": {k: list(v.shape) for k, v in batch.items()}}
+                    "prefill_batch": {k: list(v.shape) for k, v in batch.items()},
+                    "params": "drawn on the card from seed 0; the CPU's: their cast_for_compute "
+                              "copy (the matrices in bf16, as every use casts them)"}
     if moe:
         routers = p_cpu["blocks"]["moe"]["router"]
         part_a["moe_module"] = moe_module_check(cut, p_card, p_cpu, calls_host, dev)
@@ -1207,15 +1409,17 @@ def zoo_family(arch: str, dev, ops) -> dict:
     emit(part_a)
     del p_cpu, p_card, c_card, c_cpu, card, host
 
-    # (b) full depth from seed 0 on the card: the 32k prefill
+    # (b) full depth (or ZOO_DENSE_DEPTHS' cut) from seed 0 on the card:
+    # the 32k prefill
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = init(0, full, dev)
+    params = init(0, deep, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    prefill = make_prefill_step(full)
+    prefill = make_prefill_step(deep)
     shape = shape_of("prefill_32k")
-    big = zoo_inputs(full, shape.batch, shape.seq, rng, dev)
+    big = zoo_inputs(deep, shape.batch, shape.seq, rng, dev)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()  # the params, the inputs, earlier phases' tensors
     torch.cuda.reset_peak_memory_stats()
@@ -1234,25 +1438,30 @@ def zoo_family(arch: str, dev, ops) -> dict:
           and bool(torch.isfinite(logits).all()),
           f"{arch} 32k prefill logits")
     peak = torch.cuda.max_memory_allocated()
+    check(peak <= PEAK_BYTES_MAX, f"{arch} 32k prefill: peak {peak} > {PEAK_BYTES_MAX}")
     t0 = time.perf_counter()
     prefill(params, big)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    emit({"phase": "zoo", "part": "b_prefill_32k", "arch": arch, "n_layers": full.n_layers,
+    emit({"phase": "zoo", "part": "b_prefill_32k", "arch": arch, "n_layers": deep.n_layers,
           "encoder_layers": full.encoder_layers, "params": n_params,
           "param_bytes_f32": n_params * 4, "init_s": init_s,
           "inputs": {k: list(v.shape) for k, v in big.items()},
-          "cut": f"global batch 32 of prefill_32k cut to {shape.batch}",
+          "cut": "; ".join(filter(None, (
+              depth_cut(prefill_layers, False),
+              f"global batch 32 of prefill_32k cut to {shape.batch}"))),
           "first_call_ms": first_s * 1e3,
           "ms": steady_s * 1e3, "tokens_per_s": shape.batch * shape.seq / steady_s,
           "max_memory_allocated": peak, "memory_allocated_before": before,
+          "peak_above_before": peak - before, "peak_bytes_max": PEAK_BYTES_MAX,
           "launches": launches, "flash_routes": routes,
           "logit_scale": float(logits.float().abs().max())})
     del big, logits
 
     # (c) prefill (the kernels) against sequential decode of a 5-token prompt
     prompt = torch.as_tensor(rng.integers(0, full.vocab, size=(1, 5)), device=dev)
-    part_c = {"phase": "zoo", "part": "c_prefill_vs_decode", "arch": arch, "prompt_len": 5}
+    part_c = {"phase": "zoo", "part": "c_prefill_vs_decode", "arch": arch, "prompt_len": 5,
+              "n_layers": deep.n_layers}
     if moe:
         part_c["exempt"] = ("the reference's capacity rule makes them different functions: a "
                             "5-token prefill has capacity int(1.25*5*8/32) = 1 per expert and "
@@ -1262,13 +1471,13 @@ def zoo_family(arch: str, dev, ops) -> dict:
         if encdec:  # decoding reads the zero cross K/V: the K/V of an all-zero source
             pre["src_embeds"] = torch.zeros((1, 16, full.d_model), device=dev)
         want = prefill(params, pre)  # vlm without image embeddings
-        cache = init_cache(full, 1, 8, dev)
-        serve_step = make_serve_step(full)
+        cache = init_cache(deep, 1, 8, dev)
+        serve_step = make_serve_step(deep)
         for s in range(5):
             got, cache = serve_step(params, cache, prompt[:, s : s + 1])
         got = got[:, 0]
         depth_ulps = logit_ulps(got, want)
-        tol = depth_logit_ulps(full.n_layers)
+        tol = depth_logit_ulps(deep.n_layers)
         same, bad, margin = argmax_rows(got, want, tol)
         check(depth_ulps <= tol, f"{arch} prefill vs decode: {depth_ulps} ulps > {tol}")
         check(bad == 0, f"{arch} prefill vs decode: argmax differs at top-2 margin {margin}")
@@ -1281,6 +1490,11 @@ def zoo_family(arch: str, dev, ops) -> dict:
     emit(part_c)
 
     # (d) the serving engine with the launcher's defaults; the launcher
+    if engine_layers != prefill_layers:  # another cut: drawn anew from seed 0
+        del params
+        torch.cuda.empty_cache()
+        params = init(0, served, dev)
+
     def requests():
         return [Request(prompt=[(r * 7 + i) % full.vocab for i in range(5)], max_new_tokens=12)
                 for r in range(6)]
@@ -1289,7 +1503,7 @@ def zoo_family(arch: str, dev, ops) -> dict:
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        engine = ServeEngine(params, full, batch_size=4, max_len=128, device=dev)
+        engine = ServeEngine(params, served, batch_size=4, max_len=128, device=dev)
         for r in requests():
             engine.submit(r)
         ops.reset_launch_counts()
@@ -1306,24 +1520,32 @@ def zoo_family(arch: str, dev, ops) -> dict:
     check(runs[0]["tokens"] == runs[1]["tokens"], f"{arch} serving: a second engine gave other tokens")
     del params
     torch.cuda.empty_cache()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        launched = serve_launcher.main(["--arch", arch, "--device", str(dev)])
-    check([r.generated for r in launched] == runs[0]["tokens"],
-          f"{arch}: the launcher's tokens differ from the engine's (same seed, same card)")
-    del launched
+    if engine_layers == full.n_layers:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launched = serve_launcher.main(["--arch", arch, "--device", str(dev)])
+        check([r.generated for r in launched] == runs[0]["tokens"],
+              f"{arch}: the launcher's tokens differ from the engine's (same seed, same card)")
+        del launched
+        launcher = out.getvalue().strip().splitlines()[0]
+    else:  # the launcher serves the config at full depth
+        launcher = (f"not run: it serves all {full.n_layers} layers, whose f32 params and "
+                    f"ServeEngine's bf16 copy take {budget['engine_full_depth'] / 1e9:.1f} GB "
+                    "of the card's 80")
     total = sum(len(t) for t in runs[0]["tokens"])
     seconds = time.perf_counter() - t_family
     emit({"phase": "zoo", "part": "d_serve", "arch": arch, "requests": 6, "batch": 4,
-          "new_tokens": 12, "max_len": 128, "steps": runs[0]["steps"], "tokens": total,
+          "new_tokens": 12, "max_len": 128, "n_layers": served.n_layers,
+          **({"cut": depth_cut(engine_layers, True)} if engine_layers != full.n_layers else {}),
+          "steps": runs[0]["steps"], "tokens": total,
           "ms_per_step": [r["wall_s"] / r["steps"] * 1e3 for r in runs],
           "tokens_per_s": [total / r["wall_s"] for r in runs],
           "max_memory_allocated": [r["peak"] for r in runs], "launches": no_launch,
-          "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
-          "family_seconds": seconds})
+          "first_tokens": runs[0]["tokens"][:2], "launcher": launcher,
+          "family_seconds": seconds, **({"param_bytes": budget} if budget else {})})
     torch.cuda.empty_cache()
     return {"routes": routes, "launches": launches, "seconds": seconds, "ms": steady_s * 1e3,
-            "max_memory_allocated": peak}
+            "max_memory_allocated": peak, "n_layers": deep.n_layers}
 
 
 # phase train: LM training at every family's full width
@@ -3781,7 +4003,7 @@ def sharded_phase(ops, dev, local_ms_per_round: float) -> dict:
     return out
 
 
-# the roofline phase's meta counts, longest first: (arch, shape, accum_steps)
+# the roofline phase's meta counts, longest first: (arch, shape, accum_steps, n_layers)
 ROOFLINE_RUNS = (
     ("mamba2-2.7b", "train_4k", TRAIN_ACCUM, None),
     ("seamless-m4t-large-v2", "train_4k", TRAIN_ACCUM, None),
@@ -3792,6 +4014,9 @@ ROOFLINE_RUNS = (
     ("llava-next-mistral-7b", "train_4k", TRAIN_ACCUM, LLAVA_TRAIN_LAYERS),
     ("llava-next-mistral-7b", "prefill_32k", None, None),
     ("granite-3-2b", "prefill_32k", None, None),
+    ("chatglm3-6b", "prefill_32k", None, None),
+    ("nemotron-4-15b", "prefill_32k", None, None),
+    ("yi-34b", "prefill_32k", None, ZOO_DENSE_DEPTHS["yi-34b"][0]),  # the zoo's cut
     ("recurrentgemma-2b", "train_4k", TRAIN_ACCUM, None),
     ("granite-moe-1b-a400m", "prefill_32k", None, None),
     ("recurrentgemma-2b", "prefill_32k", None, None),
@@ -3803,8 +4028,8 @@ def count_on_meta(arch: str, shape_name: str, accum: int | None,
     """One full-width step counted on meta (run in a spawned process): the
     step ``build_dryrun`` gives for ``arch`` at ``shape_name`` with its
     batch cut as this script runs it (train_4k: accum_steps ``accum``, and
-    ``n_layers`` where the train phase cut the depth, as it measured it),
-    its ``step_cost`` and 6 N D or 2 N D."""
+    ``n_layers`` where the train or the zoo phase cut the depth, as it
+    measured it), its ``step_cost`` and 6 N D or 2 N D."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import roofline as rl
     from repro_torch.configs import get_config
@@ -3979,6 +4204,7 @@ def main() -> int:
     from repro_torch.api import CompressorSpec, DataSpec, ExperimentSpec, solve
     from repro_torch.compressors.core import upload_draws
     from repro_torch.compressors.select import randseqk_window_mask, rank_keys
+    from repro_torch.configs import get_config
     from repro_torch.core.fednl import fednl_init, make_fednl_round
     from repro_torch.core.fednl_pp import fednl_pp_init, make_fednl_pp_round
     from repro_torch.kernels import build, ops
@@ -4390,12 +4616,6 @@ def main() -> int:
     # --- 5 the LM path: granite-3-2b, the launch counts set to 0 before each -
     lm = lm_phase(dev, ops)
 
-    # --- zoo: the moe, ssm, hybrid, vlm and encdec families ----------------
-    t_zoo = time.perf_counter()
-    zoo = {arch: zoo_family(arch, dev, ops) for arch in ZOO_FLASH_ROUTES}  # each freed after it
-    emit({"phase": "zoo", "seconds": time.perf_counter() - t_zoo,
-          "family_seconds": {arch: z["seconds"] for arch, z in zoo.items()}})
-
     # --- 6 times at the main paths' shapes -------------------------------------
     zs = hw[..., None] * z
     keys = rank_keys(delta1)
@@ -4466,8 +4686,13 @@ def main() -> int:
     # head_dim 256 at recurrentgemma-2b's layer and 128 at llava-next-mistral-
     # 7b's (both the wgmma route), each beside SDPA given the causal window as
     # a boolean mask
-    flash256 = flash_window_layer(dev, tfa, 10, 1, 256, 2048, 101)
-    flash128 = flash_window_layer(dev, tfa, 32, 8, 128, 4096, 102)
+    flash256 = flash_layer(dev, tfa, 10, 1, 256, 2048, 101)
+    flash128 = flash_layer(dev, tfa, 32, 8, 128, 4096, 102)
+    # head_dim 128, causal without a window, at the zoo's dense configs'
+    # layers, each beside SDPA(is_causal, enable_gqa)
+    dense_cfgs = {arch: get_config(arch) for arch in ZOO_DENSE_DEPTHS}
+    flash_dense = {arch: flash_layer(dev, tfa, c.n_heads, c.n_kv, c.head_dim, None, 103 + i)
+                   for i, (arch, c) in enumerate(dense_cfgs.items())}
     if "flash_attention" in reports:
         flash256["ptxas"] = {fn: lines for fn, lines in build.ptxas_entries(
             reports["flash_attention"]).items() if "flash_fwd_wgmma_kernelILi256E" in fn}
@@ -4496,11 +4721,23 @@ def main() -> int:
         CUDA_CORE_32BIT_OPS,
     )
     draws = n_clients * t_len
-    threefry_bound = {
-        name: bound(n_clients * 8 + draws * size, THREEFRY_OPS_PER_ELEM * draws,
-                    CUDA_CORE_32BIT_OPS)
-        for name, size in (("float32", 4), ("float64", 8))
-    }
+    # threefry's least time: its stores, or the integer instructions its
+    # function needs per element on the busier of the two integer pipes,
+    # 64 a clock per SM each at the card's highest SM clock: half of them,
+    # as only the xors, fewer than half, must go to the INT32 pipe.  The
+    # kernel's own SASS counts are printed beside it.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = sm_clock_hz()
+    int_pipe_per_s = INT32_PIPE_PER_SM_CLOCK * sms * clock_hz
+    threefry_bound, threefry_parts = {}, {}
+    for name, size in (("float32", 4), ("float64", 8)):
+        busier_pipe = max(THREEFRY_XORS_PER_ELEM[name], THREEFRY_INT_INSTRS_PER_ELEM[name] / 2)
+        nbytes = n_clients * 8 + draws * size
+        threefry_bound[name] = bound(nbytes, busier_pipe * draws, int_pipe_per_s)
+        threefry_parts[name] = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                                "operations": busier_pipe * draws / int_pipe_per_s * 1e3,
+                                "busier_pipe_ops_per_elem": busier_pipe}
+    threefry_sass = threefry_sass_facts(build)
     by_keys_bound = bound(
         # keys read, the k kept entries of u read, u_hat written, sent
         draws * 4 + n_clients * k * 8 + draws * 8 + n_clients * 4,
@@ -4537,10 +4774,18 @@ def main() -> int:
           "bound_ms": {"threefry_float32": threefry_bound["float32"],
                        "threefry_float64": threefry_bound["float64"],
                        "select_topk_by_keys": by_keys_bound},
+          "threefry_bound_parts_ms": threefry_parts,
+          "threefry_sass": threefry_sass or "not measured (no cuobjdump beside nvcc)",
+          "int_pipe": {"per_sm_clock": INT32_PIPE_PER_SM_CLOCK, "sms": sms,
+                       "sm_clock_hz": clock_hz, "ops_per_s": int_pipe_per_s},
           "note": f"ms per call: median over {TIMED_REPS} event pairs around "
                   f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; threefry "
                   "library = torch.rand of the same shape and type (another generator, "
-                  "timed only); TopK by keys library = torch.topk on the same f32 keys"})
+                  "timed only); TopK by keys library = torch.topk on the same f32 keys; "
+                  "threefry's bound: its stores, or the least integer instructions its "
+                  f"function needs per element ({THREEFRY_INT_INSTRS_PER_ELEM}) over the two "
+                  "integer pipes (INT32; IMAD on the FMA pipe), 64 a clock per SM each; "
+                  "threefry_sass: the kernel's loop as compiled, per element and pipe"})
     emit({"phase": "times", "flash_attention": flash_ms,
           "shape": [1, seq, 32, 8, 64], "causal": True, "dtype": "bfloat16",
           "route": tfa.flash_route(torch.bfloat16, 64),
@@ -4551,15 +4796,21 @@ def main() -> int:
                   "library = F.scaled_dot_product_attention(is_causal, enable_gqa) on the "
                   "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
                   "same function at lower precision"})
-    for name, layer in (("flash_attention_dh256", flash256), ("flash_attention_dh128", flash128)):
-        emit({"phase": "times", name: layer["ms"],
+    for name, arch, layer in (
+            ("flash_attention_dh256", None, flash256), ("flash_attention_dh128", None, flash128),
+            *(("flash_attention_dh128_causal", arch, layer) for arch, layer in flash_dense.items())):
+        library = ("SDPA with the window as a boolean mask over all S x S pairs, the kv heads "
+                   "repeated beforehand" if layer["window"] else
+                   "F.scaled_dot_product_attention(is_causal, enable_gqa) on the flash or "
+                   "memory-efficient backend")
+        emit({"phase": "times", **({"layer": arch} if arch else {}), name: layer["ms"],
               **{key: val for key, val in layer.items() if key not in ("ms", "bound")},
               "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
-              "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one "
-                      "call, the three in turns; bound as the head_dim-64 row: (QK^T + 3 P.V "
-                      "bf16 products) over the visible pairs at 989 TFLOP/s; library = SDPA "
-                      "with the window as a boolean mask over all S x S pairs, the kv heads "
-                      "repeated beforehand, p rounded to bf16"})
+              "note": f"ms per call: kernel and library the median over {FLASH_TIMED_REPS} event "
+                      f"pairs around one call, in turns; plain over {FLASH_PLAIN_REPS} after a "
+                      "warm-up; bound as the head_dim-64 row: (QK^T + 3 P.V bf16 products) over "
+                      f"the visible pairs at 989 TFLOP/s; library = {library}, p rounded to "
+                      "bf16"})
 
     # --- 7 no host sync in a round; where the time goes (torch.profiler) ----
     pp_cfg = pp_spec.fednl_config()
@@ -4614,14 +4865,22 @@ def main() -> int:
     measured = {  # the full-width runs' times for the roofline phase
         ("granite-3-2b", "prefill_32k"): {"ms": lm["ms"], "by": by_prefill,
                                           "max_memory_allocated": lm["max_memory_allocated"]},
-        **{(arch, "prefill_32k"): {"ms": z["ms"], "by": by_prefill,
-                                   "max_memory_allocated": z["max_memory_allocated"]}
-           for arch, z in zoo.items()},
         "round": {"device_ms": topk_trace.get("device_ms_per_round"),
                   "wall_ms": rep.wall_time_s / rep.rounds * 1e3},
     }
     check(measured["round"]["device_ms"] is not None, "phase 7 measured no device time")
     del lm
+
+    # --- zoo: the moe, ssm, hybrid, vlm and encdec families and the dense
+    # configs granite-3-2b does not cover; after granite's params are freed
+    torch.cuda.empty_cache()
+    t_zoo = time.perf_counter()
+    zoo = {arch: zoo_family(arch, dev, ops) for arch in ZOO_FLASH_ROUTES}  # each freed after it
+    emit({"phase": "zoo", "seconds": time.perf_counter() - t_zoo,
+          "family_seconds": {arch: z["seconds"] for arch, z in zoo.items()}})
+    measured.update({(arch, "prefill_32k"): {
+        "ms": z["ms"], "by": by_prefill, "n_layers": z["n_layers"],
+        "max_memory_allocated": z["max_memory_allocated"]} for arch, z in zoo.items()})
 
     # --- train: LM training at every family's full width ---------------------
     train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"))
@@ -4762,6 +5021,20 @@ def main() -> int:
         } for dh, arch, fixture, layer in (
             (256, "recurrentgemma-2b", "recurrentgemma_32k_layer_dh256", flash256),
             (128, "llava-next-mistral-7b", "dh128_window200", flash128))),
+        *({
+            "name": f"flash_attention_dh128_causal_{arch.replace('-', '_').replace('.', '_')}",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:95 (at head_dim 128, causal, "
+                        "no window)",
+            "kernels": {"wgmma": "flash_fwd_wgmma_kernel, DH = 128 (bf16)"},
+            "layer": f"{arch}: S {layer['shape'][1]}, H {layer['shape'][2]}, "
+                     f"Kv {layer['shape'][3]}, dh 128, causal",
+            "launches": zoo[arch]["routes"]["wgmma"], "prefill_layers": zoo[arch]["n_layers"],
+            "max_abs_err": flash_report[f"{arch}_32k_layer"]["max_abs_err"],
+            "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
+            "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
+            "library_ms": layer["ms"].get("library"),
+        } for arch, layer in flash_dense.items()),
     ]
     tl = train["bwd"]  # granite-3-2b's training layer (TRAIN_LAYER), the train phase
     pair = {"ms": tl["ms"]["bwd_dq"] + tl["ms"]["bwd_dkdv"], "bound_ms": tl["bound"]["backward"][0],
@@ -4908,7 +5181,7 @@ def main() -> int:
         entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
     for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
         if not entry["name"].endswith(("_dh256", "_dh128", "_dh64_mha_noncausal",
-                                       "_dh128_window")):
+                                       "_dh128_window")) and "_causal_" not in entry["name"]:
             entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
                                      for arch, z in zoo.items()}
     for entry in kernels:  # the mesh phase's --mesh 1x1 run, the counts set to 0 before it

@@ -13,9 +13,10 @@
 // in the reference (src/repro/compressors/core.py: randk's uniform, natural's
 // bernoulli).  See kernels/threefry.py for the design notes.  In short: one
 // thread per element, the key words and the 20 rounds in registers, the
-// rotations as __funnelshift_l; what the function must do is ~76 integer
-// operations per element and one 4- or 8-byte store, so it is bound by those
-// operations at f32 and by the stores at f64.
+// rotations as __funnelshift_l; what the function must do is ~70 integer
+// instructions per element, spread over the two integer pipes at 64 a clock
+// per SM each, and one 4- or 8-byte store, so it is bound by those
+// instructions at f32 and by the stores at f64, nearly evenly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -48,13 +48,20 @@ def _check(name: str, keys: torch.Tensor, t: int, dtype: torch.dtype) -> int:
 # ~0.8 s a round at w8a (142 clients x 45,451 entries), against a round of
 # ~2 ms.
 #
-# What bounds it on an H100: at f32 the operations, at f64 the bytes, nearly
-# evenly.  It reads 8 bytes of key per client and writes T * 4 (f32) or
-# T * 8 (f64) bytes per client: 25.8 or 51.6 MB at w8a, 7.7 or 15.4 us at
-# 3.35 TB/s.  Each element needs the hash: 2 additions of the key, 20 rounds
-# of an add, a rotation and a xor, 5 key injections of two adds, and the
-# conversion to a float, some 76 32-bit operations (490 M at w8a, 7.3 us at
-# 67 T operations/s outside the tensor cores).
+# What bounds it on an H100: its integer instructions at f32, its stores at
+# f64, nearly evenly.  It reads 8 bytes of key per client and writes T * 4
+# (f32) or T * 8 (f64) bytes per client: 25.8 or 51.6 MB at w8a, 7.7 or
+# 15.4 us at 3.35 TB/s.  Each element needs the hash: 2 additions of the
+# key, 20 rounds of an add, a rotation and a xor, 5 key injections of two
+# adds, and the float from the words, 75 32-bit integer operations; with
+# IADD3's three-input adds, 69 instructions at f32 (70 at f64).  Those run
+# on the two integer pipes, 64 instructions a clock per SM each (the INT32
+# pipe; IMAD on the FMA pipe's heavy half), not at the 128 of the f32
+# pipes.  Only the xors must take the INT32 pipe (a rotation is also an
+# IMAD.WIDE, an add an IMAD), so at best each pipe takes half: 34.5
+# instructions an element, ~13 us at w8a at 132 SMs and 1.98 GHz.
+# chip_smoke.py's phase 6 prices that at the card's clock and prints the
+# compiled loop's counts on each pipe beside it (PERF.md).
 #
 # What the design does about it: one thread per element, neighbouring
 # threads on neighbouring counters so the stores coalesce; a block row per

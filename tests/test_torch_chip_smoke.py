@@ -1,0 +1,140 @@
+"""chip_smoke.py's tables and parsers that the CPU can check (the script
+itself runs on the card): the zoo's dense configs at their depths, and
+the SASS listing that phase 6 counts threefry's integer instructions from.
+"""
+
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import init_lm_params
+from repro_torch.models import lm as tlm
+from repro_torch.models.lm import cast_for_compute
+from repro_torch.train import make_prefill_step
+
+DENSE_ZOO = ["chatglm3-6b", "nemotron-4-15b", "yi-34b"]
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded by its path (the repo's root is no package)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bytes(tree: dict) -> int:
+    return sum(_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+@pytest.mark.parametrize("arch", DENSE_ZOO)
+def test_zoo_flash_launches_are_the_prefills_attention_calls(arch, monkeypatch):
+    """The zoo's 32k prefill (b) launches flash once per chunked_attention
+    call: at the depth ZOO_DENSE_DEPTHS gives, on a reduced width, the calls
+    equal ZOO_FLASH_ROUTES' wgmma count (head_dim 128: the wgmma route)."""
+    cs = _chip_smoke()
+    depth, _ = cs.ZOO_DENSE_DEPTHS[arch]
+    assert get_config(arch).head_dim == 128
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=depth)
+    calls = []
+    plain = tlm.chunked_attention
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("window"))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tlm, "chunked_attention", counted)
+    params = init_lm_params(0, cfg, "cpu")
+    tokens = torch.as_tensor(torch.arange(8).reshape(1, 8) % cfg.vocab)
+    logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+    assert logits.shape == (1, tlm.padded_vocab(cfg))
+    assert cs.ZOO_FLASH_ROUTES[arch] == {"wgmma": len(calls), "simt": 0}
+    assert calls == [None] * depth  # causal, no window
+
+
+@pytest.mark.parametrize("arch", DENSE_ZOO)
+def test_zoo_depths_are_the_deepest_that_fit_the_budget(arch):
+    """Counted on meta: the f32 params at the prefill depth, and the f32
+    params with ServeEngine's bf16 copy at the engine depth, fit
+    ZOO_PARAM_BYTES_MAX, and one layer more (where there is one) would
+    not; chip_smoke.zoo_param_bytes counts the same bytes."""
+    cs = _chip_smoke()
+    full = get_config(arch)
+    prefill_layers, engine_layers = cs.ZOO_DENSE_DEPTHS[arch]
+
+    def held(n_layers, engine):
+        params = init_lm_params(0, dataclasses.replace(full, n_layers=n_layers), "meta")
+        return _bytes(params) + (_bytes(cast_for_compute(params)) if engine else 0)
+
+    for n_layers, engine in ((prefill_layers, False), (engine_layers, True)):
+        assert 1 <= n_layers <= full.n_layers
+        assert held(n_layers, engine) <= cs.ZOO_PARAM_BYTES_MAX, (n_layers, engine)
+        if n_layers < full.n_layers:
+            assert held(n_layers + 1, engine) > cs.ZOO_PARAM_BYTES_MAX, (n_layers, engine)
+        assert cs.zoo_param_bytes(full, n_layers, engine) == held(n_layers, engine)
+    assert engine_layers <= prefill_layers
+    if arch == "yi-34b":  # the roofline phase counts yi-34b's prefill at the zoo's cut
+        assert ("yi-34b", "prefill_32k", None, prefill_layers) in cs.ROOFLINE_RUNS
+
+
+# a loop as cuobjdump -sass prints one (sm_90a): labels, a predicated
+# backward branch, each instruction's address and its encoding's two words
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_123threefry_uniform_kernelILb0EEEvPKjPvix
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
+                                                                              /* 0x000fe40000000800 */
+        /*0010*/                   IMAD.MOV.U32 R4, RZ, RZ, R0 ;            /* 0x000000ffff047224 */
+.L_x_1:
+        /*0020*/                   IADD3 R5, R2, R7, RZ ;                   /* 0x0000000702057210 */
+        /*0030*/                   SHF.L.W.U32.HI R6, R5, 0xd, R5 ;         /* 0x0000000d05067819 */
+        /*0040*/                   LOP3.LUT R6, R6, R5, RZ, 0x3c, !PT ;     /* 0x0000000506067212 */
+        /*0050*/                   IMAD.IADD R7, R6, 0x1, R5 ;              /* 0x0000000106077824 */
+        /*0060*/                   FADD R8, R7, -1 ;                        /* 0x bf80000007087421 */
+        /*0070*/                   STG.E desc[UR4][R2.64], R8 ;             /* 0x0000000802007986 */
+        /*0080*/              @!P0 BRA `(.L_x_1) ;                          /* 0xfffffffc00fc8947 */
+        /*0090*/                   EXIT ;                                   /* 0x000000000000794d */
+.L_x_2:
+        /*00a0*/                   BRA `(.L_x_2);                           /* 0xfffffffc00fc7947 */
+\t\tFunction : _ZN12_GLOBAL__N_123threefry_uniform_kernelILb1EEEvPKjPvix
+        /*0000*/                   IADD3 R5, R2, R7, RZ ;                   /* 0x0000000702057210 */
+        /*0010*/                   STG.E.64 desc[UR4][R2.64], R8 ;          /* 0x0000000802007986 */
+        /*0020*/                   STG.E.64 desc[UR4][R4.64], R8 ;          /* 0x0000000802007986 */
+        /*0030*/                   LOP3.LUT R6, R6, R5, RZ, 0x3c, !PT ;     /* 0x0000000506067212 */
+        /*0040*/                   ISETP.GE.AND P0, PT, R6, R9, PT ;        /* 0x000000090600720c */
+        /*0050*/               @P0 BRA 0x0 ;                                /* 0xfffffffc00fc0947 */
+        /*0060*/                   EXIT ;                                   /* 0x000000000000794d */
+"""
+
+
+def test_sass_loops_counts_each_innermost_loop(monkeypatch):
+    """Labels or absolute addresses as branch targets, predicates dropped,
+    opcodes without their modifiers; the self-branch after EXIT is a loop
+    of one instruction and holds no store; threefry_sass_facts reads the
+    storing loop of each kernel."""
+    cs = _chip_smoke()
+    kernels = cs.sass_functions(SASS)
+    assert sorted(kernels) == [
+        "_ZN12_GLOBAL__N_123threefry_uniform_kernelILb0EEEvPKjPvix",
+        "_ZN12_GLOBAL__N_123threefry_uniform_kernelILb1EEEvPKjPvix"]
+    f32, f64 = (cs.sass_loops(lines) for lines in kernels.values())
+    assert f32["instructions"] == 11
+    assert f32["loops"] == [
+        {"instructions": 7, "opcodes": {"IADD3": 1, "SHF": 1, "LOP3": 1, "IMAD": 1, "FADD": 1,
+                                        "STG": 1, "BRA": 1}},
+        {"instructions": 1, "opcodes": {"BRA": 1}}]
+    assert f64["loops"] == [{"instructions": 6, "opcodes": {
+        "IADD3": 1, "STG": 2, "LOP3": 1, "ISETP": 1, "BRA": 1}}]
+    # f64: two stores a trip
+    monkeypatch.setattr(cs, "cuobjdump_sass", lambda build, name: SASS)
+    facts = cs.threefry_sass_facts(build=None)
+    assert (facts["float32"]["int_alu_per_elem"], facts["float32"]["int_fma_per_elem"]) == (3, 1)
+    assert (facts["float64"]["int_alu_per_elem"], facts["float64"]["int_fma_per_elem"]) == (1.5, 0)
+    assert (facts["float32"]["kernel_int_alu"], facts["float32"]["kernel_int_fma"]) == (3, 2)

@@ -138,7 +138,7 @@ def test_forward_and_prefill_match_reference(ref, carried, arch):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", DENSE)
 def test_decode_steps_match_reference(ref, carried, arch):
     cfg, jcfg = get_config(arch).reduced(), ref.configs.get_config(arch).reduced()
     jp, tp = carried[arch]
@@ -156,10 +156,11 @@ def test_decode_steps_match_reference(ref, carried, arch):
     assert not bool(cache["k"][:, :, 3:].any())  # slots past pos are untouched
 
 
-def test_prefill_agrees_with_sequential_decode(carried):
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_agrees_with_sequential_decode(carried, arch):
     """The chunked-attention prefill and five decode steps are one function."""
-    cfg = get_config("granite-3-2b").reduced()
-    _, tp = carried["granite-3-2b"]
+    cfg = get_config(arch).reduced()
+    _, tp = carried[arch]
     toks = torch.as_tensor(_tokens(cfg, (2, 5), 5))
     want = lm_prefill(tp, cfg, toks)
     cache = init_decode_cache(cfg, 2, 8, "cpu")
@@ -169,11 +170,14 @@ def test_prefill_agrees_with_sequential_decode(carried):
                                atol=_bound(want.float().numpy()))
 
 
-def test_cast_for_compute_gives_the_same_logits(carried):
-    cfg = get_config("nemotron-4-15b").reduced()
-    _, tp = carried["nemotron-4-15b"]
+@pytest.mark.parametrize("arch", DENSE)
+def test_cast_for_compute_gives_the_same_logits(carried, arch):
+    cfg = get_config(arch).reduced()
+    _, tp = carried[arch]
     cast = cast_for_compute(tp)
-    assert cast["head"].dtype == torch.bfloat16 and cast["blocks"]["mlp"]["w1"].dtype == torch.bfloat16
+    assert cast["embed"].dtype == torch.bfloat16 and ("head" in cast) == (not cfg.tie_embeddings)
+    assert cast.get("head", cast["embed"]).dtype == torch.bfloat16
+    assert cast["blocks"]["mlp"]["w1"].dtype == torch.bfloat16
     assert cast["blocks"]["ln1"].dtype == torch.float32 and cast["final_norm"].dtype == torch.float32
     toks = torch.as_tensor(_tokens(cfg, (1, 9), 6))
     assert torch.equal(lm_forward(cast, cfg, toks), lm_forward(tp, cfg, toks))
