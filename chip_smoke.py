@@ -41,9 +41,11 @@ raises, and the script exits non-zero without the final line.
              window) (the wgmma route) and bf16 at dh = 32 (the SIMT
              route), and within 2e-5 in f32 (the SIMT route, dh 64 and
              256); each fixture's route checked; the threefry
-             kernel bit-exact in f32 and f64 at (142, 45451), T = 1 and one
-             client; TopK by keys bit-exact on the round's real uniforms,
-             forced ties at the k-th key, k = 1 and k = T
+             kernel bit-exact in f32 and f64 at (142, 45451), T = 1, one
+             client, 1,000 clients at T = 3,000 and 300 at T = 4,097 (a
+             head or a tail outside the aligned runs on every row); TopK by
+             keys bit-exact on the round's real uniforms, forced ties at the
+             k-th key, k = 1 and k = T
   4 main     repro_torch.api.solve on w8a (Option B, hess0="exact") on the
              card, seven paths, the launch counts set to 0 before each and
              read after it: TopK and TopLEK (tol 1e-12, <= 50 rounds),
@@ -97,8 +99,10 @@ raises, and the script exits non-zero without the final line.
              least time: bytes, or the operations the function needs (threefry:
              the least integer instructions its function needs per element
              over the two integer pipes, 64 a clock per SM each at
-             nvidia-smi's highest SM clock, its SASS loop's counts
-             (cuobjdump) printed beside; flash:
+             nvidia-smi's highest SM clock, each instantiation's SASS main
+             loop per pipe and element (cuobjdump) printed beside, also at
+             the star's one-client draw (1, 45,451), also as device time in a
+             CUDA graph, with the launcher's cut of both; flash:
              QK^T and three bf16 P.V products over the visible pairs on the
              bf16 tensor cores; the dh-256 wgmma kernel at recurrentgemma's
              layer, with ptxas's report of its instantiations, and the dh-128
@@ -380,11 +384,13 @@ THREEFRY_XORS_PER_ELEM = {"float32": 21, "float64": 20}
 # 9.0: 32-bit integer add, shift, bitwise, compare: 64): the INT32 pipe
 # takes adds, logic, shifts, funnel shifts, compares and selects; IMAD and
 # its aliases (IMAD.MOV, IMAD.SHL, IMAD.IADD, which the compiler uses to
-# spread integer work) go to the FMA pipe's heavy half
+# spread integer work) go to the FMA pipe's heavy half; sm_90's VIADD (an
+# add of an immediate) shares the INT32 pipe (scripts/threefry_probe.py's
+# rates: VIADD and LOP3 together 59.7 a clock a SM, H100 80GB HBM3)
 INT32_PIPE_PER_SM_CLOCK = 64
-INT_ALU_OPCODES = frozenset({"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
-                             "LEA", "SEL", "PRMT", "IABS", "IMNMX", "FLO", "POPC", "BREV",
-                             "BMSK", "SGXT", "ICMP"})
+INT_ALU_OPCODES = frozenset({"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+                             "ISETP", "LEA", "SEL", "PRMT", "IABS", "IMNMX", "FLO", "POPC",
+                             "BREV", "BMSK", "SGXT", "ICMP"})
 INT_FMA_OPCODES = frozenset({"IMAD", "IMUL", "IDP"})
 PP_TAU = 71  # FedNL-PP's participants per round at w8a: half the 142 clients
 
@@ -569,6 +575,29 @@ def median_ms(fns: dict, reps: int = TIMED_REPS, calls: int = CALLS_PER_EVENT) -
     }
 
 
+def graph_median_ms(fns: dict, reps: int = TIMED_REPS,
+                    calls: int = CALLS_PER_EVENT) -> dict[str, float]:
+    """Device ms per call of each function with no host time in it:
+    ``calls`` calls captured in one CUDA graph a function, CUDA events
+    around a replay, the median over ``reps`` replays, the graphs in turns
+    (for a kernel shorter than its wrapper's launch cost on the host, which
+    :func:`median_ms` would time instead)."""
+    import torch
+
+    graphs, side = {}, torch.cuda.Stream()
+    for name, fn in fns.items():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name], capture_error_mode="thread_local"):
+            for _ in range(calls):
+                fn()
+    per_replay = median_ms({name: g.replay for name, g in graphs.items()}, reps, calls=1)
+    return {name: ms / calls for name, ms in per_replay.items()}
+
+
 def trace(step, n: int, unit: str) -> dict:
     """Device time by kernel over ``n`` calls of ``step`` (warmed up by the
     caller), and the device's busy share of the host's wall time over the
@@ -674,8 +703,9 @@ def sass_loops(lines: list[str]) -> dict:
     """One kernel's SASS lines: the opcodes (mnemonics without their
     modifiers) of the whole kernel and of each innermost loop, the
     instructions from a branch target to a branch back to it that enclose
-    no other such branch."""
-    instrs, at_addr, labels = [], {}, {}
+    no other such branch; and beside the loops, each loop's stores with
+    their modifiers (``STG.E.128``: their width)."""
+    instrs, mnemonics, at_addr, labels = [], [], {}, {}
     for line in lines:
         label = re.match(r"\s*\.(L_x_\d+):", line)
         if label:
@@ -691,51 +721,87 @@ def sass_loops(lines: list[str]) -> dict:
         at_addr[int(m.group(1), 16)] = len(instrs)
         instrs.append((text.split()[0].split(".")[0],
                        None if target is None else target.group(1) or int(target.group(2), 16)))
+        mnemonics.append(text.split()[0])
     back = []
     for i, (op, target) in enumerate(instrs):
         lo = labels.get(target) if isinstance(target, str) else at_addr.get(target)
         if op in ("BRA", "JMP") and lo is not None and lo <= i:
             back.append((lo, i))
-    loops = []
+    loops, loop_stores = [], []
     for lo, hi in back:
         if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in back):
             counts: dict[str, int] = {}
             for op, _ in instrs[lo:hi + 1]:
                 counts[op] = counts.get(op, 0) + 1
             loops.append({"instructions": hi - lo + 1, "opcodes": counts})
+            stores: dict[str, int] = {}
+            for mnemonic in mnemonics[lo:hi + 1]:
+                if mnemonic.split(".")[0] == "STG":
+                    stores[mnemonic] = stores.get(mnemonic, 0) + 1
+            loop_stores.append(stores)
     total: dict[str, int] = {}
     for op, _ in instrs:
         total[op] = total.get(op, 0) + 1
-    return {"instructions": len(instrs), "opcodes": total, "loops": loops}
+    return {"instructions": len(instrs), "opcodes": total, "loops": loops,
+            "loop_stores": loop_stores}
+
+
+def store_bits(mnemonic: str) -> int:
+    """The bits one SASS store writes a thread: ``STG.E.128`` 128,
+    ``STG.E.64`` 64, ``STG.E.U8`` 8, ``STG.E.U16`` 16, ``STG.E`` 32."""
+    mods = mnemonic.split(".")[1:]
+    for mod, bits in (("128", 128), ("64", 64), ("U16", 16), ("S16", 16), ("U8", 8), ("S8", 8)):
+        if mod in mods:
+            return bits
+    return 32
 
 
 def threefry_sass_facts(build) -> dict | None:
-    """The threefry kernels as compiled: for each dtype, the integer
-    instructions on each integer pipe of the one loop that stores (one
-    element a trip: its STG count), per element, and the whole kernel's
-    (at w8a's grid, 45,451 / 256 blocks by 142 clients, each thread draws
-    one element, so its prologue runs once an element too).  None where no
-    cuobjdump is at hand."""
+    """The threefry kernels as compiled (:func:`threefry_loop_facts` of the
+    built library's SASS); None where no cuobjdump is at hand."""
     sass = cuobjdump_sass(build, "threefry")
-    if sass is None:
-        return None
-    out = {}
+    return None if sass is None else threefry_loop_facts(sass)
+
+
+def threefry_loop_facts(sass: str) -> dict:
+    """Each threefry kernel instantiation as compiled: the integer
+    instructions on each integer pipe of its main loop, per element, and
+    the whole kernel's.  The main loop is the one loop that holds the
+    kernel's widest store (``STG.E.128`` over a tail loop's ``STG.E``); its
+    elements a trip are its stores' bits over the element's (two 16-byte
+    stores of doubles: 4).  A tail loop stores only narrower, and its counts
+    are listed apart.  Keyed by dtype for the instantiation with the most
+    counters a thread (``Li4E`` in the mangled name), ``float32_counters_1``
+    for another, ``float32_small`` for the small route's kernel."""
+    found = []
     for name, lines in sass_functions(sass).items():
-        if "threefry_uniform_kernel" not in name:
+        if not re.search(r"threefry_uniform_(small_)?kernel", name):
             continue
+        elem_bits = 64 if "ILb1E" in name else 32
+        dtype = ("float64" if elem_bits == 64 else "float32") + (
+            "_small" if "small_kernel" in name else "")
+        counters = re.search(r"ILb[01]ELi(\d+)E", name)
         facts = sass_loops(lines)
-        storing = [lp for lp in facts["loops"] if any(op.startswith("STG") for op in lp["opcodes"])]
-        check(len(storing) == 1, f"threefry SASS: {len(storing)} loops store in {name}")
-        ops, kernel_ops = storing[0]["opcodes"], facts["opcodes"]
-        stores = sum(n for op, n in ops.items() if op.startswith("STG"))
-        out["float64" if "ILb1E" in name else "float32"] = {
-            "function": name, "loop": storing[0], "stores": stores,
-            "int_alu_per_elem": sum(ops.get(o, 0) for o in INT_ALU_OPCODES) / stores,
-            "int_fma_per_elem": sum(ops.get(o, 0) for o in INT_FMA_OPCODES) / stores,
+        storing = [(lp, st) for lp, st in zip(facts["loops"], facts["loop_stores"]) if st]
+        check(bool(storing), f"threefry SASS: no loop stores in {name}")
+        widest = max(store_bits(m) for _, st in storing for m in st)
+        main = [(lp, st) for lp, st in storing if any(store_bits(m) == widest for m in st)]
+        check(len(main) == 1, f"threefry SASS: {len(main)} loops hold the widest store in {name}")
+        (loop, stores), tails = main[0], [lp for lp, st in storing if (lp, st) != main[0]]
+        elements = sum(n * store_bits(m) // elem_bits for m, n in stores.items())
+        ops, kernel_ops = loop["opcodes"], facts["opcodes"]
+        found.append((dtype, int(counters.group(1)) if counters else 1, {
+            "function": name, "loop": loop, "stores": stores, "elements_per_trip": elements,
+            "int_alu_per_elem": sum(ops.get(o, 0) for o in INT_ALU_OPCODES) / elements,
+            "int_fma_per_elem": sum(ops.get(o, 0) for o in INT_FMA_OPCODES) / elements,
+            "tail_loops": tails,
             "kernel_instructions": facts["instructions"],
             "kernel_int_alu": sum(kernel_ops.get(o, 0) for o in INT_ALU_OPCODES),
-            "kernel_int_fma": sum(kernel_ops.get(o, 0) for o in INT_FMA_OPCODES)}
-    check(sorted(out) == ["float32", "float64"], f"threefry SASS: kernels {sorted(out)}")
+            "kernel_int_fma": sum(kernel_ops.get(o, 0) for o in INT_FMA_OPCODES)}))
+    most = {dtype: max(c for d, c, _ in found if d == dtype) for dtype, _, _ in found}
+    out = {dtype if counters == most[dtype] else f"{dtype}_counters_{counters}": facts
+           for dtype, counters, facts in found}
+    check({"float32", "float64"} <= set(out), f"threefry SASS: kernels {sorted(out)}")
     return out
 
 
@@ -4227,7 +4293,11 @@ def main() -> int:
         syrk_l2_bytes,
         syrk_schedule,
     )
-    from repro_torch.kernels.threefry import threefry_uniform_cuda, threefry_uniform_plain
+    from repro_torch.kernels.threefry import (
+        threefry_launch_plan,
+        threefry_uniform_cuda,
+        threefry_uniform_plain,
+    )
     from repro_torch.linalg import triu_size
     from repro_torch.models import cast_for_compute, init_decode_cache, lm_decode_step
     from repro_torch.objectives.logreg import logreg_oracles_packed
@@ -4424,6 +4494,9 @@ def main() -> int:
         "t_is_1": (round_keys[0], 1),
         "one_client": (round_keys[1][:1], t_len),
         "many_clients_t_3000": (wide_keys, 3000),
+        # T = 4097 odd: every row's aligned runs leave a head or a tail (f32
+        # up to 3 elements, f64 one) to the kernel's tail loop
+        "edge_every_row_t_4097": (wide_keys[:300], 4097),
     }
     threefry_report, threefry_err = {}, {torch.float32: 0.0, torch.float64: 0.0}
     for name, (keys_np, tt) in threefry_cases.items():
@@ -4652,6 +4725,27 @@ def main() -> int:
         })
         for name, dt in (("float32", torch.float32), ("float64", torch.float64))
     }
+    # the star's one-client draw (2,130 launches in phase 10's PP RandK and
+    # phase 11's tree RandK), and the kernel's device time at both shapes
+    keys_one = keys_on_card(round_keys[1][:1])
+    threefry_one_ms = {
+        name: median_ms({
+            "kernel": lambda dt=dt: threefry_uniform_cuda(keys_one, t_len, dt),
+            "plain": lambda dt=dt: threefry_uniform_plain(keys_one, t_len, dt),
+            "library": lambda dt=dt: torch.rand((1, t_len), dtype=dt, device=dev),
+        })
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64))
+    }
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        graphed = graph_median_ms({
+            "round": lambda dt=dt: threefry_uniform_cuda(keys_round, t_len, dt),
+            "one_client": lambda dt=dt: threefry_uniform_cuda(keys_one, t_len, dt)})
+        threefry_ms[name]["kernel_graph"] = graphed["round"]
+        threefry_one_ms[name]["kernel_graph"] = graphed["one_client"]
+    threefry_plans = {
+        f"{name}_{dt}": threefry_launch_plan(n, t_len, getattr(torch, dt), dev)
+        for name, n in (("w8a_round", n_clients), ("one_client", 1))
+        for dt in ("float32", "float64")}
     unif_keys = threefry_uniform_cuda(keys_round, t_len, torch.float32)
     by_keys_ms = median_ms({
         "kernel": lambda: select_topk_by_keys_cuda(delta1, unif_keys, k),
@@ -4729,11 +4823,12 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = sm_clock_hz()
     int_pipe_per_s = INT32_PIPE_PER_SM_CLOCK * sms * clock_hz
-    threefry_bound, threefry_parts = {}, {}
+    threefry_bound, threefry_parts, threefry_one_bound = {}, {}, {}
     for name, size in (("float32", 4), ("float64", 8)):
         busier_pipe = max(THREEFRY_XORS_PER_ELEM[name], THREEFRY_INT_INSTRS_PER_ELEM[name] / 2)
         nbytes = n_clients * 8 + draws * size
         threefry_bound[name] = bound(nbytes, busier_pipe * draws, int_pipe_per_s)
+        threefry_one_bound[name] = bound(8 + t_len * size, busier_pipe * t_len, int_pipe_per_s)
         threefry_parts[name] = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                                 "operations": busier_pipe * draws / int_pipe_per_s * 1e3,
                                 "busier_pipe_ops_per_elem": busier_pipe}
@@ -4771,8 +4866,11 @@ def main() -> int:
                   "f32 keys, the ranking part only"})
     emit({"phase": "times", "threefry_uniform": threefry_ms, "select_topk_by_keys": by_keys_ms,
           "shape": [n_clients, t_len], "k": k,
+          "threefry_uniform_one_client": threefry_one_ms, "threefry_plans": threefry_plans,
           "bound_ms": {"threefry_float32": threefry_bound["float32"],
                        "threefry_float64": threefry_bound["float64"],
+                       "threefry_one_client_float32": threefry_one_bound["float32"],
+                       "threefry_one_client_float64": threefry_one_bound["float64"],
                        "select_topk_by_keys": by_keys_bound},
           "threefry_bound_parts_ms": threefry_parts,
           "threefry_sass": threefry_sass or "not measured (no cuobjdump beside nvcc)",
@@ -4785,7 +4883,10 @@ def main() -> int:
                   "threefry's bound: its stores, or the least integer instructions its "
                   f"function needs per element ({THREEFRY_INT_INSTRS_PER_ELEM}) over the two "
                   "integer pipes (INT32; IMAD on the FMA pipe), 64 a clock per SM each; "
-                  "threefry_sass: the kernel's loop as compiled, per element and pipe"})
+                  "threefry_sass: each instantiation's main loop as compiled, per element "
+                  "and pipe; kernel_graph: the same calls in a CUDA graph (device time, no "
+                  "host time); threefry_plans: counters a thread, elements a run, tiles a "
+                  "row, tiles, tail slots, blocks, resident blocks a SM, small route"})
     emit({"phase": "times", "flash_attention": flash_ms,
           "shape": [1, seq, 32, 8, 64], "causal": True, "dtype": "bfloat16",
           "route": tfa.flash_route(torch.bfloat16, 64),
@@ -4969,6 +5070,12 @@ def main() -> int:
             "ms": threefry_ms["float32"]["kernel"], "plain_ms": threefry_ms["float32"]["plain"],
             "bound_ms": threefry_bound["float32"][0], "bound_by": threefry_bound["float32"][1],
             "library_ms": threefry_ms["float32"]["library"],
+            "graph_ms": threefry_ms["float32"]["kernel_graph"],
+            "one_client_ms": threefry_one_ms["float32"]["kernel"],
+            "one_client_graph_ms": threefry_one_ms["float32"]["kernel_graph"],
+            "one_client_bound_ms": threefry_one_bound["float32"][0],
+            "one_client_plain_ms": threefry_one_ms["float32"]["plain"],
+            "one_client_library_ms": threefry_one_ms["float32"]["library"],
         },
         {
             "name": "threefry_uniform_float64", "route": "cuda",
@@ -4981,6 +5088,12 @@ def main() -> int:
             "ms": threefry_ms["float64"]["kernel"], "plain_ms": threefry_ms["float64"]["plain"],
             "bound_ms": threefry_bound["float64"][0], "bound_by": threefry_bound["float64"][1],
             "library_ms": threefry_ms["float64"]["library"],
+            "graph_ms": threefry_ms["float64"]["kernel_graph"],
+            "one_client_ms": threefry_one_ms["float64"]["kernel"],
+            "one_client_graph_ms": threefry_one_ms["float64"]["kernel_graph"],
+            "one_client_bound_ms": threefry_one_bound["float64"][0],
+            "one_client_plain_ms": threefry_one_ms["float64"]["plain"],
+            "one_client_library_ms": threefry_one_ms["float64"]["library"],
         },
         {
             "name": "select_topk_by_keys", "route": "cuda",

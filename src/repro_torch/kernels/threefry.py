@@ -26,6 +26,8 @@ _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p)
 _SYMBOLS = {torch.float32: "threefry_uniform_f32", torch.float64: "threefry_uniform_f64"}
+PLAN_FIELDS = ("counters", "run", "tiles_per_row", "tiles", "tail_slots", "blocks", "per_sm",
+               "small")
 
 
 def _check(name: str, keys: torch.Tensor, t: int, dtype: torch.dtype) -> int:
@@ -60,15 +62,40 @@ def _check(name: str, keys: torch.Tensor, t: int, dtype: torch.dtype) -> int:
 # pipes.  Only the xors must take the INT32 pipe (a rotation is also an
 # IMAD.WIDE, an add an IMAD), so at best each pipe takes half: 34.5
 # instructions an element, ~13 us at w8a at 132 SMs and 1.98 GHz.
-# chip_smoke.py's phase 6 prices that at the card's clock and prints the
-# compiled loop's counts on each pipe beside it (PERF.md).
+# chip_smoke.py's phase 6 prices that at the card's clock and prints each
+# instantiation's compiled main loop, per element and pipe, beside it.
 #
-# What the design does about it: one thread per element, neighbouring
-# threads on neighbouring counters so the stores coalesce; a block row per
-# client reads the client's two key words once into registers; the 20 rounds
-# are unrolled in registers with each rotation one ``__funnelshift_l``; the
-# float is built from the bits as jax builds it (the top mantissa bits OR the
-# exponent of 1.0, minus 1.0, rounded to nearest, no contraction).
+# What the design does about it (``csrc/threefry.cu``; its choices are the
+# constants at the top of the file, and ``scripts/threefry_probe.py`` times
+# variants of them and the parent's kernel in turns; PERF.md section 6):
+# - 4 counters a thread, hashed interleaved, so one counter's serial chain
+#   of add -> rotate -> xor hides another's latency;
+# - a client's constants (k0, k1, k2, the five injections into x1) once a
+#   thread a row: a block walks a contiguous share of the rows' tiles (a
+#   tile: 256 threads' runs of one row), and the grid is the tiles or the
+#   SMs' resident blocks, whichever is fewer, not one block per 256
+#   elements of a row;
+# - the counter's high word folded away: it is 0 for every T below 2**32,
+#   which the CUDA wrapper holds (the plain version keeps the general form);
+# - a thread's run is one aligned 16-byte vector of the output (four floats,
+#   two doubles), so a warp stores 512 contiguous bytes in one instruction;
+#   rows at odd T are not aligned, so the elements before a row's first
+#   aligned run and after its last (at most 3 at f32, 1 at f64) go to a
+#   scalar tail loop in the same launch, from the last block back (the
+#   blocks with a tile fewer);
+# - the pipes steered: every add, the key injections' too, and the float's
+#   words as IMAD (``x * one + y``, ``one`` a kernel argument the compiler
+#   cannot fold back into IADD3), the rotations and xors on the INT32 pipe:
+#   about 42 and 33 instructions an element, against the parent's 51 and
+#   27.  IMAD.WIDE and IMAD.HI issue at half rate on the H100 (the probe's
+#   rates), so a rotation as IMAD.WIDE costs two FMA slots to save one INT32
+#   slot; every such mix measured was slower;
+# - max(0, f) left out: f = 1.m - 1 is exact and >= +0, so it is the
+#   identity and the bits stay jax's (the plain version keeps it);
+# - a draw of at most 2 elements a resident thread (one client of w8a:
+#   45,451; phishing's round) takes the small route: one element a thread,
+#   a row of 256-thread blocks a client, as the parent's kernel cut every
+#   draw, so it keeps its warps and its short prologue.
 # ---------------------------------------------------------------------------
 
 
@@ -98,6 +125,9 @@ def threefry_uniform_plain(keys: torch.Tensor, t: int, dtype: torch.dtype) -> to
 def threefry_uniform_cuda(keys: torch.Tensor, t: int, dtype: torch.dtype) -> torch.Tensor:
     """Launch the threefry kernel on the keys' device and current stream."""
     n_clients = _check("threefry_uniform", keys, t, dtype)
+    if t >= 2**32:
+        raise ValueError(
+            f"threefry_uniform_cuda draws T < 2**32 (a counter's high word of 0), got {t}")
     if not keys.is_cuda or not keys.is_contiguous():
         raise ValueError(f"need contiguous CUDA keys, got keys on {keys.device}")
     out = torch.empty((n_clients, t), dtype=dtype, device=keys.device)
@@ -116,3 +146,21 @@ def threefry_uniform_cuda(keys: torch.Tensor, t: int, dtype: torch.dtype) -> tor
 threefry_uniform_cuda.launches = 0
 # launches by dtype since the last reset (ops.reset_launch_counts)
 threefry_uniform_cuda.dtype_launches = {"float32": 0, "float64": 0}
+
+
+def threefry_launch_plan(n_clients: int, t: int, dtype: torch.dtype,
+                         device: torch.device) -> dict[str, int]:
+    """How the CUDA kernel's launcher cuts a draw of (n_clients, t) on the
+    card ``device`` (its SM count and occupancy): counters a thread, elements
+    a run (one vector store), tiles a row, tiles, tail slots, blocks,
+    resident blocks a SM, and ``small`` 1 for the small route (one element a
+    thread) or 0 for the main one (``csrc/threefry.cu``)."""
+    if dtype not in _SYMBOLS or not 0 < t < 2**32 or n_clients <= 0:
+        raise ValueError(f"threefry_launch_plan: bad draw ({n_clients}, {t}) {dtype}")
+    fn = build.function("threefry", "threefry_uniform_plan",
+                        (ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p))
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        code = fn(int(dtype == torch.float64), n_clients, t, ctypes.addressof(out))
+    build.check_launch("threefry_launch_plan", code)
+    return dict(zip(PLAN_FIELDS, out))

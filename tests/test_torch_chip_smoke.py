@@ -113,12 +113,58 @@ SASS = """
         /*0060*/                   EXIT ;                                   /* 0x000000000000794d */
 """
 
+# the redesigned kernel's shape: per instantiation (dtype, counters a thread)
+# a main loop of 16-byte stores (four floats, or two doubles twice) and a
+# scalar tail loop; the one-counter instantiation stores one float a trip
+SASS_VECTOR = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_123threefry_uniform_kernelILb0ELi4EEEvPKjPvijjxNS_5MultsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
+.L_x_3:
+        /*0010*/                   IMAD R5, R2, c[0x0][0x180], R7 ;         /* 0x0000600002057a24 */
+        /*0020*/                   IMAD.WIDE.U32 R8, R5, c[0x0][0x184], RZ ; /* 0x0000610005087a25 */
+        /*0030*/                   LOP3.LUT R6, R8, R9, R5, 0xf6, !PT ;     /* 0x0000000908067212 */
+        /*0040*/                   SHF.L.W.U32.HI R7, R6, 0xf, R6 ;         /* 0x0000000f06077819 */
+        /*0050*/                   LOP3.LUT R7, R7, R5, RZ, 0x3c, !PT ;     /* 0x0000000507077212 */
+        /*0060*/                   IMAD.HI.U32 R10, R7, c[0x0][0x1a4], R12 ; /* 0x0000690007107a27 */
+        /*0070*/                   STG.E.128 desc[UR4][R2.64], R8 ;         /* 0x0000000802007986 */
+        /*0080*/                   IADD3 R4, R4, -0x1, RZ ;                 /* 0xffffffff04047810 */
+        /*0090*/                   ISETP.NE.AND P0, PT, R4, RZ, PT ;        /* 0x000000ff0400720c */
+        /*00a0*/               @P0 BRA `(.L_x_3) ;                          /* 0xfffffffc00fc0947 */
+.L_x_4:
+        /*00b0*/                   IADD3 R5, R2, R7, RZ ;                   /* 0x0000000702057210 */
+        /*00c0*/                   STG.E desc[UR4][R2.64], R8 ;             /* 0x0000000802007986 */
+        /*00d0*/                   ISETP.GE.AND P0, PT, R6, R9, PT ;        /* 0x000000090600720c */
+        /*00e0*/              @!P0 BRA `(.L_x_4) ;                          /* 0xfffffffc00fc8947 */
+        /*00f0*/                   EXIT ;                                   /* 0x000000000000794d */
+\t\tFunction : _ZN12_GLOBAL__N_123threefry_uniform_kernelILb0ELi1EEEvPKjPvijjxNS_5MultsE
+.L_x_5:
+        /*0000*/                   IADD3 R5, R2, R7, RZ ;                   /* 0x0000000702057210 */
+        /*0010*/                   IMAD R6, R5, c[0x0][0x180], R5 ;         /* 0x0000600005067a24 */
+        /*0020*/                   STG.E desc[UR4][R2.64], R8 ;             /* 0x0000000802007986 */
+        /*0030*/               @P0 BRA `(.L_x_5) ;                          /* 0xfffffffc00fc0947 */
+        /*0040*/                   EXIT ;                                   /* 0x000000000000794d */
+\t\tFunction : _ZN12_GLOBAL__N_123threefry_uniform_kernelILb1ELi4EEEvPKjPvijjxNS_5MultsE
+.L_x_6:
+        /*0000*/                   IMAD R5, R2, c[0x0][0x180], R7 ;         /* 0x0000600002057a24 */
+        /*0010*/                   LOP3.LUT R6, R8, R9, R5, 0xf6, !PT ;     /* 0x0000000908067212 */
+        /*0020*/                   STG.E.128 desc[UR4][R2.64], R8 ;         /* 0x0000000802007986 */
+        /*0030*/                   STG.E.128 desc[UR4][R2.64+0x1000], R12 ; /* 0x0010000c02007986 */
+        /*0040*/               @P0 BRA `(.L_x_6) ;                          /* 0xfffffffc00fc0947 */
+.L_x_7:
+        /*0050*/                   IADD3 R5, R2, R7, RZ ;                   /* 0x0000000702057210 */
+        /*0060*/                   STG.E.64 desc[UR4][R2.64], R8 ;          /* 0x0000000802007986 */
+        /*0070*/               @P1 BRA `(.L_x_7) ;                          /* 0xfffffffc00fc1947 */
+        /*0080*/                   EXIT ;                                   /* 0x000000000000794d */
+"""
+
 
 def test_sass_loops_counts_each_innermost_loop(monkeypatch):
     """Labels or absolute addresses as branch targets, predicates dropped,
     opcodes without their modifiers; the self-branch after EXIT is a loop
     of one instruction and holds no store; threefry_sass_facts reads the
-    storing loop of each kernel."""
+    storing loop of each kernel, and of the redesigned kernel's the main
+    loop beside a scalar tail loop."""
     cs = _chip_smoke()
     kernels = cs.sass_functions(SASS)
     assert sorted(kernels) == [
@@ -138,3 +184,35 @@ def test_sass_loops_counts_each_innermost_loop(monkeypatch):
     assert (facts["float32"]["int_alu_per_elem"], facts["float32"]["int_fma_per_elem"]) == (3, 1)
     assert (facts["float64"]["int_alu_per_elem"], facts["float64"]["int_fma_per_elem"]) == (1.5, 0)
     assert (facts["float32"]["kernel_int_alu"], facts["float32"]["kernel_int_fma"]) == (3, 2)
+
+    # the redesigned kernel: the main loop is the one that holds the widest
+    # store (STG.E.128 beside the tail loop's STG.E), its elements a trip
+    # the stores' bits over the element's; keyed by dtype for the most
+    # counters a thread, the one-counter instantiation apart
+    vec = cs.sass_loops(cs.sass_functions(SASS_VECTOR)[
+        "_ZN12_GLOBAL__N_123threefry_uniform_kernelILb0ELi4EEEvPKjPvijjxNS_5MultsE"])
+    assert [lp["instructions"] for lp in vec["loops"]] == [10, 4]
+    assert vec["loop_stores"] == [{"STG.E.128": 1}, {"STG.E": 1}]
+    assert [cs.store_bits(m) for m in ("STG.E.128", "STG.E.64", "STG.E", "STG.E.U8")] == [
+        128, 64, 32, 8]
+    monkeypatch.setattr(cs, "cuobjdump_sass", lambda build, name: SASS_VECTOR)
+    facts = cs.threefry_sass_facts(build=None)
+    assert sorted(facts) == ["float32", "float32_counters_1", "float64"]
+    f32, f64, one = facts["float32"], facts["float64"], facts["float32_counters_1"]
+    assert (f32["elements_per_trip"], f64["elements_per_trip"], one["elements_per_trip"]) == (
+        4, 4, 1)
+    # main loop: IADD3, SHF, LOP3 x 2, ISETP on the INT32 pipe; IMAD,
+    # IMAD.WIDE, IMAD.HI on the FMA pipe
+    assert (f32["int_alu_per_elem"], f32["int_fma_per_elem"]) == (5 / 4, 3 / 4)
+    assert f32["stores"] == {"STG.E.128": 1}
+    assert f32["tail_loops"] == [{"instructions": 4, "opcodes": {
+        "IADD3": 1, "STG": 1, "ISETP": 1, "BRA": 1}}]
+    assert (f64["int_alu_per_elem"], f64["int_fma_per_elem"]) == (1 / 4, 1 / 4)
+    assert len(f64["tail_loops"]) == 1
+    assert (one["int_alu_per_elem"], one["int_fma_per_elem"]) == (1, 1)
+    assert one["tail_loops"] == []
+    # two loops with the widest store: no main loop to name
+    monkeypatch.setattr(cs, "cuobjdump_sass", lambda build, name: SASS_VECTOR.replace(
+        "STG.E desc[UR4][R2.64], R8 ;        ", "STG.E.128 desc[UR4][R2.64], R8 ;    "))
+    with pytest.raises(RuntimeError, match="widest store"):
+        cs.threefry_sass_facts(build=None)

@@ -663,6 +663,23 @@ def test_cuda_wrappers_refuse_before_building():
     assert tops.launch_counts() == NO_LAUNCHES
 
 
+def test_threefry_cuda_wrapper_refuses_t_past_2_to_32():
+    """The CUDA wrapper takes T < 2**32 only (the kernel folds the counter's
+    high word, 0 below it) and says so before it looks at the keys' device;
+    the plain version keeps the general form (checked at T = 0 here: the
+    shape alone)."""
+    keys = torch.zeros(2, 2, dtype=torch.int32)
+    for t in (2**32, 2**32 + 5, 2**40):
+        with pytest.raises(ValueError, match=r"2\*\*32"):
+            tth.threefry_uniform_cuda(keys, t, torch.float32)
+        with pytest.raises(ValueError, match=r"2\*\*32"):
+            tth.threefry_uniform_cuda(keys, t, torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tth.threefry_uniform_cuda(keys, 2**32 - 1, torch.float32)
+    assert tth.threefry_uniform_plain(keys, 0, torch.float64).shape == (2, 0)
+    assert tops.launch_counts() == NO_LAUNCHES
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (on a card)
 # ---------------------------------------------------------------------------
@@ -861,10 +878,23 @@ def _client_keys(n_clients, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n_clients,t", [(142, 45451), (1, 1), (3, 1), (1, 300), (2, 70001)])
+@pytest.mark.parametrize("n_clients,t", [
+    (142, 45451), (1, 1), (3, 1), (1, 300), (2, 70001),
+    # T mod 4 (the counters a thread) = 1, 2, 3 on the main route
+    (142, 45449), (142, 45450), (300, 4099),
+    # T below one thread's run of 4: on the small route (a few rows), and on
+    # the main route (enough rows), a run and a tail
+    (1000, 1), (1000, 2), (1000, 3), (300, 5), (300, 6),
+    (200000, 3), (150000, 5), (100000, 6),
+    # the sweep's rows; a9a's and phishing's rounds; the star's one client
+    (568, 45451), (142, 7750), (142, 2415), (1, 45451),
+])
 def test_threefry_kernel_bit_exact_cuda(cuda, dtype, n_clients, t):
     """The threefry kernel against its plain version, bit for bit, at w8a's
-    round shape, T = 1, one client and a T past 2**16."""
+    round shape, T = 1, one client and a T past 2**16; at T mod 4 = 1, 2, 3
+    and T below a thread's run of 4 counters (the rows' heads and tails
+    outside the aligned runs); at the sweep's 568 rows, a9a's and
+    phishing's T and the star's one-client draw."""
     _, keys = _client_keys(n_clients, seed=t)
     kt = keys.to(cuda)
     before = tth.threefry_uniform_cuda.launches
@@ -879,6 +909,30 @@ def test_threefry_kernel_bit_exact_cuda(cuda, dtype, n_clients, t):
     bits = torch.int32 if dtype == torch.float32 else torch.int64
     assert torch.equal(got.view(bits), want.view(bits))
     assert bool((got >= 0).all()) and bool((got < 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_threefry_launch_plan_cuda(cuda, dtype):
+    """The launcher's cut on the card: w8a's round on the main route (4
+    counters a thread, 16-byte runs, a tail slot for each element a row
+    can leave outside its runs), the star's one-client draw on the small
+    route (one element a thread, a block per 256 elements), and T below a
+    run on the main route where the rows are many enough; the blocks never
+    more than the card holds at once on the main route."""
+    run = 4 if dtype == torch.float32 else 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    w8a = tth.threefry_launch_plan(142, 45451, dtype, cuda)
+    assert (w8a["small"], w8a["counters"], w8a["run"]) == (0, 4, run)
+    assert w8a["tail_slots"] == 142 * 2 * (run - 1)
+    assert w8a["tiles"] == 142 * w8a["tiles_per_row"]
+    assert w8a["blocks"] <= sms * w8a["per_sm"]
+    one = tth.threefry_launch_plan(1, 45451, dtype, cuda)
+    assert (one["small"], one["counters"], one["blocks"]) == (1, 1, -(-45451 // 256))
+    tiny = tth.threefry_launch_plan(200000, 3, dtype, cuda)
+    assert tiny["small"] == 0 and tiny["tail_slots"] == 200000 * 2 * (run - 1)
+    with pytest.raises(ValueError, match="bad draw"):
+        tth.threefry_launch_plan(1, 2**32, dtype, cuda)
 
 
 def quantized_keys(n_rows, t, levels, seed):
