@@ -14,11 +14,25 @@ flash attention's hand-written backward), and the roofline of every
 full-width run
 (repro_torch.roofline: counted flops and bytes, mfu).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases train,zoo]
 
 Runs from the root of a checkout; imports ``repro_torch`` from ``src/`` and
 nothing of ``repro`` or JAX.  Each phase prints one JSON line; any failure
-raises, and the script exits non-zero without the final line.
+raises, and the script exits non-zero without the final line.  Without
+``--phases`` every phase runs, in the order below; with it the card, the
+build and the named phases (PHASES' names: each is the "phase" of its
+lines) with those they need (PHASE_NEEDS), a line naming them, and for a
+phase that only compares with another's numbers the parts it skipped; no
+kernels line, which needs them all.  An unknown name exits 2.  The CPU
+side of each card-versus-CPU check at full width (lm, each zoo family's
+(a), each train cell's (b)) runs in one spawned CPU process (CpuSide: the
+card's params handed over as CUDA IPC handles and copied into the
+worker's own memory, the batch beside them; its threads all cores but
+CPU_SIDE_SPARE_CORES, this process's the rest meanwhile) while the card
+goes on with that cell, and is held to the same bounds before the cell
+ends; FedNL's CPU runs of phases 4, 10 (c) and 11 (c), (d) queue in the
+same worker and are checked at the end of phase 4, after phase 11 and
+after phase 12.  The run line gives each phase's seconds.
 
   1 card     name, count, power limit (nvidia-smi), torch and CUDA versions
   2 build    nvcc of every kernel source, in parallel; seconds and ptxas report
@@ -54,7 +68,10 @@ raises, and the script exits non-zero without the final line.
              rounds); launch counts, the grad norm falls, and the first 3
              rounds' grad norms (PP: models), sent_bits, LS's steps and PP's
              clients against the same spec on the CPU (plain versions; the
-             same threefry draws)
+             same threefry draws); then a9a and phishing (OTHER_DATASETS,
+             the synthetic generator at their published shapes) with TopK,
+             TopLEK (tol 1e-12, <= 50 rounds) and RandSeqK (30 rounds), the
+             same checks, rounds, bits a round and ms a round
   5 lm       granite-3-2b at full width: 2 layers (depth cut) on the card
              against the same params on the CPU, prefill B = 2, S = 512 and 4
              decode steps, within LOGIT_ULPS bf16 ulps of the logit scale;
@@ -112,7 +129,9 @@ raises, and the script exits non-zero without the final line.
              SYRK's ptxas report, dynamic shared
              memory,
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
-             schedule stages
+             schedule stages; SYRK, TopK, RandSeqK and TopLEK at a9a's and
+             phishing's round shapes, each against its plain version first
+             (fednl_round_times)
   7 trace    one round each of the TopK, RandK and PP paths under
              torch.cuda.set_sync_debug_mode("error") (no host sync: the
              Cholesky solve checks nothing); torch.profiler over 3 rounds of
@@ -140,16 +159,18 @@ raises, and the script exits non-zero without the final line.
              (B 2, S 4,096, H 32, Kv 8, dh 64, causal), recurrentgemma-2b's
              (H 10, Kv 1, dh 256, causal window 2048; the dkdv kernel's
              cluster split and waves), seamless-m4t-large-v2's (H 16, Kv 16,
-             dh 64, non-causal) and llava-next-mistral-7b's (S 576 + 4,096,
-             H 32, Kv 8, dh 128, causal window 4096), each held as the
-             fixtures and timed
+             dh 64, non-causal), llava-next-mistral-7b's (S 576 + 4,096,
+             H 32, Kv 8, dh 128, causal window 4096) and the dense configs'
+             (DENSE_TRAIN_LAYER: H/Kv 32/2, 48/8, 56/8, dh 128, causal, no
+             window), each held as the fixtures and timed
              beside the plain versions and SDPA's forward and backward (the
              window as a boolean mask, the kv heads repeated), with the
              bounds on the tensor cores and the CUDA cores, the 13-product
              floor and the products the kernels run; then for each of
              TRAIN_CELLS (granite-3-2b, recurrentgemma-2b,
              granite-moe-1b-a400m, mamba2-2.7b, seamless-m4t-large-v2,
-             llava-next-mistral-7b), each freed before the next: (b) full
+             llava-next-mistral-7b, chatglm3-6b, nemotron-4-15b, yi-34b),
+             each freed before the next: (b) full
              width at 2 layers (recurrentgemma-2b: 3, one of them
              attention; seamless: 2 encoder and 2 decoder layers), B 1, S
              512 (llava: after 576 image embeddings; seamless: a 512-frame
@@ -157,16 +178,20 @@ raises, and the script exits non-zero without the final line.
              and the CPU agrees before each row's first difference, a near
              tie, for half its labels, the rest masked, with both runs'
              routing tables): the loss and every leaf's gradient on the
-             card against the CPU (1e-3, 2e-2 relative L2), the launches of
+             card against the CPU (1e-3, 2e-2 relative L2; the CPU's in
+             the worker during (c), checked after it), the launches of
              expected_train_launches on the wgmma route, and a train step
              run twice from one state, bit for bit; (c) full width and
-             depth (llava: 12 of its 32 layers): 6 steps (the last four
-             cells: 4, for the run's time) of make_train_step (accum 2, B 4,
+             depth (llava: 12 of its 32 layers; the dense configs at
+             DENSE_TRAIN_LAYERS, the deepest whose peak fits 80 GB): 6 steps
+             (the cells after the first two: 4, for the run's time) of
+             make_train_step (accum 2, B 4,
              S 4,096, remat "full", AdamW lr 1e-3) with exactly
              expected_train_launches' flash launches
              a step (granite-3-2b 160 + 80 + 80, recurrentgemma-2b 32 + 16
              + 16, granite-moe 96 + 48 + 48, mamba2 none, seamless 288 +
-             144 + 144, llava 48 + 24 + 24), all on the wgmma route, and
+             144 + 144, llava 48 + 24 + 24, 4 + 2 + 2 a layer for the dense
+             configs), all on the wgmma route, and
              nothing else, the loss falling, ms per step, tokens/s, peak
              memory under 80 GB, the last step profiled by kind of kernel
              (the flash backward's share), AdamW's update timed alone; (d)
@@ -306,8 +331,9 @@ raises, and the script exits non-zero without the final line.
              the steps from repro_torch.launch.specs.build_dryrun): the
              datasheet's ceilings (H100_SXM bf16, H100_SXM_FP64) and this
              card's measured ones (measure_machine: an 8192 GEMM and a copy,
-             bf16 and f64); the train phase's six train steps (train_4k
-             cut to B 4, accum 2; llava at 12 layers) and the 32k prefills of
+             bf16 and f64); the train phase's nine train steps (train_4k
+             cut to B 4, accum 2; llava at 12 layers, the dense configs at
+             DENSE_TRAIN_LAYERS) and the 32k prefills of
              granite-3-2b and the zoo's eight configs (prefill_32k cut to B
              1; yi-34b at the zoo's 28 layers), each counted on meta in
              ROOFLINE_WORKERS spawned processes
@@ -342,6 +368,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -393,9 +420,14 @@ INT_ALU_OPCODES = frozenset({"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SH
                              "BREV", "BMSK", "SGXT", "ICMP"})
 INT_FMA_OPCODES = frozenset({"IMAD", "IMUL", "IDP"})
 PP_TAU = 71  # FedNL-PP's participants per round at w8a: half the 142 clients
+# phase 4 also solves these with TopK, TopLEK and RandSeqK, and phase 6 times
+# the round's kernels at their shapes (the synthetic generator at the
+# published (d, clients, n_i): a9a (124, 142, 229), phishing (69, 142, 77))
+OTHER_DATASETS = ("a9a", "phishing")
 
 SYRK_TOL = 1e-13  # of max(|Z|^T |h| |Z|): FP64 sums of n_i = 348 terms, any order
 TRAJECTORY_RTOL = 1e-8  # card vs CPU grad norms over the first 3 rounds
+MAIN_CPU_ROUNDS = 3  # phase 4: the rounds of each path's CPU run
 TOPLEK_BOUNDARY = 1e-12  # TopLEK's allowed difference: alpha_m* this near k/T, or unif near p
 DRAW_REPS = 200  # host draw timing: rounds of draws averaged
 TIMED_REPS = 21  # event pairs per function; the median is reported
@@ -424,6 +456,7 @@ LM_CUT_LAYERS = 2  # the card-vs-CPU check's depth cut (granite has 40)
 # the repo's shapes (repro_torch.launch.specs.SHAPES) as one card runs them:
 # prefill_32k's global batch of 32 and train_4k's of 256 cut to these
 CUT_BATCH = {"prefill_32k": 1, "train_4k": 4}
+BY_PREFILL = "the lm and zoo phases: host clock around one synchronised 32k prefill"
 ONE_CARD = {"data": 1, "model": 1}  # the mesh axes of one card (build_dryrun)
 SWEEP_ROUNDS = 50  # the README's sweep: ExperimentSpec(..., rounds=50).grid(...)
 SWEEP_GN_FLOOR = 1e-10  # group vs solve() grad norms compared where the solve's is above
@@ -486,6 +519,323 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# the phases in the order a run without --phases runs them all; each name is
+# the "phase" of its lines
+PHASES = ("kernels", "main", "lm", "times", "trace", "zoo", "train", "mesh", "sweep", "session",
+          "star", "topology", "serve", "sharded", "roofline")
+# what a phase cannot run without: selecting it runs these too.  A phase that
+# only compares with another's numbers runs without it and names the parts
+# it skipped (the selection line's skipped_parts)
+PHASE_NEEDS = {"times": ("kernels",), "trace": ("kernels", "main"), "topology": ("star",)}
+
+
+def select_phases(argv: list[str] | None) -> tuple[str, ...]:
+    """The phases ``--phases a,b`` selects with those they need, in PHASES'
+    order; all of them without the option.  An unknown name exits 2."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py", description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", help="comma-separated, of: " + ", ".join(PHASES))
+    names = parser.parse_args(argv).phases
+    if names is None:
+        return PHASES
+    chosen = {name.strip() for name in names.split(",") if name.strip()}
+    unknown = sorted(chosen - set(PHASES))
+    if unknown or not chosen:
+        parser.error(f"unknown phase {', '.join(unknown) or '(none given)'}; "
+                     f"choose from {', '.join(PHASES)}")
+    todo = list(chosen)
+    while todo:
+        for need in PHASE_NEEDS.get(todo.pop(), ()):
+            if need not in chosen:
+                chosen.add(need)
+                todo.append(need)
+    return tuple(name for name in PHASES if name in chosen)
+
+
+# the CPU worker leaves these cores to the driving process, whose host-bound
+# work (mamba2-2.7b's ~10^5 launches a step, the FedNL rounds) it overlaps.
+# A card's tensors reach the worker as CUDA IPC handles, and it copies them
+# to its own memory (hold_on_host): a host copy in shared memory first
+# faulted its pages in at ~0.4 GB/s on the H100's host (nemotron-4-15b's
+# 7.9 GB cut: 20.6 s), where a copy to a process's own memory runs at the
+# card's copy rate
+CPU_SIDE_SPARE_CORES = 1
+
+
+def _cpu_side_init(threads: int) -> None:
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+_HELD: dict = {}  # in the worker: its host copies, by key, between one job and the next
+
+
+def hold_on_host(key: str, tree) -> float:
+    """CpuSide job: a host copy of ``tree`` (nested dicts of tensors; a
+    card's cross as CUDA IPC handles, a host's in shared memory) in this
+    process's own memory, kept under ``key`` for the next job; the handles
+    released before it returns.  Returns its seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+
+    def copy(t):
+        return {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else \
+            t.detach().to("cpu", copy=True)
+
+    _HELD[key] = copy(tree)
+    del tree
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.ipc_collect()
+    return time.perf_counter() - t0
+
+
+_LAST_RUN: list = [None]  # in the worker: the thread of the CPU side started last
+
+
+def start_run(fn, key: str, *args) -> None:
+    """CpuSide job: ``fn(key, *args)`` started in a thread of this process
+    that first waits for the one started before it, so that one CPU side
+    computes at a time while hand-overs and take-backs go on beside it;
+    returns at once.  collect_run(key) waits for it."""
+    import threading
+
+    before, box = _LAST_RUN[0], {}
+
+    def run():
+        if before is not None:
+            before.join()
+        try:
+            box["out"] = fn(key, *args)
+        except BaseException as err:  # noqa: BLE001 -- raised again by collect_run
+            box["err"] = err
+
+    thread = threading.Thread(target=run, name=f"cpu-side {key}", daemon=True)
+    thread.start()
+    _LAST_RUN[0] = thread
+    _HELD[key + "/run"] = (thread, box)
+
+
+def run_done(key: str) -> bool:
+    """CpuSide job: whether the CPU side started under ``key`` has ended."""
+    return not _HELD[key + "/run"][0].is_alive()
+
+
+def collect_run(key: str):
+    """CpuSide job: the result of the CPU side started under ``key``, once
+    it has ended; what it raised, raised again."""
+    thread, box = _HELD.pop(key + "/run")
+    thread.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def put_held(key: str, tree) -> float:
+    """CpuSide job: the tree held under ``key`` (taken) copied into
+    ``tree``'s tensors, leaf by leaf in sorted-key order, for the caller to
+    read (a card's through CUDA IPC).  Returns its seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    for (_, dst), (_, src) in zip(_named(tree), _named(_HELD.pop(key)), strict=True):
+        dst.copy_(src)
+    del tree
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.ipc_collect()
+    return time.perf_counter() - t0
+
+
+class CpuJob:
+    """A job handed to CpuSide's worker."""
+
+    def __init__(self, name: str, threads: int, future):
+        self.name, self.threads, self.future = name, threads, future
+        self.t_submit = time.perf_counter()
+
+    def result(self):
+        """(the job's result, {job, threads, seconds from submit to result,
+        seconds the caller waited}); raises what the job raised."""
+        t0 = time.perf_counter()
+        out = self.future.result()
+        now = time.perf_counter()
+        return out, {"job": self.name, "threads": self.threads,
+                     "submit_to_result_s": now - self.t_submit, "waited_s": now - t0}
+
+
+class CpuRun:
+    """A CPU side started in CpuSide's worker's run chain (start_run)."""
+
+    def __init__(self, side, name: str, key: str):
+        self.side, self.name, self.key = side, name, key
+        self.t_start = time.perf_counter()
+
+    def done(self) -> bool:
+        return self.side.submit(run_done, self.key).future.result()
+
+    def result(self):
+        """(its result, {job, threads, seconds from start to result, seconds
+        the caller waited}); raises what it raised."""
+        t0 = time.perf_counter()
+        out = self.side.submit(collect_run, self.key).future.result()
+        now = time.perf_counter()
+        return out, {"job": self.name, "threads": self.side.threads,
+                     "submit_to_result_s": now - self.t_start, "waited_s": now - t0}
+
+
+class CpuSide:
+    """One spawned CPU process that computes the CPU side of the card-versus-
+    CPU checks while the caller goes on with the card.  ``submit`` hands it
+    a job (a module-level function; tensors in shared memory cross as
+    handles, results come back the same way) and returns its CpuJob; jobs
+    run one at a time in the order submitted (FedNL's CPU runs queue so).
+    An LM cell's CPU side is ``start``-ed instead: it computes in a thread
+    of the worker after the one started before it, one at a time (the
+    largest holds tens of GB on the host), while the worker takes the next
+    cell's hand-over and the last one's take-back.  ``threads``: the
+    worker's torch threads."""
+
+    def __init__(self, threads: int | None = None):
+        cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+        self.threads = threads or max(1, (cores or 1) - CPU_SIDE_SPARE_CORES)
+        self._pool = None
+
+    def submit(self, fn, *args) -> CpuJob:
+        from concurrent.futures import ProcessPoolExecutor
+
+        import torch.multiprocessing as tmp
+
+        if self._pool is None:
+            self._pool = ProcessPoolExecutor(1, mp_context=tmp.get_context("spawn"),
+                                             initializer=_cpu_side_init, initargs=(self.threads,))
+        return CpuJob(fn.__name__, self.threads, self._pool.submit(fn, *args))
+
+    @contextlib.contextmanager
+    def same_threads(self):
+        """This process's torch threads those of the worker meanwhile: the
+        moe's routing recomputed here is then the worker's (a matmul's bits
+        on the CPU follow its thread count)."""
+        import torch
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(self.threads)
+        try:
+            yield
+        finally:
+            torch.set_num_threads(threads)
+
+    def start(self, fn, key: str, *args) -> CpuRun:
+        """``fn(key, *args)`` (a CPU side that reads what was handed over
+        under ``key``) started in the worker after the CPU sides started
+        before it; hand-overs and take-backs still go through meanwhile."""
+        self.submit(start_run, fn, key, *args).future.result()
+        return CpuRun(self, fn.__name__, key)
+
+    def hand_over(self, key: str, tree) -> float:
+        """The worker's own host copy of ``tree`` under ``key`` (hold_on_host),
+        waited for: the caller may then free or change ``tree``.  Returns the
+        seconds this took."""
+        import torch
+
+        t0 = time.perf_counter()
+        self.submit(hold_on_host, key, tree).result()
+        if torch.cuda.is_initialized():
+            torch.cuda.ipc_collect()  # the worker has let go of the card's blocks
+        return time.perf_counter() - t0
+
+    def take_back(self, key: str, tree) -> float:
+        """The tree the worker holds under ``key`` copied into ``tree``'s
+        tensors (put_held), waited for.  Returns the seconds this took."""
+        import torch
+
+        t0 = time.perf_counter()
+        self.submit(put_held, key, tree).result()
+        if torch.cuda.is_initialized():
+            torch.cuda.ipc_collect()
+        return time.perf_counter() - t0
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+
+def solve_cpu_side(spec, z=None):
+    """CpuSide job: ``solve(spec, z=z, device="cpu")``, its report without
+    the PP diagnostic's closure (the checks read the card run's)."""
+    from repro_torch.api import solve
+
+    rep = solve(spec, z=z, device="cpu")
+    rep.final_grad_norm_fn = None
+    return rep
+
+
+def lm_cpu_side(key: str, cut, toks) -> dict:
+    """CpuSide job: the lm phase's depth cut on the CPU, on the params held
+    under ``key``: the prefill's logits of ``toks`` (B, S) and those of 4
+    decode steps on its first tokens."""
+    import torch
+
+    from repro_torch.models import init_decode_cache, lm_decode_step, lm_prefill
+
+    t0 = time.perf_counter()
+    params = _HELD.pop(key)
+    prefill = lm_prefill(params, cut, torch.as_tensor(toks))
+    cache, decode = init_decode_cache(cut, toks.shape[0], 8, "cpu"), []
+    for s in range(4):
+        logits, cache = lm_decode_step(params, cut, cache, torch.as_tensor(toks[:, s : s + 1]))
+        decode.append(logits)
+    return {"prefill": prefill, "decode": decode, "seconds": time.perf_counter() - t0}
+
+
+def zoo_cpu_side(key: str, cut, batch: dict) -> dict:
+    """CpuSide job: the zoo's (a) on the CPU, on the params held under
+    ``key``: ``batch``'s prefill logits and those of 4 decode steps on its
+    first tokens, with every moe_apply's input recorded
+    (record_router_inputs) in each."""
+    from repro_torch.models import encdec as ted
+    from repro_torch.models import lm as tlm
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    t0 = time.perf_counter()
+    params = _HELD.pop(key)
+    with record_router_inputs() as prefill_calls:
+        prefill = make_prefill_step(cut)(params, batch)
+    if cut.family == "encdec":
+        cache = ted.init_encdec_cache(cut, 2, 8, 16, "cpu")
+    else:
+        cache = tlm.init_decode_cache(cut, 2, 8, "cpu")
+    step, decode, decode_calls = make_serve_step(cut), [], []
+    for s in range(4):
+        with record_router_inputs() as calls:
+            logits, cache = step(params, cache, batch["tokens"][:, s : s + 1])
+        decode.append(logits)
+        decode_calls.append(calls)
+    return {"prefill": prefill, "prefill_calls": prefill_calls, "decode": decode,
+            "decode_calls": decode_calls, "seconds": time.perf_counter() - t0}
+
+
+def train_cpu_side(key: str, cut, batch: dict) -> dict:
+    """CpuSide job: the train depth cut's loss and gradient on the CPU, on
+    the params held under ``key``, every activation kept (remat "none": the
+    same numbers as remat "full" on the CPU, tests/test_torch_train.py, a
+    quarter less work).  Returns the loss; the gradient stays held under
+    ``key + "/grads"`` for put_held."""
+    import torch
+
+    from repro_torch.train.step import batch_to, loss_for, value_and_grad
+
+    t0 = time.perf_counter()
+    loss, _HELD[key + "/grads"] = value_and_grad(
+        loss_for(dataclasses.replace(cut, remat_policy="none")), _HELD.pop(key),
+        [batch_to(batch, torch.device("cpu"))])
+    return {"loss": loss, "seconds": time.perf_counter() - t0}
 
 
 def nvidia_smi_line() -> str:
@@ -596,6 +946,122 @@ def graph_median_ms(fns: dict, reps: int = TIMED_REPS,
                 fn()
     per_replay = median_ms({name: g.replay for name, g in graphs.items()}, reps, calls=1)
     return {name: ms / calls for name, ms in per_replay.items()}
+
+
+def fednl_round_bounds(n_clients: int, n_i: int, d: int, k: int) -> dict:
+    """(ms, by) the least time of each kernel of a FedNL round at (clients,
+    n_i, d) and k: SYRK, TopK, RandSeqK, TopLEK, in that order."""
+    t_len = d * (d + 1) // 2
+    elems = n_clients * t_len
+    p2 = 1 << (k - 1).bit_length()
+    sort_stages = p2.bit_length() * (p2.bit_length() - 1) // 2
+    return {
+        "hessian_syrk_packed": bound(  # z, hw read, H written
+            (n_clients * n_i * d + n_clients * n_i + elems) * 8,
+            2 * n_i * t_len * n_clients, FP64_TENSOR_FLOPS),
+        "select_topk": bound(
+            elems * 8 * 2 + n_clients * 4,  # u read, u_hat written, sent
+            SELECT_OPS_PER_KEY * elems, CUDA_CORE_32BIT_OPS),
+        "select_randseqk": bound(
+            n_clients * (k + t_len) * 8 + n_clients * (8 + 4),  # window read, u_hat written, s, sent
+            3 * elems,  # subtract, wrap, compare per entry
+            CUDA_CORE_32BIT_OPS),
+        "select_toplek": bound(
+            elems * 8 * 2 + n_clients * (8 + 4),  # u read, u_hat written, unif, sent
+            SELECT_OPS_PER_KEY * elems + n_clients * (p2 // 2) * sort_stages * 2,
+            CUDA_CORE_32BIT_OPS),
+    }
+
+
+def fednl_round_times(dataset: str, dev) -> dict:
+    """The round's four kernels at ``dataset``'s shape (OTHER_DATASETS: the
+    synthetic generator at its published shape, k = 8d, seed 0): SYRK on
+    random curvature weights, TopK, RandSeqK and TopLEK on the second
+    round's correction with that round's draws; each against its plain
+    version (SYRK within SYRK_TOL of its scale; TopK and RandSeqK bit for
+    bit; TopLEK bit for bit but for rows at its boundary, each near it),
+    then timed beside its plain version and its library call, with its
+    bound."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.api import DataSpec, ExperimentSpec
+    from repro_torch.compressors.select import randseqk_window_mask, rank_keys
+    from repro_torch.core.fednl import fednl_init, make_fednl_round
+    from repro_torch.kernels.compressor_select import (
+        select_randseqk_cuda, select_randseqk_plain, select_topk_cuda, select_topk_plain,
+        select_toplek_cuda, select_toplek_plain)
+    from repro_torch.kernels.hessian_syrk import (hessian_syrk_packed_cuda,
+                                                  hessian_syrk_packed_plain)
+    from repro_torch.objectives.logreg import logreg_oracles_packed
+
+    spec = ExperimentSpec(data=DataSpec(dataset=dataset))
+    cfg = spec.fednl_config()
+    z = torch.as_tensor(spec.data.build(), dtype=torch.float64, device=dev).contiguous()
+    n_clients, n_i, d = z.shape
+    t_len, k = d * (d + 1) // 2, cfg.k_for(d)
+    sigma = np.random.default_rng(0).uniform(0.0, 1.0, size=(n_clients, n_i))
+    hw = torch.as_tensor(sigma * (1.0 - sigma) / n_i, dtype=torch.float64, device=dev)
+    state0 = fednl_init(z, cfg)
+    state1, _ = make_fednl_round(z, cfg)(state0)
+    delta = (logreg_oracles_packed(z, state1.x, cfg.lam)[2] - state1.h_local).contiguous()
+    key = prng.split(prng.split(state0.key, 2)[0], 2)[1]  # round 1's draws
+    round_keys = prng.split(key, n_clients)
+    s_round = torch.as_tensor(prng.randint(round_keys, 0, t_len), device=dev)
+    unif = torch.as_tensor(prng.uniform(round_keys), device=dev)
+
+    h_kernel = hessian_syrk_packed_cuda(z, hw, cfg.lam)
+    scale = hessian_syrk_packed_plain(z.abs(), hw.abs(), 0.0).abs().max().item()
+    syrk_err = (h_kernel - hessian_syrk_packed_plain(z, hw, cfg.lam)).abs().max().item()
+    check(syrk_err <= SYRK_TOL * scale, f"SYRK at {dataset}: {syrk_err} > {SYRK_TOL} * {scale}")
+    for name, kern, plain, args in (
+            ("TopK", select_topk_cuda, select_topk_plain, (k,)),
+            ("RandSeqK", select_randseqk_cuda, select_randseqk_plain, (k, s_round))):
+        (got, sent), (want, sent_want) = kern(delta, *args), plain(delta, *args)
+        check(bits_equal(got, want) and torch.equal(sent, sent_want),
+              f"{name} at {dataset}: differs from the plain version")
+    (got, sent), (want, sent_want) = (select_toplek_cuda(delta, k, unif),
+                                      select_toplek_plain(delta, k, unif))
+    differ = (~torch.all(got.view(torch.int64) == want.view(torch.int64), dim=-1)) | (
+        sent != sent_want)
+    rows = differ.nonzero().flatten().tolist()
+    u_host, unif_host = delta.cpu().numpy(), unif.cpu().numpy()
+    for r in rows:
+        check(abs(int(sent[r]) - int(sent_want[r])) == 1
+              and toplek_near_boundary(u_host[r], k, float(unif_host[r])),
+              f"TopLEK at {dataset}: row {r} differs away from the boundary")
+    keys = rank_keys(delta)
+    zs = hw[..., None] * z
+    window = randseqk_window_mask(t_len, k, s_round)
+    zeros = torch.zeros_like(delta)
+    ms = {
+        "hessian_syrk_packed": median_ms({
+            "kernel": lambda: hessian_syrk_packed_cuda(z, hw, cfg.lam),
+            "plain": lambda: hessian_syrk_packed_plain(z, hw, cfg.lam),
+            "library": lambda: torch.bmm(z.mT, zs)}),
+        "select_topk": median_ms({
+            "kernel": lambda: select_topk_cuda(delta, k),
+            "plain": lambda: select_topk_plain(delta, k),
+            "library": lambda: torch.topk(keys, k, dim=-1)}),
+        "select_randseqk": median_ms({
+            "kernel": lambda: select_randseqk_cuda(delta, k, s_round),
+            "plain": lambda: select_randseqk_plain(delta, k, s_round),
+            "library": lambda: torch.where(window, delta, zeros)}),
+        "select_toplek": median_ms({
+            "kernel": lambda: select_toplek_cuda(delta, k, unif),
+            "plain": lambda: select_toplek_plain(delta, k, unif),
+            "ranking_only": lambda: torch.topk(keys, k, dim=-1)}),
+    }
+    bounds = fednl_round_bounds(n_clients, n_i, d, k)
+    out = {"dataset": dataset, "shape": [n_clients, n_i, d], "t": t_len, "k": k,
+           "syrk_rel_err": syrk_err / scale, "toplek_boundary_rows": len(rows),
+           **{name: {**ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+              for name in ms}}
+    emit({"phase": "times", "part": "round_shape", **out,
+          "note": f"ms per call: median over {TIMED_REPS} event pairs around {CALLS_PER_EVENT} "
+                  "back-to-back calls, in turns; TopK, RandSeqK and TopLEK on round 1's "
+                  "correction and draws; library calls as at w8a's shape"})
+    return out
 
 
 def trace(step, n: int, unit: str) -> dict:
@@ -1036,10 +1502,11 @@ def tree_to(tree, dev):
     return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
 
-def lm_phase(dev, ops) -> dict:
-    """granite-3-2b at full width: the 2-layer card-vs-CPU check, then the
-    40-layer prefill, prefill against decode, and the serving engine.
-    Returns what the later phases need."""
+def lm_phase(dev, ops, cpu_side: CpuSide) -> dict:
+    """granite-3-2b at full width: the 2-layer card-vs-CPU check (its CPU
+    side in ``cpu_side``'s worker while the card goes on), the 40-layer
+    prefill, prefill against decode, and the serving engine.  Returns what
+    the later phases need."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1054,39 +1521,45 @@ def lm_phase(dev, ops) -> dict:
     rng = np.random.default_rng(13)
     no_launch = {name: 0 for name in ops.launch_counts()}
 
-    # 1 the same params on the card and on the CPU, 2 layers
+    # 1 the same params on the card and on the CPU, 2 layers: the CPU's run
+    # in the worker, checked once the rest of this phase has run on the card
     cut = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
-    p_cpu = init_lm_params(0, cut, "cpu")
-    p_card = tree_to(p_cpu, dev)
+    p_card = tree_to(init_lm_params(0, cut, "cpu"), dev)
     toks = rng.integers(0, full.vocab, size=(2, 512))
+    hand_over_s = cpu_side.hand_over("lm", p_card)
+    job = cpu_side.start(lm_cpu_side, "lm", cut, toks)
     card = lm_prefill(p_card, cut, torch.as_tensor(toks, device=dev)).cpu()
-    host = lm_prefill(p_cpu, cut, torch.as_tensor(toks))
-    prefill_ulps = logit_ulps(card, host)
-    check(prefill_ulps <= LOGIT_ULPS, f"lm 2-layer prefill: card vs CPU {prefill_ulps} ulps")
-    argmax = [argmax_rows(card, host, LOGIT_ULPS)]
-    c_card, c_cpu = init_decode_cache(cut, 2, 8, dev), init_decode_cache(cut, 2, 8, "cpu")
-    decode_ulps = []
+    c_card, card_decode = init_decode_cache(cut, 2, 8, dev), []
     for s in range(4):
         t = toks[:, s : s + 1]
         lg_card, c_card = lm_decode_step(p_card, cut, c_card, torch.as_tensor(t, device=dev))
-        lg_cpu, c_cpu = lm_decode_step(p_cpu, cut, c_cpu, torch.as_tensor(t))
-        decode_ulps.append(logit_ulps(lg_card.cpu(), lg_cpu))
-        argmax.append(argmax_rows(lg_card.cpu(), lg_cpu, LOGIT_ULPS))
-    check(max(decode_ulps) <= LOGIT_ULPS, f"lm 2-layer decode: card vs CPU {decode_ulps} ulps")
-    check(all(bad == 0 for _, bad, _ in argmax),
-          f"lm 2-layer: an argmax differs away from a near tie: {argmax}")
-    emit({
-        "phase": "lm", "part": "card_vs_cpu", "arch": full.name,
-        "cut": f"n_layers {LM_CUT_LAYERS} of {full.n_layers}; full width",
-        "prefill_batch_seq": [2, 512], "prefill_logit_ulps": prefill_ulps,
-        "prefill_logit_scale": float(host.float().abs().max()),
-        "decode_logit_ulps": decode_ulps,
-        "argmax_same_of_2": [a for a, _, _ in argmax], "min_top2_margin": [m for _, _, m in argmax],
-        "tol_ulps": LOGIT_ULPS,
-        "bf16_reduced_precision_reduction":
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
-    })
-    del p_cpu, p_card, c_card, c_cpu
+        card_decode.append(lg_card.cpu())
+    del p_card, c_card
+
+    def check_cut() -> None:
+        host, worker = job.result()
+        prefill_ulps = logit_ulps(card, host["prefill"])
+        check(prefill_ulps <= LOGIT_ULPS, f"lm 2-layer prefill: card vs CPU {prefill_ulps} ulps")
+        argmax = [argmax_rows(card, host["prefill"], LOGIT_ULPS)]
+        decode_ulps = []
+        for lg_card, lg_cpu in zip(card_decode, host["decode"]):
+            decode_ulps.append(logit_ulps(lg_card, lg_cpu))
+            argmax.append(argmax_rows(lg_card, lg_cpu, LOGIT_ULPS))
+        check(max(decode_ulps) <= LOGIT_ULPS, f"lm 2-layer decode: card vs CPU {decode_ulps} ulps")
+        check(all(bad == 0 for _, bad, _ in argmax),
+              f"lm 2-layer: an argmax differs away from a near tie: {argmax}")
+        emit({
+            "phase": "lm", "part": "card_vs_cpu", "arch": full.name,
+            "cut": f"n_layers {LM_CUT_LAYERS} of {full.n_layers}; full width",
+            "prefill_batch_seq": [2, 512], "prefill_logit_ulps": prefill_ulps,
+            "prefill_logit_scale": float(host["prefill"].float().abs().max()),
+            "decode_logit_ulps": decode_ulps,
+            "argmax_same_of_2": [a for a, _, _ in argmax],
+            "min_top2_margin": [m for _, _, m in argmax], "tol_ulps": LOGIT_ULPS,
+            "bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            "cpu_side": {**worker, "cpu_s": host["seconds"], "hand_over_s": hand_over_s},
+        })
 
     # 2 forty layers, initialised on the card
     t0 = time.perf_counter()
@@ -1185,6 +1658,7 @@ def lm_phase(dev, ops) -> dict:
         "max_memory_allocated": [r["peak"] for r in runs], "launches": no_launch,
         "first_tokens": runs[0]["tokens"][:2], "launcher": out.getvalue().strip().splitlines()[0],
     })
+    check_cut()
     return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches,
             "flash_routes": routes, "ms": steady_s * 1e3, "max_memory_allocated": peak}
 
@@ -1364,12 +1838,54 @@ def zoo_inputs(cfg, batch: int, seq: int, rng, dev) -> dict:
     return out
 
 
-def zoo_family(arch: str, dev, ops) -> dict:
-    """One family at full width: (a) card against CPU on a depth cut, (b) the
-    32k prefill at full depth, (c) prefill against sequential decode, (d)
-    the serving engine and the launcher; a config of ZOO_DENSE_DEPTHS runs
-    (b) and (c) at its first depth, (d) at its second, and the launcher
-    only at full depth.  Returns its kernel facts."""
+def zoo_cut(arch: str):
+    """``arch``'s zoo depth cut: 2 layers (hybrid 3, so that one is
+    attention; encdec 2 + 2) at full width."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    encdec = full.family == "encdec"
+    return dataclasses.replace(full, n_layers=3 if full.family == "hybrid" else LM_CUT_LAYERS,
+                               encoder_layers=LM_CUT_LAYERS if encdec else 0)
+
+
+def zoo_cut_batch(cut, rng):
+    """(a)'s prefill batch, B 2, S 512 (vlm: after its images; encdec: a
+    512-frame source), the first draw of the family's rng."""
+    return zoo_inputs(cut, 2, 512 + (cut.n_frontend_tokens if cut.family == "vlm" else 0), rng,
+                      "cpu")
+
+
+def zoo_hand_over(arch: str, dev, cpu_side: CpuSide) -> dict:
+    """(a)'s CPU side started early: the depth cut's params drawn on the
+    card from seed 0 (the same bits each draw), their cast_for_compute copy
+    handed over to ``cpu_side``'s worker, the card's freed, and zoo_cpu_side
+    started on the batch (B 2, S 512)."""
+    import torch
+
+    from repro_torch.models import encdec as ted
+    from repro_torch.models import lm as tlm
+
+    cut = zoo_cut(arch)
+    init = ted.init_encdec_params if cut.family == "encdec" else tlm.init_lm_params
+    cast = tlm.cast_for_compute(init(0, cut, dev))
+    key = f"zoo/{arch}"  # the worker's keys: the train phase's cut of arch is another
+    hand_over_s = cpu_side.hand_over(key, cast)
+    del cast
+    torch.cuda.empty_cache()
+    job = cpu_side.start(zoo_cpu_side, key, cut, zoo_cut_batch(cut, np.random.default_rng(17)))
+    return {"job": job, "hand_over_s": hand_over_s}
+
+
+def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = None) -> dict:
+    """One family at full width: (a) card against CPU on a depth cut (the
+    CPU's run in ``cpu_side``'s worker, ``started`` before the phase or here
+    (zoo_hand_over); the moe's checked at once, the others' after (d)), (b)
+    the 32k prefill at full depth, (c) prefill
+    against sequential decode, (d) the serving engine and the launcher; a
+    config of ZOO_DENSE_DEPTHS runs (b) and (c) at its first depth, (d) at
+    its second, and the launcher only at full depth.  Returns its kernel
+    facts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1412,19 +1928,28 @@ def zoo_family(arch: str, dev, ops) -> dict:
     # matrices cast to bf16 once (cast_for_compute: the same logits bit for
     # bit, tests/test_torch_lm.py, test_torch_zoo.py, test_torch_encdec.py),
     # so that half the bytes cross and no step casts them again
-    cut_layers = 3 if full.family == "hybrid" else LM_CUT_LAYERS
-    cut = dataclasses.replace(full, n_layers=cut_layers,
-                              encoder_layers=LM_CUT_LAYERS if encdec else 0)
-    p_card = init(0, cut, dev)
-    p_cpu = tree_to(tlm.cast_for_compute(p_card), "cpu")
-    batch = zoo_inputs(cut, 2, 512 + (cut.n_frontend_tokens if cut.family == "vlm" else 0), rng, "cpu")
+    # its CPU side started (zoo_hand_over) here, or before the phase
+    started = started or zoo_hand_over(arch, dev, cpu_side)
+    job, hand_over_s = started["job"], started["hand_over_s"]
+    cut = zoo_cut(arch)
+    batch = zoo_cut_batch(cut, rng)  # the job's batch: the same first draw
+    p_card = init(0, cut, dev)  # the same bits as the worker's copy
+    moe = full.family == "moe"
+    p_cpu = tree_to(tlm.cast_for_compute(p_card), "cpu") if moe else None  # moe's checks read it
     prefill = make_prefill_step(cut)
     with record_router_inputs() as calls_card:
         card = prefill(p_card, {k: v.to(dev) for k, v in batch.items()}).cpu()
-    with record_router_inputs() as calls_host:
-        host = prefill(p_cpu, batch)
-    moe = full.family == "moe"
-    first: dict = {}
+    c_card = init_cache(cut, 2, 8, dev)
+    step = make_serve_step(cut)
+    card_decode, card_decode_calls = [], []
+    toks = batch["tokens"]
+    for s in range(4):
+        t = toks[:, s : s + 1]
+        with record_router_inputs() as dc:
+            lg_card, c_card = step(p_card, c_card, t.to(dev))
+        card_decode.append(lg_card.cpu())
+        card_decode_calls.append(dc)
+    card_side_s = time.perf_counter() - t_family
     part_a: dict = {"phase": "zoo", "part": "a_card_vs_cpu", "arch": arch, "family": full.family,
                     "cut": f"n_layers {cut.n_layers} of {full.n_layers}"
                            + (f", encoder_layers {cut.encoder_layers} of {full.encoder_layers}"
@@ -1432,48 +1957,56 @@ def zoo_family(arch: str, dev, ops) -> dict:
                     "prefill_batch": {k: list(v.shape) for k, v in batch.items()},
                     "params": "drawn on the card from seed 0; the CPU's: their cast_for_compute "
                               "copy (the matrices in bf16, as every use casts them)"}
-    if moe:
-        routers = p_cpu["blocks"]["moe"]["router"]
-        part_a["moe_module"] = moe_module_check(cut, p_card, p_cpu, calls_host, dev)
-        first, counts = moe_routes(calls_card, calls_host, cut, routers, 0, first)
-        part_a["prefill_routing"] = counts
-    held = [b for b in range(2) if b not in first]
-    prefill_ulps = logit_ulps(card[held], host[held]) if held else None
-    check(prefill_ulps is None or prefill_ulps <= LOGIT_ULPS,
-          f"{arch} cut prefill: card vs CPU {prefill_ulps} ulps")
-    argmax = [argmax_rows(card[held], host[held], LOGIT_ULPS)] if held else []
-    c_card, c_cpu = init_cache(cut, 2, 8, dev), init_cache(cut, 2, 8, "cpu")
-    step = make_serve_step(cut)
-    decode_ulps, held_rows, first = [], [], {}
-    toks = batch["tokens"]
-    for s in range(4):
-        t = toks[:, s : s + 1]
-        with record_router_inputs() as dc:
-            lg_card, c_card = step(p_card, c_card, t.to(dev))
-        with record_router_inputs() as dh:
-            lg_cpu, c_cpu = step(p_cpu, c_cpu, t)
+
+    def check_cut() -> None:
+        """(a)'s checks on the worker's CPU run, as they were in-process."""
+        host_out, worker = job.result()
+        host, calls_host = host_out["prefill"], host_out["prefill_calls"]
+        first: dict = {}
         if moe:
-            first, counts = moe_routes(dc, dh, cut, routers, s, first)
-            part_a.setdefault("decode_routing", []).append(counts)
-        rows = [b for b in range(2) if b not in first]
-        held_rows.append(rows)
-        if rows:
-            decode_ulps.append(logit_ulps(lg_card.cpu()[rows], lg_cpu[rows]))
-            argmax.append(argmax_rows(lg_card.cpu()[rows], lg_cpu[rows], LOGIT_ULPS))
-    check(all(u <= LOGIT_ULPS for u in decode_ulps), f"{arch} cut decode: {decode_ulps} ulps")
-    check(all(bad == 0 for _, bad, _ in argmax),
-          f"{arch} cut: an argmax differs away from a near tie: {argmax}")
-    part_a.update(prefill_logit_ulps=prefill_ulps, decode_logit_ulps=decode_ulps,
-                  tol_ulps=LOGIT_ULPS, argmax_same=[a for a, _, _ in argmax],
-                  min_top2_margin=[m for _, _, m in argmax], seconds=time.perf_counter() - t_family)
-    if moe:
-        part_a.update(rows_held_prefill=held, rows_held_decode=held_rows,
-                      note="moe: a batch row is held to the bound until its routing differs "
-                           "between the card and the CPU, which is allowed only at a near tie "
-                           "(or a capacity queue it shifts); moe_module holds each layer's "
-                           "moe_apply on one input")
-    emit(part_a)
-    del p_cpu, p_card, c_card, c_cpu, card, host
+            routers = p_cpu["blocks"]["moe"]["router"]
+            part_a["moe_module"] = moe_module_check(cut, p_card, p_cpu, calls_host, dev)
+            first, counts = moe_routes(calls_card, calls_host, cut, routers, 0, first)
+            part_a["prefill_routing"] = counts
+        held = [b for b in range(2) if b not in first]
+        prefill_ulps = logit_ulps(card[held], host[held]) if held else None
+        check(prefill_ulps is None or prefill_ulps <= LOGIT_ULPS,
+              f"{arch} cut prefill: card vs CPU {prefill_ulps} ulps")
+        argmax = [argmax_rows(card[held], host[held], LOGIT_ULPS)] if held else []
+        decode_ulps, held_rows, first = [], [], {}
+        for s, (lg_card, lg_cpu) in enumerate(zip(card_decode, host_out["decode"])):
+            if moe:
+                first, counts = moe_routes(card_decode_calls[s], host_out["decode_calls"][s], cut,
+                                           routers, s, first)
+                part_a.setdefault("decode_routing", []).append(counts)
+            rows = [b for b in range(2) if b not in first]
+            held_rows.append(rows)
+            if rows:
+                decode_ulps.append(logit_ulps(lg_card[rows], lg_cpu[rows]))
+                argmax.append(argmax_rows(lg_card[rows], lg_cpu[rows], LOGIT_ULPS))
+        check(all(u <= LOGIT_ULPS for u in decode_ulps), f"{arch} cut decode: {decode_ulps} ulps")
+        check(all(bad == 0 for _, bad, _ in argmax),
+              f"{arch} cut: an argmax differs away from a near tie: {argmax}")
+        part_a.update(prefill_logit_ulps=prefill_ulps, decode_logit_ulps=decode_ulps,
+                      tol_ulps=LOGIT_ULPS, argmax_same=[a for a, _, _ in argmax],
+                      min_top2_margin=[m for _, _, m in argmax],
+                      seconds=time.perf_counter() - t_family,
+                      cpu_side={**worker, "cpu_s": host_out["seconds"],
+                                "card_side_s": card_side_s, "hand_over_s": hand_over_s})
+        if moe:
+            part_a.update(rows_held_prefill=held, rows_held_decode=held_rows,
+                          note="moe: a batch row is held to the bound until its routing differs "
+                               "between the card and the CPU, which is allowed only at a near tie "
+                               "(or a capacity queue it shifts); moe_module holds each layer's "
+                               "moe_apply on one input")
+        emit(part_a)
+
+    if moe:  # moe_module_check runs each layer on the card: before the cut is freed
+        with cpu_side.same_threads():
+            check_cut()
+    del c_card
+    if not moe:
+        del p_card
 
     # (b) full depth (or ZOO_DENSE_DEPTHS' cut) from seed 0 on the card:
     # the 32k prefill
@@ -1599,6 +2132,9 @@ def zoo_family(arch: str, dev, ops) -> dict:
                     f"ServeEngine's bf16 copy take {budget['engine_full_depth'] / 1e9:.1f} GB "
                     "of the card's 80")
     total = sum(len(t) for t in runs[0]["tokens"])
+    if not moe:
+        check_cut()
+    del p_cpu
     seconds = time.perf_counter() - t_family
     emit({"phase": "zoo", "part": "d_serve", "arch": arch, "requests": 6, "batch": 4,
           "new_tokens": 12, "max_len": 128, "n_layers": served.n_layers,
@@ -1624,6 +2160,29 @@ RG_WINDOW = 2048  # recurrentgemma-2b's local window (causal)
 SEAMLESS_TRAIN_LAYER = (2, 4096, 16, 16, 64)
 LLAVA_TRAIN_LAYER, LLAVA_WINDOW = (2, 576 + 4096, 32, 8, 128), 4096
 LLAVA_TRAIN_LAYERS = 12  # llava's full-width train step: 12 of its 32 layers
+# the dense configs' full-width train steps (accum 2, B 4, S 4,096): each the
+# deepest cut whose peak fits PEAK_BYTES_MAX (peak_train_bytes).  Their f32
+# params, grads, m and v at n layers, counted on meta (16 bytes a param),
+# and the peak a step reached there (scripts/train_depth_probe.py, H100):
+CHATGLM_TRAIN_LAYERS = 17  # 0.266 + 0.204 n B params: 59.7 GB of state (95.6 whole); peak 78.6
+NEMOTRON_TRAIN_LAYERS = 1  # 3.146 + 0.390 n B: 56.6 GB (250.1 whole); peak 74.1, 2 layers > 80
+YI_TRAIN_LAYERS = 5  # 0.918 + 0.558 n B: 59.3 GB (550.2 whole); peak 73.6
+# what a step held above that state at n layers, base + per_layer * n bytes:
+# fitted to the probe's peaks at 15 and 17 layers (chatglm3-6b) and 4 and 5
+# (yi-34b) -- the accumulation's second gradient of each stacked leaf and
+# the layers' saved inputs grow with n; nemotron-4-15b ran at 1 layer only,
+# and its 256k embedding's and head's gradients dominate: its per-layer
+# term is left at 0, a lower bound (the probe ran out of memory at 2 layers
+# with 80.49 GB asked for)
+TRAIN_PEAK_ABOVE_STATE = {"chatglm3-6b": (1_180_436_480, 1_041_793_024),
+                          "nemotron-4-15b": (17_574_505_984, 0),
+                          "yi-34b": (1_935_117_312, 2_468_569_088)}
+DENSE_TRAIN_LAYERS = {"chatglm3-6b": CHATGLM_TRAIN_LAYERS, "nemotron-4-15b": NEMOTRON_TRAIN_LAYERS,
+                      "yi-34b": YI_TRAIN_LAYERS}
+# their training layers (B 2, S 4,096, H, Kv, dh 128), causal without a window:
+# query-head groups of 16, 6 and 7
+DENSE_TRAIN_LAYER = {"chatglm3-6b": (2, 4096, 32, 2, 128), "nemotron-4-15b": (2, 4096, 48, 8, 128),
+                     "yi-34b": (2, 4096, 56, 8, 128)}
 # train_4k (S 4,096) at its batch cut to 4 (CUT_BATCH), in 2 microbatches of
 # 2; 6 steps (the cells this phase gained last, 4: the run's 1,200 s)
 TRAIN_ACCUM, TRAIN_STEPS, TRAIN_STEPS_SHORT = 2, 6, 4
@@ -1640,7 +2199,20 @@ TRAIN_CELLS = (
     ("seamless-m4t-large-v2", 2, None, TRAIN_STEPS_SHORT),
     # its f32 params, grads, m and v at 32 layers (~114 GB) do not fit one card
     ("llava-next-mistral-7b", 2, LLAVA_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
+    # half-dim rotary, Kv 2; squared ReLU and an untied 256k head; 56 heads
+    # at d_model 7,168: at DENSE_TRAIN_LAYERS' cuts
+    ("chatglm3-6b", 2, CHATGLM_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
+    ("nemotron-4-15b", 2, NEMOTRON_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
+    ("yi-34b", 2, YI_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
 )
+# AdamW's lr in a cell's steps: 1e-3 but where named.  C11: chatglm3-6b's
+# synthetic stream has no unigram signal (its vocab 65,024 is coprime to
+# the chain's multiplier, so each token's successor is a permutation of the
+# vocab: tests/test_torch_train.py), and at lr 1e-3 its full-width loss rises
+# over 6 steps at 2 and 17 layers, with the kernels and the plain backward
+# alike, with full rotary, Kv 8 or an untied head alike
+# (scripts/train_probe.py); at 3e-4 it falls
+TRAIN_LR = {"chatglm3-6b": 3e-4}
 # the moe depth cut: B 1, S MOE_CUT_SEQ, the first of MOE_HELD_SEEDS seeds
 # whose labels before the first routing difference are MOE_HELD_SHARE of its
 # own; at S 512 on an H100 no seed of 16 came near (a first difference
@@ -1684,6 +2256,10 @@ BWD_FIXTURES = {  # name: (b, sq, sk, h, kv, dh, causal, window, q_offset, k_off
     # causality, and llava's window below S with S off the 64-query tiles
     "bf16_dh64_mha_noncausal": (2, 500, 500, 16, 16, 64, False, None, 0, 0, "bf16"),
     "bf16_dh128_window_below_s_off_tiles": (1, 1000, 1000, 32, 8, 128, True, 300, 0, 0, "bf16"),
+    # the dense configs' groups, causal without a window, S off the tiles:
+    # chatglm3-6b's 16 query heads a kv head, yi-34b's 7
+    "bf16_dh128_group16_sq_not_tile": (1, 333, 333, 32, 2, 128, True, None, 0, 0, "bf16"),
+    "bf16_dh128_group7_sq_not_tile": (2, 461, 461, 14, 2, 128, True, None, 0, 0, "bf16"),
 }
 
 
@@ -1915,8 +2491,10 @@ def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
     seamless = bwd_layer(dev, tfa, "seamless_training_layer", SEAMLESS_TRAIN_LAYER, None, 720,
                          causal=False)
     llava = bwd_layer(dev, tfa, "llava_training_layer", LLAVA_TRAIN_LAYER, LLAVA_WINDOW, 730)
+    dense = {arch: bwd_layer(dev, tfa, f"{arch}_training_layer", layer, None, 740 + 10 * i)
+             for i, (arch, layer) in enumerate(DENSE_TRAIN_LAYER.items())}
     return {"fixtures": report, "ptxas_wgmma": ptxas, **granite, "rg": rg, "seamless": seamless,
-            "llava": llava}
+            "llava": llava, "dense": dense}
 
 
 def train_attention_calls(cfg) -> int:
@@ -1941,6 +2519,22 @@ def expected_train_launches(cfg, accum: int) -> dict:
     recomputed = cfg.family == "encdec" or cfg.remat_policy != "none"
     return {"flash_attention_train": (2 if recomputed else 1) * calls,
             "flash_attention_bwd_dq": calls, "flash_attention_bwd_dkdv": calls}
+
+
+def train_state_bytes(cfg, n_layers: int) -> int:
+    """The f32 params, grads, m and v of ``cfg`` at ``n_layers`` (counted on
+    meta): 16 bytes a param."""
+    from repro_torch.models.lm import init_lm_params
+
+    params = init_lm_params(0, dataclasses.replace(cfg, n_layers=n_layers), "meta")
+    return 4 * sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def peak_train_bytes(cfg, n_layers: int) -> int:
+    """A dense config's full-width train step's peak at ``n_layers``: its
+    state and what a step held above it (TRAIN_PEAK_ABOVE_STATE)."""
+    base, per_layer = TRAIN_PEAK_ABOVE_STATE[cfg.name]
+    return train_state_bytes(cfg, n_layers) + base + per_layer * n_layers
 
 
 def init_params(cfg, device):
@@ -2033,33 +2627,63 @@ def moe_held_batch(cut, p_card, p_cpu, dev) -> tuple[dict, dict]:
           f"labels before a routing difference: {tried}")
 
 
-def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
-    """``arch`` at full width, ``n_layers`` layers (encdec: ``n_layers``
-    encoder and decoder layers), B 1, S TRAIN_CUT_SEQ (vlm: after its
-    images; encdec: a source of as many frames; moe: moe_held_batch's, S
-    MOE_CUT_SEQ): the loss and every leaf's gradient on the card against
-    the CPU from the same params (drawn on the card) and batch, the card's
-    launches those of expected_train_launches, each on the wgmma route, and
-    one train step run twice from one state on the card, bit for bit."""
+def train_cut_config(arch: str, n_layers: int):
+    """``arch`` at full width and ``n_layers`` layers (encdec: as many
+    encoder and decoder layers), accumulation 1: the train depth cut."""
+    from repro_torch.configs import get_config
+
+    full_cfg = get_config(arch)
+    return dataclasses.replace(full_cfg, n_layers=n_layers, accum_steps=1,
+                               **({"encoder_layers": n_layers} if full_cfg.family == "encdec"
+                                  else {}))
+
+
+def train_cut_hand_over(dev, cpu_side: CpuSide, arch: str, n_layers: int) -> dict:
+    """The depth cut's params drawn on the card from seed 0 (init_params
+    draws the same bits every time) and handed over to ``cpu_side``'s
+    worker, and its batch (B 1, S TRAIN_CUT_SEQ; vlm: after its images;
+    encdec: a source of as many frames; moe: moe_held_batch's, S
+    MOE_CUT_SEQ, which reads a host copy); the card's copy freed."""
+    import torch
+
+    from repro_torch.train import synthetic_batch
+
+    cut = train_cut_config(arch, n_layers)
+    p_card = init_params(cut, dev)
+    batch, moe = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0), None
+    if cut.family == "moe":
+        with cpu_side.same_threads():
+            batch, moe = moe_held_batch(cut, p_card, tree_to(p_card, "cpu"), dev)
+    hand_over_s = cpu_side.hand_over(f"train/{arch}", p_card)
+    del p_card
+    torch.cuda.empty_cache()
+    return {"cut": cut, "batch": batch, "moe": moe, "hand_over_s": hand_over_s}
+
+
+def train_depth_cut(dev, ops, cpu_side: CpuSide, arch: str, n_layers: int, handed: dict,
+                    job: CpuRun):
+    """``arch``'s depth cut (``handed``: train_cut_hand_over's) on the card:
+    the loss and every leaf's gradient from the same params, the launches
+    those of expected_train_launches, each on the wgmma route, and one train
+    step run twice from one state, bit for bit (the params drawn again for
+    the second: a second copy on the card does not fit beside
+    nemotron-4-15b's AdamW state).  ``job`` is the worker's CPU run of the
+    same loss (train_cpu_side, a CpuRun).  Returns the function that collects it and
+    holds the card against it (the loss and each leaf's gradient within
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_REL_L2) and returns the cut's facts."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.train import AdamWConfig, adamw_init, make_train_step, synthetic_batch
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
     from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
     from repro_torch.train.step import batch_to, loss_for, value_and_grad
 
     full_cfg = get_config(arch)
-    cut = dataclasses.replace(full_cfg, n_layers=n_layers, accum_steps=1,
-                              **({"encoder_layers": n_layers} if full_cfg.family == "encdec"
-                                 else {}))
+    cut, batch, moe = handed["cut"], handed["batch"], handed["moe"]
     want = expected_train_launches(cut, 1)
     check(want["flash_attention_bwd_dq"] > 0 or cut.family == "ssm",
           f"train depth cut {arch}: {n_layers} layers hold no attention layer")
     p_card = init_params(cut, dev)
-    p_cpu = tree_to(p_card, torch.device("cpu"))
-    batch, moe = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0), None
-    if cut.family == "moe":
-        batch, moe = moe_held_batch(cut, p_card, p_cpu, dev)
     fwd = ops.flash_attention_mod
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2073,54 +2697,70 @@ def train_depth_cut(dev, ops, arch: str, n_layers: int) -> dict:
     check(launched == {name: n for name, n in want.items() if n}
           and routes == tuple({"wgmma": want[name], "simt": 0} for name in want),
           f"train depth cut {arch}: launches {launched}, routes {routes}, want {want}")
-    t0 = time.perf_counter()
-    # the CPU keeps every activation: the same numbers as remat "full" on the
-    # CPU (tests/test_torch_train.py), a quarter less work
-    loss_cpu, g_cpu = value_and_grad(loss_for(dataclasses.replace(cut, remat_policy="none")),
-                                     p_cpu, [batch_to(batch, torch.device("cpu"))])
-    cpu_s = time.perf_counter() - t0
-    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"train depth cut {arch}: loss {float(loss_card)} vs CPU "
-          f"{float(loss_cpu)}")
-    rel = {}
-    for (path, gc), gh in zip(_named(g_card), tree_leaves(g_cpu)):
-        check(bool(torch.isfinite(gc).all()), f"train depth cut {arch}: {path} not finite")
-        gh = gh.to(dev).double()  # the norms on the card, in f64
-        rel[path] = float(torch.linalg.norm(gc.double() - gh) / torch.linalg.norm(gh))
-        check(rel[path] <= TRAIN_GRAD_REL_L2, f"train depth cut {arch}: {path} rel L2 {rel[path]}")
-    norm_card, norm_cpu = float(global_norm(g_card)), float(global_norm(g_cpu))
-    check(abs(norm_card - norm_cpu) <= TRAIN_GRAD_REL_L2 * norm_cpu,
-          f"train depth cut {arch}: grad norm {norm_card} vs CPU {norm_cpu}")
-    del g_card, g_cpu, p_cpu
-    step = make_train_step(cut, AdamWConfig(lr=1e-3))
-    runs = []
-    for _ in range(2):
-        params = tree_map(torch.clone, p_card)
-        new, _, m = step(params, adamw_init(params), batch)
-        runs.append((m["loss"], m["grad_norm"], new))
-    (l1, n1, a), (l2, n2, b_) = runs
-    same = (torch.equal(l1, l2) and torch.equal(n1, n2)
-            and all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b_))))
+    norm_card = float(global_norm(g_card))
+    g_card = tree_map(lambda g: g.cpu(), g_card)  # the card's room goes to (c)
+    step = make_train_step(cut, AdamWConfig(lr=TRAIN_LR.get(arch, 1e-3)))
+    first = None
+    for run in range(2):
+        if run:  # the same state again: the same draw
+            del p_card
+            torch.cuda.empty_cache()
+            p_card = init_params(cut, dev)
+        new, opt, m = step(p_card, adamw_init(p_card), batch)  # in place, into p_card
+        del opt
+        if run == 0:
+            first = (m["loss"], m["grad_norm"], [t.cpu() for t in tree_leaves(new)])
+            del new
+    l1, n1, a = first
+    same = (torch.equal(l1, m["loss"]) and torch.equal(n1, m["grad_norm"])
+            and all(torch.equal(x.to(dev), y) for x, y in zip(a, tree_leaves(new))))
     check(same, f"train depth cut {arch}: two steps from one state differ on the card")
+    del p_card, new, a, first
+    torch.cuda.empty_cache()
     layers = (f"n_layers {n_layers} of {full_cfg.n_layers}" if cut.family != "encdec" else
               f"encoder_layers and n_layers {n_layers} of {full_cfg.encoder_layers} and "
               f"{full_cfg.n_layers}")
-    out = {"arch": arch, "cut": f"{layers}; full width",
-           "attention_calls": train_attention_calls(cut), "card_launches": launched,
-           "batch_seq": list(np.shape(batch["tokens"])),
-           "inputs": {k: list(np.shape(v)) for k, v in batch.items()},
-           "loss_card": float(loss_card), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
-           "grad_norm_card": norm_card, "grad_norm_cpu": norm_cpu,
-           "worst_leaf_rel_l2": max(rel.items(), key=lambda kv: kv[1]),
-           "leaves": len(rel), "tol": {"loss_rel": TRAIN_LOSS_RTOL,
-                                       "grad_rel_l2": TRAIN_GRAD_REL_L2},
-           "card_forward_backward_s": card_s, "cpu_forward_backward_s": cpu_s,
-           "step_twice_bitwise": True, "step_loss": float(l1), "step_grad_norm": float(n1)}
-    if moe is not None:
-        out["moe_held_batch"] = moe
-    emit({"phase": "train", "part": "b_depth_cut_card_vs_cpu", **out})
-    del runs, a, b_, p_card
-    return out
+
+    def finish() -> dict:
+        host, worker = job.result()
+        loss_cpu = host["loss"]
+        # the CPU's gradient onto the card, where the norms are taken in f64
+        g_cpu = tree_map(lambda g: torch.empty(g.shape, dtype=g.dtype, device=dev), g_card)
+        take_back_s = cpu_side.take_back(f"train/{arch}/grads", g_cpu)
+        loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"train depth cut {arch}: loss {float(loss_card)} "
+              f"vs CPU {float(loss_cpu)}")
+        rel = {}
+        for (path, gc), (_, gh) in zip(_named(g_card), _named(g_cpu)):
+            check(bool(torch.isfinite(gc).all()), f"train depth cut {arch}: {path} not finite")
+            gc, gh = gc.to(dev).double(), gh.double()  # the norms on the card, in f64
+            rel[path] = float(torch.linalg.norm(gc - gh) / torch.linalg.norm(gh))
+            check(rel[path] <= TRAIN_GRAD_REL_L2,
+                  f"train depth cut {arch}: {path} rel L2 {rel[path]}")
+        norm_cpu = float(global_norm(g_cpu))
+        del g_cpu
+        torch.cuda.empty_cache()
+        check(abs(norm_card - norm_cpu) <= TRAIN_GRAD_REL_L2 * norm_cpu,
+              f"train depth cut {arch}: grad norm {norm_card} vs CPU {norm_cpu}")
+        out = {"arch": arch, "cut": f"{layers}; full width",
+               "attention_calls": train_attention_calls(cut), "card_launches": launched,
+               "batch_seq": list(np.shape(batch["tokens"])),
+               "inputs": {k: list(np.shape(v)) for k, v in batch.items()},
+               "loss_card": float(loss_card), "loss_cpu": float(loss_cpu), "loss_rel": loss_rel,
+               "grad_norm_card": norm_card, "grad_norm_cpu": norm_cpu,
+               "worst_leaf_rel_l2": max(rel.items(), key=lambda kv: kv[1]),
+               "leaves": len(rel), "tol": {"loss_rel": TRAIN_LOSS_RTOL,
+                                           "grad_rel_l2": TRAIN_GRAD_REL_L2},
+               "card_forward_backward_s": card_s, "cpu_forward_backward_s": host["seconds"],
+               "cpu_side": {**worker, "hand_over_s": handed["hand_over_s"],
+                            "take_back_s": take_back_s},
+               "step_twice_bitwise": True, "step_loss": float(l1), "step_grad_norm": float(n1)}
+        if moe is not None:
+            out["moe_held_batch"] = moe
+        emit({"phase": "train", "part": "b_depth_cut_card_vs_cpu", **out})
+        return out
+
+    return finish
 
 
 def _named(tree, prefix=""):
@@ -2162,7 +2802,7 @@ def train_full(dev, ops, arch: str, steps: int, n_layers: int | None = None,
                keep_final: bool = False) -> dict:
     """``arch`` at full width and depth (``n_layers``: a depth cut at full
     width): ``steps`` steps of make_train_step (accum TRAIN_ACCUM, remat
-    "full", AdamW lr 1e-3) on synthetic_token_stream at train_4k's S and
+    "full", AdamW at TRAIN_LR's lr) on synthetic_token_stream at train_4k's S and
     cut batch (vlm: after 576 image positions; encdec: a source of S
     frames); the launch counts set to 0 before each step and read after it
     (expected_train_launches, all on the wgmma route, and nothing else);
@@ -2192,7 +2832,8 @@ def train_full(dev, ops, arch: str, steps: int, n_layers: int | None = None,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     allocated_after_init = torch.cuda.memory_allocated()
-    step = make_train_step(full, AdamWConfig(lr=1e-3))
+    lr = TRAIN_LR.get(arch, 1e-3)
+    step = make_train_step(full, AdamWConfig(lr=lr))
     shape = shape_of("train_4k")
     stream = synthetic_token_stream(full, shape.batch, shape.seq)
     batches = [next(stream) for _ in range(steps)]  # set-up: numpy, before the clock
@@ -2248,7 +2889,7 @@ def train_full(dev, ops, arch: str, steps: int, n_layers: int | None = None,
     grads = tree_map(torch.zeros_like, params)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    adamw_update(params, grads, opt, AdamWConfig(lr=1e-3))
+    adamw_update(params, grads, opt, AdamWConfig(lr=lr))
     end.record()
     torch.cuda.synchronize()
     adamw_ms = start.elapsed_time(end)
@@ -2263,7 +2904,7 @@ def train_full(dev, ops, arch: str, steps: int, n_layers: int | None = None,
            "batch_seq": [shape.batch, shape.seq], "positions_per_row": shape.seq + extra,
            "accum_steps": TRAIN_ACCUM,
            "microbatch": shape.batch // TRAIN_ACCUM, "remat_policy": full.remat_policy,
-           "cut": cut, "steps": steps, "lr": 1e-3,
+           "cut": cut, "steps": steps, "lr": lr,
            "init_s": init_s, "losses": losses, "grad_norms": norms, "wall_s": wall,
            "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
            "positions_per_s": shape.batch * (shape.seq + extra) / (ms / 1e3),
@@ -2287,26 +2928,50 @@ def train_full(dev, ops, arch: str, steps: int, n_layers: int | None = None,
     return out
 
 
-def train_phase(dev, ops, tfa, bwd_report: str | None) -> dict:
+def train_hand_overs(dev, cpu_side: CpuSide) -> dict:
+    """Every train cell's depth cut handed over (train_cut_hand_over) and its
+    CPU side started, in TRAIN_CELLS' order: arch -> (handed, CpuRun)."""
+    out = {}
+    for arch, cut_layers, _, _ in TRAIN_CELLS:
+        handed = train_cut_hand_over(dev, cpu_side, arch, cut_layers)
+        out[arch] = (handed, cpu_side.start(train_cpu_side, f"train/{arch}", handed["cut"],
+                                            handed["batch"]))
+    return out
+
+
+def train_phase(dev, ops, tfa, bwd_report: str | None, cpu_side: CpuSide,
+                started: dict | None = None) -> dict:
     """LM training: (a) the backward kernels, then for each of TRAIN_CELLS,
-    each freed before the next, (b) the depth cut card against CPU and (c)
-    full width and depth (llava-next-mistral-7b: 12 layers), (d) the
-    launcher."""
+    each freed on the card before the next, (b) the depth cut card against
+    CPU (the CPU's side in ``cpu_side``'s worker, ``started`` before the
+    phase (train_hand_overs) or at its start, checked once it is in and the
+    cell's (c) has run) and (c) full width and depth (or the cell's depth
+    cut), (d) the launcher."""
     import torch
 
     from repro_torch.launch import train as train_launcher
 
     t_phase = time.perf_counter()
     bwd = flash_bwd_phase(dev, tfa, bwd_report)
-    cells, cell_s = {}, {}
+    # every cut's params to the worker first, then every cut's CPU run
+    # queued: the worker computes them one after another while the card
+    # runs the cells, each cell's CPU run checked as soon as it is in and
+    # the cell's card work is done
+    started = started or train_hand_overs(dev, cpu_side)
+    cells, cell_s, unchecked = {}, {}, []
     for arch, cut_layers, full_layers, steps in TRAIN_CELLS:
         t0 = time.perf_counter()
-        cut = train_depth_cut(dev, ops, arch, cut_layers)
-        torch.cuda.empty_cache()
+        handed, job = started.pop(arch)
+        unchecked.append((arch, job, train_depth_cut(dev, ops, cpu_side, arch, cut_layers,
+                                                     handed, job)))
         full = train_full(dev, ops, arch, steps, n_layers=full_layers,
                           keep_final=arch == "granite-3-2b")
         torch.cuda.empty_cache()
-        cells[arch] = {"cut": cut, "full": full}
+        cells[arch] = {"full": full}
+        # the cuts whose CPU sides are in, in order; after the last cell, all
+        while unchecked and (arch == TRAIN_CELLS[-1][0] or unchecked[0][1].done()):
+            done, _, finish = unchecked.pop(0)
+            cells[done]["cut"] = finish()
         cell_s[arch] = time.perf_counter() - t0
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -2394,7 +3059,7 @@ def mesh_line(rec: dict, machines: list) -> dict:
             "seconds": rec.get("seconds")}
 
 
-def mesh_phase(dev, ops, train: dict) -> dict:
+def mesh_phase(dev, ops, train: dict | None, skipped: dict) -> dict:
     """The mesh layer on the card: (a) granite-3-2b at full width and depth
     through launch/train.py's main with ``--mesh 1x1`` (params and AdamW's
     state DTensors, each attention's flash launches through local_map),
@@ -2444,74 +3109,78 @@ def mesh_phase(dev, ops, train: dict) -> dict:
         w.start()
 
     # (a) the 1 x 1 mesh on the card
-    base = train["full"]
-    full_params = base.pop("final_params")
-    steps, shape = base["steps"], base["batch_seq"]
-    want = {name: n * steps for name, n in base["launches_want_per_step"].items()}
-    fwd = ops.flash_attention_mod
-    for fn in (fwd.flash_attention_train_cuda, fwd.flash_attention_cuda,
-               fwd.flash_attention_bwd_dq_cuda, fwd.flash_attention_bwd_dkdv_cuda):
-        fn.route_launches.update({k: 0 for k in fn.route_launches})
-    wall = []
-    real_step = train_launcher.make_train_step
+    launched = ms = peak = None
+    if train is None:
+        skipped["mesh"] = ["(a) --mesh 1x1 against the unsharded run: the train phase did not run"]
+    else:
+        base = train["full"]
+        full_params = base.pop("final_params")
+        steps, shape = base["steps"], base["batch_seq"]
+        want = {name: n * steps for name, n in base["launches_want_per_step"].items()}
+        fwd = ops.flash_attention_mod
+        for fn in (fwd.flash_attention_train_cuda, fwd.flash_attention_cuda,
+                   fwd.flash_attention_bwd_dq_cuda, fwd.flash_attention_bwd_dkdv_cuda):
+            fn.route_launches.update({k: 0 for k in fn.route_launches})
+        wall = []
+        real_step = train_launcher.make_train_step
 
-    def timed_step(*args, **kw):
-        step = real_step(*args, **kw)
+        def timed_step(*args, **kw):
+            step = real_step(*args, **kw)
 
-        def run(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(*a)
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-            return out
+            def run(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+                return out
 
-        return run
+            return run
 
-    argv = ["--arch", "granite-3-2b", "--steps", str(steps), "--batch", str(shape[0]), "--seq",
-            str(shape[1]), "--lr", "1e-3", "--accum", str(TRAIN_ACCUM), "--mesh", "1x1",
-            "--device", str(dev)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    train_launcher.make_train_step = timed_step
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            params, losses = train_launcher.main(argv)
-    finally:
-        train_launcher.make_train_step = real_step
-    torch.cuda.synchronize()
-    launched = {k: v for k, v in ops.launch_counts().items() if v}
-    peak = torch.cuda.max_memory_allocated()
-    check(launched == want, f"mesh 1x1: launches {launched}, want {want}")
-    routes = {name: dict(fn.route_launches) for name, fn in (
-        ("train", fwd.flash_attention_train_cuda), ("inference", fwd.flash_attention_cuda),
-        ("dq", fwd.flash_attention_bwd_dq_cuda), ("dkdv", fwd.flash_attention_bwd_dkdv_cuda))}
-    check(routes == {"train": {"wgmma": want["flash_attention_train"], "simt": 0},
-                     "inference": {"wgmma": 0, "simt": 0},
-                     "dq": {"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
-                     "dkdv": {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}},
-          f"mesh 1x1: flash routes {routes}")
-    check(losses == base["losses"], f"mesh 1x1 losses {losses} != unsharded {base['losses']}")
-    unsharded = dict(_named(full_params))
-    check(sorted(unsharded) == sorted(path for path, _ in _named(params)),
-          "mesh 1x1: the final params' leaves differ from the unsharded run's")
-    differ = [path for path, g in _named(params) if not torch.equal(g.cpu(), unsharded[path])]
-    check(not differ, f"mesh 1x1: final params differ from the unsharded run's: {differ[:5]}")
-    del params, full_params
-    torch.cuda.empty_cache()
-    ms = statistics.median(wall[1:]) * 1e3
-    emit({"phase": "mesh", "part": "a_train_1x1", "arch": "granite-3-2b",
-          "argv": " ".join(argv), "losses": losses, "losses_bitwise": True,
-          "final_params_bitwise": True, "launches": launched,
-          "launches_per_step": {k: v // steps for k, v in launched.items()},
-          "flash_routes": routes, "wall_s": wall, "ms_per_step": ms,
-          "ms_per_step_note": f"median of steps 2..{steps} (host clock, synchronised)",
-          "max_memory_allocated": peak, "unsharded": {
-              "ms_per_step": base["ms_per_step"],
-              "max_memory_allocated": base["max_memory_allocated"]},
-          "unsharded_pr26": {"ms_per_step": 1337.2, "max_memory_gb": 54.25,
-                             "card": "NVIDIA H100 80GB HBM3, 700.00 W"}})
+        argv = ["--arch", "granite-3-2b", "--steps", str(steps), "--batch", str(shape[0]), "--seq",
+                str(shape[1]), "--lr", "1e-3", "--accum", str(TRAIN_ACCUM), "--mesh", "1x1",
+                "--device", str(dev)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        train_launcher.make_train_step = timed_step
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                params, losses = train_launcher.main(argv)
+        finally:
+            train_launcher.make_train_step = real_step
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        check(launched == want, f"mesh 1x1: launches {launched}, want {want}")
+        routes = {name: dict(fn.route_launches) for name, fn in (
+            ("train", fwd.flash_attention_train_cuda), ("inference", fwd.flash_attention_cuda),
+            ("dq", fwd.flash_attention_bwd_dq_cuda), ("dkdv", fwd.flash_attention_bwd_dkdv_cuda))}
+        check(routes == {"train": {"wgmma": want["flash_attention_train"], "simt": 0},
+                         "inference": {"wgmma": 0, "simt": 0},
+                         "dq": {"wgmma": want["flash_attention_bwd_dq"], "simt": 0},
+                         "dkdv": {"wgmma": want["flash_attention_bwd_dkdv"], "simt": 0}},
+              f"mesh 1x1: flash routes {routes}")
+        check(losses == base["losses"], f"mesh 1x1 losses {losses} != unsharded {base['losses']}")
+        unsharded = dict(_named(full_params))
+        check(sorted(unsharded) == sorted(path for path, _ in _named(params)),
+              "mesh 1x1: the final params' leaves differ from the unsharded run's")
+        differ = [path for path, g in _named(params) if not torch.equal(g.cpu(), unsharded[path])]
+        check(not differ, f"mesh 1x1: final params differ from the unsharded run's: {differ[:5]}")
+        del params, full_params
+        torch.cuda.empty_cache()
+        ms = statistics.median(wall[1:]) * 1e3
+        emit({"phase": "mesh", "part": "a_train_1x1", "arch": "granite-3-2b",
+              "argv": " ".join(argv), "losses": losses, "losses_bitwise": True,
+              "final_params_bitwise": True, "launches": launched,
+              "launches_per_step": {k: v // steps for k, v in launched.items()},
+              "flash_routes": routes, "wall_s": wall, "ms_per_step": ms,
+              "ms_per_step_note": f"median of steps 2..{steps} (host clock, synchronised)",
+              "max_memory_allocated": peak, "unsharded": {
+                  "ms_per_step": base["ms_per_step"],
+                  "max_memory_allocated": base["max_memory_allocated"]},
+              "unsharded_pr26": {"ms_per_step": 1337.2, "max_memory_gb": 54.25,
+                                 "card": "NVIDIA H100 80GB HBM3, 700.00 W"}})
 
     # (b) the dry run, collected; meanwhile, the card idle, the roofline
     # phase's meta counts in spawned processes beside the fake worlds
@@ -2902,7 +3571,7 @@ def _norms_close(got, want) -> bool:
                        <= TRAJECTORY_RTOL * want[keep] + STAR_GN_ATOL))
 
 
-def star_phase(ops, dev) -> dict:
+def star_phase(ops, dev, cpu_side: CpuSide) -> dict:
     """Phase 10: the wire stack on the card.  (a) star-loopback at w8a's
     whole shape, TopK (10 rounds) and TopLEK (3), against the card's local
     solve; launches, syncs and ms per round; (b) each codec's one-row encode
@@ -2910,7 +3579,9 @@ def star_phase(ops, dev) -> dict:
     loopback, tau 71, 20% dropout resampled, against the same run on the
     CPU; (d) star-tcp with 8 client processes at w8a's per-client width
     against loopback at that shape; (e) a star session saved at round 3 and
-    restored.  Returns what the kernels line needs."""
+    restored.  (c)'s CPU run goes to ``cpu_side``'s worker at the start;
+    out["finish"] checks (c) against it.  Returns what the kernels line
+    needs."""
     import torch
 
     from repro_torch import prng
@@ -2929,6 +3600,13 @@ def star_phase(ops, dev) -> dict:
     n_clients, n_i, d = z_np.shape
     t_len, k = triu_size(d), spec.fednl_config().k_for(d)
     out: dict = {}
+    # (c)'s spec, its CPU run queued in the worker from the start
+    pp_spec = ExperimentSpec(
+        data=DataSpec(dataset="w8a"), algorithm="fednl-pp", tau=PP_TAU, rounds=STAR_ROUNDS,
+        compressor=CompressorSpec("randk"), fault=FaultSpec(drop_prob=STAR_PP_DROP),
+        on_dropout="resample", backend="star-loopback",
+    )
+    pp_job = cpu_side.submit(solve_cpu_side, pp_spec, z_np)
 
     # (a) star-loopback, TopK and TopLEK, each with the counts set to 0 before it
     def star_path(label, path_spec, per_client_round):
@@ -3038,11 +3716,6 @@ def star_phase(ops, dev) -> dict:
           "boundary_tol": TOPLEK_BOUNDARY})
 
     # (c) FedNL-PP over loopback: RandK, tau 71, 20% dropout resampled
-    pp_spec = ExperimentSpec(
-        data=DataSpec(dataset="w8a"), algorithm="fednl-pp", tau=PP_TAU, rounds=STAR_ROUNDS,
-        compressor=CompressorSpec("randk"), fault=FaultSpec(drop_prob=STAR_PP_DROP),
-        on_dropout="resample", backend="star-loopback",
-    )
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     pp = solve(pp_spec, z=z_np, device=dev)
@@ -3055,21 +3728,31 @@ def star_phase(ops, dev) -> dict:
                 threefry_uniform=3 * contributions, threefry_uniform_float32=3 * contributions,
                 select_topk_by_keys_idx=3 * contributions)
     check(pp_launches == want, f"PP star launches {pp_launches}, want {want}")
-    pp_cpu = solve(pp_spec, z=z_np, device="cpu")
-    check(pp.participants == pp_cpu.participants, "PP star: participants differ from the CPU's")
-    check(pp.dropped == pp_cpu.dropped, "PP star: drops differ from the CPU's")
     check(sum(len(x) for x in pp.dropped) > 0, "PP star: no client dropped")
-    check(list(pp.sent_bits) == list(pp_cpu.sent_bits), "PP star: sent_bits differ from the CPU's")
-    xh, xh_cpu = np.asarray(pp.x_hist), np.asarray(pp_cpu.x_hist)
-    pp_rel = np.linalg.norm(xh - xh_cpu, axis=1) / np.linalg.norm(xh_cpu, axis=1)
-    check(bool(np.all(pp_rel <= TRAJECTORY_RTOL)), f"PP star: card vs CPU models differ {pp_rel}")
-    emit({"phase": "star", "part": "c", "spec": f"w8a fednl-pp randk tau={PP_TAU} drop_prob="
-          f"{STAR_PP_DROP} resample rounds={STAR_ROUNDS}", "launches": pp_launches,
-          "contributions": contributions, "drops": sum(len(x) for x in pp.dropped),
-          "participants_exact": True, "x_rel_err_vs_cpu": pp_rel.tolist(),
-          "final_grad_norm": pp.final_grad_norm, "ms_per_round": pp.wall_time_s / pp.rounds * 1e3})
+    pp_line = {"phase": "star", "part": "c", "spec": f"w8a fednl-pp randk tau={PP_TAU} drop_prob="
+               f"{STAR_PP_DROP} resample rounds={STAR_ROUNDS}", "launches": pp_launches,
+               "contributions": contributions, "drops": sum(len(x) for x in pp.dropped),
+               "final_grad_norm": pp.final_grad_norm,
+               "ms_per_round": pp.wall_time_s / pp.rounds * 1e3}
+
+    def finish_c() -> None:
+        """(c) against the worker's CPU run, once it is in (the caller's
+        choice: it queues behind nothing, so the later the less it waits)."""
+        pp_cpu, worker = pp_job.result()
+        check(pp.participants == pp_cpu.participants,
+              "PP star: participants differ from the CPU's")
+        check(pp.dropped == pp_cpu.dropped, "PP star: drops differ from the CPU's")
+        check(list(pp.sent_bits) == list(pp_cpu.sent_bits),
+              "PP star: sent_bits differ from the CPU's")
+        xh, xh_cpu = np.asarray(pp.x_hist), np.asarray(pp_cpu.x_hist)
+        pp_rel = np.linalg.norm(xh - xh_cpu, axis=1) / np.linalg.norm(xh_cpu, axis=1)
+        check(bool(np.all(pp_rel <= TRAJECTORY_RTOL)),
+              f"PP star: card vs CPU models differ {pp_rel}")
+        emit({**pp_line, "participants_exact": True, "x_rel_err_vs_cpu": pp_rel.tolist(),
+              "cpu_side": worker})
+
     out["by_keys_idx_launches"] = pp_launches
-    del pp_cpu
+    out["finish"] = finish_c
 
     # (d) star-tcp: 8 client processes at w8a's per-client width
     tcp_spec = ExperimentSpec(data=DataSpec(dataset="w8a", shape=TCP_SHAPE), rounds=TCP_ROUNDS)
@@ -3172,7 +3855,7 @@ def _agg_root_bytes(measured: int, n_leaves: int, n_root_aggs: int) -> int:
     return 36 * n_root_aggs + measured - 8 * n_leaves
 
 
-def topology_phase(ops, dev, star: dict) -> dict:
+def topology_phase(ops, dev, star: dict, cpu_side: CpuSide) -> tuple[dict, list]:
     """Phase 11: the tree of stars, bounded-staleness async aggregation and
     elastic membership on the card at w8a, through solve and open_session on
     star-loopback and star-tcp.  (a) the exact tree (fanout 4, depth 3: 20
@@ -3184,7 +3867,9 @@ def topology_phase(ops, dev, star: dict) -> dict:
     the CPU; (d) elastic: 12 joins at round 2, 12 leaves at round 5, against
     the CPU; (e) a TCP process tree of 2 aggregators of 4 clients each against
     the loopback tree; (f) sessions restored by replay; (g) obs: hop spans,
-    frame counters and a profiled tree round.  Returns the launch counts."""
+    frame counters and a profiled tree round.  (c)'s and (d)'s CPU runs go to
+    ``cpu_side``'s worker at the start.  Returns the launch counts, and the
+    functions that check (c) and (d) against the CPU runs."""
     import torch
 
     from repro_torch import obs
@@ -3202,6 +3887,15 @@ def topology_phase(ops, dev, star: dict) -> dict:
     exact = TopologySpec(kind="tree", fanout=4, depth=3, combine="exact")
     n_root, n_aggs = _tree_levels(exact, n_clients)
     out: dict = {}
+    # (c)'s and (d)'s specs, their CPU runs queued in the worker from the start
+    async_topo = TopologySpec(mode="async", staleness=2, max_delay=3, schedule_seed=0)
+    async_spec = base.replace(topology=async_topo, rounds=ASYNC_ROUNDS)
+    events = tuple([MembershipEvent(ELASTIC_JOIN_AT, "join", c) for c in ELASTIC_JOINERS]
+                   + [MembershipEvent(ELASTIC_LEAVE_AT, "leave", c) for c in ELASTIC_LEAVERS])
+    el_spec = base.replace(membership=MembershipSpec(events=events), rounds=ELASTIC_ROUNDS)
+    cpu_jobs = {"async": cpu_side.submit(solve_cpu_side, async_spec, z_np),
+                "elastic": cpu_side.submit(solve_cpu_side, el_spec, z_np)}
+    finish: list = []  # (c)'s and (d)'s checks against the CPU runs, for the caller
     where = ROOT / "build" / "chip_smoke"
     where.mkdir(parents=True, exist_ok=True)
 
@@ -3305,8 +3999,6 @@ def topology_phase(ops, dev, star: dict) -> dict:
           and list(sync0.extras["measured_frame_bytes"])
           == list(flat.extras["measured_frame_bytes"][:ASYNC_SYNC_ROUNDS]),
           "async staleness 0 != the flat star")
-    async_topo = TopologySpec(mode="async", staleness=2, max_delay=3, schedule_seed=0)
-    async_spec = base.replace(topology=async_topo, rounds=ASYNC_ROUNDS)
     async_path = where / "w8a_async.fnlsess"
     reset()
     with open_session(async_spec, z=z_np, device=dev) as s:
@@ -3316,38 +4008,36 @@ def topology_phase(ops, dev, star: dict) -> dict:
         in_flight = len(s._handle._master._inflight)
     async_launches = launch_counts(ops)
     async2 = solve(async_spec, z=z_np, device=dev)
-    t0 = time.perf_counter()
-    async_cpu = solve(async_spec, z=z_np, device="cpu")
-    async_cpu_s = time.perf_counter() - t0
     parts = [r.participants for r in async1.records]
     assigned = sum(len(p) for p in parts)
-    check(parts == [r.participants for r in async_cpu.records], "async participants != the CPU's")
     check(_reports_bitwise(async1, async2) and frames_bitwise(async1, async2),
           "two async runs on the card differ")
-    check(list(async1.sent_bits) == list(async_cpu.sent_bits), "async sent_bits != the CPU's")
-    check(_norms_close(async1.grad_norms, async_cpu.grad_norms),
-          f"async grad norms vs the CPU: {_rel(async1.grad_norms, async_cpu.grad_norms, STAR_GN_FLOOR)}")
     # a client computes (SYRK, then its encode) once per ROUND assignment;
     # every assignment has arrived or is still in flight at the end
     assignments = assigned + in_flight
     want = zero_but(hessian_syrk_packed=n_clients + assignments, select_topk_idx=assignments)
     check(async_launches == want, f"async launches {async_launches}, want {want}")
-    emit({"phase": "topology", "part": "c", "spec": f"w8a star-loopback topk async staleness=2 "
-          f"max_delay=3 schedule_seed=0 rounds={ASYNC_ROUNDS}",
-          "staleness0_bitwise_vs_flat_star": True, "two_card_runs_bitwise": True,
-          "participants_exact_vs_cpu": True, "participants_per_round": [len(p) for p in parts],
-          "arrivals": assigned, "in_flight_at_end": in_flight, "launches": async_launches,
-          "grad_norms": async1.grad_norms.tolist(),
-          "rel_err_vs_cpu": _rel(async1.grad_norms, async_cpu.grad_norms, STAR_GN_FLOOR).tolist(),
-          "ms_per_round": async1.wall_time_s / async1.rounds * 1e3,
-          "cpu_run_s": async_cpu_s})
+
+    def finish_c() -> None:
+        async_cpu, worker = cpu_jobs["async"].result()
+        check(parts == [r.participants for r in async_cpu.records],
+              "async participants != the CPU's")
+        check(list(async1.sent_bits) == list(async_cpu.sent_bits), "async sent_bits != the CPU's")
+        rel = _rel(async1.grad_norms, async_cpu.grad_norms, STAR_GN_FLOOR)
+        check(_norms_close(async1.grad_norms, async_cpu.grad_norms),
+              f"async grad norms vs the CPU: {rel}")
+        emit({"phase": "topology", "part": "c", "spec": f"w8a star-loopback topk async "
+              f"staleness=2 max_delay=3 schedule_seed=0 rounds={ASYNC_ROUNDS}",
+              "staleness0_bitwise_vs_flat_star": True, "two_card_runs_bitwise": True,
+              "participants_exact_vs_cpu": True, "participants_per_round": [len(p) for p in parts],
+              "arrivals": assigned, "in_flight_at_end": in_flight, "launches": async_launches,
+              "grad_norms": async1.grad_norms.tolist(), "rel_err_vs_cpu": rel.tolist(),
+              "ms_per_round": async1.wall_time_s / async1.rounds * 1e3, "cpu_side": worker})
+
+    finish.append(finish_c)
     out["async"] = async_launches
-    del async_cpu
 
     # (d) elastic: clients 130-141 join at round 2, 0-11 leave at round 5
-    events = tuple([MembershipEvent(ELASTIC_JOIN_AT, "join", c) for c in ELASTIC_JOINERS]
-                   + [MembershipEvent(ELASTIC_LEAVE_AT, "leave", c) for c in ELASTIC_LEAVERS])
-    el_spec = base.replace(membership=MembershipSpec(events=events), rounds=ELASTIC_ROUNDS)
     el_path = where / "w8a_elastic.fnlsess"
     leave_checks = []
     reset()
@@ -3370,14 +4060,7 @@ def topology_phase(ops, dev, star: dict) -> dict:
     el_launches = launch_counts(ops)
     check(leave_checks == [(ELASTIC_LEAVE_AT, True)],
           f"H_global after the leaves != a fresh mean of the survivors' mirrors: {leave_checks}")
-    t0 = time.perf_counter()
-    el_cpu = solve(el_spec, z=z_np, device="cpu")
-    el_cpu_s = time.perf_counter() - t0
     el_parts = [r.participants for r in elastic.records]
-    check(el_parts == [r.participants for r in el_cpu.records], "elastic participants != the CPU's")
-    check(list(elastic.sent_bits) == list(el_cpu.sent_bits), "elastic sent_bits != the CPU's")
-    check(_norms_close(elastic.grad_norms, el_cpu.grad_norms),
-          f"elastic grad norms vs the CPU: {_rel(elastic.grad_norms, el_cpu.grad_norms, STAR_GN_FLOOR)}")
     t_len = d * (d + 1) // 2
     active_before = n_clients - len(ELASTIC_JOINERS)
     per_up = elastic.records[1].sent_bits_payload // active_before
@@ -3388,17 +4071,27 @@ def topology_phase(ops, dev, star: dict) -> dict:
     want = zero_but(hessian_syrk_packed=active_before + len(ELASTIC_JOINERS) + rounds_active,
                     select_topk_idx=rounds_active)
     check(el_launches == want, f"elastic launches {el_launches}, want {want}")
-    emit({"phase": "topology", "part": "d", "spec": f"w8a star-loopback topk membership: "
-          f"{len(ELASTIC_JOINERS)} join at round {ELASTIC_JOIN_AT}, {len(ELASTIC_LEAVERS)} leave "
-          f"at round {ELASTIC_LEAVE_AT}, rounds={ELASTIC_ROUNDS}",
-          "participants_per_round": [len(p) for p in el_parts], "participants_exact_vs_cpu": True,
-          "sent_bits_exact_vs_cpu": True, "round2_delta_bits": delta,
-          "round2_delta_want": want_delta, "leave_h_global_bitwise_fresh_mean": True,
-          "launches": el_launches, "grad_norms": elastic.grad_norms.tolist(),
-          "rel_err_vs_cpu": _rel(elastic.grad_norms, el_cpu.grad_norms, STAR_GN_FLOOR).tolist(),
-          "ms_per_round": elastic.wall_time_s / elastic.rounds * 1e3, "cpu_run_s": el_cpu_s})
+
+    def finish_d() -> None:
+        el_cpu, worker = cpu_jobs["elastic"].result()
+        check(el_parts == [r.participants for r in el_cpu.records],
+              "elastic participants != the CPU's")
+        check(list(elastic.sent_bits) == list(el_cpu.sent_bits), "elastic sent_bits != the CPU's")
+        rel = _rel(elastic.grad_norms, el_cpu.grad_norms, STAR_GN_FLOOR)
+        check(_norms_close(elastic.grad_norms, el_cpu.grad_norms),
+              f"elastic grad norms vs the CPU: {rel}")
+        emit({"phase": "topology", "part": "d", "spec": f"w8a star-loopback topk membership: "
+              f"{len(ELASTIC_JOINERS)} join at round {ELASTIC_JOIN_AT}, {len(ELASTIC_LEAVERS)} "
+              f"leave at round {ELASTIC_LEAVE_AT}, rounds={ELASTIC_ROUNDS}",
+              "participants_per_round": [len(p) for p in el_parts],
+              "participants_exact_vs_cpu": True, "sent_bits_exact_vs_cpu": True,
+              "round2_delta_bits": delta, "round2_delta_want": want_delta,
+              "leave_h_global_bitwise_fresh_mean": True, "launches": el_launches,
+              "grad_norms": elastic.grad_norms.tolist(), "rel_err_vs_cpu": rel.tolist(),
+              "ms_per_round": elastic.wall_time_s / elastic.rounds * 1e3, "cpu_side": worker})
+
+    finish.append(finish_d)
     out["elastic"] = el_launches
-    del el_cpu
 
     # (f) the three sessions restored from their FNLS1 files by replay
     restored = {}
@@ -3506,7 +4199,7 @@ def topology_phase(ops, dev, star: dict) -> dict:
                   "aggregator, nested (level 2 inside level 1 inside the root's comm.round); "
                   "the tree session's third round under torch.profiler"})
     emit({"phase": "topology", "seconds": time.perf_counter() - t_phase})
-    return out
+    return out, finish
 
 
 def _records_bitwise(got, want) -> bool:
@@ -3541,7 +4234,7 @@ def _tenant_against_solve(name: str, got, want, n_clients: int) -> dict:
             "boundary_rounds": differ}
 
 
-def serve_phase(ops, dev, sweep: dict) -> dict:
+def serve_phase(ops, dev, sweep: dict | None) -> dict:
     """Phase 12: the FedNL serving engine and its gateway at w8a's whole
     shape, on the card: (a) the README grid and a TopLEK tenant through one
     engine under memory pressure, exact launch counts, each tenant against
@@ -3818,9 +4511,10 @@ def serve_phase(ops, dev, sweep: dict) -> dict:
     out["tick"] = {
         "slots": 8, "ms_per_tick_median": ms_tick, "ms_per_tick": [t * 1e3 for t in tick_s],
         "tenant_rounds_per_s": 8 / (ms_tick / 1e3),
-        "sweep_group_ms_per_round_12_specs": sweep["group_ms_per_round"],
-        "sweep_spec_rounds_per_s": 12 / (sweep["group_ms_per_round"] / 1e3),
-        "sum_of_12_solves_ms_per_round": sweep["sequential_ms_per_round_sum"],
+        **({"sweep_group_ms_per_round_12_specs": sweep["group_ms_per_round"],
+            "sweep_spec_rounds_per_s": 12 / (sweep["group_ms_per_round"] / 1e3),
+            "sum_of_12_solves_ms_per_round": sweep["sequential_ms_per_round_sum"]}
+           if sweep is not None else {"sweep": "not run"}),
         "stack_8_states_device_ms": stack_ms, "unstack_8_states_host_ms": unstack_ms,
         "stack_bytes": 2 * 8 * n_clients * z_np.shape[-1] * (z_np.shape[-1] + 1) // 2 * 8,
         "occupancy_a": stats["batch_occupancy"], "pad_slot_rounds_a": padded - live,
@@ -3837,7 +4531,7 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
-def sharded_phase(ops, dev, local_ms_per_round: float) -> dict:
+def sharded_phase(ops, dev, local_ms_per_round: float | None) -> dict:
     """Phase 13: the sharded backend at w8a's whole shape on a world of one
     (NCCL on the card, rank 0 in this process).  (a) dense_psum, TopK, 10
     rounds, against the card's local solve; (b) sparse_allgather through
@@ -4071,6 +4765,9 @@ def sharded_phase(ops, dev, local_ms_per_round: float) -> dict:
 
 # the roofline phase's meta counts, longest first: (arch, shape, accum_steps, n_layers)
 ROOFLINE_RUNS = (
+    ("yi-34b", "train_4k", TRAIN_ACCUM, YI_TRAIN_LAYERS),  # the train phase's cuts
+    ("chatglm3-6b", "train_4k", TRAIN_ACCUM, CHATGLM_TRAIN_LAYERS),
+    ("nemotron-4-15b", "train_4k", TRAIN_ACCUM, NEMOTRON_TRAIN_LAYERS),
     ("mamba2-2.7b", "train_4k", TRAIN_ACCUM, None),
     ("seamless-m4t-large-v2", "train_4k", TRAIN_ACCUM, None),
     ("seamless-m4t-large-v2", "prefill_32k", None, None),
@@ -4150,7 +4847,7 @@ def roofline_line(run: str, cost: dict, model_flops: float, measured_s: float,
             "flops_by_op": cost["flops_by_op"], "aten_ops": cost["ops"]}
 
 
-def roofline_phase(dev, smi: str, measured: dict, mesh: dict) -> None:
+def roofline_phase(dev, smi: str, measured: dict, mesh: dict | None, skipped: dict) -> None:
     """The roofline of every full-width run measured before it, from counts
     alone (the times are the earlier phases'; the meta counts of
     ROOFLINE_RUNS the mesh phase's): the machines (datasheet and measured
@@ -4220,18 +4917,34 @@ def roofline_phase(dev, smi: str, measured: dict, mesh: dict) -> None:
     round_cost = rl.step_cost(make_fednl_round(z, cfg), fednl_init(z, cfg))
     round_s = time.perf_counter() - t0
 
-    results = mesh["roofline_counts"]
-    granite_train = next(r for r in results if r["arch"] == "granite-3-2b"
-                         and r["shape"] == "train_4k")
-    mesh_one_card = mesh["one_card"]
-    check(mesh_one_card["flops"] == granite_train["cost"]["flops"],
-          f"granite-3-2b train_4k: the 1 x 1 mesh's flops {mesh_one_card['flops']} != the plain "
-          f"count's {granite_train['cost']['flops']}")
-    emit({"phase": "roofline", "part": "mesh_one_card_equals_plain", "arch": "granite-3-2b",
-          "flops": mesh_one_card["flops"], "flops_equal": True,
-          "bytes": {"mesh_1x1": mesh_one_card["bytes"], "plain": granite_train["cost"]["bytes"]}})
+    if mesh is not None:
+        results = mesh["roofline_counts"]
+        granite_train = next(r for r in results if r["arch"] == "granite-3-2b"
+                             and r["shape"] == "train_4k")
+        mesh_one_card = mesh["one_card"]
+        check(mesh_one_card["flops"] == granite_train["cost"]["flops"],
+              f"granite-3-2b train_4k: the 1 x 1 mesh's flops {mesh_one_card['flops']} != the "
+              f"plain count's {granite_train['cost']['flops']}")
+        emit({"phase": "roofline", "part": "mesh_one_card_equals_plain", "arch": "granite-3-2b",
+              "flops": mesh_one_card["flops"], "flops_equal": True,
+              "bytes": {"mesh_1x1": mesh_one_card["bytes"],
+                        "plain": granite_train["cost"]["bytes"]}})
+    else:  # the counts the mesh phase would have made beside its fake worlds
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        skipped.setdefault("roofline", []).append(
+            "the 1 x 1 mesh's count against the plain one: the mesh phase did not run")
+        runs = [run for run in ROOFLINE_RUNS if run[:2] in measured]
+        with ProcessPoolExecutor(ROOFLINE_WORKERS,
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            results = list(pool.map(count_on_meta, *zip(*runs))) if runs else []
     for res in results:
         arch, shape_name = res["arch"], res["shape"]
+        if (arch, shape_name) not in measured:
+            skipped.setdefault("roofline", []).append(
+                f"{arch} {shape_name}: the phase that times it did not run")
+            continue
         meas = measured[(arch, shape_name)]
         check(meas.get("n_layers", res["n_layers"]) == res["n_layers"],
               f"roofline {arch} {shape_name}: counted {res['n_layers']} layers, measured "
@@ -4243,6 +4956,10 @@ def roofline_phase(dev, smi: str, measured: dict, mesh: dict) -> None:
                     params=res["params"], active_params=res["active_params"],
                     measured_by=meas["by"], count_s=res["count_s"])
         emit(line)
+    if "round" not in measured:
+        skipped.setdefault("roofline", []).append("w8a topk round: the trace phase did not run")
+        emit({"phase": "roofline", "seconds": time.perf_counter() - t_phase})
+        return
     # the round: model flops are the packed Hessians' products, what SYRK must do
     hess_flops = 2.0 * n_clients * n_i * triu_size(d)
     line = roofline_line("w8a topk round", dataclasses.asdict(round_cost), hess_flops,
@@ -4256,7 +4973,8 @@ def roofline_phase(dev, smi: str, measured: dict, mesh: dict) -> None:
     emit({"phase": "roofline", "seconds": time.perf_counter() - t_phase})
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    run = select_phases(argv)  # an unknown name exits 2 here
     import torch
 
     import torch.nn.functional as F
@@ -4304,6 +5022,17 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_run = time.perf_counter()
+    phase_s: dict[str, float] = {}  # each phase's seconds, the build's and the card's too
+    t_mark = [t_run]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    skipped: dict[str, list[str]] = {}  # phase: its parts skipped for want of another phase
+    measured: dict = {}  # the full-width runs' times for the roofline phase
+    cpu_side = CpuSide()  # the card-versus-CPU checks' CPU sides, off the critical path
 
     # --- 1 card ------------------------------------------------------------
     smi = nvidia_smi_line()
@@ -4316,6 +5045,9 @@ def main() -> int:
         "cuda": torch.version.cuda,
         "python": sys.version.split()[0],
     })
+    if run != PHASES:
+        emit({"phase": "selection", "phases": list(run)})
+    mark("card")
 
     # --- 2 build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4329,6 +5061,7 @@ def main() -> int:
             for name, rep in reports.items()
         },
     })
+    mark("build")
 
     # --- 3 kernels against their plain versions, w8a shapes ---------------
     spec = ExperimentSpec(data=DataSpec(dataset="w8a"), rounds=50, tol=1e-12)
@@ -4339,973 +5072,1088 @@ def main() -> int:
     rng = np.random.default_rng(0)
     sigma = rng.uniform(0.0, 1.0, size=(n_clients, n_i))
     hw = torch.as_tensor(sigma * (1.0 - sigma) / n_i, dtype=torch.float64, device=dev)
+    if "kernels" in run:
+        h_kernel = hessian_syrk_packed_cuda(z, hw, cfg.lam)
+        h_plain = hessian_syrk_packed_plain(z, hw, cfg.lam)
+        scale = hessian_syrk_packed_plain(z.abs(), hw.abs(), 0.0).abs().max().item()
+        syrk_err = (h_kernel - h_plain).abs().max().item()
+        check(h_kernel.shape == (n_clients, t_len), f"SYRK shape {tuple(h_kernel.shape)}")
+        check(bool(torch.isfinite(h_kernel).all()), "SYRK output not finite")
+        check(syrk_err <= SYRK_TOL * scale, f"SYRK error {syrk_err} > {SYRK_TOL} * {scale}")
+        # the shared-z form of the sweep's group: 12 specs' hw on one z, client c
+        # reading z[c mod 142]; against the plain version, and bit for bit against
+        # the first form on z repeated
+        hw_group = torch.as_tensor(
+            rng.uniform(0.0, 0.25, size=(12 * n_clients, n_i)) / n_i, dtype=torch.float64, device=dev)
+        h_group = hessian_syrk_packed_cuda(z, hw_group, cfg.lam)
+        h_group_plain = hessian_syrk_packed_plain(z, hw_group, cfg.lam)
+        group_scale = hessian_syrk_packed_plain(z.abs(), hw_group.abs(), 0.0).abs().max().item()
+        syrk_group_err = (h_group - h_group_plain).abs().max().item()
+        check(syrk_group_err <= SYRK_TOL * group_scale,
+              f"SYRK shared-z error {syrk_group_err} > {SYRK_TOL} * {group_scale}")
+        h_repeated = hessian_syrk_packed_cuda(z.repeat(12, 1, 1), hw_group, cfg.lam)
+        check(bits_equal(h_group, h_repeated), "SYRK shared z differs from z repeated")
+        del hw_group, h_group, h_group_plain, h_repeated
 
-    h_kernel = hessian_syrk_packed_cuda(z, hw, cfg.lam)
-    h_plain = hessian_syrk_packed_plain(z, hw, cfg.lam)
-    scale = hessian_syrk_packed_plain(z.abs(), hw.abs(), 0.0).abs().max().item()
-    syrk_err = (h_kernel - h_plain).abs().max().item()
-    check(h_kernel.shape == (n_clients, t_len), f"SYRK shape {tuple(h_kernel.shape)}")
-    check(bool(torch.isfinite(h_kernel).all()), "SYRK output not finite")
-    check(syrk_err <= SYRK_TOL * scale, f"SYRK error {syrk_err} > {SYRK_TOL} * {scale}")
-    # the shared-z form of the sweep's group: 12 specs' hw on one z, client c
-    # reading z[c mod 142]; against the plain version, and bit for bit against
-    # the first form on z repeated
-    hw_group = torch.as_tensor(
-        rng.uniform(0.0, 0.25, size=(12 * n_clients, n_i)) / n_i, dtype=torch.float64, device=dev)
-    h_group = hessian_syrk_packed_cuda(z, hw_group, cfg.lam)
-    h_group_plain = hessian_syrk_packed_plain(z, hw_group, cfg.lam)
-    group_scale = hessian_syrk_packed_plain(z.abs(), hw_group.abs(), 0.0).abs().max().item()
-    syrk_group_err = (h_group - h_group_plain).abs().max().item()
-    check(syrk_group_err <= SYRK_TOL * group_scale,
-          f"SYRK shared-z error {syrk_group_err} > {SYRK_TOL} * {group_scale}")
-    h_repeated = hessian_syrk_packed_cuda(z.repeat(12, 1, 1), hw_group, cfg.lam)
-    check(bits_equal(h_group, h_repeated), "SYRK shared z differs from z repeated")
-    del hw_group, h_group, h_group_plain, h_repeated
+        state0 = fednl_init(z, cfg)
+        state1, _ = make_fednl_round(z, cfg)(state0)
+        delta0 = logreg_oracles_packed(z, state0.x, cfg.lam)[2] - state0.h_local
+        delta1 = logreg_oracles_packed(z, state1.x, cfg.lam)[2] - state1.h_local
+        d350 = triu_size(350)
+        topk_cases = {
+            "round0_delta": (delta0, k),
+            "round1_delta": (delta1, k),
+            "near_ties": (torch.as_tensor(near_tie_rows(n_clients, t_len, 1), device=dev), k),
+            "keys_in_device_memory": (
+                torch.as_tensor(near_tie_rows(8, d350, 2), device=dev), 8 * 350
+            ),
+            "k_is_1": (torch.as_tensor(near_tie_rows(4, 257, 3), device=dev), 1),
+            "k_is_T": (torch.as_tensor(near_tie_rows(4, 130, 4), device=dev), 130),
+        }
+        topk_err = 0.0
+        for name, (u, kk) in topk_cases.items():
+            u = u.contiguous()
+            got, sent = select_topk_cuda(u, kk)
+            want, sent_want = select_topk_plain(u, kk)
+            check(bits_equal(got, want), f"TopK {name}: u_hat differs from the plain version")
+            check(torch.equal(sent, sent_want), f"TopK {name}: sent differs")
+            check(int((got != 0).sum(-1).max()) <= kk, f"TopK {name}: more than k kept")
+            topk_err = max(topk_err, (got - want).abs().max().item())
+        check(keys_in_shared_memory(t_len, dev), "w8a keys should fit shared memory")
+        check(not keys_in_shared_memory(d350, dev), "d=350 keys should not fit shared memory")
 
-    state0 = fednl_init(z, cfg)
-    state1, _ = make_fednl_round(z, cfg)(state0)
-    delta0 = logreg_oracles_packed(z, state0.x, cfg.lam)[2] - state0.h_local
-    delta1 = logreg_oracles_packed(z, state1.x, cfg.lam)[2] - state1.h_local
-    d350 = triu_size(350)
-    topk_cases = {
-        "round0_delta": (delta0, k),
-        "round1_delta": (delta1, k),
-        "near_ties": (torch.as_tensor(near_tie_rows(n_clients, t_len, 1), device=dev), k),
-        "keys_in_device_memory": (
-            torch.as_tensor(near_tie_rows(8, d350, 2), device=dev), 8 * 350
-        ),
-        "k_is_1": (torch.as_tensor(near_tie_rows(4, 257, 3), device=dev), 1),
-        "k_is_T": (torch.as_tensor(near_tie_rows(4, 130, 4), device=dev), 130),
-    }
-    topk_err = 0.0
-    for name, (u, kk) in topk_cases.items():
-        u = u.contiguous()
-        got, sent = select_topk_cuda(u, kk)
-        want, sent_want = select_topk_plain(u, kk)
-        check(bits_equal(got, want), f"TopK {name}: u_hat differs from the plain version")
-        check(torch.equal(sent, sent_want), f"TopK {name}: sent differs")
-        check(int((got != 0).sum(-1).max()) <= kk, f"TopK {name}: more than k kept")
-        topk_err = max(topk_err, (got - want).abs().max().item())
-    check(keys_in_shared_memory(t_len, dev), "w8a keys should fit shared memory")
-    check(not keys_in_shared_memory(d350, dev), "d=350 keys should not fit shared memory")
+        # the draws of the main path's first two rounds (seed 0), as the round makes them
+        round_keys, key = [], state0.key
+        for _ in range(2):
+            key, sub = prng.split(key, 2)
+            round_keys.append(prng.split(sub, n_clients))
+        wide = rng.standard_normal((4, 70000))
+        randseqk_cases = {  # name: (u, k, s)
+            "round0_draws": (delta1, k, prng.randint(round_keys[0], 0, t_len)),
+            "round1_draws": (delta1, k, prng.randint(round_keys[1], 0, t_len)),
+            "s_is_0": (delta1, k, np.zeros(n_clients, dtype=np.int64)),
+            "s_is_T_minus_1": (delta1, k, np.full(n_clients, t_len - 1, dtype=np.int64)),
+            "wrapping": (delta1, k, t_len - 1 - rng.integers(0, k, size=n_clients)),
+            "k_is_1": (delta1, 1, rng.integers(0, t_len, size=n_clients)),
+            "k_is_T": (delta1, t_len, rng.integers(0, t_len, size=n_clients)),
+            "long_rows": (torch.as_tensor(wide, device=dev), 4096, np.array([0, 69999, 65000, 123])),
+        }
+        randseqk_err = 0.0
+        for name, (u, kk, s_np) in randseqk_cases.items():
+            u = u.contiguous()
+            s = torch.as_tensor(s_np, dtype=torch.int64, device=dev)
+            got, sent = select_randseqk_cuda(u, kk, s)
+            want, sent_want = select_randseqk_plain(u, kk, s)
+            check(bits_equal(got, want), f"RandSeqK {name}: u_hat differs from the plain version")
+            check(torch.equal(sent, sent_want), f"RandSeqK {name}: sent differs")
+            randseqk_err = max(randseqk_err, (got - want).abs().max().item())
 
-    # the draws of the main path's first two rounds (seed 0), as the round makes them
-    round_keys, key = [], state0.key
-    for _ in range(2):
-        key, sub = prng.split(key, 2)
-        round_keys.append(prng.split(sub, n_clients))
-    wide = rng.standard_normal((4, 70000))
-    randseqk_cases = {  # name: (u, k, s)
-        "round0_draws": (delta1, k, prng.randint(round_keys[0], 0, t_len)),
-        "round1_draws": (delta1, k, prng.randint(round_keys[1], 0, t_len)),
-        "s_is_0": (delta1, k, np.zeros(n_clients, dtype=np.int64)),
-        "s_is_T_minus_1": (delta1, k, np.full(n_clients, t_len - 1, dtype=np.int64)),
-        "wrapping": (delta1, k, t_len - 1 - rng.integers(0, k, size=n_clients)),
-        "k_is_1": (delta1, 1, rng.integers(0, t_len, size=n_clients)),
-        "k_is_T": (delta1, t_len, rng.integers(0, t_len, size=n_clients)),
-        "long_rows": (torch.as_tensor(wide, device=dev), 4096, np.array([0, 69999, 65000, 123])),
-    }
-    randseqk_err = 0.0
-    for name, (u, kk, s_np) in randseqk_cases.items():
-        u = u.contiguous()
-        s = torch.as_tensor(s_np, dtype=torch.int64, device=dev)
-        got, sent = select_randseqk_cuda(u, kk, s)
-        want, sent_want = select_randseqk_plain(u, kk, s)
-        check(bits_equal(got, want), f"RandSeqK {name}: u_hat differs from the plain version")
-        check(torch.equal(sent, sent_want), f"RandSeqK {name}: sent differs")
-        randseqk_err = max(randseqk_err, (got - want).abs().max().item())
-
-    toplek_cases = {  # name: (u, k, unif, exact)
-        "round0_delta": (delta0, k, prng.uniform(round_keys[0]), True),
-        "round1_delta": (delta1, k, prng.uniform(round_keys[1]), False),
-        "near_ties": (near_tie_rows(n_clients, t_len, 5), k, rng.uniform(size=n_clients), False),
-        "dyadic": (dyadic_rows(n_clients, t_len, 6), k, rng.uniform(size=n_clients), True),
-        "k_is_1": (near_tie_rows(8, t_len, 7), 1, rng.uniform(size=8), False),
-        "k_is_T": (dyadic_rows(4, t_len, 8), t_len, rng.uniform(size=4), True),
-        "k_is_T_small": (near_tie_rows(4, 130, 9), 130, rng.uniform(size=4), False),
-        "keys_in_device_memory": (dyadic_rows(8, d350, 10), 8 * 350, rng.uniform(size=8), True),
-    }
-    toplek_err, toplek_boundary, toplek_kept = 0.0, {}, {}
-    for name, (u, kk, unif_np, exact) in toplek_cases.items():
-        u = torch.as_tensor(u, dtype=torch.float64, device=dev).contiguous()
-        unif = torch.as_tensor(unif_np, dtype=torch.float64, device=dev)
-        got, sent = select_toplek_cuda(u, kk, unif)
-        want, sent_want = select_toplek_plain(u, kk, unif)
-        torch.cuda.synchronize()
-        check(sent.dtype == torch.int32, f"TopLEK {name}: sent dtype {sent.dtype}")
-        differ = (~torch.all(got.view(torch.int64) == want.view(torch.int64), dim=-1)) | (
-            sent != sent_want
-        )
-        rows = differ.nonzero().flatten().tolist()
-        check(not (exact and rows), f"TopLEK {name}: rows {rows} differ on an exact fixture")
-        u_host = u.cpu().numpy()
-        for r in rows:
-            check(abs(int(sent[r]) - int(sent_want[r])) == 1,
-                  f"TopLEK {name}: row {r} kept {int(sent[r])} vs {int(sent_want[r])}")
-            check(toplek_near_boundary(u_host[r], kk, float(unif_np[r])),
-                  f"TopLEK {name}: row {r} differs away from the boundary")
-        same = ~differ
-        if bool(same.any()):
-            toplek_err = max(toplek_err, (got[same] - want[same]).abs().max().item())
-        check(int((got != 0).sum(-1).max()) <= kk, f"TopLEK {name}: more than k kept")
-        toplek_boundary[name] = len(rows)
-        toplek_kept[name] = [int(sent.min()), int(sent.max())]
-    check(toplek_kept["round0_delta"] == [0, 0], "TopLEK keeps nothing of the zero round-0 delta")
-    toplek_paths = {
-        "w8a": toplek_memory_path(t_len, k, dev),
-        "k_is_T": toplek_memory_path(t_len, t_len, dev),
-        "keys_in_device_memory": toplek_memory_path(d350, 8 * 350, dev),
-    }
-    check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 1},
-          f"TopLEK memory paths {toplek_paths}")
-    torch.cuda.synchronize()
-    emit({
-        "phase": "kernels",
-        "hessian_syrk_packed": {
-            "max_abs_err": syrk_err, "scale": scale, "rel_err": syrk_err / scale,
-            "tol": SYRK_TOL,
-            "shared_z": {"clients": 12 * n_clients, "z_clients": n_clients,
-                         "max_abs_err": syrk_group_err, "rel_err": syrk_group_err / group_scale,
-                         "bit_exact_vs_z_repeated": True},
-        },
-        "select_topk": {
-            "cases": sorted(topk_cases), "bit_exact": True, "max_abs_err": topk_err,
-            "round0_delta_nonzero": int((delta0 != 0).sum()),
-            "round1_delta_nonzero": int((delta1 != 0).sum()),
-        },
-        "select_randseqk": {
-            "cases": sorted(randseqk_cases), "bit_exact": True, "max_abs_err": randseqk_err,
-        },
-        "select_toplek": {
-            "cases": sorted(toplek_cases), "max_abs_err_exact_rows": toplek_err,
-            "boundary_rows": toplek_boundary, "boundary_tol": TOPLEK_BOUNDARY,
-            "kept_min_max": toplek_kept, "memory_paths": toplek_paths,
-        },
-    })
-
-    # the threefry kernel: the round's real client keys, T = 1, one client
-    def keys_on_card(keys_np):
-        return torch.as_tensor(np.ascontiguousarray(keys_np).view(np.int32), device=dev)
-
-    wide_keys = prng.split(prng.prng_key(7), 1000)
-    threefry_cases = {  # name: (keys, t)
-        "w8a_round0": (round_keys[0], t_len),
-        "w8a_round1": (round_keys[1], t_len),
-        "t_is_1": (round_keys[0], 1),
-        "one_client": (round_keys[1][:1], t_len),
-        "many_clients_t_3000": (wide_keys, 3000),
-        # T = 4097 odd: every row's aligned runs leave a head or a tail (f32
-        # up to 3 elements, f64 one) to the kernel's tail loop
-        "edge_every_row_t_4097": (wide_keys[:300], 4097),
-    }
-    threefry_report, threefry_err = {}, {torch.float32: 0.0, torch.float64: 0.0}
-    for name, (keys_np, tt) in threefry_cases.items():
-        kt = keys_on_card(keys_np)
-        for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
-            got = threefry_uniform_cuda(kt, tt, dtype)
-            want = threefry_uniform_plain(kt, tt, dtype)
+        toplek_cases = {  # name: (u, k, unif, exact)
+            "round0_delta": (delta0, k, prng.uniform(round_keys[0]), True),
+            "round1_delta": (delta1, k, prng.uniform(round_keys[1]), False),
+            "near_ties": (near_tie_rows(n_clients, t_len, 5), k, rng.uniform(size=n_clients), False),
+            "dyadic": (dyadic_rows(n_clients, t_len, 6), k, rng.uniform(size=n_clients), True),
+            "k_is_1": (near_tie_rows(8, t_len, 7), 1, rng.uniform(size=8), False),
+            "k_is_T": (dyadic_rows(4, t_len, 8), t_len, rng.uniform(size=4), True),
+            "k_is_T_small": (near_tie_rows(4, 130, 9), 130, rng.uniform(size=4), False),
+            "keys_in_device_memory": (dyadic_rows(8, d350, 10), 8 * 350, rng.uniform(size=8), True),
+        }
+        toplek_err, toplek_boundary, toplek_kept = 0.0, {}, {}
+        for name, (u, kk, unif_np, exact) in toplek_cases.items():
+            u = torch.as_tensor(u, dtype=torch.float64, device=dev).contiguous()
+            unif = torch.as_tensor(unif_np, dtype=torch.float64, device=dev)
+            got, sent = select_toplek_cuda(u, kk, unif)
+            want, sent_want = select_toplek_plain(u, kk, unif)
             torch.cuda.synchronize()
-            check(got.shape == (keys_np.shape[0], tt) and got.dtype == dtype,
-                  f"threefry {name}: {tuple(got.shape)} {got.dtype}")
-            check(torch.equal(got.view(bits), want.view(bits)),
-                  f"threefry {name} {dtype}: differs from the plain version")
-            check(bool((got >= 0).all()) and bool((got < 1).all()), f"threefry {name}: out of [0, 1)")
+            check(sent.dtype == torch.int32, f"TopLEK {name}: sent dtype {sent.dtype}")
+            differ = (~torch.all(got.view(torch.int64) == want.view(torch.int64), dim=-1)) | (
+                sent != sent_want
+            )
+            rows = differ.nonzero().flatten().tolist()
+            check(not (exact and rows), f"TopLEK {name}: rows {rows} differ on an exact fixture")
+            u_host = u.cpu().numpy()
+            for r in rows:
+                check(abs(int(sent[r]) - int(sent_want[r])) == 1,
+                      f"TopLEK {name}: row {r} kept {int(sent[r])} vs {int(sent_want[r])}")
+                check(toplek_near_boundary(u_host[r], kk, float(unif_np[r])),
+                      f"TopLEK {name}: row {r} differs away from the boundary")
+            same = ~differ
+            if bool(same.any()):
+                toplek_err = max(toplek_err, (got[same] - want[same]).abs().max().item())
+            check(int((got != 0).sum(-1).max()) <= kk, f"TopLEK {name}: more than k kept")
+            toplek_boundary[name] = len(rows)
+            toplek_kept[name] = [int(sent.min()), int(sent.max())]
+        check(toplek_kept["round0_delta"] == [0, 0], "TopLEK keeps nothing of the zero round-0 delta")
+        toplek_paths = {
+            "w8a": toplek_memory_path(t_len, k, dev),
+            "k_is_T": toplek_memory_path(t_len, t_len, dev),
+            "keys_in_device_memory": toplek_memory_path(d350, 8 * 350, dev),
+        }
+        check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 1},
+              f"TopLEK memory paths {toplek_paths}")
+        torch.cuda.synchronize()
+        emit({
+            "phase": "kernels",
+            "hessian_syrk_packed": {
+                "max_abs_err": syrk_err, "scale": scale, "rel_err": syrk_err / scale,
+                "tol": SYRK_TOL,
+                "shared_z": {"clients": 12 * n_clients, "z_clients": n_clients,
+                             "max_abs_err": syrk_group_err, "rel_err": syrk_group_err / group_scale,
+                             "bit_exact_vs_z_repeated": True},
+            },
+            "select_topk": {
+                "cases": sorted(topk_cases), "bit_exact": True, "max_abs_err": topk_err,
+                "round0_delta_nonzero": int((delta0 != 0).sum()),
+                "round1_delta_nonzero": int((delta1 != 0).sum()),
+            },
+            "select_randseqk": {
+                "cases": sorted(randseqk_cases), "bit_exact": True, "max_abs_err": randseqk_err,
+            },
+            "select_toplek": {
+                "cases": sorted(toplek_cases), "max_abs_err_exact_rows": toplek_err,
+                "boundary_rows": toplek_boundary, "boundary_tol": TOPLEK_BOUNDARY,
+                "kept_min_max": toplek_kept, "memory_paths": toplek_paths,
+            },
+        })
+
+        # the threefry kernel: the round's real client keys, T = 1, one client
+        def keys_on_card(keys_np):
+            return torch.as_tensor(np.ascontiguousarray(keys_np).view(np.int32), device=dev)
+
+        wide_keys = prng.split(prng.prng_key(7), 1000)
+        threefry_cases = {  # name: (keys, t)
+            "w8a_round0": (round_keys[0], t_len),
+            "w8a_round1": (round_keys[1], t_len),
+            "t_is_1": (round_keys[0], 1),
+            "one_client": (round_keys[1][:1], t_len),
+            "many_clients_t_3000": (wide_keys, 3000),
+            # T = 4097 odd: every row's aligned runs leave a head or a tail (f32
+            # up to 3 elements, f64 one) to the kernel's tail loop
+            "edge_every_row_t_4097": (wide_keys[:300], 4097),
+        }
+        threefry_report, threefry_err = {}, {torch.float32: 0.0, torch.float64: 0.0}
+        for name, (keys_np, tt) in threefry_cases.items():
+            kt = keys_on_card(keys_np)
+            for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+                got = threefry_uniform_cuda(kt, tt, dtype)
+                want = threefry_uniform_plain(kt, tt, dtype)
+                torch.cuda.synchronize()
+                check(got.shape == (keys_np.shape[0], tt) and got.dtype == dtype,
+                      f"threefry {name}: {tuple(got.shape)} {got.dtype}")
+                check(torch.equal(got.view(bits), want.view(bits)),
+                      f"threefry {name} {dtype}: differs from the plain version")
+                check(bool((got >= 0).all()) and bool((got < 1).all()), f"threefry {name}: out of [0, 1)")
+                threefry_err[dtype] = max(threefry_err[dtype], (got - want).abs().max().item())
+            threefry_report[name] = [keys_np.shape[0], tt]
+        # against the host generator too, on two clients of the round
+        host = prng.uniform(round_keys[0][:2], (t_len,), np.float32)
+        card = threefry_uniform_cuda(keys_on_card(round_keys[0][:2]), t_len, torch.float32).cpu().numpy()
+        check(np.array_equal(host.view(np.int32), card.view(np.int32)), "threefry vs prng.uniform")
+
+        # TopK by keys: the round's real uniforms, ties at the k-th key, k = 1, k = T
+        unif0 = threefry_uniform_cuda(keys_on_card(round_keys[0]), t_len, torch.float32)
+        tie_keys = torch.as_tensor(
+            (rng.integers(0, 16, size=(n_clients, t_len)) / 16).astype(np.float32), device=dev)
+        by_keys_cases = {  # name: (u, keys, k)
+            "round0_uniforms": (delta1, unif0, k),
+            "ties_at_kth_key": (delta1, tie_keys, k),
+            "k_is_1": (delta1, unif0, 1),
+            "k_is_T": (delta1, unif0, t_len),
+            "keys_in_device_memory": (
+                torch.as_tensor(rng.standard_normal((4, d350)), device=dev),
+                threefry_uniform_cuda(keys_on_card(round_keys[1][:4]), d350, torch.float32), 8 * 350),
+        }
+        tk = tie_keys.cpu().numpy()
+        kth = -np.sort(-tk, axis=1)[:, k - 1]
+        check(bool(np.all((tk == kth[:, None]).sum(1) > k - (tk > kth[:, None]).sum(1))),
+              "the tie fixture has no tie across the k-th key")
+        by_keys_err = 0.0
+        for name, (u, keys, kk) in by_keys_cases.items():
+            got, sent = select_topk_by_keys_cuda(u.contiguous(), keys.contiguous(), kk)
+            want, sent_want = select_topk_by_keys_plain(u, keys, kk)
+            check(bits_equal(got, want), f"TopK by keys {name}: u_hat differs from the plain version")
+            check(torch.equal(sent, sent_want), f"TopK by keys {name}: sent differs")
+            by_keys_err = max(by_keys_err, (got - want).abs().max().item())
+        torch.cuda.synchronize()
+        emit({
+            "phase": "kernels",
+            "threefry_uniform": {"cases": threefry_report, "dtypes": ["float32", "float64"],
+                                 "bit_exact": True, "host_generator_bit_exact": True},
+            "select_topk_by_keys": {"cases": sorted(by_keys_cases), "bit_exact": True,
+                                    "max_abs_err": by_keys_err},
+        })
+
+        # the sweep's shapes (phase 8): a branch's 4 specs x 142 rows of the
+        # group's (12 * 142, T) delta, as the round takes them -- a slice at the
+        # branch's offset (the group is ordered by branch) or gathered by
+        # index_select (any other order) -- and the threefry uniforms of the 568
+        # clients of 4 specs (seeds 0-3, round 0, the keys split as the round
+        # splits them)
+        tie_block = torch.as_tensor(near_tie_rows(n_clients, t_len, 12), device=dev)
+        group_rows = torch.cat([(delta1 if s % 2 == 0 else tie_block) * (1.0 + s / 8)
+                                for s in range(12)])
+        per_branch = 4 * n_clients
+        branch_rows = {f"rows_{lo}_to_{lo + per_branch}": group_rows[lo:lo + per_branch]
+                       for lo in range(0, 12 * n_clients, per_branch)}
+        gathered = (np.arange(1, 12, 3)[:, None] * n_clients + np.arange(n_clients)).reshape(-1)
+        branch_rows["index_select_specs_1_4_7_10"] = group_rows.index_select(
+            0, torch.as_tensor(gathered, device=dev))
+        spec_keys = np.stack([prng.prng_key(s) for s in range(4)])
+        sweep_keys = prng.split(prng.split(spec_keys, 2)[:, 1], n_clients).reshape(-1, 2)
+        sweep_starts = torch.as_tensor(prng.randint(sweep_keys, 0, t_len), dtype=torch.int64, device=dev)
+        for name, u in branch_rows.items():
+            check(u.shape == (per_branch, t_len), f"sweep rows {name}: {tuple(u.shape)}")
+            got, sent = select_topk_cuda(u, k)
+            want, sent_want = select_topk_plain(u, k)
+            check(bits_equal(got, want) and torch.equal(sent, sent_want),
+                  f"TopK at the sweep's {name}: differs from the plain version")
+            topk_err = max(topk_err, (got - want).abs().max().item())
+            got, sent = select_randseqk_cuda(u, k, sweep_starts)
+            want, sent_want = select_randseqk_plain(u, k, sweep_starts)
+            check(bits_equal(got, want) and torch.equal(sent, sent_want),
+                  f"RandSeqK at the sweep's {name}: differs from the plain version")
+            randseqk_err = max(randseqk_err, (got - want).abs().max().item())
+        kt = keys_on_card(sweep_keys)
+        for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+            got = threefry_uniform_cuda(kt, t_len, dtype)
+            want = threefry_uniform_plain(kt, t_len, dtype)
+            check(got.shape == (per_branch, t_len) and torch.equal(got.view(bits), want.view(bits)),
+                  f"threefry at the sweep's 568 clients {dtype}: differs from the plain version")
             threefry_err[dtype] = max(threefry_err[dtype], (got - want).abs().max().item())
-        threefry_report[name] = [keys_np.shape[0], tt]
-    # against the host generator too, on two clients of the round
-    host = prng.uniform(round_keys[0][:2], (t_len,), np.float32)
-    card = threefry_uniform_cuda(keys_on_card(round_keys[0][:2]), t_len, torch.float32).cpu().numpy()
-    check(np.array_equal(host.view(np.int32), card.view(np.int32)), "threefry vs prng.uniform")
+        torch.cuda.synchronize()
+        emit({
+            "phase": "kernels", "sweep_shapes": {
+                "rows": {name: list(u.shape) for name, u in branch_rows.items()},
+                "select_topk_bit_exact": True, "select_randseqk_bit_exact": True,
+                "threefry_uniform": {"clients": per_branch, "t": t_len,
+                                     "dtypes": ["float32", "float64"], "bit_exact": True},
+            },
+        })
+        del tie_block, group_rows, branch_rows, u, got, want
+        del state0, state1, delta0, h_plain, tie_keys, wide_keys
+        flash_report, flash_err = check_flash(dev, tfa)
+        emit({"phase": "kernels", "flash_attention": flash_report})
+        mark("kernels")
 
-    # TopK by keys: the round's real uniforms, ties at the k-th key, k = 1, k = T
-    unif0 = threefry_uniform_cuda(keys_on_card(round_keys[0]), t_len, torch.float32)
-    tie_keys = torch.as_tensor(
-        (rng.integers(0, 16, size=(n_clients, t_len)) / 16).astype(np.float32), device=dev)
-    by_keys_cases = {  # name: (u, keys, k)
-        "round0_uniforms": (delta1, unif0, k),
-        "ties_at_kth_key": (delta1, tie_keys, k),
-        "k_is_1": (delta1, unif0, 1),
-        "k_is_T": (delta1, unif0, t_len),
-        "keys_in_device_memory": (
-            torch.as_tensor(rng.standard_normal((4, d350)), device=dev),
-            threefry_uniform_cuda(keys_on_card(round_keys[1][:4]), d350, torch.float32), 8 * 350),
-    }
-    tk = tie_keys.cpu().numpy()
-    kth = -np.sort(-tk, axis=1)[:, k - 1]
-    check(bool(np.all((tk == kth[:, None]).sum(1) > k - (tk > kth[:, None]).sum(1))),
-          "the tie fixture has no tie across the k-th key")
-    by_keys_err = 0.0
-    for name, (u, keys, kk) in by_keys_cases.items():
-        got, sent = select_topk_by_keys_cuda(u.contiguous(), keys.contiguous(), kk)
-        want, sent_want = select_topk_by_keys_plain(u, keys, kk)
-        check(bits_equal(got, want), f"TopK by keys {name}: u_hat differs from the plain version")
-        check(torch.equal(sent, sent_want), f"TopK by keys {name}: sent differs")
-        by_keys_err = max(by_keys_err, (got - want).abs().max().item())
-    torch.cuda.synchronize()
-    emit({
-        "phase": "kernels",
-        "threefry_uniform": {"cases": threefry_report, "dtypes": ["float32", "float64"],
-                             "bit_exact": True, "host_generator_bit_exact": True},
-        "select_topk_by_keys": {"cases": sorted(by_keys_cases), "bit_exact": True,
-                                "max_abs_err": by_keys_err},
-    })
+    # While the worker computes (phases 4 to train, and 10 to 12), this
+    # process keeps CPU_SIDE_SPARE_CORES threads: the two together use the
+    # cores once, and neither's parallel loops wait on the other's threads
+    host_threads = torch.get_num_threads()
 
-    # the sweep's shapes (phase 8): a branch's 4 specs x 142 rows of the
-    # group's (12 * 142, T) delta, as the round takes them -- a slice at the
-    # branch's offset (the group is ordered by branch) or gathered by
-    # index_select (any other order) -- and the threefry uniforms of the 568
-    # clients of 4 specs (seeds 0-3, round 0, the keys split as the round
-    # splits them)
-    tie_block = torch.as_tensor(near_tie_rows(n_clients, t_len, 12), device=dev)
-    group_rows = torch.cat([(delta1 if s % 2 == 0 else tie_block) * (1.0 + s / 8)
-                            for s in range(12)])
-    per_branch = 4 * n_clients
-    branch_rows = {f"rows_{lo}_to_{lo + per_branch}": group_rows[lo:lo + per_branch]
-                   for lo in range(0, 12 * n_clients, per_branch)}
-    gathered = (np.arange(1, 12, 3)[:, None] * n_clients + np.arange(n_clients)).reshape(-1)
-    branch_rows["index_select_specs_1_4_7_10"] = group_rows.index_select(
-        0, torch.as_tensor(gathered, device=dev))
-    spec_keys = np.stack([prng.prng_key(s) for s in range(4)])
-    sweep_keys = prng.split(prng.split(spec_keys, 2)[:, 1], n_clients).reshape(-1, 2)
-    sweep_starts = torch.as_tensor(prng.randint(sweep_keys, 0, t_len), dtype=torch.int64, device=dev)
-    for name, u in branch_rows.items():
-        check(u.shape == (per_branch, t_len), f"sweep rows {name}: {tuple(u.shape)}")
-        got, sent = select_topk_cuda(u, k)
-        want, sent_want = select_topk_plain(u, k)
-        check(bits_equal(got, want) and torch.equal(sent, sent_want),
-              f"TopK at the sweep's {name}: differs from the plain version")
-        topk_err = max(topk_err, (got - want).abs().max().item())
-        got, sent = select_randseqk_cuda(u, k, sweep_starts)
-        want, sent_want = select_randseqk_plain(u, k, sweep_starts)
-        check(bits_equal(got, want) and torch.equal(sent, sent_want),
-              f"RandSeqK at the sweep's {name}: differs from the plain version")
-        randseqk_err = max(randseqk_err, (got - want).abs().max().item())
-    kt = keys_on_card(sweep_keys)
-    for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
-        got = threefry_uniform_cuda(kt, t_len, dtype)
-        want = threefry_uniform_plain(kt, t_len, dtype)
-        check(got.shape == (per_branch, t_len) and torch.equal(got.view(bits), want.view(bits)),
-              f"threefry at the sweep's 568 clients {dtype}: differs from the plain version")
-        threefry_err[dtype] = max(threefry_err[dtype], (got - want).abs().max().item())
-    torch.cuda.synchronize()
-    emit({
-        "phase": "kernels", "sweep_shapes": {
-            "rows": {name: list(u.shape) for name, u in branch_rows.items()},
-            "select_topk_bit_exact": True, "select_randseqk_bit_exact": True,
-            "threefry_uniform": {"clients": per_branch, "t": t_len,
-                                 "dtypes": ["float32", "float64"], "bit_exact": True},
-        },
-    })
-    del tie_block, group_rows, branch_rows, u, got, want
-    del state0, state1, delta0, h_plain, tie_keys, wide_keys
-    flash_report, flash_err = check_flash(dev, tfa)
-    emit({"phase": "kernels", "flash_attention": flash_report})
+    def share_cores(on: bool) -> None:
+        torch.set_num_threads(min(CPU_SIDE_SPARE_CORES, host_threads) if on else host_threads)
+
+    share_cores(True)
 
     # --- 4 the main paths, the launch counts set to 0 before each ---------
-    def main_path(label: str, path_spec, per_round: tuple[str, ...], cpu_rounds: int = 3):
-        """solve(path_spec) on the card: each kernel of ``per_round`` launched
-        once a round and once in the warm-up round, SYRK also once at init;
-        the first ``cpu_rounds`` rounds against the same spec on the CPU."""
-        pp = path_spec.algorithm == "fednl-pp"
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        rep = solve(path_spec)
-        launches = launch_counts(ops)
-        check(rep.x.shape == (d,) and bool(np.all(np.isfinite(rep.x))), f"{label}: x not finite")
-        want = {name: 0 for name in launches}
-        want.update({name: rep.rounds + 1 for name in per_round})
-        want["hessian_syrk_packed"] = rep.rounds + 2
-        check(launches == want,
-              f"{label}: launches {launches}, want {want} for {rep.rounds} rounds + warm-up (+ init)")
-        rep_cpu = solve(path_spec.replace(rounds=cpu_rounds, tol=0.0), device="cpu")
-        check(list(rep.sent_bits[:cpu_rounds]) == list(rep_cpu.sent_bits),
-              f"{label}: sent_bits {rep.sent_bits[:cpu_rounds]} vs CPU {rep_cpu.sent_bits}")
-        out = {
-            "phase": "main", "path": label, "device": rep.extras["device"], "rounds": rep.rounds,
-            "sent_bits": rep.sent_bits.tolist(), "cpu_sent_bits_3": rep_cpu.sent_bits.tolist(),
-        }
-        if pp:
-            xh, xh_cpu = rep.x_hist, rep_cpu.x_hist  # each round's model, norm-wise
-            rel = np.linalg.norm(xh[:cpu_rounds] - xh_cpu, axis=1) / np.linalg.norm(xh_cpu, axis=1)
-            check(bool(np.all(np.isfinite(xh))), f"{label}: models not finite")
-            check(float(rel.max()) <= TRAJECTORY_RTOL, f"{label}: card vs CPU models differ: {rel.max()}")
-            check(rep.participants[:cpu_rounds] == rep_cpu.participants,
-                  f"{label}: the chosen clients differ from the CPU run's")
-            check(all(len(set(p)) == path_spec.tau for p in rep.participants),
-                  f"{label}: not {path_spec.tau} distinct clients a round")
-            out.update(final_grad_norm=rep.final_grad_norm, x_rel_err_3=rel.tolist(),
-                       participants_round0=rep.participants[0][:8], tau=rep.extras["tau"])
-        else:
-            gn = rep.grad_norms
-            check(rep.rounds >= 3 and bool(np.all(np.isfinite(gn))), f"{label}: grad norms {gn}")
-            check(gn[-1] < gn[0], f"{label}: grad norm did not fall: {gn[0]} -> {gn[-1]}")
-            rel = np.abs(gn[:cpu_rounds] - rep_cpu.grad_norms) / rep_cpu.grad_norms
-            check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{label}: card vs CPU grad norms differ: {rel}")
-            out.update(grad_norms=gn.tolist(), cpu_grad_norms_3=rep_cpu.grad_norms.tolist(),
-                       cpu_rel_err_3=rel.tolist())
-            if path_spec.algorithm == "fednl-ls":
-                check(list(rep.ls_steps[:cpu_rounds]) == list(rep_cpu.ls_steps),
-                      f"{label}: ls_steps {rep.ls_steps[:cpu_rounds]} vs CPU {rep_cpu.ls_steps}")
-                out.update(ls_steps=rep.ls_steps.tolist())
-        out.update(
-            init_time_s=rep.init_time_s, wall_time_s=rep.wall_time_s,
-            ms_per_round=rep.wall_time_s / rep.rounds * 1e3,
-            max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
-        )
-        emit(out)
-        return rep, launches
+    if "main" in run:
+        def main_path(label: str, path_spec, per_round: tuple[str, ...]):
+            """solve(path_spec) on the card: each kernel of ``per_round`` launched
+            once a round and once in the warm-up round, SYRK also once at init;
+            the first MAIN_CPU_ROUNDS rounds against the same spec on the CPU
+            (cpu_jobs[label], the worker's run)."""
+            cpu_rounds = MAIN_CPU_ROUNDS
+            pp = path_spec.algorithm == "fednl-pp"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            rep = solve(path_spec)
+            launches = launch_counts(ops)
+            path_d = path_spec.data.dims()[0]
+            check(rep.x.shape == (path_d,) and bool(np.all(np.isfinite(rep.x))),
+                  f"{label}: x not finite")
+            want = {name: 0 for name in launches}
+            want.update({name: rep.rounds + 1 for name in per_round})
+            want["hessian_syrk_packed"] = rep.rounds + 2
+            check(launches == want,
+                  f"{label}: launches {launches}, want {want} for {rep.rounds} rounds + warm-up (+ init)")
+            rep_cpu, worker = cpu_jobs.pop(label).result()
+            check(list(rep.sent_bits[:cpu_rounds]) == list(rep_cpu.sent_bits),
+                  f"{label}: sent_bits {rep.sent_bits[:cpu_rounds]} vs CPU {rep_cpu.sent_bits}")
+            out = {
+                "phase": "main", "path": label, "device": rep.extras["device"],
+                "shape_d_clients_n_i": list(path_spec.data.dims()), "rounds": rep.rounds,
+                "sent_bits": rep.sent_bits.tolist(), "cpu_sent_bits_3": rep_cpu.sent_bits.tolist(),
+                "bits_per_round": float(np.mean(rep.sent_bits)),
+            }
+            if pp:
+                xh, xh_cpu = rep.x_hist, rep_cpu.x_hist  # each round's model, norm-wise
+                rel = np.linalg.norm(xh[:cpu_rounds] - xh_cpu, axis=1) / np.linalg.norm(xh_cpu, axis=1)
+                check(bool(np.all(np.isfinite(xh))), f"{label}: models not finite")
+                check(float(rel.max()) <= TRAJECTORY_RTOL, f"{label}: card vs CPU models differ: {rel.max()}")
+                check(rep.participants[:cpu_rounds] == rep_cpu.participants,
+                      f"{label}: the chosen clients differ from the CPU run's")
+                check(all(len(set(p)) == path_spec.tau for p in rep.participants),
+                      f"{label}: not {path_spec.tau} distinct clients a round")
+                out.update(final_grad_norm=rep.final_grad_norm, x_rel_err_3=rel.tolist(),
+                           participants_round0=rep.participants[0][:8], tau=rep.extras["tau"])
+            else:
+                gn = rep.grad_norms
+                check(rep.rounds >= 3 and bool(np.all(np.isfinite(gn))), f"{label}: grad norms {gn}")
+                check(gn[-1] < gn[0], f"{label}: grad norm did not fall: {gn[0]} -> {gn[-1]}")
+                rel = np.abs(gn[:cpu_rounds] - rep_cpu.grad_norms) / rep_cpu.grad_norms
+                check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"{label}: card vs CPU grad norms differ: {rel}")
+                out.update(grad_norms=gn.tolist(), cpu_grad_norms_3=rep_cpu.grad_norms.tolist(),
+                           cpu_rel_err_3=rel.tolist())
+                if path_spec.algorithm == "fednl-ls":
+                    check(list(rep.ls_steps[:cpu_rounds]) == list(rep_cpu.ls_steps),
+                          f"{label}: ls_steps {rep.ls_steps[:cpu_rounds]} vs CPU {rep_cpu.ls_steps}")
+                    out.update(ls_steps=rep.ls_steps.tolist())
+            out.update(
+                init_time_s=rep.init_time_s, wall_time_s=rep.wall_time_s,
+                ms_per_round=rep.wall_time_s / rep.rounds * 1e3,
+                max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+                cpu_side=worker,
+            )
+            emit(out)
+            return rep, launches
 
-    rep, launches = main_path(
-        "w8a topk option B hess0=exact rounds<=50 tol=1e-12", spec, ("select_topk",))
-    check(rep.grad_norms[-1] <= rep.grad_norms[0] * 1e-6, f"TopK grad norms {rep.grad_norms}")
-    toplek_spec = spec.replace(compressor=CompressorSpec("toplek"))
-    rep_le, launches_le = main_path(
-        "w8a toplek option B hess0=exact rounds<=50 tol=1e-12", toplek_spec, ("select_toplek",))
-    randseqk_spec = spec.replace(compressor=CompressorSpec("randseqk"), rounds=30, tol=0.0)
-    rep_rs, launches_rs = main_path(
-        "w8a randseqk option B hess0=exact rounds=30", randseqk_spec, ("select_randseqk",))
-    check(rep_rs.rounds == 30, f"RandSeqK ran {rep_rs.rounds} rounds")
-    randk_spec = spec.replace(compressor=CompressorSpec("randk"), rounds=30, tol=0.0)
-    rep_rk, launches_rk = main_path(
-        "w8a randk option B hess0=exact rounds=30", randk_spec,
-        ("threefry_uniform", "threefry_uniform_float32", "select_topk_by_keys"))
-    natural_spec = spec.replace(compressor=CompressorSpec("natural"), rounds=30, tol=0.0)
-    rep_nat, launches_nat = main_path(
-        "w8a natural option B hess0=exact rounds=30", natural_spec,
-        ("threefry_uniform", "threefry_uniform_float64"))
-    check(rep_rk.rounds == rep_nat.rounds == 30, "RandK and Natural run 30 rounds")
-    ls_spec = spec.replace(algorithm="fednl-ls")
-    rep_ls, launches_ls = main_path(
-        "w8a fednl-ls topk option B hess0=exact rounds<=50 tol=1e-12", ls_spec, ("select_topk",))
-    pp_spec = spec.replace(algorithm="fednl-pp", tau=PP_TAU, rounds=50, tol=0.0)
-    rep_pp, launches_pp = main_path(
-        f"w8a fednl-pp topk tau={PP_TAU} option B hess0=exact rounds=50", pp_spec,
-        ("select_topk",))
-    check(rep_pp.rounds == 50, f"PP ran {rep_pp.rounds} rounds")
-    check(rep_pp.final_grad_norm < rep.grad_norms[0],
-          f"PP: grad norm {rep_pp.final_grad_norm} not below the start's {rep.grad_norms[0]}")
+        toplek_spec = spec.replace(compressor=CompressorSpec("toplek"))
+        randseqk_spec = spec.replace(compressor=CompressorSpec("randseqk"), rounds=30, tol=0.0)
+        randk_spec = spec.replace(compressor=CompressorSpec("randk"), rounds=30, tol=0.0)
+        natural_spec = spec.replace(compressor=CompressorSpec("natural"), rounds=30, tol=0.0)
+        ls_spec = spec.replace(algorithm="fednl-ls")
+        pp_spec = spec.replace(algorithm="fednl-pp", tau=PP_TAU, rounds=50, tol=0.0)
+        paths = {  # label: (spec, the kernels it launches once a round)
+            "w8a topk option B hess0=exact rounds<=50 tol=1e-12": (spec, ("select_topk",)),
+            "w8a toplek option B hess0=exact rounds<=50 tol=1e-12": (toplek_spec,
+                                                                     ("select_toplek",)),
+            "w8a randseqk option B hess0=exact rounds=30": (randseqk_spec, ("select_randseqk",)),
+            "w8a randk option B hess0=exact rounds=30": (
+                randk_spec, ("threefry_uniform", "threefry_uniform_float32", "select_topk_by_keys")),
+            "w8a natural option B hess0=exact rounds=30": (
+                natural_spec, ("threefry_uniform", "threefry_uniform_float64")),
+            "w8a fednl-ls topk option B hess0=exact rounds<=50 tol=1e-12": (ls_spec,
+                                                                            ("select_topk",)),
+            f"w8a fednl-pp topk tau={PP_TAU} option B hess0=exact rounds=50": (pp_spec,
+                                                                              ("select_topk",)),
+        }
+        # the paper's other two datasets (the synthetic generator at their
+        # published shapes): TopK, TopLEK and RandSeqK, with w8a's checks
+        for dataset in OTHER_DATASETS:
+            ds_spec = spec.replace(data=DataSpec(dataset=dataset))
+            paths.update({
+                f"{dataset} topk option B hess0=exact rounds<=50 tol=1e-12": (
+                    ds_spec, ("select_topk",)),
+                f"{dataset} toplek option B hess0=exact rounds<=50 tol=1e-12": (
+                    ds_spec.replace(compressor=CompressorSpec("toplek")), ("select_toplek",)),
+                f"{dataset} randseqk option B hess0=exact rounds=30": (
+                    ds_spec.replace(compressor=CompressorSpec("randseqk"), rounds=30, tol=0.0),
+                    ("select_randseqk",)),
+            })
+        # every path's CPU run queued in the worker first, in path order
+        cpu_jobs = {label: cpu_side.submit(solve_cpu_side,
+                                           path_spec.replace(rounds=MAIN_CPU_ROUNDS, tol=0.0))
+                    for label, (path_spec, _) in paths.items()}
+        ran = {label: main_path(label, path_spec, per_round)
+               for label, (path_spec, per_round) in paths.items()}
+        (rep, launches), (rep_le, launches_le), (rep_rs, launches_rs), (rep_rk, launches_rk), \
+            (rep_nat, launches_nat), (rep_ls, launches_ls), (rep_pp, launches_pp) = \
+            list(ran.values())[:7]
+        check(rep.grad_norms[-1] <= rep.grad_norms[0] * 1e-6, f"TopK grad norms {rep.grad_norms}")
+        check(rep_rs.rounds == 30, f"RandSeqK ran {rep_rs.rounds} rounds")
+        check(rep_rk.rounds == rep_nat.rounds == 30, "RandK and Natural run 30 rounds")
+        check(rep_pp.rounds == 50, f"PP ran {rep_pp.rounds} rounds")
+        check(rep_pp.final_grad_norm < rep.grad_norms[0],
+              f"PP: grad norm {rep_pp.final_grad_norm} not below the start's {rep.grad_norms[0]}")
+        other_launches = {}
+        for dataset in OTHER_DATASETS:
+            for name in ("topk", "toplek", "randseqk"):
+                label = next(lb for lb in ran if lb.startswith(f"{dataset} {name} "))
+                ds_rep, other_launches[(dataset, name)] = ran[label]
+                check(name != "randseqk" or ds_rep.rounds == 30,
+                      f"{dataset} RandSeqK ran {ds_rep.rounds} rounds")
+        mark("main")
 
     # --- 5 the LM path: granite-3-2b, the launch counts set to 0 before each -
-    lm = lm_phase(dev, ops)
+    lm = None
+    if "lm" in run:
+        lm = lm_phase(dev, ops, cpu_side)
+        flash_launches = lm["launches"]["flash_attention"]
+        flash_routes = lm["flash_routes"]
+        measured[("granite-3-2b", "prefill_32k")] = {
+            "ms": lm["ms"], "by": BY_PREFILL, "max_memory_allocated": lm["max_memory_allocated"]}
+        mark("lm")
 
     # --- 6 times at the main paths' shapes -------------------------------------
-    zs = hw[..., None] * z
-    keys = rank_keys(delta1)
-    syrk_ms = median_ms({
-        "kernel": lambda: hessian_syrk_packed_cuda(z, hw, cfg.lam),
-        "plain": lambda: hessian_syrk_packed_plain(z, hw, cfg.lam),
-        "library": lambda: torch.bmm(z.mT, zs),
-    })
-    topk_ms = median_ms({
-        "kernel": lambda: select_topk_cuda(delta1, k),
-        "plain": lambda: select_topk_plain(delta1, k),
-        "library": lambda: torch.topk(keys, k, dim=-1),
-    })
-    s_round = torch.as_tensor(prng.randint(round_keys[1], 0, t_len), device=dev)
-    window = randseqk_window_mask(t_len, k, s_round)
-    zeros = torch.zeros_like(delta1)
-    randseqk_ms = median_ms({
-        "kernel": lambda: select_randseqk_cuda(delta1, k, s_round),
-        "plain": lambda: select_randseqk_plain(delta1, k, s_round),
-        "library": lambda: torch.where(window, delta1, zeros),
-    })
-    unif_round = torch.as_tensor(prng.uniform(round_keys[1]), device=dev)
-    toplek_ms = median_ms({
-        "kernel": lambda: select_toplek_cuda(delta1, k, unif_round),
-        "plain": lambda: select_toplek_plain(delta1, k, unif_round),
-        "ranking_only": lambda: torch.topk(keys, k, dim=-1),
-    })
-    keys_round = keys_on_card(round_keys[1])
-    threefry_ms = {
-        name: median_ms({
-            "kernel": lambda dt=dt: threefry_uniform_cuda(keys_round, t_len, dt),
-            "plain": lambda dt=dt: threefry_uniform_plain(keys_round, t_len, dt),
-            "library": lambda dt=dt: torch.rand((n_clients, t_len), dtype=dt, device=dev),
+    if "times" in run:
+        zs = hw[..., None] * z
+        keys = rank_keys(delta1)
+        syrk_ms = median_ms({
+            "kernel": lambda: hessian_syrk_packed_cuda(z, hw, cfg.lam),
+            "plain": lambda: hessian_syrk_packed_plain(z, hw, cfg.lam),
+            "library": lambda: torch.bmm(z.mT, zs),
         })
-        for name, dt in (("float32", torch.float32), ("float64", torch.float64))
-    }
-    # the star's one-client draw (2,130 launches in phase 10's PP RandK and
-    # phase 11's tree RandK), and the kernel's device time at both shapes
-    keys_one = keys_on_card(round_keys[1][:1])
-    threefry_one_ms = {
-        name: median_ms({
-            "kernel": lambda dt=dt: threefry_uniform_cuda(keys_one, t_len, dt),
-            "plain": lambda dt=dt: threefry_uniform_plain(keys_one, t_len, dt),
-            "library": lambda dt=dt: torch.rand((1, t_len), dtype=dt, device=dev),
+        topk_ms = median_ms({
+            "kernel": lambda: select_topk_cuda(delta1, k),
+            "plain": lambda: select_topk_plain(delta1, k),
+            "library": lambda: torch.topk(keys, k, dim=-1),
         })
-        for name, dt in (("float32", torch.float32), ("float64", torch.float64))
-    }
-    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
-        graphed = graph_median_ms({
-            "round": lambda dt=dt: threefry_uniform_cuda(keys_round, t_len, dt),
-            "one_client": lambda dt=dt: threefry_uniform_cuda(keys_one, t_len, dt)})
-        threefry_ms[name]["kernel_graph"] = graphed["round"]
-        threefry_one_ms[name]["kernel_graph"] = graphed["one_client"]
-    threefry_plans = {
-        f"{name}_{dt}": threefry_launch_plan(n, t_len, getattr(torch, dt), dev)
-        for name, n in (("w8a_round", n_clients), ("one_client", 1))
-        for dt in ("float32", "float64")}
-    unif_keys = threefry_uniform_cuda(keys_round, t_len, torch.float32)
-    by_keys_ms = median_ms({
-        "kernel": lambda: select_topk_by_keys_cuda(delta1, unif_keys, k),
-        "plain": lambda: select_topk_by_keys_plain(delta1, unif_keys, k),
-        "library": lambda: torch.topk(unif_keys, k, dim=-1),
-    })
-    seq = shape_of("prefill_32k").seq
-    fq, fk, fv = flash_inputs(dev, 1, seq, seq, 32, 8, 64, torch.bfloat16, 100)
-    qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk, fv))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-        flash_ms = median_ms({
-            "kernel": lambda: tfa.flash_attention_cuda(fq, fk, fv, causal=True),
-            "plain": lambda: tfa.flash_attention_plain(fq, fk, fv, causal=True),
-            "library": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-        }, reps=FLASH_TIMED_REPS, calls=1)
-    # the (query, key) pairs that the causal mask leaves visible, over the heads
-    visible = tfa.visible_pairs(seq, seq, True, None) * fq.shape[2]
-    product_flops = 2 * fq.shape[3] * visible  # QK^T, and again each P.V product
-    flash_bytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
-    flash_parts = {  # ms
-        "qk_bf16_tensor": product_flops / BF16_TENSOR_FLOPS * 1e3,
-        "pv_three_bf16_products_tensor": 3 * product_flops / BF16_TENSOR_FLOPS * 1e3,
-        "bytes": flash_bytes / HBM_BYTES_PER_S * 1e3,
-        "exp_mufu": visible / MUFU_EXP_PER_S * 1e3,
-        "f32_pipe_pv_reckoning": (product_flops / BF16_TENSOR_FLOPS
-                                  + product_flops / CUDA_CORE_32BIT_OPS) * 1e3,
-        "all_bf16_p_rounded": 2 * product_flops / BF16_TENSOR_FLOPS * 1e3,
-    }
-    flash_bound = bound(flash_bytes, 4 * product_flops, BF16_TENSOR_FLOPS)
-    del fq, fk, fv, qt, kt, vt
-    # head_dim 256 at recurrentgemma-2b's layer and 128 at llava-next-mistral-
-    # 7b's (both the wgmma route), each beside SDPA given the causal window as
-    # a boolean mask
-    flash256 = flash_layer(dev, tfa, 10, 1, 256, 2048, 101)
-    flash128 = flash_layer(dev, tfa, 32, 8, 128, 4096, 102)
-    # head_dim 128, causal without a window, at the zoo's dense configs'
-    # layers, each beside SDPA(is_causal, enable_gqa)
-    dense_cfgs = {arch: get_config(arch) for arch in ZOO_DENSE_DEPTHS}
-    flash_dense = {arch: flash_layer(dev, tfa, c.n_heads, c.n_kv, c.head_dim, None, 103 + i)
-                   for i, (arch, c) in enumerate(dense_cfgs.items())}
-    if "flash_attention" in reports:
-        flash256["ptxas"] = {fn: lines for fn, lines in build.ptxas_entries(
-            reports["flash_attention"]).items() if "flash_fwd_wgmma_kernelILi256E" in fn}
-    else:
-        flash256["ptxas"] = "not measured (library built before this run)"
-    syrk_bound = bound(
-        (z.numel() + hw.numel() + h_kernel.numel()) * 8,
-        2 * n_i * t_len * n_clients,
-        FP64_TENSOR_FLOPS,
-    )
-    topk_bound = bound(
-        delta1.numel() * 8 * 2 + n_clients * 4,  # u read, u_hat written, sent
-        SELECT_OPS_PER_KEY * delta1.numel(),
-        CUDA_CORE_32BIT_OPS,
-    )
-    randseqk_bound = bound(
-        n_clients * (k + t_len) * 8 + n_clients * (8 + 4),  # window read, u_hat written, s, sent
-        3 * delta1.numel(),  # subtract, wrap, compare per entry
-        CUDA_CORE_32BIT_OPS,
-    )
-    p2 = 1 << (k - 1).bit_length()
-    sort_stages = p2.bit_length() * (p2.bit_length() - 1) // 2
-    toplek_bound = bound(
-        delta1.numel() * 8 * 2 + n_clients * (8 + 4),  # u read, u_hat written, unif, sent
-        SELECT_OPS_PER_KEY * delta1.numel() + n_clients * (p2 // 2) * sort_stages * 2,
-        CUDA_CORE_32BIT_OPS,
-    )
-    draws = n_clients * t_len
-    # threefry's least time: its stores, or the integer instructions its
-    # function needs per element on the busier of the two integer pipes,
-    # 64 a clock per SM each at the card's highest SM clock: half of them,
-    # as only the xors, fewer than half, must go to the INT32 pipe.  The
-    # kernel's own SASS counts are printed beside it.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock_hz = sm_clock_hz()
-    int_pipe_per_s = INT32_PIPE_PER_SM_CLOCK * sms * clock_hz
-    threefry_bound, threefry_parts, threefry_one_bound = {}, {}, {}
-    for name, size in (("float32", 4), ("float64", 8)):
-        busier_pipe = max(THREEFRY_XORS_PER_ELEM[name], THREEFRY_INT_INSTRS_PER_ELEM[name] / 2)
-        nbytes = n_clients * 8 + draws * size
-        threefry_bound[name] = bound(nbytes, busier_pipe * draws, int_pipe_per_s)
-        threefry_one_bound[name] = bound(8 + t_len * size, busier_pipe * t_len, int_pipe_per_s)
-        threefry_parts[name] = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                                "operations": busier_pipe * draws / int_pipe_per_s * 1e3,
-                                "busier_pipe_ops_per_elem": busier_pipe}
-    threefry_sass = threefry_sass_facts(build)
-    by_keys_bound = bound(
-        # keys read, the k kept entries of u read, u_hat written, sent
-        draws * 4 + n_clients * k * 8 + draws * 8 + n_clients * 4,
-        SELECT_OPS_PER_KEY * draws,
-        CUDA_CORE_32BIT_OPS,
-    )
-    syrk_ops = 2 * n_i * t_len * n_clients
-    syrk_sched = syrk_schedule(d)
-    syrk_tiles = sum(len(w) for *_, warps in syrk_sched for w in warps)
-    syrk_l2 = syrk_l2_bytes(n_clients, n_i, d)
-    emit({
-        "phase": "times", "part": "hessian_syrk_packed", "shape": [n_clients, n_i, d],
-        **syrk_build_facts(build, reports.get("hessian_syrk")),
-        "blocks_per_client": len(syrk_sched), "dmma_tiles_per_client": syrk_tiles,
-        # a block holds its slot until its busiest warp ends
-        "busiest_warp_tiles_per_client": sum(max(map(len, w)) for *_, w in syrk_sched),
-        "scheduled_over_exact_ops": syrk_tiles * 16 * 8 / t_len,
-        "l2_bytes_reckoned": syrk_l2,
-        "tflop_per_s_exact_triangle": syrk_ops / syrk_ms["kernel"] / 1e9,
-        "l2_tb_per_s_implied": syrk_l2 / syrk_ms["kernel"] / 1e9,
-        "bound_ms": syrk_bound[0], "bound_by": syrk_bound[1],
-        "note": "l2_bytes_reckoned: Z's columns and hw that the schedule's blocks "
-                "stage (kernels/hessian_syrk.py:syrk_l2_bytes)",
-    })
-    emit({"phase": "times", "hessian_syrk_packed": syrk_ms, "select_topk": topk_ms,
-          "select_randseqk": randseqk_ms, "select_toplek": toplek_ms,
-          "note": f"ms per call: median over {TIMED_REPS} event pairs around "
-                  f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; "
-                  "randseqk library = torch.where on a precomputed window mask; "
-                  "toplek has no library call: ranking_only = torch.topk on the "
-                  "f32 keys, the ranking part only"})
-    emit({"phase": "times", "threefry_uniform": threefry_ms, "select_topk_by_keys": by_keys_ms,
-          "shape": [n_clients, t_len], "k": k,
-          "threefry_uniform_one_client": threefry_one_ms, "threefry_plans": threefry_plans,
-          "bound_ms": {"threefry_float32": threefry_bound["float32"],
-                       "threefry_float64": threefry_bound["float64"],
-                       "threefry_one_client_float32": threefry_one_bound["float32"],
-                       "threefry_one_client_float64": threefry_one_bound["float64"],
-                       "select_topk_by_keys": by_keys_bound},
-          "threefry_bound_parts_ms": threefry_parts,
-          "threefry_sass": threefry_sass or "not measured (no cuobjdump beside nvcc)",
-          "int_pipe": {"per_sm_clock": INT32_PIPE_PER_SM_CLOCK, "sms": sms,
-                       "sm_clock_hz": clock_hz, "ops_per_s": int_pipe_per_s},
-          "note": f"ms per call: median over {TIMED_REPS} event pairs around "
-                  f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; threefry "
-                  "library = torch.rand of the same shape and type (another generator, "
-                  "timed only); TopK by keys library = torch.topk on the same f32 keys; "
-                  "threefry's bound: its stores, or the least integer instructions its "
-                  f"function needs per element ({THREEFRY_INT_INSTRS_PER_ELEM}) over the two "
-                  "integer pipes (INT32; IMAD on the FMA pipe), 64 a clock per SM each; "
-                  "threefry_sass: each instantiation's main loop as compiled, per element "
-                  "and pipe; kernel_graph: the same calls in a CUDA graph (device time, no "
-                  "host time); threefry_plans: counters a thread, elements a run, tiles a "
-                  "row, tiles, tail slots, blocks, resident blocks a SM, small route"})
-    emit({"phase": "times", "flash_attention": flash_ms,
-          "shape": [1, seq, 32, 8, 64], "causal": True, "dtype": "bfloat16",
-          "route": tfa.flash_route(torch.bfloat16, 64),
-          "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
-          "bound_parts_ms": flash_parts, "visible_pairs": visible,
-          "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one call, "
-                  "the three in turns; bound = (QK^T + 3 P.V bf16 products) at 989 TFLOP/s; "
-                  "library = F.scaled_dot_product_attention(is_causal, enable_gqa) on the "
-                  "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
-                  "same function at lower precision"})
-    for name, arch, layer in (
-            ("flash_attention_dh256", None, flash256), ("flash_attention_dh128", None, flash128),
-            *(("flash_attention_dh128_causal", arch, layer) for arch, layer in flash_dense.items())):
-        library = ("SDPA with the window as a boolean mask over all S x S pairs, the kv heads "
-                   "repeated beforehand" if layer["window"] else
-                   "F.scaled_dot_product_attention(is_causal, enable_gqa) on the flash or "
-                   "memory-efficient backend")
-        emit({"phase": "times", **({"layer": arch} if arch else {}), name: layer["ms"],
-              **{key: val for key, val in layer.items() if key not in ("ms", "bound")},
-              "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
-              "note": f"ms per call: kernel and library the median over {FLASH_TIMED_REPS} event "
-                      f"pairs around one call, in turns; plain over {FLASH_PLAIN_REPS} after a "
-                      "warm-up; bound as the head_dim-64 row: (QK^T + 3 P.V bf16 products) over "
-                      f"the visible pairs at 989 TFLOP/s; library = {library}, p rounded to "
-                      "bf16"})
+        s_round = torch.as_tensor(prng.randint(round_keys[1], 0, t_len), device=dev)
+        window = randseqk_window_mask(t_len, k, s_round)
+        zeros = torch.zeros_like(delta1)
+        randseqk_ms = median_ms({
+            "kernel": lambda: select_randseqk_cuda(delta1, k, s_round),
+            "plain": lambda: select_randseqk_plain(delta1, k, s_round),
+            "library": lambda: torch.where(window, delta1, zeros),
+        })
+        unif_round = torch.as_tensor(prng.uniform(round_keys[1]), device=dev)
+        toplek_ms = median_ms({
+            "kernel": lambda: select_toplek_cuda(delta1, k, unif_round),
+            "plain": lambda: select_toplek_plain(delta1, k, unif_round),
+            "ranking_only": lambda: torch.topk(keys, k, dim=-1),
+        })
+        keys_round = keys_on_card(round_keys[1])
+        threefry_ms = {
+            name: median_ms({
+                "kernel": lambda dt=dt: threefry_uniform_cuda(keys_round, t_len, dt),
+                "plain": lambda dt=dt: threefry_uniform_plain(keys_round, t_len, dt),
+                "library": lambda dt=dt: torch.rand((n_clients, t_len), dtype=dt, device=dev),
+            })
+            for name, dt in (("float32", torch.float32), ("float64", torch.float64))
+        }
+        # the star's one-client draw (2,130 launches in phase 10's PP RandK and
+        # phase 11's tree RandK), and the kernel's device time at both shapes
+        keys_one = keys_on_card(round_keys[1][:1])
+        threefry_one_ms = {
+            name: median_ms({
+                "kernel": lambda dt=dt: threefry_uniform_cuda(keys_one, t_len, dt),
+                "plain": lambda dt=dt: threefry_uniform_plain(keys_one, t_len, dt),
+                "library": lambda dt=dt: torch.rand((1, t_len), dtype=dt, device=dev),
+            })
+            for name, dt in (("float32", torch.float32), ("float64", torch.float64))
+        }
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            graphed = graph_median_ms({
+                "round": lambda dt=dt: threefry_uniform_cuda(keys_round, t_len, dt),
+                "one_client": lambda dt=dt: threefry_uniform_cuda(keys_one, t_len, dt)})
+            threefry_ms[name]["kernel_graph"] = graphed["round"]
+            threefry_one_ms[name]["kernel_graph"] = graphed["one_client"]
+        threefry_plans = {
+            f"{name}_{dt}": threefry_launch_plan(n, t_len, getattr(torch, dt), dev)
+            for name, n in (("w8a_round", n_clients), ("one_client", 1))
+            for dt in ("float32", "float64")}
+        unif_keys = threefry_uniform_cuda(keys_round, t_len, torch.float32)
+        by_keys_ms = median_ms({
+            "kernel": lambda: select_topk_by_keys_cuda(delta1, unif_keys, k),
+            "plain": lambda: select_topk_by_keys_plain(delta1, unif_keys, k),
+            "library": lambda: torch.topk(unif_keys, k, dim=-1),
+        })
+        seq = shape_of("prefill_32k").seq
+        fq, fk, fv = flash_inputs(dev, 1, seq, seq, 32, 8, 64, torch.bfloat16, 100)
+        qt, kt, vt = (t.transpose(1, 2) for t in (fq, fk, fv))
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            flash_ms = median_ms({
+                "kernel": lambda: tfa.flash_attention_cuda(fq, fk, fv, causal=True),
+                "plain": lambda: tfa.flash_attention_plain(fq, fk, fv, causal=True),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+            }, reps=FLASH_TIMED_REPS, calls=1)
+        # the (query, key) pairs that the causal mask leaves visible, over the heads
+        visible = tfa.visible_pairs(seq, seq, True, None) * fq.shape[2]
+        product_flops = 2 * fq.shape[3] * visible  # QK^T, and again each P.V product
+        flash_bytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
+        flash_parts = {  # ms
+            "qk_bf16_tensor": product_flops / BF16_TENSOR_FLOPS * 1e3,
+            "pv_three_bf16_products_tensor": 3 * product_flops / BF16_TENSOR_FLOPS * 1e3,
+            "bytes": flash_bytes / HBM_BYTES_PER_S * 1e3,
+            "exp_mufu": visible / MUFU_EXP_PER_S * 1e3,
+            "f32_pipe_pv_reckoning": (product_flops / BF16_TENSOR_FLOPS
+                                      + product_flops / CUDA_CORE_32BIT_OPS) * 1e3,
+            "all_bf16_p_rounded": 2 * product_flops / BF16_TENSOR_FLOPS * 1e3,
+        }
+        flash_bound = bound(flash_bytes, 4 * product_flops, BF16_TENSOR_FLOPS)
+        del fq, fk, fv, qt, kt, vt
+        # head_dim 256 at recurrentgemma-2b's layer and 128 at llava-next-mistral-
+        # 7b's (both the wgmma route), each beside SDPA given the causal window as
+        # a boolean mask
+        flash256 = flash_layer(dev, tfa, 10, 1, 256, 2048, 101)
+        flash128 = flash_layer(dev, tfa, 32, 8, 128, 4096, 102)
+        # head_dim 128, causal without a window, at the zoo's dense configs'
+        # layers, each beside SDPA(is_causal, enable_gqa)
+        dense_cfgs = {arch: get_config(arch) for arch in ZOO_DENSE_DEPTHS}
+        flash_dense = {arch: flash_layer(dev, tfa, c.n_heads, c.n_kv, c.head_dim, None, 103 + i)
+                       for i, (arch, c) in enumerate(dense_cfgs.items())}
+        if "flash_attention" in reports:
+            flash256["ptxas"] = {fn: lines for fn, lines in build.ptxas_entries(
+                reports["flash_attention"]).items() if "flash_fwd_wgmma_kernelILi256E" in fn}
+        else:
+            flash256["ptxas"] = "not measured (library built before this run)"
+        syrk_bound, topk_bound, randseqk_bound, toplek_bound = fednl_round_bounds(
+            n_clients, n_i, d, k).values()
+        draws = n_clients * t_len
+        # threefry's least time: its stores, or the integer instructions its
+        # function needs per element on the busier of the two integer pipes,
+        # 64 a clock per SM each at the card's highest SM clock: half of them,
+        # as only the xors, fewer than half, must go to the INT32 pipe.  The
+        # kernel's own SASS counts are printed beside it.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        clock_hz = sm_clock_hz()
+        int_pipe_per_s = INT32_PIPE_PER_SM_CLOCK * sms * clock_hz
+        threefry_bound, threefry_parts, threefry_one_bound = {}, {}, {}
+        for name, size in (("float32", 4), ("float64", 8)):
+            busier_pipe = max(THREEFRY_XORS_PER_ELEM[name], THREEFRY_INT_INSTRS_PER_ELEM[name] / 2)
+            nbytes = n_clients * 8 + draws * size
+            threefry_bound[name] = bound(nbytes, busier_pipe * draws, int_pipe_per_s)
+            threefry_one_bound[name] = bound(8 + t_len * size, busier_pipe * t_len, int_pipe_per_s)
+            threefry_parts[name] = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                                    "operations": busier_pipe * draws / int_pipe_per_s * 1e3,
+                                    "busier_pipe_ops_per_elem": busier_pipe}
+        threefry_sass = threefry_sass_facts(build)
+        by_keys_bound = bound(
+            # keys read, the k kept entries of u read, u_hat written, sent
+            draws * 4 + n_clients * k * 8 + draws * 8 + n_clients * 4,
+            SELECT_OPS_PER_KEY * draws,
+            CUDA_CORE_32BIT_OPS,
+        )
+        syrk_ops = 2 * n_i * t_len * n_clients
+        syrk_sched = syrk_schedule(d)
+        syrk_tiles = sum(len(w) for *_, warps in syrk_sched for w in warps)
+        syrk_l2 = syrk_l2_bytes(n_clients, n_i, d)
+        emit({
+            "phase": "times", "part": "hessian_syrk_packed", "shape": [n_clients, n_i, d],
+            **syrk_build_facts(build, reports.get("hessian_syrk")),
+            "blocks_per_client": len(syrk_sched), "dmma_tiles_per_client": syrk_tiles,
+            # a block holds its slot until its busiest warp ends
+            "busiest_warp_tiles_per_client": sum(max(map(len, w)) for *_, w in syrk_sched),
+            "scheduled_over_exact_ops": syrk_tiles * 16 * 8 / t_len,
+            "l2_bytes_reckoned": syrk_l2,
+            "tflop_per_s_exact_triangle": syrk_ops / syrk_ms["kernel"] / 1e9,
+            "l2_tb_per_s_implied": syrk_l2 / syrk_ms["kernel"] / 1e9,
+            "bound_ms": syrk_bound[0], "bound_by": syrk_bound[1],
+            "note": "l2_bytes_reckoned: Z's columns and hw that the schedule's blocks "
+                    "stage (kernels/hessian_syrk.py:syrk_l2_bytes)",
+        })
+        emit({"phase": "times", "hessian_syrk_packed": syrk_ms, "select_topk": topk_ms,
+              "select_randseqk": randseqk_ms, "select_toplek": toplek_ms,
+              "note": f"ms per call: median over {TIMED_REPS} event pairs around "
+                      f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; "
+                      "randseqk library = torch.where on a precomputed window mask; "
+                      "toplek has no library call: ranking_only = torch.topk on the "
+                      "f32 keys, the ranking part only"})
+        emit({"phase": "times", "threefry_uniform": threefry_ms, "select_topk_by_keys": by_keys_ms,
+              "shape": [n_clients, t_len], "k": k,
+              "threefry_uniform_one_client": threefry_one_ms, "threefry_plans": threefry_plans,
+              "bound_ms": {"threefry_float32": threefry_bound["float32"],
+                           "threefry_float64": threefry_bound["float64"],
+                           "threefry_one_client_float32": threefry_one_bound["float32"],
+                           "threefry_one_client_float64": threefry_one_bound["float64"],
+                           "select_topk_by_keys": by_keys_bound},
+              "threefry_bound_parts_ms": threefry_parts,
+              "threefry_sass": threefry_sass or "not measured (no cuobjdump beside nvcc)",
+              "int_pipe": {"per_sm_clock": INT32_PIPE_PER_SM_CLOCK, "sms": sms,
+                           "sm_clock_hz": clock_hz, "ops_per_s": int_pipe_per_s},
+              "note": f"ms per call: median over {TIMED_REPS} event pairs around "
+                      f"{CALLS_PER_EVENT} back-to-back calls, the three in turns; threefry "
+                      "library = torch.rand of the same shape and type (another generator, "
+                      "timed only); TopK by keys library = torch.topk on the same f32 keys; "
+                      "threefry's bound: its stores, or the least integer instructions its "
+                      f"function needs per element ({THREEFRY_INT_INSTRS_PER_ELEM}) over the two "
+                      "integer pipes (INT32; IMAD on the FMA pipe), 64 a clock per SM each; "
+                      "threefry_sass: each instantiation's main loop as compiled, per element "
+                      "and pipe; kernel_graph: the same calls in a CUDA graph (device time, no "
+                      "host time); threefry_plans: counters a thread, elements a run, tiles a "
+                      "row, tiles, tail slots, blocks, resident blocks a SM, small route"})
+        emit({"phase": "times", "flash_attention": flash_ms,
+              "shape": [1, seq, 32, 8, 64], "causal": True, "dtype": "bfloat16",
+              "route": tfa.flash_route(torch.bfloat16, 64),
+              "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
+              "bound_parts_ms": flash_parts, "visible_pairs": visible,
+              "note": f"ms per call: median over {FLASH_TIMED_REPS} event pairs around one call, "
+                      "the three in turns; bound = (QK^T + 3 P.V bf16 products) at 989 TFLOP/s; "
+                      "library = F.scaled_dot_product_attention(is_causal, enable_gqa) on the "
+                      "flash or memory-efficient backend, which rounds p to bf16 for P.V: the "
+                      "same function at lower precision"})
+        for name, arch, layer in (
+                ("flash_attention_dh256", None, flash256), ("flash_attention_dh128", None, flash128),
+                *(("flash_attention_dh128_causal", arch, layer) for arch, layer in flash_dense.items())):
+            library = ("SDPA with the window as a boolean mask over all S x S pairs, the kv heads "
+                       "repeated beforehand" if layer["window"] else
+                       "F.scaled_dot_product_attention(is_causal, enable_gqa) on the flash or "
+                       "memory-efficient backend")
+            emit({"phase": "times", **({"layer": arch} if arch else {}), name: layer["ms"],
+                  **{key: val for key, val in layer.items() if key not in ("ms", "bound")},
+                  "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
+                  "note": f"ms per call: kernel and library the median over {FLASH_TIMED_REPS} event "
+                          f"pairs around one call, in turns; plain over {FLASH_PLAIN_REPS} after a "
+                          "warm-up; bound as the head_dim-64 row: (QK^T + 3 P.V bf16 products) over "
+                          f"the visible pairs at 989 TFLOP/s; library = {library}, p rounded to "
+                          "bf16"})
+        # the round's kernels at a9a's and phishing's shapes (phase 4's paths)
+        round_times = {dataset: fednl_round_times(dataset, dev) for dataset in OTHER_DATASETS}
+        mark("times")
 
     # --- 7 no host sync in a round; where the time goes (torch.profiler) ----
-    pp_cfg = pp_spec.fednl_config()
-    rounds_of = {  # path: (round function, initial state)
-        "topk": (make_fednl_round(z, cfg), fednl_init(z, cfg)),
-        "randk": (make_fednl_round(z, randk_spec.fednl_config()),
-                  fednl_init(z, randk_spec.fednl_config())),
-        "fednl-pp topk": (make_fednl_pp_round(z, pp_cfg, PP_TAU), fednl_pp_init(z, pp_cfg)),
-    }
-    for path, (round_fn, state) in rounds_of.items():
-        warm, _ = round_fn(state)  # fills the caches (index tensors, kernels) first
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            _, m = round_fn(warm)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        emit({"phase": "trace", "path": path, "sync_debug_mode": "error",
-              "one_round_without_host_sync": True, "sent_bits": int(m.sent_bits)})
-    topk_trace = trace_rounds(*rounds_of["topk"], 3)
-    syrk_rows = [k for k in topk_trace.get("top_kernels", []) if "syrk" in k["name"]]
-    emit({"phase": "trace", "path": "topk", **topk_trace,
-          "syrk_ms_per_round": syrk_rows[0]["ms_per_round"] if syrk_rows else "not measured"})
-    toplek_cfg = toplek_spec.fednl_config()
-    emit({"phase": "trace", "path": "toplek",
-          **trace_rounds(make_fednl_round(z, toplek_cfg), fednl_init(z, toplek_cfg), 3)})
-    emit({"phase": "trace", "path": "randk", **trace_rounds(*rounds_of["randk"], 3)})
-    natural_cfg = natural_spec.fednl_config()
-    emit({"phase": "trace", "path": "natural",
-          **trace_rounds(make_fednl_round(z, natural_cfg), fednl_init(z, natural_cfg), 3)})
-    emit({"phase": "trace", "path": f"fednl-pp topk tau={PP_TAU}",
-          **trace_rounds(*rounds_of["fednl-pp topk"], 3)})
-    del rounds_of
-    emit({"phase": "draws", **host_draw_ms(prng, upload_draws, n_clients, t_len, dev)})
-    emit({"phase": "trace", "path": "granite-3-2b prefill_32k (B=1)",
-          **trace(lambda: lm["prefill"](lm["params"], lm["batch"]), 1, "prefill")})
-    serve_params = cast_for_compute(lm["params"])  # as the ServeEngine holds them
-    decode = {"cache": init_decode_cache(lm["cfg"], 4, 128, dev)}
-    step_tokens = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    if "trace" in run:
+        pp_cfg = pp_spec.fednl_config()
+        rounds_of = {  # path: (round function, initial state)
+            "topk": (make_fednl_round(z, cfg), fednl_init(z, cfg)),
+            "randk": (make_fednl_round(z, randk_spec.fednl_config()),
+                      fednl_init(z, randk_spec.fednl_config())),
+            "fednl-pp topk": (make_fednl_pp_round(z, pp_cfg, PP_TAU), fednl_pp_init(z, pp_cfg)),
+        }
+        for path, (round_fn, state) in rounds_of.items():
+            warm, _ = round_fn(state)  # fills the caches (index tensors, kernels) first
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, m = round_fn(warm)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            emit({"phase": "trace", "path": path, "sync_debug_mode": "error",
+                  "one_round_without_host_sync": True, "sent_bits": int(m.sent_bits)})
+        topk_trace = trace_rounds(*rounds_of["topk"], 3)
+        syrk_rows = [k for k in topk_trace.get("top_kernels", []) if "syrk" in k["name"]]
+        emit({"phase": "trace", "path": "topk", **topk_trace,
+              "syrk_ms_per_round": syrk_rows[0]["ms_per_round"] if syrk_rows else "not measured"})
+        toplek_cfg = toplek_spec.fednl_config()
+        emit({"phase": "trace", "path": "toplek",
+              **trace_rounds(make_fednl_round(z, toplek_cfg), fednl_init(z, toplek_cfg), 3)})
+        emit({"phase": "trace", "path": "randk", **trace_rounds(*rounds_of["randk"], 3)})
+        natural_cfg = natural_spec.fednl_config()
+        emit({"phase": "trace", "path": "natural",
+              **trace_rounds(make_fednl_round(z, natural_cfg), fednl_init(z, natural_cfg), 3)})
+        emit({"phase": "trace", "path": f"fednl-pp topk tau={PP_TAU}",
+              **trace_rounds(*rounds_of["fednl-pp topk"], 3)})
+        del rounds_of
+        emit({"phase": "draws", **host_draw_ms(prng, upload_draws, n_clients, t_len, dev)})
+        if lm is not None:
+            emit({"phase": "trace", "path": "granite-3-2b prefill_32k (B=1)",
+                  **trace(lambda: lm["prefill"](lm["params"], lm["batch"]), 1, "prefill")})
+            serve_params = cast_for_compute(lm["params"])  # as the ServeEngine holds them
+            decode = {"cache": init_decode_cache(lm["cfg"], 4, 128, dev)}
+            step_tokens = torch.zeros((4, 1), dtype=torch.int64, device=dev)
 
-    def decode_step():
-        _, decode["cache"] = lm_decode_step(serve_params, lm["cfg"], decode["cache"], step_tokens)
+            def decode_step():
+                _, decode["cache"] = lm_decode_step(serve_params, lm["cfg"], decode["cache"],
+                                                    step_tokens)
 
-    decode_step()  # warm-up
-    emit({"phase": "trace", "path": "granite-3-2b decode step (B=4, max_len 128)",
-          **trace(decode_step, 8, "step")})
-    del serve_params, decode
-    flash_launches = lm["launches"]["flash_attention"]
-    flash_routes = lm["flash_routes"]
-    by_prefill = "the lm and zoo phases: host clock around one synchronised 32k prefill"
-    measured = {  # the full-width runs' times for the roofline phase
-        ("granite-3-2b", "prefill_32k"): {"ms": lm["ms"], "by": by_prefill,
-                                          "max_memory_allocated": lm["max_memory_allocated"]},
-        "round": {"device_ms": topk_trace.get("device_ms_per_round"),
-                  "wall_ms": rep.wall_time_s / rep.rounds * 1e3},
-    }
-    check(measured["round"]["device_ms"] is not None, "phase 7 measured no device time")
-    del lm
+            decode_step()  # warm-up
+            emit({"phase": "trace", "path": "granite-3-2b decode step (B=4, max_len 128)",
+                  **trace(decode_step, 8, "step")})
+            del serve_params, decode
+        else:
+            skipped["trace"] = ["granite-3-2b's prefill and decode traces: the lm phase did "
+                                "not run"]
+        measured["round"] = {"device_ms": topk_trace.get("device_ms_per_round"),
+                             "wall_ms": rep.wall_time_s / rep.rounds * 1e3}
+        check(measured["round"]["device_ms"] is not None, "phase 7 measured no device time")
+        mark("trace")
+    lm = None  # granite's params freed before the zoo's
 
     # --- zoo: the moe, ssm, hybrid, vlm and encdec families and the dense
     # configs granite-3-2b does not cover; after granite's params are freed
+    # The CPU sides of the zoo's and the train phase's depth cuts all start
+    # here, in that order, one after another in the worker while the card
+    # runs both phases: the train cells' CPU sides are most of the two
+    # phases' CPU work, and would else wait for the train phase
     torch.cuda.empty_cache()
-    t_zoo = time.perf_counter()
-    zoo = {arch: zoo_family(arch, dev, ops) for arch in ZOO_FLASH_ROUTES}  # each freed after it
-    emit({"phase": "zoo", "seconds": time.perf_counter() - t_zoo,
-          "family_seconds": {arch: z["seconds"] for arch, z in zoo.items()}})
-    measured.update({(arch, "prefill_32k"): {
-        "ms": z["ms"], "by": by_prefill, "n_layers": z["n_layers"],
-        "max_memory_allocated": z["max_memory_allocated"]} for arch, z in zoo.items()})
+    t0 = time.perf_counter()
+    zoo_started = ({arch: zoo_hand_over(arch, dev, cpu_side) for arch in ZOO_FLASH_ROUTES}
+                   if "zoo" in run else {})
+    train_started = train_hand_overs(dev, cpu_side) if "train" in run and "zoo" in run else None
+    hand_overs_s = time.perf_counter() - t0
+    if "zoo" in run:
+        t_zoo = time.perf_counter()
+        zoo = {arch: zoo_family(arch, dev, ops, cpu_side, zoo_started.pop(arch))
+               for arch in ZOO_FLASH_ROUTES}  # each freed after it
+        emit({"phase": "zoo", "seconds": time.perf_counter() - t_zoo,
+              "family_seconds": {arch: z["seconds"] for arch, z in zoo.items()},
+              "hand_overs_s": hand_overs_s})
+        measured.update({(arch, "prefill_32k"): {
+            "ms": z["ms"], "by": BY_PREFILL, "n_layers": z["n_layers"],
+            "max_memory_allocated": z["max_memory_allocated"]} for arch, z in zoo.items()})
+        mark("zoo")
 
     # --- train: LM training at every family's full width ---------------------
-    train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"))
-    for cell in train["cells"].values():
-        measured[(cell["full"]["arch"], "train_4k")] = {
-            "ms": cell["full"]["ms_per_step"], "n_layers": cell["full"]["n_layers"],
-            "max_memory_allocated": cell["full"]["max_memory_allocated"],
-            "by": "the train phase: median host-clock ms per synchronised step"}
+    train = None
+    if "train" in run:
+        train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"), cpu_side,
+                            train_started)
+        for cell in train["cells"].values():
+            measured[(cell["full"]["arch"], "train_4k")] = {
+                "ms": cell["full"]["ms_per_step"], "n_layers": cell["full"]["n_layers"],
+                "max_memory_allocated": cell["full"]["max_memory_allocated"],
+                "by": "the train phase: median host-clock ms per synchronised step"}
+        mark("train")
+
+    share_cores(False)
 
     # --- mesh: --mesh 1x1 on the card, the dry run in fake worlds ------------
-    mesh = mesh_phase(dev, ops, train)
+    mesh = None
+    if "mesh" in run:
+        mesh = mesh_phase(dev, ops, train, skipped)
+        mark("mesh")
 
     # --- 8 sweeps: the README's grid as one batched group ------------------
-    sweep_launches, sweep = sweep_phase(ops)
+    sweep = None
+    if "sweep" in run:
+        sweep_launches, sweep = sweep_phase(ops)
+        mark("sweep")
 
     # --- 9 sessions: step, save, restore ------------------------------------
-    session_phase()
+    if "session" in run:
+        session_phase()
+        mark("session")
+
+    share_cores(True)
 
     # --- 10 the wire stack: star-loopback, codecs, PP with faults, TCP -------
-    star = star_phase(ops, dev)
+    # The CPU runs of (c) here and of the topologies' (c) and (d) queue in
+    # the worker; each is checked as late as the selected phases allow: (c)
+    # after the topology phase, theirs after the serve phase
+    topo_finish: list = []
+    if "star" in run:
+        star = star_phase(ops, dev, cpu_side)
+        star_finish = star.pop("finish")
+        if "topology" not in run:
+            star_finish()
+        mark("star")
 
     # --- 11 topologies: trees of stars, async, elastic, TCP tree, obs --------
-    topo = topology_phase(ops, dev, star)
-    del star["z_np"], star["topk_rep"]
+    if "topology" in run:
+        topo, topo_finish = topology_phase(ops, dev, star, cpu_side)
+        del star["z_np"], star["topk_rep"]
+        star_finish()
+        if "serve" not in run:
+            while topo_finish:
+                topo_finish.pop(0)()
+        mark("topology")
 
     # --- 12 the serving engine and its gateway ------------------------------
-    t_serve = time.perf_counter()
-    serve = serve_phase(ops, dev, sweep)
-    emit({"phase": "serve", "seconds": time.perf_counter() - t_serve})
+    if "serve" in run:
+        t_serve = time.perf_counter()
+        if sweep is None:
+            skipped["serve"] = ["(a)'s comparison with the sweep group's ms per round: the "
+                                "sweep phase did not run"]
+        serve = serve_phase(ops, dev, sweep)
+        emit({"phase": "serve", "seconds": time.perf_counter() - t_serve})
+        while topo_finish:
+            topo_finish.pop(0)()
+        mark("serve")
+
+    share_cores(False)
 
     # --- 13 the sharded backend: a world of one on NCCL --------------------
-    sharded = sharded_phase(ops, dev, rep.wall_time_s / rep.rounds * 1e3)
+    if "sharded" in run:
+        if "main" not in run:
+            skipped["sharded"] = ["phase4_local_ms_per_round: the main phase did not run"]
+        sharded = sharded_phase(
+            ops, dev, rep.wall_time_s / rep.rounds * 1e3 if "main" in run else None)
+        mark("sharded")
 
     # --- roofline: every full-width run above, counted -----------------------
-    roofline_phase(dev, smi, measured, mesh)
+    if "roofline" in run:
+        roofline_phase(dev, smi, measured, mesh, skipped)
+        mark("roofline")
+    cpu_side.close()
 
-    kernels = [
-        {
-            "name": "hessian_syrk_packed", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/hessian_syrk.cu",
-            "replaces": "src/repro/kernels/hessian_syrk.py:64",
-            "launches": launches["hessian_syrk_packed"], "max_abs_err": syrk_err,
-            "sweep_launches": sweep_launches["hessian_syrk_packed"],
-            "ms": syrk_ms["kernel"], "plain_ms": syrk_ms["plain"],
-            "bound_ms": syrk_bound[0], "bound_by": syrk_bound[1],
-            "library_ms": syrk_ms["library"],
-        },
-        {
-            "name": "select_topk", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
-            "replaces": "src/repro/kernels/compressor_select.py:67",
-            "launches": launches["select_topk"], "max_abs_err": topk_err,
-            "sweep_launches": sweep_launches["select_topk"],
-            "ms": topk_ms["kernel"], "plain_ms": topk_ms["plain"],
-            "bound_ms": topk_bound[0], "bound_by": topk_bound[1],
-            "library_ms": topk_ms["library"],
-        },
-        {
-            "name": "select_randseqk", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
-            "replaces": "src/repro/kernels/compressor_select.py:87",
-            "launches": launches_rs["select_randseqk"], "max_abs_err": randseqk_err,
-            "sweep_launches": sweep_launches["select_randseqk"],
-            "ms": randseqk_ms["kernel"], "plain_ms": randseqk_ms["plain"],
-            "bound_ms": randseqk_bound[0], "bound_by": randseqk_bound[1],
-            "library_ms": randseqk_ms["library"],
-        },
-        {
-            "name": "select_toplek", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
-            "replaces": "src/repro/kernels/compressor_select.py:106",
-            "launches": launches_le["select_toplek"], "max_abs_err": toplek_err,
-            "sweep_launches": sweep_launches["select_toplek"],
-            "ms": toplek_ms["kernel"], "plain_ms": toplek_ms["plain"],
-            "bound_ms": toplek_bound[0], "bound_by": toplek_bound[1],
-            "library_ms": None,
-        },
-        {
-            "name": "threefry_uniform_float32", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/threefry.cu",
-            "replaces": "src/repro/compressors/core.py:106 (jax.random.uniform on the "
-                        "device; not a Pallas kernel)",
-            "launches": launches_rk["threefry_uniform_float32"],
-            "max_abs_err": threefry_err[torch.float32],
-            "sweep_launches": sweep_launches["threefry_uniform_float32"],
-            "ms": threefry_ms["float32"]["kernel"], "plain_ms": threefry_ms["float32"]["plain"],
-            "bound_ms": threefry_bound["float32"][0], "bound_by": threefry_bound["float32"][1],
-            "library_ms": threefry_ms["float32"]["library"],
-            "graph_ms": threefry_ms["float32"]["kernel_graph"],
-            "one_client_ms": threefry_one_ms["float32"]["kernel"],
-            "one_client_graph_ms": threefry_one_ms["float32"]["kernel_graph"],
-            "one_client_bound_ms": threefry_one_bound["float32"][0],
-            "one_client_plain_ms": threefry_one_ms["float32"]["plain"],
-            "one_client_library_ms": threefry_one_ms["float32"]["library"],
-        },
-        {
-            "name": "threefry_uniform_float64", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/threefry.cu",
-            "replaces": "src/repro/compressors/core.py:161 (jax.random.bernoulli's uniform on "
-                        "the device; not a Pallas kernel)",
-            "launches": launches_nat["threefry_uniform_float64"],
-            "max_abs_err": threefry_err[torch.float64],
-            "sweep_launches": sweep_launches["threefry_uniform_float64"],
-            "ms": threefry_ms["float64"]["kernel"], "plain_ms": threefry_ms["float64"]["plain"],
-            "bound_ms": threefry_bound["float64"][0], "bound_by": threefry_bound["float64"][1],
-            "library_ms": threefry_ms["float64"]["library"],
-            "graph_ms": threefry_ms["float64"]["kernel_graph"],
-            "one_client_ms": threefry_one_ms["float64"]["kernel"],
-            "one_client_graph_ms": threefry_one_ms["float64"]["kernel_graph"],
-            "one_client_bound_ms": threefry_one_bound["float64"][0],
-            "one_client_plain_ms": threefry_one_ms["float64"]["plain"],
-            "one_client_library_ms": threefry_one_ms["float64"]["library"],
-        },
-        {
-            "name": "select_topk_by_keys", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
-            "replaces": "src/repro/compressors/core.py:107 (randk's lax.top_k: the selection "
-                        "of src/repro/kernels/compressor_select.py:67 on RandK's keys)",
-            "launches": launches_rk["select_topk_by_keys"], "max_abs_err": by_keys_err,
-            "sweep_launches": sweep_launches["select_topk_by_keys"],
-            "ms": by_keys_ms["kernel"], "plain_ms": by_keys_ms["plain"],
-            "bound_ms": by_keys_bound[0], "bound_by": by_keys_bound[1],
-            "library_ms": by_keys_ms["library"],
-        },
-        {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:95",
-            "kernels": {"wgmma": "flash_fwd_wgmma_kernel (bf16, head_dim 64, 128 and 256)",
-                        "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16 and 32)"},
-            "prefill_32k_routes": flash_routes,
-            "launches": flash_launches, "max_abs_err": flash_err,
-            "sweep_launches": sweep_launches["flash_attention"],
-            "ms": flash_ms["kernel"], "plain_ms": flash_ms["plain"],
-            "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
-            "library_ms": flash_ms["library"],
-            "zoo_routes": {arch: z["routes"] for arch, z in zoo.items()},
-        },
-        *({
-            "name": f"flash_attention_dh{dh}", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": f"src/repro/kernels/flash_attention.py:95 (at head_dim {dh})",
-            "kernels": {"wgmma": f"flash_fwd_wgmma_kernel, DH = {dh} (bf16)",
-                        "simt": f"flash_fwd_kernel, DH = {dh} (f32)"},
-            "layer": arch, "launches": zoo[arch]["routes"]["wgmma"],
-            "max_abs_err": flash_report[fixture]["max_abs_err"],
-            "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
-            "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
-            "library_ms": layer["ms"].get("library"),
-        } for dh, arch, fixture, layer in (
-            (256, "recurrentgemma-2b", "recurrentgemma_32k_layer_dh256", flash256),
-            (128, "llava-next-mistral-7b", "dh128_window200", flash128))),
-        *({
-            "name": f"flash_attention_dh128_causal_{arch.replace('-', '_').replace('.', '_')}",
-            "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:95 (at head_dim 128, causal, "
-                        "no window)",
-            "kernels": {"wgmma": "flash_fwd_wgmma_kernel, DH = 128 (bf16)"},
-            "layer": f"{arch}: S {layer['shape'][1]}, H {layer['shape'][2]}, "
-                     f"Kv {layer['shape'][3]}, dh 128, causal",
-            "launches": zoo[arch]["routes"]["wgmma"], "prefill_layers": zoo[arch]["n_layers"],
-            "max_abs_err": flash_report[f"{arch}_32k_layer"]["max_abs_err"],
-            "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
-            "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
-            "library_ms": layer["ms"].get("library"),
-        } for arch, layer in flash_dense.items()),
-    ]
-    tl = train["bwd"]  # granite-3-2b's training layer (TRAIN_LAYER), the train phase
-    pair = {"ms": tl["ms"]["bwd_dq"] + tl["ms"]["bwd_dkdv"], "bound_ms": tl["bound"]["backward"][0],
-            "bound_cuda_cores_ms": tl["bound_cuda_cores_ms"]["backward"],
-            "plain_ms": tl["ms"]["plain_backward"],
-            "sdpa_backward_ms": tl["ms"].get("sdpa_backward"),
-            "two_kernel_floor_ms": tl["floors"]["two_kernel_products_ms"]}
-    for name, key, kernel, err in (
-            ("flash_attention_train", "train_forward",
-             "flash_fwd_wgmma_kernel<64, *, true> (bf16, head_dim 64/128/256) and "
-             "flash_fwd_kernel<*, *, *, true> (f32; bf16 at 16 and 32)", "o_f32_max_abs_err"),
-            ("flash_attention_bwd_dq", "bwd_dq",
-             {"wgmma": "flash_bwd_dq_wgmma_kernel (bf16, head_dim 64/128/256)",
-              "simt": "flash_bwd_dq_kernel (f32; bf16 at 16 and 32)"}, "dq_max_abs_err"),
-            ("flash_attention_bwd_dkdv", "bwd_dkdv",
-             {"wgmma": "flash_bwd_dkdv_wgmma_kernel (bf16, head_dim 64/128/256)",
-              "simt": "flash_bwd_dkdv_kernel (f32; bf16 at 16 and 32)"},
-             "dk_max_abs_err")):
-        forward = name == "flash_attention_train"
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention"
-                      + (".cu" if forward else "_bwd.cu"),
-            "replaces": "src/repro/kernels/flash_attention.py:95 (its forward, writing O in f32 "
-                        "and the row lse for the backward)" if forward else
-                        "src/repro/models/layers.py:135 (XLA's derivative of chunked_attention, "
-                        "the jnp twin of src/repro/kernels/flash_attention.py:95; not a Pallas "
-                        "kernel)",
-            "kernels": kernel, "layer": "granite-3-2b training, B 2, S 4096, H 32, Kv 8, dh 64",
-            "launches": train["full"]["launches_total"][name],
-            "launches_per_step": train["full"]["launches_per_step"][name],
-            "launches_per_step_by_arch": {
-                arch: cell["full"]["launches_per_step"][name]
-                for arch, cell in train["cells"].items()},
-            "max_abs_err": tl["layer"][err],
-            "ms": tl["ms"][key],
-            "plain_ms": tl["ms"]["plain_train_forward" if forward else "plain_backward"],
-            "bound_ms": tl["bound"][key][0], "bound_by": tl["bound"][key][1],
-            "library_ms": tl["ms"].get("sdpa_forward") if forward else None,
-            **({} if forward else {"bound_cuda_cores_ms": tl["bound_cuda_cores_ms"][key],
-                                   "layer_route": tl["backward_route"],
-                                   "backward_pair": pair}),
-        })
-    rg = tl["rg"]  # recurrentgemma-2b's training layer (RG_TRAIN_LAYER), the train phase
-    rg_pair = {"ms": rg["ms"]["bwd_dq"] + rg["ms"]["bwd_dkdv"],
-               "bound_ms": rg["bound"]["backward"][0],
-               "bound_cuda_cores_ms": rg["bound_cuda_cores_ms"]["backward"],
-               "plain_ms": rg["ms"]["plain_backward"],
-               "sdpa_backward_ms": rg["ms"].get("sdpa_backward"),
-               "two_kernel_floor_ms": rg["floors"]["two_kernel_products_ms"],
-               "design_floor_ms": rg["floors"]["design_products_ms"]}
-    for name, key, kernel, err in (
-            ("flash_attention_bwd_dq", "bwd_dq", "flash_bwd_dq_wgmma_kernel<256> (64 queries a "
-             "block; both consumers compute S and dP, each sums half of dq's columns)",
-             "dq_max_abs_err"),
-            ("flash_attention_bwd_dkdv", "bwd_dkdv", "flash_bwd_dkdv_wgmma_kernel<256> (64 keys "
-             "a block; one consumer sums dv, the other dk; each key tile's (query head, query tile) "
-             "pairs split over a cluster of dkdv_split blocks, the partial sums added in rank "
-             "order)", "dk_max_abs_err")):
-        kernels.append({
-            "name": f"{name}_dh256", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/layers.py:135 (XLA's derivative of chunked_attention "
-                        "at head_dim 256; not a Pallas kernel)",
-            "kernels": kernel,
-            "layer": "recurrentgemma-2b training, B 2, S 4096, H 10, Kv 1, dh 256, causal "
-                     "window 2048",
-            "launches": train["rg_full"]["launches_total"][name],
-            "launches_per_step": train["rg_full"]["launches_per_step"][name],
-            "max_abs_err": rg["layer"][err], "ms": rg["ms"][key],
-            "plain_ms": rg["ms"]["plain_backward"],
-            "bound_ms": rg["bound"][key][0], "bound_by": rg["bound"][key][1],
-            "library_ms": None, "bound_cuda_cores_ms": rg["bound_cuda_cores_ms"][key],
-            "layer_route": rg["backward_route"], "kernels_do_products": rg["kernels_do_products"],
-            "dkdv_grid": rg["dkdv_grid"], "backward_pair": rg_pair,
-        })
-    # the training layers first run by this phase's cells: seamless's
-    # non-causal MHA (encoder self and cross attention) at head_dim 64 and
-    # llava's causal window at head_dim 128, each with its cell's launches
-    for layer, arch, suffix, desc in (
-            (train["bwd"]["seamless"], "seamless-m4t-large-v2", "dh64_mha_noncausal",
-             "seamless-m4t-large-v2 training, B 2, S 4096, H 16, Kv 16, dh 64, non-causal"),
-            (train["bwd"]["llava"], "llava-next-mistral-7b", "dh128_window",
-             "llava-next-mistral-7b training, B 2, S 576 + 4096, H 32, Kv 8, dh 128, causal "
-             "window 4096")):
-        cell = train["cells"][arch]["full"]
-        for name, key, err in (("flash_attention_train", "train_forward", "o_f32_max_abs_err"),
-                               ("flash_attention_bwd_dq", "bwd_dq", "dq_max_abs_err"),
-                               ("flash_attention_bwd_dkdv", "bwd_dkdv", "dk_max_abs_err")):
+    if run == PHASES:
+        kernels = [
+            {
+                "name": "hessian_syrk_packed", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/hessian_syrk.cu",
+                "replaces": "src/repro/kernels/hessian_syrk.py:64",
+                "launches": launches["hessian_syrk_packed"], "max_abs_err": syrk_err,
+                "sweep_launches": sweep_launches["hessian_syrk_packed"],
+                "ms": syrk_ms["kernel"], "plain_ms": syrk_ms["plain"],
+                "bound_ms": syrk_bound[0], "bound_by": syrk_bound[1],
+                "library_ms": syrk_ms["library"],
+            },
+            {
+                "name": "select_topk", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+                "replaces": "src/repro/kernels/compressor_select.py:67",
+                "launches": launches["select_topk"], "max_abs_err": topk_err,
+                "sweep_launches": sweep_launches["select_topk"],
+                "ms": topk_ms["kernel"], "plain_ms": topk_ms["plain"],
+                "bound_ms": topk_bound[0], "bound_by": topk_bound[1],
+                "library_ms": topk_ms["library"],
+            },
+            {
+                "name": "select_randseqk", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+                "replaces": "src/repro/kernels/compressor_select.py:87",
+                "launches": launches_rs["select_randseqk"], "max_abs_err": randseqk_err,
+                "sweep_launches": sweep_launches["select_randseqk"],
+                "ms": randseqk_ms["kernel"], "plain_ms": randseqk_ms["plain"],
+                "bound_ms": randseqk_bound[0], "bound_by": randseqk_bound[1],
+                "library_ms": randseqk_ms["library"],
+            },
+            {
+                "name": "select_toplek", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+                "replaces": "src/repro/kernels/compressor_select.py:106",
+                "launches": launches_le["select_toplek"], "max_abs_err": toplek_err,
+                "sweep_launches": sweep_launches["select_toplek"],
+                "ms": toplek_ms["kernel"], "plain_ms": toplek_ms["plain"],
+                "bound_ms": toplek_bound[0], "bound_by": toplek_bound[1],
+                "library_ms": None,
+            },
+            {
+                "name": "threefry_uniform_float32", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/threefry.cu",
+                "replaces": "src/repro/compressors/core.py:106 (jax.random.uniform on the "
+                            "device; not a Pallas kernel)",
+                "launches": launches_rk["threefry_uniform_float32"],
+                "max_abs_err": threefry_err[torch.float32],
+                "sweep_launches": sweep_launches["threefry_uniform_float32"],
+                "ms": threefry_ms["float32"]["kernel"], "plain_ms": threefry_ms["float32"]["plain"],
+                "bound_ms": threefry_bound["float32"][0], "bound_by": threefry_bound["float32"][1],
+                "library_ms": threefry_ms["float32"]["library"],
+                "graph_ms": threefry_ms["float32"]["kernel_graph"],
+                "one_client_ms": threefry_one_ms["float32"]["kernel"],
+                "one_client_graph_ms": threefry_one_ms["float32"]["kernel_graph"],
+                "one_client_bound_ms": threefry_one_bound["float32"][0],
+                "one_client_plain_ms": threefry_one_ms["float32"]["plain"],
+                "one_client_library_ms": threefry_one_ms["float32"]["library"],
+            },
+            {
+                "name": "threefry_uniform_float64", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/threefry.cu",
+                "replaces": "src/repro/compressors/core.py:161 (jax.random.bernoulli's uniform on "
+                            "the device; not a Pallas kernel)",
+                "launches": launches_nat["threefry_uniform_float64"],
+                "max_abs_err": threefry_err[torch.float64],
+                "sweep_launches": sweep_launches["threefry_uniform_float64"],
+                "ms": threefry_ms["float64"]["kernel"], "plain_ms": threefry_ms["float64"]["plain"],
+                "bound_ms": threefry_bound["float64"][0], "bound_by": threefry_bound["float64"][1],
+                "library_ms": threefry_ms["float64"]["library"],
+                "graph_ms": threefry_ms["float64"]["kernel_graph"],
+                "one_client_ms": threefry_one_ms["float64"]["kernel"],
+                "one_client_graph_ms": threefry_one_ms["float64"]["kernel_graph"],
+                "one_client_bound_ms": threefry_one_bound["float64"][0],
+                "one_client_plain_ms": threefry_one_ms["float64"]["plain"],
+                "one_client_library_ms": threefry_one_ms["float64"]["library"],
+            },
+            {
+                "name": "select_topk_by_keys", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+                "replaces": "src/repro/compressors/core.py:107 (randk's lax.top_k: the selection "
+                            "of src/repro/kernels/compressor_select.py:67 on RandK's keys)",
+                "launches": launches_rk["select_topk_by_keys"], "max_abs_err": by_keys_err,
+                "sweep_launches": sweep_launches["select_topk_by_keys"],
+                "ms": by_keys_ms["kernel"], "plain_ms": by_keys_ms["plain"],
+                "bound_ms": by_keys_bound[0], "bound_by": by_keys_bound[1],
+                "library_ms": by_keys_ms["library"],
+            },
+            {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:95",
+                "kernels": {"wgmma": "flash_fwd_wgmma_kernel (bf16, head_dim 64, 128 and 256)",
+                            "simt": "flash_fwd_kernel (f32; bf16 at head_dim 16 and 32)"},
+                "prefill_32k_routes": flash_routes,
+                "launches": flash_launches, "max_abs_err": flash_err,
+                "sweep_launches": sweep_launches["flash_attention"],
+                "ms": flash_ms["kernel"], "plain_ms": flash_ms["plain"],
+                "bound_ms": flash_bound[0], "bound_by": flash_bound[1],
+                "library_ms": flash_ms["library"],
+                "zoo_routes": {arch: z["routes"] for arch, z in zoo.items()},
+            },
+            *({
+                "name": f"flash_attention_dh{dh}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": f"src/repro/kernels/flash_attention.py:95 (at head_dim {dh})",
+                "kernels": {"wgmma": f"flash_fwd_wgmma_kernel, DH = {dh} (bf16)",
+                            "simt": f"flash_fwd_kernel, DH = {dh} (f32)"},
+                "layer": arch, "launches": zoo[arch]["routes"]["wgmma"],
+                "max_abs_err": flash_report[fixture]["max_abs_err"],
+                "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
+                "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
+                "library_ms": layer["ms"].get("library"),
+            } for dh, arch, fixture, layer in (
+                (256, "recurrentgemma-2b", "recurrentgemma_32k_layer_dh256", flash256),
+                (128, "llava-next-mistral-7b", "dh128_window200", flash128))),
+            *({
+                "name": f"flash_attention_dh128_causal_{arch.replace('-', '_').replace('.', '_')}",
+                "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:95 (at head_dim 128, causal, "
+                            "no window)",
+                "kernels": {"wgmma": "flash_fwd_wgmma_kernel, DH = 128 (bf16)"},
+                "layer": f"{arch}: S {layer['shape'][1]}, H {layer['shape'][2]}, "
+                         f"Kv {layer['shape'][3]}, dh 128, causal",
+                "launches": zoo[arch]["routes"]["wgmma"], "prefill_layers": zoo[arch]["n_layers"],
+                "max_abs_err": flash_report[f"{arch}_32k_layer"]["max_abs_err"],
+                "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
+                "bound_ms": layer["bound"][0], "bound_by": layer["bound"][1],
+                "library_ms": layer["ms"].get("library"),
+            } for arch, layer in flash_dense.items()),
+        ]
+        tl = train["bwd"]  # granite-3-2b's training layer (TRAIN_LAYER), the train phase
+        pair = {"ms": tl["ms"]["bwd_dq"] + tl["ms"]["bwd_dkdv"], "bound_ms": tl["bound"]["backward"][0],
+                "bound_cuda_cores_ms": tl["bound_cuda_cores_ms"]["backward"],
+                "plain_ms": tl["ms"]["plain_backward"],
+                "sdpa_backward_ms": tl["ms"].get("sdpa_backward"),
+                "two_kernel_floor_ms": tl["floors"]["two_kernel_products_ms"]}
+        for name, key, kernel, err in (
+                ("flash_attention_train", "train_forward",
+                 "flash_fwd_wgmma_kernel<64, *, true> (bf16, head_dim 64/128/256) and "
+                 "flash_fwd_kernel<*, *, *, true> (f32; bf16 at 16 and 32)", "o_f32_max_abs_err"),
+                ("flash_attention_bwd_dq", "bwd_dq",
+                 {"wgmma": "flash_bwd_dq_wgmma_kernel (bf16, head_dim 64/128/256)",
+                  "simt": "flash_bwd_dq_kernel (f32; bf16 at 16 and 32)"}, "dq_max_abs_err"),
+                ("flash_attention_bwd_dkdv", "bwd_dkdv",
+                 {"wgmma": "flash_bwd_dkdv_wgmma_kernel (bf16, head_dim 64/128/256)",
+                  "simt": "flash_bwd_dkdv_kernel (f32; bf16 at 16 and 32)"},
+                 "dk_max_abs_err")):
             forward = name == "flash_attention_train"
             kernels.append({
-                "name": f"{name}_{suffix}", "route": "cuda",
+                "name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention"
                           + (".cu" if forward else "_bwd.cu"),
-                "replaces": "src/repro/kernels/flash_attention.py:95 (its forward, writing O in "
-                            "f32 and the row lse)" if forward else
-                            "src/repro/models/layers.py:135 (XLA's derivative of "
-                            "chunked_attention; not a Pallas kernel)",
-                "layer": desc, "launches": cell["launches_total"][name],
-                "launches_per_step": cell["launches_per_step"][name],
-                "max_abs_err": layer["layer"][err], "ms": layer["ms"][key],
-                "plain_ms": layer["ms"]["plain_train_forward" if forward else "plain_backward"],
-                "bound_ms": layer["bound"][key][0], "bound_by": layer["bound"][key][1],
-                "library_ms": layer["ms"].get("sdpa_forward") if forward else None,
-                **({} if forward else {
-                    "layer_route": layer["backward_route"],
-                    "backward_pair": {
-                        "ms": layer["ms"]["bwd_dq"] + layer["ms"]["bwd_dkdv"],
-                        "bound_ms": layer["bound"]["backward"][0],
-                        "plain_ms": layer["ms"]["plain_backward"],
-                        "sdpa_backward_ms": layer["ms"].get("sdpa_backward"),
-                        "two_kernel_floor_ms": layer["floors"]["two_kernel_products_ms"]}}),
+                "replaces": "src/repro/kernels/flash_attention.py:95 (its forward, writing O in f32 "
+                            "and the row lse for the backward)" if forward else
+                            "src/repro/models/layers.py:135 (XLA's derivative of chunked_attention, "
+                            "the jnp twin of src/repro/kernels/flash_attention.py:95; not a Pallas "
+                            "kernel)",
+                "kernels": kernel, "layer": "granite-3-2b training, B 2, S 4096, H 32, Kv 8, dh 64",
+                "launches": train["full"]["launches_total"][name],
+                "launches_per_step": train["full"]["launches_per_step"][name],
+                "launches_per_step_by_arch": {
+                    arch: cell["full"]["launches_per_step"][name]
+                    for arch, cell in train["cells"].items()},
+                "max_abs_err": tl["layer"][err],
+                "ms": tl["ms"][key],
+                "plain_ms": tl["ms"]["plain_train_forward" if forward else "plain_backward"],
+                "bound_ms": tl["bound"][key][0], "bound_by": tl["bound"][key][1],
+                "library_ms": tl["ms"].get("sdpa_forward") if forward else None,
+                **({} if forward else {"bound_cuda_cores_ms": tl["bound_cuda_cores_ms"][key],
+                                       "layer_route": tl["backward_route"],
+                                       "backward_pair": pair}),
             })
-    for name, launched, replaces in (
-        ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
-         "src/repro/kernels/compressor_select.py:67 (select_topk_pallas's selection, with the "
-         "index output of src/repro/compressors/core.py:184 topk_sparse)"),
-        ("select_topk_by_keys_idx", star["by_keys_idx_launches"]["select_topk_by_keys_idx"],
-         "src/repro/compressors/core.py:189 (randk_sparse's lax.top_k, and the RandK codec's "
-         "PRG replay, src/repro/comm/wire.py:184)"),
-        ("select_toplek_idx", star["toplek_launches"]["select_toplek_idx"],
-         "src/repro/kernels/compressor_select.py:106 (select_toplek_pallas, with the index "
-         "output of src/repro/compressors/core.py:204 toplek_sparse)"),
-    ):
-        times = star["idx_ms"][name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
-            "replaces": replaces, "launches": launched, "max_abs_err": star["idx_err"][name],
-            "ms": times["kernel"], "plain_ms": times["plain"], "dense_form_ms": times["dense_form"],
-            "bound_ms": star["idx_bound"][name][0], "bound_by": star["idx_bound"][name][1],
-            "library_ms": times.get("library"),
-        })
-    for entry in kernels:  # the star path's launches of the kernels it shares
-        if entry["name"] in ("hessian_syrk_packed", "threefry_uniform_float32"):
-            entry["star_launches"] = {
-                "topk": star["topk_launches"].get(entry["name"], 0),
-                "pp_randk": star["by_keys_idx_launches"].get(entry["name"], 0),
-            }
-    for entry in kernels:  # phase 11's launches, each part's counts set to 0 before it
-        entry["topology_launches"] = {part: counts.get(entry["name"], 0)
-                                      for part, counts in topo.items()}
-    for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
-        entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
-    for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
-        if not entry["name"].endswith(("_dh256", "_dh128", "_dh64_mha_noncausal",
-                                       "_dh128_window")) and "_causal_" not in entry["name"]:
-            entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
-                                     for arch, z in zoo.items()}
-    for entry in kernels:  # the mesh phase's --mesh 1x1 run, the counts set to 0 before it
-        entry["mesh_launches"] = mesh["launches"].get(entry["name"], 0)
-    for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it
-        entry["sharded_launches"] = {part: counts.get(entry["name"], 0)
-                                     for part, counts in sharded["launches"].items()}
-        if entry["name"] == "select_topk_idx":  # the sparse path's (142, T) shape
-            entry["sharded_shape"] = sharded["idx_batched"]
-    emit({"kernels": kernels})
-    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
+        rg = tl["rg"]  # recurrentgemma-2b's training layer (RG_TRAIN_LAYER), the train phase
+        rg_pair = {"ms": rg["ms"]["bwd_dq"] + rg["ms"]["bwd_dkdv"],
+                   "bound_ms": rg["bound"]["backward"][0],
+                   "bound_cuda_cores_ms": rg["bound_cuda_cores_ms"]["backward"],
+                   "plain_ms": rg["ms"]["plain_backward"],
+                   "sdpa_backward_ms": rg["ms"].get("sdpa_backward"),
+                   "two_kernel_floor_ms": rg["floors"]["two_kernel_products_ms"],
+                   "design_floor_ms": rg["floors"]["design_products_ms"]}
+        for name, key, kernel, err in (
+                ("flash_attention_bwd_dq", "bwd_dq", "flash_bwd_dq_wgmma_kernel<256> (64 queries a "
+                 "block; both consumers compute S and dP, each sums half of dq's columns)",
+                 "dq_max_abs_err"),
+                ("flash_attention_bwd_dkdv", "bwd_dkdv", "flash_bwd_dkdv_wgmma_kernel<256> (64 keys "
+                 "a block; one consumer sums dv, the other dk; each key tile's (query head, query tile) "
+                 "pairs split over a cluster of dkdv_split blocks, the partial sums added in rank "
+                 "order)", "dk_max_abs_err")):
+            kernels.append({
+                "name": f"{name}_dh256", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                "replaces": "src/repro/models/layers.py:135 (XLA's derivative of chunked_attention "
+                            "at head_dim 256; not a Pallas kernel)",
+                "kernels": kernel,
+                "layer": "recurrentgemma-2b training, B 2, S 4096, H 10, Kv 1, dh 256, causal "
+                         "window 2048",
+                "launches": train["rg_full"]["launches_total"][name],
+                "launches_per_step": train["rg_full"]["launches_per_step"][name],
+                "max_abs_err": rg["layer"][err], "ms": rg["ms"][key],
+                "plain_ms": rg["ms"]["plain_backward"],
+                "bound_ms": rg["bound"][key][0], "bound_by": rg["bound"][key][1],
+                "library_ms": None, "bound_cuda_cores_ms": rg["bound_cuda_cores_ms"][key],
+                "layer_route": rg["backward_route"], "kernels_do_products": rg["kernels_do_products"],
+                "dkdv_grid": rg["dkdv_grid"], "backward_pair": rg_pair,
+            })
+        # the training layers first run by this phase's cells: seamless's
+        # non-causal MHA (encoder self and cross attention) at head_dim 64 and
+        # llava's causal window at head_dim 128, each with its cell's launches
+        for layer, arch, suffix, desc in (
+                (train["bwd"]["seamless"], "seamless-m4t-large-v2", "dh64_mha_noncausal",
+                 "seamless-m4t-large-v2 training, B 2, S 4096, H 16, Kv 16, dh 64, non-causal"),
+                (train["bwd"]["llava"], "llava-next-mistral-7b", "dh128_window",
+                 "llava-next-mistral-7b training, B 2, S 576 + 4096, H 32, Kv 8, dh 128, causal "
+                 "window 4096"),
+                *((train["bwd"]["dense"][arch], arch,
+                   f"dh128_causal_{arch.replace('-', '_').replace('.', '_')}",
+                   f"{arch} training, B {b}, S {s}, H {h}, Kv {kv}, dh {dh}, causal, at "
+                   f"{DENSE_TRAIN_LAYERS[arch]} layers")
+                  for arch, (b, s, h, kv, dh) in DENSE_TRAIN_LAYER.items())):
+            cell = train["cells"][arch]["full"]
+            for name, key, err in (("flash_attention_train", "train_forward", "o_f32_max_abs_err"),
+                                   ("flash_attention_bwd_dq", "bwd_dq", "dq_max_abs_err"),
+                                   ("flash_attention_bwd_dkdv", "bwd_dkdv", "dk_max_abs_err")):
+                forward = name == "flash_attention_train"
+                kernels.append({
+                    "name": f"{name}_{suffix}", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention"
+                              + (".cu" if forward else "_bwd.cu"),
+                    "replaces": "src/repro/kernels/flash_attention.py:95 (its forward, writing O in "
+                                "f32 and the row lse)" if forward else
+                                "src/repro/models/layers.py:135 (XLA's derivative of "
+                                "chunked_attention; not a Pallas kernel)",
+                    "layer": desc, "launches": cell["launches_total"][name],
+                    "launches_per_step": cell["launches_per_step"][name],
+                    "max_abs_err": layer["layer"][err], "ms": layer["ms"][key],
+                    "plain_ms": layer["ms"]["plain_train_forward" if forward else "plain_backward"],
+                    "bound_ms": layer["bound"][key][0], "bound_by": layer["bound"][key][1],
+                    "library_ms": layer["ms"].get("sdpa_forward") if forward else None,
+                    **({} if forward else {
+                        "layer_route": layer["backward_route"],
+                        "backward_pair": {
+                            "ms": layer["ms"]["bwd_dq"] + layer["ms"]["bwd_dkdv"],
+                            "bound_ms": layer["bound"]["backward"][0],
+                            "plain_ms": layer["ms"]["plain_backward"],
+                            "sdpa_backward_ms": layer["ms"].get("sdpa_backward"),
+                            "two_kernel_floor_ms": layer["floors"]["two_kernel_products_ms"]}}),
+                })
+        for name, launched, replaces in (
+            ("select_topk_idx", star["topk_launches"]["select_topk_idx"],
+             "src/repro/kernels/compressor_select.py:67 (select_topk_pallas's selection, with the "
+             "index output of src/repro/compressors/core.py:184 topk_sparse)"),
+            ("select_topk_by_keys_idx", star["by_keys_idx_launches"]["select_topk_by_keys_idx"],
+             "src/repro/compressors/core.py:189 (randk_sparse's lax.top_k, and the RandK codec's "
+             "PRG replay, src/repro/comm/wire.py:184)"),
+            ("select_toplek_idx", star["toplek_launches"]["select_toplek_idx"],
+             "src/repro/kernels/compressor_select.py:106 (select_toplek_pallas, with the index "
+             "output of src/repro/compressors/core.py:204 toplek_sparse)"),
+        ):
+            times = star["idx_ms"][name]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/compressor_select.cu",
+                "replaces": replaces, "launches": launched, "max_abs_err": star["idx_err"][name],
+                "ms": times["kernel"], "plain_ms": times["plain"], "dense_form_ms": times["dense_form"],
+                "bound_ms": star["idx_bound"][name][0], "bound_by": star["idx_bound"][name][1],
+                "library_ms": times.get("library"),
+            })
+        for entry in kernels:  # the star path's launches of the kernels it shares
+            if entry["name"] in ("hessian_syrk_packed", "threefry_uniform_float32"):
+                entry["star_launches"] = {
+                    "topk": star["topk_launches"].get(entry["name"], 0),
+                    "pp_randk": star["by_keys_idx_launches"].get(entry["name"], 0),
+                }
+        for entry in kernels:  # phase 11's launches, each part's counts set to 0 before it
+            entry["topology_launches"] = {part: counts.get(entry["name"], 0)
+                                          for part, counts in topo.items()}
+        for entry in kernels:  # phase 12 (a): the engine under pressure, counts set to 0 before it
+            entry["serve_launches"] = serve["launches"].get(entry["name"], 0)
+        for entry in kernels:  # the zoo's 32k prefills, the counts set to 0 before each
+            if not entry["name"].endswith(("_dh256", "_dh128", "_dh64_mha_noncausal",
+                                           "_dh128_window")) and "_causal_" not in entry["name"]:
+                entry["zoo_launches"] = {arch: z["launches"].get(entry["name"], 0)
+                                         for arch, z in zoo.items()}
+        for entry in kernels:  # the mesh phase's --mesh 1x1 run, the counts set to 0 before it
+            entry["mesh_launches"] = mesh["launches"].get(entry["name"], 0)
+        for entry in kernels:  # phase 13: each sharded path, its counts set to 0 before it
+            entry["sharded_launches"] = {part: counts.get(entry["name"], 0)
+                                         for part, counts in sharded["launches"].items()}
+            if entry["name"] == "select_topk_idx":  # the sparse path's (142, T) shape
+                entry["sharded_shape"] = sharded["idx_batched"]
+        for entry in kernels:  # phase 4's a9a and phishing paths; phase 6's times there
+            if entry["name"] in round_times[OTHER_DATASETS[0]]:
+                entry["other_datasets"] = {dataset: {
+                    **round_times[dataset][entry["name"]],
+                    "launches": {path: counts.get(entry["name"], 0)
+                                 for (ds, path), counts in other_launches.items() if ds == dataset},
+                    "shape": round_times[dataset]["shape"]} for dataset in OTHER_DATASETS}
+        emit({"kernels": kernels})
+    else:
+        emit({"phase": "selection", "ran": list(run), "not_run": [p for p in PHASES if p not in run],
+              "skipped_parts": skipped,
+              "note": "a partial run (--phases): no kernels line, which needs every phase"})
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run, "phase_seconds": phase_s})
     print(smi, flush=True)
     emit({
         "ok": True,

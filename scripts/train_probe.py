@@ -2,6 +2,7 @@
 """Where a full-width training run's losses come from, on one NVIDIA GPU.
 
     python3 scripts/train_probe.py [--arch recurrentgemma-2b] [--steps 8] [--cause]
+        [--layers N] [--set FIELD=VALUE ...] [--runs kernels_lr1e-3,plain_bwd_lr1e-3,...]
 
 Runs from the root of a checkout on a machine with a card and nvcc; imports
 ``repro_torch`` from ``src/`` and nothing of ``repro`` or JAX.  Three runs
@@ -18,6 +19,12 @@ Prints one JSON line per run (each step's loss, grad norm and host-clock
 seconds, and the peak device memory), then the card's name and power limit.
 If the kernels' run and the plain backward's agree step by step, a jump in
 the loss is not the kernels'.
+
+``--layers N`` runs the arch at full width and N layers (the depth cuts
+of ``chip_smoke.py``'s train cells); ``--set FIELD=VALUE`` replaces a
+field of its config (an int, a float, True, False or a word, e.g.
+``rope_fraction=1.0``, ``n_kv=8``) for a run that asks which of the config's features a loss
+curve follows; ``--runs`` picks some of the three runs.
 
 With ``--cause``, one run of the kernels at lr 1e-3 instead, read where a
 jump comes from: the loss of each of the first 6 batches (forward only, in
@@ -62,7 +69,17 @@ def main() -> int:
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 8
     dev = torch.device("cuda")
     build.build_all()  # before the clock
-    full = dataclasses.replace(get_config(arch), accum_steps=2)
+    changes = {"accum_steps": 2}
+    if "--layers" in argv:
+        changes["n_layers"] = int(argv[argv.index("--layers") + 1])
+    for i, a in enumerate(argv):
+        if a == "--set":
+            field, value = argv[i + 1].split("=", 1)
+            changes[field] = ({"True": True, "False": False}[value] if value in ("True", "False")
+                              else next((cast(value) for cast in (int, float)
+                                         if _parses(cast, value)), value))
+    full = dataclasses.replace(get_config(arch), **changes)
+    picked = argv[argv.index("--runs") + 1].split(",") if "--runs" in argv else None
     stream = synthetic_token_stream(full, 4, 4096)
     if "--cause" in argv:
         cause(full, [next(stream) for _ in range(6)], dev)
@@ -77,6 +94,8 @@ def main() -> int:
     for label, lr, backward in (("kernels_lr1e-3", 1e-3, kernels),
                                 ("plain_bwd_lr1e-3", 1e-3, plain),
                                 ("kernels_lr3e-4", 3e-4, kernels)):
+        if picked is not None and label not in picked:
+            continue
         tfa.flash_attention_bwd_cuda = backward  # what FlashAttention.backward calls
         try:
             params = init_lm_params(0, full, dev)
@@ -93,12 +112,21 @@ def main() -> int:
                              "s": time.perf_counter() - t0})
         finally:
             tfa.flash_attention_bwd_cuda = kernels
-        print(json.dumps({"run": label, "arch": arch, "lr": lr, "steps": rows,
+        print(json.dumps({"run": label, "arch": arch, "config_changes": changes, "lr": lr,
+                          "steps": rows,
                           "max_memory_allocated": torch.cuda.max_memory_allocated()}), flush=True)
         del params, opt
         torch.cuda.empty_cache()
     print(card(), flush=True)
     return 0
+
+
+def _parses(cast, value: str) -> bool:
+    try:
+        cast(value)
+    except ValueError:
+        return False
+    return True
 
 
 def card() -> str:

@@ -20,6 +20,14 @@ import torch
 from repro_torch.models.layers import like
 
 
+# C12: a leaf's update runs in slices of at most this many elements along
+# its first dimension, so that its elementwise temporaries stay small: whole,
+# they came to ~3 copies of the largest leaf (nemotron-4-15b's 256k-row
+# embedding and head, 6.3 GB each in f32), past a card's 80 GB beside its
+# 2-layer params, grads, m and v.  Elementwise, so the same bits either way.
+UPDATE_SLICE_ELEMS = 1 << 26
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
     lr: float = 3e-4
@@ -88,12 +96,22 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
 
-    def update(p, g, m, v):
+    def update_slice(p, g, m, v):
         g.mul_(scale)
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)  # the reference's (1 - b2) * g * g
         u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p
         p.sub_(cfg.lr * u)
+
+    def update(p, g, m, v):
+        # a plain tensor's rows in slices (views: written in place); a
+        # DTensor's whole, its slicing being a redistribution
+        if type(p) is not torch.Tensor or p.dim() == 0 or p.numel() <= UPDATE_SLICE_ELEMS:
+            update_slice(p, g, m, v)
+            return p
+        rows = max(1, UPDATE_SLICE_ELEMS // (p.numel() // p.shape[0]))
+        for lo in range(0, p.shape[0], rows):
+            update_slice(*(t[lo : lo + rows] for t in (p, g, m, v)))
         return p
 
     new_params = tree_map(update, params, grads, opt_state["m"], opt_state["v"])

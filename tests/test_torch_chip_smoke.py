@@ -1,12 +1,18 @@
 """chip_smoke.py's tables and parsers that the CPU can check (the script
-itself runs on the card): the zoo's dense configs at their depths, and
-the SASS listing that phase 6 counts threefry's integer instructions from.
+itself runs on the card): the zoo's dense configs at their depths, the
+train phase's dense cells at theirs, the SASS listing that phase 6 counts
+threefry's integer instructions from, the phase selection, and the CPU
+worker that computes the card-versus-CPU checks' CPU sides.
 """
 
 import dataclasses
 import importlib.util
+import re
+import sys
+import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +20,8 @@ from repro_torch.configs import get_config
 from repro_torch.models import init_lm_params
 from repro_torch.models import lm as tlm
 from repro_torch.models.lm import cast_for_compute
-from repro_torch.train import make_prefill_step
+from repro_torch.train import adamw_init, make_prefill_step, make_train_step, synthetic_batch
+from repro_torch.train.optimizer import tree_map
 
 DENSE_ZOO = ["chatglm3-6b", "nemotron-4-15b", "yi-34b"]
 
@@ -216,3 +223,213 @@ def test_sass_loops_counts_each_innermost_loop(monkeypatch):
         "STG.E desc[UR4][R2.64], R8 ;        ", "STG.E.128 desc[UR4][R2.64], R8 ;    "))
     with pytest.raises(RuntimeError, match="widest store"):
         cs.threefry_sass_facts(build=None)
+
+
+@pytest.mark.parametrize("arch", DENSE_ZOO)
+def test_train_cuts_are_the_deepest_that_fit_the_peak(arch):
+    """The dense train cells' depths: peak_train_bytes (the f32 params,
+    grads, m and v counted on meta, and what a measured step held above
+    them) fits PEAK_BYTES_MAX at the cell's depth and not one layer deeper;
+    the card-vs-CPU depth cut runs at 2 layers (B 1, S 512: nemotron-4-15b's
+    fits beside AdamW's state there, where its full-width step does not)."""
+    cs = _chip_smoke()
+    full = get_config(arch)
+    n_layers = cs.DENSE_TRAIN_LAYERS[arch]
+    cell = next(c for c in cs.TRAIN_CELLS if c[0] == arch)
+    assert cell == (arch, 2, n_layers, cs.TRAIN_STEPS_SHORT)
+    assert 1 <= n_layers < full.n_layers
+    assert cs.peak_train_bytes(full, n_layers) <= cs.PEAK_BYTES_MAX
+    assert cs.peak_train_bytes(full, n_layers + 1) > cs.PEAK_BYTES_MAX
+    params = init_lm_params(0, dataclasses.replace(full, n_layers=n_layers), "meta")
+    assert cs.train_state_bytes(full, n_layers) == 4 * _bytes(params)
+    assert cs.DENSE_TRAIN_LAYER[arch] == (2, 4096, full.n_heads, full.n_kv, full.head_dim)
+
+
+@pytest.mark.parametrize("arch", DENSE_ZOO)
+def test_dense_train_launches_are_a_steps_attention_calls(arch, monkeypatch):
+    """At the cell's depth and a reduced width, one train step (accum 2,
+    remat "full") calls chunked_attention as often as
+    expected_train_launches has the card launch flash's training forward,
+    each call causal without a window, and the backward kernels half as
+    often."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config(arch).reduced(), accum_steps=cs.TRAIN_ACCUM,
+                              n_layers=cs.DENSE_TRAIN_LAYERS[arch])
+    assert cfg.remat_policy == "full"
+    calls = []
+    plain = tlm.chunked_attention
+
+    def counted(*args, **kwargs):
+        calls.append((kwargs.get("causal", True), kwargs.get("window")))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tlm, "chunked_attention", counted)
+    params = init_lm_params(0, cfg, "cpu")
+    make_train_step(cfg)(params, adamw_init(params), synthetic_batch(cfg, 4, 16, seed=0))
+    want = cs.expected_train_launches(cfg, cs.TRAIN_ACCUM)
+    assert want["flash_attention_train"] == len(calls) == 2 * 2 * cfg.n_layers
+    assert want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkdv"] == len(calls) // 2
+    assert set(calls) == {(True, None)}
+
+
+def test_train_cells_and_roofline_runs_agree():
+    """Every train cell's full-width run has its roofline run at the same
+    depth, and every train_4k roofline run is a train cell's."""
+    cs = _chip_smoke()
+    cells = {(arch, "train_4k", cs.TRAIN_ACCUM, layers)
+             for arch, _, layers, _ in cs.TRAIN_CELLS}
+    runs = {run for run in cs.ROOFLINE_RUNS if run[1] == "train_4k"}
+    assert cells == runs
+    assert len(cs.ROOFLINE_RUNS) == len(set(cs.ROOFLINE_RUNS))
+    for arch, layers in cs.DENSE_TRAIN_LAYERS.items():
+        assert (arch, "train_4k", cs.TRAIN_ACCUM, layers) in runs
+
+
+def test_phases_keep_the_default_order_and_refuse_an_unknown_name(capsys, monkeypatch):
+    """No option: every phase in PHASES' order, which is the order of main's
+    phase blocks; a selection adds what it needs and keeps that order; an
+    unknown name exits 2 naming it."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])  # a run without arguments
+    assert cs.select_phases(None) == cs.select_phases([]) == cs.PHASES
+    source = Path(cs.__file__).read_text()
+    main = source[source.index("def main("):]
+    blocks = re.findall(r'^    if "(\w+)" in run:$', main, flags=re.M)
+    assert tuple(blocks) == cs.PHASES
+    assert cs.select_phases(["--phases", "train"]) == ("train",)
+    assert cs.select_phases(["--phases", "roofline,train,zoo"]) == ("zoo", "train", "roofline")
+    assert cs.select_phases(["--phases", "topology"]) == ("star", "topology")
+    assert cs.select_phases(["--phases", "trace"]) == ("kernels", "main", "trace")
+    for bad in ("trian", "train,nope", ""):
+        with pytest.raises(SystemExit) as exit_info:
+            cs.select_phases(["--phases", bad])
+        assert exit_info.value.code == 2
+        assert "unknown phase" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exit_info:
+        cs.main(["--phases", "nope"])
+    assert exit_info.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def chip_smoke_worker():
+    """chip_smoke imported as a module (its jobs pickle by name) and one
+    CpuSide worker at this process's thread count."""
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+
+        side = chip_smoke.CpuSide(threads=torch.get_num_threads())
+        yield chip_smoke, side
+        side.close()
+    finally:
+        sys.path.remove(root)
+
+
+def _job(cs, family: str):
+    """A job of each kind at a reduced config: (function, the tree of
+    tensors the worker is handed first or None, the job's other
+    arguments)."""
+    rng = np.random.default_rng(5)
+    if family == "lm":
+        cut = dataclasses.replace(get_config("granite-3-2b").reduced(), n_layers=2)
+        return (cs.lm_cpu_side, init_lm_params(0, cut, "cpu"),
+                (cut, rng.integers(0, cut.vocab, size=(2, 24))))
+    if family == "zoo":  # the moe: its router inputs recorded too
+        cut = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(), n_layers=2)
+        return (cs.zoo_cpu_side, cast_for_compute(init_lm_params(0, cut, "cpu")),
+                (cut, cs.zoo_inputs(cut, 2, 24, rng, "cpu")))
+    if family == "fednl":  # phase 10 (c)'s kind of run: FedNL-PP with RandK, dropouts, a star
+        from repro_torch.api import CompressorSpec, DataSpec, ExperimentSpec, FaultSpec
+
+        spec = ExperimentSpec(data=DataSpec(dataset="tiny"), algorithm="fednl-pp", tau=3,
+                              rounds=4, compressor=CompressorSpec("randk"),
+                              fault=FaultSpec(drop_prob=0.2), on_dropout="resample",
+                              backend="star-loopback")
+        return cs.solve_cpu_side, None, (spec, spec.data.build())
+    cut = dataclasses.replace(get_config("granite-3-2b").reduced(), n_layers=2, accum_steps=1)
+    return cs.train_cpu_side, init_lm_params(0, cut, "cpu"), (cut, synthetic_batch(cut, 1, 24))
+
+
+def _held_keys() -> list:
+    """A job: the keys the worker holds (chip_smoke._HELD)."""
+    import chip_smoke
+
+    return sorted(chip_smoke._HELD)
+
+
+def test_cpu_worker_runs_one_side_at_a_time_beside_its_hand_overs(chip_smoke_worker):
+    """Two sides started back to back compute one after the other in the
+    worker's run chain, while a hand-over goes through beside them; each is
+    collected in order; what a side raised is raised by its collection."""
+    cs, side = chip_smoke_worker
+    slow = [side.start(_sleep_then_stamp, f"slow{i}", 0.5) for i in range(2)]
+    t0 = time.perf_counter()
+    assert side.hand_over("beside", {"x": torch.arange(4.0)}) >= 0
+    assert time.perf_counter() - t0 < 0.5  # not behind the sleeps
+    assert not slow[1].done()
+    (a, _), (b, _) = slow[0].result(), slow[1].result()
+    assert b["start"] >= a["end"]  # one after the other
+    assert side.submit(_held_keys).result()[0] == ["beside"]
+    side.submit(cs.put_held, "beside", {"x": torch.zeros(4)}).result()
+    failing = side.start(_sleep_then_stamp, "bad", -1.0)
+    with pytest.raises(ValueError, match="sleep length"):
+        failing.result()
+
+
+def _sleep_then_stamp(key: str, seconds: float) -> dict:
+    """A CPU side for the run chain's test: sleeps, and says when."""
+    start = time.time()
+    time.sleep(seconds)
+    return {"start": start, "end": time.time()}
+
+
+def _same_bits(got, want) -> bool:
+    if isinstance(want, dict):
+        return sorted(got) == sorted(want) and all(_same_bits(got[k], want[k]) for k in want)
+    if isinstance(want, list):
+        return len(got) == len(want) and all(_same_bits(g, w) for g, w in zip(got, want))
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["lm", "zoo", "train", "fednl"])
+def test_cpu_worker_gives_the_in_process_result_bit_for_bit(chip_smoke_worker, family):
+    """Each CPU side in the spawned worker gives what the same calls give in
+    this process, bit for bit: the worker is handed its tree first
+    (hand_over: its own copy, kept under a key), the LM sides start in its
+    run chain and are collected, and a train cut's gradient comes back into
+    the caller's tensors (take_back); two FedNL runs queue and come back in
+    order; each result with the worker's thread count and times."""
+    cs, side = chip_smoke_worker
+    fn, tree, args = _job(cs, family)
+    if family == "fednl":
+        first, second = side.submit(fn, *args), side.submit(fn, *args)
+        (got, worker), (again, _) = first.result(), second.result()
+        want = fn(*args)
+
+        def fields(rep):
+            return [(r.round, r.f, r.sent_bits, r.participants, r.dropped, r.x.tobytes())
+                    for r in rep.records] + [rep.x.tobytes()]
+
+        assert fields(got) == fields(again) == fields(want)
+    else:
+        assert side.hand_over(family, tree) >= 0
+        run = side.start(fn, family, *args)
+        got, worker = run.result()
+        assert run.side is side and not any(k.startswith(family + "/run")
+                                            for k in side.submit(_held_keys).result()[0])
+        cs.hold_on_host(family, tree)  # the same calls in this process
+        want = fn(family, *args)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            if key != "seconds":
+                assert _same_bits(got[key], want[key]), key
+        if family == "zoo":  # two layers' router inputs in the prefill and each decode step
+            assert len(got["prefill_calls"]) == 2
+            assert all(len(c) == 2 for c in got["decode_calls"])
+        if family == "train":
+            back = tree_map(lambda v: torch.full_like(v, float("nan")), tree)
+            side.take_back(family + "/grads", back)
+            assert _same_bits(back, cs._HELD.pop(family + "/grads"))
+    assert worker["job"] == fn.__name__ and worker["threads"] == torch.get_num_threads()
+    assert worker["submit_to_result_s"] >= worker["waited_s"] >= 0

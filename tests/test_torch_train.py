@@ -62,6 +62,10 @@ from test_torch_zoo import _moe_first_difference, _record_router_inputs
 
 ARCHS = ["granite-3-2b", "granite-moe-1b-a400m", "mamba2-2.7b", "recurrentgemma-2b",
          "llava-next-mistral-7b", "seamless-m4t-large-v2"]
+# the dense configs granite-3-2b does not cover: half-dim rotary and Kv 2
+# (chatglm3-6b), squared ReLU and an untied head (nemotron-4-15b), 56 heads
+# over 8 kv heads at full width (yi-34b)
+DENSE = ["chatglm3-6b", "nemotron-4-15b", "yi-34b"]
 LOSS_RTOL = 1e-3
 GRAD_REL_L2 = 2e-2
 ADAMW_RTOL = 1e-6
@@ -158,6 +162,25 @@ def test_synthetic_batches_are_the_references_bytes(ref, arch):
 # AdamW
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", DENSE + ["llava-next-mistral-7b"])
+def test_a_stream_without_unigram_signal_is_chatglms(arch):
+    """C11: the stream's next token is (a x + b) mod vocab but for 10% noise;
+    where a is coprime to the vocab (chatglm3-6b's 65,024) that map is a
+    permutation, so the labels are as spread over the vocab as uniform draws
+    and a step can lower the loss only by learning the map itself; elsewhere
+    the map's image is a fraction of the vocab, which a first step learns
+    (the full-width loss at lr 1e-3: chip_smoke.py's TRAIN_LR)."""
+    cfg = get_config(arch)
+    labels = synthetic_batch(cfg, 16, 4096, seed=0)["labels"]
+    labels = labels[labels >= 0]
+    share = np.unique(labels).size / cfg.vocab
+    uniform = 1 - np.exp(-labels.size / cfg.vocab)  # the expected share of uniform draws
+    if arch == "chatglm3-6b":
+        assert abs(share - uniform) < 0.01 * uniform, (share, uniform)
+    else:
+        assert share < 0.6 * uniform, (share, uniform)
+
+
 def _tree(rng, scale=1.0):
     return {"a": {"w": (scale * rng.standard_normal((3, 4))).astype(np.float32),
                   "b": (scale * rng.standard_normal(5)).astype(np.float32)},
@@ -192,6 +215,57 @@ def test_adamw_matches_reference(ref, steps, clip):
     for name, got, want in (("params", tp, jp), ("m", to["m"], jo["m"]), ("v", to["v"], jo["v"])):
         for g, (path, w) in zip(topt.tree_leaves(got), _named_leaves(ref, want)):
             _close(g, w, f"{name}/{path}")
+
+
+def test_adamw_update_in_slices_is_the_whole_update_bit_for_bit(monkeypatch):
+    """C12: a leaf larger than UPDATE_SLICE_ELEMS is updated in slices of its
+    rows: the same params, m, v and grads bit for bit as the whole update,
+    and no temporary larger than a slice (an op's output counted by a
+    dispatch mode; the in-place outputs are the slices) but the global
+    norm's squares, one a leaf, which keep the reference's sum."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    rng = np.random.default_rng(4)
+
+    def state():
+        params = {"big": torch.as_tensor(rng.standard_normal((1000, 7)), dtype=torch.float32),
+                  "small": torch.as_tensor(rng.standard_normal(5), dtype=torch.float32)}
+        grads = topt.tree_map(lambda p: torch.as_tensor(rng.standard_normal(tuple(p.shape)),
+                                                        dtype=torch.float32), params)
+        return params, grads
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if (isinstance(t, torch.Tensor) and t.dim() and not func._schema.is_mutable
+                        and func is not torch.ops.aten.pow.Tensor_Scalar):
+                    self.numel = max(self.numel, t.numel())
+            return out
+
+    cfg = AdamWConfig(lr=1e-2)
+    params, grads = state()
+    runs = {}
+    for limit in (10 ** 9, 64):
+        monkeypatch.setattr(topt, "UPDATE_SLICE_ELEMS", limit)
+        p, g = topt.tree_map(torch.clone, params), topt.tree_map(torch.clone, grads)
+        opt = adamw_init(p)
+        for _ in range(2):
+            p, opt, _ = adamw_update(p, topt.tree_map(torch.clone, g), opt, cfg)
+        args = (topt.tree_map(torch.clone, p), topt.tree_map(torch.clone, g),
+                topt.tree_map(torch.clone, opt))
+        with Largest() as mode:
+            adamw_update(*args, cfg)
+        runs[limit] = (p, opt, mode.numel)
+    (p1, o1, whole), (p2, o2, sliced) = runs[10 ** 9], runs[64]
+    for a, b in zip(topt.tree_leaves(p1) + topt.tree_leaves(o1["m"]) + topt.tree_leaves(o1["v"]),
+                    topt.tree_leaves(p2) + topt.tree_leaves(o2["m"]) + topt.tree_leaves(o2["v"])):
+        assert torch.equal(a, b)
+    assert whole == 7000 and sliced <= 63  # 9 rows of 7 a slice
 
 
 def test_reference_optimizer_state_carries_over(ref):
@@ -278,7 +352,7 @@ def test_ef21_optimizes_quadratic():
 # the loss and its gradient, per family
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE)
 def test_loss_and_gradients_match_reference(ref, arch, monkeypatch):
     """Every family at its reduced config.  The hybrid's two layers are both
     RG-LRU layers, so its attention leaves are the untaken branch: 0 on both
@@ -447,10 +521,13 @@ def test_three_train_steps_match_reference(ref):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
-                                  "seamless-m4t-large-v2", "llava-next-mistral-7b"])
+                                  "seamless-m4t-large-v2", "llava-next-mistral-7b",
+                                  "chatglm3-6b", "nemotron-4-15b"])
 def test_three_train_steps_match_reference_other_families(ref, arch, monkeypatch):
     """The families first trained at full width on the card, with
-    accumulation 2, as the card's full-width runs."""
+    accumulation 2, as the card's full-width runs; and the dense configs'
+    half-dim rotary (chatglm3-6b), squared ReLU and untied head
+    (nemotron-4-15b) under three steps of AdamW."""
     _three_steps(ref, arch, 2, monkeypatch)
 
 
