@@ -2,15 +2,17 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: FedNL's round
 with the paper's six compressors, FedNL-LS and FedNL-PP, the LM zoo's
 inference for every family (dense granite-3-2b; moe, ssm, hybrid, vlm and
-encdec, and the dense chatglm3-6b, nemotron-4-15b and yi-34b, in the zoo
-phase), sweeps (solve_many's batched groups),
+encdec, the dense chatglm3-6b, nemotron-4-15b and yi-34b, and mixtral-8x22b
+with its long_500k ring decode, in the zoo phase), sweeps (solve_many's
+batched groups),
 sessions (open_session, FNLS1 checkpoints), the wire stack (codecs, frames,
 the loopback and TCP star masters) and the topologies above it (trees of
 stars, async aggregation, elastic membership, TCP process trees, obs),
 the serving engine with its gateway (FedNLServer, GatewayServer), the
 sharded backend over torch.distributed, LM training (every family at
-full width: at full depth but llava-next-mistral-7b's 12 of 32 layers, with
-flash attention's hand-written backward), and the roofline of every
+full width: at full depth but llava-next-mistral-7b's 12 of 32 layers and
+the depth cuts of the configs that do not fit one card, with flash
+attention's hand-written backward), and the roofline of every
 full-width run
 (repro_torch.roofline: counted flops and bytes, mfu).
 
@@ -52,7 +54,8 @@ after phase 12.  The run line gives each phase's seconds.
              recurrentgemma-2b's 32k layer (dh = 256, H = 10, Kv = 1, causal
              window 2048) and the 32k layers of chatglm3-6b, nemotron-4-15b
              and yi-34b (dh = 128, H/Kv = 32/2, 48/8, 56/8, causal, no
-             window) (the wgmma route) and bf16 at dh = 32 (the SIMT
+             window) and mixtral-8x22b (H/Kv 48/8, causal window 4096)
+             (the wgmma route) and bf16 at dh = 32 (the SIMT
              route), and within 2e-5 in f32 (the SIMT route, dh 64 and
              256); each fixture's route checked; the threefry
              kernel bit-exact in f32 and f64 at (142, 45451), T = 1, one
@@ -86,18 +89,22 @@ after phase 12.  The run line gives each phase's seconds.
   zoo        (after phase 7, once granite-3-2b's params are freed)
              granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-2b,
              llava-next-mistral-7b, seamless-m4t-large-v2, chatglm3-6b,
-             nemotron-4-15b and yi-34b at full width, each freed before the
-             next: (a) the same params, drawn on the card and copied to the
-             CPU, on both at a depth cut (2 layers; hybrid 3, so that one is
+             nemotron-4-15b, yi-34b and mixtral-8x22b at full width, each
+             freed before the next: (a) the same params, drawn on the card
+             and copied to the CPU, on both at a depth cut (2 layers; hybrid
+             3, so that one is
              attention; encdec 2 + 2), prefill at B = 2, S = 512 (vlm: and
              576 image embeddings; encdec: a 512-frame source) and 4 decode
              steps within LOGIT_ULPS, no argmax differing away from a near
              tie; moe: each layer's moe_apply on the CPU's router input,
              routing differing only at near ties, and the end-to-end rows
-             held until their routing differs; (b) make_prefill_step at
+             held until their routing differs; each checked once its CPU
+             side is in, those still out in the train phase between its
+             cells; (b) make_prefill_step at
              full depth from seed 0 at prefill_32k (B = 1; vlm 576 + 32,192,
              encdec source and tokens 32,768; yi-34b at 28 of its 60
-             layers, ZOO_DENSE_DEPTHS): exactly the flash launches
+             layers and mixtral-8x22b at 6 of its 56, ZOO_DEPTHS, the
+             deepest within zoo_param_budget): exactly the flash launches
              and routes of ZOO_FLASH_ROUTES and nothing else, ms, tokens/s,
              peak memory (at most PEAK_BYTES_MAX); (c) at (b)'s depth,
              prefill against 5 decode steps within
@@ -106,10 +113,17 @@ after phase 12.  The run line gives each phase's seconds.
              functions; vlm without image embeddings; encdec with a
              zero source, whose cross K/V equal the zero cache's); (d)
              ServeEngine with the launcher's defaults twice and the
-             launcher, the same tokens, no kernel launch (nemotron-4-15b
-             and yi-34b: the engines at 20 and 18 layers, the deepest whose
-             f32 params and the engine's bf16 copy fit ZOO_PARAM_BYTES_MAX;
-             their launcher, which serves full depth, not run); seconds each
+             launcher, the same tokens, no kernel launch (nemotron-4-15b,
+             yi-34b and mixtral-8x22b: the engines at 20, 18 and 4 layers,
+             the deepest whose f32 params and the engine's bf16 copy fit
+             the budget; their launcher, which serves full depth, not run);
+             (e) mixtral-8x22b (LONG_ARCHS) at the long_500k shape: from a
+             full 4,096-slot ring cache at pos 524,283, every leaf a seeded
+             numpy draw (long_500k_inputs), 4 decode steps on the card
+             against the CPU at (a)'s cut (logits and the written slots
+             within LOGIT_ULPS, the row held until its routing differs; pos
+             exact; step s writes slot (524,283 + s) % 4,096 and no other),
+             and the ms a step at (d)'s depth; seconds each
   6 times    CUDA-event medians of each kernel, its plain version (at a
              model's 32k flash layer one pair: 40-70 times the kernel's) and
              its library yardstick at the main paths' shapes, beside the card's
@@ -125,7 +139,8 @@ after phase 12.  The run line gives each phase's seconds.
              layer, with ptxas's report of its instantiations, and the dh-128
              one at llava-next-mistral-7b's, each beside SDPA given the
              window as a boolean mask, and at chatglm3-6b's, nemotron-4-15b's
-             and yi-34b's causal layers beside SDPA(is_causal, enable_gqa));
+             and yi-34b's causal layers beside SDPA(is_causal, enable_gqa),
+             and at mixtral-8x22b's windowed one beside SDPA's boolean mask);
              SYRK's ptxas report, dynamic shared
              memory,
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
@@ -160,19 +175,22 @@ after phase 12.  The run line gives each phase's seconds.
              (H 10, Kv 1, dh 256, causal window 2048; the dkdv kernel's
              cluster split and waves), seamless-m4t-large-v2's (H 16, Kv 16,
              dh 64, non-causal), llava-next-mistral-7b's (S 576 + 4,096,
-             H 32, Kv 8, dh 128, causal window 4096) and the dense configs'
+             H 32, Kv 8, dh 128, causal window 4096), the dense configs'
              (DENSE_TRAIN_LAYER: H/Kv 32/2, 48/8, 56/8, dh 128, causal, no
-             window), each held as the fixtures and timed
+             window) and mixtral-8x22b's (H 48, Kv 8, dh 128, causal window
+             4096, which S 4,096 does not reach past), each held as the
+             fixtures and timed
              beside the plain versions and SDPA's forward and backward (the
              window as a boolean mask, the kv heads repeated), with the
              bounds on the tensor cores and the CUDA cores, the 13-product
              floor and the products the kernels run; then for each of
              TRAIN_CELLS (granite-3-2b, recurrentgemma-2b,
              granite-moe-1b-a400m, mamba2-2.7b, seamless-m4t-large-v2,
-             llava-next-mistral-7b, chatglm3-6b, nemotron-4-15b, yi-34b),
-             each freed before the next: (b) full
+             llava-next-mistral-7b, chatglm3-6b, nemotron-4-15b, yi-34b,
+             mixtral-8x22b), each freed before the next: (b) full
              width at 2 layers (recurrentgemma-2b: 3, one of them
-             attention; seamless: 2 encoder and 2 decoder layers), B 1, S
+             attention; seamless: 2 encoder and 2 decoder layers;
+             mixtral-8x22b: 1, as AdamW's state at 2 does not fit), B 1, S
              512 (llava: after 576 image embeddings; seamless: a 512-frame
              source; moe: S 64, the first seed whose routing on the card
              and the CPU agrees before each row's first difference, a near
@@ -183,7 +201,8 @@ after phase 12.  The run line gives each phase's seconds.
              expected_train_launches on the wgmma route, and a train step
              run twice from one state, bit for bit; (c) full width and
              depth (llava: 12 of its 32 layers; the dense configs at
-             DENSE_TRAIN_LAYERS, the deepest whose peak fits 80 GB): 6 steps
+             DENSE_TRAIN_LAYERS and mixtral-8x22b at MIXTRAL_TRAIN_LAYERS,
+             the deepest whose peak fits 80 GB): 6 steps
              (the cells after the first two: 4, for the run's time) of
              make_train_step (accum 2, B 4,
              S 4,096, remat "full", AdamW lr 1e-3) with exactly
@@ -331,11 +350,13 @@ after phase 12.  The run line gives each phase's seconds.
              the steps from repro_torch.launch.specs.build_dryrun): the
              datasheet's ceilings (H100_SXM bf16, H100_SXM_FP64) and this
              card's measured ones (measure_machine: an 8192 GEMM and a copy,
-             bf16 and f64); the train phase's nine train steps (train_4k
+             bf16 and f64); the train phase's ten train steps (train_4k
              cut to B 4, accum 2; llava at 12 layers, the dense configs at
-             DENSE_TRAIN_LAYERS) and the 32k prefills of
-             granite-3-2b and the zoo's eight configs (prefill_32k cut to B
-             1; yi-34b at the zoo's 28 layers), each counted on meta in
+             DENSE_TRAIN_LAYERS, mixtral-8x22b at MIXTRAL_TRAIN_LAYERS) and
+             the 32k prefills of granite-3-2b and the zoo's nine configs
+             (prefill_32k cut to B 1; yi-34b and mixtral-8x22b at the zoo's
+             28 and 6 layers; prefill's model flops 2 N_active D), each
+             counted on meta in
              ROOFLINE_WORKERS spawned processes
              (during the mesh phase, after its timed steps, beside the fake
              worlds); step_cost refuses CUDA tensors (an argument, and a
@@ -455,7 +476,8 @@ def depth_logit_ulps(n_layers: int) -> float:
 LM_CUT_LAYERS = 2  # the card-vs-CPU check's depth cut (granite has 40)
 # the repo's shapes (repro_torch.launch.specs.SHAPES) as one card runs them:
 # prefill_32k's global batch of 32 and train_4k's of 256 cut to these
-CUT_BATCH = {"prefill_32k": 1, "train_4k": 4}
+# (long_500k's is 1)
+CUT_BATCH = {"prefill_32k": 1, "train_4k": 4, "long_500k": 1}
 BY_PREFILL = "the lm and zoo phases: host clock around one synchronised 32k prefill"
 ONE_CARD = {"data": 1, "model": 1}  # the mesh axes of one card (build_dryrun)
 SWEEP_ROUNDS = 50  # the README's sweep: ExperimentSpec(..., rounds=50).grid(...)
@@ -794,31 +816,65 @@ def lm_cpu_side(key: str, cut, toks) -> dict:
     return {"prefill": prefill, "decode": decode, "seconds": time.perf_counter() - t0}
 
 
-def zoo_cpu_side(key: str, cut, batch: dict) -> dict:
+def decode_recorded(step, params, cache, tokens, dev) -> tuple[list, list, dict]:
+    """One decode step a column of ``tokens`` (numpy or a CPU tensor, (B,
+    n)) on ``dev``, each step's moe_apply inputs recorded: the logits and
+    the calls of each step (on the CPU), and the cache after them."""
+    import torch
+
+    logits, calls = [], []
+    for s in range(tokens.shape[1]):
+        with record_router_inputs() as rec:
+            lg, cache = step(params, cache, torch.as_tensor(tokens[:, s : s + 1]).to(dev))
+        logits.append(lg.cpu())
+        calls.append(rec)
+    return logits, calls, cache
+
+
+def moe_module_outputs(cut, params, calls) -> list:
+    """Each layer's moe_apply of ``params`` on ``calls[layer]`` (a run's
+    router inputs, layer by layer), on their device."""
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.moe import moe_apply
+
+    m, layers = cut.moe, tlm._layers(params["blocks"], cut.n_layers)
+    return [moe_apply(h, layer["moe"], n_experts=m.n_experts, top_k=m.top_k,
+                      capacity_factor=m.capacity_factor, activation=cut.activation)
+            for h, layer in zip(calls[: cut.n_layers], layers)]
+
+
+def zoo_cpu_side(key: str, cut, batch: dict, long: bool = False) -> dict:
     """CpuSide job: the zoo's (a) on the CPU, on the params held under
     ``key``: ``batch``'s prefill logits and those of 4 decode steps on its
     first tokens, with every moe_apply's input recorded
-    (record_router_inputs) in each."""
+    (record_router_inputs) in each; the moe's each layer's moe_apply
+    output in the prefill (what moe_module_outputs gives on its input, not
+    computed again); with ``long``, the LONG_STEPS decode steps from
+    long_500k_inputs' cache, and that cache after them."""
     from repro_torch.models import encdec as ted
     from repro_torch.models import lm as tlm
     from repro_torch.train import make_prefill_step, make_serve_step
 
     t0 = time.perf_counter()
     params = _HELD.pop(key)
-    with record_router_inputs() as prefill_calls:
+    module = [] if cut.family == "moe" else None
+    with record_router_inputs(module) as prefill_calls:
         prefill = make_prefill_step(cut)(params, batch)
     if cut.family == "encdec":
         cache = ted.init_encdec_cache(cut, 2, 8, 16, "cpu")
     else:
         cache = tlm.init_decode_cache(cut, 2, 8, "cpu")
-    step, decode, decode_calls = make_serve_step(cut), [], []
-    for s in range(4):
-        with record_router_inputs() as calls:
-            logits, cache = step(params, cache, batch["tokens"][:, s : s + 1])
-        decode.append(logits)
-        decode_calls.append(calls)
-    return {"prefill": prefill, "prefill_calls": prefill_calls, "decode": decode,
-            "decode_calls": decode_calls, "seconds": time.perf_counter() - t0}
+    step = make_serve_step(cut)
+    decode, decode_calls, _ = decode_recorded(step, params, cache, batch["tokens"][:, :4], "cpu")
+    out = {"prefill": prefill, "prefill_calls": prefill_calls, "decode": decode,
+           "decode_calls": decode_calls}
+    if module is not None:
+        out["moe_module"] = module
+    if long:
+        cache, tokens = long_500k_inputs(cut)
+        out["long_decode"], out["long_decode_calls"], out["long_cache"] = decode_recorded(
+            step, params, cache, tokens, "cpu")
+    return {**out, "seconds": time.perf_counter() - t0}
 
 
 def train_cpu_side(key: str, cut, batch: dict) -> dict:
@@ -845,6 +901,18 @@ def nvidia_smi_line() -> str:
     ).stdout.strip()
     check(bool(out), "nvidia-smi printed nothing")
     return out.splitlines()[0]
+
+
+def host_memory() -> dict:
+    """The host's total and available memory in bytes (/proc/meminfo): what
+    the CPU worker's host copies leave."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            name, value = ln.split(":", 1)
+            if name in ("MemTotal", "MemAvailable"):
+                info[name] = int(value.split()[0]) * 1024
+    return {"total": info.get("MemTotal"), "available": info.get("MemAvailable")}
 
 
 def near_tie_rows(n_rows: int, t: int, seed: int) -> np.ndarray:
@@ -1342,9 +1410,10 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         "dh32_simt_route": (2, 1000, 1000, 8, 2, 32, True, 300, bf16),
         # recurrentgemma-2b's attention layer at its 32k prefill: the wgmma route
         "recurrentgemma_32k_layer_dh256": (1, seq, seq, 10, 1, 256, True, 2048, bf16),
-        # the dense configs' 32k layers: head_dim 128, causal, no window
-        **{f"{arch}_32k_layer": (1, seq, seq, c.n_heads, c.n_kv, c.head_dim, True, None, bf16)
-           for arch, c in ((a, get_config(a)) for a in ZOO_DENSE_DEPTHS)},
+        # the 32k layers of the zoo's configs cut in depth: head_dim 128,
+        # causal, no window (the dense ones) or mixtral-8x22b's window 4,096
+        **{f"{arch}_32k_layer": (1, seq, seq, c.n_heads, c.n_kv, c.head_dim, True, c.window, bf16)
+           for arch, c in ((a, get_config(a)) for a in ZOO_DEPTHS)},
         "dh256_kv2_window300_s1000": (2, 1000, 1000, 8, 2, 256, True, 300, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
         "f32_dh256_simt_window2048": (1, 4096, 4096, 10, 1, 256, True, 2048, f32),
@@ -1416,6 +1485,13 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         report[name] = row
         del q, k, v, got, want
     return report, max_err
+
+
+def zoo_layer_kernel(arch: str | None, window: int | None) -> str:
+    """The kernels line's name of flash at a 32k layer of ZOO_DEPTHS' ``arch``
+    (None: the name's stem): head_dim 128, causal, with or without a window."""
+    stem = f"flash_attention_dh128_{'causal' if window is None else 'window'}"
+    return stem if arch is None else f"{stem}_{arch.replace('-', '_').replace('.', '_')}"
 
 
 def flash_layer(dev, tfa, h: int, kv: int, dh: int, window: int | None, seed: int) -> dict:
@@ -1672,24 +1748,47 @@ ZOO_FLASH_ROUTES = {
     "llava-next-mistral-7b": {"wgmma": 32, "simt": 0},
     "seamless-m4t-large-v2": {"wgmma": 72, "simt": 0},  # 24 encoder + 24 self + 24 cross
     # the dense configs granite-3-2b does not cover, head_dim 128 causal
-    # without a window, at ZOO_DENSE_DEPTHS' prefill depth
+    # without a window, at ZOO_DEPTHS' prefill depth
     "chatglm3-6b": {"wgmma": 28, "simt": 0},  # H 32, Kv 2; rotary on half the head dims
     "nemotron-4-15b": {"wgmma": 32, "simt": 0},  # H 48, Kv 8; squared ReLU, untied 256k head
     "yi-34b": {"wgmma": 28, "simt": 0},  # H 56, Kv 8, d_model 7168: 28 of its 60 layers
+    # H 48, Kv 8, causal window 4,096; 8 experts top-2 of d_ff 16,384: at
+    # ZOO_DEPTHS' prefill depth, 6 of its 56 layers
+    "mixtral-8x22b": {"wgmma": 6, "simt": 0},
 }
-# the depths at which the zoo runs the dense configs above: (b) and (c) at
-# the first, (d) at the second (ServeEngine holds a bf16 copy of its
-# params beside the caller's f32 ones).  Each is the config's depth or the
-# deepest cut whose f32 params (for (d): and the bf16 copy) fit
-# ZOO_PARAM_BYTES_MAX: 80 GB less what a 32k prefill adds above its params
-# (the bf16 embedding and head, a layer's bf16 weights, its activations at
-# S 32,768; phase line b's max_memory_allocated - memory_allocated_before)
+# the depths at which the zoo runs the configs that do not fit the card
+# whole: (b) and (c) at the first, (d) at the second (ServeEngine holds a
+# bf16 copy of its params beside the caller's f32 ones).  Each is the
+# config's depth or the deepest cut whose f32 params (for (d): and the bf16
+# copy) fit the config's budget, zoo_param_budget: 80 GB less what a 32k
+# prefill adds above its params (the bf16 embedding and head, a layer's
+# bf16 weights, its activations at S 32,768; phase line b's
+# max_memory_allocated - memory_allocated_before)
 ZOO_PARAM_BYTES_MAX = 67e9
-ZOO_DENSE_DEPTHS = {  # arch: (layers of (b) and (c), layers of (d))
+ZOO_DEPTHS = {  # arch: (layers of (b) and (c), layers of (d))
     "chatglm3-6b": (28, 28),  # full depth: 23.9 GB f32, 35.9 GB with the engine's copy
     "nemotron-4-15b": (32, 20),  # 62.5 GB; the engine at 20 of 32 layers: 65.7 GB
     "yi-34b": (28, 18),  # 66.2 GB at 28 of 60 layers; the engine at 18: 65.8 GB
+    # 10.0 GB of f32 params a layer (8 experts of 3 x 6,144 x 16,384) and
+    # 1.6 GB beside them: 61.7 GB at 6 of 56 layers; the engine at 4: 62.5 GB
+    "mixtral-8x22b": (6, 4),
 }
+# the moe's own budget: its 32k prefill holds more above its params than a
+# dense one -- at B 1, S 32,768 each of the 8 experts takes a queue of 1.25
+# x 32,768 x 2 / 8 = 10,240 rows (moe.py's capacity), so the experts' three
+# (8, 10,240, 16,384) bf16 products and the combine's f32 values.  Measured
+# (scripts/train_depth_probe.py --prefill mixtral-8x22b:1,2,5,6, NVIDIA H100
+# 80GB HBM3, 700.00 W): 13.49 GB above the params at 1 layer, 13.89 GB at
+# 2, 5 and 6 (peak 75.67 GB at 6); less 1.5 GB for earlier phases' tensors
+# (0.8-1.4 GB at the zoo's prefills).  The engine at 5 layers held 77.65 GB
+MIXTRAL_PREFILL_PEAK_ABOVE = 13.89e9
+ZOO_PARAM_BUDGET = {"mixtral-8x22b": 80e9 - MIXTRAL_PREFILL_PEAK_ABOVE - 1.5e9}  # 64.6 GB
+
+
+def zoo_param_budget(arch: str) -> float:
+    """The bytes of params (and ServeEngine's copy) the zoo's cuts of
+    ``arch`` may hold: ZOO_PARAM_BUDGET's, or ZOO_PARAM_BYTES_MAX."""
+    return ZOO_PARAM_BUDGET.get(arch, ZOO_PARAM_BYTES_MAX)
 
 
 def zoo_param_bytes(cfg, n_layers: int, engine: bool) -> int:
@@ -1703,16 +1802,19 @@ def zoo_param_bytes(cfg, n_layers: int, engine: bool) -> int:
 
 
 @contextlib.contextmanager
-def record_router_inputs():
+def record_router_inputs(outputs: list | None = None):
     """Record (on the CPU) the argument of every ``moe_apply`` call of the
-    port's LM code, in call order."""
+    port's LM code, in call order (and its result into ``outputs``)."""
     from repro_torch.models import lm as tlm
 
     calls, orig = [], tlm.moe_apply
 
     def rec(x, *a, **kw):
         calls.append(x.detach().to("cpu", copy=True))
-        return orig(x, *a, **kw)
+        out = orig(x, *a, **kw)
+        if outputs is not None:
+            outputs.append(out.detach().to("cpu", copy=True))
+        return out
 
     tlm.moe_apply = rec
     try:
@@ -1791,27 +1893,18 @@ def moe_routes(calls_card, calls_host, cfg, routers, pos0: int, first: dict):
     return first, counts
 
 
-def moe_module_check(cut, p_card, p_cpu, calls_host, dev) -> dict:
-    """Each layer's ``moe_apply`` on the card against the CPU on the same
-    input (the CPU run's router input): routing by the near-tie rule, and
-    the output rows of tokens routed alike within LOGIT_ULPS of the output's
-    scale."""
-    import torch
-
-    from repro_torch.models import lm as tlm
-    from repro_torch.models.moe import moe_apply
-
-    m, report = cut.moe, []
-    layers_card = tlm._layers(p_card["blocks"], cut.n_layers)
-    layers_cpu = tlm._layers(p_cpu["blocks"], cut.n_layers)
-    for layer, h in enumerate(calls_host[: cut.n_layers]):
-        mp_card, mp_cpu = layers_card[layer]["moe"], layers_cpu[layer]["moe"]
-        kw = dict(n_experts=m.n_experts, top_k=m.top_k, capacity_factor=m.capacity_factor,
-                  activation=cut.activation)
-        got = moe_apply(h.to(dev), mp_card, **kw).cpu()
-        want = moe_apply(h, mp_cpu, **kw)
-        card = (*route_table(h.to(dev), mp_card["router"], cut), *h.shape[:2])
-        host = (*route_table(h, mp_cpu["router"], cut), *h.shape[:2])
+def moe_module_check(cut, p_card, routers, calls_host, module_host, dev) -> dict:
+    """Each layer's ``moe_apply`` on the card against the CPU's
+    (``module_host``, moe_module_outputs in the worker) on the same input
+    (the CPU run's router input): routing by the near-tie rule (the CPU's
+    from ``routers``, the routers' host copy), and the output rows of tokens
+    routed alike within LOGIT_ULPS of the output's scale."""
+    report = []
+    outs = moe_module_outputs(cut, p_card, [h.to(dev) for h in calls_host])
+    for layer, (h, out, want) in enumerate(zip(calls_host, outs, module_host)):
+        got = out.cpu()
+        card = (*route_table(h.to(dev), routers[layer].to(dev), cut), *h.shape[:2])
+        host = (*route_table(h, routers[layer], cut), *h.shape[:2])
         _, counts, differing = routing_differences(card, host, 0, {})
         err = float((got.float() - want.float()).abs()[~differing].max())
         ulps = err / bf16_ulp_at(float(want.float().abs().max()))
@@ -1856,11 +1949,39 @@ def zoo_cut_batch(cut, rng):
                       "cpu")
 
 
+# (e): the reference's long_500k shape (launch.specs.SHAPES: B 1, S 524,288)
+# decoded from a full ring cache: LONG_STEPS steps from position LONG_POS,
+# the last at the shape's last position but one
+LONG_ARCHS = ("mixtral-8x22b",)  # the sliding-window config's ring past its wrap
+LONG_POS, LONG_STEPS, LONG_SEED = 524_283, 4, 23
+
+
+def long_500k_inputs(cfg, device="cpu") -> tuple[dict, np.ndarray]:
+    """``cfg``'s decode cache at long_500k (B 1; attention's k and v a ring
+    of its window, cache_window) at pos LONG_POS, every leaf a numpy
+    standard-normal draw from LONG_SEED (rounded to the leaf's dtype, so a
+    card's and a host's copies hold the same bits), on ``device``; and the
+    LONG_STEPS tokens (1, LONG_STEPS) to decode from it, drawn after."""
+    import torch
+
+    from repro_torch.models.lm import init_decode_cache
+
+    shape = shape_of("long_500k")
+    zeros = init_decode_cache(cfg, shape.batch, shape.seq, "cpu")
+    rng = np.random.default_rng(LONG_SEED)
+    cache = {"pos": LONG_POS}
+    for key in sorted(k for k in zeros if k != "pos"):
+        draw = torch.as_tensor(rng.standard_normal(zeros[key].shape, dtype=np.float32))
+        cache[key] = draw.to(zeros[key].dtype).to(device)
+    return cache, rng.integers(0, cfg.vocab, size=(shape.batch, LONG_STEPS))
+
+
 def zoo_hand_over(arch: str, dev, cpu_side: CpuSide) -> dict:
     """(a)'s CPU side started early: the depth cut's params drawn on the
     card from seed 0 (the same bits each draw), their cast_for_compute copy
     handed over to ``cpu_side``'s worker, the card's freed, and zoo_cpu_side
-    started on the batch (B 2, S 512)."""
+    started on the batch (B 2, S 512) and, for LONG_ARCHS, the long_500k
+    decode."""
     import torch
 
     from repro_torch.models import encdec as ted
@@ -1873,19 +1994,61 @@ def zoo_hand_over(arch: str, dev, cpu_side: CpuSide) -> dict:
     hand_over_s = cpu_side.hand_over(key, cast)
     del cast
     torch.cuda.empty_cache()
-    job = cpu_side.start(zoo_cpu_side, key, cut, zoo_cut_batch(cut, np.random.default_rng(17)))
+    job = cpu_side.start(zoo_cpu_side, key, cut, zoo_cut_batch(cut, np.random.default_rng(17)),
+                         arch in LONG_ARCHS)
     return {"job": job, "hand_over_s": hand_over_s}
+
+
+def long_decode_check(cut, card: tuple, host_out: dict, routers) -> dict:
+    """(e) at the depth cut: the card's LONG_STEPS decode steps from
+    long_500k_inputs' ring cache (``card``: their logits, router inputs and
+    the cache after them, on the CPU) against the worker's from the same
+    bits: pos exact; on both, step s wrote slot (LONG_POS + s) % window of
+    every layer's k and v and changed no other slot; the logits and the
+    written slots within LOGIT_ULPS (moe: the row held until its routing
+    differs, routing_differences)."""
+    start, _ = long_500k_inputs(cut)
+    logits, calls, cache = card
+    window = start["k"].shape[2]
+    slots = [(LONG_POS + s) % window for s in range(LONG_STEPS)]
+    pos = (cache["pos"], host_out["long_cache"]["pos"])
+    check(pos == (LONG_POS + LONG_STEPS,) * 2, f"long_500k decode: pos {pos}")
+    first, routing, logit_err = {}, [], []
+    for s in range(LONG_STEPS):
+        if cut.family == "moe":
+            first, counts = moe_routes(calls[s], host_out["long_decode_calls"][s], cut, routers,
+                                       LONG_POS + s, first)
+            routing.append(counts)
+        if 0 not in first:  # B 1: its one row
+            logit_err.append(logit_ulps(logits[s], host_out["long_decode"][s]))
+    check(all(u <= LOGIT_ULPS for u in logit_err), f"long_500k decode: logits {logit_err} ulps")
+    held = [slot for s, slot in enumerate(slots) if LONG_POS + s < first.get(0, 1 << 62)]
+    slot_err = {}
+    for key in ("k", "v"):
+        for side, got in (("card", cache[key]), ("cpu", host_out["long_cache"][key])):
+            changed = (got != start[key]).any(-1).any(-1).any(1)  # (layers, window)
+            check(all(sorted(row.nonzero().flatten().tolist()) == sorted(slots) for row in changed),
+                  f"long_500k decode: {side}'s {key} changed slots other than {slots}")
+        if held:
+            err = logit_ulps(cache[key][:, :, held], host_out["long_cache"][key][:, :, held])
+            check(err <= LOGIT_ULPS, f"long_500k decode: {key} slots {err} ulps")
+            slot_err[key] = err
+    return {"pos": [LONG_POS, pos[0]], "window": window, "slots_written": slots,
+            "slots_held": held, "logit_ulps": logit_err, "cache_slot_ulps": slot_err,
+            "tol_ulps": LOGIT_ULPS, **({"routing": routing} if routing else {})}
 
 
 def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = None) -> dict:
     """One family at full width: (a) card against CPU on a depth cut (the
     CPU's run in ``cpu_side``'s worker, ``started`` before the phase or here
-    (zoo_hand_over); the moe's checked at once, the others' after (d)), (b)
-    the 32k prefill at full depth, (c) prefill
-    against sequential decode, (d) the serving engine and the launcher; a
-    config of ZOO_DENSE_DEPTHS runs (b) and (c) at its first depth, (d) at
-    its second, and the launcher only at full depth.  Returns its kernel
-    facts."""
+    (zoo_hand_over); held to its bounds by the returned "finish", once the
+    worker's run, the returned "job", is in), (b) the 32k prefill at full
+    depth, (c) prefill against sequential decode, (d) the serving engine
+    and the launcher, (e) for LONG_ARCHS the long_500k decode from a full
+    ring cache: card against CPU at (a)'s cut (checked in "finish") and its
+    ms a step at (d)'s depth.  A config of ZOO_DEPTHS runs (b) and (c) at
+    its first depth, (d) and (e)'s timing at its second, and the launcher
+    only at full depth.  Returns its kernel facts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1903,16 +2066,17 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
                   else tlm.init_decode_cache)
     rng = np.random.default_rng(17)
     no_launch = {name: 0 for name in ops.launch_counts()}
-    prefill_layers, engine_layers = ZOO_DENSE_DEPTHS.get(arch, (full.n_layers, full.n_layers))
+    prefill_layers, engine_layers = ZOO_DEPTHS.get(arch, (full.n_layers, full.n_layers))
     deep = dataclasses.replace(full, n_layers=prefill_layers)
     served = dataclasses.replace(full, n_layers=engine_layers)
-    budget = {}  # the bytes each cut holds, against ZOO_PARAM_BYTES_MAX
-    if arch in ZOO_DENSE_DEPTHS:
+    budget, budget_max = {}, zoo_param_budget(arch)  # the bytes each cut holds, against its budget
+    if arch in ZOO_DEPTHS:
         budget = {"prefill": zoo_param_bytes(full, prefill_layers, False),
                   "engine": zoo_param_bytes(full, engine_layers, True),
-                  "engine_full_depth": zoo_param_bytes(full, full.n_layers, True)}
-        check(budget["prefill"] <= ZOO_PARAM_BYTES_MAX and budget["engine"] <= ZOO_PARAM_BYTES_MAX,
-              f"{arch}: the zoo's cuts hold {budget}, above {ZOO_PARAM_BYTES_MAX}")
+                  "engine_full_depth": zoo_param_bytes(full, full.n_layers, True),
+                  "budget": budget_max}
+        check(budget["prefill"] <= budget_max and budget["engine"] <= budget_max,
+              f"{arch}: the zoo's cuts hold {budget}, above {budget_max}")
 
     def depth_cut(n_layers: int, engine: bool) -> str | None:
         if n_layers == full.n_layers:
@@ -1920,7 +2084,7 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
         held = budget["engine" if engine else "prefill"]
         return (f"n_layers {n_layers} of {full.n_layers}: the deepest cut whose f32 params"
                 + (" and ServeEngine's bf16 copy" if engine else "")
-                + f" ({held / 1e9:.1f} GB) fit {ZOO_PARAM_BYTES_MAX / 1e9:.0f} GB of the card's 80")
+                + f" ({held / 1e9:.1f} GB) fit {budget_max / 1e9:.1f} GB of the card's 80")
 
     # (a) the same params on the card and on the CPU, depth cut: drawn on
     # the card (a host draw of nemotron-4-15b's 3.9 B takes tens of
@@ -1934,21 +2098,20 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
     cut = zoo_cut(arch)
     batch = zoo_cut_batch(cut, rng)  # the job's batch: the same first draw
     p_card = init(0, cut, dev)  # the same bits as the worker's copy
-    moe = full.family == "moe"
-    p_cpu = tree_to(tlm.cast_for_compute(p_card), "cpu") if moe else None  # moe's checks read it
+    moe, long = full.family == "moe", arch in LONG_ARCHS
+    routers = p_card["blocks"]["moe"]["router"].cpu() if moe else None  # f32 in either copy
     prefill = make_prefill_step(cut)
     with record_router_inputs() as calls_card:
         card = prefill(p_card, {k: v.to(dev) for k, v in batch.items()}).cpu()
-    c_card = init_cache(cut, 2, 8, dev)
     step = make_serve_step(cut)
-    card_decode, card_decode_calls = [], []
-    toks = batch["tokens"]
-    for s in range(4):
-        t = toks[:, s : s + 1]
-        with record_router_inputs() as dc:
-            lg_card, c_card = step(p_card, c_card, t.to(dev))
-        card_decode.append(lg_card.cpu())
-        card_decode_calls.append(dc)
+    card_decode, card_decode_calls, _ = decode_recorded(step, p_card, init_cache(cut, 2, 8, dev),
+                                                        batch["tokens"][:, :4], dev)
+    if long:  # (e) at the cut: the long_500k ring, its first slots past the wrap
+        cache, tokens = long_500k_inputs(cut, device=dev)
+        *card_long, cache = decode_recorded(step, p_card, cache, tokens, dev)
+        card_long.append({k: v.cpu() if torch.is_tensor(v) else v for k, v in cache.items()})
+        del cache
+    del p_card
     card_side_s = time.perf_counter() - t_family
     part_a: dict = {"phase": "zoo", "part": "a_card_vs_cpu", "arch": arch, "family": full.family,
                     "cut": f"n_layers {cut.n_layers} of {full.n_layers}"
@@ -1957,15 +2120,19 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
                     "prefill_batch": {k: list(v.shape) for k, v in batch.items()},
                     "params": "drawn on the card from seed 0; the CPU's: their cast_for_compute "
                               "copy (the matrices in bf16, as every use casts them)"}
+    long_timing: dict = {}
 
     def check_cut() -> None:
-        """(a)'s checks on the worker's CPU run, as they were in-process."""
+        """(a)'s checks on the worker's CPU run (and (e)'s at the cut)."""
         host_out, worker = job.result()
         host, calls_host = host_out["prefill"], host_out["prefill_calls"]
         first: dict = {}
-        if moe:
-            routers = p_cpu["blocks"]["moe"]["router"]
-            part_a["moe_module"] = moe_module_check(cut, p_card, p_cpu, calls_host, dev)
+        if moe:  # each layer's moe_apply on the card again: the cut redrawn, the same bits
+            p_card = init(0, cut, dev)
+            part_a["moe_module"] = moe_module_check(cut, p_card, routers, calls_host,
+                                                    host_out["moe_module"], dev)
+            del p_card
+            torch.cuda.empty_cache()
             first, counts = moe_routes(calls_card, calls_host, cut, routers, 0, first)
             part_a["prefill_routing"] = counts
         held = [b for b in range(2) if b not in first]
@@ -2000,15 +2167,18 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
                                "(or a capacity queue it shifts); moe_module holds each layer's "
                                "moe_apply on one input")
         emit(part_a)
+        if long:
+            emit({"phase": "zoo", "part": "e_long_500k_decode", "arch": arch,
+                  "shape": "long_500k (B 1, S 524,288): the ring cache of its window, full",
+                  "cut": part_a["cut"], **long_decode_check(cut, card_long, host_out, routers),
+                  "timed": long_timing})
 
-    if moe:  # moe_module_check runs each layer on the card: before the cut is freed
-        with cpu_side.same_threads():
+    def finish() -> None:
+        # the moe's routing recomputed here as the worker computed it
+        with cpu_side.same_threads() if moe else contextlib.nullcontext():
             check_cut()
-    del c_card
-    if not moe:
-        del p_card
 
-    # (b) full depth (or ZOO_DENSE_DEPTHS' cut) from seed 0 on the card:
+    # (b) full depth (or ZOO_DEPTHS' cut) from seed 0 on the card:
     # the 32k prefill
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2062,9 +2232,13 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
     part_c = {"phase": "zoo", "part": "c_prefill_vs_decode", "arch": arch, "prompt_len": 5,
               "n_layers": deep.n_layers}
     if moe:
-        part_c["exempt"] = ("the reference's capacity rule makes them different functions: a "
-                            "5-token prefill has capacity int(1.25*5*8/32) = 1 per expert and "
-                            "drops assignments, a one-token decode step drops none")
+        m = full.moe
+        cap = max(1, int(m.capacity_factor * 5 * m.top_k / m.n_experts))
+        part_c["exempt"] = (
+            "the reference's capacity rule makes them different functions: a 5-token prefill "
+            f"has capacity max(1, int({m.capacity_factor} x 5 x {m.top_k} / {m.n_experts})) = "
+            f"{cap} per expert and drops assignments ({5 * m.top_k} on {m.n_experts} experts), "
+            "a one-token decode step drops none")
     else:
         pre = {"tokens": prompt}
         if encdec:  # decoding reads the zero cross K/V: the K/V of an all-zero source
@@ -2117,7 +2291,30 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
                      "peak": torch.cuda.max_memory_allocated()})
         del engine
     check(runs[0]["tokens"] == runs[1]["tokens"], f"{arch} serving: a second engine gave other tokens")
-    del params
+    if long:  # (e) timed at (d)'s depth on ServeEngine's bf16 copy of the params
+        cast = tlm.cast_for_compute(params)
+        del params
+        cache, tokens = long_500k_inputs(served, device=dev)
+        step, wall = make_serve_step(served), []
+        ops.reset_launch_counts()
+        for s in range(LONG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = step(cast, cache, torch.as_tensor(tokens[:, s : s + 1], device=dev))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        check(ops.launch_counts() == no_launch and cache["pos"] == LONG_POS + LONG_STEPS,
+              f"{arch} long_500k decode: launches {ops.launch_counts()}, pos {cache['pos']}")
+        long_timing.update(n_layers=served.n_layers, params="ServeEngine's: cast_for_compute",
+                           batch=1, ring_slots=int(cache["k"].shape[2]), first_pos=LONG_POS,
+                           ms_per_step=[w * 1e3 for w in wall],
+                           ms=statistics.median(wall[1:]) * 1e3,
+                           ms_note="median of steps 2.. (host clock, synchronised)",
+                           **({"cut": depth_cut(engine_layers, True)}
+                              if engine_layers != full.n_layers else {}))
+        del cast, cache
+    else:
+        del params
     torch.cuda.empty_cache()
     if engine_layers == full.n_layers:
         out = io.StringIO()
@@ -2132,9 +2329,6 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
                     f"ServeEngine's bf16 copy take {budget['engine_full_depth'] / 1e9:.1f} GB "
                     "of the card's 80")
     total = sum(len(t) for t in runs[0]["tokens"])
-    if not moe:
-        check_cut()
-    del p_cpu
     seconds = time.perf_counter() - t_family
     emit({"phase": "zoo", "part": "d_serve", "arch": arch, "requests": 6, "batch": 4,
           "new_tokens": 12, "max_len": 128, "n_layers": served.n_layers,
@@ -2147,7 +2341,8 @@ def zoo_family(arch: str, dev, ops, cpu_side: CpuSide, started: dict | None = No
           "family_seconds": seconds, **({"param_bytes": budget} if budget else {})})
     torch.cuda.empty_cache()
     return {"routes": routes, "launches": launches, "seconds": seconds, "ms": steady_s * 1e3,
-            "max_memory_allocated": peak, "n_layers": deep.n_layers}
+            "max_memory_allocated": peak, "n_layers": deep.n_layers, "job": job,
+            "finish": finish}
 
 
 # phase train: LM training at every family's full width
@@ -2167,6 +2362,10 @@ LLAVA_TRAIN_LAYERS = 12  # llava's full-width train step: 12 of its 32 layers
 CHATGLM_TRAIN_LAYERS = 17  # 0.266 + 0.204 n B params: 59.7 GB of state (95.6 whole); peak 78.6
 NEMOTRON_TRAIN_LAYERS = 1  # 3.146 + 0.390 n B: 56.6 GB (250.1 whole); peak 74.1, 2 layers > 80
 YI_TRAIN_LAYERS = 5  # 0.918 + 0.558 n B: 59.3 GB (550.2 whole); peak 73.6
+# mixtral-8x22b: 0.403 + 2.504 n B params: 46.5 GB of state at 1 layer
+# (9,002.6 whole); peak 60.03 (the probe, NVIDIA H100 80GB HBM3, 700.00 W);
+# at 2 layers the state alone is 86.6 GB (the probe ran out of memory)
+MIXTRAL_TRAIN_LAYERS = 1
 # what a step held above that state at n layers, base + per_layer * n bytes:
 # fitted to the probe's peaks at 15 and 17 layers (chatglm3-6b) and 4 and 5
 # (yi-34b) -- the accumulation's second gradient of each stacked leaf and
@@ -2176,13 +2375,18 @@ YI_TRAIN_LAYERS = 5  # 0.918 + 0.558 n B: 59.3 GB (550.2 whole); peak 73.6
 # with 80.49 GB asked for)
 TRAIN_PEAK_ABOVE_STATE = {"chatglm3-6b": (1_180_436_480, 1_041_793_024),
                           "nemotron-4-15b": (17_574_505_984, 0),
-                          "yi-34b": (1_935_117_312, 2_468_569_088)}
+                          "yi-34b": (1_935_117_312, 2_468_569_088),
+                          # at 1 layer only, its per-layer term 0 as nemotron's
+                          "mixtral-8x22b": (13_521_871_360, 0)}
 DENSE_TRAIN_LAYERS = {"chatglm3-6b": CHATGLM_TRAIN_LAYERS, "nemotron-4-15b": NEMOTRON_TRAIN_LAYERS,
                       "yi-34b": YI_TRAIN_LAYERS}
 # their training layers (B 2, S 4,096, H, Kv, dh 128), causal without a window:
 # query-head groups of 16, 6 and 7
 DENSE_TRAIN_LAYER = {"chatglm3-6b": (2, 4096, 32, 2, 128), "nemotron-4-15b": (2, 4096, 48, 8, 128),
                      "yi-34b": (2, 4096, 56, 8, 128)}
+# mixtral-8x22b's training layer: H 48, Kv 8, dh 128, causal window 4,096,
+# which at S 4,096 leaves every causal pair visible (the windowed kernel)
+MIXTRAL_TRAIN_LAYER, MIXTRAL_WINDOW = (2, 4096, 48, 8, 128), 4096
 # train_4k (S 4,096) at its batch cut to 4 (CUT_BATCH), in 2 microbatches of
 # 2; 6 steps (the cells this phase gained last, 4: the run's 1,200 s)
 TRAIN_ACCUM, TRAIN_STEPS, TRAIN_STEPS_SHORT = 2, 6, 4
@@ -2204,6 +2408,9 @@ TRAIN_CELLS = (
     ("chatglm3-6b", 2, CHATGLM_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
     ("nemotron-4-15b", 2, NEMOTRON_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
     ("yi-34b", 2, YI_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
+    # 10 GB of f32 params a layer: AdamW's state at 2 layers (86.6 GB) does
+    # not fit the card, so the depth cut, whose step runs twice, is 1 layer
+    ("mixtral-8x22b", 1, MIXTRAL_TRAIN_LAYERS, TRAIN_STEPS_SHORT),
 )
 # AdamW's lr in a cell's steps: 1e-3 but where named.  C11: chatglm3-6b's
 # synthetic stream has no unigram signal (its vocab 65,024 is coprime to
@@ -2493,8 +2700,10 @@ def flash_bwd_phase(dev, tfa, bwd_report: str | None) -> dict:
     llava = bwd_layer(dev, tfa, "llava_training_layer", LLAVA_TRAIN_LAYER, LLAVA_WINDOW, 730)
     dense = {arch: bwd_layer(dev, tfa, f"{arch}_training_layer", layer, None, 740 + 10 * i)
              for i, (arch, layer) in enumerate(DENSE_TRAIN_LAYER.items())}
+    mixtral = bwd_layer(dev, tfa, "mixtral-8x22b_training_layer", MIXTRAL_TRAIN_LAYER,
+                        MIXTRAL_WINDOW, 790)
     return {"fixtures": report, "ptxas_wgmma": ptxas, **granite, "rg": rg, "seamless": seamless,
-            "llava": llava, "dense": dense}
+            "llava": llava, "dense": dense, "mixtral": mixtral}
 
 
 def train_attention_calls(cfg) -> int:
@@ -2643,9 +2852,12 @@ def train_cut_hand_over(dev, cpu_side: CpuSide, arch: str, n_layers: int) -> dic
     draws the same bits every time) and handed over to ``cpu_side``'s
     worker, and its batch (B 1, S TRAIN_CUT_SEQ; vlm: after its images;
     encdec: a source of as many frames; moe: moe_held_batch's, S
-    MOE_CUT_SEQ, which reads a host copy); the card's copy freed."""
+    MOE_CUT_SEQ, which reads a host copy, cast_for_compute's: the same
+    losses bit for bit, half the bytes, no cast at each use); the card's
+    copy freed."""
     import torch
 
+    from repro_torch.models.lm import cast_for_compute
     from repro_torch.train import synthetic_batch
 
     cut = train_cut_config(arch, n_layers)
@@ -2653,7 +2865,8 @@ def train_cut_hand_over(dev, cpu_side: CpuSide, arch: str, n_layers: int) -> dic
     batch, moe = synthetic_batch(cut, 1, TRAIN_CUT_SEQ, seed=0), None
     if cut.family == "moe":
         with cpu_side.same_threads():
-            batch, moe = moe_held_batch(cut, p_card, tree_to(p_card, "cpu"), dev)
+            batch, moe = moe_held_batch(cut, p_card, tree_to(cast_for_compute(p_card), "cpu"),
+                                        dev)
     hand_over_s = cpu_side.hand_over(f"train/{arch}", p_card)
     del p_card
     torch.cuda.empty_cache()
@@ -2940,13 +3153,15 @@ def train_hand_overs(dev, cpu_side: CpuSide) -> dict:
 
 
 def train_phase(dev, ops, tfa, bwd_report: str | None, cpu_side: CpuSide,
-                started: dict | None = None) -> dict:
+                started: dict | None = None, unchecked: list | None = None) -> dict:
     """LM training: (a) the backward kernels, then for each of TRAIN_CELLS,
     each freed on the card before the next, (b) the depth cut card against
     CPU (the CPU's side in ``cpu_side``'s worker, ``started`` before the
     phase (train_hand_overs) or at its start, checked once it is in and the
     cell's (c) has run) and (c) full width and depth (or the cell's depth
-    cut), (d) the launcher."""
+    cut), (d) the launcher.  ``unchecked``: (name, CpuRun, finish) of checks
+    whose CPU sides the worker computes before the cells' (the zoo's),
+    finished as theirs are."""
     import torch
 
     from repro_torch.launch import train as train_launcher
@@ -2958,7 +3173,7 @@ def train_phase(dev, ops, tfa, bwd_report: str | None, cpu_side: CpuSide,
     # runs the cells, each cell's CPU run checked as soon as it is in and
     # the cell's card work is done
     started = started or train_hand_overs(dev, cpu_side)
-    cells, cell_s, unchecked = {}, {}, []
+    cells, cell_s, cuts, unchecked = {}, {}, {}, list(unchecked or [])
     for arch, cut_layers, full_layers, steps in TRAIN_CELLS:
         t0 = time.perf_counter()
         handed, job = started.pop(arch)
@@ -2968,11 +3183,13 @@ def train_phase(dev, ops, tfa, bwd_report: str | None, cpu_side: CpuSide,
                           keep_final=arch == "granite-3-2b")
         torch.cuda.empty_cache()
         cells[arch] = {"full": full}
-        # the cuts whose CPU sides are in, in order; after the last cell, all
+        # the checks whose CPU sides are in, in order; after the last cell, all
         while unchecked and (arch == TRAIN_CELLS[-1][0] or unchecked[0][1].done()):
             done, _, finish = unchecked.pop(0)
-            cells[done]["cut"] = finish()
+            cuts[done] = finish()
         cell_s[arch] = time.perf_counter() - t0
+    for arch, cell in cells.items():
+        cell["cut"] = cuts[arch]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         _, losses = train_launcher.main(["--arch", "granite-3-2b", "--reduced", "--steps", "30",
@@ -4779,7 +4996,9 @@ ROOFLINE_RUNS = (
     ("granite-3-2b", "prefill_32k", None, None),
     ("chatglm3-6b", "prefill_32k", None, None),
     ("nemotron-4-15b", "prefill_32k", None, None),
-    ("yi-34b", "prefill_32k", None, ZOO_DENSE_DEPTHS["yi-34b"][0]),  # the zoo's cut
+    ("yi-34b", "prefill_32k", None, ZOO_DEPTHS["yi-34b"][0]),  # the zoo's cut
+    ("mixtral-8x22b", "train_4k", TRAIN_ACCUM, MIXTRAL_TRAIN_LAYERS),
+    ("mixtral-8x22b", "prefill_32k", None, ZOO_DEPTHS["mixtral-8x22b"][0]),
     ("recurrentgemma-2b", "train_4k", TRAIN_ACCUM, None),
     ("granite-moe-1b-a400m", "prefill_32k", None, None),
     ("recurrentgemma-2b", "prefill_32k", None, None),
@@ -5569,10 +5788,12 @@ def main(argv: list[str] | None = None) -> int:
         # a boolean mask
         flash256 = flash_layer(dev, tfa, 10, 1, 256, 2048, 101)
         flash128 = flash_layer(dev, tfa, 32, 8, 128, 4096, 102)
-        # head_dim 128, causal without a window, at the zoo's dense configs'
-        # layers, each beside SDPA(is_causal, enable_gqa)
-        dense_cfgs = {arch: get_config(arch) for arch in ZOO_DENSE_DEPTHS}
-        flash_dense = {arch: flash_layer(dev, tfa, c.n_heads, c.n_kv, c.head_dim, None, 103 + i)
+        # head_dim 128 at the layers of the zoo's configs cut in depth: causal
+        # without a window beside SDPA(is_causal, enable_gqa), and mixtral-
+        # 8x22b's causal window 4,096 beside SDPA given it as a boolean mask
+        dense_cfgs = {arch: get_config(arch) for arch in ZOO_DEPTHS}
+        flash_dense = {arch: flash_layer(dev, tfa, c.n_heads, c.n_kv, c.head_dim, c.window,
+                                         103 + i)
                        for i, (arch, c) in enumerate(dense_cfgs.items())}
         if "flash_attention" in reports:
             flash256["ptxas"] = {fn: lines for fn, lines in build.ptxas_entries(
@@ -5666,7 +5887,8 @@ def main(argv: list[str] | None = None) -> int:
                       "same function at lower precision"})
         for name, arch, layer in (
                 ("flash_attention_dh256", None, flash256), ("flash_attention_dh128", None, flash128),
-                *(("flash_attention_dh128_causal", arch, layer) for arch, layer in flash_dense.items())):
+                *((zoo_layer_kernel(None, layer["window"]), arch, layer)
+                  for arch, layer in flash_dense.items())):
             library = ("SDPA with the window as a boolean mask over all S x S pairs, the kv heads "
                        "repeated beforehand" if layer["window"] else
                        "F.scaled_dot_product_attention(is_causal, enable_gqa) on the flash or "
@@ -5754,13 +5976,22 @@ def main(argv: list[str] | None = None) -> int:
                    if "zoo" in run else {})
     train_started = train_hand_overs(dev, cpu_side) if "train" in run and "zoo" in run else None
     hand_overs_s = time.perf_counter() - t0
+    zoo_unchecked: list = []  # (name, CpuRun, finish) of each (a) whose CPU side is still out
     if "zoo" in run:
         t_zoo = time.perf_counter()
-        zoo = {arch: zoo_family(arch, dev, ops, cpu_side, zoo_started.pop(arch))
-               for arch in ZOO_FLASH_ROUTES}  # each freed after it
+        zoo = {}
+        for arch in ZOO_FLASH_ROUTES:  # each freed after it
+            zoo[arch] = zoo_family(arch, dev, ops, cpu_side, zoo_started.pop(arch))
+            zoo_unchecked.append((f"zoo/{arch}", zoo[arch]["job"], zoo[arch]["finish"]))
+            while zoo_unchecked and zoo_unchecked[0][1].done():
+                zoo_unchecked.pop(0)[2]()
+        if "train" not in run:
+            while zoo_unchecked:
+                zoo_unchecked.pop(0)[2]()
         emit({"phase": "zoo", "seconds": time.perf_counter() - t_zoo,
               "family_seconds": {arch: z["seconds"] for arch, z in zoo.items()},
-              "hand_overs_s": hand_overs_s})
+              "hand_overs_s": hand_overs_s, "host": host_memory(),
+              "checked_in_the_train_phase": [name for name, _, _ in zoo_unchecked]})
         measured.update({(arch, "prefill_32k"): {
             "ms": z["ms"], "by": BY_PREFILL, "n_layers": z["n_layers"],
             "max_memory_allocated": z["max_memory_allocated"]} for arch, z in zoo.items()})
@@ -5770,7 +6001,7 @@ def main(argv: list[str] | None = None) -> int:
     train = None
     if "train" in run:
         train = train_phase(dev, ops, tfa, reports.get("flash_attention_bwd"), cpu_side,
-                            train_started)
+                            train_started, zoo_unchecked)
         for cell in train["cells"].values():
             measured[(cell["full"]["arch"], "train_4k")] = {
                 "ms": cell["full"]["ms_per_step"], "n_layers": cell["full"]["n_layers"],
@@ -5967,13 +6198,15 @@ def main(argv: list[str] | None = None) -> int:
                 (256, "recurrentgemma-2b", "recurrentgemma_32k_layer_dh256", flash256),
                 (128, "llava-next-mistral-7b", "dh128_window200", flash128))),
             *({
-                "name": f"flash_attention_dh128_causal_{arch.replace('-', '_').replace('.', '_')}",
+                "name": zoo_layer_kernel(arch, layer["window"]),
                 "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:95 (at head_dim 128, causal, "
-                            "no window)",
+                            + ("no window)" if layer["window"] is None else
+                               f"window {layer['window']})"),
                 "kernels": {"wgmma": "flash_fwd_wgmma_kernel, DH = 128 (bf16)"},
                 "layer": f"{arch}: S {layer['shape'][1]}, H {layer['shape'][2]}, "
-                         f"Kv {layer['shape'][3]}, dh 128, causal",
+                         f"Kv {layer['shape'][3]}, dh 128, causal"
+                         + (f" window {layer['window']}" if layer["window"] else ""),
                 "launches": zoo[arch]["routes"]["wgmma"], "prefill_layers": zoo[arch]["n_layers"],
                 "max_abs_err": flash_report[f"{arch}_32k_layer"]["max_abs_err"],
                 "ms": layer["ms"]["kernel"], "plain_ms": layer["ms"]["plain"],
@@ -6069,7 +6302,10 @@ def main(argv: list[str] | None = None) -> int:
                    f"dh128_causal_{arch.replace('-', '_').replace('.', '_')}",
                    f"{arch} training, B {b}, S {s}, H {h}, Kv {kv}, dh {dh}, causal, at "
                    f"{DENSE_TRAIN_LAYERS[arch]} layers")
-                  for arch, (b, s, h, kv, dh) in DENSE_TRAIN_LAYER.items())):
+                  for arch, (b, s, h, kv, dh) in DENSE_TRAIN_LAYER.items()),
+                (train["bwd"]["mixtral"], "mixtral-8x22b", "dh128_window_mixtral_8x22b",
+                 "mixtral-8x22b training, B 2, S 4096, H 48, Kv 8, dh 128, causal window 4096 "
+                 f"(every causal pair at S 4096), at {MIXTRAL_TRAIN_LAYERS} layer")):
             cell = train["cells"][arch]["full"]
             for name, key, err in (("flash_attention_train", "train_forward", "o_f32_max_abs_err"),
                                    ("flash_attention_bwd_dq", "bwd_dq", "dq_max_abs_err"),

@@ -1,6 +1,7 @@
 """chip_smoke.py's tables and parsers that the CPU can check (the script
-itself runs on the card): the zoo's dense configs at their depths, the
-train phase's dense cells at theirs, the SASS listing that phase 6 counts
+itself runs on the card): the zoo's dense configs and mixtral-8x22b at
+their depths, the train phase's dense and mixtral cells at theirs, the SASS
+listing that phase 6 counts
 threefry's integer instructions from, the phase selection, and the CPU
 worker that computes the card-versus-CPU checks' CPU sides.
 """
@@ -24,6 +25,12 @@ from repro_torch.train import adamw_init, make_prefill_step, make_train_step, sy
 from repro_torch.train.optimizer import tree_map
 
 DENSE_ZOO = ["chatglm3-6b", "nemotron-4-15b", "yi-34b"]
+CUT_ZOO = DENSE_ZOO + ["mixtral-8x22b"]  # the configs the card runs at depth cuts
+
+
+def _train_layers(cs) -> dict:
+    """arch -> its train cell's full-width depth, for CUT_ZOO."""
+    return {**cs.DENSE_TRAIN_LAYERS, "mixtral-8x22b": cs.MIXTRAL_TRAIN_LAYERS}
 
 
 def _chip_smoke():
@@ -40,13 +47,14 @@ def _bytes(tree: dict) -> int:
                for v in tree.values())
 
 
-@pytest.mark.parametrize("arch", DENSE_ZOO)
+@pytest.mark.parametrize("arch", CUT_ZOO)
 def test_zoo_flash_launches_are_the_prefills_attention_calls(arch, monkeypatch):
     """The zoo's 32k prefill (b) launches flash once per chunked_attention
-    call: at the depth ZOO_DENSE_DEPTHS gives, on a reduced width, the calls
-    equal ZOO_FLASH_ROUTES' wgmma count (head_dim 128: the wgmma route)."""
+    call: at the depth ZOO_DEPTHS gives, on a reduced width, the calls
+    equal ZOO_FLASH_ROUTES' wgmma count (head_dim 128: the wgmma route),
+    each with the config's window (none but mixtral-8x22b's)."""
     cs = _chip_smoke()
-    depth, _ = cs.ZOO_DENSE_DEPTHS[arch]
+    depth, _ = cs.ZOO_DEPTHS[arch]
     assert get_config(arch).head_dim == 128
     cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=depth)
     calls = []
@@ -62,18 +70,24 @@ def test_zoo_flash_launches_are_the_prefills_attention_calls(arch, monkeypatch):
     logits = make_prefill_step(cfg)(params, {"tokens": tokens})
     assert logits.shape == (1, tlm.padded_vocab(cfg))
     assert cs.ZOO_FLASH_ROUTES[arch] == {"wgmma": len(calls), "simt": 0}
-    assert calls == [None] * depth  # causal, no window
+    assert calls == [cfg.window] * depth  # causal, and the config's window
+    assert (cfg.window is None) == (arch in DENSE_ZOO)
 
 
-@pytest.mark.parametrize("arch", DENSE_ZOO)
+@pytest.mark.parametrize("arch", CUT_ZOO)
 def test_zoo_depths_are_the_deepest_that_fit_the_budget(arch):
     """Counted on meta: the f32 params at the prefill depth, and the f32
-    params with ServeEngine's bf16 copy at the engine depth, fit
-    ZOO_PARAM_BYTES_MAX, and one layer more (where there is one) would
-    not; chip_smoke.zoo_param_bytes counts the same bytes."""
+    params with ServeEngine's bf16 copy at the engine depth, fit the
+    config's budget (ZOO_PARAM_BYTES_MAX; mixtral-8x22b's: 80 GB less its
+    measured prefill's peak above its params), and one layer more (where
+    there is one) would not; chip_smoke.zoo_param_bytes counts the same
+    bytes; the roofline phase counts a cut prefill at the zoo's depth."""
     cs = _chip_smoke()
     full = get_config(arch)
-    prefill_layers, engine_layers = cs.ZOO_DENSE_DEPTHS[arch]
+    prefill_layers, engine_layers = cs.ZOO_DEPTHS[arch]
+    budget = cs.zoo_param_budget(arch)
+    assert budget == (80e9 - cs.MIXTRAL_PREFILL_PEAK_ABOVE - 1.5e9 if arch == "mixtral-8x22b"
+                      else cs.ZOO_PARAM_BYTES_MAX)
 
     def held(n_layers, engine):
         params = init_lm_params(0, dataclasses.replace(full, n_layers=n_layers), "meta")
@@ -81,13 +95,13 @@ def test_zoo_depths_are_the_deepest_that_fit_the_budget(arch):
 
     for n_layers, engine in ((prefill_layers, False), (engine_layers, True)):
         assert 1 <= n_layers <= full.n_layers
-        assert held(n_layers, engine) <= cs.ZOO_PARAM_BYTES_MAX, (n_layers, engine)
+        assert held(n_layers, engine) <= budget, (n_layers, engine)
         if n_layers < full.n_layers:
-            assert held(n_layers + 1, engine) > cs.ZOO_PARAM_BYTES_MAX, (n_layers, engine)
+            assert held(n_layers + 1, engine) > budget, (n_layers, engine)
         assert cs.zoo_param_bytes(full, n_layers, engine) == held(n_layers, engine)
     assert engine_layers <= prefill_layers
-    if arch == "yi-34b":  # the roofline phase counts yi-34b's prefill at the zoo's cut
-        assert ("yi-34b", "prefill_32k", None, prefill_layers) in cs.ROOFLINE_RUNS
+    if prefill_layers < full.n_layers:
+        assert (arch, "prefill_32k", None, prefill_layers) in cs.ROOFLINE_RUNS
 
 
 # a loop as cuobjdump -sass prints one (sm_90a): labels, a predicated
@@ -225,36 +239,44 @@ def test_sass_loops_counts_each_innermost_loop(monkeypatch):
         cs.threefry_sass_facts(build=None)
 
 
-@pytest.mark.parametrize("arch", DENSE_ZOO)
+@pytest.mark.parametrize("arch", CUT_ZOO)
 def test_train_cuts_are_the_deepest_that_fit_the_peak(arch):
-    """The dense train cells' depths: peak_train_bytes (the f32 params,
+    """The cut train cells' depths: peak_train_bytes (the f32 params,
     grads, m and v counted on meta, and what a measured step held above
     them) fits PEAK_BYTES_MAX at the cell's depth and not one layer deeper;
     the card-vs-CPU depth cut runs at 2 layers (B 1, S 512: nemotron-4-15b's
-    fits beside AdamW's state there, where its full-width step does not)."""
+    fits beside AdamW's state there, where its full-width step does not),
+    mixtral-8x22b's at 1, since AdamW's state at 2 does not fit the card."""
     cs = _chip_smoke()
     full = get_config(arch)
-    n_layers = cs.DENSE_TRAIN_LAYERS[arch]
+    n_layers = _train_layers(cs)[arch]
     cell = next(c for c in cs.TRAIN_CELLS if c[0] == arch)
-    assert cell == (arch, 2, n_layers, cs.TRAIN_STEPS_SHORT)
+    cut_layers = 1 if arch == "mixtral-8x22b" else 2
+    assert cell == (arch, cut_layers, n_layers, cs.TRAIN_STEPS_SHORT)
+    assert cs.train_state_bytes(full, cut_layers) <= cs.PEAK_BYTES_MAX
+    if arch == "mixtral-8x22b":
+        assert cs.train_state_bytes(full, 2) > cs.PEAK_BYTES_MAX
     assert 1 <= n_layers < full.n_layers
     assert cs.peak_train_bytes(full, n_layers) <= cs.PEAK_BYTES_MAX
     assert cs.peak_train_bytes(full, n_layers + 1) > cs.PEAK_BYTES_MAX
     params = init_lm_params(0, dataclasses.replace(full, n_layers=n_layers), "meta")
     assert cs.train_state_bytes(full, n_layers) == 4 * _bytes(params)
-    assert cs.DENSE_TRAIN_LAYER[arch] == (2, 4096, full.n_heads, full.n_kv, full.head_dim)
+    layer = (cs.MIXTRAL_TRAIN_LAYER if arch == "mixtral-8x22b" else cs.DENSE_TRAIN_LAYER[arch])
+    assert layer == (2, 4096, full.n_heads, full.n_kv, full.head_dim)
+    if arch == "mixtral-8x22b":  # its window reaches every causal pair at S 4,096
+        assert cs.MIXTRAL_WINDOW == full.window >= layer[1]
 
 
-@pytest.mark.parametrize("arch", DENSE_ZOO)
+@pytest.mark.parametrize("arch", CUT_ZOO)
 def test_dense_train_launches_are_a_steps_attention_calls(arch, monkeypatch):
     """At the cell's depth and a reduced width, one train step (accum 2,
     remat "full") calls chunked_attention as often as
     expected_train_launches has the card launch flash's training forward,
-    each call causal without a window, and the backward kernels half as
-    often."""
+    each call causal with the config's window (none but mixtral-8x22b's),
+    and the backward kernels half as often."""
     cs = _chip_smoke()
     cfg = dataclasses.replace(get_config(arch).reduced(), accum_steps=cs.TRAIN_ACCUM,
-                              n_layers=cs.DENSE_TRAIN_LAYERS[arch])
+                              n_layers=_train_layers(cs)[arch])
     assert cfg.remat_policy == "full"
     calls = []
     plain = tlm.chunked_attention
@@ -269,7 +291,7 @@ def test_dense_train_launches_are_a_steps_attention_calls(arch, monkeypatch):
     want = cs.expected_train_launches(cfg, cs.TRAIN_ACCUM)
     assert want["flash_attention_train"] == len(calls) == 2 * 2 * cfg.n_layers
     assert want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkdv"] == len(calls) // 2
-    assert set(calls) == {(True, None)}
+    assert set(calls) == {(True, cfg.window)}
 
 
 def test_train_cells_and_roofline_runs_agree():
@@ -281,7 +303,7 @@ def test_train_cells_and_roofline_runs_agree():
     runs = {run for run in cs.ROOFLINE_RUNS if run[1] == "train_4k"}
     assert cells == runs
     assert len(cs.ROOFLINE_RUNS) == len(set(cs.ROOFLINE_RUNS))
-    for arch, layers in cs.DENSE_TRAIN_LAYERS.items():
+    for arch, layers in _train_layers(cs).items():
         assert (arch, "train_4k", cs.TRAIN_ACCUM, layers) in runs
 
 
@@ -339,6 +361,10 @@ def _job(cs, family: str):
         cut = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(), n_layers=2)
         return (cs.zoo_cpu_side, cast_for_compute(init_lm_params(0, cut, "cpu")),
                 (cut, cs.zoo_inputs(cut, 2, 24, rng, "cpu")))
+    if family == "zoo_long":  # mixtral's: the moe, and (e)'s long_500k decode from a full ring
+        cut = dataclasses.replace(get_config("mixtral-8x22b").reduced(), n_layers=2)
+        return (cs.zoo_cpu_side, cast_for_compute(init_lm_params(0, cut, "cpu")),
+                (cut, cs.zoo_inputs(cut, 2, 24, rng, "cpu"), True))
     if family == "fednl":  # phase 10 (c)'s kind of run: FedNL-PP with RandK, dropouts, a star
         from repro_torch.api import CompressorSpec, DataSpec, ExperimentSpec, FaultSpec
 
@@ -389,10 +415,12 @@ def _same_bits(got, want) -> bool:
         return sorted(got) == sorted(want) and all(_same_bits(got[k], want[k]) for k in want)
     if isinstance(want, list):
         return len(got) == len(want) and all(_same_bits(g, w) for g, w in zip(got, want))
+    if not torch.is_tensor(want):
+        return got == want
     return got.dtype == want.dtype and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("family", ["lm", "zoo", "train", "fednl"])
+@pytest.mark.parametrize("family", ["lm", "zoo", "zoo_long", "train", "fednl"])
 def test_cpu_worker_gives_the_in_process_result_bit_for_bit(chip_smoke_worker, family):
     """Each CPU side in the spawned worker gives what the same calls give in
     this process, bit for bit: the worker is handed its tree first
@@ -424,9 +452,16 @@ def test_cpu_worker_gives_the_in_process_result_bit_for_bit(chip_smoke_worker, f
         for key in want:
             if key != "seconds":
                 assert _same_bits(got[key], want[key]), key
-        if family == "zoo":  # two layers' router inputs in the prefill and each decode step
-            assert len(got["prefill_calls"]) == 2
+        if family.startswith("zoo"):  # two layers' router inputs in the prefill and each step
+            assert len(got["prefill_calls"]) == len(got["moe_module"]) == 2
             assert all(len(c) == 2 for c in got["decode_calls"])
+            # each layer's moe_apply as the prefill ran it: moe_module_outputs on its input
+            cut = args[0]
+            alone = cs.moe_module_outputs(cut, tree, got["prefill_calls"])
+            assert _same_bits(got["moe_module"], alone)
+        if family == "zoo_long":
+            assert len(got["long_decode"]) == len(got["long_decode_calls"]) == cs.LONG_STEPS
+            assert got["long_cache"]["pos"] == cs.LONG_POS + cs.LONG_STEPS
         if family == "train":
             back = tree_map(lambda v: torch.full_like(v, float("nan")), tree)
             side.take_back(family + "/grads", back)

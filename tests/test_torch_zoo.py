@@ -25,8 +25,10 @@ to the later positions); every other row is held to ``LOGIT_ULPS``.
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -292,6 +294,121 @@ def test_decode_steps_match_reference(ref, carried, arch, monkeypatch):
         for key, leaf in leaves.items():
             assert cache[key] is leaf  # written in place
             _assert_close(leaf, jcache[key], None if held is None else (slice(None), held))
+
+
+# the configs whose attention decodes from a ring cache of its window: the
+# sliding-window ones and the hybrid's local attention
+RING = ["mixtral-8x22b", "llava-next-mistral-7b", "recurrentgemma-2b"]
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded by its path (its long_500k_inputs: the card's
+    start of the long_500k decode)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _ring_window(cfg) -> int:
+    return cfg.window if cfg.window is not None else cfg.hybrid.local_window
+
+
+def _ring_case(ref, carried, arch):
+    """(cfg, jcfg, jax params, the same as CPU tensors): the reduced config;
+    the hybrid's at 3 layers, so that one of its (rglru, rglru, attn) layers
+    is attention."""
+    cfg, jcfg = get_config(arch).reduced(), ref.configs.get_config(arch).reduced()
+    if cfg.family != "hybrid":
+        return (cfg, jcfg, *carried[arch])
+    cfg, jcfg = dataclasses.replace(cfg, n_layers=3), dataclasses.replace(jcfg, n_layers=3)
+    jp = ref.models.init_lm_params(ref.jax.random.PRNGKey(3), jcfg)
+    return cfg, jcfg, jp, params_from_numpy(ref.jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _decode_both(ref, case, monkeypatch, cache: dict, toks: np.ndarray) -> dict:
+    """One decode step a column of ``toks`` (B, n) from ``cache`` (the
+    port's; the reference's the same bits) in both packages (``case``:
+    _ring_case's), the reference's step jitted once: the logits and every
+    cache leaf within the bound after each step (moe: a batch row held
+    until its routing differs), pos exact, the port's leaves written in
+    place.  Returns the port's cache and {batch row: first position whose
+    routing differed}."""
+    cfg, jcfg, jp, tp = case
+    jnp = ref.jnp
+    jcache = {"pos": jnp.asarray(cache["pos"], dtype=jnp.int32)}
+    for key, leaf in cache.items():
+        if key != "pos":  # bf16 leaves through f32: exact
+            jcache[key] = jnp.asarray(leaf.float().numpy()).astype(
+                jnp.bfloat16 if leaf.dtype == torch.bfloat16 else jnp.float32)
+    leaves = {k: v for k, v in cache.items() if k != "pos"}
+    step, jstep = make_serve_step(cfg), ref.jax.jit(ref.models.lm_decode_step, static_argnums=1)
+    pos0, first = cache["pos"], {}
+    with _record_router_inputs(ref, monkeypatch) as (port_h, ref_h):
+        for s in range(toks.shape[1]):
+            calls = len(port_h)
+            want, jcache = jstep(jp, jcfg, jcache, jnp.asarray(toks[:, s : s + 1]))
+            got, cache = step(tp, cache, torch.as_tensor(toks[:, s : s + 1]))
+            held = None
+            if cfg.family == "moe":
+                ref.jax.effects_barrier()  # this step's router inputs are in
+                first = _moe_first_difference(port_h[calls:], ref_h[calls:], tp, cfg, pos0 + s,
+                                              first)
+                held = np.array([r not in first for r in range(toks.shape[0])])
+            _assert_close(got, want, held)
+            assert cache["pos"] == int(jcache["pos"]) == pos0 + s + 1
+            for key, leaf in leaves.items():
+                assert cache[key] is leaf  # written in place
+                _assert_close(leaf, jcache[key], None if held is None else (slice(None), held))
+    return cache, first
+
+
+@pytest.mark.parametrize("arch", RING)
+def test_ring_cache_decodes_through_its_wrap(ref, carried, arch, monkeypatch):
+    """A cache as long as the window (a ring): window + 6 decode steps from
+    an empty cache, through the ring's wrap, against the reference's
+    lm_decode_step; the moe's rows held until their routing differs, one
+    of them past the wrap."""
+    case = _ring_case(ref, carried, arch)
+    cfg = case[0]
+    window = _ring_window(cfg)
+    cache = init_decode_cache(cfg, 2, window, "cpu")
+    assert cache["k"].shape[2] == window  # the ring: every slot written again past the wrap
+    assert 0 in tlm.layer_types(cfg)  # an attention layer reads it
+    toks = _tokens(cfg, (2, window + 6), 12)
+    cache, first = _decode_both(ref, case, monkeypatch, cache, toks)
+    assert cache["pos"] == window + 6
+    if cfg.family == "moe":
+        assert max(first.get(r, 1 << 30) for r in range(2)) > window, first
+
+
+@pytest.mark.parametrize("arch", RING)
+def test_long_500k_ring_decode_matches_reference(ref, carried, arch, monkeypatch):
+    """chip_smoke.long_500k_inputs' cache (a full ring, every leaf a seeded
+    numpy draw, pos 524,283: the long_500k shape's last positions), which
+    the card's zoo phase decodes from, and 4 decode steps from it against
+    the reference's; each step writes slot pos % window and no other."""
+    cs = _chip_smoke()
+    case = _ring_case(ref, carried, arch)
+    cfg = case[0]
+    window = _ring_window(cfg)
+    cache, toks = cs.long_500k_inputs(cfg)
+    assert cache["pos"] == cs.LONG_POS == 524_283 and toks.shape == (1, cs.LONG_STEPS)
+    again, toks_again = cs.long_500k_inputs(cfg)  # the same bits from the same seed
+    assert all(torch.equal(again[k], cache[k]) for k in cache if k != "pos")
+    assert np.array_equal(toks, toks_again)
+    start = {k: v.clone() for k, v in cache.items() if k != "pos"}
+    cache, _ = _decode_both(ref, case, monkeypatch, cache, toks)
+    assert cache["pos"] == cs.LONG_POS + cs.LONG_STEPS
+    slots = sorted((cs.LONG_POS + s) % window for s in range(cs.LONG_STEPS))
+    attn = [i for i, t in enumerate(tlm.layer_types(cfg)) if t == 0]
+    assert attn
+    for key in ("k", "v"):
+        changed = (cache[key] != start[key]).any(-1).any(-1).any(1)  # (layers, window)
+        for layer in range(cfg.n_layers):
+            want = slots if layer in attn else []
+            assert changed[layer].nonzero().flatten().tolist() == want, (key, layer)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b", "llava-next-mistral-7b"])
