@@ -57,7 +57,12 @@ after phase 12.  The run line gives each phase's seconds.
              window) and mixtral-8x22b (H/Kv 48/8, causal window 4096)
              (the wgmma route) and bf16 at dh = 32 (the SIMT
              route), and within 2e-5 in f32 (the SIMT route, dh 64 and
-             256); each fixture's route checked; the threefry
+             256) and at one layer of the probe's backbone call (B 512, S
+             16, H 32, Kv 8, dh 64, causal); each fixture's route checked;
+             SYRK at the probe's (8, 64, 2,048) and TopLEK at its (8,
+             2,098,176) with k 16,384 (memory path 2; the plan worked out on
+             the host, toplek_plan_for, equal to the kernel's at every
+             fixture's shape); the threefry
              kernel bit-exact in f32 and f64 at (142, 45451), T = 1, one
              client, 1,000 clients at T = 3,000 and 300 at T = 4,097 (a
              head or a tail outside the aligned runs on every row); TopK by
@@ -146,7 +151,8 @@ after phase 12.  The run line gives each phase's seconds.
              SASS instruction counts (DMMA, LDGSTS) and the L2 bytes its tile
              schedule stages; SYRK, TopK, RandSeqK and TopLEK at a9a's and
              phishing's round shapes, each against its plain version first
-             (fednl_round_times)
+             (fednl_round_times); SYRK, TopLEK and flash at the probe's
+             shapes (probe_kernel_times)
   7 trace    one round each of the TopK, RandK and PP paths under
              torch.cuda.set_sync_debug_mode("error") (no host sync: the
              Cholesky solve checks nothing); torch.profiler over 3 rounds of
@@ -155,6 +161,23 @@ after phase 12.  The run line gives each phase's seconds.
              wall time (SYRK's ms per TopK round beside it); the host's ms per
              round for the key split, the clients' keys and draws, and their
              upload
+  probe      examples/torch_fednl_probe.py at granite-3-2b's full width and
+             depth, on the lm phase's params (seed 0's drawn without it):
+             (a) the backbone's mean-pooled features of the example's 8
+             clients x 64 samples of 16 tokens, exactly probe_flash_launches
+             (40) flash launches on the wgmma route and nothing else, finite;
+             at the lm phase's 2-layer cut of the same params the card
+             against the CPU worker within PROBE_FEATURE_ULPS bf16 ulps of
+             the feature scale, checked once the worker's side is in (in the
+             zoo or the train phase, as the zoo's (a)); (b) FedNL (Option B, TopLEK at k = 8d, tol
+             1e-13, <= 100 rounds) on them at d = 2,048 on the card: rounds,
+             grad norm, accuracy, ms a round, the launches (SYRK rounds + 2,
+             TopLEK rounds + 1, nothing else), one round's host syncs under
+             set_sync_debug_mode("warn"): none (each would be named by the
+             line that asked for it; an empty step counted first as the
+             control), one round profiled; (c) its first 3 rounds against the CPU's on
+             the card's z (grad norms within TRAJECTORY_RTOL, sent_bits
+             exact but for phase 3's TopLEK boundary allowance)
   train      LM training, every family: (a) the
              forward's training instantiation and the two backward kernels
              (flash_attention_bwd.cu) against their plain versions at every
@@ -386,6 +409,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -545,8 +569,8 @@ def check(cond: bool, msg: str) -> None:
 
 # the phases in the order a run without --phases runs them all; each name is
 # the "phase" of its lines
-PHASES = ("kernels", "main", "lm", "times", "trace", "zoo", "train", "mesh", "sweep", "session",
-          "star", "topology", "serve", "sharded", "roofline")
+PHASES = ("kernels", "main", "lm", "times", "trace", "probe", "zoo", "train", "mesh", "sweep",
+          "session", "star", "topology", "serve", "sharded", "roofline")
 # what a phase cannot run without: selecting it runs these too.  A phase that
 # only compares with another's numbers runs without it and names the parts
 # it skipped (the selection line's skipped_parts)
@@ -1016,29 +1040,38 @@ def graph_median_ms(fns: dict, reps: int = TIMED_REPS,
     return {name: ms / calls for name, ms in per_replay.items()}
 
 
-def fednl_round_bounds(n_clients: int, n_i: int, d: int, k: int) -> dict:
-    """(ms, by) the least time of each kernel of a FedNL round at (clients,
-    n_i, d) and k: SYRK, TopK, RandSeqK, TopLEK, in that order."""
+def fednl_round_counts(n_clients: int, n_i: int, d: int, k: int) -> dict:
+    """(bytes, operations, the operations' rate) of each kernel of a FedNL
+    round at (clients, n_i, d) and k: SYRK, TopK, RandSeqK, TopLEK, in that
+    order: each input read once, each output written once, and the least
+    operations of its function."""
     t_len = d * (d + 1) // 2
     elems = n_clients * t_len
     p2 = 1 << (k - 1).bit_length()
     sort_stages = p2.bit_length() * (p2.bit_length() - 1) // 2
     return {
-        "hessian_syrk_packed": bound(  # z, hw read, H written
+        "hessian_syrk_packed": (  # z, hw read, H written
             (n_clients * n_i * d + n_clients * n_i + elems) * 8,
             2 * n_i * t_len * n_clients, FP64_TENSOR_FLOPS),
-        "select_topk": bound(
+        "select_topk": (
             elems * 8 * 2 + n_clients * 4,  # u read, u_hat written, sent
             SELECT_OPS_PER_KEY * elems, CUDA_CORE_32BIT_OPS),
-        "select_randseqk": bound(
+        "select_randseqk": (
             n_clients * (k + t_len) * 8 + n_clients * (8 + 4),  # window read, u_hat written, s, sent
             3 * elems,  # subtract, wrap, compare per entry
             CUDA_CORE_32BIT_OPS),
-        "select_toplek": bound(
+        "select_toplek": (
             elems * 8 * 2 + n_clients * (8 + 4),  # u read, u_hat written, unif, sent
             SELECT_OPS_PER_KEY * elems + n_clients * (p2 // 2) * sort_stages * 2,
             CUDA_CORE_32BIT_OPS),
     }
+
+
+def fednl_round_bounds(n_clients: int, n_i: int, d: int, k: int) -> dict:
+    """(ms, by) the least time of each kernel of a FedNL round at (clients,
+    n_i, d) and k (fednl_round_counts)."""
+    return {name: bound(*counts)
+            for name, counts in fednl_round_counts(n_clients, n_i, d, k).items()}
 
 
 def fednl_round_times(dataset: str, dev) -> dict:
@@ -1399,6 +1432,7 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
 
     bf16, f32 = torch.bfloat16, torch.float32
     seq = shape_of("prefill_32k").seq
+    probe_cfg, probe_seq = get_config(PROBE_ARCH), probe_example().SEQ
     cases = {  # name: (b, sq, sk, h, kv, dh, causal, window, dtype)
         "granite_32k_layer": (1, seq, seq, 32, 8, 64, True, None, bf16),
         "b4_s4096": (4, 4096, 4096, 32, 8, 64, True, None, bf16),
@@ -1415,6 +1449,11 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         **{f"{arch}_32k_layer": (1, seq, seq, c.n_heads, c.n_kv, c.head_dim, True, c.window, bf16)
            for arch, c in ((a, get_config(a)) for a in ZOO_DEPTHS)},
         "dh256_kv2_window300_s1000": (2, 1000, 1000, 8, 2, 256, True, 300, bf16),
+        # one layer of the probe's backbone call: its clients' samples at its
+        # sequence, under one 64-query tile
+        "probe_backbone_layer": (PROBE_CLIENTS * PROBE_SAMPLES, probe_seq, probe_seq,
+                                 probe_cfg.n_heads, probe_cfg.n_kv, probe_cfg.head_dim, True,
+                                 probe_cfg.window, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
         "f32_dh256_simt_window2048": (1, 4096, 4096, 10, 1, 256, True, 2048, f32),
     }
@@ -1737,6 +1776,311 @@ def lm_phase(dev, ops, cpu_side: CpuSide) -> dict:
     check_cut()
     return {"cfg": full, "params": params, "prefill": prefill, "batch": batch, "launches": launches,
             "flash_routes": routes, "ms": steady_s * 1e3, "max_memory_allocated": peak}
+
+
+# the probe phase: examples/torch_fednl_probe.py at granite-3-2b's full
+# width, FedNL at d = d_model = 2,048 on the backbone's features
+PROBE_ARCH = "granite-3-2b"
+PROBE_CLIENTS, PROBE_SAMPLES = 8, 64  # the reference example's defaults
+PROBE_CPU_ROUNDS = 3  # (c): the card's first rounds against the CPU's on the card's z
+# (a): the features on the card against the CPU at the lm phase's depth cut,
+# in bf16 ulps of the feature scale (the largest |feature|), the lm phase's
+# bound on its logits
+PROBE_FEATURE_ULPS = LOGIT_ULPS
+
+
+@functools.cache
+def probe_example():
+    """``examples/torch_fednl_probe.py`` as a module: the probe phase drives
+    the example's own functions."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_fednl_probe", ROOT / "examples" / "torch_fednl_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def probe_flash_launches(cfg) -> int:
+    """The flash launches of one backbone call of the probe: one for each
+    attention call of a forward through the blocks (granite-3-2b: 40)."""
+    return train_attention_calls(cfg)
+
+
+def probe_dims(cfg) -> dict:
+    """The probe's FedNL problem at ``cfg``'s width: the example's clients and
+    samples, d = d_model, T = d (d + 1) / 2 and the example spec's k."""
+    d = cfg.d_model
+    k = probe_example().probe_spec().fednl_config().k_for(d)
+    return {"clients": PROBE_CLIENTS, "n_i": PROBE_SAMPLES, "d": d, "t": d * (d + 1) // 2, "k": k}
+
+
+def probe_kernel_inputs(dev, cfg) -> dict:
+    """Seeded inputs of the probe's three kernels at ``cfg``'s width: SYRK's z
+    (unit rows, as the probe's features) and curvature weights, TopLEK's rows
+    (standard normal, a dense correction) and Bernoulli uniforms, and flash's
+    q, k, v at one backbone call's layer (B clients x samples, S the
+    example's sequence, the config's heads)."""
+    import torch
+
+    dims, seq = probe_dims(cfg), probe_example().SEQ
+    n, n_i, d, t = dims["clients"], dims["n_i"], dims["d"], dims["t"]
+    rng = np.random.default_rng(20)
+    feats = rng.standard_normal((n * n_i, d))
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    sigma = rng.uniform(0.0, 1.0, size=(n, n_i))
+    return {
+        "z": torch.as_tensor(feats.reshape(n, n_i, d), device=dev),
+        "hw": torch.as_tensor(sigma * (1.0 - sigma) / n_i, device=dev),
+        "u": torch.as_tensor(rng.standard_normal((n, t)), device=dev),
+        "unif": torch.as_tensor(rng.uniform(size=n), device=dev),
+        "qkv": flash_inputs(dev, n * n_i, seq, seq, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                            torch.bfloat16, 21),
+        **dims,
+    }
+
+
+def probe_kernel_times(dev, tfa, probe_in: dict, lam: float) -> dict:
+    """The probe's three kernels at its shapes (probe_kernel_inputs, held
+    against their plain versions in phase 3): each timed beside its plain
+    version and its library call (SYRK: torch.bmm; TopLEK: torch.topk on
+    the f32 keys, the ranking only; flash: SDPA is_causal, enable_gqa), with
+    its bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.compressors.select import rank_keys
+    from repro_torch.kernels.compressor_select import select_toplek_cuda, select_toplek_plain
+    from repro_torch.kernels.hessian_syrk import (hessian_syrk_packed_cuda,
+                                                  hessian_syrk_packed_plain)
+
+    z, hw, u, unif, k = (probe_in[name] for name in ("z", "hw", "u", "unif", "k"))
+    zs, keys = hw[..., None] * z, rank_keys(u)
+    q, kk, v = probe_in["qkv"]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    b, seq, h, dh = q.shape
+    ms = {
+        "hessian_syrk_packed": median_ms({
+            "kernel": lambda: hessian_syrk_packed_cuda(z, hw, lam),
+            "plain": lambda: hessian_syrk_packed_plain(z, hw, lam),
+            "library": lambda: torch.bmm(z.mT, zs)}),
+        "select_toplek": median_ms({
+            "kernel": lambda: select_toplek_cuda(u, k, unif),
+            "plain": lambda: select_toplek_plain(u, k, unif),
+            "ranking_only": lambda: torch.topk(keys, k, dim=-1)}),
+    }
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        ms["flash_attention"] = median_ms({
+            "kernel": lambda: tfa.flash_attention_cuda(q, kk, v, causal=True),
+            "plain": lambda: tfa.flash_attention_plain(q, kk, v, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=h != kk.shape[2])})
+    bounds = fednl_round_bounds(probe_in["clients"], probe_in["n_i"], probe_in["d"], k)
+    visible = tfa.visible_pairs(seq, seq, True, None) * h * b
+    flops = 2 * dh * visible  # QK^T, and again each P.V product
+    nbytes = (2 * q.numel() + kk.numel() + v.numel()) * q.element_size()
+    bounds["flash_attention"] = bound(nbytes, 4 * flops, BF16_TENSOR_FLOPS)
+    shapes = {"hessian_syrk_packed": list(z.shape), "select_toplek": list(u.shape),
+              "flash_attention": [b, seq, h, kk.shape[2], dh]}
+    out = {name: {**ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                  "shape": shapes[name]} for name in ms}
+    counts = fednl_round_counts(probe_in["clients"], probe_in["n_i"], probe_in["d"], k)
+    emit({"phase": "times", "part": "probe_shapes", "k": k,
+          "counts": {name: counts[name] for name in ("hessian_syrk_packed", "select_toplek")},
+          "flash_visible_pairs": visible, **out,
+          "note": f"ms per call: median over {TIMED_REPS} event pairs around {CALLS_PER_EVENT} "
+                  "back-to-back calls, in turns; TopLEK has no library call: ranking_only = "
+                  "torch.topk on the f32 keys; flash library = SDPA(is_causal, enable_gqa) on "
+                  "the flash or memory-efficient backend, p rounded to bf16"})
+    return out
+
+
+def probe_cpu_side(key: str, cut, tokens) -> dict:
+    """CpuSide job: the probe's backbone features at the depth cut ``cut`` on
+    the CPU, on the params held under ``key``."""
+    t0 = time.perf_counter()
+    feats = probe_example().backbone_features(_HELD.pop(key), cut, tokens)
+    return {"feats": feats, "seconds": time.perf_counter() - t0}
+
+
+def count_syncs_at(step) -> tuple[int, dict]:
+    """``count_syncs``, and where each sync was asked for: the warnings by
+    the innermost frame of this repository on the stack when each was
+    raised, the innermost frame outside it, and the message."""
+    import traceback
+
+    import torch
+
+    sites: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1] if not f.filename.endswith(
+            os.sep + "warnings.py")]
+        ours = [f for f in frames if f.filename.startswith(str(ROOT))
+                and not f.name.startswith(("count_syncs", "<lambda>"))]
+        where = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} ({f.name})" for f in ours[-1:]]
+        if frames and (not ours or frames[-1] is not ours[-1]):
+            where.append(f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} "
+                         f"({frames[-1].name})")
+        site = (" via ".join(where) or f"{filename}:{lineno}") + f": {str(message)[:120]}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(sites.values()), sites
+
+
+def probe_phase(dev, ops, tfa, lm: dict | None, cpu_side: CpuSide) -> dict:
+    """The probe at granite-3-2b's full width and depth (d = 2,048), through
+    the example's functions: (a) the features of one backbone call on the
+    card (exactly probe_flash_launches' flash launches, all wgmma, nothing
+    else) and, at the lm phase's 2-layer cut of the same params, against the
+    CPU worker's within PROBE_FEATURE_ULPS; (b) FedNL on them on the card to
+    tol 1e-13 or 100 rounds: rounds, grad norm, accuracy, ms a round,
+    launches, one round without a host sync (each would be named by the
+    line that asked for it), one round profiled; (c) its first
+    PROBE_CPU_ROUNDS rounds against the CPU's on the card's z, in the
+    worker.  ``lm``: the lm phase's result, whose params it reuses (else
+    seed 0's are drawn).  Returns what the kernels line needs, and
+    ``finish``, which checks (a)'s cut once ``job``, its CPU side, is in."""
+    import torch
+
+    from repro_torch.api import solve
+    from repro_torch.configs import get_config
+    from repro_torch.core.fednl import fednl_init, make_fednl_round
+    from repro_torch.models import init_lm_params
+
+    probe = probe_example()
+    full = get_config(PROBE_ARCH)
+    params = lm["params"] if lm is not None else init_lm_params(0, full, dev)
+    dims = probe_dims(full)
+    labels, tokens = probe.probe_data(full, dims["clients"], dims["n_i"])
+    no_launch = {name: 0 for name in ops.launch_counts()}
+
+    # (a) the depth cut's CPU side first, in the worker, then the card
+    cut = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
+
+    def first_layers(tree):
+        return ({name: first_layers(leaf) for name, leaf in tree.items()}
+                if isinstance(tree, dict) else tree[:LM_CUT_LAYERS])
+
+    p_cut = {**params, "blocks": first_layers(params["blocks"])}
+    hand_over_s = cpu_side.hand_over("probe", p_cut)
+    job = cpu_side.start(probe_cpu_side, "probe", cut, tokens)
+    card_cut = probe.backbone_features(p_cut, cut, tokens).cpu()
+    del p_cut
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    routes0 = dict(tfa.flash_attention_cuda.route_launches)
+    t0 = time.perf_counter()
+    feats = probe.backbone_features(params, full, tokens)
+    torch.cuda.synchronize()
+    features_ms = (time.perf_counter() - t0) * 1e3
+    feature_launches = ops.launch_counts()
+    routes = {r: n - routes0[r] for r, n in tfa.flash_attention_cuda.route_launches.items()}
+    want_flash = probe_flash_launches(full)
+    check(feature_launches == {**no_launch, "flash_attention": want_flash},
+          f"probe backbone launches {feature_launches}, want {want_flash} flash launches")
+    check(routes == {"wgmma": want_flash, "simt": 0}, f"probe backbone flash routes {routes}")
+    n_total = dims["clients"] * dims["n_i"]
+    check(feats.shape == (n_total, full.d_model) and feats.dtype == torch.float64
+          and bool(torch.isfinite(feats).all()), "probe features not finite or misshapen")
+    feats, z = probe.probe_problem(feats.cpu().numpy(), labels, dims["clients"], dims["n_i"])
+    check(z.shape == (dims["clients"], dims["n_i"], dims["d"]), f"probe z {z.shape}")
+
+    # (b) FedNL on the features, on the card; (c)'s CPU rounds queued first
+    spec = probe.probe_spec()
+    cpu_job = cpu_side.submit(solve_cpu_side, spec.replace(rounds=PROBE_CPU_ROUNDS, tol=0.0), z)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = solve(spec, z=z)
+    launches = ops.launch_counts()
+    want = {**no_launch, "select_toplek": rep.rounds + 1, "hessian_syrk_packed": rep.rounds + 2}
+    check(launches == want, f"probe solve launches {launches}, want {want} "
+                            f"for {rep.rounds} rounds + warm-up (+ init)")
+    gn = rep.grad_norms
+    check(bool(np.all(np.isfinite(gn))) and bool(np.all(np.isfinite(rep.x))), "probe: not finite")
+    check(gn[-1] <= spec.tol or rep.rounds == spec.rounds, f"probe stopped at {rep.rounds}")
+    check(gn[-1] < gn[0] * 1e-6, f"probe grad norms {gn[0]} -> {gn[-1]}")
+    accuracy = probe.probe_accuracy(feats, labels, rep.x)
+    check(0.5 < accuracy <= 1.0, f"probe accuracy {accuracy}")
+    solve_peak = torch.cuda.max_memory_allocated()
+
+    # one round: its launches, its host syncs (none), where its device time goes
+    cfg = spec.fednl_config()
+    z_card = torch.as_tensor(z, device=dev)
+    round_fn = make_fednl_round(z_card, cfg)
+    state = round_fn(fednl_init(z_card, cfg))[0]  # the warm-up: caches filled
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    # the control: the counting alone (the first switch of the debug mode in
+    # a process warns once, and is no sync)
+    empty_syncs, empty_sites = count_syncs_at(lambda: None)
+    syncs, sync_sites = count_syncs_at(lambda: round_fn(state))
+    torch.cuda.synchronize()
+    check(syncs == 0, f"probe round: {syncs} host syncs: {sync_sites}")
+    round_launches = {name: n for name, n in ops.launch_counts().items() if n}
+    check(round_launches == {"hessian_syrk_packed": 1, "select_toplek": 1},
+          f"probe round launches {round_launches}")
+    traced = trace_rounds(round_fn, state, 1)
+    del state, round_fn, z_card
+
+    # (c) the first rounds against the CPU's
+    rep_cpu, worker = cpu_job.result()
+    r = PROBE_CPU_ROUNDS
+    rel = np.abs(gn[:r] - rep_cpu.grad_norms) / rep_cpu.grad_norms
+    check(bool(np.all(rel <= TRAJECTORY_RTOL)), f"probe card vs CPU grad norms: {rel}")
+    differ = [i for i in range(r) if rep.sent_bits[i] != rep_cpu.sent_bits[i]]
+    for i in differ:  # phase 3's boundary allowance: a kept count one off a client
+        d_elems = abs(rep.records[i].sent_elems - rep_cpu.records[i].sent_elems)
+        check(0 < d_elems <= dims["clients"], f"probe round {i}: sent_elems differ by {d_elems}")
+
+    out = {
+        "phase": "probe", "arch": full.name, "n_layers": full.n_layers, **dims,
+        "features": {"batch_seq": [n_total, probe.SEQ], "ms": features_ms,
+                     "launches": feature_launches, "flash_routes": routes},
+        "solve": {"rounds": rep.rounds, "final_grad_norm": float(gn[-1]), "tol": spec.tol,
+                  "accuracy": accuracy, "ms_per_round": rep.wall_time_s / rep.rounds * 1e3,
+                  "init_time_s": rep.init_time_s, "wall_time_s": rep.wall_time_s,
+                  "sent_bits_per_round": float(np.mean(rep.sent_bits)),
+                  "launches": launches, "max_memory_allocated": solve_peak},
+        "round": {"launches": round_launches, "host_syncs": syncs, "sync_sites": sync_sites,
+                  "empty_step_syncs": empty_syncs, "empty_step_sites": empty_sites, **traced},
+        "card_vs_cpu_rounds": {"rounds": r, "grad_norms": gn[:r].tolist(),
+                               "cpu_grad_norms": rep_cpu.grad_norms.tolist(),
+                               "rel_err": rel.tolist(), "rtol": TRAJECTORY_RTOL,
+                               "sent_bits": rep.sent_bits[:r].tolist(),
+                               "cpu_sent_bits": rep_cpu.sent_bits.tolist(),
+                               "boundary_rounds": differ, "cpu_side": worker},
+    }
+    emit(out)
+
+    def finish() -> None:
+        """(a)'s depth cut against the CPU worker's, once its CPU side is in."""
+        host, cut_worker = job.result()
+        scale = float(host["feats"].abs().max())
+        ulps = float((card_cut - host["feats"]).abs().max()) / bf16_ulp_at(scale)
+        check(ulps <= PROBE_FEATURE_ULPS, f"probe 2-layer features: card vs CPU {ulps} ulps")
+        emit({"phase": "probe", "part": "features_card_vs_cpu", "arch": full.name,
+              "cut": f"n_layers {LM_CUT_LAYERS} of {full.n_layers}; full width",
+              "batch_seq": [n_total, probe.SEQ], "max_ulps": ulps,
+              "tol_ulps": PROBE_FEATURE_ULPS, "feature_scale": scale,
+              "cpu_side": {**cut_worker, "cpu_s": host["seconds"], "hand_over_s": hand_over_s}})
+
+    return {"solve_launches": launches, "feature_launches": feature_launches, "emitted": out,
+            "job": job, "finish": finish}
 
 
 # phase zoo: each family's full-width config, its 32k prefill's flash
@@ -3761,16 +4105,7 @@ def session_phase() -> dict:
 def count_syncs(step) -> int:
     """Host syncs that ``step()`` makes, as torch.cuda.set_sync_debug_mode
     ("warn") reports them (one warning a synchronizing call)."""
-    import torch
-
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return count_syncs_at(step)[0]
 
 
 def _rel(got, want, floor: float) -> np.ndarray:
@@ -5222,7 +5557,10 @@ def main(argv: list[str] | None = None) -> int:
         select_topk_plain,
         select_toplek_cuda,
         select_toplek_plain,
+        smem_optin,
         toplek_memory_path,
+        toplek_plan,
+        toplek_plan_for,
     )
     from repro_torch.kernels.hessian_syrk import (
         hessian_syrk_packed_cuda,
@@ -5313,6 +5651,18 @@ def main(argv: list[str] | None = None) -> int:
         h_repeated = hessian_syrk_packed_cuda(z.repeat(12, 1, 1), hw_group, cfg.lam)
         check(bits_equal(h_group, h_repeated), "SYRK shared z differs from z repeated")
         del hw_group, h_group, h_group_plain, h_repeated
+        # the probe phase's shapes: SYRK at (8, 64, 2,048), TopLEK at (8,
+        # 2,098,176) with k 16,384 below, flash at a backbone layer (check_flash)
+        probe_in = probe_kernel_inputs(dev, get_config(PROBE_ARCH))
+        pz, phw, plam = probe_in["z"], probe_in["hw"], cfg.lam
+        h_probe = hessian_syrk_packed_cuda(pz, phw, plam)
+        probe_scale = hessian_syrk_packed_plain(pz.abs(), phw.abs(), 0.0).abs().max().item()
+        probe_syrk_err = (h_probe - hessian_syrk_packed_plain(pz, phw, plam)).abs().max().item()
+        check(h_probe.shape == (probe_in["clients"], probe_in["t"])
+              and bool(torch.isfinite(h_probe).all()), "SYRK at the probe's shape")
+        check(probe_syrk_err <= SYRK_TOL * probe_scale,
+              f"SYRK at the probe's shape: {probe_syrk_err} > {SYRK_TOL} * {probe_scale}")
+        del h_probe
 
         state0 = fednl_init(z, cfg)
         state1, _ = make_fednl_round(z, cfg)(state0)
@@ -5376,8 +5726,14 @@ def main(argv: list[str] | None = None) -> int:
             "k_is_T": (dyadic_rows(4, t_len, 8), t_len, rng.uniform(size=4), True),
             "k_is_T_small": (near_tie_rows(4, 130, 9), 130, rng.uniform(size=4), False),
             "keys_in_device_memory": (dyadic_rows(8, d350, 10), 8 * 350, rng.uniform(size=8), True),
+            # the probe's (8, 2,098,176) rows at k 16,384: memory path 2
+            "probe_d2048_normal": (probe_in["u"], probe_in["k"], probe_in["unif"].cpu().numpy(),
+                                   False),
+            "probe_d2048_dyadic": (dyadic_rows(probe_in["clients"], probe_in["t"], 22), probe_in["k"],
+                                   np.random.default_rng(23).uniform(size=probe_in["clients"]),
+                                   True),
         }
-        toplek_err, toplek_boundary, toplek_kept = 0.0, {}, {}
+        toplek_err, toplek_boundary, toplek_kept, toplek_case_err = 0.0, {}, {}, {}
         for name, (u, kk, unif_np, exact) in toplek_cases.items():
             u = torch.as_tensor(u, dtype=torch.float64, device=dev).contiguous()
             unif = torch.as_tensor(unif_np, dtype=torch.float64, device=dev)
@@ -5398,18 +5754,24 @@ def main(argv: list[str] | None = None) -> int:
                       f"TopLEK {name}: row {r} differs away from the boundary")
             same = ~differ
             if bool(same.any()):
-                toplek_err = max(toplek_err, (got[same] - want[same]).abs().max().item())
+                toplek_case_err[name] = (got[same] - want[same]).abs().max().item()
+                toplek_err = max(toplek_err, toplek_case_err[name])
             check(int((got != 0).sum(-1).max()) <= kk, f"TopLEK {name}: more than k kept")
             toplek_boundary[name] = len(rows)
             toplek_kept[name] = [int(sent.min()), int(sent.max())]
         check(toplek_kept["round0_delta"] == [0, 0], "TopLEK keeps nothing of the zero round-0 delta")
-        toplek_paths = {
-            "w8a": toplek_memory_path(t_len, k, dev),
-            "k_is_T": toplek_memory_path(t_len, t_len, dev),
-            "keys_in_device_memory": toplek_memory_path(d350, 8 * 350, dev),
-        }
-        check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 1},
+        plan_cases = {"w8a": (t_len, k), "k_is_T": (t_len, t_len),
+                      "keys_in_device_memory": (d350, 8 * 350),
+                      "probe_d2048": (probe_in["t"], probe_in["k"])}
+        toplek_paths = {name: toplek_memory_path(tt, kk, dev) for name, (tt, kk) in plan_cases.items()}
+        check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 1, "probe_d2048": 2},
               f"TopLEK memory paths {toplek_paths}")
+        # the plan worked out on the host (the CPU tests read it) is the kernel's
+        optin = smem_optin(dev)
+        for name, (tt, kk) in plan_cases.items():
+            check(toplek_plan_for(tt, kk, optin) == toplek_plan(tt, kk, dev),
+                  f"TopLEK {name}: host plan {toplek_plan_for(tt, kk, optin)} vs the kernel's "
+                  f"{toplek_plan(tt, kk, dev)} at opt-in {optin}")
         torch.cuda.synchronize()
         emit({
             "phase": "kernels",
@@ -5432,6 +5794,16 @@ def main(argv: list[str] | None = None) -> int:
                 "cases": sorted(toplek_cases), "max_abs_err_exact_rows": toplek_err,
                 "boundary_rows": toplek_boundary, "boundary_tol": TOPLEK_BOUNDARY,
                 "kept_min_max": toplek_kept, "memory_paths": toplek_paths,
+                "plans": {name: list(toplek_plan_for(tt, kk, optin))
+                          for name, (tt, kk) in plan_cases.items()},
+                "shared_memory_per_block_optin": optin,
+            },
+            "probe_shapes": {
+                "hessian_syrk_packed": {"shape": list(pz.shape), "max_abs_err": probe_syrk_err,
+                                        "rel_err": probe_syrk_err / probe_scale, "tol": SYRK_TOL},
+                "select_toplek": {"shape": [probe_in["clients"], probe_in["t"]], "k": probe_in["k"],
+                                  "memory_path": toplek_paths["probe_d2048"],
+                                  "cases": ["probe_d2048_normal", "probe_d2048_dyadic"]},
             },
         })
 
@@ -5903,6 +6275,7 @@ def main(argv: list[str] | None = None) -> int:
                           "bf16"})
         # the round's kernels at a9a's and phishing's shapes (phase 4's paths)
         round_times = {dataset: fednl_round_times(dataset, dev) for dataset in OTHER_DATASETS}
+        probe_times = probe_kernel_times(dev, tfa, probe_in, plam)
         mark("times")
 
     # --- 7 no host sync in a round; where the time goes (torch.profiler) ----
@@ -5962,6 +6335,20 @@ def main(argv: list[str] | None = None) -> int:
                              "wall_ms": rep.wall_time_s / rep.rounds * 1e3}
         check(measured["round"]["device_ms"] is not None, "phase 7 measured no device time")
         mark("trace")
+
+    # --- probe: FedNL on granite-3-2b's full-width features, d = 2,048 -------
+    # (before the zoo, while the lm phase's params are still on the card)
+    # (a)'s depth cut is checked once its CPU side is in: in the zoo or the
+    # train phase, between their cells, else at once
+    probe, unchecked = None, []
+    if "probe" in run:
+        if lm is None:
+            skipped["probe"] = ["the lm phase's params: the probe drew seed 0's itself"]
+        probe = probe_phase(dev, ops, tfa, lm, cpu_side)
+        unchecked.append(("probe", probe["job"], probe["finish"]))
+        if "zoo" not in run and "train" not in run:
+            unchecked.pop()[2]()
+        mark("probe")
     lm = None  # granite's params freed before the zoo's
 
     # --- zoo: the moe, ssm, hybrid, vlm and encdec families and the dense
@@ -5976,7 +6363,8 @@ def main(argv: list[str] | None = None) -> int:
                    if "zoo" in run else {})
     train_started = train_hand_overs(dev, cpu_side) if "train" in run and "zoo" in run else None
     hand_overs_s = time.perf_counter() - t0
-    zoo_unchecked: list = []  # (name, CpuRun, finish) of each (a) whose CPU side is still out
+    # (name, CpuRun, finish) of each card-vs-CPU check whose CPU side is still out
+    zoo_unchecked: list = unchecked
     if "zoo" in run:
         t_zoo = time.perf_counter()
         zoo = {}
@@ -6353,6 +6741,33 @@ def main(argv: list[str] | None = None) -> int:
                 "ms": times["kernel"], "plain_ms": times["plain"], "dense_form_ms": times["dense_form"],
                 "bound_ms": star["idx_bound"][name][0], "bound_by": star["idx_bound"][name][1],
                 "library_ms": times.get("library"),
+            })
+        # the probe phase's kernels at its shapes: its solve's SYRK and TopLEK
+        # launches, its backbone call's flash launches; phase 3's errors there
+        # and phase 6's times
+        pe = probe["emitted"]
+        for name, launched, err, replaces in (
+                ("hessian_syrk_packed", probe["solve_launches"]["hessian_syrk_packed"],
+                 probe_syrk_err, "src/repro/kernels/hessian_syrk.py:64"),
+                ("select_toplek", probe["solve_launches"]["select_toplek"],
+                 toplek_case_err["probe_d2048_normal"], "src/repro/kernels/compressor_select.py:106"),
+                ("flash_attention", probe["feature_launches"]["flash_attention"],
+                 flash_report["probe_backbone_layer"]["max_abs_err"],
+                 "src/repro/kernels/flash_attention.py:95")):
+            times = probe_times[name]
+            kernels.append({
+                "name": f"{name}_probe", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/" + {
+                    "hessian_syrk_packed": "hessian_syrk.cu", "select_toplek": "compressor_select.cu",
+                    "flash_attention": "flash_attention.cu"}[name],
+                "replaces": f"{replaces} (at the probe's shape: {pe['clients']} clients x "
+                            f"{pe['n_i']} samples, d {pe['d']}, granite-3-2b's features)",
+                "shape": times["shape"], "launches": launched, "max_abs_err": err,
+                "ms": times["kernel"], "plain_ms": times["plain"],
+                "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+                "library_ms": times.get("library"),
+                **({"ranking_only_ms": times["ranking_only"],
+                    "memory_path": toplek_paths["probe_d2048"]} if name == "select_toplek" else {}),
             })
         for entry in kernels:  # the star path's launches of the kernels it shares
             if entry["name"] in ("hessian_syrk_packed", "threefry_uniform_float32"):

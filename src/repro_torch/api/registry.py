@@ -183,13 +183,14 @@ def register_backend(backend: Backend, *, overwrite: bool = False) -> Backend:
 
 
 def register_compressor(name: str, make: Callable, *, overwrite: bool = False) -> None:
-    """Register a ``(T, k) -> Compressor`` factory under ``name``, visible to
+    """Register a ``(T, k) -> Compressor`` factory under ``name`` in the
+    compressor registry (``repro_torch.compressors.COMPRESSORS``), visible to
     every algorithm and to ``repro_torch.compressors.get_compressor``."""
-    from repro_torch.compressors.core import COMPRESSORS, CUSTOM_COMPRESSORS
+    from repro_torch.compressors.core import COMPRESSORS, CompressorSpec
 
-    if not overwrite and (name in COMPRESSORS or name in CUSTOM_COMPRESSORS):
+    if not overwrite and name in COMPRESSORS:
         raise ValueError(f"compressor {name!r} already registered")
-    CUSTOM_COMPRESSORS[name] = make
+    COMPRESSORS[name] = CompressorSpec(name, make)
 
 
 def get_algorithm(name: str) -> Algorithm:

@@ -257,49 +257,76 @@ class Compressor:
     compress_sparse: Callable[[np.ndarray | None, torch.Tensor], tuple] | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class CompressorSpec:
+    """A registered compressor: its name and ``make(T, k) -> Compressor``."""
+
+    name: str
+    make: Callable[[int, int], Compressor]
+
+
+def _make_topk(t: int, k: int) -> Compressor:
+    return Compressor("topk", lambda keys, u: topk(u, k), alpha=1.0, delta=k / t,
+                      bits_per_elem=FP_BITS + IDX_BITS, header_bits=0, k=k,
+                      compress_sparse=lambda keys, u: topk_sparse(u, k))
+
+
+def _make_randk(t: int, k: int) -> Compressor:
+    return Compressor("randk", lambda keys, u: randk(keys, u, k), alpha=1.0,
+                      delta=k / t, bits_per_elem=FP_BITS, header_bits=FP_BITS,
+                      k=k, draws=True, entry_uniform=torch.float32,
+                      compress_from_uniform=lambda u, unif: randk_from_uniform(u, unif, k),
+                      compress_sparse=lambda keys, u: randk_sparse(keys, u, k))
+
+
+def _make_randseqk(t: int, k: int) -> Compressor:
+    return Compressor("randseqk", lambda keys, u: randseqk(keys, u, k), alpha=1.0,
+                      delta=k / t, bits_per_elem=FP_BITS, header_bits=IDX_BITS,
+                      k=k, draws=True,
+                      compress_sparse=lambda keys, u: randseqk_sparse(keys, u, k))
+
+
+def _make_toplek(t: int, k: int) -> Compressor:
+    return Compressor("toplek", lambda keys, u: toplek(keys, u, k), alpha=1.0,
+                      delta=k / t, bits_per_elem=FP_BITS + IDX_BITS,
+                      header_bits=IDX_BITS, k=k, draws=True,
+                      compress_sparse=lambda keys, u: toplek_sparse(keys, u, k))
+
+
+def _make_natural(t: int, k: int) -> Compressor:
+    del t, k
+    return Compressor("natural", lambda keys, u: natural(keys, u), alpha=1.0,
+                      delta=8.0 / 9.0, bits_per_elem=NATURAL_BITS, header_bits=0,
+                      draws=True, entry_uniform=torch.float64,
+                      compress_from_uniform=natural_with_sent)
+
+
+def _make_identity(t: int, k: int) -> Compressor:
+    del t, k
+    return Compressor("identity", lambda keys, u: identity(u), alpha=1.0, delta=1.0,
+                      bits_per_elem=FP_BITS, header_bits=0)
+
+
+# name -> CompressorSpec: the six built-ins, and what
+# ``repro_torch.api.register_compressor`` adds
+COMPRESSORS: dict[str, CompressorSpec] = {
+    "topk": CompressorSpec("topk", _make_topk),
+    "randk": CompressorSpec("randk", _make_randk),
+    "randseqk": CompressorSpec("randseqk", _make_randseqk),
+    "toplek": CompressorSpec("toplek", _make_toplek),
+    "natural": CompressorSpec("natural", _make_natural),
+    "identity": CompressorSpec("identity", _make_identity),
+}
+
+
 def get_compressor(name: str, t: int, k: int = 0) -> Compressor:
-    """Build a compressor for packed-triu length ``t`` with sparsity budget ``k``
-    (a name registered through ``repro_torch.api.register_compressor`` first)."""
-    if name in CUSTOM_COMPRESSORS:
-        return CUSTOM_COMPRESSORS[name](t, k)
+    """Build the compressor registered under ``name`` (``COMPRESSORS``) for
+    packed-triu length ``t`` with sparsity budget ``k``."""
+    if name not in COMPRESSORS:
+        raise KeyError(f"unknown compressor {name!r}; have {sorted(COMPRESSORS)}")
     if name in ("topk", "randk", "randseqk", "toplek") and not 0 < k <= t:
         raise ValueError(f"{name} needs 0 < k <= T, got k={k}, T={t}")
-    if name == "topk":
-        return Compressor("topk", lambda keys, u: topk(u, k), alpha=1.0, delta=k / t,
-                          bits_per_elem=FP_BITS + IDX_BITS, header_bits=0, k=k,
-                          compress_sparse=lambda keys, u: topk_sparse(u, k))
-    if name == "randk":
-        return Compressor("randk", lambda keys, u: randk(keys, u, k), alpha=1.0,
-                          delta=k / t, bits_per_elem=FP_BITS, header_bits=FP_BITS,
-                          k=k, draws=True, entry_uniform=torch.float32,
-                          compress_from_uniform=lambda u, unif: randk_from_uniform(u, unif, k),
-                          compress_sparse=lambda keys, u: randk_sparse(keys, u, k))
-    if name == "randseqk":
-        return Compressor("randseqk", lambda keys, u: randseqk(keys, u, k), alpha=1.0,
-                          delta=k / t, bits_per_elem=FP_BITS, header_bits=IDX_BITS,
-                          k=k, draws=True,
-                          compress_sparse=lambda keys, u: randseqk_sparse(keys, u, k))
-    if name == "toplek":
-        return Compressor("toplek", lambda keys, u: toplek(keys, u, k), alpha=1.0,
-                          delta=k / t, bits_per_elem=FP_BITS + IDX_BITS,
-                          header_bits=IDX_BITS, k=k, draws=True,
-                          compress_sparse=lambda keys, u: toplek_sparse(keys, u, k))
-    if name == "natural":
-        return Compressor("natural", lambda keys, u: natural(keys, u), alpha=1.0,
-                          delta=8.0 / 9.0, bits_per_elem=NATURAL_BITS, header_bits=0,
-                          draws=True, entry_uniform=torch.float64,
-                          compress_from_uniform=natural_with_sent)
-    if name == "identity":
-        return Compressor("identity", lambda keys, u: identity(u), alpha=1.0, delta=1.0,
-                          bits_per_elem=FP_BITS, header_bits=0)
-    raise KeyError(
-        f"unknown compressor {name!r}; have {sorted(set(COMPRESSORS) | set(CUSTOM_COMPRESSORS))}"
-    )
-
-
-COMPRESSORS = ("identity", "natural", "randk", "randseqk", "topk", "toplek")
-# name -> (T, k) -> Compressor factories added by register_compressor
-CUSTOM_COMPRESSORS: dict[str, Callable[[int, int], Compressor]] = {}
+    return COMPRESSORS[name].make(t, k)
 
 
 def message_bits(c: Compressor, sent_elems: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.api.accounting import make_bits_fn as _make_bits_fn
 from repro_torch.api.accounting import payload_bits_fn, wire_bits_fn
 from repro_torch.compressors import Compressor, get_compressor
 from repro_torch.linalg import (
@@ -113,6 +114,13 @@ def fednl_init(
         key=prng.prng_key(seed),
         round=0,
     )
+
+
+def make_bits_fn(comp: Compressor, d: int, accounting: str) -> Callable:
+    """Deprecated alias of :func:`repro_torch.api.accounting.make_bits_fn`
+    (the non-PP form), as ``repro.core.fednl.make_bits_fn``; new code imports
+    it from ``repro_torch.api``."""
+    return _make_bits_fn(comp, d, accounting, pp=False)
 
 
 def client_round(

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.api.accounting import payload_bits_fn, wire_bits_fn
+from repro_torch.api.accounting import make_bits_fn, payload_bits_fn, wire_bits_fn
 from repro_torch.compressors import get_compressor
 from repro_torch.compressors.core import upload_draws
 from repro_torch.core.fednl import FedNLConfig
@@ -105,6 +105,13 @@ def fednl_pp_init(
         key=prng.prng_key(seed),
         round=0,
     )
+
+
+def make_pp_bits_fn(comp, d: int, accounting: str) -> Callable:
+    """Deprecated alias of :func:`repro_torch.api.accounting.make_bits_fn`
+    with ``pp=True``, as ``repro.core.fednl_pp.make_pp_bits_fn``; new code
+    imports it from ``repro_torch.api``."""
+    return make_bits_fn(comp, d, accounting, pp=True)
 
 
 def make_fednl_pp_round(

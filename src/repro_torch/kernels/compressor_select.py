@@ -413,7 +413,7 @@ def select_toplek_plain(
     return toplek_from_uniform(u, k, unif)
 
 
-def _toplek_plan(t: int, k: int, device: torch.device) -> tuple[int, int]:
+def toplek_plan(t: int, k: int, device: torch.device) -> tuple[int, int]:
     """(memory path, scratch bytes per client) of the TopLEK kernel on ``device``."""
     path = build.function("compressor_select", "toplek_select_memory_path",
                           (ctypes.c_int, ctypes.c_int))
@@ -423,12 +423,42 @@ def _toplek_plan(t: int, k: int, device: torch.device) -> tuple[int, int]:
         return path(t, k), scratch(t, k)
 
 
+# the kernel's static shared memory beside the dynamic (kTopLekStaticSmem in
+# csrc/compressor_select.cu): the selection's warp parts, radix bins and
+# picks, the f64 warp parts, and slack
+TOPLEK_STATIC_SMEM = 4 * (32 + 256 + 4) + 8 * 32 + 64
+
+
+def toplek_plan_for(t: int, k: int, optin: int) -> tuple[int, int]:
+    """(memory path, scratch bytes per client) that the kernel's host-side
+    plan (``toplek_plan`` in csrc/compressor_select.cu) gives for (T, k) on a
+    card whose blocks may opt in to ``optin`` bytes of shared memory, worked
+    out here on the host: the T f32 keys, the composites of the k survivors
+    padded to a power of two P (8 P bytes) and their k f64 prefix sums, in
+    shared memory while they fit beside the static part."""
+    budget = optin - TOPLEK_STATIC_SMEM
+    p = 1 << (k - 1).bit_length()
+    keys, comps, csums = (4 * t + 15) // 16 * 16, 8 * p, 8 * k
+    if keys + comps + (0 if csums <= keys else csums) <= budget:
+        return 0, 0
+    if comps + csums <= budget:
+        return 1, 0
+    return 2, comps + csums
+
+
+def smem_optin(device: torch.device) -> int:
+    """The shared memory a block may opt in to on ``device``, bytes."""
+    fn = build.function("compressor_select", "select_smem_optin", ())
+    with torch.cuda.device(device):
+        return fn()
+
+
 def toplek_memory_path(t: int, k: int, device: torch.device) -> int:
     """Where the TopLEK kernel keeps its buffers for (T, k) on ``device``:
     0 keys and survivors in shared memory; 1 keys recomputed from u,
     survivors in shared memory; 2 keys recomputed from u, survivors in a
     scratch buffer in device memory."""
-    return _toplek_plan(t, k, device)[0]
+    return toplek_plan(t, k, device)[0]
 
 
 def _launch_toplek(name: str, u: torch.Tensor, k: int, unif: torch.Tensor, with_idx: bool):
@@ -438,7 +468,7 @@ def _launch_toplek(name: str, u: torch.Tensor, k: int, unif: torch.Tensor, with_
     if n_clients == 0:
         return out, sent, idx, False
     fn = build.function("compressor_select", "toplek_select_f64", _TOPLEK_ARGTYPES)
-    _, scratch_bytes = _toplek_plan(t, k, u.device)
+    _, scratch_bytes = toplek_plan(t, k, u.device)
     scratch = (
         torch.empty(n_clients * scratch_bytes, dtype=torch.uint8, device=u.device)
         if scratch_bytes else None

@@ -638,6 +638,15 @@ extern "C" int randseqk_select_f64(const void* u, const void* s, void* out, void
 // Which memory path the TopLEK kernel takes for (t, k) on this device (see
 // TopLekPlan), and how many bytes of device-memory scratch it needs per
 // client (0 unless path 2).
+// The shared memory a block may opt in to on the current device, bytes
+// (what the plans above budget from).
+extern "C" int select_smem_optin() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return optin;
+}
+
 extern "C" int toplek_select_memory_path(int t, int k) { return toplek_plan(t, k).path; }
 
 extern "C" long long toplek_select_scratch_bytes(int t, int k) {

@@ -10,6 +10,7 @@ The same flags as the reference's script, plus ``--device`` (default
 SIGINT/SIGTERM.  ``--spill-dir`` makes checkpoints survive the process -- a
 killed gateway's tenants resume from their FNLS1 spills, in either package.
 ``--obs`` turns on the recorder that the METRICS verb serves (watch it with
+``python -m repro_torch.launch.obs_top``, or the reference's
 ``scripts/obs_top.py``: the wire surface is the reference's).
 """
 

@@ -2,8 +2,9 @@
 itself runs on the card): the zoo's dense configs and mixtral-8x22b at
 their depths, the train phase's dense and mixtral cells at theirs, the SASS
 listing that phase 6 counts
-threefry's integer instructions from, the phase selection, and the CPU
-worker that computes the card-versus-CPU checks' CPU sides.
+threefry's integer instructions from, the phase selection, the probe
+phase's shapes, launches, TopLEK plan and bounds, and the CPU worker that
+computes the card-versus-CPU checks' CPU sides.
 """
 
 import dataclasses
@@ -322,6 +323,9 @@ def test_phases_keep_the_default_order_and_refuse_an_unknown_name(capsys, monkey
     assert cs.select_phases(["--phases", "roofline,train,zoo"]) == ("zoo", "train", "roofline")
     assert cs.select_phases(["--phases", "topology"]) == ("star", "topology")
     assert cs.select_phases(["--phases", "trace"]) == ("kernels", "main", "trace")
+    assert cs.select_phases(["--phases", "probe"]) == ("probe",)
+    assert cs.select_phases(["--phases", "zoo,probe,times"]) == ("kernels", "times", "probe",
+                                                                  "zoo")
     for bad in ("trian", "train,nope", ""):
         with pytest.raises(SystemExit) as exit_info:
             cs.select_phases(["--phases", bad])
@@ -330,6 +334,121 @@ def test_phases_keep_the_default_order_and_refuse_an_unknown_name(capsys, monkey
     with pytest.raises(SystemExit) as exit_info:
         cs.main(["--phases", "nope"])
     assert exit_info.value.code == 2
+
+
+def test_probe_phase_sits_after_trace_and_before_zoo():
+    """The probe phase runs while the lm phase's params are on the card:
+    after trace, which still reads them, and before the zoo, which frees
+    them; it needs no other phase (it draws its own params without lm)."""
+    cs = _chip_smoke()
+    order = list(cs.PHASES)
+    assert order.index("lm") < order.index("trace") < order.index("probe") == \
+        order.index("zoo") - 1
+    assert "probe" not in cs.PHASE_NEEDS and not any("probe" in v for v in cs.PHASE_NEEDS.values())
+    source = Path(cs.__file__).read_text()
+    main = source[source.index("def main("):]
+    assert main.index('probe = probe_phase(dev, ops, tfa, lm, cpu_side)') < main.index(
+        "lm = None  # granite's params freed before the zoo's")
+
+
+def test_probe_shapes_and_flash_launches():
+    """granite-3-2b's width gives the probe d = 2,048, T = 2,098,176 and the
+    example spec's k = 8 d = 16,384; one backbone call launches flash once a
+    layer, 40 times, as a forward through the blocks calls attention."""
+    cs = _chip_smoke()
+    full = get_config(cs.PROBE_ARCH)
+    assert cs.probe_dims(full) == {"clients": 8, "n_i": 64, "d": 2048, "t": 2_098_176,
+                                   "k": 16_384}
+    assert cs.probe_flash_launches(full) == 40 == full.n_layers
+    cfg = dataclasses.replace(full.reduced(), n_layers=3)
+    calls = []
+    plain = tlm.chunked_attention
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("window"))
+        return plain(*args, **kwargs)
+
+    import unittest.mock
+
+    with unittest.mock.patch.object(tlm, "chunked_attention", counted):
+        probe = cs.probe_example()
+        labels, tokens = probe.probe_data(cfg, 2, 3)
+        feats = probe.backbone_features(init_lm_params(0, cfg, "cpu"), cfg, tokens)
+    assert len(calls) == cs.probe_flash_launches(cfg) == 3
+    assert feats.shape == (6, cfg.d_model) and feats.dtype == torch.float64
+    assert tokens.shape == (6, probe.SEQ) and set(np.unique(labels)) <= {-1.0, 1.0}
+
+
+def test_count_syncs_at_names_the_line_of_each_sync(monkeypatch):
+    """Each "synchronizing" warning is counted once, by the innermost frame
+    that raised it, with its message (the debug mode itself is the card's:
+    set here to do nothing); other warnings are not counted."""
+    import warnings
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+
+    def inner():
+        warnings.warn("called a synchronizing CUDA operation")
+
+    def step():
+        inner()
+        warnings.warn("an unrelated warning")
+        inner()
+        warnings.warn("called a synchronizing CUDA operation")
+
+    count, sites = cs.count_syncs_at(step)
+    assert count == 3 and sorted(sites.values()) == [1, 2]
+    assert sorted(site.split(" (")[1].split(")")[0] for site in sites) == ["inner", "step"]
+    assert all(site.endswith(": called a synchronizing CUDA operation") for site in sites)
+    assert cs.count_syncs(lambda: None) == 0
+
+
+# the H100's opt-in shared memory a block (cudaDevAttrMaxSharedMemoryPerBlockOptin,
+# 227 KiB), as phase 3 reads it on the card
+H100_SMEM_OPTIN = 232_448
+
+
+def test_toplek_plan_at_the_probe_is_path_2():
+    """TopLEK's host-side plan at the probe's (2,098,176, 16,384): the keys
+    (8.39 MB) and the composites and prefix sums (131,072 B each, 256 KiB
+    together) exceed the opt-in, so they go to a 262,144-byte scratch a
+    client in device memory; phase 3's other shapes keep their paths."""
+    from repro_torch.kernels.compressor_select import TOPLEK_STATIC_SMEM, toplek_plan_for
+
+    cs = _chip_smoke()
+    dims = cs.probe_dims(get_config(cs.PROBE_ARCH))
+    assert toplek_plan_for(dims["t"], dims["k"], H100_SMEM_OPTIN) == (2, 2 * 131_072)
+    assert 2 * 131_072 > H100_SMEM_OPTIN - TOPLEK_STATIC_SMEM
+    w8a_t = 301 * 302 // 2
+    assert toplek_plan_for(w8a_t, 8 * 301, H100_SMEM_OPTIN) == (0, 0)
+    assert toplek_plan_for(w8a_t, w8a_t, H100_SMEM_OPTIN) == (2, 8 * 65_536 + 8 * w8a_t)
+    assert toplek_plan_for(350 * 351 // 2, 8 * 350, H100_SMEM_OPTIN) == (1, 0)
+    # at the keys' edge: path 0 while keys and composites fit, then path 1
+    budget = H100_SMEM_OPTIN - TOPLEK_STATIC_SMEM
+    fits = (budget - 8 * 4096) // 4 // 16 * 16
+    assert toplek_plan_for(fits, 4096, H100_SMEM_OPTIN)[0] == 0
+    assert toplek_plan_for(fits + 16, 4096, H100_SMEM_OPTIN)[0] == 1
+
+
+def test_probe_bounds_count_each_kernels_bytes_and_operations():
+    """The bounds phase 6 gives the probe's SYRK and TopLEK: SYRK reads z
+    and hw and writes the packed H (142.68 MB) for 2.15 GFLOP on the FP64
+    tensor cores: bytes, 0.0426 ms at 3.35 TB/s; TopLEK reads u and writes
+    u_hat (268.57 MB): bytes, 0.0802 ms."""
+    cs = _chip_smoke()
+    counts = cs.fednl_round_counts(8, 64, 2048, 16_384)
+    t = 2_098_176
+    assert counts["hessian_syrk_packed"][:2] == ((8 * 64 * 2048 + 8 * 64 + 8 * t) * 8,
+                                                 2 * 64 * t * 8) == (142_675_968, 2_148_532_224)
+    assert counts["select_toplek"][0] == 8 * t * 16 + 8 * 12 == 268_566_624
+    bounds = cs.fednl_round_bounds(8, 64, 2048, 16_384)
+    assert bounds["hessian_syrk_packed"][1] == bounds["select_toplek"][1] == "bytes"
+    assert bounds["hessian_syrk_packed"][0] == pytest.approx(142_675_968 / 3.35e12 * 1e3)
+    assert bounds["hessian_syrk_packed"][0] == pytest.approx(0.0426, abs=5e-5)
+    assert bounds["select_toplek"][0] == pytest.approx(0.0802, abs=5e-5)
+    flops_ms = counts["hessian_syrk_packed"][1] / cs.FP64_TENSOR_FLOPS * 1e3
+    assert bounds["hessian_syrk_packed"][0] > flops_ms  # 0.0321 ms of operations
 
 
 @pytest.fixture(scope="module")
@@ -373,6 +492,10 @@ def _job(cs, family: str):
                               fault=FaultSpec(drop_prob=0.2), on_dropout="resample",
                               backend="star-loopback")
         return cs.solve_cpu_side, None, (spec, spec.data.build())
+    if family == "probe":  # the probe phase's features at the depth cut
+        cut = dataclasses.replace(get_config("granite-3-2b").reduced(), n_layers=2)
+        return (cs.probe_cpu_side, init_lm_params(0, cut, "cpu"),
+                (cut, cs.probe_example().probe_data(cut, 2, 4)[1]))
     cut = dataclasses.replace(get_config("granite-3-2b").reduced(), n_layers=2, accum_steps=1)
     return cs.train_cpu_side, init_lm_params(0, cut, "cpu"), (cut, synthetic_batch(cut, 1, 24))
 
@@ -420,7 +543,7 @@ def _same_bits(got, want) -> bool:
     return got.dtype == want.dtype and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("family", ["lm", "zoo", "zoo_long", "train", "fednl"])
+@pytest.mark.parametrize("family", ["lm", "zoo", "zoo_long", "train", "fednl", "probe"])
 def test_cpu_worker_gives_the_in_process_result_bit_for_bit(chip_smoke_worker, family):
     """Each CPU side in the spawned worker gives what the same calls give in
     this process, bit for bit: the worker is handed its tree first
@@ -462,6 +585,8 @@ def test_cpu_worker_gives_the_in_process_result_bit_for_bit(chip_smoke_worker, f
         if family == "zoo_long":
             assert len(got["long_decode"]) == len(got["long_decode_calls"]) == cs.LONG_STEPS
             assert got["long_cache"]["pos"] == cs.LONG_POS + cs.LONG_STEPS
+        if family == "probe":  # the example's features of the same params and tokens
+            assert _same_bits(got["feats"], cs.probe_example().backbone_features(tree, *args))
         if family == "train":
             back = tree_map(lambda v: torch.full_like(v, float("nan")), tree)
             side.take_back(family + "/grads", back)

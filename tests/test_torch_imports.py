@@ -1,5 +1,6 @@
-"""The port stands alone: no module of src/repro_torch/, and not
-chip_smoke.py, imports jax or repro; importing the package loads no kernel."""
+"""The port stands alone: no module of src/repro_torch/, no example of the
+port (examples/torch_*.py) and not chip_smoke.py imports jax or repro;
+importing the package loads no kernel."""
 
 import ast
 import subprocess
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "repro", "jaxlib")
 
 
@@ -44,8 +46,12 @@ def test_scan_covers_the_package():
                    "launch/gateway_serve", "distributed/__init__", "distributed/fednl_shard",
                    "distributed/world", "launch/mesh", "train/data", "train/optimizer",
                    "train/grad_compress", "train/step", "launch/train", "roofline",
-                   "launch/specs"):
+                   "launch/specs", "launch/obs_top"):
         assert f"src/repro_torch/{module}.py" in names
+    for example in ("quickstart", "e2e_fednl_w8a", "sweep_grid", "distributed_fednl",
+                    "multinode_tcp_fednl", "multinode_pp_fednl", "tree_async_fednl",
+                    "gateway_client", "serve_lm", "train_lm", "fednl_probe"):
+        assert f"examples/torch_{example}.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -414,7 +414,7 @@ def test_topology_refused_and_pallas_runs_the_syrk_kernel():
 
 def test_registered_compressor_runs_in_a_session():
     from repro_torch.compressors import get_compressor
-    from repro_torch.compressors.core import CUSTOM_COMPRESSORS
+    from repro_torch.compressors import COMPRESSORS
 
     def make(t, k):
         return dataclasses.replace(get_compressor("topk", t, k), name="topk-copy")
@@ -426,7 +426,7 @@ def test_registered_compressor_runs_in_a_session():
         got = solve(full_spec(compressor=CompressorSpec("topk-copy")), device=CPU)
         assert_reports_bit_identical(got, solve(full_spec(), device=CPU))
     finally:
-        CUSTOM_COMPRESSORS.pop("topk-copy", None)
+        COMPRESSORS.pop("topk-copy", None)
     with pytest.raises(ValueError, match="unknown algorithm kind"):
         tapi.Algorithm("x", "half", init=None, make_round=None)
 
