@@ -58,11 +58,16 @@ after phase 12.  The run line gives each phase's seconds.
              (the wgmma route) and bf16 at dh = 32 (the SIMT
              route), and within 2e-5 in f32 (the SIMT route, dh 64 and
              256) and at one layer of the probe's backbone call (B 512, S
-             16, H 32, Kv 8, dh 64, causal); each fixture's route checked;
-             SYRK at the probe's (8, 64, 2,048) and TopLEK at its (8,
-             2,098,176) with k 16,384 (memory path 2; the plan worked out on
-             the host, toplek_plan_for, equal to the kernel's at every
-             fixture's shape); the threefry
+             16, H 32, Kv 8, dh 64, causal) and at S 64, B 64, both on the
+             packed grid; each fixture's route checked, and each wgmma
+             fixture's grid (flash_fwd_grid on the host equal to the
+             launcher's; packed at those two only); SYRK at the probe's (8,
+             64, 2,048) and TopLEK at its (8, 2,098,176) with k 16,384 on
+             the spread route (memory path 3): Gaussian rows, dyadic rows
+             (exact, and the index form), the all-zero correction, near-ties
+             and k = 1, and k 32,768 on path 2 (the plan worked out on the
+             host, toplek_plan_for, equal to the kernel's at every fixture's
+             shape, and its blocks a client, toplek_spread_for); the threefry
              kernel bit-exact in f32 and f64 at (142, 45451), T = 1, one
              client, 1,000 clients at T = 3,000 and 300 at T = 4,097 (a
              head or a tail outside the aligned runs on every row); TopK by
@@ -1165,10 +1170,12 @@ def fednl_round_times(dataset: str, dev) -> dict:
     return out
 
 
-def trace(step, n: int, unit: str) -> dict:
+def trace(step, n: int, unit: str, marks: tuple[str, ...] = ()) -> dict:
     """Device time by kernel over ``n`` calls of ``step`` (warmed up by the
     caller), and the device's busy share of the host's wall time over the
-    window (the profiler's own host cost included, so the share is a floor)."""
+    window (the profiler's own host cost included, so the share is a floor);
+    for each of ``marks``, the launches a call of each kernel whose name
+    holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1198,17 +1205,19 @@ def trace(step, n: int, unit: str) -> dict:
              f"calls_per_{unit}": e.count / n}
             for e in top
         ],
+        **({"launches_by_mark": {mark: {e.key[:90]: e.count / n for e in kernels if mark in e.key}
+                                 for mark in marks}} if marks else {}),
     }
 
 
-def trace_rounds(round_fn, state, rounds: int) -> dict:
+def trace_rounds(round_fn, state, rounds: int, marks: tuple[str, ...] = ()) -> dict:
     """``trace`` over ``rounds`` FedNL rounds after one warm-up round."""
     box = [round_fn(state)[0]]
 
     def step():
         box[0] = round_fn(box[0])[0]
 
-    return trace(step, rounds, "round")
+    return trace(step, rounds, "round", marks)
 
 
 def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -1456,7 +1465,12 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
                                  probe_cfg.window, bf16),
         "f32_s2048": (2, 2048, 2048, 32, 8, 64, True, None, f32),
         "f32_dh256_simt_window2048": (1, 4096, 4096, 10, 1, 256, True, 2048, f32),
+        # the packed grid at S 64: two sequences a block
+        "s64_b64_packed": (64, 64, 64, 32, 8, 64, True, None, bf16),
     }
+    # the fixtures that take the packed grid (tfa.flash_fwd_grid); the rest
+    # keep the grid of (query tile, head, batch row)
+    packed_cases = {"probe_backbone_layer", "s64_b64_packed"}
     report, max_err = {}, 0.0
     for seed, (name, (b, sq, sk, h, kv, dh, causal, window, dtype)) in enumerate(cases.items()):
         q, k, v = flash_inputs(dev, b, sq, sk, h, kv, dh, dtype, 100 + seed)
@@ -1472,6 +1486,12 @@ def check_flash(dev, tfa) -> tuple[dict, float]:
         err = float((got.float() - want.float()).abs().max())
         row = {"shape": [b, sq, sk, h, kv, dh], "causal": causal, "window": window,
                "dtype": str(dtype), "route": route, "max_abs_err": err}
+        if route == "wgmma":
+            plan = tfa.flash_fwd_grid(b, sq, sk, h, dh)
+            check(plan == tfa.flash_fwd_grid_on_card(b, sq, sk, h, dh),
+                  f"flash {name}: host grid {plan} vs the launcher's")
+            check(plan["packed"] == (name in packed_cases), f"flash {name}: grid {plan}")
+            row.update(grid=list(plan["grid"]), packed=plan["packed"])
         if dtype == f32:
             check(err <= FLASH_F32_ATOL, f"flash {name}: f32 error {err} > {FLASH_F32_ATOL}")
         else:
@@ -1852,7 +1872,8 @@ def probe_kernel_times(dev, tfa, probe_in: dict, lam: float) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.compressors.select import rank_keys
-    from repro_torch.kernels.compressor_select import select_toplek_cuda, select_toplek_plain
+    from repro_torch.kernels.compressor_select import (select_toplek_cuda, select_toplek_plain,
+                                                       toplek_memory_path, toplek_spread)
     from repro_torch.kernels.hessian_syrk import (hessian_syrk_packed_cuda,
                                                   hessian_syrk_packed_plain)
 
@@ -1886,6 +1907,12 @@ def probe_kernel_times(dev, tfa, probe_in: dict, lam: float) -> dict:
               "flash_attention": [b, seq, h, kk.shape[2], dh]}
     out = {name: {**ms[name], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                   "shape": shapes[name]} for name in ms}
+    # the routes timed: TopLEK's memory path (3: the spread route, two CUDA
+    # kernels a call), flash's grid (packed: 128 / S sequences a block)
+    out["select_toplek"].update(memory_path=toplek_memory_path(u.shape[1], k, dev),
+                                blocks_a_client=toplek_spread(u.shape[0], dev))
+    plan = tfa.flash_fwd_grid_on_card(b, seq, seq, h, dh)
+    out["flash_attention"].update(grid=list(plan["grid"]), packed=plan["packed"])
     counts = fednl_round_counts(probe_in["clients"], probe_in["n_i"], probe_in["d"], k)
     emit({"phase": "times", "part": "probe_shapes", "k": k,
           "counts": {name: counts[name] for name in ("hessian_syrk_packed", "select_toplek")},
@@ -1958,6 +1985,7 @@ def probe_phase(dev, ops, tfa, lm: dict | None, cpu_side: CpuSide) -> dict:
     from repro_torch.api import solve
     from repro_torch.configs import get_config
     from repro_torch.core.fednl import fednl_init, make_fednl_round
+    from repro_torch.kernels.compressor_select import toplek_memory_path
     from repro_torch.models import init_lm_params
 
     probe = probe_example()
@@ -2034,8 +2062,19 @@ def probe_phase(dev, ops, tfa, lm: dict | None, cpu_side: CpuSide) -> dict:
     round_launches = {name: n for name, n in ops.launch_counts().items() if n}
     check(round_launches == {"hessian_syrk_packed": 1, "select_toplek": 1},
           f"probe round launches {round_launches}")
-    traced = trace_rounds(round_fn, state, 1)
+    traced = trace_rounds(round_fn, state, 1, marks=("toplek",))
     del state, round_fn, z_card
+    # TopLEK's CUDA kernels a call, as the profile saw them: two on the
+    # spread route (path 3), one on the others
+    toplek_path = toplek_memory_path(dims["t"], dims["k"], dev)
+    toplek_kernels = traced.get("launches_by_mark", {}).get("toplek")
+    toplek_a_call = ("not measured (no device events)" if toplek_kernels is None
+                     else sum(toplek_kernels.values()) / round_launches["select_toplek"])
+    if toplek_kernels is not None:
+        want_kernels = 2 if toplek_path == 3 else 1
+        check(toplek_a_call == want_kernels and len(toplek_kernels) == want_kernels,
+              f"probe round: TopLEK's CUDA kernels {toplek_kernels} on path {toplek_path}, "
+              f"want {want_kernels} a call")
 
     # (c) the first rounds against the CPU's
     rep_cpu, worker = cpu_job.result()
@@ -2057,7 +2096,9 @@ def probe_phase(dev, ops, tfa, lm: dict | None, cpu_side: CpuSide) -> dict:
                   "sent_bits_per_round": float(np.mean(rep.sent_bits)),
                   "launches": launches, "max_memory_allocated": solve_peak},
         "round": {"launches": round_launches, "host_syncs": syncs, "sync_sites": sync_sites,
-                  "empty_step_syncs": empty_syncs, "empty_step_sites": empty_sites, **traced},
+                  "empty_step_syncs": empty_syncs, "empty_step_sites": empty_sites,
+                  "toplek_memory_path": toplek_path, "toplek_cuda_kernels_a_call": toplek_a_call,
+                  **traced},
         "card_vs_cpu_rounds": {"rounds": r, "grad_norms": gn[:r].tolist(),
                                "cpu_grad_norms": rep_cpu.grad_norms.tolist(),
                                "rel_err": rel.tolist(), "rtol": TRAJECTORY_RTOL,
@@ -5556,11 +5597,15 @@ def main(argv: list[str] | None = None) -> int:
         select_topk_cuda,
         select_topk_plain,
         select_toplek_cuda,
+        select_toplek_idx_cuda,
+        select_toplek_idx_plain,
         select_toplek_plain,
         smem_optin,
         toplek_memory_path,
         toplek_plan,
         toplek_plan_for,
+        toplek_spread,
+        toplek_spread_for,
     )
     from repro_torch.kernels.hessian_syrk import (
         hessian_syrk_packed_cuda,
@@ -5717,6 +5762,7 @@ def main(argv: list[str] | None = None) -> int:
             check(torch.equal(sent, sent_want), f"RandSeqK {name}: sent differs")
             randseqk_err = max(randseqk_err, (got - want).abs().max().item())
 
+        probe_rng = np.random.default_rng(25)  # the probe-T fixtures' uniforms
         toplek_cases = {  # name: (u, k, unif, exact)
             "round0_delta": (delta0, k, prng.uniform(round_keys[0]), True),
             "round1_delta": (delta1, k, prng.uniform(round_keys[1]), False),
@@ -5726,19 +5772,41 @@ def main(argv: list[str] | None = None) -> int:
             "k_is_T": (dyadic_rows(4, t_len, 8), t_len, rng.uniform(size=4), True),
             "k_is_T_small": (near_tie_rows(4, 130, 9), 130, rng.uniform(size=4), False),
             "keys_in_device_memory": (dyadic_rows(8, d350, 10), 8 * 350, rng.uniform(size=8), True),
-            # the probe's (8, 2,098,176) rows at k 16,384: memory path 2
+            # the probe's (8, 2,098,176) rows at k 16,384: the spread route
+            # (memory path 3); k 32,768 keeps path 2
             "probe_d2048_normal": (probe_in["u"], probe_in["k"], probe_in["unif"].cpu().numpy(),
                                    False),
             "probe_d2048_dyadic": (dyadic_rows(probe_in["clients"], probe_in["t"], 22), probe_in["k"],
                                    np.random.default_rng(23).uniform(size=probe_in["clients"]),
                                    True),
+            "probe_d2048_zero": (torch.zeros_like(probe_in["u"]), probe_in["k"],
+                                 probe_rng.uniform(size=probe_in["clients"]), True),
+            "probe_d2048_near_ties": (near_tie_rows(probe_in["clients"], probe_in["t"], 24),
+                                      probe_in["k"], probe_rng.uniform(size=probe_in["clients"]),
+                                      False),
+            "probe_d2048_k_is_1": (probe_in["u"], 1, probe_rng.uniform(size=probe_in["clients"]),
+                                   False),
+            "probe_d2048_k_32768_path_2": (probe_in["u"], 2 * probe_in["k"],
+                                           probe_rng.uniform(size=probe_in["clients"]), False),
         }
         toplek_err, toplek_boundary, toplek_kept, toplek_case_err = 0.0, {}, {}, {}
+        toplek_case_path, toplek_idx_checked = {}, []
         for name, (u, kk, unif_np, exact) in toplek_cases.items():
             u = torch.as_tensor(u, dtype=torch.float64, device=dev).contiguous()
             unif = torch.as_tensor(unif_np, dtype=torch.float64, device=dev)
+            toplek_case_path[name] = toplek_memory_path(u.shape[1], kk, dev)
             got, sent = select_toplek_cuda(u, kk, unif)
             want, sent_want = select_toplek_plain(u, kk, unif)
+            if name.startswith("probe_d2048") and exact:
+                # the index form on the spread route: the dense form's u_hat
+                # and kept, and the plain version's indices
+                got_i, sent_i, idx_i = select_toplek_idx_cuda(u, kk, unif)
+                _, _, idx_want = select_toplek_idx_plain(u, kk, unif)
+                torch.cuda.synchronize()
+                check(bits_equal(got_i, got) and torch.equal(sent_i, sent)
+                      and torch.equal(idx_i, idx_want), f"TopLEK {name}: the index form differs")
+                toplek_idx_checked.append(name)
+                del got_i, sent_i, idx_i, idx_want
             torch.cuda.synchronize()
             check(sent.dtype == torch.int32, f"TopLEK {name}: sent dtype {sent.dtype}")
             differ = (~torch.all(got.view(torch.int64) == want.view(torch.int64), dim=-1)) | (
@@ -5759,13 +5827,24 @@ def main(argv: list[str] | None = None) -> int:
             check(int((got != 0).sum(-1).max()) <= kk, f"TopLEK {name}: more than k kept")
             toplek_boundary[name] = len(rows)
             toplek_kept[name] = [int(sent.min()), int(sent.max())]
-        check(toplek_kept["round0_delta"] == [0, 0], "TopLEK keeps nothing of the zero round-0 delta")
+        check(toplek_kept["round0_delta"] == [0, 0] and toplek_kept["probe_d2048_zero"] == [0, 0],
+              "TopLEK keeps nothing of an all-zero correction")
+        check(all(path == 3 for name, path in toplek_case_path.items()
+                  if name.startswith("probe_d2048") and not name.endswith("path_2"))
+              and toplek_case_path["probe_d2048_k_32768_path_2"] == 2,
+              f"TopLEK at the probe's T: memory paths {toplek_case_path}")
         plan_cases = {"w8a": (t_len, k), "k_is_T": (t_len, t_len),
                       "keys_in_device_memory": (d350, 8 * 350),
-                      "probe_d2048": (probe_in["t"], probe_in["k"])}
+                      "probe_d2048": (probe_in["t"], probe_in["k"]),
+                      "probe_d2048_k_32768": (probe_in["t"], 2 * probe_in["k"])}
         toplek_paths = {name: toplek_memory_path(tt, kk, dev) for name, (tt, kk) in plan_cases.items()}
-        check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 1, "probe_d2048": 2},
+        check(toplek_paths == {"w8a": 0, "k_is_T": 2, "keys_in_device_memory": 3, "probe_d2048": 3,
+                               "probe_d2048_k_32768": 2},
               f"TopLEK memory paths {toplek_paths}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        spread = toplek_spread(probe_in["clients"], dev)
+        check(spread == toplek_spread_for(probe_in["clients"], sms),
+              f"TopLEK spread {spread} vs the host's {toplek_spread_for(probe_in['clients'], sms)}")
         # the plan worked out on the host (the CPU tests read it) is the kernel's
         optin = smem_optin(dev)
         for name, (tt, kk) in plan_cases.items():
@@ -5796,6 +5875,7 @@ def main(argv: list[str] | None = None) -> int:
                 "kept_min_max": toplek_kept, "memory_paths": toplek_paths,
                 "plans": {name: list(toplek_plan_for(tt, kk, optin))
                           for name, (tt, kk) in plan_cases.items()},
+                "case_memory_paths": toplek_case_path, "index_form_checked": toplek_idx_checked,
                 "shared_memory_per_block_optin": optin,
             },
             "probe_shapes": {
@@ -5803,7 +5883,9 @@ def main(argv: list[str] | None = None) -> int:
                                         "rel_err": probe_syrk_err / probe_scale, "tol": SYRK_TOL},
                 "select_toplek": {"shape": [probe_in["clients"], probe_in["t"]], "k": probe_in["k"],
                                   "memory_path": toplek_paths["probe_d2048"],
-                                  "cases": ["probe_d2048_normal", "probe_d2048_dyadic"]},
+                                  "blocks_a_client": spread, "sms": sms,
+                                  "cases": sorted(n for n in toplek_cases
+                                                  if n.startswith("probe_d2048"))},
             },
         })
 
@@ -6767,7 +6849,12 @@ def main(argv: list[str] | None = None) -> int:
                 "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
                 "library_ms": times.get("library"),
                 **({"ranking_only_ms": times["ranking_only"],
-                    "memory_path": toplek_paths["probe_d2048"]} if name == "select_toplek" else {}),
+                    "memory_path": toplek_paths["probe_d2048"],
+                    "blocks_a_client": times["blocks_a_client"],
+                    "cuda_kernels_a_call": pe["round"]["toplek_cuda_kernels_a_call"]}
+                   if name == "select_toplek" else {}),
+                **({"grid": times["grid"], "packed": times["packed"]}
+                   if name == "flash_attention" else {}),
             })
         for entry in kernels:  # the star path's launches of the kernels it shares
             if entry["name"] in ("hessian_syrk_packed", "threefry_uniform_float32"):

@@ -41,8 +41,12 @@ JSON line per measurement, then the card's name and power limit.
   times    CUDA-event medians of 5 event pairs around one call, the variants
            in turns, at recurrentgemma-2b's layer; with the source as it is
            also the head_dim-64 kernel at granite-3-2b's layer (H 32, Kv 8,
-           causal) and the head_dim-128 kernel at llava-next-mistral-7b's
-           (H 32, Kv 8, causal window 4096), in turns with the baseline's
+           causal), at the FedNL probe's backbone layer (B 512, S 16) and at
+           B 64, S 64, and the head_dim-128 kernel at llava-next-mistral-7b's
+           (H 32, Kv 8, causal window 4096) (TIMED_LAYERS), in turns with
+           the baseline's, whose output on the same inputs each is held
+           against: the elements whose bits differ, and the largest
+           difference in bf16 ulps
   bwd      with --baseline-bwd, another flash_attention_bwd.cu (for example
            the parent commit's) built beside src/.../flash_attention_bwd.cu
            and variants of it (BWD_VARIANTS, one change each):
@@ -201,6 +205,16 @@ ARGTYPES = (
 BWD_ARGTYPES = [ctypes.c_void_p] * 8 + ARGTYPES[4:]
 BWD_SIMT_ARGTYPES = BWD_ARGTYPES[:14] + [ctypes.c_int] + BWD_ARGTYPES[14:]
 
+# the layers timed with the source as it is (H 32, Kv 8, causal), in turns
+# with the baseline's and held against its output bit for bit: (b, S,
+# head_dim, window); the FedNL probe's backbone layer and B 64, S 64 take
+# the packed grid (flash_fwd_grid), the 32k layers the grid of query tiles
+TIMED_LAYERS = {
+    "granite_32k_layer_dh64": (1, SEQ, 64, None),
+    "llava_32k_layer_dh128": (1, SEQ, 128, 4096),
+    "probe_backbone_layer_dh64": (512, 16, 64, None),
+    "s64_b64_dh64": (64, 64, 64, None),
+}
 # (b, sq, sk, h, kv, causal, window, q_offset, k_offset)
 CHECKS = {
     "rg_heads_window300_s1000": (1, 1000, 1000, 10, 1, True, 300, 0, 0),
@@ -511,23 +525,27 @@ def main() -> int:
     emit({"times": "recurrentgemma_32k_layer", "ms": ms, "visible_pairs": visible,
           "bound_ms": 4 * 2 * 256 * visible / 989e12 * 1e3})
     del q, k, v
-    for case, (dh, window) in {"granite_32k_layer_dh64": (64, None),
-                               "llava_32k_layer_dh128": (128, 4096)}.items():
-        q, k, v = inputs(1, SEQ, SEQ, 32, 8, dh, 100)
+    for case, (b, s, dh, window) in TIMED_LAYERS.items():
+        q, k, v = inputs(b, s, s, 32, 8, dh, 100)
         got = calls["kernel"](q, k, v, True, window)
         want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
         ulps = float(tfa.bf16_ulps(got, want, tfa.BF16_ULP_FLOOR).max())
         if ulps > 1.0:
             failed.append(case)
+        row = {"times": case, "shape": [b, s, s, 32, 8, dh], "window": window, "max_ulps": ulps}
         fns = {"kernel": lambda: calls["kernel"](q, k, v, True, window)}
         if base_call is not None:  # baseline, kernel, kernel, baseline
+            base = base_call(q, k, v, True, window)
+            torch.cuda.synchronize()
+            row["vs_baseline"] = {
+                "bits_differ": int((got.view(torch.int16) != base.view(torch.int16)).sum()),
+                "max_ulps": float(tfa.bf16_ulps(got, base, tfa.BF16_ULP_FLOOR).max()),
+                "baseline_max_ulps": float(tfa.bf16_ulps(base, want, tfa.BF16_ULP_FLOOR).max())}
             fns = {"baseline": lambda: base_call(q, k, v, True, window), **fns,
                    "kernel_again": fns["kernel"],
                    "baseline_again": lambda: base_call(q, k, v, True, window)}
-        t = median_ms(fns)
-        visible = tfa.visible_pairs(SEQ, SEQ, True, window) * 32
-        emit({"times": case, "ms": t, "max_ulps": ulps,
-              "bound_ms": 4 * 2 * dh * visible / 989e12 * 1e3})
+        visible = tfa.visible_pairs(s, s, True, window) * 32 * b
+        emit({**row, "ms": median_ms(fns), "bound_ms": 4 * 2 * dh * visible / 989e12 * 1e3})
         del q, k, v, got, want
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)

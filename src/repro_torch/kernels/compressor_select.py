@@ -380,29 +380,69 @@ select_randseqk_cuda.launches = 0
 # ``repro/kernels/ops.py:select_toplek``.
 #
 # What bounds it on an H100: bytes.  It must read u and write u_hat once,
-# 103.3 MB at w8a, about 31 us at 3.35 TB/s; the selection (90 M 32-bit
-# operations, 1.3 us) and the sort of k survivors per client are smaller.
+# 103.3 MB at w8a, about 31 us at 3.35 TB/s; at the FedNL probe's (8,
+# 2,098,176) 268.6 MB, 80 us.  The selection (14 32-bit operations a key)
+# and the sort of k survivors per client are smaller.
 #
-# What the design does about it: one block of 1024 threads per client runs
-# TopK's radix threshold and keep pass (the same device code) on keys held in
-# shared memory, reading u once for the keys and for total = sum(u*u), and
-# writing +0.0 over the row in the same pass that compacts the k survivors
-# as 64-bit composites (inverted key << 32 | index), each warp taking its
-# slots with one shared atomic; their order does not matter, because a
-# bitonic sort of the composites, padded to a power of two P, gives the order
-# (key descending, index ascending) -- the lowest-index tie-break of
-# ``lax.top_k``.  An f64 block scan of the squared values gives the prefix
-# energies, m* = min(1 + #{alpha < delta}, k), p and kept as in the
-# reference; the kept values are then scattered over the zeros.  Shared
-# memory at w8a: 181.8 KB of keys, then 32 KB of composites (P = 4096); the
-# prefix sums reuse the keys' region once the survivors are compacted.
-# Where that does not fit, the keys are recomputed from u on every pass, and
-# where the composites and prefix sums do not fit either (k = T at w8a:
-# P = 65536) they live in a scratch buffer that this wrapper allocates in
-# device memory.  The squares and sums use __dmul_rn / __dadd_rn so that no
-# FMA contraction changes a rounding; the prefix sum's order is a block
-# scan, so kept can differ from the plain version by one only where
-# alpha_m* lies within a few ulps of delta or unif of p.
+# What the design does about it, by memory path (``toplek_plan`` in the
+# source, :func:`toplek_plan_for` here):
+#
+# * Path 0 (w8a, a9a, phishing: the T keys fit shared memory beside the
+#   survivors).  One block of 1024 threads per client runs TopK's radix
+#   threshold and keep pass (the same device code) on keys held in shared
+#   memory, reading u once for the keys and for total = sum(u*u), and
+#   writing +0.0 over the row in the same pass that compacts the k
+#   survivors as 64-bit composites (inverted key << 32 | index), each warp
+#   taking its slots with one shared atomic; their order does not matter,
+#   because a bitonic sort of the composites, padded to a power of two P,
+#   gives the order (key descending, index ascending) -- the lowest-index
+#   tie-break of ``lax.top_k``.  An f64 block scan of the squared values
+#   gives the prefix energies, m* = min(1 + #{alpha < delta}, k), p and kept
+#   as in the reference; the kept values are then scattered over the zeros.
+#   Shared memory at w8a: 181.8 KB of keys, then 32 KB of composites (P =
+#   4096); the prefix sums reuse the keys' region.
+# * Path 3, the spread route (the keys do not fit; the 8 P bytes of
+#   composites do: 128 KB at the probe's k = 16,384).  What held
+#   the one-block design back there was one block a client (8 of 132 SMs at
+#   the probe) reading its 16.8 MB row six times.  Two kernels over a grid
+#   of (client, block), each client's row cut into ``toplek_spread_for``
+#   contiguous segments (16 at the probe: 128 blocks), so u is read twice
+#   by all the SMs: ``toplek_tally_kernel`` sums each segment's u*u in f64
+#   and tallies its keys' top 12 bits (4,096 bins; a warp whose keys share
+#   one bin adds once); ``toplek_spread_kernel``'s blocks each add the
+#   client's tallies (bin*: the bin of the k-th largest key; the candidates,
+#   the keys in bin* and above, before the block's segment and in all; the
+#   total, the blocks' sums in block order), read their segment again,
+#   write +0.0 over it and append its candidates as composites to the
+#   client's scratch, those above bin* (all kept) before those in it (tens
+#   of thousands at the probe, not 2 million).  The client's last block (a
+#   count in the scratch, which the tally kernel clears) finishes alone in
+#   shared memory: the radix threshold over bin*'s candidates only; where
+#   the ties at it are not all kept, the need-th smallest index among them
+#   by a second radix select, which is the lowest-index tie-break without
+#   ordering the candidates; the k composites sorted as on path 0; the
+#   prefix sums scanned in that order (the block scan of path 0, so the same
+#   m*, alpha_m* and kept) but not stored: they do not decrease, so {alpha <
+#   delta} is a prefix of the ranks, and the scan keeps only the sums at
+#   ranks m* - 1 and m* - 2 as it passes them; the kept values over the
+#   zeros.
+#   The candidates can number T -- an all-zero row (which keeps nothing:
+#   its blocks only write zeros), or mass ties at the k-th key (dyadic rows:
+#   ~T/11) -- so the scratch holds T composites a client beside the
+#   tallies.  The wrapper counts one launch a call; the route is two CUDA
+#   kernels.  What holds it back: the finish runs on one SM a client, and
+#   its bitonic sort of k composites is 105 passes over 128 KB of shared
+#   memory at k = 16,384.
+# * Path 2 (k too large for path 3's shared memory, e.g. k = T at w8a:
+#   P = 65536).  The one-block kernel recomputes the keys from u on every
+#   radix pass and keeps the composites and prefix sums in a scratch buffer
+#   in device memory.
+#
+# The squares and sums use __dmul_rn / __dadd_rn so that no FMA
+# contraction changes a rounding; the total's and the prefix sum's orders
+# are a block reduction and a block scan, so kept can differ from the plain
+# version by one only where alpha_m* lies within a few ulps of delta or
+# unif of p.
 # ---------------------------------------------------------------------------
 
 
@@ -414,7 +454,7 @@ def select_toplek_plain(
 
 
 def toplek_plan(t: int, k: int, device: torch.device) -> tuple[int, int]:
-    """(memory path, scratch bytes per client) of the TopLEK kernel on ``device``."""
+    """(memory path, scratch bytes per client) of the TopLEK kernels on ``device``."""
     path = build.function("compressor_select", "toplek_select_memory_path",
                           (ctypes.c_int, ctypes.c_int))
     scratch = build.function("compressor_select", "toplek_select_scratch_bytes",
@@ -423,27 +463,50 @@ def toplek_plan(t: int, k: int, device: torch.device) -> tuple[int, int]:
         return path(t, k), scratch(t, k)
 
 
-# the kernel's static shared memory beside the dynamic (kTopLekStaticSmem in
-# csrc/compressor_select.cu): the selection's warp parts, radix bins and
-# picks, the f64 warp parts, and slack
+def toplek_spread(n_clients: int, device: torch.device) -> int:
+    """Blocks a client that the spread route (path 3) launches on ``device``."""
+    fn = build.function("compressor_select", "toplek_select_spread", (ctypes.c_int,))
+    with torch.cuda.device(device):
+        return fn(n_clients)
+
+
+# the one-block kernel's static shared memory beside the dynamic
+# (kTopLekStaticSmem in csrc/compressor_select.cu): the selection's warp
+# parts, radix bins and picks, the f64 warp parts, and slack
 TOPLEK_STATIC_SMEM = 4 * (32 + 256 + 4) + 8 * 32 + 64
+# the same for the spread route's second kernel (kSpreadStaticSmem)
+TOPLEK_SPREAD_STATIC_SMEM = 4 * (32 + 256 + 16) + 8 * (2 * 32 + 3) + 64
+# the spread route (kTallyBits, kMaxSpread): a key's top 12 bits are its
+# tally bin; at most 16 blocks a client; each client's scratch holds 16
+# tallies of 4,096 int32 bins, 16 f64 partial sums, a 16-byte count and T
+# 8-byte candidates
+TALLY_BITS, MAX_SPREAD = 12, 16
+SPREAD_HEAD_BYTES = 4 * MAX_SPREAD * (1 << TALLY_BITS) + 8 * MAX_SPREAD + 16
 
 
 def toplek_plan_for(t: int, k: int, optin: int) -> tuple[int, int]:
-    """(memory path, scratch bytes per client) that the kernel's host-side
+    """(memory path, scratch bytes per client) that the kernels' host-side
     plan (``toplek_plan`` in csrc/compressor_select.cu) gives for (T, k) on a
     card whose blocks may opt in to ``optin`` bytes of shared memory, worked
-    out here on the host: the T f32 keys, the composites of the k survivors
-    padded to a power of two P (8 P bytes) and their k f64 prefix sums, in
-    shared memory while they fit beside the static part."""
+    out here on the host: path 0 while the T f32 keys, the composites of the
+    k survivors padded to a power of two P (8 P bytes) and their k f64 prefix
+    sums fit shared memory beside the static part; else path 3 while the 8 P
+    bytes of composites do, its scratch the tallies and T candidates; else
+    path 2, the composites and prefix sums in scratch."""
     budget = optin - TOPLEK_STATIC_SMEM
     p = 1 << (k - 1).bit_length()
     keys, comps, csums = (4 * t + 15) // 16 * 16, 8 * p, 8 * k
     if keys + comps + (0 if csums <= keys else csums) <= budget:
         return 0, 0
-    if comps + csums <= budget:
-        return 1, 0
+    if comps <= optin - TOPLEK_SPREAD_STATIC_SMEM:
+        return 3, (SPREAD_HEAD_BYTES + 8 * t + 15) // 16 * 16
     return 2, comps + csums
+
+
+def toplek_spread_for(n_clients: int, sms: int) -> int:
+    """Blocks a client of the spread route (``toplek_spread`` in the source)
+    on a card of ``sms`` SMs: the SMs shared among the clients, 1 to 16."""
+    return max(1, min(MAX_SPREAD, sms // max(1, n_clients)))
 
 
 def smem_optin(device: torch.device) -> int:
@@ -454,10 +517,11 @@ def smem_optin(device: torch.device) -> int:
 
 
 def toplek_memory_path(t: int, k: int, device: torch.device) -> int:
-    """Where the TopLEK kernel keeps its buffers for (T, k) on ``device``:
-    0 keys and survivors in shared memory; 1 keys recomputed from u,
-    survivors in shared memory; 2 keys recomputed from u, survivors in a
-    scratch buffer in device memory."""
+    """Where the TopLEK kernels keep their buffers for (T, k) on ``device``:
+    0 keys and survivors in shared memory, one block a client; 3 the spread
+    route, many blocks a client, candidates in a scratch buffer, survivors
+    in one block's shared memory; 2 keys recomputed from u, survivors in a
+    scratch buffer in device memory, one block a client."""
     return toplek_plan(t, k, device)[0]
 
 

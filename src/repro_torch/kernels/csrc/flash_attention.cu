@@ -39,8 +39,9 @@
 //
 // flash_fwd_wgmma_kernel -- bf16 at head_dim 64, 128 and 256, on the tensor
 // cores.
-//   * one block of three warpgroups per (query tile, head, batch row), the
-//     heaviest causal tiles first: warpgroup 0 is the producer, one thread of
+//   * one block of three warpgroups per (query tile, head, batch row) (short
+//     sequences: the packed grid below), the heaviest causal tiles first:
+//     warpgroup 0 is the producer, one thread of
 //     which loads Q once and keeps a ring of K/V tiles full by TMA, signalled
 //     through mbarriers; warpgroups 1 and 2 are the consumers (setmaxnreg:
 //     24 / 240).  Cfg<DH> sets the tiles and the split:
@@ -87,11 +88,27 @@
 //     256): p and its split for a batch are computed while the products of
 //     the batches before it run.  At dh 256, 4 batches and 3 stages ran
 //     1-2% faster than 2 batches or 2 stages (scripts/flash_probe.py).
+//   * short sequences, the packed grid (pack_shift): self-attention on
+//     whole sequences whose length S divides the 128-row tile and is below
+//     it (dh 64 and 128, inference) would leave a (query tile, head, batch
+//     row) block S of its 128 rows: at the FedNL probe's backbone layer (B
+//     512, S 16) 16,384 blocks, each paying the fixed cost of barriers,
+//     setmaxnreg, the tensor maps and three TMA round trips for 16 rows,
+//     where the bound is the 83.9 MB of q, k, v and out (25 us).  The packed
+//     instantiation (kPack) takes the tensor maps over the flat (B S, H dh)
+//     rows, so a block holds 128 / S whole sequences of one head (grid (B S
+//     / 128, H): 2,048 blocks at the probe, both consumers full) and its one
+//     key tile is its own rows; a key is visible only within its query's
+//     sequence (key >> log2 S == row >> log2 S), causality and the window
+//     compare flat positions, which within a sequence is the same, and every
+//     tile takes the edge softmax.  Each row sees the same keys; their
+//     columns, and so the order of the f32 row sums, differ;
 //   What still holds it back: a consumer waits for its S before its softmax
 //   and for each panel's P.V before the next, so its exponentials and
 //   conversions overlap the tensor cores only through the other consumer
 //   and the batches; at dh 256 the two consumers run the same softmax at
-//   the same time, and S is computed twice.
+//   the same time, and S is computed twice; on the packed grid each block
+//   still pays the fixed cost above for its one tile.
 //
 // flash_fwd_kernel -- the SIMT kernel: f32 at any head_dim, bf16 at 16 and 32
 // (head dims that only reduced configurations have).
@@ -454,11 +471,15 @@ struct Cfg {
 // The online softmax of one 64 x kBK tile in registers (N = kBK / 2
 // accumulators a thread), first part: s = S * scale, masked to -1e30 on a
 // tile that an edge crosses (kEdge), the running max m and the rescale
-// factor corr of the earlier tiles.
-template <bool kEdge, int N>
+// factor corr of the earlier tiles.  kPack: rows and keys are positions in
+// the flat (B S) sequence of a packed tile, and a key is visible only within
+// its query's sequence (the same position >> seg_shift, S = 2**seg_shift);
+// causality and the window then compare the same positions as within the
+// sequence.
+template <bool kEdge, bool kPack, int N>
 __device__ __forceinline__ void softmax_max(float (&sc)[N], float (&m)[2], float (&corr)[2],
                                             float scale, int k0, int ra, int kq, int sk,
-                                            int causal, int window) {
+                                            int causal, int window, int seg_shift) {
   // row r's max in four independent chains (k = 8-column block % 4): two
   // warps per scheduler leave little else to hide a chain's latency
   float mx[4][2];
@@ -470,8 +491,8 @@ __device__ __forceinline__ void softmax_max(float (&sc)[N], float (&m)[2], float
     if (kEdge) {
       const int key = k0 + 8 * (i / 4) + kq + (i & 1);
       const int row = ra + 8 * ((i / 2) & 1);
-      const bool visible =
-          key < sk && (!causal || key <= row) && (window <= 0 || key > row - window);
+      const bool visible = key < sk && (!kPack || ((key ^ row) >> seg_shift) == 0) &&
+                           (!causal || key <= row) && (window <= 0 || key > row - window);
       x = visible ? x : kNeg;
     }
     sc[i] = x;
@@ -522,15 +543,16 @@ __device__ __forceinline__ void exp_split(float (&sc)[8 * kChunks], const float 
 // accumulation spans one tile's keys, never the whole row.  P.V is issued in
 // C::kPhases batches of keys, and p of each batch is computed while the
 // products of the batches before it run.
-template <bool kEdge, typename C>
+template <bool kEdge, bool kPack, typename C>
 __device__ __forceinline__ void tile_pv(float (&sc)[C::kBK / 2], float (&m)[2], float (&l)[2],
                                         float (&o)[C::kOutPanels][32], uint32_t v_s, float scale,
-                                        int k0, int ra, int kq, int sk, int causal, int window) {
+                                        int k0, int ra, int kq, int sk, int causal, int window,
+                                        int seg_shift) {
   constexpr int kChunks = C::kBK / 16;                 // 16-key chunks of the tile
   constexpr int kPhaseChunks = kChunks / C::kPhases;   // ... per batch
   float corr[2], rs[4][2] = {};
   uint32_t pa[3][kChunks][4];
-  softmax_max<kEdge>(sc, m, corr, scale, k0, ra, kq, sk, causal, window);
+  softmax_max<kEdge, kPack>(sc, m, corr, scale, k0, ra, kq, sk, causal, window, seg_shift);
 #pragma unroll
   for (int panel = 0; panel < C::kOutPanels; ++panel) {
     float pv[32] = {};  // overwritten by the first product (scale_d = 0)
@@ -569,13 +591,17 @@ __device__ __forceinline__ void tile_pv(float (&sc)[C::kBK / 2], float (&m)[2], 
     for (int c = 0; c < kChunks; ++c) fence_regs(pa[part][c]);
 }
 
-template <int DH, bool kOff, bool kTrain>
+// kPack: the packed grid (see pack_shift): one block holds 128 / S whole
+// sequences of one head, the tensor maps and sq = sk run over the flat (B S)
+// rows, and the block's one key tile is its own rows.
+template <int DH, bool kOff, bool kTrain, bool kPack = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        OutT<__nv_bfloat16, kTrain>* __restrict__ out, int sq, int sk, int n_heads,
-                       int n_kv, int causal, int window, int pos_off_arg, float scale) {
+                       int n_kv, int causal, int window, int pos_off_arg, float scale,
+                       int seg_shift) {
   using C = Cfg<DH>;
   constexpr int kBQ = C::kBQ, kBK = C::kBK;
   const int pos_off = kOff ? pos_off_arg : 0;  // kOff: the launcher saw pos_off != 0
@@ -596,6 +622,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   int k_begin = 0, k_end = sk;
   if (causal) k_end = min(sk, p0 + kBQ);
   if (window > 0) k_begin = max(0, p0 - window + 1) / kBK * kBK;
+  if (kPack) k_begin = q0, k_end = min(sk, q0 + kBQ);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
@@ -678,12 +705,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       fence_regs(sc);
 
-      // masked logits only on tiles that an edge crosses for these rows
-      if (k0 + kBK > sk || (causal && k0 + kBK - 1 > row0) ||
+      // masked logits only on tiles that an edge crosses for these rows (a
+      // packed tile's sequences are edges)
+      if (kPack || k0 + kBK > sk || (causal && k0 + kBK - 1 > row0) ||
           (window > 0 && k0 <= row0 + 63 - window))
-        tile_pv<true, C>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
+        tile_pv<true, kPack, C>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window,
+                                seg_shift);
       else
-        tile_pv<false, C>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window);
+        tile_pv<false, kPack, C>(sc, m, l, o, v_s, scale, k0, ra, kq, sk, causal, window,
+                                 seg_shift);
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (C::kStages + s));  // this warp is done with stage s
     }
@@ -730,27 +760,49 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// The packed grid's choice: log2 S where a call takes it, else -1.  It
+// takes self-attention on whole sequences (sq = sk, pos_off 0) whose
+// length S is a power of two below the 128-row tile, at head_dim 64 and 128,
+// in the inference instantiation: there a (query tile, head, batch row)
+// block would hold S of its 128 rows.  Every other call keeps the grid of
+// (query tile, head, batch row).
+inline int pack_shift(bool train, int head_dim, int sq, int sk, int pos_off) {
+  if (train || (head_dim != 64 && head_dim != 128) || sq != sk || pos_off != 0) return -1;
+  if (sq < 1 || sq >= 128 || 128 % sq != 0) return -1;
+  int shift = 0;
+  while ((1 << shift) < sq) ++shift;
+  return shift;
+}
+
 template <int DH, bool kTrain>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int sq, int sk,
            int n_heads, int n_kv, int causal, int window, int pos_off, float scale,
            cudaStream_t stream) {
   using C = Cfg<DH>;
+  const int shift = pack_shift(kTrain, DH, sq, sk, pos_off);
+  // packed: the flat (B S) rows as one sequence of one batch row
+  const bool packed = shift >= 0;
+  const int rows_q = packed ? batch * sq : sq, rows_k = packed ? batch * sk : sk;
+  const int batches = packed ? 1 : batch;
   // the runtime call first: it binds the device's context to this thread,
   // which the tensor maps' encoding reads (see make_map)
-  const auto kernel = pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true, kTrain>
-                                   : flash_fwd_wgmma_kernel<DH, false, kTrain>;
+  auto kernel = pos_off != 0 ? flash_fwd_wgmma_kernel<DH, true, kTrain>
+                             : flash_fwd_wgmma_kernel<DH, false, kTrain>;
+  if constexpr (!kTrain && DH != 256) {
+    if (packed) kernel = flash_fwd_wgmma_kernel<DH, false, false, true>;
+  }
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, n_heads * DH, sq, batch, C::kBQ) ||
-      !make_map(&mk, k, n_kv * DH, sk, batch, C::kBK) ||
-      !make_map(&mv, v, n_kv * DH, sk, batch, C::kBK))
+  if (!make_map(&mq, q, n_heads * DH, rows_q, batches, C::kBQ) ||
+      !make_map(&mk, k, n_kv * DH, rows_k, batches, C::kBK) ||
+      !make_map(&mv, v, n_kv * DH, rows_k, batches, C::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((sq + C::kBQ - 1) / C::kBQ, n_heads, batch);
+  const dim3 grid((rows_q + C::kBQ - 1) / C::kBQ, n_heads, batches);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, static_cast<OutT<__nv_bfloat16, kTrain>*>(out), sq, sk, n_heads, n_kv, causal,
-      window, pos_off, scale);
+      mq, mk, mv, static_cast<OutT<__nv_bfloat16, kTrain>*>(out), rows_q, rows_k, n_heads, n_kv,
+      causal, window, pos_off, scale, packed ? shift : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -786,6 +838,19 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   return hopper::dispatch<false>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, causal,
                                  window, pos_off, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The grid the Hopper route launches for a call (train: the training
+// instantiation): grid[0..2] = (x, y, z); returns log2 S on the packed grid,
+// -1 on the grid of (query tile, head, batch row).
+extern "C" int flash_attention_fwd_wgmma_grid(int batch, int sq, int sk, int n_heads,
+                                              int head_dim, int pos_off, int train, int* grid) {
+  const int shift = hopper::pack_shift(train != 0, head_dim, sq, sk, pos_off);
+  const int rows = head_dim == 256 ? 64 : 128;
+  grid[0] = shift >= 0 ? (batch * sq + rows - 1) / rows : (sq + rows - 1) / rows;
+  grid[1] = n_heads;
+  grid[2] = shift >= 0 ? 1 : batch;
+  return shift;
 }
 
 // The training instantiation of the same: out is f32, B * Sq * H * dh for O

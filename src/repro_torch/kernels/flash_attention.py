@@ -77,6 +77,26 @@ result.  The tiles and the consumers' split depend on head_dim:
   and a P.V accumulator 32 registers, ~180 in all.  S is computed twice:
   one product of five, and its exponentials, twice.
 
+Short sequences (:func:`flash_fwd_grid`).  At the FedNL probe's backbone
+layer (B 512, S 16, H 32, Kv 8, dh 64, causal) the bound is bytes: q, k, v
+read and the output written once, 83.9 MB, 25 us at 3.35 TB/s; the
+products are 0.1% of the tensor cores' time.  The grid of (query tile,
+head, batch row) gave 16,384 blocks whose 128-row tile held 16 rows (one
+consumer warpgroup idle, the other a quarter full) and whose one key tile
+held 16 keys, so the block's fixed cost (barriers, ``setmaxnreg``, the
+tensor maps, three TMA round trips) was the time.  The packed grid puts
+128 / S whole sequences of one head in a block: the tensor maps run over
+the flat (B S, H dh) rows, so one box brings 8 sequences, the grid is (B S
+/ 128, H) = 2,048 blocks at the probe with both consumers full, and the
+block's one key tile is its own 128 rows.  A key is visible only within its
+query's sequence (the same flat position >> log2 S), causality and the
+window then compare positions as within the sequence, and the tile takes the edge instantiation of
+the softmax.  Each row sees the same keys as on the other grid; only the
+column a key sits in, and so the order of the f32 row sums, changes.  It
+takes self-attention on whole sequences (Sq = Sk, no offsets) whose S
+divides 128 and is below it, at head_dim 64 and 128, in inference; the
+32k prefills, training, decode and head_dim 256 keep the other grid.
+
 Known costs left: a warpgroup waits for its S before its softmax and for
 each panel's P.V before the next, so its exponentials and conversions (16
 results per clock per SM each) overlap the tensor cores only in part,
@@ -348,6 +368,39 @@ def flash_bwd_dkdv_grid(batch: int, sk: int, n_kv: int, lib=None) -> dict:
     blocks = -(-sk // 64) * n_kv * batch * split.value
     return {"split": split.value, "blocks": blocks, "clusters_at_once": clusters.value,
             "waves": blocks / max(1, clusters.value * split.value)}
+
+
+def flash_fwd_grid(batch: int, sq: int, sk: int, n_heads: int, head_dim: int, *,
+                   pos_off: int = 0, train: bool = False) -> dict:
+    """The wgmma forward's launch for a call, worked out on the host as its
+    launcher (``pack_shift`` and ``launch`` in csrc/flash_attention.cu) does:
+    ``packed`` where the call is self-attention on whole sequences (Sq = Sk,
+    ``pos_off`` = q_offset - k_offset = 0) of a length S that divides the
+    128-row tile and is below it, at head_dim 64 or 128, in the inference
+    instantiation: then one block holds 128 / S whole sequences of one
+    head and the grid is (ceil(B S / 128), H, 1); else the grid of (query
+    tile, head, batch row), (ceil(Sq / rows), H, B) with 128 rows a tile (64
+    at head_dim 256).  ``seq_shift`` is log2 S on the packed grid."""
+    rows = 64 if head_dim == 256 else 128
+    packed = (not train and head_dim in (64, 128) and sq == sk and pos_off == 0
+              and 1 <= sq < 128 and 128 % sq == 0)
+    if packed:
+        return {"packed": True, "grid": (-(-batch * sq // 128), n_heads, 1),
+                "sequences_per_block": 128 // sq, "seq_shift": sq.bit_length() - 1}
+    return {"packed": False, "grid": (-(-sq // rows), n_heads, batch), "sequences_per_block": 1,
+            "seq_shift": -1}
+
+
+def flash_fwd_grid_on_card(batch: int, sq: int, sk: int, n_heads: int, head_dim: int, *,
+                           pos_off: int = 0, train: bool = False) -> dict:
+    """:func:`flash_fwd_grid` as the kernel's launcher gives it
+    (``flash_attention_fwd_wgmma_grid``), asked of the built library."""
+    argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+    fn = build.function("flash_attention", "flash_attention_fwd_wgmma_grid", argtypes)
+    grid = (ctypes.c_int * 3)()
+    shift = fn(batch, sq, sk, n_heads, head_dim, pos_off, int(train), ctypes.addressof(grid))
+    return {"packed": shift >= 0, "grid": tuple(grid),
+            "sequences_per_block": 128 >> shift if shift >= 0 else 1, "seq_shift": shift}
 
 
 def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -409,26 +409,46 @@ def test_count_syncs_at_names_the_line_of_each_sync(monkeypatch):
 H100_SMEM_OPTIN = 232_448
 
 
-def test_toplek_plan_at_the_probe_is_path_2():
+def test_toplek_plan_at_the_probe_is_the_spread_route():
     """TopLEK's host-side plan at the probe's (2,098,176, 16,384): the keys
-    (8.39 MB) and the composites and prefix sums (131,072 B each, 256 KiB
-    together) exceed the opt-in, so they go to a 262,144-byte scratch a
-    client in device memory; phase 3's other shapes keep their paths."""
-    from repro_torch.kernels.compressor_select import TOPLEK_STATIC_SMEM, toplek_plan_for
+    (8.39 MB) exceed the opt-in, and so do the composites and prefix sums
+    (131,072 B each) together; the composites alone fit, so it takes the
+    spread route (path 3: the composites in shared memory, the prefix sums
+    not stored; a scratch of the tallies and T candidates a client).  So do
+    d = 350 (the former path 1) and the keys' edge."""
+    from repro_torch.kernels.compressor_select import (SPREAD_HEAD_BYTES, TOPLEK_SPREAD_STATIC_SMEM,
+                                                       TOPLEK_STATIC_SMEM, toplek_plan_for)
 
     cs = _chip_smoke()
     dims = cs.probe_dims(get_config(cs.PROBE_ARCH))
-    assert toplek_plan_for(dims["t"], dims["k"], H100_SMEM_OPTIN) == (2, 2 * 131_072)
+    t = dims["t"]
+    assert toplek_plan_for(t, dims["k"], H100_SMEM_OPTIN) == (3, SPREAD_HEAD_BYTES + 8 * t)
     assert 2 * 131_072 > H100_SMEM_OPTIN - TOPLEK_STATIC_SMEM
+    assert 131_072 <= H100_SMEM_OPTIN - TOPLEK_SPREAD_STATIC_SMEM
     w8a_t = 301 * 302 // 2
     assert toplek_plan_for(w8a_t, 8 * 301, H100_SMEM_OPTIN) == (0, 0)
-    assert toplek_plan_for(w8a_t, w8a_t, H100_SMEM_OPTIN) == (2, 8 * 65_536 + 8 * w8a_t)
-    assert toplek_plan_for(350 * 351 // 2, 8 * 350, H100_SMEM_OPTIN) == (1, 0)
-    # at the keys' edge: path 0 while keys and composites fit, then path 1
+    d350 = 350 * 351 // 2
+    assert toplek_plan_for(d350, 8 * 350, H100_SMEM_OPTIN)[0] == 3
+    # at the keys' edge: path 0 while keys and composites fit, then path 3
     budget = H100_SMEM_OPTIN - TOPLEK_STATIC_SMEM
     fits = (budget - 8 * 4096) // 4 // 16 * 16
     assert toplek_plan_for(fits, 4096, H100_SMEM_OPTIN)[0] == 0
-    assert toplek_plan_for(fits + 16, 4096, H100_SMEM_OPTIN)[0] == 1
+    assert toplek_plan_for(fits + 16, 4096, H100_SMEM_OPTIN)[0] == 3
+
+
+def test_toplek_plan_at_the_probe_is_path_2():
+    """Path 2 at the probe's T = 2,098,176 (the composites and prefix sums
+    in a 262,144-byte-a-client scratch, one block a client) is left to a k
+    whose composites alone exceed the opt-in: 32,768 (262,144 B), phase
+    3's case that keeps path 2 there; so is k = T at w8a's T."""
+    from repro_torch.kernels.compressor_select import TOPLEK_SPREAD_STATIC_SMEM, toplek_plan_for
+
+    cs = _chip_smoke()
+    t = cs.probe_dims(get_config(cs.PROBE_ARCH))["t"]
+    assert 262_144 > H100_SMEM_OPTIN - TOPLEK_SPREAD_STATIC_SMEM
+    assert toplek_plan_for(t, 32_768, H100_SMEM_OPTIN) == (2, 2 * 262_144)
+    w8a_t = 301 * 302 // 2
+    assert toplek_plan_for(w8a_t, w8a_t, H100_SMEM_OPTIN) == (2, 8 * 65_536 + 8 * w8a_t)
 
 
 def test_probe_bounds_count_each_kernels_bytes_and_operations():

@@ -791,7 +791,8 @@ def test_topk_kernel_ties_exceed_need_cuda(cuda, t, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,k", [(45451, 2408), (45451, 1), (45451, 45451), (61425, 2800)])
+@pytest.mark.parametrize("t,k", [(45451, 2408), (45451, 1), (45451, 45451), (61425, 2800),
+                                 (2098176, 16384)])
 def test_toplek_kernel_ties_exceed_need_cuda(cuda, t, k):
     """TopLEK on the same tie-heavy rows, whose sums are exact in any order
     (small integers): exact u_hat and kept."""
@@ -836,16 +837,24 @@ def test_randseqk_kernel_bit_exact_cuda(cuda, n_rows, t, k):
         ("dyadic", 142, 45451, 2408, 0),
         ("near_ties", 8, 45451, 2408, 0),
         ("dyadic", 4, 45451, 45451, 2),
-        ("dyadic", 8, 61425, 2800, 1),
+        ("dyadic", 8, 61425, 2800, 3),
         ("gaussian", 4, 257, 1, 0),
         ("dyadic", 4, 300, 192, 0),
         ("gaussian", 4, 130, 130, 0),
+        # the FedNL probe's T (d = 2,048): the spread route, and path 2 past it
+        ("gaussian", 8, 2098176, 16384, 3),
+        ("dyadic", 8, 2098176, 16384, 3),
+        ("near_ties", 8, 2098176, 16384, 3),
+        ("gaussian", 4, 2098176, 1, 3),
+        ("gaussian", 1, 2098176, 16384, 3),
+        ("dyadic", 2, 2098176, 32768, 2),
     ],
 )
 def test_toplek_kernel_matches_plain_cuda(cuda, kind, n_rows, t, k, path):
     """Exact on dyadic rows; elsewhere exact but for the stated boundary case.
     The last column is the memory path the kernel takes (0 all in shared
-    memory, 1 keys from device memory, 2 survivors in device-memory scratch)."""
+    memory, one block a client; 3 the spread route, many blocks a client;
+    2 survivors in device-memory scratch, one block a client)."""
     u = {
         "gaussian": lambda: np.random.default_rng(t).standard_normal((n_rows, t)),
         "dyadic": lambda: dyadic_rows(n_rows, t, t),
@@ -1019,8 +1028,10 @@ def test_topk_index_forms_bit_exact_cuda(cuda, kind, n_rows, t, k):
 @pytest.mark.parametrize(
     "kind,n_rows,t,k,path",
     [("dyadic", 142, 45451, 2408, 0), ("gaussian", 8, 45451, 2408, 0),
-     ("zeros", 4, 45451, 2408, 0), ("dyadic", 4, 45451, 45451, 2), ("dyadic", 8, 61425, 2800, 1),
-     ("gaussian", 4, 130, 130, 0), ("zeros", 4, 300, 300, 0), ("gaussian", 4, 257, 1, 0)],
+     ("zeros", 4, 45451, 2408, 0), ("dyadic", 4, 45451, 45451, 2), ("dyadic", 8, 61425, 2800, 3),
+     ("gaussian", 4, 130, 130, 0), ("zeros", 4, 300, 300, 0), ("gaussian", 4, 257, 1, 0),
+     ("dyadic", 8, 2098176, 16384, 3), ("gaussian", 4, 2098176, 16384, 3),
+     ("zeros", 2, 2098176, 16384, 3)],
 )
 def test_toplek_index_form_matches_plain_cuda(cuda, kind, n_rows, t, k, path):
     """TopLEK's index form: u_hat, kept and idx the plain version's, exact on
